@@ -1,0 +1,395 @@
+"""Continuous-batching scheduler with paged admission control + preemption.
+
+The scheduler owns the *host* side of the paper's page manager: a
+``HostPageManager`` mirror whose O(1) integer ops decide, off the device
+critical path, which requests join the batch (RESERVE), which finish (FREE),
+and which get preempted when the pool runs dry mid-decode (the paper's
+"reclaim space instantly" requirement, §I-A1).
+
+Policy (vLLM-style):
+  * FIFO admission; a request is admitted when a batch slot is free AND the
+    pool holds its *first prefill installment* + ``headroom`` decode pages.
+    With ``prefill_chunk=None`` (monolithic prefill) the installment is the
+    whole prompt; with chunked prefill it is one chunk — admission reserves
+    **chunk-by-chunk** instead of all-at-front, so a 32k prompt no longer
+    head-of-line-blocks the queue on its full page count (the former code
+    reserved ``req.total_len`` pages up front even though chunked prefill
+    and ``extend_for_decode`` grow incrementally).
+  * chunked mode runs requests through a ``PREFILLING`` state: the engine
+    caches ``prefill_chunk`` prompt tokens per step (`grow_prefill`
+    reserves each next chunk) and flips the request to ``RUNNING`` when the
+    last chunk lands.  A prefill whose next chunk cannot get pages simply
+    *stalls* — it keeps its pages and resumes from ``mgr.lens`` once decode
+    traffic frees space (no recompute), unless nothing is decoding, in
+    which case the youngest other request is preempted to guarantee
+    progress.
+  * every decode step may need one new page per running sequence; if the
+    pool cannot serve a needed page, the *youngest* live request
+    (decoding or prefilling) is preempted: its pages are freed instantly
+    and it re-queues for a full re-prefill (recompute > swap, as in
+    vLLM's default).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+from repro_torch.core.paging import HostPageManager
+from repro_torch.errors import (Backpressure, DeadlineExceeded,
+                                EngineConfigError, EngineError,
+                                PoolExhausted)
+from repro_torch.serving.request import Request, Status, TERMINAL
+
+# states that occupy a batch slot (and hold pages)
+LIVE = (Status.RUNNING, Status.PREFILLING)
+
+
+class Scheduler:
+    def __init__(self, manager: HostPageManager, max_slots: int,
+                 max_seq_len: int, headroom_pages: int = 1,
+                 prefill_chunk: Optional[int] = None,
+                 max_waiting: Optional[int] = None,
+                 admit_watermark: Optional[float] = None,
+                 prefix_cache=None):
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise EngineConfigError("prefill_chunk must be >= 1 (or None)",
+                                    prefill_chunk=prefill_chunk)
+        if admit_watermark is not None and not 0.0 < admit_watermark <= 1.0:
+            raise EngineConfigError(
+                "admit_watermark must lie in (0, 1] (or None)",
+                admit_watermark=admit_watermark)
+        self.mgr = manager
+        # global prefix cache (core.prefix_cache.PrefixCache or None):
+        # admission attaches new requests to the longest cached prefix,
+        # and every release (finish/cancel/preempt) retains the written
+        # full pages for future hits
+        self.cache = prefix_cache
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.headroom = headroom_pages
+        self.prefill_chunk = prefill_chunk
+        # admission control (None = unbounded / off, the legacy behavior)
+        self.max_waiting = max_waiting
+        self.admit_watermark = admit_watermark
+        self.waiting: List[Request] = []
+        self.running: Dict[int, Request] = {}  # slot -> request
+        self.preempted: int = 0
+        self.prefill_stalls: int = 0
+        # robustness counters + the per-step failure channel the engine
+        # drains (requests failed mid-step by deadline/starvation/guard)
+        self.shed: int = 0
+        self.failed: int = 0
+        self.cancelled: int = 0
+        self.deadline_misses: int = 0
+        self.failed_events: List[Request] = []
+
+    # ------------------------------------------------------------------
+    def add(self, req: Request) -> None:
+        """Enqueue ``req`` — or shed it with a structured ``Backpressure``.
+
+        Two admission gates (both off by default):
+          * bounded wait queue (``max_waiting``): reject-on-full instead
+            of unbounded queue growth;
+          * pool high-watermark (``admit_watermark``): above this
+            utilisation fraction new work is shed *at the door* rather
+            than admitted into a pool where it can only thrash
+            preemptions.
+        Preemption re-queues bypass ``add`` (``_preempt`` re-inserts
+        directly): backpressure must never drop a request that already
+        made progress.
+        """
+        if (self.max_waiting is not None
+                and len(self.waiting) >= self.max_waiting):
+            self.shed += 1
+            raise Backpressure(
+                f"wait queue full ({len(self.waiting)}/{self.max_waiting})",
+                reason="queue_full", rid=req.rid,
+                retry_after_steps=max(1, len(self.waiting)),
+                queue_depth=len(self.waiting),
+                pool_util=self._pool_util())
+        util = self._pool_util()
+        if self.admit_watermark is not None and util >= self.admit_watermark:
+            self.shed += 1
+            over = self.mgr.used_pages - int(
+                self.admit_watermark * self.mgr.num_pages)
+            raise Backpressure(
+                f"pool utilisation {util:.2f} >= admission high-watermark "
+                f"{self.admit_watermark:.2f}",
+                reason="pool_watermark", rid=req.rid,
+                retry_after_steps=max(1, over),
+                queue_depth=len(self.waiting), pool_util=util)
+        req.status = Status.WAITING
+        self.waiting.append(req)
+
+    def _pool_util(self) -> float:
+        # detached cached pages are reclaimable on demand, so they count
+        # as capacity, not load — otherwise a warm cache pins the
+        # admission watermark at "full" and sheds everything
+        if not self.mgr.num_pages:
+            return 0.0
+        used = self.mgr.num_pages - self.mgr.available_pages
+        return used / self.mgr.num_pages
+
+    def free_slots(self) -> List[int]:
+        return [s for s in range(self.max_slots) if s not in self.running]
+
+    def _pages_for(self, n_tokens: int) -> int:
+        return -(-n_tokens // self.mgr.page_size)
+
+    # ------------------------------------------------------------------
+    def admit(self) -> List[Tuple[int, Request]]:
+        """Admit waiting requests into free slots while pages allow.
+
+        Returns [(slot, request)] newly admitted.  Monolithic mode admits
+        straight to RUNNING (the caller prefills the whole prompt);
+        chunked mode admits to PREFILLING with only the first chunk
+        reserved.
+        """
+        admitted = []
+        slots = self.free_slots()
+        while self.waiting and slots:
+            req = self.waiting[0]
+            # the tokens this request's prefill must cache (preempted
+            # requests re-prefill prompt + generated-so-far)
+            target = req.total_len
+            matched = 0
+            if self.cache is not None:
+                # longest-cached-prefix attach: alias the shared pages
+                # into this rid's row (refcount++) and prefill only the
+                # suffix.  Capped at target-1 so at least one position is
+                # always prefilled — sampling needs its logits.
+                matched = self.cache.attach(
+                    req.rid, req.prompt + req.output,
+                    max_tokens=target - 1)
+            remaining = target - matched
+            first = (remaining if self.prefill_chunk is None
+                     else min(self.prefill_chunk, remaining))
+            need = (self._pages_for(matched + first)
+                    - self._pages_for(matched) + self.headroom)
+            ok = need <= self.mgr.available_pages
+            if ok:
+                # may be refused anyway (injected allocation fault);
+                # reserve is all-or-nothing, so only the attach (if any)
+                # needs rolling back
+                ok = self.mgr.reserve(req.rid, matched + first)
+            if not ok:
+                if matched:
+                    # roll the attach back: the shared pages keep their
+                    # cache-residency reference (stay resident, off the
+                    # free list) — the admission degrades to a retry
+                    # next step with nothing leaked
+                    self.mgr.free(req.rid)
+                break  # head-of-line blocking keeps FIFO fairness
+            self.waiting.pop(0)
+            slot = slots.pop(0)
+            req.prefill_pos = matched
+            req.cached_prefix = matched
+            req.status = (Status.RUNNING if self.prefill_chunk is None
+                          else Status.PREFILLING)
+            req.slot = slot
+            self.running[slot] = req
+            admitted.append((slot, req))
+        return admitted
+
+    # ------------------------------------------------------------------
+    def grow_prefill(self, req: Request,
+                     n_tokens: Optional[int] = None) -> bool:
+        """Reserve pages for ``req``'s next prefill installment (chunked
+        mode).
+
+        ``n_tokens`` is the installment size (defaults to the full
+        ``prefill_chunk``); the engine passes each request's slice of the
+        *global* per-step token budget, so k concurrent prefills split
+        one chunk rather than each reserving a whole one.  Returns True
+        when the reservation covers
+        ``min(prefill_pos + n_tokens, total_len)`` tokens — the engine
+        may then run the installment.  On a dry pool the request
+        *stalls* (returns False) and resumes from its cached pages on a
+        later step — unless no other request is decoding (nothing would
+        ever free pages), in which case the youngest other live request
+        is preempted so the batch always makes progress.
+        """
+        assert self.prefill_chunk is not None, "monolithic mode"
+        step = self.prefill_chunk if n_tokens is None else n_tokens
+        want = min(req.prefill_pos + step, req.total_len)
+        if self.mgr.lens.get(req.rid, 0) >= want:
+            return True
+        while not self.mgr.reserve(req.rid, want):
+            others = [r for r in self.running.values() if r is not req]
+            if any(r.status is Status.RUNNING for r in others):
+                self.prefill_stalls += 1
+                return False  # decodes will finish (or preempt) and free
+            if not others:
+                # nothing to stall on, nothing to preempt: this request is
+                # starved with no recourse (pool genuinely smaller than one
+                # sequence, or a persistent injected allocation fault).
+                # Fail *it* — the engine, its queue and future admits live.
+                self.fail(req, PoolExhausted(
+                    "page pool cannot serve a single sequence's prefill "
+                    f"({want} tokens) and no preemption candidate exists",
+                    rid=req.rid, want_tokens=want,
+                    free_pages=len(self.mgr.free_list)))
+                return False
+            self._preempt(max(others, key=lambda r: r.rid))
+        return True
+
+    def extend_for_decode(self) -> List[Request]:
+        """Grow every *decoding* sequence by one token; preempt on
+        exhaustion.
+
+        Returns the requests preempted this step (their slots are now
+        free).  PREFILLING requests are not extended (their growth is
+        `grow_prefill`'s job) but they are preemption candidates like
+        everyone else — youngest first.
+
+        Preemption safety: victims picked mid-loop may sit *later* in the
+        iteration order, so every request is re-checked against the live
+        ``running`` set before it is extended.  (The former code iterated
+        a snapshot list that preemption could not edit — the rebinding
+        ``order = [...]`` never touched the active ``for`` — so
+        ``mgr.extend`` ran on rids whose pages were just freed,
+        re-reserving a page under a PREEMPTED rid; the stale table row
+        then survived ``tables.setdefault`` on re-admission and aliased
+        pages concurrently handed to other sequences — silent KV
+        corruption.)
+        """
+        victims: List[Request] = []
+        # oldest first when extending, youngest first when picking victims
+        for req in sorted(self.running.values(), key=lambda r: r.rid):
+            if req.status is not Status.RUNNING or req.slot not in self.running:
+                continue  # prefilling, or preempted by an earlier extend
+            while not self.mgr.extend(req.rid, 1):
+                cand = [r for r in self.running.values()
+                        if r.status in LIVE and r is not req]
+                if not cand:
+                    # alone and still starved: fail this request (pages
+                    # released) instead of killing the engine — the next
+                    # admit may well fit
+                    self.fail(req, PoolExhausted(
+                        "page pool cannot extend the only live sequence "
+                        "and no preemption candidate exists", rid=req.rid,
+                        free_pages=len(self.mgr.free_list)))
+                    break
+                victim = max(cand, key=lambda r: r.rid)
+                self._preempt(victim)
+                victims.append(victim)
+        return victims
+
+    def _retain_in_cache(self, req: Request) -> None:
+        """Index ``req``'s written full pages into the prefix cache before
+        its row is freed (retain-on-free): the pages gain a residency
+        reference, so the ``mgr.free`` that follows leaves them resident
+        instead of recycling them.
+
+        ``written`` must not overrun what the model actually wrote:
+        PREFILLING rows' ``mgr.lens`` runs ahead of the prefilled prefix
+        (chunks are reserved before they run), and a RUNNING row's last
+        sampled token is *not* in the pools yet (it is the next decode
+        input — the same off-by-one ``fork_request`` sizes its tail by).
+        """
+        if self.cache is None or req.rid not in self.mgr.tables:
+            return
+        if req.status is Status.PREFILLING:
+            written = req.prefill_pos
+        else:
+            written = min(self.mgr.lens.get(req.rid, 0), req.total_len - 1)
+        self.cache.insert(req.prompt + req.output,
+                          self.mgr.tables[req.rid], written)
+
+    def _preempt(self, req: Request) -> None:
+        # retain-then-free: the preempted prefix stays cached, so the
+        # re-admission re-attaches to it and re-prefills almost nothing
+        self._retain_in_cache(req)
+        self.mgr.free(req.rid)
+        del self.running[req.slot]
+        req.slot = -1
+        req.prefill_pos = 0  # cached pages are gone: re-prefill from 0
+        req.status = Status.PREEMPTED
+        # preempted requests restart with prompt+generated so far as prompt
+        self.waiting.insert(0, req)
+        self.preempted += 1
+
+    def finish(self, req: Request) -> None:
+        self._remove(req)
+        req.status = Status.FINISHED
+
+    # ------------------------------------------------------------------
+    # fault isolation: per-request teardown (FAILED / CANCELLED)
+    def _remove(self, req: Request, retain: bool = True) -> None:
+        """Release everything ``req`` holds: queue position, batch slot,
+        pages + block-table row.  Safe in every state (WAITING holds no
+        pages; PREEMPTED holds neither pages nor slot).
+
+        ``retain=True`` indexes the written full pages into the prefix
+        cache first (finish/cancel/preempt paths — multi-turn reuse);
+        failure teardown passes ``retain=False`` so a request whose row
+        may hold poisoned K/V (NaN guard) never seeds the cache."""
+        if req in self.waiting:
+            self.waiting.remove(req)
+        if self.running.get(req.slot) is req:
+            del self.running[req.slot]
+        if req.rid in self.mgr.tables:
+            if retain:
+                self._retain_in_cache(req)
+            self.mgr.free(req.rid)
+        req.slot = -1
+
+    def fail(self, req: Request, err: EngineError) -> None:
+        """Terminal per-request failure: resources released, structured
+        error attached, batch-mates untouched.  The engine drains
+        ``failed_events`` each step to report terminal requests."""
+        self._remove(req, retain=False)
+        req.error = err
+        req.status = Status.FAILED
+        self.failed += 1
+        self.failed_events.append(req)
+
+    def cancel(self, req: Request) -> bool:
+        """Tear ``req`` down in any non-terminal state (WAITING,
+        PREFILLING mid-chunk, RUNNING, PREEMPTED, stalled-on-dry-pool).
+        Returns False if it was already terminal."""
+        if req.status in TERMINAL:
+            return False
+        self._remove(req)
+        req.status = Status.CANCELLED
+        self.cancelled += 1
+        return True
+
+    def check_deadlines(self, now_step: int) -> List[Request]:
+        """Fail every queued/live request past its step budget.
+
+        ``deadline_steps`` bounds arrival → terminal; ``ttft_deadline_steps``
+        bounds arrival → first token.  Enforcing in the scheduler (not per
+        client) means a request stuck WAITING behind backpressure, stalled
+        mid-prefill, or thrashing through preemptions is cut loose the
+        moment its budget expires — pages freed for work that can still
+        meet its deadline.
+        """
+        expired: List[Request] = []
+        for req in list(self.waiting) + list(self.running.values()):
+            start = req.metrics.get("step_arrive")
+            if start is None:
+                continue
+            waited = now_step - start
+            if (req.deadline_steps is not None
+                    and waited >= req.deadline_steps):
+                why = (f"exceeded deadline of {req.deadline_steps} engine "
+                       f"steps (waited {waited})")
+                budget = req.deadline_steps
+            elif (req.ttft_deadline_steps is not None and not req.output
+                    and waited >= req.ttft_deadline_steps):
+                why = (f"no first token within TTFT budget of "
+                       f"{req.ttft_deadline_steps} engine steps")
+                budget = req.ttft_deadline_steps
+            else:
+                continue
+            self.fail(req, DeadlineExceeded(
+                why, rid=req.rid, waited_steps=waited, budget_steps=budget,
+                status_at_expiry=req.status.value))
+            self.deadline_misses += 1
+            expired.append(req)
+        return expired
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
