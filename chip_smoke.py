@@ -8,21 +8,33 @@ Phases, each of which fails the script (exit code 1) when it fails:
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a) and print the card's name and power limit;
 2. kernels: each hand-written kernel — K1 paged decode partials, K2 split-K
-   combine, K4 flex prefill — against its plain PyTorch version on the
-   card, at the full-width llama2-7b shapes of the main path (H = Hkv =
-   32, D = 128, page 64, batch 8, lens 256..2048, 2 pages per block, 4
-   splits, prompts up to 1536) and on a small sweep (GQA, window,
-   softcap, int8, D = 64), in f32 (tolerance 2e-5) and bf16 (2e-2), with
-   |a - b| <= tol * (1 + |b|).  Times: kernel, plain version, the bound
-   the card sets, and one PyTorch library call for the same function;
+   combine, K3 chunked paged prefill partials, K4 flex prefill — against
+   its plain PyTorch version on the card, at the full-width llama2-7b
+   shapes of the main paths (H = Hkv = 32, D = 128, page 64, batch 8; K1:
+   lens 256..2048, 2 pages per block, 4 splits; K3: a 512-token chunk
+   step resuming at 0..1061, dead rows, q_block 128; K4: prompts up to
+   1536) and on small sweeps (GQA, window, softcap, int8, D = 64, split-K,
+   q_block 1 and 3, single-token chunks, Q-blocks over 128 rows), in f32
+   (tolerance 2e-5) and bf16 (2e-2), with |a - b| <= tol * (1 + |b|).
+   Times: kernel, plain version, the bound the card sets, and one PyTorch
+   library call for the same function;
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
-   steps through the kernels agree with the plain oracle path, and a
-   smoke-size engine gives the same greedy tokens on both paths;
+   steps through the kernels agree with the plain oracle path; chunked
+   prefill in chunks of 96 through K3 agrees with the monolithic prefill
+   through K4 and with the plain path; a smoke-size engine gives the
+   plain path's greedy tokens on the kernel path, monolithic and chunked,
+   with and without the prefix cache;
 4. engine: full llama2-7b (32 layers, random weights from a seed, bf16)
    served by ``repro_torch.serving.Engine``: 8 slots, max_seq_len 2048,
    12 greedy requests with prompts of 256..1536 tokens and 32 new tokens
-   each.  Kernel launch counts are reset just before and read just after;
-   each of K1, K2, K4 must have launched.
+   each, monolithic prefill.  Kernel launch counts are reset just before
+   and read just after: K1, K2 and K4 must have launched, K3 not;
+5. chunked: the same weights served with ``prefill_chunk=512`` and
+   ``prefix_cache=True``: a wave of 4 requests, then a wave of 8, each
+   prompt a shared 1024-token head plus its own 128..512-token tail, 32
+   new tokens each.  Counts reset before the first wave and read after
+   the second: K1 and K3 must have launched, K4 not, and the second
+   wave must hit at least 8 x 1024 cached tokens.
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -364,6 +376,137 @@ def kernel_phase(torch, chk):
             chk.close("flex_prefill",
                       f"{name} B{Bs} H{Hs}/{Hk} Q{Qs} D{Dd} {mname} "
                       f"tiles {qbb}x{kbb}", got, want, tol)
+    rows.update(prefill_kernel_phase(torch, chk, gen))
+    return rows
+
+
+def chunk_inputs(torch, gen, Hkv, G, D, P, max_pages, q_start, q_lens, dtype,
+                 dev, int8=False):
+    """Chunk queries (B, C, H, D), pools, tables with each live row's pages
+    scattered and -1 elsewhere (dead rows: q_lens 0), kv_lens, q_start."""
+    B, C = len(q_start), max(max(q_lens), 1)
+    kv_lens = [s + n for s, n in zip(q_start, q_lens)]
+    q, kp, vp, tables, _ = paged_inputs(torch, gen, B, Hkv, 1, D, P,
+                                        max_pages, [0] * B, dtype, dev,
+                                        int8=int8)
+    q = torch.randn((B, C, Hkv * G, D), generator=gen, device=dev).to(dtype)
+    perm = torch.randperm(kp.shape[0], generator=gen, device=dev).int()
+    k = 0
+    for b in range(B):
+        n = -(-kv_lens[b] // P) if q_lens[b] else 0
+        tables[b, :n] = perm[k:k + n]
+        k += n
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (q, kp, vp, tables, torch.tensor(kv_lens, **i32),
+            torch.tensor(q_start, **i32))
+
+
+def fold_prefill(t, S):
+    """(B, Hkv, NQ, S, R[, D]) partials → the combine's (B·NQ, Hkv, S, R[, D])."""
+    B, Hkv, NQ = t.shape[:3]
+    return t.transpose(1, 2).reshape(B * NQ, Hkv, S, *t.shape[4:]).contiguous()
+
+
+def prefill_kernel_phase(torch, chk, gen):
+    """K3 against its plain version: the main path's chunk step, then a
+    sweep; K2 merges the sweep's split-K partials."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+
+    dev = torch.device("cuda")
+    rows = {}
+    # -- K3 at the main-path shapes: a 512-token chunk step of 8 rows,
+    #    resumes at 0 / 512 / 1024 / 1061, ragged last chunks, 2 dead rows
+    H, D, P, max_pages, ppb, ns, qb = 32, 128, 64, 32, 2, 1, 128
+    q_start = [0, 512, 1024, 1024 + 37, 512, 0, 1, 1]
+    q_lens = [512, 512, 512, 512, 300, 200, 0, 0]
+    log(f"K3 main path: B={len(q_start)} C=512 H=Hkv={H} D={D} page={P} "
+        f"max_pages={max_pages} ppb={ppb} splits={ns} q_block={qb} "
+        f"q_start={q_start} q_lens={q_lens}")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        q, kp, vp, tables, kv_lens, qs = chunk_inputs(
+            torch, gen, H, 1, D, P, max_pages, q_start, q_lens, dtype, dev)
+        kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=0.0,
+                  pages_per_block=ppb, num_splits=ns, q_block=qb)
+        args = (q, kp, vp, tables, kv_lens, qs)
+        got = pa.paged_prefill_partials(*args, **kw)
+        want = pa._paged_prefill_partials_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for part, g_, w_ in zip("m l acc".split(), got, want):
+            chk.close("paged_prefill", f"{name} main {part}", g_, w_, tol)
+        del want
+        k3_ms = time_ms(torch, lambda: pa.paged_prefill_partials(*args, **kw),
+                        reps=5)
+        k3_plain = time_ms(torch, lambda: pa._paged_prefill_partials_plain(
+            *args, **kw), reps=3, warmup=1)
+        k3_dev = device_ms(torch, lambda: pa.paged_prefill_partials(
+            *args, **kw), "paged_prefill_kernel", reps=3)
+        # library yardstick: SDPA over K/V pre-gathered into contiguous
+        # form, with the causal-offset mask as a boolean attn_mask (the
+        # gather is not timed; the dead rows' all-false masks are moot)
+        B, C = q.shape[:2]
+        L = int(kv_lens.max())
+        safe = tables.clamp(min=0).long()
+        kc = kp[safe].reshape(B, -1, H, D)[:, :L].transpose(1, 2).contiguous()
+        vc = vp[safe].reshape(B, -1, H, D)[:, :L].transpose(1, 2).contiguous()
+        pos = torch.arange(L, device=dev)
+        qpos = qs[:, None].long() + torch.arange(C, device=dev)[None]
+        mask = ((pos[None, None] < kv_lens[:, None, None])
+                & (pos[None, None] <= qpos[:, :, None]))[:, None]
+        qt = q.transpose(1, 2).contiguous()
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask), reps=5)
+        keys = sum(s + t + 1 for s, n in zip(q_start, q_lens)
+                   for t in range(n))
+        ops = 4 * D * H * keys
+        item = q.element_size()
+        nbytes = (q.numel() * item + 2 * sum(kv_lens.tolist()) * H * D * item
+                  + tables.numel() * 4 + 2 * B * 4
+                  + sum(t.numel() * 4 for t in got))
+        k3_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
+        k3_by = "operations" if ops / PEAK_OPS[name] > nbytes / HBM_BPS \
+            else "bytes"
+        log(f"  paged_prefill {name}: kernel {k3_ms:.4f} ms (device "
+            f"{fmt(k3_dev)}), plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
+            f"ms ({k3_by}: {ops:.3e} flop, {nbytes:.3e} B), SDPA with a "
+            f"causal-offset mask over pre-gathered KV {lib:.4f} ms")
+        rows[("paged_prefill", name)] = dict(
+            ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain, bound_ms=k3_bound,
+            bound_by=k3_by, library_ms=lib)
+        del q, kp, vp, kc, vc, got, mask
+
+    # -- K3 sweep: GQA, D=64, softcap, int8, split-K through K2, q_block
+    #    1 and 3, single-token chunk rows, R > 128 (three row tiles)
+    sweep = [  # (G, D, P, max_pages, q_start, q_lens, ppb, S, q_block,
+        #         softcap, int8)
+        (4, 128, 16, 9, [100, 0, 1], [40, 37, 0], 2, 1, 32, 0.0, False),
+        (1, 64, 16, 9, [17, 60], [50, 13], 1, 2, 3, 30.0, False),
+        (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, True),
+        (8, 64, 16, 6, [20, 33], [45, 1], 3, 2, 40, 0.0, False),
+        (2, 64, 16, 9, [16, 130, 7], [1, 1, 1], 1, 2, 1, 0.0, True),
+    ]
+    for G, Dd, Ps, mp, qst, qln, sp_ppb, sp_ns, sp_qb, cap, int8 in sweep:
+        for dtype, tol in ((torch.float32, F32_TOL),
+                           (torch.bfloat16, BF16_TOL)):
+            name = str(dtype).replace("torch.", "")
+            args = chunk_inputs(torch, gen, 2, G, Dd, Ps, mp, qst, qln, dtype,
+                                dev, int8=int8)
+            kw = dict(scale=Dd ** -0.5, softcap=cap,
+                      kv_scale=0.05 if int8 else 0.0,
+                      pages_per_block=sp_ppb, num_splits=sp_ns,
+                      q_block=sp_qb)
+            got = pa.paged_prefill_partials(*args, **kw)
+            want = pa._paged_prefill_partials_plain(*args, **kw)
+            tag = (f"{name} G{G} D{Dd} q_block{sp_qb} S{sp_ns} cap{cap:g} "
+                   f"{'int8' if int8 else ''}")
+            for part, g_, w_ in zip("m l acc".split(), got, want):
+                chk.close("paged_prefill", f"{tag} {part}", g_, w_, tol)
+            S = got[0].shape[3]
+            folded = [fold_prefill(x, S) for x in got]
+            chk.close("combine", f"prefill {tag}",
+                      pa.combine_partials_kernel(*folded, dtype=dtype),
+                      pa._combine_partials_plain(*folded, dtype=dtype), tol)
     return rows
 
 
@@ -413,32 +556,131 @@ def model_phase(torch):
         f"(tol {MODEL_TOL:g}, |logit| max {float(want.abs().max()):.3f})")
     if worst > MODEL_TOL:
         fail(f"model phase: max|err| {worst} beyond {MODEL_TOL}")
-    del params, outs
 
-    # greedy tokens, kernel path vs plain path, on a smoke-size engine
+    # chunked prefill in chunks of 96 (not a multiple of the page): K3
+    # against the monolithic prefill through K4, and against the plain path
+    chunked = {}
+    for impl in ("kernel", "ref"):
+        st = {"tables": tables, "k_pages": torch.zeros(pool, device=dev),
+              "v_pages": torch.zeros(pool, device=dev)}
+        last = torch.zeros_like(outs["kernel"][0])
+        start = torch.zeros_like(lens_t)
+        while bool((start < lens_t).any()):
+            ql = torch.clamp(torch.clamp(lens_t - start, max=96), min=0)
+            C = int(ql.max())
+            idx = (start[:, None] + torch.arange(C, device=dev)[None]).long()
+            chunk = torch.gather(tokens, 1, idx.clamp(max=S - 1))
+            logits, _ = model.prefill_chunk(params, chunk, st, start, ql,
+                                            impl=impl)
+            ends = (start + ql == lens_t) & (ql > 0)
+            last[ends] = logits[ends]
+            start = start + ql
+        chunked[impl] = last
+    torch.cuda.synchronize()
+    mono = outs["kernel"][0]
+    err_mono = float((chunked["kernel"] - mono).abs().max())
+    err_plain = float((chunked["kernel"] - chunked["ref"]).abs().max())
+    log(f"model phase: chunked prefill (chunks of 96, K3) vs monolithic "
+        f"(K4) max|err| {err_mono:.3e}, vs the plain chunked path "
+        f"{err_plain:.3e} (tol {MODEL_TOL:g})")
+    if not bool(torch.isfinite(chunked["kernel"]).all()):
+        fail("model phase: non-finite chunked logits")
+    if max(err_mono, err_plain) > MODEL_TOL:
+        fail(f"model phase: chunked logits beyond {MODEL_TOL}")
+    del params, outs, chunked
+
+    # greedy tokens on a smoke-size engine: the kernel path, monolithic
+    # and chunked, with and without the prefix cache, against the plain
+    # path run monolithic without the cache.  Prompts share a 40-token
+    # head (5 pages), so admissions after the first hit the cache.
     scfg = get_config("llama2-7b").smoke()
     rng = torch.Generator().manual_seed(SEED)
-    prompts = [torch.randint(0, scfg.vocab_size, (int(n),),
-                             generator=rng).tolist()
-               for n in torch.randint(8, 100, (6,), generator=rng)]
-    toks = {}
-    for impl in ("kernel", "ref"):
+    head = torch.randint(0, scfg.vocab_size, (40,), generator=rng).tolist()
+    prompts = [head + torch.randint(0, scfg.vocab_size, (int(n),),
+                                    generator=rng).tolist()
+               for n in torch.randint(1, 60, (6,), generator=rng)]
+    runs = {"plain": dict(impl="ref"), "kernel": {},
+            "kernel chunked 24 + prefix cache": dict(prefill_chunk=24,
+                                                     prefix_cache=True),
+            "kernel + prefix cache": dict(prefix_cache=True)}
+    toks, hits = {}, {}
+    for run, kw in runs.items():
         eng = Engine(scfg, max_slots=4, max_seq_len=128, pool_tokens=320,
-                     impl=impl, seed=SEED, num_splits=2, pages_per_block=2)
+                     seed=SEED, num_splits=2, pages_per_block=2, **kw)
         reqs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
-        eng.generate(reqs)
-        toks[impl] = [r.output for r in reqs]
-    if toks["kernel"] != toks["ref"]:
-        fail(f"smoke engine: kernel tokens {toks['kernel']} != plain "
-             f"{toks['ref']}")
-    log(f"smoke engine: greedy tokens equal on both paths "
-        f"({sum(len(t) for t in toks['kernel'])} tokens)")
+        eng.generate(reqs[:1])  # a cold first wave seeds the cache
+        eng.generate(reqs[1:])
+        toks[run] = [r.output for r in reqs]
+        hits[run] = eng.memory_report()["prefix_hit_tokens"]
+    for run in runs:
+        if toks[run] != toks["plain"]:
+            fail(f"smoke engine: {run} tokens {toks[run]} != plain "
+                 f"{toks['plain']}")
+    if not all(hits[run] > 0 for run in runs if "cache" in run):
+        fail(f"smoke engine: the prefix cache never hit ({hits})")
+    log(f"smoke engine: greedy tokens equal on every path "
+        f"({sum(len(t) for t in toks['plain'])} tokens each; prefix hit "
+        f"tokens {hits})")
+
+
+PREFILL_KERNELS = ("paged_prefill", "flex_prefill")
+
+
+def drive(torch, eng, reqs):
+    """Add ``reqs`` and step the engine until they are done.  Returns the
+    wall seconds and the wall ms of each step, split into steps that
+    launched a prefill kernel (K3 or K4) and the others (decode)."""
+    from repro_torch import kernels
+    for r in reqs:
+        eng.add_request(r)
+    prefill_ms, decode_ms = [], []
+    t0 = time.perf_counter()
+    for _ in range(10_000):
+        if all(r.done for r in reqs):
+            break
+        before = kernels.launch_counts()
+        s0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        dt = 1e3 * (time.perf_counter() - s0)
+        after = kernels.launch_counts()
+        (prefill_ms if any(after[k] > before[k] for k in PREFILL_KERNELS)
+         else decode_ms).append(dt)
+    return time.perf_counter() - t0, prefill_ms, decode_ms
+
+
+def check_path(phase, eng, reqs, new, counts, must, never):
+    """Fail unless every request finished with ``new`` tokens, no request
+    failed, every kernel in ``must`` launched and none in ``never``."""
+    from repro_torch.serving import Status
+    bad = [r.rid for r in reqs
+           if r.status is not Status.FINISHED or len(r.output) != new]
+    if bad:
+        fail(f"{phase}: requests {bad} did not finish with {new} tokens "
+             f"(failed: {[str(r.error) for r in reqs if r.error]})")
+    if eng.scheduler.failed:
+        fail(f"{phase}: the numerics guard failed a request (non-finite "
+             "logits)")
+    missing = [k for k in must if counts[k] <= 0]
+    if missing:
+        fail(f"{phase}: kernels never launched on its path: {missing}")
+    stray = [k for k in never if counts[k] > 0]
+    if stray:
+        fail(f"{phase}: kernels launched off its path: {stray} ({counts})")
+
+
+def log_profile(name, prof):
+    log(f"profile {name}: wall {prof['wall_ms']:.2f} ms/step, device busy "
+        f"{fmt(prof['device_ms'])} ({prof['busy_share']}); device ms/step "
+        f"by kind {prof['by_kind']}")
 
 
 def engine_phase(torch):
+    """Monolithic prefill (K4) and decode (K1, K2) at full width.  Returns
+    the stats and the weights, which the chunked phase reuses."""
     from repro_torch import kernels
     from repro_torch.configs import get_config
-    from repro_torch.serving import Engine, Request, Status
+    from repro_torch.serving import Engine, Request
 
     cfg = get_config("llama2-7b")
     torch.cuda.reset_peak_memory_stats()
@@ -456,36 +698,13 @@ def engine_phase(torch):
     reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
                                          generator=rng).tolist(),
                     max_new_tokens=new) for n in plens]
-    for r in reqs:
-        eng.add_request(r)
 
     kernels.reset_launch_counts()
-    decode_ms, prefill_ms = [], []
-    t0 = time.perf_counter()
-    for _ in range(10_000):
-        if all(r.done for r in reqs):
-            break
-        before = kernels.launch_counts()["flex_prefill"]
-        s0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        dt = 1e3 * (time.perf_counter() - s0)
-        (prefill_ms if kernels.launch_counts()["flex_prefill"] > before
-         else decode_ms).append(dt)
-    wall = time.perf_counter() - t0
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
     counts = kernels.launch_counts()
-
-    bad = [r.rid for r in reqs
-           if r.status is not Status.FINISHED or len(r.output) != new]
-    if bad:
-        fail(f"engine: requests {bad} did not finish with {new} tokens "
-             f"(failed: {[str(r.error) for r in reqs if r.error]})")
-    if eng.scheduler.failed:
-        fail("engine: the numerics guard failed a request (non-finite "
-             "logits)")
-    missing = [k for k, n in counts.items() if n <= 0]
-    if missing:
-        fail(f"engine: kernels never launched on the main path: {missing}")
+    check_path("engine", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill"),
+               never=("paged_prefill",))
     ttft = sorted(r.metrics["ttft_s"] for r in reqs)
     new_tokens = sum(len(r.output) for r in reqs)
     stats = dict(
@@ -517,15 +736,97 @@ def engine_phase(torch):
     stats["profile_prefill_step"] = profile_steps(torch, eng, 1)
     stats["profile_decode_step"] = profile_steps(torch, eng, 3)
     for name in ("prefill_step", "decode_step"):
-        prof = stats["profile_" + name]
-        log(f"profile {name}: wall {prof['wall_ms']:.2f} ms/step, device "
-            f"busy {fmt(prof['device_ms'])} ({prof['busy_share']}); "
-            f"device ms/step by kind {prof['by_kind']}")
+        log_profile(name, stats["profile_" + name])
+    return stats, eng.params
+
+
+def chunked_phase(torch, params):
+    """Chunked prefill (K3) with the global prefix cache, then decode (K1,
+    K2), at full width: long prompts that share a 1024-token head, the
+    system prompt of a deployment.  Wave A (4 requests) caches the head;
+    wave B (8 requests, after A finishes) attaches to it and prefills only
+    its own tails."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config("llama2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=512,
+                 prefix_cache=True)
+    rng = torch.Generator().manual_seed(SEED + 1)
+    head_len, new = 1024, 32
+    head = torch.randint(0, cfg.vocab_size, (head_len,), generator=rng)
+
+    def wave(n):
+        tails = torch.randint(128, 513, (n,), generator=rng).tolist()
+        return [Request(prompt=head.tolist() + torch.randint(
+            0, cfg.vocab_size, (t,), generator=rng).tolist(),
+            max_new_tokens=new) for t in tails]
+
+    log(f"chunked phase: llama2-7b, bf16, 8 slots, max_seq_len 2048, "
+        f"prefill_chunk 512, prefix cache on; prompts = a shared "
+        f"{head_len}-token head + a 128..512-token tail, {new} new tokens")
+    kernels.reset_launch_counts()
+    waves, all_reqs = {}, []
+    for name, n in (("A", 4), ("B", 8)):
+        reqs = wave(n)
+        hits0 = eng.prefix_cache.hit_tokens
+        wall, chunk_ms, decode_ms = drive(torch, eng, reqs)
+        all_reqs += reqs
+        ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+        new_tokens = sum(len(r.output) for r in reqs)
+        waves[name] = dict(
+            requests=n, prompt_lens=[r.prompt_len for r in reqs],
+            new_tokens=new_tokens, wall_s=wall, tok_s=new_tokens / wall,
+            ttft_s_p50=ttft[len(ttft) // 2], ttft_s_max=ttft[-1],
+            prefix_hit_tokens=eng.prefix_cache.hit_tokens - hits0,
+            chunk_steps=len(chunk_ms), chunk_ms_per_step=chunk_ms,
+            chunk_ms_median=statistics.median(chunk_ms),
+            decode_steps=len(decode_ms),
+            decode_ms_median=statistics.median(decode_ms))
+        w = waves[name]
+        log(f"chunked wave {name}: {new_tokens} tokens in {wall:.2f} s = "
+            f"{w['tok_s']:.1f} tok/s; TTFT p50 {w['ttft_s_p50']:.3f} s max "
+            f"{w['ttft_s_max']:.3f} s; chunk steps {len(chunk_ms)} (median "
+            f"{w['chunk_ms_median']:.1f} ms: "
+            f"{[round(x) for x in chunk_ms]}), decode steps "
+            f"{len(decode_ms)} (median {w['decode_ms_median']:.2f} ms); "
+            f"prefix hit tokens {w['prefix_hit_tokens']}")
+    counts = kernels.launch_counts()
+    check_path("chunked", eng, all_reqs, new, counts,
+               must=("paged_decode", "paged_prefill"),
+               never=("flex_prefill",))
+    if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
+        fail(f"chunked: wave B hit {waves['B']['prefix_hit_tokens']} "
+             f"cached tokens, fewer than 8 x {head_len}")
+    mem = eng.memory_report()
+    stats = dict(waves=waves, launches=counts,
+                 preempted=eng.scheduler.preempted,
+                 prefill_stalls=eng.scheduler.prefill_stalls,
+                 memory_report=mem,
+                 max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                 / 1e9)
+    log(f"chunked: launches {counts}; preemptions {stats['preempted']}, "
+        f"prefill stalls {stats['prefill_stalls']}; prefix cache: "
+        f"{mem['cached_pages']:.0f} cached pages "
+        f"({mem['reclaimable_pages']:.0f} reclaimable), "
+        f"{mem['prefix_hit_tokens']:.0f} hit tokens; max_memory_allocated "
+        f"{stats['max_memory_allocated_gb']:.2f} GB")
+
+    # where the time goes: one profiled chunk step (after the launch
+    # counts were read) of 4 fresh requests on the cached head
+    for r in wave(4):
+        eng.add_request(r)
+    stats["profile_chunk_step"] = profile_steps(torch, eng, 1)
+    log_profile("chunk_step", stats["profile_chunk_step"])
     return stats
 
 
 KINDS = (("K1 paged_decode", ("paged_decode_kernel",)),
          ("K2 combine", ("combine_kernel",)),
+         ("K3 paged_prefill", ("paged_prefill_kernel",)),
          ("K4 flex_prefill", ("flex_fwd_kernel",)),
          ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
 
@@ -584,7 +885,9 @@ def main():
     rows = kernel_phase(torch, chk)
     model_phase(torch)
     torch.cuda.empty_cache()
-    engine = engine_phase(torch)
+    engine, params = engine_phase(torch)
+    torch.cuda.empty_cache()
+    chunked = chunked_phase(torch, params)
 
     src = "src/repro_torch/csrc/"
     meta = {
@@ -592,6 +895,8 @@ def main():
                          "paged_attention/paged_attention.py:223"),
         "combine": ("combine.cu", "src/repro/kernels/paged_attention/"
                     "paged_attention.py:161"),
+        "paged_prefill": ("paged_prefill.cu", "src/repro/kernels/"
+                          "paged_attention/paged_attention.py:440"),
         "flex_prefill": ("flex_prefill.cu", "src/repro/kernels/"
                          "flex_attention/flex_attention.py:38"),
     }
@@ -600,7 +905,7 @@ def main():
         r = rows[(name, "bfloat16")]
         kernels_line.append(dict(
             name=name, route="cuda", source=src + fname, replaces=replaces,
-            launches=engine["launches"][name],
+            launches=engine["launches"][name] + chunked["launches"][name],
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -608,7 +913,8 @@ def main():
     (OUT / "chip_smoke_last.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},
-         "max_abs_err": chk.max_err, "engine": engine}, indent=1))
+         "max_abs_err": chk.max_err, "engine": engine,
+         "chunked": chunked}, indent=1))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

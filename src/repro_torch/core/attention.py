@@ -4,6 +4,9 @@
   * ``prefill_attention`` — full-sequence causal attention for prompt
     prefill: the flex kernel K4 (``impl="kernel"``) or a dense plain path
     (``impl="ref"``, the JAX ``"jnp"`` path);
+  * ``prefill_attention_paged`` — one prompt chunk per sequence against
+    the paged KV pools (its K/V already written) through K3 and the
+    combine (``impl="kernel"``) or the prefill oracle (``impl="ref"``);
   * ``decode_attention``  — one token against the paged KV pools through
     K1/K2 (``impl="kernel"``) or the plain oracle (``impl="ref"``).
 
@@ -21,7 +24,8 @@ import torch
 from repro_torch.core import flex
 from repro_torch.kernels import check_impl
 from repro_torch.kernels.flex_attention.ops import flex_attention
-from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_prefill)
 
 
 def prefill_attention(
@@ -82,6 +86,31 @@ def _dense_attention(q, k, v, mask_mod, score_mod):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
     return out.reshape(B, H, Q, D)
+
+
+def prefill_attention_paged(
+    q: torch.Tensor,  # (B, C, H, D) — one prompt chunk per sequence
+    k_pages: torch.Tensor,  # (num_pages, P, Hkv, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_pages)
+    kv_lens: torch.Tensor,  # (B,) cached tokens incl. the chunk
+    q_start: torch.Tensor,  # (B,) absolute position of chunk token 0
+    *,
+    softcap: float = 0.0,
+    impl: str = "kernel",
+    kv_scale: float = 0.0,
+    pages_per_block: Optional[int] = None,
+    num_splits: Optional[int] = None,
+) -> torch.Tensor:
+    """Chunked paged prefill attention, the prompt-phase counterpart of
+    `decode_attention`: the chunk's K/V must already be in the pages
+    (write-then-attend), and its queries attend causally over the cached
+    prefix and the chunk itself through the block table.  Returns
+    (B, C, H, D)."""
+    return paged_prefill(q, k_pages, v_pages, block_tables, kv_lens,
+                         q_start, softcap=softcap, impl=impl,
+                         kv_scale=kv_scale, pages_per_block=pages_per_block,
+                         num_splits=num_splits)
 
 
 def decode_attention(

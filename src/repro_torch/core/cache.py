@@ -1,4 +1,5 @@
-"""Paged KV cache writes (port of the main-path half of ``repro.core.cache``).
+"""Paged KV cache writes (port of the serving half of ``repro.core.cache``:
+whole prompts, prompt chunks, decode tokens).
 
 Pools are shaped (num_pages, page_size, kv_heads, head_dim) per layer and
 shared by every sequence; a block-table row maps a sequence's logical
@@ -36,25 +37,11 @@ def write_layer_prefill(k_pages_l: torch.Tensor, v_pages_l: torch.Tensor,
     """Scatter a full prompt (B, S, H, D) into one layer's pools, in place.
 
     ``tables``: (B, max_pages) physical pages per sequence.  Positions are
-    0..S-1 per sequence; tokens past ``lens`` are dropped.
+    0..S-1 per sequence; tokens past ``lens`` are dropped.  The one-chunk
+    case of `write_layer_prefill_at`.
     """
-    B, S = k.shape[:2]
-    ps = k_pages_l.shape[1]
-    pos = torch.arange(S, device=k.device)[None, :].expand(B, S)
-    logical = pos // ps
-    valid = pos < lens.long()[:, None]
-    if window > 0:
-        ring = -(-window // ps) + 1
-        logical = logical % ring
-        # only the live window: at most one write per (page, offset)
-        valid &= pos >= lens.long()[:, None] - ring * ps
-    valid &= logical < tables.shape[1]
-    phys = torch.gather(tables.long(), 1,
-                        torch.clamp(logical, max=tables.shape[1] - 1))
-    phys = torch.where(valid, phys, torch.full_like(phys, -1))
-    off = pos % ps
-    _scatter_tokens(k_pages_l, phys, off, k)
-    _scatter_tokens(v_pages_l, phys, off, v)
+    write_layer_prefill_at(k_pages_l, v_pages_l, tables, k, v,
+                           torch.zeros_like(lens), lens, window=window)
 
 
 def write_layer_decode(k_pages_l: torch.Tensor, v_pages_l: torch.Tensor,
@@ -81,3 +68,36 @@ def write_layer_decode(k_pages_l: torch.Tensor, v_pages_l: torch.Tensor,
     off = positions.long() % page_size
     _scatter_tokens(k_pages_l, phys, off, k_new)
     _scatter_tokens(v_pages_l, phys, off, v_new)
+
+
+def write_layer_prefill_at(k_pages_l: torch.Tensor, v_pages_l: torch.Tensor,
+                           tables: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, start: torch.Tensor,
+                           q_lens: torch.Tensor, window: int = 0) -> None:
+    """Scatter a prompt *chunk* (B, C, H, D) into one layer's pools, in
+    place — the chunked-prefill generalisation of `write_layer_prefill`.
+
+    Chunk token ``i`` lands at absolute position ``start[b] + i``; tokens
+    past ``q_lens`` (batch padding) are dropped.  ``start == 0`` and
+    ``q_lens == lens`` is the whole-prompt scatter.  ``window > 0`` wraps
+    the logical page over the ring and drops writes older than the ring
+    capacity, so at most one write hits each (page, offset) slot.
+    """
+    B, C = k.shape[:2]
+    ps = k_pages_l.shape[1]
+    off_i = torch.arange(C, device=k.device)[None, :]
+    pos = start.long()[:, None] + off_i
+    logical = pos // ps
+    valid = off_i < q_lens.long()[:, None]
+    if window > 0:
+        ring = -(-window // ps) + 1
+        logical = logical % ring
+        end = (start.long() + q_lens.long())[:, None]
+        valid &= pos >= end - ring * ps
+    valid &= logical < tables.shape[1]
+    phys = torch.gather(tables.long(), 1,
+                        torch.clamp(logical, max=tables.shape[1] - 1))
+    phys = torch.where(valid, phys, torch.full_like(phys, -1))
+    off = pos % ps
+    _scatter_tokens(k_pages_l, phys, off, k)
+    _scatter_tokens(v_pages_l, phys, off, v)

@@ -7,7 +7,8 @@ device every step; the device pools (``core.cache``) hold the K/V.
 
 Prefix sharing: `fork` aliases the shared full pages and bumps refcounts
 (copy-on-write); the unshared tail page is freshly allocated.  The
-``cache`` hook stays ``None`` in this port (no prefix cache yet).
+``cache`` hook is the global prefix cache (``core.prefix_cache``), which
+registers itself there; ``reserve`` reclaims its detached pages on demand.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ class HostPageManager:
         self.refcount = [0] * num_pages
         self.tables: dict[int, list[int]] = {}
         self.lens: dict[int, int] = {}
-        # global prefix cache hook, kept for the prefix cache still to be
-        # ported (always None here).  Cache residency would hold one
-        # refcount share per cached page, so the invariant generalizes to
+        # global prefix cache hook (set by PrefixCache).  Cache residency
+        # holds one refcount share per cached page, so the invariant
+        # generalizes to
         #   refcount[p] == table occurrences of p + (1 if cache-resident)
         self.cache = None
 

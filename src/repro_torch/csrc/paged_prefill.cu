@@ -1,0 +1,299 @@
+// K3: chunked paged prefill partials for Hopper (sm_90a).
+//
+// Replaces the TPU kernel repro/kernels/paged_attention/paged_attention.py::
+// _prefill_kernel (launcher paged_prefill_partials).  A chunk of C query
+// tokens per sequence attends causally, by absolute position, over the
+// sequence's paged KV cache: the prefix written by earlier chunks and the
+// chunk itself, whose K/V were scattered into the pages before the launch
+// (write-then-attend).  A Q-block holds R = q_block * G rows, row r being
+// chunk token nq * q_block + r / G of head h * G + r % G.  One CUDA block
+// per (row tile, Q-block, split, kv head, batch) walks the KV blocks of its
+// split (ppb pages each, from the rank-clamped blocked table, page ids
+// looked up once per KV block) and emits the un-normalised online-softmax
+// partials (m, l, acc) in f32; the split-K combine merges them.  Masks as
+// the TPU kernel: kvpos < kv_lens[b] and kvpos <= qpos(row); KV blocks that
+// start at or past kv_lens or past the Q-block's last query are skipped;
+// softcap before the mask; int8 pools times kv_scale.  Rows past the chunk
+// read no q (zeros) and give finite partials that the combine slices off;
+// a row of a split with nothing live emits (NEG_INF, 0, 0).
+//
+// What bounds it: each query row does 4 D flops per key it attends (q.K
+// and p.V), over the whole cached prefix, so at chunks of hundreds of
+// tokens it is bound by operations, not bytes.  This first version does
+// them on the CUDA cores in f32 (wgmma/TMA are later work), with K4's
+// layout: a pre-scaled f32 q tile of up to 128 rows in shared memory,
+// 32-token K/V sub-tiles gathered through the page ids with 16-byte
+// vector loads, rows padded against bank conflicts, online softmax in
+// f32 and each thread's half of an output row in registers.  For D = 128
+// that is ~116 KB of shared memory, above the 48 KB default, hence
+// cudaFuncAttributeMaxDynamicSharedMemorySize.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kRows = 128;  // q rows per tile: two threads per row
+constexpr int KT = 32;      // kv tokens per shared-memory sub-tile
+constexpr int KHALF = KT / 2;
+
+struct PrefillParams {
+  const void* q;        // (B, C, Hkv * G, D)
+  const void* k;        // (num_pages, P, Hkv, D)
+  const void* v;
+  const int* tables;    // (B, n_blocks, ppb) rank-clamped page ids
+  const int* kv_lens;   // (B,) cached tokens incl. the chunk
+  const int* q_start;   // (B,) absolute position of chunk token 0
+  float* m;             // (B, Hkv, NQ, S, R)
+  float* l;
+  float* acc;           // (B, Hkv, NQ, S, R, D)
+  int B, C, Hkv, G, page_size, n_blocks, ppb, S, bps, q_block, NQ, R,
+      n_tiles;
+  float scale, softcap, kv_scale;
+};
+
+template <int D>
+constexpr size_t smem_floats() {
+  return kRows * (D + 1) + KT * (D + 1) + KT * D + kRows * (KT + 1);
+}
+
+template <typename T, typename TKV, int D>
+__global__ void __launch_bounds__(kThreads)
+    paged_prefill_kernel(const PrefillParams p) {
+  constexpr int QS = D + 1;
+  constexpr int PS = KT + 1;
+  constexpr int QV = Vec16<T>::N;    // q elements per 16-byte load
+  constexpr int KV = Vec16<TKV>::N;  // K/V elements per 16-byte load
+  constexpr int DH = D / 2;          // output columns per thread
+  extern __shared__ float smem[];
+  float* q_s = smem;               // kRows x QS, pre-scaled
+  float* k_s = q_s + kRows * QS;   // KT x QS
+  float* v_s = k_s + KT * QS;      // KT x D
+  float* p_s = v_s + KT * D;       // kRows x PS
+  int* page_s = reinterpret_cast<int*>(p_s + kRows * PS);  // ppb page ids
+
+  const int tile = blockIdx.x % p.n_tiles;
+  const int nq = (blockIdx.x / p.n_tiles) % p.NQ;
+  const int s = blockIdx.x / (p.n_tiles * p.NQ);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int r = tid >> 1, half = tid & 1;
+  const int row = tile * kRows + r;  // row of the Q-block
+  const bool row_ok = row < p.R;
+  const int L = p.kv_lens[b];
+  const int q0 = p.q_start[b] + nq * p.q_block;  // position of its token 0
+  const int qpos = q0 + row / p.G;
+  const int qpos_max = q0 + p.q_block - 1;
+  const int H = p.Hkv * p.G;
+
+  for (int c = tid; c < kRows * (D / QV); c += kThreads) {
+    const int rr = c / (D / QV), d0 = (c % (D / QV)) * QV;
+    const int qr = tile * kRows + rr;
+    const int tok = nq * p.q_block + qr / p.G;
+    float x[QV];
+    if (qr < p.R && tok < p.C) {
+      load_vec16(static_cast<const T*>(p.q) +
+                     ((static_cast<size_t>(b) * p.C + tok) * H + h * p.G +
+                      qr % p.G) * D + d0,
+                 x);
+    } else {
+#pragma unroll
+      for (int e = 0; e < QV; ++e) x[e] = 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < QV; ++e) q_s[rr * QS + d0 + e] = x[e] * p.scale;
+  }
+
+  const size_t tok_stride = static_cast<size_t>(p.Hkv) * D;
+  const size_t page_stride = static_cast<size_t>(p.page_size) * tok_stride;
+  const TKV* kbase = static_cast<const TKV*>(p.k) + static_cast<size_t>(h) * D;
+  const TKV* vbase = static_cast<const TKV*>(p.v) + static_cast<size_t>(h) * D;
+  const float kvs = p.kv_scale > 0.f ? p.kv_scale : 1.f;
+  const int blk_tokens = p.ppb * p.page_size;
+
+  float m_i = REPRO_NEG_INF, l_i = 0.f;
+  float acc[DH];
+#pragma unroll
+  for (int i = 0; i < DH; ++i) acc[i] = 0.f;
+
+  for (int blk = 0; blk < p.bps; ++blk) {
+    const int rank = s * p.bps + blk;
+    const int first_pos = rank * blk_tokens;
+    // the whole block is dead or past the Q-block's last query
+    if (first_pos >= L || first_pos > qpos_max) continue;
+    __syncthreads();  // the previous block's page ids are consumed
+    const int* trow =
+        p.tables + (static_cast<size_t>(b) * p.n_blocks + rank) * p.ppb;
+    for (int j = tid; j < p.ppb; j += kThreads) page_s[j] = trow[j];
+    __syncthreads();
+
+    for (int ks = 0; ks < blk_tokens; ks += KT) {
+      const int k0 = first_pos + ks;
+      // every later token of the block is masked for every row: skipping
+      // leaves (m, l, acc) exactly as an all-masked update would
+      if (k0 >= L || k0 > qpos_max) break;
+      const int nk = min(KT, blk_tokens - ks);
+      __syncthreads();  // the previous sub-tile is consumed
+      for (int c = tid; c < KT * (D / KV); c += kThreads) {
+        const int rr = c / (D / KV), d0 = (c % (D / KV)) * KV;
+        float kx[KV], vx[KV];
+        if (rr < nk) {
+          const int t = ks + rr;
+          const size_t off = page_s[t / p.page_size] * page_stride +
+                             (t % p.page_size) * tok_stride + d0;
+          load_vec16(kbase + off, kx);
+          load_vec16(vbase + off, vx);
+        } else {
+#pragma unroll
+          for (int e = 0; e < KV; ++e) kx[e] = vx[e] = 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < KV; ++e) {
+          k_s[rr * QS + d0 + e] = kx[e] * kvs;
+          v_s[rr * D + d0 + e] = vx[e] * kvs;
+        }
+      }
+      __syncthreads();
+
+      // scores of this thread's row against its half of the sub-tile
+      float sv[KHALF];
+#pragma unroll
+      for (int c = 0; c < KHALF; ++c) sv[c] = 0.f;
+      const float* qr = q_s + r * QS;
+      const float* kr = k_s + half * KHALF * QS;
+      for (int d = 0; d < D; ++d) {
+        const float qv = qr[d];
+#pragma unroll
+        for (int c = 0; c < KHALF; ++c) sv[c] += qv * kr[c * QS + d];
+      }
+      float mx = REPRO_NEG_INF;
+#pragma unroll
+      for (int c = 0; c < KHALF; ++c) {
+        const int cc = half * KHALF + c;
+        const int kpos = k0 + cc;
+        float x = sv[c];
+        if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
+        const bool live = row_ok && cc < nk && kpos < L && kpos <= qpos;
+        sv[c] = live ? x : REPRO_NEG_INF;
+        mx = fmaxf(mx, sv[c]);
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      const float m_new = fmaxf(m_i, mx);
+      const float alpha = expf(m_i - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KHALF; ++c) {
+        const float pe =
+            sv[c] > 0.5f * REPRO_NEG_INF ? expf(sv[c] - m_new) : 0.f;
+        p_s[r * PS + half * KHALF + c] = pe;
+        sum += pe;
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      l_i = l_i * alpha + sum;
+      m_i = m_new;
+      __syncwarp();  // the row's other half was written by the partner lane
+
+      // acc = acc * alpha + p . V over this thread's interleaved columns
+#pragma unroll
+      for (int i = 0; i < DH; ++i) acc[i] *= alpha;
+      const float* pr = p_s + r * PS;
+      for (int c = 0; c < nk; ++c) {
+        const float pe = pr[c];
+        const float* vr = v_s + c * D + half;
+#pragma unroll
+        for (int i = 0; i < DH; ++i) acc[i] += pe * vr[2 * i];
+      }
+    }
+  }
+
+  if (row_ok) {
+    const size_t slot =
+        ((static_cast<size_t>(b) * p.Hkv + h) * p.NQ + nq) * p.S + s;
+    const size_t o = slot * p.R + row;
+    if (half == 0) {
+      p.m[o] = m_i;
+      p.l[o] = l_i;
+    }
+    float* ag = p.acc + o * D;
+#pragma unroll
+    for (int i = 0; i < DH; ++i) ag[2 * i + half] = acc[i];
+  }
+}
+
+template <typename T, typename TKV, int D>
+int launch(const PrefillParams& p, cudaStream_t st) {
+  const size_t bytes = smem_floats<D>() * sizeof(float) + p.ppb * sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_prefill_kernel<T, TKV, D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.n_tiles * p.NQ * p.S, p.Hkv, p.B);
+  paged_prefill_kernel<T, TKV, D><<<grid, kThreads, bytes, st>>>(p);
+  return 0;
+}
+
+template <typename T, int D>
+int dispatch_kv(int kv_code, int q_code, const PrefillParams& p,
+                cudaStream_t st) {
+  if (kv_code == 2) return launch<T, int8_t, D>(p, st);
+  if (kv_code != q_code) return static_cast<int>(cudaErrorInvalidValue);
+  return launch<T, T, D>(p, st);
+}
+
+template <int D>
+int dispatch_q(int q_code, int kv_code, const PrefillParams& p,
+               cudaStream_t st) {
+  switch (q_code) {
+    case 0: return dispatch_kv<float, D>(kv_code, q_code, p, st);
+    case 1: return dispatch_kv<__nv_bfloat16, D>(kv_code, q_code, p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+extern "C" int paged_prefill_partials(
+    int q_code, int kv_code, const void* q, const void* k_pages,
+    const void* v_pages, const void* tables, const void* kv_lens,
+    const void* q_start, void* m, void* l, void* acc, int B, int C, int Hkv,
+    int G, int D, int page_size, int n_blocks, int ppb, int num_splits,
+    int bps, int q_block, float scale, float softcap, float kv_scale,
+    void* stream) {
+  if (B == 0 || C == 0 || Hkv == 0) return 0;
+  if (q_block < 1 || G < 1 || ppb < 1 || n_blocks != num_splits * bps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrefillParams p;
+  p.q = q;
+  p.k = k_pages;
+  p.v = v_pages;
+  p.tables = static_cast<const int*>(tables);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.q_start = static_cast<const int*>(q_start);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.acc = static_cast<float*>(acc);
+  p.B = B;
+  p.C = C;
+  p.Hkv = Hkv;
+  p.G = G;
+  p.page_size = page_size;
+  p.n_blocks = n_blocks;
+  p.ppb = ppb;
+  p.S = num_splits;
+  p.bps = bps;
+  p.q_block = q_block;
+  p.NQ = (C + q_block - 1) / q_block;
+  p.R = q_block * G;
+  p.n_tiles = (p.R + kRows - 1) / kRows;
+  p.scale = scale;
+  p.softcap = softcap;
+  p.kv_scale = kv_scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int bad;
+  switch (D) {
+    case 64: bad = dispatch_q<64>(q_code, kv_code, p, st); break;
+    case 128: bad = dispatch_q<128>(q_code, kv_code, p, st); break;
+    default: bad = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bad) return bad;
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,6 +1,7 @@
 """Hand-written CUDA kernels for the paper's attention hot spots.
 
-paged_attention/ — split-K paged decode (K1) and its combine (K2);
+paged_attention/ — split-K paged decode (K1), its combine (K2) and
+                   chunked paged prefill (K3);
 flex_attention/  — block-sparse flash prefill with FlexAttention mods (K4).
 
 Each kernel has a wrapper that checks its inputs and counts its launches,
@@ -53,9 +54,11 @@ def launch_wrappers():
     from repro_torch.kernels.flex_attention.flex_attention import (
         flex_attention_kernel)
     from repro_torch.kernels.paged_attention.paged_attention import (
-        combine_partials_kernel, paged_attention_partials)
+        combine_partials_kernel, paged_attention_partials,
+        paged_prefill_partials)
     return {"paged_decode": paged_attention_partials,
             "combine": combine_partials_kernel,
+            "paged_prefill": paged_prefill_partials,
             "flex_prefill": flex_attention_kernel}
 
 

@@ -45,6 +45,12 @@ SIGNATURES = {
                               _F, _I, _F, _F, _P],
     # out dtype code, m, l, acc, out, B, Hkv, S, G, D, stream
     "combine_partials": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # dtype codes, q, k_pages, v_pages, blocked tables, kv_lens, q_start,
+    # m, l, acc, B, C, Hkv, G, D, page_size, n_blocks, ppb, num_splits,
+    # bps, q_block, scale, softcap, kv_scale, stream
+    "paged_prefill_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _F, _F, _P],
     # dtype code, mask variant, q, k, v, o, kv_num_blocks, kv_indices,
     # is_full, lens, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk,
     # kv_blk, q_len, kv_len, scale, stream

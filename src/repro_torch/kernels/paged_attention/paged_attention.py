@@ -1,4 +1,4 @@
-"""Split-K paged decode attention: kernels K1 and K2 and their plain versions.
+"""Paged attention kernels K1, K2 and K3 and their plain versions.
 
 K1 (``paged_attention_partials``, CUDA ``csrc/paged_decode.cu``) replaces
 the TPU kernel ``repro/kernels/paged_attention/paged_attention.py::
@@ -10,6 +10,13 @@ un-normalised online-softmax partials ``(m, l, acc)``.  K2
 
     m* = max_s m_s          l* = Σ_s l_s · exp(m_s − m*)
     o  = Σ_s acc_s · exp(m_s − m*) / max(l*, 1e-30)
+
+K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
+``_prefill_kernel``: chunked paged prefill, the same partials over Q-blocks
+of ``q_block·G`` rows that attend causally, by absolute position, to the
+cached prefix and the chunk itself; ``combine_prefill_partials`` folds the
+Q-blocks into the batch and merges them with K2 (or the plain normalise
+for one split).
 
 Partition and partial contract are the JAX package's (`decode_partition`,
 `_blocked_tables`), so the partials compare with the reference split by
@@ -237,43 +244,53 @@ def paged_attention_partials(
 paged_attention_partials.launches = 0
 
 
+def _check_paged_inputs(kernel, q, n_kv, D, k_pages, v_pages, block_tables,
+                        vectors, kv_scale):
+    """Checks K1 and K3 share: q dtype, pools against (n_kv, D), pool
+    dtype and ``kv_scale``, int32 tables and (B,) int32 ``vectors``,
+    contiguity, and the 16-byte alignment of the vector loads."""
+    B = q.shape[0]
+    if q.dtype not in _Q_CODES:
+        raise UnsupportedFeature(f"{kernel}: q dtype {q.dtype}",
+                                 dtype=str(q.dtype))
+    pool = k_pages.shape
+    if (k_pages.dim() != 4 or pool[2] != n_kv or pool[3] != D
+            or v_pages.shape != pool):
+        raise EngineConfigError(f"{kernel}: pools {tuple(pool)} / "
+                                f"{tuple(v_pages.shape)} do not match q "
+                                f"{tuple(q.shape)}")
+    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in (q.dtype,
+                                                                torch.int8):
+        raise UnsupportedFeature(f"{kernel}: pool dtype {k_pages.dtype}"
+                                 f" with q dtype {q.dtype}")
+    if (k_pages.dtype == torch.int8) != (kv_scale > 0):
+        raise EngineConfigError(f"{kernel}: int8 pools need kv_scale > 0, "
+                                "other pools kv_scale == 0",
+                                kv_scale=kv_scale)
+    if (block_tables.dtype != torch.int32 or block_tables.dim() != 2
+            or block_tables.shape[0] != B
+            or any(v.dtype != torch.int32 or tuple(v.shape) != (B,)
+                   for v in vectors.values())):
+        raise EngineConfigError(f"{kernel}: tables must be (B, max_pages) "
+                                f"int32 and {', '.join(vectors)} (B,) int32")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), *vectors.items()):
+        if not t.is_contiguous():
+            raise EngineConfigError(f"{kernel}: {name} must be contiguous")
+    if q.data_ptr() % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise EngineConfigError(f"{kernel}: q and the pools must be 16-byte "
+                                "aligned (16-byte vector loads)")
+
+
 def _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale):
     B, n_kv, G, D = q.shape
-    if q.dtype not in _Q_CODES:
-        raise UnsupportedFeature(f"decode kernel: q dtype {q.dtype}",
-                                 dtype=str(q.dtype))
     if D not in DECODE_HEAD_DIMS or G not in DECODE_GROUPS:
         raise UnsupportedFeature(
             f"decode kernel takes head_dim in {DECODE_HEAD_DIMS} and GQA "
             f"group in {DECODE_GROUPS}, got D={D} G={G}", head_dim=D,
             group=G)
-    pool = k_pages.shape
-    if (k_pages.dim() != 4 or pool[2] != n_kv or pool[3] != D
-            or v_pages.shape != pool):
-        raise EngineConfigError(f"decode kernel: pools {tuple(pool)} / "
-                                f"{tuple(v_pages.shape)} do not match q "
-                                f"{tuple(q.shape)}")
-    if k_pages.dtype != v_pages.dtype or k_pages.dtype not in (q.dtype,
-                                                                torch.int8):
-        raise UnsupportedFeature(f"decode kernel: pool dtype {k_pages.dtype}"
-                                 f" with q dtype {q.dtype}")
-    if (k_pages.dtype == torch.int8) != (kv_scale > 0):
-        raise EngineConfigError("decode kernel: int8 pools need "
-                                "kv_scale > 0, other pools kv_scale == 0",
-                                kv_scale=kv_scale)
-    if (block_tables.dtype != torch.int32 or lens.dtype != torch.int32
-            or block_tables.dim() != 2 or block_tables.shape[0] != B
-            or tuple(lens.shape) != (B,)):
-        raise EngineConfigError("decode kernel: tables must be (B, "
-                                "max_pages) int32 and lens (B,) int32")
-    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
-                    ("block_tables", block_tables), ("lens", lens)):
-        if not t.is_contiguous():
-            raise EngineConfigError(f"decode kernel: {name} must be "
-                                    "contiguous")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise EngineConfigError("decode kernel: pools must be 16-byte "
-                                "aligned (16-byte vector loads)")
+    _check_paged_inputs("decode kernel", q, n_kv, D, k_pages, v_pages,
+                        block_tables, {"lens": lens}, kv_scale)
 
 
 def paged_attention_kernel(
@@ -296,3 +313,179 @@ def paged_attention_kernel(
         softcap=softcap, kv_scale=kv_scale,
         pages_per_block=pages_per_block, num_splits=num_splits)
     return combine_partials(m, l, acc, dtype=q.dtype)
+
+
+# -- K3: chunked paged prefill ------------------------------------------------
+def _prefill_q_blocks(q: torch.Tensor, n_kv: int, q_block: int
+                      ) -> Tuple[torch.Tensor, int]:
+    """(B, C, H, D) chunk queries → (B, n_kv, NQ, q_block·G, D) row blocks.
+
+    Row ``r`` of a block is chunk token ``r // G``, head group ``r % G``;
+    the chunk is zero-padded to ``NQ·q_block`` tokens.  K3 indexes the
+    chunk queries in place and needs no such copy; its plain version and
+    the oracle use this layout.
+    """
+    B, C, H, D = q.shape
+    G = H // n_kv
+    nq = -(-C // q_block)
+    qpad = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, nq * q_block - C))
+    qb = qpad.reshape(B, nq, q_block, n_kv, G, D).permute(0, 3, 1, 2, 4, 5)
+    return qb.reshape(B, n_kv, nq, q_block * G, D), nq
+
+
+def combine_prefill_partials(m: torch.Tensor, l: torch.Tensor,
+                             acc: torch.Tensor, C: int, q_block: int, *,
+                             dtype=torch.float32) -> torch.Tensor:
+    """Merge chunked-prefill split-K partials through the decode combine.
+
+    m, l: (B, Hkv, NQ, S, R); acc: (B, Hkv, NQ, S, R, D) with
+    ``R = q_block·G``.  The Q-block axis folds into the batch axis, so
+    `combine_partials` applies unchanged: K2 when more than one split is
+    active, the plain normalise for one.  Returns (B, C, H, D).
+    """
+    B, n_kv, NQ, S, R = m.shape
+    D = acc.shape[-1]
+    G = R // q_block
+    m2 = m.transpose(1, 2).reshape(B * NQ, n_kv, S, R).contiguous()
+    l2 = l.transpose(1, 2).reshape(B * NQ, n_kv, S, R).contiguous()
+    acc2 = acc.transpose(1, 2).reshape(B * NQ, n_kv, S, R, D).contiguous()
+    o = combine_partials(m2, l2, acc2, dtype=dtype)  # (B·NQ, n_kv, R, D)
+    o = o.reshape(B, NQ, n_kv, q_block, G, D).permute(0, 1, 3, 2, 4, 5)
+    return o.reshape(B, NQ * q_block, n_kv * G, D)[:, :C]
+
+
+def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
+                                  q_start, *, scale, softcap, kv_scale,
+                                  pages_per_block, num_splits, q_block):
+    """Plain version of K3: the same Q-block rows, gather, causal and
+    length masks and per-split softmax partials, vectorised over every
+    Q-block and split at once.  Skipped KV blocks are all-masked here,
+    which leaves the partials exactly as skipping does."""
+    B, C, H, D = q.shape
+    num_pages, page_size, n_kv, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
+    G = H // n_kv
+    ppb, _, S, bps = decode_partition(max_pages, pages_per_block, num_splits)
+    padded = S * bps * ppb
+    pages = _blocked_tables(block_tables, kv_lens, num_pages=num_pages,
+                            page_size=page_size, window=0,
+                            padded_pages=padded, pages_per_block=ppb)
+    T = bps * ppb * page_size  # tokens per split
+    k = k_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
+    v = v_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
+    if kv_scale > 0:
+        k = k * kv_scale
+        v = v * kv_scale
+    qb, NQ = _prefill_q_blocks(q, n_kv, q_block)
+    dev = q.device
+    kvpos = torch.arange(padded * page_size, device=dev).reshape(S, T)
+    tok = (torch.arange(NQ, device=dev)[:, None] * q_block
+           + torch.arange(q_block * G, device=dev)[None, :] // G)
+    qpos = q_start.long()[:, None, None] + tok[None]  # (B, NQ, R)
+    live = ((kvpos[None] < kv_lens.long()[:, None, None])[:, None, :, None]
+            & (kvpos[None, None, :, None, :]
+               <= qpos[:, :, None, :, None]))  # (B, NQ, S, R, T)
+    live = live[:, None]
+
+    s = torch.einsum("bknrd,bstkd->bknsrt", qb.float() * scale, k)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(live, s, torch.tensor(NEG_INF, device=dev))
+    m = s.amax(dim=-1)  # (B, Hkv, NQ, S, R); NEG_INF where nothing is live
+    p = torch.where(live, torch.exp(s - m[..., None]),
+                    torch.tensor(0.0, device=dev))
+    acc = torch.einsum("bknsrt,bstkd->bknsrd", p, v)
+    return m, p.sum(dim=-1), acc
+
+
+def paged_prefill_partials(
+    q: torch.Tensor,  # (B, C, n_heads, D) — one prompt chunk per sequence
+    k_pages: torch.Tensor,  # (num_pages, P, n_kv, D)
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, max_pages) int32 (may contain -1)
+    kv_lens: torch.Tensor,  # (B,) int32 cached tokens incl. the chunk
+    q_start: torch.Tensor,  # (B,) int32 absolute position of chunk token 0
+    *,
+    scale: float,
+    softcap: float = 0.0,
+    kv_scale: float = 0.0,
+    pages_per_block: int = 1,
+    num_splits: int = 1,
+    q_block: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3: chunked-prefill split-K partials ((B,Hkv,NQ,S,R) m and l,
+    (B,Hkv,NQ,S,R,D) acc), all f32, with ``NQ = ceil(C / q_block)`` and
+    ``R = q_block·G`` — shaped for `combine_prefill_partials`.
+
+    The chunk's K/V must already be in the pages (write-then-attend, on
+    the same stream).  q is f32 or bf16; the pools share its dtype, or are
+    int8 with ``kv_scale > 0``.
+    """
+    if not use_kernel("paged_prefill_partials", q, k_pages, v_pages,
+                      block_tables, kv_lens, q_start):
+        return _paged_prefill_partials_plain(
+            q, k_pages, v_pages, block_tables, kv_lens, q_start, scale=scale,
+            softcap=softcap, kv_scale=kv_scale,
+            pages_per_block=pages_per_block, num_splits=num_splits,
+            q_block=q_block)
+    B, C, H, D = q.shape
+    num_pages, page_size, n_kv = k_pages.shape[:3]
+    if D not in DECODE_HEAD_DIMS or H % max(n_kv, 1) or q_block < 1:
+        raise UnsupportedFeature(
+            f"prefill kernel takes head_dim in {DECODE_HEAD_DIMS}, heads a "
+            f"multiple of the kv heads and q_block >= 1, got D={D} H={H} "
+            f"n_kv={n_kv} q_block={q_block}", head_dim=D, q_block=q_block)
+    _check_paged_inputs("prefill kernel", q, n_kv, D, k_pages, v_pages,
+                        block_tables, {"kv_lens": kv_lens,
+                                       "q_start": q_start}, kv_scale)
+    G = H // n_kv
+    ppb, _, S, bps = decode_partition(block_tables.shape[1], pages_per_block,
+                                      num_splits)
+    pages = _blocked_tables(block_tables, kv_lens, num_pages=num_pages,
+                            page_size=page_size, window=0,
+                            padded_pages=S * bps * ppb, pages_per_block=ppb
+                            ).int()
+    NQ, R = -(-C // q_block), q_block * G
+    dev = q.device
+    m = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
+    l = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
+    acc = torch.empty((B, n_kv, NQ, S, R, D), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        err = get_lib().paged_prefill_partials(
+            _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), pages.data_ptr(),
+            kv_lens.data_ptr(), q_start.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc.data_ptr(), B, C, n_kv, G, D, page_size,
+            S * bps, ppb, S, bps, q_block, float(scale), float(softcap),
+            float(kv_scale), torch.cuda.current_stream().cuda_stream)
+    check(err, "paged_prefill_partials")
+    paged_prefill_partials.launches += 1
+    return m, l, acc
+
+
+paged_prefill_partials.launches = 0
+
+
+def paged_prefill_kernel(
+    q: torch.Tensor,  # (B, C, n_heads, D)
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,
+    kv_lens: torch.Tensor,
+    q_start: torch.Tensor,
+    *,
+    scale: float,
+    softcap: float = 0.0,
+    kv_scale: float = 0.0,
+    pages_per_block: int = 1,
+    num_splits: int = 1,
+    q_block: int = 1,
+) -> torch.Tensor:
+    """K3 partials followed by the shared combine; (B, C, n_heads, D)."""
+    m, l, acc = paged_prefill_partials(
+        q, k_pages, v_pages, block_tables, kv_lens, q_start, scale=scale,
+        softcap=softcap, kv_scale=kv_scale, pages_per_block=pages_per_block,
+        num_splits=num_splits, q_block=q_block)
+    return combine_prefill_partials(m, l, acc, q.shape[1], q_block,
+                                    dtype=q.dtype)

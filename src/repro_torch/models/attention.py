@@ -1,9 +1,9 @@
 """GQA attention layer: projections + RoPE around the core attention ops
-(port of ``repro.models.attention``, prefill and decode phases).
+(port of ``repro.models.attention``: prefill, chunked prefill and decode).
 
-The paged KV pools are updated **in place**: ``attn_prefill`` and
-``attn_decode`` scatter the new K/V into the pools they are given and
-return only the layer output.
+The paged KV pools are updated **in place**: ``attn_prefill``,
+``attn_prefill_chunked`` and ``attn_decode`` scatter the new K/V into the
+pools they are given and return only the layer output.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cache as kvcache
+from repro_torch.errors import UnsupportedFeature
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.spec import ParamSpec
 
@@ -78,6 +79,40 @@ def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                                 window=window)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     impl=impl)
+    return _out(p, o)
+
+
+def attn_prefill_chunked(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                         k_pages: torch.Tensor, v_pages: torch.Tensor,
+                         tables: torch.Tensor, q_start: torch.Tensor,
+                         q_lens: torch.Tensor, *, window: int = 0,
+                         impl: str = "kernel",
+                         pages_per_block: Optional[int] = None,
+                         num_splits: Optional[int] = None) -> torch.Tensor:
+    """Chunked prefill: attend one prompt chunk per sequence, resuming from
+    the cached prefix, and write the chunk's K/V into its pages (in place).
+
+    ``x``: (B, C, d) chunk activations; ``q_start``: (B,) tokens already
+    cached (RoPE and masks use absolute positions ``q_start + i``);
+    ``q_lens``: (B,) live tokens of the chunk; ``tables``: (B,
+    n_kv_shards, pages_per_shard).  Write first, then attend over
+    ``kv_lens = q_start + q_lens`` tokens through the block table (K3
+    under ``impl="kernel"``).  Sliding-window layers are not ported.
+    """
+    if window > 0:
+        raise UnsupportedFeature("chunked prefill of sliding-window layers "
+                                 "is not ported yet", window=window)
+    B, C, _ = x.shape
+    pos = q_start.long()[:, None] + torch.arange(C, device=x.device)[None]
+    q, k, v = _qkv(p, x, pos, cfg.rope_theta)
+    t = tables.reshape(B, -1)
+    kvcache.write_layer_prefill_at(k_pages, v_pages, t, kv_quant(cfg, k),
+                                   kv_quant(cfg, v), q_start, q_lens)
+    o = core_attn.prefill_attention_paged(
+        q, k_pages, v_pages, t, (q_start + q_lens).to(torch.int32),
+        q_start.to(torch.int32), impl=impl,
+        kv_scale=cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0,
+        pages_per_block=pages_per_block, num_splits=num_splits)
     return _out(p, o)
 
 

@@ -5,8 +5,10 @@ Parameters are plain dicts of tensors with the JAX layouts, one dict per
 layer under ``params["layers"]`` (the JAX package stacks them per pattern
 group; ``models.convert`` unstacks).  Two entry points share them:
 
-    prefill      — whole prompts, K/V scattered into the paged pools
-    decode_step  — one token per sequence against the paged pools
+    prefill       — whole prompts, K/V scattered into the paged pools
+    prefill_chunk — one prompt chunk per sequence, resuming from the
+                    cached prefix pages
+    decode_step   — one token per sequence against the paged pools
 
 The serving state is a dict: ``pos`` (B,), ``k_pages``/``v_pages``
 (n_layers, num_pages, P, Hkv, D) and ``tables`` (B, 1, pages_per_seq).
@@ -86,6 +88,40 @@ class TransformerModel:
         last = x[torch.arange(B, device=x.device), last_idx]
         logits = layers.unembed(params["embed"], last, cfg)
         return logits, dict(state, pos=lens)
+
+    def prefill_chunk(self, params: Dict, tokens: torch.Tensor,
+                      state: Dict, q_start: torch.Tensor,
+                      q_lens: torch.Tensor, impl: str = "kernel",
+                      pages_per_block: Optional[int] = None,
+                      num_splits: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, Dict]:
+        """Chunked prefill: one prompt chunk per sequence, resuming from
+        the cached prefix.
+
+        ``tokens``: (B, C) chunk tokens (right-padded); ``q_start``: (B,)
+        tokens already cached (positions, masks and the K/V scatter use
+        absolute ``q_start + i``); ``q_lens``: (B,) live tokens of the
+        chunk.  ``state["tables"]`` must already map pages covering
+        ``q_start + q_lens`` tokens.  Returns the logits of each row's
+        last live token and the state with ``pos = q_start + q_lens``;
+        the pools receive the chunk's K/V in place.  ``prefill`` is the
+        one-chunk case (``q_start = 0``, ``q_lens = lens``).
+        """
+        cfg = self.cfg
+        B = tokens.shape[0]
+        x = layers.embed_tokens(params["embed"], tokens)
+        for li, p in enumerate(params["layers"]):
+            h = layers.apply_norm(p["ln1"], x)
+            x = x + attn.attn_prefill_chunked(
+                p["attn"], h, cfg, state["k_pages"][li], state["v_pages"][li],
+                state["tables"], q_start, q_lens, impl=impl,
+                pages_per_block=pages_per_block, num_splits=num_splits)
+            x = self._apply_ffn(p, x)
+        x = layers.apply_norm(params["ln_f"], x)
+        last_idx = torch.clamp(q_lens.long() - 1, min=0)
+        last = x[torch.arange(B, device=x.device), last_idx]
+        logits = layers.unembed(params["embed"], last, cfg)
+        return logits, dict(state, pos=q_start + q_lens)
 
     def decode_step(self, params: Dict, tokens: torch.Tensor, state: Dict,
                     impl: str = "kernel",

@@ -1,22 +1,32 @@
 """Serving engine: continuous batching over the paged KV cache (port of
-``repro.serving.engine``: paged, monolithic prefill + decode).
+``repro.serving.engine``: paged prefill, monolithic or chunked, the
+global prefix cache, and decode).
 
 The model's prefill and decode steps run against global K/V page pools on
 the device, updated in place; the scheduler's host-side page manager
 decides admission and preemption, and the block tables are shipped to
-the device every step.  ``impl="kernel"`` (the default) runs prefill
-attention through the flex kernel (K4) and decode through the split-K
-paged kernel (K1) and its combine (K2); ``impl="ref"`` runs the plain
-oracles.
+the device every step.  ``impl="kernel"`` (the default) runs monolithic
+prefill attention through the flex kernel (K4), chunked prefill and
+prefix-cache resumes through the chunked paged prefill kernel (K3), and
+decode through the split-K paged kernel (K1) and its combine (K2);
+``impl="ref"`` runs the plain oracles.
 
 One Engine serves one model on ``max_slots`` logical slots.  The pool may
 be oversubscribed (``pool_tokens < max_slots × max_seq_len``): that is
 the paper's memory win over max-length pre-allocation, and preemption
 (recompute) keeps the batch moving when it runs dry.
 
-Not ported yet (raise ``UnsupportedFeature``): chunked prefill, the
-prefix cache, fault injection, ``fork_request`` and the contiguous
-baseline (``paged=False``).
+``prefill_chunk`` bounds each step's prefill work: the PREFILLING rows
+share one global budget of ``prefill_chunk`` tokens per step, interleaved
+with the decode of the RUNNING rows.  ``prefix_cache=True`` shares the
+full pages of a common prompt head across requests (``core.prefix_cache``):
+admission attaches to the longest cached prefix and prefill runs only the
+suffix.  The JAX engine's gates on both (no windowed, cross-attention or
+recurrent layers) hold here because ``build_model`` builds only dense
+all-``A`` models.
+
+Not ported yet (raise ``UnsupportedFeature``): fault injection,
+``fork_request`` and the contiguous baseline (``paged=False``).
 """
 
 from __future__ import annotations
@@ -29,10 +39,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.paging import HostPageManager
+from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.device import resolve_device
-from repro_torch.errors import (EngineError, InternalError, NumericsError,
-                                RequestTooLong, SchedulerInvariantError,
-                                UnsupportedFeature)
+from repro_torch.errors import (EngineConfigError, EngineError,
+                                InternalError, NumericsError, RequestTooLong,
+                                SchedulerInvariantError, UnsupportedFeature)
 from repro_torch.kernels import check_impl
 from repro_torch.models.api import build_model
 from repro_torch.models.attention import kv_pool_dtype
@@ -57,24 +68,26 @@ class Engine:
         device="cuda",
         pages_per_block: Optional[int] = None,  # decode kernel knobs;
         num_splits: Optional[int] = None,  # None → auto-tuned per shape
-        prefill_chunk: Optional[int] = None,
-        prefix_cache: bool = False,
+        prefill_chunk: Optional[int] = None,  # prompt tokens prefilled per
+        # step across the PREFILLING rows (None = whole prompts at once)
+        prefix_cache: bool = False,  # radix-indexed page sharing
         faults=None,
     ):
-        for name, asked in (("prefill_chunk", prefill_chunk is not None),
-                            ("prefix_cache", bool(prefix_cache)),
-                            ("faults", faults is not None)):
-            if asked:
-                raise UnsupportedFeature(f"{name} is not ported yet",
-                                         feature=name)
+        if faults is not None:
+            raise UnsupportedFeature("faults is not ported yet",
+                                     feature="faults")
         if not (cfg.paged_attention if paged is None else paged):
             raise UnsupportedFeature("the contiguous baseline (paged=False) "
                                      "is not ported yet", feature="paged")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise EngineConfigError("prefill_chunk must be >= 1 (or None)",
+                                    prefill_chunk=prefill_chunk)
         check_impl(impl)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
         self.impl = impl
+        self.prefill_chunk = prefill_chunk
         self.pages_per_block = pages_per_block
         self.num_splits = num_splits
         self.dtype = dtype
@@ -96,7 +109,10 @@ class Engine:
             num_pages = max(-(-pool_tokens // ps), self.pages_per_seq)
         self.num_pages = num_pages
         self.mgr = HostPageManager(num_pages, ps)
-        self.scheduler = Scheduler(self.mgr, max_slots, max_seq_len)
+        self.prefix_cache = PrefixCache(self.mgr) if prefix_cache else None
+        self.scheduler = Scheduler(self.mgr, max_slots, max_seq_len,
+                                   prefill_chunk=prefill_chunk,
+                                   prefix_cache=self.prefix_cache)
         self.state = self._init_state()
         self.steps = 0
 
@@ -163,9 +179,16 @@ class Engine:
         self.scheduler.check_deadlines(self.steps)
         admitted = self.scheduler.admit()
         finished: List[Request] = []
-        if admitted:
-            self._prefill(admitted)
-            # prefill's sampled token may already hit EOS / max_new
+        if self.prefill_chunk is None:
+            if admitted:
+                self._prefill(admitted)
+                # prefill's sampled token may already hit EOS / max_new
+                finished += self._finish_done()
+        elif any(r.status is Status.PREFILLING
+                 for r in self.scheduler.running.values()):
+            # each PREFILLING row caches its share of one chunk budget;
+            # rows whose last chunk lands sample their first token
+            self._prefill_chunk_step()
             finished += self._finish_done()
         if self._any_running():
             self.scheduler.extend_for_decode()
@@ -211,11 +234,13 @@ class Engine:
                                  rid=src.rid, feature="fork_request")
 
     # ------------------------------------------------------------------
-    def _tables_array(self, decode: bool = False) -> torch.Tensor:
+    def _tables_np(self, decode: bool = False) -> np.ndarray:
         """Block tables for the batch (max_slots, 1, pages_per_seq), one
         row per live slot, -1 elsewhere.  ``decode=True`` leaves rows of
-        slots that are not RUNNING at -1.  A row outgrowing the device
-        table is a hard error (its KV tail would be dropped silently)."""
+        slots that are not RUNNING at -1 (a PREFILLING row must neither
+        receive the decode placeholder's K/V nor be attended over).  A row
+        outgrowing the device table is a hard error (its KV tail would be
+        dropped silently)."""
         t = np.full((self.max_slots, 1, self.pages_per_seq), -1, np.int32)
         for slot, req in self.scheduler.running.items():
             if decode and req.status is not Status.RUNNING:
@@ -228,12 +253,20 @@ class Engine:
                     f"(max_seq_len={self.max_seq_len}); refusing to "
                     f"truncate its KV tail silently", rid=req.rid)
             t[slot, 0, :len(row)] = row
-        return torch.from_numpy(t).to(self.device)
+        return t
+
+    def _tables_array(self, decode: bool = False) -> torch.Tensor:
+        return torch.from_numpy(self._tables_np(decode)).to(self.device)
 
     def _prefill(self, admitted: List[Tuple[int, Request]]) -> None:
         """Prefill newly admitted requests (sub-batch padded to max len)."""
         slots = [s for s, _ in admitted]
         reqs = [r for _, r in admitted]
+        if any(r.prefill_pos > 0 for r in reqs):
+            # a row attached to cached prefix pages: the wave runs through
+            # the chunk kernel, each row its un-cached suffix only
+            self._prefill_from(slots, reqs)
+            return
         toks = [r.prompt + r.output for r in reqs]  # preempted: re-prefill
         L = max(len(t) for t in toks)
         batch = np.zeros((len(reqs), L), np.int64)
@@ -253,7 +286,122 @@ class Engine:
         st["pos"][idx] = lens_t  # pools were written in place
         for i, r in enumerate(reqs):
             r.prefill_pos = int(lens[i])
+        self._cache_insert_live(reqs)
         self._sample_and_append(reqs, logits, first=True)
+
+    def _prefill_from(self, slots: List[int], reqs: List[Request]) -> None:
+        """Monolithic prefill resuming past cached prefixes: each row runs
+        its un-cached suffix (``q_start`` = matched tokens) through the
+        chunk kernel, attending back over the shared pages through its
+        block table (cold rows are ``q_start = 0``).  Reachable only with
+        the prefix cache on."""
+        toks = [r.prompt + r.output for r in reqs]
+        starts = np.asarray([r.prefill_pos for r in reqs], np.int32)
+        lens = np.asarray([len(t) for t in toks], np.int32)
+        q_lens = lens - starts  # >= 1: attach caps the match at total-1
+        B, C = len(reqs), int(q_lens.max())
+        batch = np.zeros((B, C), np.int64)
+        for i, t in enumerate(toks):
+            batch[i, :q_lens[i]] = t[starts[i]:lens[i]]
+        logits = self._run_chunk(slots, batch, starts, q_lens)
+        for i, r in enumerate(reqs):
+            r.prefill_pos = int(lens[i])
+        self._cache_insert_live(reqs)
+        self._sample_and_append(reqs, logits, first=True)
+
+    def _run_chunk(self, slots: List[int], batch: np.ndarray,
+                   starts: np.ndarray, q_lens: np.ndarray) -> torch.Tensor:
+        """One ``prefill_chunk`` call over the rows of ``batch`` (rows past
+        ``slots`` are dead padding); the live slots' positions advance to
+        ``starts + q_lens``.  Returns each row's last-live-token logits."""
+        n, B = len(slots), batch.shape[0]
+        tables = np.full((B, self.pages_per_seq), -1, np.int32)
+        tables[:n] = self._tables_np()[np.asarray(slots), 0]
+        st = self.state
+        sub_state = {"k_pages": st["k_pages"], "v_pages": st["v_pages"],
+                     "tables": torch.from_numpy(tables).to(self.device)}
+        q_start = torch.from_numpy(starts).to(self.device)
+        q_len_t = torch.from_numpy(q_lens).to(self.device)
+        logits, _ = self.model.prefill_chunk(
+            self.params, torch.from_numpy(batch).to(self.device), sub_state,
+            q_start=q_start, q_lens=q_len_t, impl=self.impl,
+            pages_per_block=self.pages_per_block,
+            num_splits=self.num_splits)
+        idx = torch.as_tensor(slots, device=self.device)
+        st["pos"][idx] = (q_start + q_len_t)[:n]  # pools written in place
+        return logits
+
+    def _cache_insert_live(self, reqs: List[Request]) -> None:
+        """Index each request's written full pages into the prefix cache
+        (progressive insert: a request sharing a prompt head hits on pages
+        written earlier in the same wave, not only after release).
+        Callers set ``req.prefill_pos`` to the written token count first;
+        ``insert`` skips partial pages."""
+        if self.prefix_cache is None:
+            return
+        for r in reqs:
+            row = self.mgr.tables.get(r.rid)
+            if row:
+                self.prefix_cache.insert(r.prompt + r.output, row,
+                                         r.prefill_pos)
+
+    def _prefill_chunk_step(self) -> None:
+        """Advance the PREFILLING requests by one ``prefill_chunk`` budget.
+
+        The budget is global across the prefill sub-batch: the rows split
+        one chunk, oldest slot first, so a step's prefill work never
+        scales with the number of prefills.  Each installment is reserved
+        chunk-wise (`Scheduler.grow_prefill`); a request whose installment
+        cannot get pages stalls this step and resumes from its cached
+        pages later.  The sub-batch has the fixed shape (max_slots,
+        prefill_chunk): padding rows are dead (tables -1, ``q_lens`` 0,
+        ``q_start`` 1).  When a request's last chunk lands it turns
+        RUNNING and samples its first token.
+        """
+        budget = self.prefill_chunk
+        sel: List[Tuple[int, Request, int, int]] = []
+        for slot in sorted(self.scheduler.running):
+            if budget <= 0:
+                break
+            # re-fetch per slot: grow_prefill below may preempt a
+            # PREFILLING victim in a slot this loop has not visited yet
+            req = self.scheduler.running.get(slot)
+            if req is None or req.status is not Status.PREFILLING:
+                continue
+            want = min(budget, req.total_len - req.prefill_pos)
+            if not self.scheduler.grow_prefill(req, want):
+                continue  # stalled: keeps its pages, resumes next step
+            start = req.prefill_pos
+            q_len = min(want, req.total_len - start)
+            sel.append((slot, req, start, q_len))
+            budget -= q_len
+        # grow_prefill may have preempted rows selected earlier
+        sel = [x for x in sel if self.scheduler.running.get(x[0]) is x[1]]
+        if not sel:
+            return
+        B, C = self.max_slots, self.prefill_chunk
+        batch = np.zeros((B, C), np.int64)
+        q_lens = np.zeros((B,), np.int32)
+        starts = np.ones((B,), np.int32)  # dead rows pose as resumes
+        for i, (_, req, st0, ql) in enumerate(sel):
+            batch[i, :ql] = (req.prompt + req.output)[st0:st0 + ql]
+            starts[i] = st0
+            q_lens[i] = ql
+        logits = self._run_chunk([s for s, _, _, _ in sel], batch, starts,
+                                 q_lens)
+
+        done_rows, done_reqs = [], []
+        for i, (_, req, st0, ql) in enumerate(sel):
+            req.prefill_pos = st0 + ql
+            if req.prefill_pos >= req.total_len:  # last chunk landed
+                req.status = Status.RUNNING
+                done_rows.append(i)
+                done_reqs.append(req)
+        self._cache_insert_live([r for _, r, _, _ in sel])
+        if done_reqs:
+            rows = torch.as_tensor(done_rows, device=self.device)
+            self._sample_and_append(done_reqs, logits[rows],
+                                    first=True)
 
     def _decode(self) -> None:
         st = dict(self.state)
@@ -340,10 +488,16 @@ class Engine:
         live_tokens = sum(r.total_len
                           for r in self.scheduler.running.values())
         minimum = live_tokens * 2 * n_attn * Hkv * hd * item
+        pc = self.prefix_cache
         return {
             "pool_bytes": float(cache_bytes),
             "reserved_bytes": float(reserved),
             "theoretical_min_bytes": float(minimum),
             "overhead_frac": (reserved / minimum - 1.0) if minimum else 0.0,
             "used_pages": float(self.mgr.used_pages),
+            # prefix-cache residency: `cached_pages` are indexed in the
+            # radix trie; the `reclaimable` subset is evictable on demand
+            "cached_pages": float(pc.resident_pages) if pc else 0.0,
+            "reclaimable_pages": float(pc.reclaimable()) if pc else 0.0,
+            "prefix_hit_tokens": float(pc.hit_tokens) if pc else 0.0,
         }

@@ -2,7 +2,8 @@
 engine gives the JAX ``Engine(impl="ref")``'s tokens, token for token,
 with the same preemptions (8 slots, an oversubscribed pool); the sampler's
 top-k / top-p masks equal the JAX ones on the same logits; the engine's
-unported features raise ``UnsupportedFeature``."""
+unported features (fault injection, the contiguous baseline,
+``fork_request``) raise ``UnsupportedFeature``."""
 
 import jax
 import jax.numpy as jnp
@@ -82,8 +83,7 @@ def test_sampler_masks_match_reference():
 
 def test_unported_features_raise():
     cfg = tget_smoke("llama2-7b")
-    for kw in (dict(prefill_chunk=8), dict(prefix_cache=True),
-               dict(faults=object()), dict(paged=False)):
+    for kw in (dict(faults=object()), dict(paged=False)):
         with pytest.raises(UnsupportedFeature):
             Engine(cfg, device="cpu", **kw)
     eng = Engine(cfg, device="cpu", max_slots=2, max_seq_len=32)
