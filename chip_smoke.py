@@ -6,7 +6,9 @@
 Phases, each of which fails the script (exit code 1) when it fails:
 
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
-   sm_90a) and print the card's name and power limit;
+   sm_90a), print the card's name and power limit, the registers, shared
+   memory and spills of the tensor-core kernels (``-Xptxas -v``), and the
+   count of HGMMA (wgmma) instructions in the library, which must not be 0;
 2. kernels: each hand-written kernel — K1 paged decode partials, K2 split-K
    combine, K3 chunked paged prefill partials, K4 flex prefill — against
    its plain PyTorch version on the card, at the full-width llama2-7b
@@ -16,8 +18,14 @@ Phases, each of which fails the script (exit code 1) when it fails:
    1536) and on small sweeps (GQA, window, softcap, int8, D = 64, split-K,
    q_block 1 and 3, single-token chunks, Q-blocks over 128 rows), in f32
    (tolerance 2e-5) and bf16 (2e-2), with |a - b| <= tol * (1 + |b|).
-   Times: kernel, plain version, the bound the card sets, and one PyTorch
-   library call for the same function;
+   K3 and K4 have two routes each: bf16 runs the tensor-core kernels
+   ("_tc": wgmma, K/V by TMA), f32 (and K3's int8 pools) the CUDA-core
+   kernels ("_simt"); each route is checked and timed under its own name.
+   Edge cases of the tensor-core tile: K4 at Q = K = 2048, K3 resuming at
+   1536 over a full 32-page table, Q-blocks of 128 and 120 rows.  Times:
+   kernel, plain version, the bound the card sets, and one PyTorch library
+   call for the same function (K4: SDPA with the causal & padding mask;
+   the causal-only SDPA time is printed beside it);
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
    steps through the kernels agree with the plain oracle path; chunked
    prefill in chunks of 96 through K3 agrees with the monolithic prefill
@@ -28,13 +36,16 @@ Phases, each of which fails the script (exit code 1) when it fails:
    served by ``repro_torch.serving.Engine``: 8 slots, max_seq_len 2048,
    12 greedy requests with prompts of 256..1536 tokens and 32 new tokens
    each, monolithic prefill.  Kernel launch counts are reset just before
-   and read just after: K1, K2 and K4 must have launched, K3 not;
+   and read just after: K1, K2 and K4's tensor-core route must have
+   launched, K3 and K4's CUDA-core route not;
 5. chunked: the same weights served with ``prefill_chunk=512`` and
    ``prefix_cache=True``: a wave of 4 requests, then a wave of 8, each
    prompt a shared 1024-token head plus its own 128..512-token tail, 32
    new tokens each.  Counts reset before the first wave and read after
-   the second: K1 and K3 must have launched, K4 not, and the second
-   wave must hit at least 8 x 1024 cached tokens.
+   the second: K1 and K3's tensor-core route must have launched, K4 and
+   K3's CUDA-core route not, and the second wave must hit at least
+   8 x 1024 cached tokens.  The profiled steps of both phases must
+   attribute device time to K4 (prefill step) and K3 (chunk step).
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -58,6 +69,11 @@ MODEL_TOL = 1e-3  # f32 logits, 4 layers at d_model 4096: summation order
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no tensor-core f32
 SEED = 0
+# profiler names of the kernels, by kernel and route (substrings)
+KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
+                "paged_prefill_simt": "paged_prefill_kernel<",
+                "flex_prefill_tc": "flex_fwd_kernel_tc<",
+                "flex_prefill_simt": "flex_fwd_kernel<"}
 
 
 def fail(msg):
@@ -299,8 +315,13 @@ def kernel_phase(torch, chk):
     plens_t = torch.tensor(plens, dtype=torch.int32, device=dev)
     mm = flex.and_masks(flex.causal_mask, flex.padding_mask(plens_t))
     bm = flex.build_block_mask(mm, Q, Q, 128, 128, B=Bf, device=dev)
+    # exactly K4's function for SDPA: causal and padding as a boolean mask
+    exact = (torch.ones(Q, Q, dtype=torch.bool, device=dev).tril()[None]
+             & (torch.arange(Q, device=dev)[None, None, :]
+                < plens_t[:, None, None]))[:, None]
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype).replace("torch.", "")
+        key = "flex_prefill_" + fa.flex_route(dtype)
         shape = (Bf, Hf, Q, D)
         q = torch.randn(shape, generator=gen, device=dev).to(dtype)
         k = torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -309,29 +330,45 @@ def kernel_phase(torch, chk):
         got = fa.flex_attention_kernel(q, k, v, bm, **kw)
         want = fa._flex_attention_plain(q, k, v, bm, **kw)
         torch.cuda.synchronize()
-        chk.close("flex_prefill", f"{name} main causal&padding", got, want,
-                  tol)
+        chk.close(key, f"{name} main causal&padding", got, want, tol)
         k4_ms = time_ms(torch, lambda: fa.flex_attention_kernel(
             q, k, v, bm, **kw), reps=5)
         k4_plain = time_ms(torch, lambda: fa._flex_attention_plain(
             q, k, v, bm, **kw), reps=3, warmup=1)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=exact), reps=5)
+        lib_causal = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=5)
         pairs = sum(min(qq + 1, L) for L in plens for qq in range(Q))
         ops = 4 * D * Hf * pairs
         nbytes = 4 * q.numel() * q.element_size()
         k4_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
         k4_dev = device_ms(torch, lambda: fa.flex_attention_kernel(
-            q, k, v, bm, **kw), "flex_fwd_kernel", reps=3)
-        log(f"  flex_prefill {name}: kernel {k4_ms:.3f} ms (device "
+            q, k, v, bm, **kw), KERNEL_NAMES[key], reps=3)
+        log(f"  {key} {name}: kernel {k4_ms:.4f} ms (device "
             f"{fmt(k4_dev)}), plain {k4_plain:.3f} ms, bound {k4_bound:.4f} "
-            f"ms (operations), SDPA causal (no padding mask) {lib:.3f} ms")
-        rows[("flex_prefill", name)] = dict(ms=k4_ms, device_ms=k4_dev,
-                                            plain_ms=k4_plain,
-                                            bound_ms=k4_bound,
-                                            bound_by="operations",
-                                            library_ms=lib)
+            f"ms (operations), SDPA with the causal & padding mask "
+            f"{lib:.4f} ms (SDPA causal only, not the same function: "
+            f"{lib_causal:.4f} ms)")
+        rows[(key, name)] = dict(ms=k4_ms, device_ms=k4_dev,
+                                 plain_ms=k4_plain, bound_ms=k4_bound,
+                                 bound_by="operations", library_ms=lib,
+                                 library_causal_only_ms=lib_causal)
         del q, k, v, got, want
+    del exact
+
+    # K4 at max_seq_len: the TMA ring over 16 kv tiles per q tile
+    Q2 = 2048
+    l2 = torch.tensor([Q2, 1500], dtype=torch.int32, device=dev)
+    m2 = flex.and_masks(flex.causal_mask, flex.padding_mask(l2))
+    bm2 = flex.build_block_mask(m2, Q2, Q2, 128, 128, B=2, device=dev)
+    q, k, v = (torch.randn((2, Hf, Q2, D), generator=gen, device=dev
+                           ).to(torch.bfloat16) for _ in range(3))
+    kw = dict(scale=D ** -0.5, mask_mod=m2, q_len=Q2, kv_len=Q2)
+    chk.close("flex_prefill_tc", "bfloat16 B2 H32 Q=K=2048 causal&padding",
+              fa.flex_attention_kernel(q, k, v, bm2, **kw),
+              fa._flex_attention_plain(q, k, v, bm2, **kw), BF16_TOL)
+    del q, k, v
 
     # -- K4 sweep: ragged tiles, GQA, D=64, every mask variant -----------
     cases = [  # (B, H, Hkv, Q, D, mask, q_block, kv_block)
@@ -373,7 +410,7 @@ def kernel_phase(torch, chk):
                 F.pad(q, (0, 0, 0, pq)), F.pad(k, (0, 0, 0, pk)),
                 F.pad(v, (0, 0, 0, pk)), bms, scale=Dd ** -0.5,
                 mask_mod=mod, q_len=Qs, kv_len=Qs)[:, :, :Qs]
-            chk.close("flex_prefill",
+            chk.close("flex_prefill_" + fa.flex_route(dtype),
                       f"{name} B{Bs} H{Hs}/{Hk} Q{Qs} D{Dd} {mname} "
                       f"tiles {qbb}x{kbb}", got, want, tol)
     rows.update(prefill_kernel_phase(torch, chk, gen))
@@ -425,6 +462,7 @@ def prefill_kernel_phase(torch, chk, gen):
         f"q_start={q_start} q_lens={q_lens}")
     for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
         name = str(dtype).replace("torch.", "")
+        key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
         q, kp, vp, tables, kv_lens, qs = chunk_inputs(
             torch, gen, H, 1, D, P, max_pages, q_start, q_lens, dtype, dev)
         kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=0.0,
@@ -434,14 +472,14 @@ def prefill_kernel_phase(torch, chk, gen):
         want = pa._paged_prefill_partials_plain(*args, **kw)
         torch.cuda.synchronize()
         for part, g_, w_ in zip("m l acc".split(), got, want):
-            chk.close("paged_prefill", f"{name} main {part}", g_, w_, tol)
+            chk.close(key, f"{name} main {part}", g_, w_, tol)
         del want
         k3_ms = time_ms(torch, lambda: pa.paged_prefill_partials(*args, **kw),
                         reps=5)
         k3_plain = time_ms(torch, lambda: pa._paged_prefill_partials_plain(
             *args, **kw), reps=3, warmup=1)
         k3_dev = device_ms(torch, lambda: pa.paged_prefill_partials(
-            *args, **kw), "paged_prefill_kernel", reps=3)
+            *args, **kw), KERNEL_NAMES[key], reps=3)
         # library yardstick: SDPA over K/V pre-gathered into contiguous
         # form, with the causal-offset mask as a boolean attn_mask (the
         # gather is not timed; the dead rows' all-false masks are moot)
@@ -467,31 +505,42 @@ def prefill_kernel_phase(torch, chk, gen):
         k3_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
         k3_by = "operations" if ops / PEAK_OPS[name] > nbytes / HBM_BPS \
             else "bytes"
-        log(f"  paged_prefill {name}: kernel {k3_ms:.4f} ms (device "
+        log(f"  {key} {name}: kernel {k3_ms:.4f} ms (device "
             f"{fmt(k3_dev)}), plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
             f"ms ({k3_by}: {ops:.3e} flop, {nbytes:.3e} B), SDPA with a "
             f"causal-offset mask over pre-gathered KV {lib:.4f} ms")
-        rows[("paged_prefill", name)] = dict(
+        rows[(key, name)] = dict(
             ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain, bound_ms=k3_bound,
             bound_by=k3_by, library_ms=lib)
         del q, kp, vp, kc, vc, got, mask
 
     # -- K3 sweep: GQA, D=64, softcap, int8, split-K through K2, q_block
     #    1 and 3, single-token chunk rows, R > 128 (three row tiles)
+    both = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
+    bf16 = ((torch.bfloat16, BF16_TOL),)
     sweep = [  # (G, D, P, max_pages, q_start, q_lens, ppb, S, q_block,
-        #         softcap, int8)
-        (4, 128, 16, 9, [100, 0, 1], [40, 37, 0], 2, 1, 32, 0.0, False),
-        (1, 64, 16, 9, [17, 60], [50, 13], 1, 2, 3, 30.0, False),
-        (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, True),
-        (8, 64, 16, 6, [20, 33], [45, 1], 3, 2, 40, 0.0, False),
-        (2, 64, 16, 9, [16, 130, 7], [1, 1, 1], 1, 2, 1, 0.0, True),
+        #         softcap, int8, dtypes)
+        (4, 128, 16, 9, [100, 0, 1], [40, 37, 0], 2, 1, 32, 0.0, False, both),
+        (1, 64, 16, 9, [17, 60], [50, 13], 1, 2, 3, 30.0, False, both),
+        (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, True, both),
+        (8, 64, 16, 6, [20, 33], [45, 1], 3, 2, 40, 0.0, False, both),
+        (2, 64, 16, 9, [16, 130, 7], [1, 1, 1], 1, 2, 1, 0.0, True, both),
+        # the tensor-core tile's edges, in bf16: a 512-token chunk resuming
+        # at 1536 over a full 32-page table (kv 2048, 32 heads); Q-blocks
+        # of R = q_block * G = 128 and 120 rows (not a multiple of 64)
+        (1, 128, 64, 32, [1536, 1000], [512, 300], 2, 1, 128, 0.0, False,
+         bf16),
+        (4, 128, 16, 9, [40, 3], [70, 64], 2, 1, 32, 0.0, False, bf16),
+        (8, 128, 16, 9, [0, 21], [45, 30], 2, 2, 15, 0.0, False, bf16),
     ]
-    for G, Dd, Ps, mp, qst, qln, sp_ppb, sp_ns, sp_qb, cap, int8 in sweep:
-        for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
+    for (G, Dd, Ps, mp, qst, qln, sp_ppb, sp_ns, sp_qb, cap, int8,
+         dtypes) in sweep:
+        for dtype, tol in dtypes:
             name = str(dtype).replace("torch.", "")
-            args = chunk_inputs(torch, gen, 2, G, Dd, Ps, mp, qst, qln, dtype,
-                                dev, int8=int8)
+            key = "paged_prefill_" + pa.prefill_route(
+                dtype, torch.int8 if int8 else dtype, Ps)
+            args = chunk_inputs(torch, gen, 32 if mp == 32 else 2, G, Dd, Ps,
+                                mp, qst, qln, dtype, dev, int8=int8)
             kw = dict(scale=Dd ** -0.5, softcap=cap,
                       kv_scale=0.05 if int8 else 0.0,
                       pages_per_block=sp_ppb, num_splits=sp_ns,
@@ -501,7 +550,7 @@ def prefill_kernel_phase(torch, chk, gen):
             tag = (f"{name} G{G} D{Dd} q_block{sp_qb} S{sp_ns} cap{cap:g} "
                    f"{'int8' if int8 else ''}")
             for part, g_, w_ in zip("m l acc".split(), got, want):
-                chk.close("paged_prefill", f"{tag} {part}", g_, w_, tol)
+                chk.close(key, f"{tag} {part}", g_, w_, tol)
             S = got[0].shape[3]
             folded = [fold_prefill(x, S) for x in got]
             chk.close("combine", f"prefill {tag}",
@@ -703,8 +752,9 @@ def engine_phase(torch):
     wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
     counts = kernels.launch_counts()
     check_path("engine", eng, reqs, new, counts,
-               must=("paged_decode", "combine", "flex_prefill"),
-               never=("paged_prefill",))
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc"),
+               never=("paged_prefill", "flex_prefill/simt"))
     ttft = sorted(r.metrics["ttft_s"] for r in reqs)
     new_tokens = sum(len(r.output) for r in reqs)
     stats = dict(
@@ -737,6 +787,8 @@ def engine_phase(torch):
     stats["profile_decode_step"] = profile_steps(torch, eng, 3)
     for name in ("prefill_step", "decode_step"):
         log_profile(name, stats["profile_" + name])
+    check_attributed("prefill_step", stats["profile_prefill_step"],
+                     "K4 flex_prefill")
     return stats, eng.params
 
 
@@ -796,8 +848,8 @@ def chunked_phase(torch, params):
             f"prefix hit tokens {w['prefix_hit_tokens']}")
     counts = kernels.launch_counts()
     check_path("chunked", eng, all_reqs, new, counts,
-               must=("paged_decode", "paged_prefill"),
-               never=("flex_prefill",))
+               must=("paged_decode", "paged_prefill", "paged_prefill/tc"),
+               never=("flex_prefill", "paged_prefill/simt"))
     if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
         fail(f"chunked: wave B hit {waves['B']['prefix_hit_tokens']} "
              f"cached tokens, fewer than 8 x {head_len}")
@@ -821,6 +873,8 @@ def chunked_phase(torch, params):
         eng.add_request(r)
     stats["profile_chunk_step"] = profile_steps(torch, eng, 1)
     log_profile("chunk_step", stats["profile_chunk_step"])
+    check_attributed("chunk_step", stats["profile_chunk_step"],
+                     "K3 paged_prefill")
     return stats
 
 
@@ -829,6 +883,14 @@ KINDS = (("K1 paged_decode", ("paged_decode_kernel",)),
          ("K3 paged_prefill", ("paged_prefill_kernel",)),
          ("K4 flex_prefill", ("flex_fwd_kernel",)),
          ("matmul", ("gemm", "gemv", "nvjet", "cutlass", "xmma")))
+
+
+def check_attributed(step, prof, kind):
+    """Fail when the profiler saw device time but none of it under the
+    kernel ``kind`` that the step runs (a kernel name KINDS misfiles)."""
+    if prof["device_ms"] and prof["by_kind"][kind] <= 0:
+        fail(f"profile {step}: no device time attributed to {kind} "
+             f"({prof['by_kind']})")
 
 
 def profile_steps(torch, eng, n):
@@ -860,6 +922,30 @@ def profile_steps(torch, eng, n):
                 by_kind={k: round(v, 4) for k, v in by_kind.items()})
 
 
+def log_ptxas(text):
+    """Registers, shared memory and spills of the tensor-core kernels, from
+    nvcc's -Xptxas -v report (empty when the library was cached)."""
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "_tc" in line:
+            fn = line.split("'")[1] if "'" in line else line
+            info = [x.split("ptxas info    : ")[-1].strip()
+                    for x in lines[i + 1:i + 4]
+                    if "Used" in x or "spill" in x]
+            log(f"  ptxas {fn}: {'; '.join(info)}")
+
+
+def count_hgmma(lib):
+    """HGMMA (wgmma) instructions in the library's SASS, by cuobjdump."""
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    out = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
+                          "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode:
+        fail(f"cuobjdump failed: {out.stderr[-2000:]}")
+    return sum("HGMMA" in line for line in out.stdout.splitlines())
+
+
 def main():
     try:
         import torch
@@ -880,6 +966,14 @@ def main():
     build.get_lib()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s "
         f"(nvcc {build.build_seconds:.1f} s)")
+    OUT.mkdir(exist_ok=True)
+    (OUT / "build_log.txt").write_text(build.build_log)
+    log_ptxas(build.build_log)
+    hgmma = count_hgmma(build.library_path())
+    log(f"HGMMA instructions in the built library: {hgmma}")
+    if hgmma <= 0:
+        fail("the library holds no HGMMA: the tensor-core kernels do not "
+             "use wgmma")
 
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
@@ -890,26 +984,30 @@ def main():
     chunked = chunked_phase(torch, params)
 
     src = "src/repro_torch/csrc/"
-    meta = {
+    k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
+          "paged_attention.py:440", "paged_prefill")
+    k4 = ("flex_prefill.cu", "src/repro/kernels/flex_attention/"
+          "flex_attention.py:38", "flex_prefill")
+    meta = {  # line name: (source, TPU kernel, launch-count key, dtype)
         "paged_decode": ("paged_decode.cu", "src/repro/kernels/"
-                         "paged_attention/paged_attention.py:223"),
+                         "paged_attention/paged_attention.py:223",
+                         "paged_decode", "bfloat16"),
         "combine": ("combine.cu", "src/repro/kernels/paged_attention/"
-                    "paged_attention.py:161"),
-        "paged_prefill": ("paged_prefill.cu", "src/repro/kernels/"
-                          "paged_attention/paged_attention.py:440"),
-        "flex_prefill": ("flex_prefill.cu", "src/repro/kernels/"
-                         "flex_attention/flex_attention.py:38"),
+                    "paged_attention.py:161", "combine", "bfloat16"),
+        "paged_prefill_tc": k3[:2] + ("paged_prefill/tc", "bfloat16"),
+        "paged_prefill_simt": k3[:2] + ("paged_prefill/simt", "float32"),
+        "flex_prefill_tc": k4[:2] + ("flex_prefill/tc", "bfloat16"),
+        "flex_prefill_simt": k4[:2] + ("flex_prefill/simt", "float32"),
     }
     kernels_line = []
-    for name, (fname, replaces) in meta.items():
-        r = rows[(name, "bfloat16")]
+    for name, (fname, replaces, count, dtype) in meta.items():
+        r = rows[(name, dtype)]
         kernels_line.append(dict(
             name=name, route="cuda", source=src + fname, replaces=replaces,
-            launches=engine["launches"][name] + chunked["launches"][name],
+            launches=engine["launches"][count] + chunked["launches"][count],
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
-    OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke_last.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},

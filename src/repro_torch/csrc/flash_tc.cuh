@@ -1,0 +1,535 @@
+// The shared bf16 flash-attention tile of K3 and K4 on Hopper tensor cores.
+//
+// Replaces the TPU kernels' inner loops: repro/kernels/flex_attention/
+// flex_attention.py::_flex_kernel (K4, csrc/flex_prefill.cu) and
+// repro/kernels/paged_attention/paged_attention.py::_prefill_kernel (K3,
+// csrc/paged_prefill.cu) for bf16 inputs.  A CTA of two consumer warpgroups
+// (256 threads) holds up to 128 query rows, 64 per warpgroup, and walks a
+// list of K/V tiles of kBN = 128 keys that its kernel defines:
+//
+//   S = Q K^T      wgmma m64n128k16, bf16 in, f32 out, Q and K from shared
+//                  memory (K-major, 128-byte swizzle);
+//   softmax        online, in f32 on the accumulator fragment: each thread
+//                  holds two rows, reduced over the quad of lanes sharing
+//                  them; the running sum is rescaled by alpha;
+//   O += P V       P rounded to bf16 and fed from registers as the A
+//                  operand (the accumulator fragment is already A's
+//                  layout), V from shared memory as the transposed
+//                  (MN-major) B operand, wgmma m64n{D}k16.  K4 normalises
+//                  its output, so one bf16 term of P is enough; K3 emits
+//                  un-normalised partials summed over up to thousands of
+//                  keys, where one term's 2^-9 rounding exceeds the bf16
+//                  tolerance, so it feeds P as hi + lo (two products).
+//
+// K/V tiles arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle, boxes of
+// 64 columns) into a ring of kStages = 3 stages with a "full" and an "empty"
+// mbarrier each: thread 0 keeps the next two tiles in flight while tile i
+// computes, refilling a stage once all eight warps have released it.  The
+// warpgroups never wait for each other at a CTA barrier, so one's softmax
+// can overlap the other's products.  Q is loaded once, while the first
+// tiles are in flight, by plain 16-byte loads stored in the same swizzled
+// layout (the kernels' rows are gathered: GQA rows of K3, ragged tiles of
+// K4).  The softmax scale is folded into the exponent.  Masks apply in
+// registers, and only on tiles whose live columns stop short of kBN for one
+// of the thread's rows: every mask of K3 and K4 is "column < limit(row)".
+//
+// What bounds it: at the main paths' shapes (prompts of 1536, chunks of
+// 512 over ~1300 cached keys) q.K and p.V are bound by operations (about
+// 4 D flops per key and row against 4 D bytes per key), so the products
+// run on the tensor cores, which are the only way to the card's bf16 rate;
+// the loads in flight keep them fed.  Inside a warpgroup the softmax is
+// not overlapped with the products yet (no FA3-style ping-pong schedule).
+//
+// Shared memory at D = 128: Q 32 KB + 3 stages x (K 32 KB + V 32 KB) =
+// 224 KB of the 227 KB (D = 64: 112 KB), above the 48 KB default, hence
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  Every tile is placed at a
+// multiple of 1024 bytes, the period of the 128-byte swizzle.
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
+
+#include "common.cuh"
+
+namespace flash_tc {
+
+constexpr int kThreads = 256;  // two consumer warpgroups
+constexpr int kRows = 128;     // query rows per CTA, 64 per warpgroup
+constexpr int kBN = 128;       // keys per K/V tile
+constexpr int kStages = 3;
+constexpr int kPanelBytes = kRows * 128;  // 128 rows x 64 bf16: one panel
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Byte offsets in the (1024-aligned) dynamic shared memory of a CTA.
+template <int D>
+struct Layout {
+  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int kPanels = D / 64;
+  static constexpr int kTile = kPanels * kPanelBytes;  // Q, or one K/V stage
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBar = kV + kStages * kTile;  // full, then empty
+  // dynamic shared memory to request: 1024 bytes of alignment slack
+  static constexpr size_t kBytes = 1024 + kBar + 16 * kStages;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers and TMA -------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Spin until the barrier's phase with parity `parity` has completed.  A
+// load that never lands (a bad tensor map) traps after ~2^26 polls, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// One 2-D box of a tensor map into shared memory; completes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Generic-proxy shared-memory writes become visible to TMA and wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// -- wgmma -------------------------------------------------------------------
+// Shared-memory matrix descriptor, 128-byte swizzle.  K-major operands (Q,
+// K): 8-row groups 1024 bytes apart (SBO); the leading offset is unused.
+// MN-major V: 8-key groups 1024 bytes apart (SBO), 64-column panels `lbo`
+// bytes apart (LBO).
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo) {
+  const uint64_t enc_addr = (addr & 0x3FFFF) >> 4;
+  const uint64_t enc_lbo = (lbo & 0x3FFFF) >> 4;
+  const uint64_t enc_sbo = 1024 >> 4;
+  return enc_addr | (enc_lbo << 16) | (enc_sbo << 32) | (1ull << 62);
+}
+
+// 2^x by the special-function unit; flushes denormals, so 2^(-huge) = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from reading accumulators before wgmma_wait0.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= a[64 x 16] * b[16 x 128]: a and b K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d[64 x 128] += a[64 x 16] * b[16 x 128]: a as bf16 pairs in registers, b
+// MN-major in shared memory (128-byte swizzle, transposed operand).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, {%64, %65, %66, %67}, %68, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += a[64 x 16] * b[16 x 64]: a as bf16 pairs in registers, b
+// MN-major in shared memory (128-byte swizzle, transposed operand).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t* a, uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x = lo, low 16 bits
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// -- the CTA ---------------------------------------------------------------
+// Aligns the dynamic shared memory to 1024 bytes; returns its shared address
+// and sets `gen` to the same place as a generic pointer.
+__device__ __forceinline__ uint32_t smem_base(uint8_t* raw, uint8_t** gen) {
+  const uint32_t a = smem_u32(raw);
+  const uint32_t base = (a + 1023u) & ~1023u;
+  *gen = raw + (base - a);
+  return base;
+}
+
+// Store query row `row` (D bf16 at `src`, or zeros when null) into the
+// swizzled Q tile: 16-byte chunk c of a row lands at chunk c ^ (row % 8)
+// of its 128-byte panel row, as TMA's 128-byte swizzle places it.
+template <int D>
+__device__ __forceinline__ void store_q_chunk(uint8_t* q_s, int row, int ch,
+                                              const __nv_bfloat16* src) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (src != nullptr) v = __ldg(reinterpret_cast<const uint4*>(src + ch * 8));
+  const int panel = ch / 8, cw = ch % 8;
+  *reinterpret_cast<uint4*>(q_s + panel * kPanelBytes + row * 128 +
+                            ((cw ^ (row & 7)) << 4)) = v;
+}
+
+// The ring's barriers: full[s] completes when stage s's boxes have landed,
+// empty[s] when every warp is done reading the tile in stage s.
+template <int D>
+__device__ __forceinline__ uint32_t full_bar(uint32_t base, int s) {
+  return base + Layout<D>::kBar + 8 * s;
+}
+template <int D>
+__device__ __forceinline__ uint32_t empty_bar(uint32_t base, int s) {
+  return base + Layout<D>::kBar + 8 * (kStages + s);
+}
+
+// Zero the V ring (tile rows that no box fills must not hold NaN bit
+// patterns: P is 0 there, but 0 * NaN is NaN), set up the barriers, and
+// make both visible to the async proxy.  The CTA's first step.
+template <int D>
+__device__ __forceinline__ void init_ring(uint8_t* gen, uint32_t base) {
+  using L = Layout<D>;
+  for (int off = threadIdx.x * 16; off < kStages * L::kTile;
+       off += kThreads * 16)
+    *reinterpret_cast<uint4*>(gen + L::kV + off) = make_uint4(0u, 0u, 0u, 0u);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full_bar<D>(base, s), 1);  // the producer's expect_tx
+      mbar_init(empty_bar<D>(base, s), kThreads / 32);  // one per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// Tile j's boxes into its stage of the ring (thread 0 only).
+template <int D, class Tile>
+__device__ __forceinline__ void issue_tile(const Tile& t, uint32_t base,
+                                           int j) {
+  using L = Layout<D>;
+  const int s = j % kStages;
+  t.issue(j, base + L::kK + s * L::kTile, base + L::kV + s * L::kTile,
+          full_bar<D>(base, s));
+}
+
+// Thread 0 starts the loads of the first kStages - 1 tiles, before the CTA
+// stores its Q tile, so that they are in flight meanwhile.
+template <int D, class Tile>
+__device__ __forceinline__ void prefetch(const Tile& t, uint32_t base, int n) {
+  if (threadIdx.x == 0)
+    for (int j = 0; j < kStages - 1 && j < n; ++j) issue_tile<D>(t, base, j);
+}
+
+// The Q tile's plain stores become visible to wgmma.
+__device__ __forceinline__ void q_ready() {
+  fence_proxy_async();
+  __syncthreads();
+}
+
+// Per-thread results of the main loop: the thread's two rows are
+// row(0) = 64 * warpgroup + 16 * warp + lane / 4 and row(1) = row(0) + 8;
+// o[4 j + 2 h + e] is row h, column 8 j + 2 (lane % 4) + e.
+template <int D>
+struct Acc {
+  float o[D / 2];
+  float m[2];  // row max (natural-log units), REPRO_NEG_INF when empty
+  float l[2];  // sum of exp(s - m) over the row, reduced over the quad
+};
+
+__device__ __forceinline__ int thread_row(int h) {
+  const int t = threadIdx.x;
+  return (t / 128) * 64 + ((t % 128) / 32) * 16 + (t % 32) / 4 + 8 * h;
+}
+
+__device__ __forceinline__ int thread_col(int j, int e) {
+  return 8 * j + 2 * (threadIdx.x % 4) + e;
+}
+
+// The flash loop over `n` K/V tiles, after init_ring, prefetch and
+// q_ready.  Tile provides
+//   void issue(int i, uint32_t k_dst, uint32_t v_dst, uint32_t bar) const
+//       thread 0 only: expect_tx on `bar` and the TMA boxes of tile i
+//       (i increasing from 0);
+//   int limit(int i, int key) const
+//       live columns of tile i for a row whose row_key is `key`: [0, limit);
+//   bool transform() const, float score(float qk) const
+//       when transform() (softcap), scores are score(q.k), else q.k itself;
+//   float exp_scale, m_scale
+//       score units -> log2 units of exp, and -> the natural units of m;
+//   static constexpr int kPTerms
+//       1: P enters p.V as one bf16 value; 2: as hi + lo, two bf16 values
+//       (about 16 bits), at one more p.V product per tile, for partials
+//       that stay un-normalised over thousands of keys;
+// and `key[h]` is the tile-independent row_key of the thread's rows.
+template <int D, class Tile>
+__device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
+                                         const int (&key)[2], Acc<D>& a) {
+  using L = Layout<D>;
+  const int wg = threadIdx.x / 128;
+  const bool producer = threadIdx.x == 0;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) a.o[i] = 0.f;
+  a.m[0] = a.m[1] = REPRO_NEG_INF;
+  a.l[0] = a.l[1] = 0.f;
+  const uint32_t q_s = base + L::kQ + wg * 64 * 128;
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i % kStages;
+    // keep kStages - 1 tiles in flight: tile j goes into the stage that
+    // tile j - kStages = i - 1 held, once every warp has released it (the
+    // warpgroups run unsynchronised, so one's softmax can overlap the
+    // other's products)
+    const int j = i + kStages - 1;
+    if (producer && j < n) {
+      if (j >= kStages)
+        mbar_wait(empty_bar<D>(base, j % kStages), ((j / kStages) - 1) & 1);
+      issue_tile<D>(t, base, j);
+    }
+    mbar_wait(full_bar<D>(base, st), (i / kStages) & 1);
+    const uint32_t k_s = base + L::kK + st * L::kTile;
+    const uint32_t v_s = base + L::kV + st * L::kTile;
+
+    float s[64];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
+      wgmma_ss_n128(s, make_desc(q_s + off, 16), make_desc(k_s + off, 16),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    if (t.transform()) {
+#pragma unroll
+      for (int x = 0; x < 64; ++x) s[x] = t.score(s[x]);
+    }
+    const int lim0 = t.limit(i, key[0]), lim1 = t.limit(i, key[1]);
+    if (lim0 < kBN || lim1 < kBN) {
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (thread_col(jj, e & 1) >= ((e & 2) ? lim1 : lim0))
+            s[4 * jj + e] = REPRO_NEG_INF;
+    }
+    float mx[2] = {a.m[0], a.m[1]};
+#pragma unroll
+    for (int x = 0; x < 64; ++x)
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    float alpha[2], m_log2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2_approx((a.m[h] - mx[h]) * t.exp_scale);
+      a.m[h] = mx[h];
+      a.l[h] *= alpha[h];
+      // a row with nothing live yet: masked scores (NEG_INF) must give 0
+      m_log2[h] = (mx[h] == REPRO_NEG_INF ? 0.f : mx[h]) * t.exp_scale;
+    }
+    uint32_t p_hi[32], p_lo[Tile::kPTerms == 2 ? 32 : 1];
+#pragma unroll
+    for (int x = 0; x < 64; x += 2) {
+      const int h = (x >> 1) & 1;
+      const float p0 = exp2_approx(fmaf(s[x], t.exp_scale, -m_log2[h]));
+      const float p1 = exp2_approx(fmaf(s[x + 1], t.exp_scale, -m_log2[h]));
+      a.l[h] += p0 + p1;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      p_hi[x / 2] = *reinterpret_cast<const uint32_t*>(&hi);
+      if constexpr (Tile::kPTerms == 2) {
+        const float2 back = __bfloat1622float2(hi);
+        p_lo[x / 2] = pack_bf16(p0 - back.x, p1 - back.y);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < D / 2; ++x) a.o[x] *= alpha[(x >> 1) & 1];
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      const uint64_t dv = make_desc(v_s + kk * 16 * 128, kPanelBytes);
+      wgmma_pv<D>(a.o, p_hi + 4 * kk, dv);
+      if constexpr (Tile::kPTerms == 2) wgmma_pv<D>(a.o, p_lo + 4 * kk, dv);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(a.o);
+    if (threadIdx.x % 32 == 0) mbar_arrive(empty_bar<D>(base, st));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 1);
+    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 2);
+    if (a.m[h] != REPRO_NEG_INF) a.m[h] *= t.m_scale;
+  }
+}
+
+// -- host: tensor maps -------------------------------------------------------
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: reached through the
+// runtime's entry-point query, so the library needs no -lcuda.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+constexpr int kErrNoEncoder = 900;  // error codes of the C entry points
+constexpr int kErrEncode = 901;
+
+// A bf16 matrix of `rows` rows of `cols` elements, `row_bytes` apart, read
+// in boxes of (box_rows, 64 columns) with the 128-byte swizzle.  Out-of-range
+// rows of a box read as zeros.  Returns 0 or an error code.
+inline int encode_2d(CUtensorMap* map, const void* ptr, uint64_t cols,
+                     uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
+  EncodeTiled fn = encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(ptr), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+}  // namespace flash_tc

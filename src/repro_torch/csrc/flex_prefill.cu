@@ -13,14 +13,28 @@
 //
 // What bounds it: for prompts of hundreds of tokens and more, the q.K and
 // p.V products (4 Q K D flops per head, halved by the causal mask) far
-// outweigh the bytes, so it is bound by operations.  This first version
-// does them on the CUDA cores in f32 (no tensor cores yet: wgmma is later
-// work), so the design keeps the operands in shared memory (a 128 x D
-// q tile, 32-row K/V sub-tiles loaded with 16-byte vector loads), rows
-// padded to dodge bank conflicts, and each thread's half of an output
-// row in registers.  128-row f32 tiles need ~113 KB of shared memory,
-// above the 48 KB default, hence cudaFuncAttributeMaxDynamicSharedMemorySize.
+// outweigh the bytes, so it is bound by operations.  Two routes, chosen by
+// the wrapper from the dtype alone:
+//
+// - bf16 (the engine's dtype): flex_fwd_kernel_tc, the shared tensor-core
+//   tile of flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a
+//   three-stage ring).  One 2-D tensor map over (B * Hkv * K, D) rows serves
+//   each of K and V, since one head's keys are contiguous; a kv tile of
+//   the BlockMask is read in boxes of 128 rows from its first key, and the
+//   box's columns past kv_blk (the next kv tile's keys, listed or not) are
+//   masked by their index in the tile.  Rows past q_blk are computed and
+//   never stored.
+// - f32: flex_fwd_kernel, on the CUDA cores (TF32 tensor cores keep about
+//   three digits, too few for the f32 contract).  It keeps the operands in
+//   shared memory (a 128 x D q tile, 32-row K/V sub-tiles loaded with
+//   16-byte vector loads), rows padded to dodge bank conflicts, and each
+//   thread's half of an output row in registers.  128-row f32 tiles need
+//   ~113 KB of shared memory, above the 48 KB default, hence
+//   cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include "common.cuh"
+#include "flash_tc.cuh"
+
+namespace ft = flash_tc;
 
 namespace {
 
@@ -218,6 +232,177 @@ int dispatch_dim(int D, int variant, const FlexParams& p, cudaStream_t st) {
   }
 }
 
+// -- the tensor-core route (bf16) ---------------------------------------------
+template <int VARIANT>
+struct FlexTile {
+  static constexpr int kPTerms = 1;  // the output is normalised
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  const int* idx;   // this q tile's listed kv tiles
+  const int* full;
+  int row0;         // (b * Hkv + hk) * K: this head's first row in the maps
+  int kv_blk, spk;  // kv tile, and tensor-core tiles per kv tile
+  int panels;
+  uint32_t tx;      // bytes per K/V tile
+  int kv_len, plen;
+  float exp_scale, m_scale;  // scale * log2(e), scale
+
+  __device__ void issue(int i, uint32_t kd, uint32_t vd, uint32_t bar) const {
+    const int j = i / spk, ks = (i % spk) * ft::kBN;
+    const int row = row0 + __ldg(idx + j) * kv_blk + ks;
+    ft::mbar_expect_tx(bar, tx);
+    for (int c = 0; c < panels; ++c) {
+      ft::tma_load_2d(kd + c * ft::kPanelBytes, tk, bar, 64 * c, row);
+      ft::tma_load_2d(vd + c * ft::kPanelBytes, tv, bar, 64 * c, row);
+    }
+  }
+  // key: the row's query index, or -1 past q_len (nothing live)
+  __device__ int limit(int i, int qrow) const {
+    if (qrow < 0) return 0;
+    const int j = i / spk, ks = (i % spk) * ft::kBN;
+    const int k0 = __ldg(idx + j) * kv_blk + ks;
+    int lim = min(kv_blk - ks, kv_len - k0);
+    if (!__ldg(full + j)) {
+      if (VARIANT & 1) lim = min(lim, qrow - k0 + 1);
+      if (VARIANT & 2) lim = min(lim, plen - k0);
+    }
+    return lim;
+  }
+  // the scale is folded into exp_scale and m_scale
+  __device__ bool transform() const { return false; }
+  __device__ float score(float x) const { return x; }
+};
+
+template <int D, int VARIANT>
+__global__ void __launch_bounds__(ft::kThreads, 1)
+    flex_fwd_kernel_tc(const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const FlexParams p, const uint32_t kbox) {
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* gen;
+  const uint32_t base = ft::smem_base(tc_smem, &gen);
+  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qb * p.q_blk;
+
+  ft::init_ring<D>(gen, base);
+
+  const size_t row_off = (p.batched ? static_cast<size_t>(b) * p.nq : 0) + qb;
+  FlexTile<VARIANT> t;
+  t.tk = &tk;
+  t.tv = &tv;
+  t.idx = p.idx + row_off * p.max_kv;
+  t.full = p.full + row_off * p.max_kv;
+  t.row0 = (b * p.Hkv + hk) * p.K;
+  t.kv_blk = p.kv_blk;
+  t.spk = (p.kv_blk + ft::kBN - 1) / ft::kBN;
+  t.panels = D / 64;
+  t.tx = 2u * kbox * 128u * (D / 64);
+  t.kv_len = p.kv_len;
+  t.plen = (VARIANT & 2) ? p.lens[b] : 0;
+  t.exp_scale = p.scale * ft::kLog2e;
+  t.m_scale = p.scale;
+  const int n = p.nb[row_off] * t.spk;
+  ft::prefetch<D>(t, base, n);
+
+  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) +
+                            ((static_cast<size_t>(b) * p.H + h) * p.Q + q0) * D;
+  for (int c = threadIdx.x; c < ft::kRows * (D / 8); c += ft::kThreads) {
+    const int r = c / (D / 8);
+    ft::store_q_chunk<D>(
+        gen + ft::Layout<D>::kQ, r, c % (D / 8),
+        r < p.q_blk ? qg + static_cast<size_t>(r) * D : nullptr);
+  }
+  ft::q_ready();
+
+  int key[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qrow = q0 + ft::thread_row(hh);
+    key[hh] = qrow < p.q_len ? qrow : -1;
+  }
+  ft::Acc<D> a;
+  ft::mainloop<D>(t, base, n, key, a);
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = ft::thread_row(hh);
+    if (r >= p.q_blk) continue;
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) +
+                        ((static_cast<size_t>(b) * p.H + h) * p.Q + q0 + r) * D;
+    const float inv = 1.f / fmaxf(a.l[hh], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(og + ft::thread_col(j, 0)) =
+          __floats2bfloat162_rn(a.o[4 * j + 2 * hh] * inv,
+                                a.o[4 * j + 2 * hh + 1] * inv);
+  }
+}
+
+template <int D, int VARIANT>
+int launch_tc(const FlexParams& p, cudaStream_t st) {
+  const uint64_t rows = static_cast<uint64_t>(p.B) * p.Hkv * p.K;
+  const uint32_t kbox = static_cast<uint32_t>(
+      rows < static_cast<uint64_t>(ft::kBN) ? rows : ft::kBN);
+  CUtensorMap tk, tv;
+  int bad = ft::encode_2d(&tk, p.k, D, rows, D * 2, kbox);
+  if (!bad) bad = ft::encode_2d(&tv, p.v, D, rows, D * 2, kbox);
+  if (bad) return bad;
+  constexpr size_t bytes = ft::Layout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flex_fwd_kernel_tc<D, VARIANT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.nq, p.H, p.B);
+  flex_fwd_kernel_tc<D, VARIANT>
+      <<<grid, ft::kThreads, bytes, st>>>(tk, tv, p, kbox);
+  return 0;
+}
+
+template <int D>
+int dispatch_variant_tc(int variant, const FlexParams& p, cudaStream_t st) {
+  switch (variant) {
+    case 0: return launch_tc<D, 0>(p, st);
+    case 1: return launch_tc<D, 1>(p, st);
+    case 2: return launch_tc<D, 2>(p, st);
+    case 3: return launch_tc<D, 3>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The entry points' shared argument checks and parameter block.
+int fill_params(FlexParams* p, int variant, const void* q, const void* k,
+                const void* v, void* o, const void* kv_num_blocks,
+                const void* kv_indices, const void* is_full, const void* lens,
+                int B, int H, int Hkv, int Q, int K, int nq, int max_kv,
+                int batched, int q_blk, int kv_blk, int q_len, int kv_len,
+                float scale) {
+  if (q_blk > kRows || ((variant & 2) && lens == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p->q = q;
+  p->k = k;
+  p->v = v;
+  p->o = o;
+  p->nb = static_cast<const int*>(kv_num_blocks);
+  p->idx = static_cast<const int*>(kv_indices);
+  p->full = static_cast<const int*>(is_full);
+  p->lens = static_cast<const int*>(lens);
+  p->B = B;
+  p->H = H;
+  p->Hkv = Hkv;
+  p->Q = Q;
+  p->K = K;
+  p->nq = nq;
+  p->max_kv = max_kv;
+  p->batched = batched;
+  p->q_blk = q_blk;
+  p->kv_blk = kv_blk;
+  p->q_len = q_len;
+  p->kv_len = kv_len;
+  p->scale = scale;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int flex_attention_fwd(
@@ -227,35 +412,38 @@ extern "C" int flex_attention_fwd(
     int K, int D, int nq, int max_kv, int batched, int q_blk, int kv_blk,
     int q_len, int kv_len, float scale, void* stream) {
   if (B * H * nq == 0) return 0;
-  if (q_blk > kRows || ((variant & 2) && lens == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
   FlexParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.o = o;
-  p.nb = static_cast<const int*>(kv_num_blocks);
-  p.idx = static_cast<const int*>(kv_indices);
-  p.full = static_cast<const int*>(is_full);
-  p.lens = static_cast<const int*>(lens);
-  p.B = B;
-  p.H = H;
-  p.Hkv = Hkv;
-  p.Q = Q;
-  p.K = K;
-  p.nq = nq;
-  p.max_kv = max_kv;
-  p.batched = batched;
-  p.q_blk = q_blk;
-  p.kv_blk = kv_blk;
-  p.q_len = q_len;
-  p.kv_len = kv_len;
-  p.scale = scale;
+  int bad = fill_params(&p, variant, q, k, v, o, kv_num_blocks, kv_indices,
+                        is_full, lens, B, H, Hkv, Q, K, nq, max_kv, batched,
+                        q_blk, kv_blk, q_len, kv_len, scale);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int bad;
   switch (dtype_code) {
     case 0: bad = dispatch_dim<float>(D, variant, p, st); break;
     case 1: bad = dispatch_dim<__nv_bfloat16>(D, variant, p, st); break;
+    default: bad = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bad) return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: bf16 q, k, v and o.
+extern "C" int flex_attention_fwd_tc(
+    int variant, const void* q, const void* k, const void* v, void* o,
+    const void* kv_num_blocks, const void* kv_indices, const void* is_full,
+    const void* lens, int B, int H, int Hkv, int Q, int K, int D, int nq,
+    int max_kv, int batched, int q_blk, int kv_blk, int q_len, int kv_len,
+    float scale, void* stream) {
+  if (B * H * nq == 0) return 0;
+  FlexParams p;
+  int bad = fill_params(&p, variant, q, k, v, o, kv_num_blocks, kv_indices,
+                        is_full, lens, B, H, Hkv, Q, K, nq, max_kv, batched,
+                        q_blk, kv_blk, q_len, kv_len, scale);
+  if (bad) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: bad = dispatch_variant_tc<64>(variant, p, st); break;
+    case 128: bad = dispatch_variant_tc<128>(variant, p, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

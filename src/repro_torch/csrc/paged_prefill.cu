@@ -19,15 +19,35 @@
 //
 // What bounds it: each query row does 4 D flops per key it attends (q.K
 // and p.V), over the whole cached prefix, so at chunks of hundreds of
-// tokens it is bound by operations, not bytes.  This first version does
-// them on the CUDA cores in f32 (wgmma/TMA are later work), with K4's
-// layout: a pre-scaled f32 q tile of up to 128 rows in shared memory,
-// 32-token K/V sub-tiles gathered through the page ids with 16-byte
-// vector loads, rows padded against bank conflicts, online softmax in
-// f32 and each thread's half of an output row in registers.  For D = 128
-// that is ~116 KB of shared memory, above the 48 KB default, hence
-// cudaFuncAttributeMaxDynamicSharedMemorySize.
+// tokens it is bound by operations, not bytes.  Two routes, chosen by the
+// wrapper from the dtypes and the page size:
+//
+// - bf16 q with bf16 pools and page_size % 8 == 0, <= 128 (the engine's
+//   case): paged_prefill_kernel_tc, the shared tensor-core tile of
+//   flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a three-stage
+//   ring).  The pools are viewed as one 2-D tensor map of (num_pages * P)
+//   rows of Hkv * D columns, and a K/V tile of up to 128 tokens is one box
+//   of (P rows, 64 columns) per page and 64-column panel, at column h * D
+//   and row page * P.  A box lands at a multiple of 1024 bytes, the period
+//   of the 128-byte swizzle, hence P % 8 == 0.  The page ids are read by
+//   the producing thread from the split's row of the blocked table
+//   (L1-cached: the three-stage ring leaves no room for a whole table row
+//   in shared memory at D = 128).  The query rows are gathered in place
+//   from (B, C, H, D) with zeros past the chunk.  The partials stay
+//   un-normalised over up to thousands of keys, so P enters p.V as two
+//   bf16 terms (hi + lo): one term's rounding would exceed the bf16
+//   tolerance of acc.
+// - f32 q, int8 pools, or other page sizes: paged_prefill_kernel, on the
+//   CUDA cores, with K4's f32 layout: a pre-scaled f32 q tile of up to 128
+//   rows in shared memory, 32-token K/V sub-tiles gathered through the
+//   page ids with 16-byte vector loads, rows padded against bank
+//   conflicts, online softmax in f32 and each thread's half of an output
+//   row in registers.  For D = 128 that is ~116 KB of shared memory, above
+//   the 48 KB default, hence cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include "common.cuh"
+#include "flash_tc.cuh"
+
+namespace ft = flash_tc;
 
 namespace {
 
@@ -249,6 +269,188 @@ int dispatch_q(int q_code, int kv_code, const PrefillParams& p,
   }
 }
 
+// -- the tensor-core route (bf16 q and pools) ---------------------------------
+struct PrefillTile {
+  static constexpr int kPTerms = 2;  // un-normalised partials: P as hi + lo
+  const CUtensorMap* tk;
+  const CUtensorMap* tv;
+  const int* ids;  // the split's rows of the blocked table, bps x ppb
+  int P, ppb, npg, spb;  // page, pages per KV block, per tile, tiles per block
+  int blk_tokens, split0, L, col0, panels;
+  float scale, softcap;
+  float exp_scale, m_scale;  // scale folded in, unless softcap applies
+
+  __device__ void issue(int i, uint32_t kd, uint32_t vd, uint32_t bar) const {
+    const int bb = i / spb, pg0 = (i % spb) * npg;
+    const int np = min(npg, ppb - pg0);
+    ft::mbar_expect_tx(bar, static_cast<uint32_t>(np * P * 128 * panels * 2));
+    for (int j = 0; j < np; ++j) {
+      const int row = __ldg(ids + bb * ppb + pg0 + j) * P;
+      const uint32_t off = static_cast<uint32_t>(j * P * 128);
+      for (int c = 0; c < panels; ++c) {
+        ft::tma_load_2d(kd + c * ft::kPanelBytes + off, tk, bar,
+                        col0 + 64 * c, row);
+        ft::tma_load_2d(vd + c * ft::kPanelBytes + off, tv, bar,
+                        col0 + 64 * c, row);
+      }
+    }
+  }
+  // key: the row's query position; live keys are kpos < L, kpos <= qpos
+  __device__ int limit(int i, int qpos) const {
+    const int bb = i / spb, pg0 = (i % spb) * npg;
+    const int T = min(npg, ppb - pg0) * P;
+    const int k0 = split0 + bb * blk_tokens + pg0 * P;
+    return min(T, min(L - k0, qpos - k0 + 1));
+  }
+  __device__ bool transform() const { return softcap > 0.f; }
+  __device__ float score(float x) const {
+    return softcap * tanhf(x * scale / softcap);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(ft::kThreads, 1)
+    paged_prefill_kernel_tc(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const PrefillParams p) {
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* gen;
+  const uint32_t base = ft::smem_base(tc_smem, &gen);
+  const int tile = blockIdx.x % p.n_tiles;
+  const int nq = (blockIdx.x / p.n_tiles) % p.NQ;
+  const int s = blockIdx.x / (p.n_tiles * p.NQ);
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int L = p.kv_lens[b];
+  const int q0 = p.q_start[b] + nq * p.q_block;  // position of its token 0
+  const int H = p.Hkv * p.G;
+
+  ft::init_ring<D>(gen, base);
+
+  PrefillTile t;
+  t.tk = &tk;
+  t.tv = &tv;
+  t.ids =
+      p.tables + (static_cast<size_t>(b) * p.n_blocks + s * p.bps) * p.ppb;
+  t.P = p.page_size;
+  t.ppb = p.ppb;
+  t.npg = min(p.ppb, ft::kBN / p.page_size);
+  t.spb = (p.ppb + t.npg - 1) / t.npg;
+  t.blk_tokens = p.ppb * p.page_size;
+  t.split0 = s * p.bps * t.blk_tokens;
+  t.L = L;
+  t.col0 = h * D;
+  t.panels = D / 64;
+  t.scale = p.scale;
+  t.softcap = p.softcap;
+  t.exp_scale = (p.softcap > 0.f ? 1.f : p.scale) * ft::kLog2e;
+  t.m_scale = p.softcap > 0.f ? 1.f : p.scale;
+  // tiles that start below min(L, last query + 1): a prefix of the split
+  // (KV blocks, and tiles inside them, past either are skipped)
+  const int lim = min(L, q0 + p.q_block) - t.split0;
+  int n = 0;
+  if (lim > 0) {
+    const int tile_tokens = t.npg * t.P;
+    n = min(p.bps * t.spb, (lim / t.blk_tokens) * t.spb +
+                               (lim % t.blk_tokens + tile_tokens - 1) /
+                                   tile_tokens);
+  }
+  ft::prefetch<D>(t, base, n);
+
+  for (int c = threadIdx.x; c < ft::kRows * (D / 8); c += ft::kThreads) {
+    const int r = c / (D / 8);
+    const int qr = tile * ft::kRows + r;  // row of the Q-block
+    const int tok = nq * p.q_block + qr / p.G;
+    const __nv_bfloat16* src =
+        qr < p.R && tok < p.C
+            ? static_cast<const __nv_bfloat16*>(p.q) +
+                  ((static_cast<size_t>(b) * p.C + tok) * H + h * p.G +
+                   qr % p.G) * D
+            : nullptr;
+    ft::store_q_chunk<D>(gen + ft::Layout<D>::kQ, r, c % (D / 8), src);
+  }
+  ft::q_ready();
+
+  int key[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    key[hh] = q0 + (tile * ft::kRows + ft::thread_row(hh)) / p.G;
+  ft::Acc<D> a;
+  ft::mainloop<D>(t, base, n, key, a);
+
+  const size_t slot =
+      ((static_cast<size_t>(b) * p.Hkv + h) * p.NQ + nq) * p.S + s;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qr = tile * ft::kRows + ft::thread_row(hh);
+    if (qr >= p.R) continue;
+    const size_t o = slot * p.R + qr;
+    if (threadIdx.x % 4 == 0) {
+      p.m[o] = a.m[hh];
+      p.l[o] = a.l[hh];
+    }
+    float* ag = p.acc + o * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(ag + ft::thread_col(j, 0)) =
+          make_float2(a.o[4 * j + 2 * hh], a.o[4 * j + 2 * hh + 1]);
+  }
+}
+
+template <int D>
+int launch_tc(const PrefillParams& p, int num_pages, cudaStream_t st) {
+  const uint64_t rows = static_cast<uint64_t>(num_pages) * p.page_size;
+  const uint64_t cols = static_cast<uint64_t>(p.Hkv) * D;
+  CUtensorMap tk, tv;
+  int bad = ft::encode_2d(&tk, p.k, cols, rows, cols * 2, p.page_size);
+  if (!bad) bad = ft::encode_2d(&tv, p.v, cols, rows, cols * 2, p.page_size);
+  if (bad) return bad;
+  constexpr size_t bytes = ft::Layout<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_prefill_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.n_tiles * p.NQ * p.S, p.Hkv, p.B);
+  paged_prefill_kernel_tc<D><<<grid, ft::kThreads, bytes, st>>>(tk, tv, p);
+  return 0;
+}
+
+// The entry points' shared argument checks and parameter block.
+int fill_params(PrefillParams* p, const void* q, const void* k_pages,
+                const void* v_pages, const void* tables, const void* kv_lens,
+                const void* q_start, void* m, void* l, void* acc, int B,
+                int C, int Hkv, int G, int page_size, int n_blocks, int ppb,
+                int num_splits, int bps, int q_block, float scale,
+                float softcap, float kv_scale) {
+  if (q_block < 1 || G < 1 || ppb < 1 || n_blocks != num_splits * bps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  p->q = q;
+  p->k = k_pages;
+  p->v = v_pages;
+  p->tables = static_cast<const int*>(tables);
+  p->kv_lens = static_cast<const int*>(kv_lens);
+  p->q_start = static_cast<const int*>(q_start);
+  p->m = static_cast<float*>(m);
+  p->l = static_cast<float*>(l);
+  p->acc = static_cast<float*>(acc);
+  p->B = B;
+  p->C = C;
+  p->Hkv = Hkv;
+  p->G = G;
+  p->page_size = page_size;
+  p->n_blocks = n_blocks;
+  p->ppb = ppb;
+  p->S = num_splits;
+  p->bps = bps;
+  p->q_block = q_block;
+  p->NQ = (C + q_block - 1) / q_block;
+  p->R = q_block * G;
+  p->n_tiles = (p->R + kRows - 1) / kRows;
+  p->scale = scale;
+  p->softcap = softcap;
+  p->kv_scale = kv_scale;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" int paged_prefill_partials(
@@ -259,39 +461,40 @@ extern "C" int paged_prefill_partials(
     int bps, int q_block, float scale, float softcap, float kv_scale,
     void* stream) {
   if (B == 0 || C == 0 || Hkv == 0) return 0;
-  if (q_block < 1 || G < 1 || ppb < 1 || n_blocks != num_splits * bps)
-    return static_cast<int>(cudaErrorInvalidValue);
   PrefillParams p;
-  p.q = q;
-  p.k = k_pages;
-  p.v = v_pages;
-  p.tables = static_cast<const int*>(tables);
-  p.kv_lens = static_cast<const int*>(kv_lens);
-  p.q_start = static_cast<const int*>(q_start);
-  p.m = static_cast<float*>(m);
-  p.l = static_cast<float*>(l);
-  p.acc = static_cast<float*>(acc);
-  p.B = B;
-  p.C = C;
-  p.Hkv = Hkv;
-  p.G = G;
-  p.page_size = page_size;
-  p.n_blocks = n_blocks;
-  p.ppb = ppb;
-  p.S = num_splits;
-  p.bps = bps;
-  p.q_block = q_block;
-  p.NQ = (C + q_block - 1) / q_block;
-  p.R = q_block * G;
-  p.n_tiles = (p.R + kRows - 1) / kRows;
-  p.scale = scale;
-  p.softcap = softcap;
-  p.kv_scale = kv_scale;
+  int bad = fill_params(&p, q, k_pages, v_pages, tables, kv_lens, q_start, m,
+                        l, acc, B, C, Hkv, G, page_size, n_blocks, ppb,
+                        num_splits, bps, q_block, scale, softcap, kv_scale);
+  if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int bad;
   switch (D) {
     case 64: bad = dispatch_q<64>(q_code, kv_code, p, st); break;
     case 128: bad = dispatch_q<128>(q_code, kv_code, p, st); break;
+    default: bad = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bad) return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The tensor-core route: bf16 q and pools, page_size % 8 == 0 and <= 128.
+extern "C" int paged_prefill_partials_tc(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* kv_lens, const void* q_start, void* m,
+    void* l, void* acc, int B, int C, int Hkv, int G, int D, int num_pages,
+    int page_size, int n_blocks, int ppb, int num_splits, int bps,
+    int q_block, float scale, float softcap, void* stream) {
+  if (B == 0 || C == 0 || Hkv == 0) return 0;
+  if (page_size % 8 || page_size > ft::kBN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrefillParams p;
+  int bad = fill_params(&p, q, k_pages, v_pages, tables, kv_lens, q_start, m,
+                        l, acc, B, C, Hkv, G, page_size, n_blocks, ppb,
+                        num_splits, bps, q_block, scale, softcap, 0.f);
+  if (bad) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64: bad = launch_tc<64>(p, num_pages, st); break;
+    case 128: bad = launch_tc<128>(p, num_pages, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

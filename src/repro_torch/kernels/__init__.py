@@ -49,6 +49,20 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
                             kernel=name, device=str(dev))
 
 
+def tensor_core_p(p: torch.Tensor, terms=None) -> torch.Tensor:
+    """The probabilities as the tensor-core kernels feed them to p.V: the
+    sum of ``terms`` bf16 values (each rounding what the earlier ones left
+    over), or ``p`` itself for None.  Used by the plain versions to show
+    that the bf16 tolerance fits the kernels' arithmetic."""
+    if not terms:
+        return p
+    out, rest = torch.zeros_like(p), p
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        out, rest = out + part, rest - part
+    return out
+
+
 def launch_wrappers():
     """The kernel wrappers of the main path, by kernel name."""
     from repro_torch.kernels.flex_attention.flex_attention import (
@@ -63,10 +77,20 @@ def launch_wrappers():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset."""
-    return {k: fn.launches for k, fn in launch_wrappers().items()}
+    """Kernel launches per wrapper since the last reset, and per route of
+    the wrappers that have several ("flex_prefill/tc", "flex_prefill/simt",
+    "paged_prefill/tc", "paged_prefill/simt")."""
+    counts = {}
+    for k, fn in launch_wrappers().items():
+        counts[k] = fn.launches
+        for route, n in getattr(fn, "launches_by_route", {}).items():
+            counts[f"{k}/{route}"] = n
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in launch_wrappers().values():
         fn.launches = 0
+        routes = getattr(fn, "launches_by_route", {})
+        for route in routes:
+            routes[route] = 0

@@ -2,7 +2,11 @@
 
 The kernels have a plain C interface and are bound with ``ctypes``: every
 ``.cu`` file is compiled by its own ``nvcc`` process (all started
-together), then linked into one shared library for ``sm_90a``.  The build
+together), then linked into one shared library for ``sm_90a``.  The
+tensor-core kernels build their TMA tensor maps per launch with libcuda's
+``cuTensorMapEncodeTiled``, reached through the runtime's entry-point query,
+so the link line needs no ``-lcuda``.  ``-Xptxas -v`` reports each kernel's
+registers, shared memory and spills; the report is kept in ``build_log``.  The build
 runs at first use, into ``src/repro_torch/_build/`` (ignored by git), and
 the library name carries a hash of the sources and flags, so an edited
 source is rebuilt and a stale library is never loaded.
@@ -28,7 +32,7 @@ from repro_torch.errors import EngineConfigError, InternalError
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -57,10 +61,20 @@ SIGNATURES = {
     "flex_attention_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                            _I, _I, _I, _F, _P],
+    # the tensor-core routes (bf16 only): the same arguments without the
+    # dtype codes; K3's adds num_pages (the tensor map's rows) and drops
+    # kv_scale (no int8 pools)
+    "flex_attention_fwd_tc": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _F, _P],
+    "paged_prefill_partials_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: float = 0.0  # wall time of this process's build (0 = cached)
+build_log: str = ""  # nvcc's output of this process's build ("" = cached)
 
 
 def _sources():
@@ -86,7 +100,8 @@ def _nvcc() -> str:
                             "from source at first use on a CUDA host")
 
 
-def _compile(target: Path) -> None:
+def _compile(target: Path) -> str:
+    """Build the library at ``target``; returns nvcc's output."""
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -98,11 +113,11 @@ def _compile(target: Path) -> None:
                 [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
                  "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-        failed = []
+        failed, logs = [], []
         for src, p in procs:
             out, _ = p.communicate()
-            if p.returncode:
-                failed.append(f"{src.name}:\n{out.decode(errors='replace')}")
+            text = f"{src.name}:\n{out.decode(errors='replace')}"
+            (failed if p.returncode else logs).append(text)
         if failed:
             raise EngineConfigError("nvcc failed\n" + "\n".join(failed))
         tmp_so = Path(tmp) / target.name
@@ -113,17 +128,23 @@ def _compile(target: Path) -> None:
             raise EngineConfigError("nvcc link failed\n" + link.stdout
                                     + link.stderr)
         os.replace(tmp_so, target)  # atomic: concurrent builders agree
+    return "\n".join(logs)
+
+
+def library_path() -> Path:
+    """Where the library of the current sources and flags is built."""
+    return BUILD_DIR / f"librepro_torch_{_digest()}.so"
 
 
 def get_lib() -> ctypes.CDLL:
     """The kernel library, built on first use (rebuilt when sources change)."""
-    global _lib, build_seconds
+    global _lib, build_seconds, build_log
     if _lib is not None:
         return _lib
-    target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+    target = library_path()
     if not target.exists():
         t0 = time.perf_counter()
-        _compile(target)
+        build_log = _compile(target)
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(target))
     for name, argtypes in SIGNATURES.items():

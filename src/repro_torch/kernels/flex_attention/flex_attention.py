@@ -5,7 +5,11 @@ K4 (``flex_attention_kernel``, CUDA ``csrc/flex_prefill.cu``) replaces the
 TPU kernel ``repro/kernels/flex_attention/flex_attention.py::_flex_kernel``.
 One CUDA block per (batch, head, q-tile) visits only the kv tiles its
 ``BlockMask`` row lists, skips the element mask on ``is_full`` tiles,
-maps GQA heads by ``h // G`` and normalises in the kernel.
+maps GQA heads by ``h // G`` and normalises in the kernel.  It has two
+routes, chosen by ``flex_route`` from the dtype alone: bf16 runs on the
+tensor cores (``flex_fwd_kernel_tc``: wgmma, K/V by TMA), f32 on the CUDA
+cores (``flex_fwd_kernel``).  Each route counts its own launches in
+``flex_attention_kernel.launches_by_route``.
 
 Mask mods are compiled variants of the kernel, for the mods the prefill
 path composes: ``full_mask``, ``causal_mask``, ``padding_mask(lens)`` and
@@ -21,7 +25,7 @@ import torch
 
 from repro_torch.core import flex
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import tensor_core_p, use_kernel
 from repro_torch.kernels.build import check, get_lib
 
 NEG_INF = -1e30
@@ -31,6 +35,14 @@ MAX_Q_BLOCK = 128
 
 # compiled mask variants: bit 0 = causal, bit 1 = padding(lens)
 FULL, CAUSAL, PADDING = 0, 1, 2
+ROUTES = ("tc", "simt")
+
+
+def flex_route(dtype: torch.dtype) -> str:
+    """K4's route for inputs of ``dtype``: "tc", the tensor-core kernel,
+    for bf16; "simt", the CUDA-core kernel, for f32 (TF32 tensor cores
+    keep about three digits, too few for the f32 contract)."""
+    return "tc" if dtype == torch.bfloat16 else "simt"
 
 
 def mask_variant(mask_mod) -> Optional[Tuple[int, Optional[torch.Tensor]]]:
@@ -70,9 +82,11 @@ def _tile_maps(block_mask: flex.BlockMask, nk: int):
 
 
 def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
-                          kv_len):
+                          kv_len, p_terms=None):
     """Plain version of K4: the same tile selection, masks and softmax,
-    evaluated densely one batch row at a time."""
+    evaluated densely one batch row at a time.  ``p_terms`` = 1 rounds
+    the probabilities to bf16 before p.V, as the tensor-core kernel does
+    (None keeps them f32; the sum stays f32 either way)."""
     B, H, Q, D = q.shape
     Hkv, K = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -100,7 +114,8 @@ def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
         p = torch.where(mask, torch.exp(s - m),
                         torch.tensor(0.0, device=dev))
         l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        out[b] = (torch.matmul(p, vh) / l).to(q.dtype)
+        out[b] = (torch.matmul(tensor_core_p(p, p_terms), vh) / l
+                  ).to(q.dtype)
     return out
 
 
@@ -166,18 +181,30 @@ def flex_attention_kernel(
         lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
         if tuple(lens.shape) != (B,):
             raise EngineConfigError("flex kernel: padding lens must be (B,)")
+    route = flex_route(q.dtype)
+    if route == "tc" and (D * q.element_size()) % 16:
+        raise EngineConfigError("flex kernel: TMA needs rows that are a "
+                                "multiple of 16 bytes", head_dim=D)
     o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            nb.data_ptr(), idx.data_ptr(), full.data_ptr(),
+            lens.data_ptr() if lens is not None else None, B, H, Hkv, Q, K,
+            D, nq, max_kv, int(batched), q_blk, kv_blk, int(q_len),
+            int(kv_len), float(scale))
     with torch.cuda.device(q.device):
-        err = get_lib().flex_attention_fwd(
-            _DTYPE_CODES[q.dtype], bits, q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), nb.data_ptr(), idx.data_ptr(),
-            full.data_ptr(), lens.data_ptr() if lens is not None else None,
-            B, H, Hkv, Q, K, D, nq, max_kv, int(batched), q_blk, kv_blk,
-            int(q_len), int(kv_len), float(scale),
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "flex_attention_fwd")
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "tc":
+            name = "flex_attention_fwd_tc"
+            err = get_lib().flex_attention_fwd_tc(bits, *args, stream)
+        else:
+            name = "flex_attention_fwd"
+            err = get_lib().flex_attention_fwd(_DTYPE_CODES[q.dtype], bits,
+                                               *args, stream)
+    check(err, name)
     flex_attention_kernel.launches += 1
+    flex_attention_kernel.launches_by_route[route] += 1
     return o
 
 
 flex_attention_kernel.launches = 0
+flex_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)

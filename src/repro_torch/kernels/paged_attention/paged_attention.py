@@ -16,7 +16,12 @@ K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 of ``q_block·G`` rows that attend causally, by absolute position, to the
 cached prefix and the chunk itself; ``combine_prefill_partials`` folds the
 Q-blocks into the batch and merges them with K2 (or the plain normalise
-for one split).
+for one split).  K3 has two routes, chosen by ``prefill_route`` from the
+dtypes and the page size: bf16 q and pools with a page of a multiple of 8
+tokens, at most 128, run on the tensor cores
+(``paged_prefill_kernel_tc``: wgmma, one TMA box per page); f32, int8
+pools and other pages on the CUDA cores (``paged_prefill_kernel``).  Each
+route counts its own launches in ``paged_prefill_partials.launches_by_route``.
 
 Partition and partial contract are the JAX package's (`decode_partition`,
 `_blocked_tables`), so the partials compare with the reference split by
@@ -31,7 +36,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import use_kernel
+from repro_torch.kernels import tensor_core_p, use_kernel
 from repro_torch.kernels.build import check, get_lib
 from repro_torch.kernels.paged_attention.contracts import decode_partition
 
@@ -42,6 +47,23 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_GROUPS = (1, 2, 4, 8)
+ROUTES = ("tc", "simt")
+# K3's tensor-core route: a page is one TMA box, placed at a multiple of the
+# 128-byte swizzle's 1024-byte period (8 rows of 128 bytes) inside a tile of
+# 128 keys
+TC_PAGE_MULTIPLE, TC_MAX_PAGE = 8, 128
+
+
+def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
+                  page_size: int) -> str:
+    """K3's route: "tc", the tensor-core kernel, for bf16 q and pools with
+    ``page_size`` a multiple of 8 and at most 128; "simt", the CUDA-core
+    kernel, for f32, int8 pools and every other page size."""
+    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+            and page_size % TC_PAGE_MULTIPLE == 0
+            and page_size <= TC_MAX_PAGE):
+        return "tc"
+    return "simt"
 
 
 def _combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
@@ -279,7 +301,7 @@ def _check_paged_inputs(kernel, q, n_kv, D, k_pages, v_pages, block_tables,
             raise EngineConfigError(f"{kernel}: {name} must be contiguous")
     if q.data_ptr() % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise EngineConfigError(f"{kernel}: q and the pools must be 16-byte "
-                                "aligned (16-byte vector loads)")
+                                "aligned (16-byte vector loads and TMA)")
 
 
 def _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale):
@@ -356,11 +378,15 @@ def combine_prefill_partials(m: torch.Tensor, l: torch.Tensor,
 
 def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                                   q_start, *, scale, softcap, kv_scale,
-                                  pages_per_block, num_splits, q_block):
+                                  pages_per_block, num_splits, q_block,
+                                  p_terms=None):
     """Plain version of K3: the same Q-block rows, gather, causal and
     length masks and per-split softmax partials, vectorised over every
     Q-block and split at once.  Skipped KV blocks are all-masked here,
-    which leaves the partials exactly as skipping does."""
+    which leaves the partials exactly as skipping does.  ``p_terms``
+    rounds the probabilities before p.V to that many bf16 terms, as the
+    tensor-core kernel feeds them (2: hi + lo); None keeps them f32, and
+    ``l`` sums them in f32 either way."""
     B, C, H, D = q.shape
     num_pages, page_size, n_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -394,7 +420,7 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
     m = s.amax(dim=-1)  # (B, Hkv, NQ, S, R); NEG_INF where nothing is live
     p = torch.where(live, torch.exp(s - m[..., None]),
                     torch.tensor(0.0, device=dev))
-    acc = torch.einsum("bknsrt,bstkd->bknsrd", p, v)
+    acc = torch.einsum("bknsrt,bstkd->bknsrd", tensor_core_p(p, p_terms), v)
     return m, p.sum(dim=-1), acc
 
 
@@ -446,25 +472,39 @@ def paged_prefill_partials(
                             padded_pages=S * bps * ppb, pages_per_block=ppb
                             ).int()
     NQ, R = -(-C // q_block), q_block * G
+    route = prefill_route(q.dtype, k_pages.dtype, page_size)
+    if route == "tc" and (n_kv * D * k_pages.element_size()) % 16:
+        raise EngineConfigError("prefill kernel: TMA needs pool rows that "
+                                "are a multiple of 16 bytes", head_dim=D)
     dev = q.device
     m = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     l = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     acc = torch.empty((B, n_kv, NQ, S, R, D), dtype=torch.float32,
                       device=dev)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            pages.data_ptr(), kv_lens.data_ptr(), q_start.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr())
     with torch.cuda.device(dev):
-        err = get_lib().paged_prefill_partials(
-            _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), pages.data_ptr(),
-            kv_lens.data_ptr(), q_start.data_ptr(), m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), B, C, n_kv, G, D, page_size,
-            S * bps, ppb, S, bps, q_block, float(scale), float(softcap),
-            float(kv_scale), torch.cuda.current_stream().cuda_stream)
-    check(err, "paged_prefill_partials")
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "tc":
+            name = "paged_prefill_partials_tc"
+            err = get_lib().paged_prefill_partials_tc(
+                *ptrs, B, C, n_kv, G, D, num_pages, page_size, S * bps, ppb,
+                S, bps, q_block, float(scale), float(softcap), stream)
+        else:
+            name = "paged_prefill_partials"
+            err = get_lib().paged_prefill_partials(
+                _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], *ptrs, B, C,
+                n_kv, G, D, page_size, S * bps, ppb, S, bps, q_block,
+                float(scale), float(softcap), float(kv_scale), stream)
+    check(err, name)
     paged_prefill_partials.launches += 1
+    paged_prefill_partials.launches_by_route[route] += 1
     return m, l, acc
 
 
 paged_prefill_partials.launches = 0
+paged_prefill_partials.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def paged_prefill_kernel(

@@ -1,0 +1,170 @@
+"""PyTorch port: the routes of K3 and K4 and their C interface.
+
+- (a) ``flex_route`` and ``prefill_route``: bf16 goes to the tensor-core
+  kernels ("tc"); f32, int8 pools and pages that are not a multiple of 8
+  tokens (or over 128) go to the CUDA-core kernels ("simt").
+- (b) every ``extern "C"`` function of ``csrc/*.cu`` has a ``SIGNATURES``
+  entry with as many parameters, parsed from the sources (a ctypes
+  mismatch would otherwise show only on the card).
+- (c) the tensor-core kernels feed P to p.V in bf16: K4 as one bf16
+  term, K3 as two (hi + lo).  The plain K4 and K3 versions with that
+  rounding stay within the card's bf16 tolerance, ``|a - b| <= 2e-2 *
+  (1 + |b|)``, of the unrounded plain versions, at the main paths' shapes
+  cut in heads, from numpy inputs with a fixed seed.  K3's partials are
+  un-normalised sums over up to ~1500 keys, where one bf16 term leaves
+  errors of order 2^-9 * sqrt(sum p^2 v^2): beyond the tolerance, hence
+  its two terms.
+"""
+
+import re
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import flex
+from repro_torch.kernels import build
+from repro_torch.kernels.flex_attention import flex_attention as fa
+from repro_torch.kernels.paged_attention import paged_attention as pa
+
+BF16_TOL = 2e-2  # chip_smoke's bf16 tolerance, relative: tol * (1 + |b|)
+
+
+def rel_err(got, want):
+    """max |a - b| / (1 + |b|): within BF16_TOL passes the card's check."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    return float(((got - want).abs() / (1 + want.abs())).max())
+
+
+# -- (a) the routes ----------------------------------------------------------
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
+                                         (torch.float32, "simt")])
+def test_flex_route_by_dtype(dtype, route, D):
+    assert fa.flex_route(dtype) == route
+
+
+@pytest.mark.parametrize("page", [8, 16, 64, 128, 12, 4, 136, 256])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("q_dtype,kv_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
+def test_prefill_route_by_dtype_and_page(q_dtype, kv_dtype, D, page):
+    tc = (q_dtype == kv_dtype == torch.bfloat16 and page % 8 == 0
+          and page <= 128)
+    assert pa.prefill_route(q_dtype, kv_dtype, page) == ("tc" if tc
+                                                          else "simt")
+
+
+def test_route_counts_in_launch_counts_and_reset():
+    counts = kernels.launch_counts()
+    for name in ("flex_prefill", "paged_prefill"):
+        for route in ("tc", "simt"):
+            assert f"{name}/{route}" in counts
+    fa.flex_attention_kernel.launches_by_route["tc"] += 3
+    pa.paged_prefill_partials.launches_by_route["simt"] += 2
+    assert kernels.launch_counts()["flex_prefill/tc"] >= 3
+    kernels.reset_launch_counts()
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_nothing():
+    kernels.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 2, 16, 64)).astype(
+        np.float32)).to(torch.bfloat16) for _ in range(3))
+    bm = flex.causal_block_mask(16, 16, 16, 16)
+    out = fa.flex_attention_kernel(q, k, v, bm, scale=0.125)
+    assert out.dtype == torch.bfloat16
+    assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+# -- (b) the C interface -----------------------------------------------------
+def c_entry_points():
+    """{name: parameter count} of every extern "C" function in csrc/*.cu."""
+    found = {}
+    for src in sorted(build.CSRC.glob("*.cu")):
+        text = src.read_text()
+        for m in re.finditer(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)',
+                             text):
+            params = [p for p in m.group(2).split(",") if p.strip()]
+            found[m.group(1)] = len(params)
+    return found
+
+
+def test_every_entry_point_has_a_signature():
+    found = c_entry_points()
+    assert set(found) == set(build.SIGNATURES)
+    assert {"flex_attention_fwd_tc", "paged_prefill_partials_tc"} <= set(found)
+
+
+@pytest.mark.parametrize("name", sorted(build.SIGNATURES))
+def test_signature_matches_the_source(name):
+    assert c_entry_points()[name] == len(build.SIGNATURES[name])
+
+
+# -- (c) P rounded to bf16 ---------------------------------------------------
+@pytest.mark.parametrize("Hkv", [4, 2])
+def test_flex_plain_with_p_in_bf16_within_tolerance(Hkv):
+    """K4's main path (causal & padding, 128 x 128 tiles, D 128) at 4
+    heads and Q = K = 384."""
+    rng = np.random.default_rng(13)
+    B, H, Q, D = 2, 4, 384, 128
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    q, k, v = randn(B, H, Q, D), randn(B, Hkv, Q, D), randn(B, Hkv, Q, D)
+    lens = torch.tensor([Q, 201], dtype=torch.int32)
+    mm = flex.and_masks(flex.causal_mask, flex.padding_mask(lens))
+    bm = flex.build_block_mask(mm, Q, Q, 128, 128, B=B)
+    kw = dict(scale=D ** -0.5, mask_mod=mm, q_len=Q, kv_len=Q)
+    want = fa._flex_attention_plain(q, k, v, bm, **kw)
+    got = fa._flex_attention_plain(q, k, v, bm, p_terms=1, **kw)
+    assert not torch.equal(got, want)  # the rounding is really applied
+    assert rel_err(got, want) <= BF16_TOL
+
+
+@pytest.mark.parametrize("splits", [1, 2])
+def test_prefill_plain_with_p_in_two_bf16_terms_within_tolerance(splits):
+    """K3's main chunk step (resumes at 0 and deep into the prompt, up to
+    ~1500 keys, a dead row; D 128, 2 pages per block, q_block 128) at 4
+    heads, 128-token chunks and 16-token pages."""
+    rng = np.random.default_rng(7)
+    H, D, P, max_pages = 4, 128, 16, 96
+    q_start = [0, 700, 1400, 1]
+    q_lens = [128, 128, 128, 0]
+    kv_lens = [s + n for s, n in zip(q_start, q_lens)]
+    B, C = len(q_start), max(q_lens)
+    num_pages = B * max_pages + 3
+    q = torch.from_numpy(rng.standard_normal((B, C, H, D)).astype(
+        np.float32)).to(torch.bfloat16)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (num_pages, P, H, D)).astype(np.float32)).to(torch.bfloat16)
+        for _ in range(2))
+    perm = rng.permutation(num_pages)
+    tables = np.full((B, max_pages), -1, np.int32)
+    used = 0
+    for b in range(B):
+        n = -(-kv_lens[b] // P) if q_lens[b] else 0
+        tables[b, :n] = perm[used:used + n]
+        used += n
+    args = (q, kp, vp, torch.from_numpy(tables),
+            torch.tensor(kv_lens, dtype=torch.int32),
+            torch.tensor(q_start, dtype=torch.int32))
+    kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=0.0, pages_per_block=2,
+              num_splits=splits, q_block=128)
+    want = pa._paged_prefill_partials_plain(*args, **kw)
+    errs = {}
+    for terms in (1, 2):
+        got = pa._paged_prefill_partials_plain(*args, p_terms=terms, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not torch.equal(got[2], want[2])
+        errs[terms] = rel_err(got[2], want[2])
+    assert errs[2] <= BF16_TOL
+    # one term is what the two are for: ~2^8 times the error of two
+    assert errs[1] > 100 * errs[2], errs
