@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port of the paged-attention server on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py                 # from the root of a checkout
+    python3 chip_smoke.py --kernels-only  # build + kernel phase only
 
 Phases, each of which fails the script (exit code 1) when it fails:
 
 1. build: compile the CUDA kernels from ``src/repro_torch/csrc`` (nvcc,
    sm_90a), print the card's name and power limit, the registers, shared
-   memory and spills of the tensor-core kernels (``-Xptxas -v``), and the
-   count of HGMMA (wgmma) instructions in the library, which must not be 0;
+   memory and spills of the tensor-core kernels and of K1 (``-Xptxas
+   -v``), and the count of HGMMA (wgmma) instructions in the library, which
+   must not be 0;
 2. kernels: each hand-written kernel — K1 paged decode partials, K2 split-K
    combine, K3 chunked paged prefill partials, K4 flex prefill — against
    its plain PyTorch version on the card, at the full-width llama2-7b
@@ -18,6 +20,14 @@ Phases, each of which fails the script (exit code 1) when it fails:
    1536) and on small sweeps (GQA, window, softcap, int8, D = 64, split-K,
    q_block 1 and 3, single-token chunks, Q-blocks over 128 rows), in f32
    (tolerance 2e-5) and bf16 (2e-2), with |a - b| <= tol * (1 + |b|).
+   The decode op (K1 then K2 from one call, ``paged_attention_kernel``)
+   is checked beside K1 and K2 everywhere and timed beside SDPA: its wall
+   time, its kernels' device time and the host's share.  K1's edge cases:
+   lens 0, 1, 63, 64, 65, 512, 513 and 2048 (empty splits), the full
+   32-page table in one split of 2048 keys, pages of 8 and 16 tokens at
+   smoke width (f32, bf16, int8 pools).  The full-table cases of K1 and of
+   K3's CUDA-core route in f32 also print how far each side is from the
+   plain version evaluated in f64.
    K3 and K4 have two routes each: bf16 runs the tensor-core kernels
    ("_tc": wgmma, K/V by TMA), f32 (and K3's int8 pools) the CUDA-core
    kernels ("_simt"); each route is checked and timed under its own name.
@@ -42,7 +52,7 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ``prefix_cache=True``: a wave of 4 requests, then a wave of 8, each
    prompt a shared 1024-token head plus its own 128..512-token tail, 32
    new tokens each.  Counts reset before the first wave and read after
-   the second: K1 and K3's tensor-core route must have launched, K4 and
+   the second: K1, K2 and K3's tensor-core route must have launched, K4 and
    K3's CUDA-core route not, and the second wave must hit at least
    8 x 1024 cached tokens.  The profiled steps of both phases must
    attribute device time to K4 (prefill step) and K3 (chunk step).
@@ -78,6 +88,8 @@ KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
 
 def fail(msg):
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    if LOG and OUT.is_dir():
+        (OUT / "chip_smoke.log").write_text("\n".join(LOG + [f"FAIL: {msg}"]))
     sys.exit(1)
 
 
@@ -85,7 +97,11 @@ def fmt(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+LOG = []  # every line logged, written to OUT / "chip_smoke.log"
+
+
 def log(msg):
+    LOG.append(msg)
     print(msg, flush=True)
 
 
@@ -119,7 +135,9 @@ def time_ms(torch, fn, reps=10, warmup=2):
 
 def device_ms(torch, fn, kernel_name, reps=10):
     """Mean device time per call of the CUDA kernels whose name contains
-    ``kernel_name``, from torch.profiler (None when it records none)."""
+    ``kernel_name`` (or one of a tuple of names), from torch.profiler
+    (None when it records none)."""
+    names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -130,10 +148,23 @@ def device_ms(torch, fn, kernel_name, reps=10):
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
-        if kernel_name in ev.key:
+        if any(x in ev.key for x in names):
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
     return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def host_ms(torch, fn, reps=50):
+    """Host milliseconds per call of ``fn``, calls queued back to back
+    (the card runs them meanwhile; synchronised only after the clock)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * dt / reps
 
 
 class Checker:
@@ -157,6 +188,15 @@ class Checker:
             f"(|err| <= {tol:g} * (1 + |plain|))")
         if bool(bad.any()):
             fail(f"{kernel} {what}: max|err| {worst:.3e} beyond tol {tol}")
+
+    def versus_f64(self, kernel, what, got, plain, exact):
+        """Log how far the kernel's and the f32 plain version's outputs are
+        from the plain version evaluated in f64 (which side carries an
+        error); checks nothing."""
+        def err(a, b):
+            return float((a.double() - b).abs().max())
+        log(f"  {kernel:12s} {what:44s} vs f64: kernel max|err| "
+            f"{err(got, exact):.3e}, f32 plain {err(plain, exact):.3e}")
 
 
 def paged_inputs(torch, gen, B, Hkv, G, D, P, max_pages, lens, dtype, dev,
@@ -215,6 +255,10 @@ def kernel_phase(torch, chk):
         out_p = pa._combine_partials_plain(*got, dtype=dtype)
         torch.cuda.synchronize()
         chk.close("combine", f"{name} main (S={ns})", out_k, out_p, tol)
+        op_args = (q, kp, vp, tables, lens_t)
+        op = pa.paged_attention_kernel(*op_args, **kw)
+        chk.close("decode_op", f"{name} main (K1 + K2, one call)", op,
+                  pa._combine_partials_plain(*want, dtype=dtype), tol)
 
         k1_ms = time_ms(torch, lambda: pa.paged_attention_partials(
             q, kp, vp, tables, lens_t, **kw))
@@ -251,6 +295,29 @@ def kernel_phase(torch, chk):
             q, kp, vp, tables, lens_t, **kw), "paged_decode_kernel")
         k2_dev = device_ms(torch, lambda: pa.combine_partials_kernel(
             *got, dtype=dtype), "combine_kernel")
+        # the decode op from one call: its wall time by events, the device
+        # time of its two kernels, the host's share, and its host time per
+        # call when calls are queued back to back
+        op_ms = time_ms(torch, lambda: pa.paged_attention_kernel(
+            *op_args, **kw))
+        op_dev = device_ms(torch, lambda: pa.paged_attention_kernel(
+            *op_args, **kw), ("paged_decode_kernel", "combine_kernel"))
+        op_host = host_ms(torch, lambda: pa.paged_attention_kernel(
+            *op_args, **kw))
+        op_over = None if op_dev is None else op_ms - op_dev
+        parts = op_host_parts(torch, op_args, kw)
+        log(f"  decode_op    {name}: host us per call by part: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+        log(f"  decode_op    {name}: one call {op_ms:.4f} ms (device K1 + "
+            f"K2 {fmt(op_dev)}; host overhead {fmt(op_over)}; host "
+            f"{op_host:.4f} ms per call queued back to back), SDPA over "
+            f"pre-gathered KV {lib:.4f} ms")
+        rows[("decode_op", name)] = dict(ms=op_ms, device_ms=op_dev,
+                                         host_overhead_ms=op_over,
+                                         host_ms=op_host,
+                                         host_us_by_part=parts,
+                                         bound_ms=k1_bound
+                                         + k2_bound, library_ms=lib)
         log(f"  paged_decode {name}: kernel {k1_ms:.4f} ms (device "
             f"{fmt(k1_dev)}), plain {k1_plain:.4f} ms, bound "
             f"{k1_bound:.4f} ms (bytes), SDPA over pre-gathered KV (K1+K2) "
@@ -268,6 +335,23 @@ def kernel_phase(torch, chk):
                                        bound_ms=k2_bound, bound_by="bytes",
                                        library_ms=None)
         del kp, vp, kc, vc
+
+    # K1 with every split full (lens 2048): how close the streaming comes
+    # to the byte bound when no split is short or empty
+    lens_full = [max_pages * P] * B
+    q, kp, vp, tables, lens_t = paged_inputs(
+        torch, gen, B, H, 1, D, P, max_pages, lens_full, torch.bfloat16, dev)
+    kw = dict(scale=D ** -0.5, pages_per_block=ppb, num_splits=ns)
+    full_dev = device_ms(torch, lambda: pa.paged_attention_partials(
+        q, kp, vp, tables, lens_t, **kw), "paged_decode_kernel")
+    full_bound = 1e3 * (2 * sum(lens_full) * H * D * 2) / HBM_BPS
+    log(f"  paged_decode bfloat16 lens {lens_full[0]} (every split full): "
+        f"device {fmt(full_dev)}, bound {full_bound:.4f} ms (bytes)")
+    rows[("paged_decode_full", "bfloat16")] = dict(device_ms=full_dev,
+                                                   bound_ms=full_bound)
+    del q, kp, vp
+
+    decode_edge_cases(torch, chk, gen)
 
     # -- K1 + K2 sweep: GQA, window, softcap, int8, D=64 ------------------
     sweep = [  # (G, D, ppb, splits, window, softcap, int8)
@@ -288,22 +372,14 @@ def kernel_phase(torch, chk):
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             name = str(dtype).replace("torch.", "")
-            q, kp, vp, tables, lens_t = paged_inputs(
-                torch, gen, Bs, Hs, G, Dd, Ps, mp, slens, dtype, dev,
-                int8=int8, window=window)
+            args = paged_inputs(torch, gen, Bs, Hs, G, Dd, Ps, mp, slens,
+                                dtype, dev, int8=int8, window=window)
             kw = dict(scale=Dd ** -0.5, window=window, softcap=softcap,
                       kv_scale=0.05 if int8 else 0.0,
                       pages_per_block=sp_ppb, num_splits=sp_ns)
-            got = pa.paged_attention_partials(q, kp, vp, tables, lens_t, **kw)
-            want = pa._paged_attention_partials_plain(q, kp, vp, tables,
-                                                      lens_t, **kw)
             tag = (f"{name} G{G} D{Dd} w{window} cap{softcap:g} "
                    f"{'int8' if int8 else ''}")
-            for part, g_, w_ in zip("m l acc".split(), got, want):
-                chk.close("paged_decode", f"{tag} {part}", g_, w_, tol)
-            chk.close("combine", tag,
-                      pa.combine_partials_kernel(*got, dtype=dtype),
-                      pa._combine_partials_plain(*got, dtype=dtype), tol)
+            check_decode(torch, chk, tag, args, kw, dtype, tol)
 
     # -- K4 at the main-path shapes --------------------------------------
     Bf, Hf, Q = 8, 32, 1536
@@ -417,6 +493,102 @@ def kernel_phase(torch, chk):
     return rows
 
 
+def op_host_parts(torch, args, kw):
+    """Host microseconds per call of the decode op's parts, each timed
+    alone over calls queued back to back: the wrapper's preparation
+    (checks, partition, allocations, C arguments), the raw stream, the C
+    call (two tensor maps, K1's and K2's launches), and the whole op."""
+    from repro_torch.kernels import use_kernel
+    from repro_torch.kernels.build import get_lib
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    lib = get_lib()
+    name, c_args, _, _, _ = pa._decode_call(*args, window=0, softcap=0.0,
+                                            kv_scale=0.0, combine=True, **kw)
+    idx = args[0].device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    fn = getattr(lib, name)
+    parts = {
+        "device check": lambda: use_kernel("decode", *args),
+        "preparation": lambda: pa._decode_call(
+            *args, window=0, softcap=0.0, kv_scale=0.0, combine=True, **kw),
+        "device + stream": lambda: (torch.cuda.current_device(),
+                                    torch._C._cuda_getCurrentRawStream(idx)),
+        "C call": lambda: fn(*c_args, stream),
+        "whole op": lambda: pa.paged_attention_kernel(*args, **kw),
+    }
+    return {k: 1e3 * host_ms(torch, f, reps=200) for k, f in parts.items()}
+
+
+def check_decode(torch, chk, tag, args, kw, dtype, tol, f64=False):
+    """K1's partials, K2 and the decode op against their plain versions;
+    with ``f64``, also how far each side is from the plain version in f64."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    kw = dict(dict(window=0, softcap=0.0, kv_scale=0.0), **kw)
+    got = pa.paged_attention_partials(*args, **kw)
+    want = pa._paged_attention_partials_plain(*args, **kw)
+    for part, g_, w_ in zip("m l acc".split(), got, want):
+        chk.close("paged_decode", f"{tag} {part}", g_, w_, tol)
+    if f64:
+        q, kp, vp = (x.double() for x in args[:3])
+        exact = pa._paged_attention_partials_plain(q, kp, vp, *args[3:], **kw)
+        for part, g_, w_, x_ in zip("m l acc".split(), got, want, exact):
+            chk.versus_f64("paged_decode", f"{tag} {part}", g_, w_, x_)
+        del exact
+    chk.close("combine", tag, pa.combine_partials_kernel(*got, dtype=dtype),
+              pa._combine_partials_plain(*got, dtype=dtype), tol)
+    chk.close("decode_op", tag, pa.paged_attention_kernel(*args, **kw),
+              pa._combine_partials_plain(*want, dtype=dtype), tol)
+
+
+def decode_edge_cases(torch, chk, gen):
+    """K1, K2 and the op at the edges of the new kernel's tiles, pages and
+    splits, over a full table, and at smaller pages."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops
+
+    dev = torch.device("cuda")
+    both = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
+    # main widths: lens at the 32-token tile, the 64-token page and the
+    # 512-token split edges; 1 leaves three of the four splits empty, 0
+    # all four
+    lens = [1, 63, 64, 65, 512, 513, 2048, 0]
+    for dtype, tol in both:
+        name = str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, len(lens), 32, 1, 128, 64, 32, lens,
+                            dtype, dev)
+        kw = dict(scale=128 ** -0.5, pages_per_block=2, num_splits=4)
+        check_decode(torch, chk, f"{name} edge lens {lens}", args, kw,
+                     dtype, tol)
+    # the full 32-page table in one split of 16 blocks: 2048 keys
+    for dtype, tol in both:
+        name = str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, 2, 32, 1, 128, 64, 32, [2048, 1999],
+                            dtype, dev)
+        kw = dict(scale=128 ** -0.5, pages_per_block=2, num_splits=1)
+        check_decode(torch, chk, f"{name} full table, 1 split of 2048",
+                     args, kw, dtype, tol, f64=dtype == torch.float32)
+    # pages of 8 and 16 tokens at smoke width (several pages per tile),
+    # the engine's blocks for a 256-token table, in two splits
+    scfg = get_config("llama2-7b").smoke()
+    Hs, Ds = scfg.n_kv_heads, scfg.resolved_head_dim
+    Gs = scfg.n_heads // Hs
+    for Ps in (8, 16):
+        mp = 256 // Ps
+        ppb, ns = ops.choose_decode_params(mp, Ps, Ds, None, 2)
+        slens = [1, Ps - 1, Ps, Ps + 1, 33, 100, 256]
+        for dtype, tol in both:
+            for int8 in (False, True):
+                name = str(dtype).replace("torch.", "")
+                args = paged_inputs(torch, gen, len(slens), Hs, Gs, Ds, Ps,
+                                    mp, slens, dtype, dev, int8=int8)
+                kw = dict(scale=Ds ** -0.5, kv_scale=0.05 if int8 else 0.0,
+                          pages_per_block=ppb, num_splits=ns)
+                check_decode(torch, chk, f"{name} smoke H{Hs} G{Gs} D{Ds} "
+                             f"page {Ps} ppb {ppb} S {ns}"
+                             f"{' int8' if int8 else ''}", args, kw, dtype,
+                             tol)
+
+
 def chunk_inputs(torch, gen, Hkv, G, D, P, max_pages, q_start, q_lens, dtype,
                  dev, int8=False):
     """Chunk queries (B, C, H, D), pools, tables with each live row's pages
@@ -525,11 +697,13 @@ def prefill_kernel_phase(torch, chk, gen):
         (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, True, both),
         (8, 64, 16, 6, [20, 33], [45, 1], 3, 2, 40, 0.0, False, both),
         (2, 64, 16, 9, [16, 130, 7], [1, 1, 1], 1, 2, 1, 0.0, True, both),
-        # the tensor-core tile's edges, in bf16: a 512-token chunk resuming
-        # at 1536 over a full 32-page table (kv 2048, 32 heads); Q-blocks
-        # of R = q_block * G = 128 and 120 rows (not a multiple of 64)
+        # a 512-token chunk resuming at 1536 over a full 32-page table (kv
+        # 2048, 32 heads): the tensor-core tile's edge in bf16, the CUDA-core
+        # kernel's longest un-normalised sums in f32 (also held against the
+        # plain version in f64); then, in bf16, Q-blocks of R = q_block * G
+        # = 128 and 120 rows (not a multiple of 64)
         (1, 128, 64, 32, [1536, 1000], [512, 300], 2, 1, 128, 0.0, False,
-         bf16),
+         both),
         (4, 128, 16, 9, [40, 3], [70, 64], 2, 1, 32, 0.0, False, bf16),
         (8, 128, 16, 9, [0, 21], [45, 30], 2, 2, 15, 0.0, False, bf16),
     ]
@@ -551,6 +725,14 @@ def prefill_kernel_phase(torch, chk, gen):
                    f"{'int8' if int8 else ''}")
             for part, g_, w_ in zip("m l acc".split(), got, want):
                 chk.close(key, f"{tag} {part}", g_, w_, tol)
+            if mp == 32 and dtype == torch.float32:
+                exact = pa._paged_prefill_partials_plain(
+                    *(x.double() for x in args[:3]), *args[3:], **kw)
+                for part, g_, w_, x_ in zip("m l acc".split(), got, want,
+                                            exact):
+                    chk.versus_f64(key, f"{tag} full table {part}", g_, w_,
+                                   x_)
+                del exact
             S = got[0].shape[3]
             folded = [fold_prefill(x, S) for x in got]
             chk.close("combine", f"prefill {tag}",
@@ -848,7 +1030,8 @@ def chunked_phase(torch, params):
             f"prefix hit tokens {w['prefix_hit_tokens']}")
     counts = kernels.launch_counts()
     check_path("chunked", eng, all_reqs, new, counts,
-               must=("paged_decode", "paged_prefill", "paged_prefill/tc"),
+               must=("paged_decode", "combine", "paged_prefill",
+                     "paged_prefill/tc"),
                never=("flex_prefill", "paged_prefill/simt"))
     if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
         fail(f"chunked: wave B hit {waves['B']['prefix_hit_tokens']} "
@@ -923,11 +1106,12 @@ def profile_steps(torch, eng, n):
 
 
 def log_ptxas(text):
-    """Registers, shared memory and spills of the tensor-core kernels, from
-    nvcc's -Xptxas -v report (empty when the library was cached)."""
+    """Registers, shared memory and spills of the tensor-core kernels and of
+    K1, from nvcc's -Xptxas -v report (empty when the library was cached)."""
     lines = text.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and "_tc" in line:
+        if "Compiling entry function" in line and (
+                "_tc" in line or "paged_decode_kernel" in line):
             fn = line.split("'")[1] if "'" in line else line
             info = [x.split("ptxas info    : ")[-1].strip()
                     for x in lines[i + 1:i + 4]
@@ -947,6 +1131,12 @@ def count_hgmma(lib):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="build and run the kernel phase only (a first "
+                    "check of new kernels); prints no result line")
+    only_kernels = ap.parse_args().kernels_only
     try:
         import torch
     except ImportError:
@@ -977,6 +1167,12 @@ def main():
 
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
+    if only_kernels:
+        log(json.dumps({f"{k}/{d}": v for (k, d), v in rows.items()}))
+        log("kernel phase passed (--kernels-only: no engine phases, no "
+            "result line)")
+        (OUT / "chip_smoke.log").write_text("\n".join(LOG))
+        return
     model_phase(torch)
     torch.cuda.empty_cache()
     engine, params = engine_phase(torch)
@@ -1008,6 +1204,7 @@ def main():
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    (OUT / "chip_smoke.log").write_text("\n".join(LOG))
     (OUT / "chip_smoke_last.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},

@@ -512,24 +512,34 @@ inline EncodeTiled encoder() {
 constexpr int kErrNoEncoder = 900;  // error codes of the C entry points
 constexpr int kErrEncode = 901;
 
-// A bf16 matrix of `rows` rows of `cols` elements, `row_bytes` apart, read
-// in boxes of (box_rows, 64 columns) with the 128-byte swizzle.  Out-of-range
-// rows of a box read as zeros.  Returns 0 or an error code.
-inline int encode_2d(CUtensorMap* map, const void* ptr, uint64_t cols,
-                     uint64_t rows, uint64_t row_bytes, uint32_t box_rows) {
+// A matrix of `rows` rows of `cols` elements of `type`, `row_bytes` apart,
+// read in boxes of (box_rows, box_cols) with `swizzle` (the tensor-core tile:
+// bf16, 64 columns, the 128-byte swizzle; K1: whole unswizzled head rows of
+// f32, bf16 or int8).  Out-of-range rows of a box read as zeros.  Returns 0
+// or an error code.
+inline int encode_2d(CUtensorMap* map, const void* ptr,
+                     CUtensorMapDataType type, uint64_t cols, uint64_t rows,
+                     uint64_t row_bytes, uint32_t box_cols, uint32_t box_rows,
+                     CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return kErrNoEncoder;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+  const CUresult r = fn(map, type, 2, const_cast<void*>(ptr), dims, strides,
+                        box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kErrEncode;
+}
+
+// The tile's bf16 boxes: 64 columns, the 128-byte swizzle.
+inline int encode_bf16_sw128(CUtensorMap* map, const void* ptr, uint64_t cols,
+                             uint64_t rows, uint64_t row_bytes,
+                             uint32_t box_rows) {
+  return encode_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, rows,
+                   row_bytes, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace flash_tc

@@ -345,8 +345,8 @@ int launch_tc(const FlexParams& p, cudaStream_t st) {
   const uint32_t kbox = static_cast<uint32_t>(
       rows < static_cast<uint64_t>(ft::kBN) ? rows : ft::kBN);
   CUtensorMap tk, tv;
-  int bad = ft::encode_2d(&tk, p.k, D, rows, D * 2, kbox);
-  if (!bad) bad = ft::encode_2d(&tv, p.v, D, rows, D * 2, kbox);
+  int bad = ft::encode_bf16_sw128(&tk, p.k, D, rows, D * 2, kbox);
+  if (!bad) bad = ft::encode_bf16_sw128(&tv, p.v, D, rows, D * 2, kbox);
   if (bad) return bad;
   constexpr size_t bytes = ft::Layout<D>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(

@@ -1,31 +1,92 @@
-// K1: split-K paged decode attention for Hopper (sm_90a).
+// K1: split-K paged decode attention for Hopper (sm_90a), and the decode op
+// (K1, then K2) from one host call.
 //
 // Replaces the TPU kernel repro/kernels/paged_attention/paged_attention.py::
-// _decode_kernel (launcher paged_attention_partials).  One CUDA block per
-// (split, kv_head, batch) slot walks the KV tokens of its split through the
-// block table, clamped exactly as _blocked_tables clamps it (dense rows: the
-// rank never passes the last live page; every id is clamped into the pool),
-// and emits the un-normalised online-softmax partials (m, l, acc) in f32.
-// An empty split emits (NEG_INF, 0, 0).  Masks as the TPU kernel: liveness
+// _decode_kernel (launcher paged_attention_partials).  One CTA per (split,
+// kv_head, batch) slot walks the KV tokens of its split through the block
+// table, clamped exactly as _blocked_tables clamps it (dense rows: the rank
+// never passes the last live page; every id is clamped into the pool), and
+// emits the un-normalised online-softmax partials (m, l, acc) in f32.  An
+// empty split emits (NEG_INF, 0, 0).  Masks as the TPU kernel: liveness
 // pos < len, or the ring-slot window mask; softcap; int8 pools times
 // kv_scale.
 //
 // What bounds it: decode reads every live K and V row once and does two
-// flops per element read (G = 1 for llama2-7b), so it is a GEMV bound by
-// device-memory bandwidth: live K+V bytes / 3.35 TB/s.  The design spends
-// its effort on the loads: each K/V row is read with coalesced 16-byte
-// vector loads (neighbouring lanes on neighbouring addresses), pages are
-// looked up once per tile, and only live tokens are read — dead pages past
-// len are never touched.  Scores and the running (m, l) live in shared
-// memory; the G x D accumulator stays in registers, split over token
-// groups and reduced once at the end.  wgmma/TMA pipelining is later work.
+// flops per element read (G = 1 for llama2-7b), a GEMV bound by device
+// memory: live K+V bytes / 3.35 TB/s.  Holding that rate takes ~25-32 KB in
+// flight per SM (3.35 TB/s / 132 SMs x ~1 us of latency), so the design is
+// a load pipeline:
+//
+// - A ring of kStages = 4 stages of 16 KB in shared memory, each holding
+//   the K and V rows of one tile of kT tokens of this head (kT = 32 for
+//   bf16 at D = 128, 16 for f32, 32 for int8 and at D = 64).  One producer
+//   thread (lane 0 of the fifth warp) fills it by TMA: one unswizzled box
+//   of whole head rows (D columns) per page touched by the tile, from the
+//   pools viewed as a 2-D tensor of (num_pages * P) rows of Hkv * D
+//   elements; pages of up to kT tokens go several to a tile, longer pages
+//   are cut into kT-row tiles.  The page ids are read from the table as
+//   each tile is issued, with the clamp above.  K and V of a tile complete
+//   on the stage's "full" mbarrier; the producer refills a stage once its
+//   "empty" mbarrier has one arrival from each consumer warp.  At most 4
+//   tiles (64 KB) per CTA are in flight, and 3 CTAs fit an SM at G = 1
+//   (67 KB of shared memory each): up to 192 KB in flight per SM, above
+//   the ~32 KB the rate needs, and at least the 3 stages the consumers are
+//   not reading (48 KB per CTA).
+// - No CTA barrier per tile.  Each of the 4 consumer warps owns a fixed
+//   share of every tile, rows [8w, 8w + 8) of a 32-token tile (kT / 4 in
+//   general), reads them in passes of 32 / (D / VEC) rows (VEC elements,
+//   8 or 16 bytes, per lane: conflict-free without a swizzle, since a pass
+//   reads contiguous bytes), and keeps its own online softmax: the max
+//   over the warp's scores of the tile updates its (m, l), and the tile's
+//   p.V is summed on its own before it enters the G x D accumulator held in
+//   registers.  A warp releases the stage with one arrival on its empty
+//   barrier and goes on to the next tile; warps never wait for each other.
+// - One merge at the end: each warp's (m, l, acc) goes to shared memory,
+//   and after the only CTA barrier past the prologue the CTA merges them
+//   with K2's formula (m* = max m_w, l = sum l_w e^(m_w - m*), likewise acc).
+//
+// The arithmetic stays on the CUDA cores: at G <= 8 decode is a GEMV at
+// two flops per byte, far below what the tensor cores would need.
+//
+// paged_decode_attention launches K1 and then, with more than one split,
+// K2 (combine.cu) on the same stream, and returns the first error.
+#include <atomic>
+#include <mutex>
+
 #include "common.cuh"
+#include "flash_tc.cuh"
+
+namespace ft = flash_tc;
+
+// K2's C entry (combine.cu), launched by the decode op after K1.
+extern "C" int combine_partials(int out_code, const void* m, const void* l,
+                                const void* acc, void* out, int B, int Hkv,
+                                int S, int G, int D, void* stream);
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;  // KV tokens scored per tile
+constexpr int kWarps = 4;                    // consumer warps
+constexpr int kThreads = 32 * (kWarps + 1);  // and one producer warp
+constexpr int kStages = 4;
+constexpr int kStageBytes = 16384;  // K + V of one tile
+constexpr int kMaxTile = 32;        // tokens per tile, at most
+
+// Tile geometry for pools of TKV at head dim D.
+template <typename TKV, int D>
+struct Geo {
+  static constexpr int kRowBytes = D * static_cast<int>(sizeof(TKV));
+  static constexpr int kFit = kStageBytes / (2 * kRowBytes);
+  static constexpr int kT = kFit < kMaxTile ? kFit : kMaxTile;  // tokens
+  static constexpr int kHalf = kT * kRowBytes;  // K (or V) bytes of a stage
+  // elements per lane: 16 bytes, at most 8 (int8 keeps registers low)
+  static constexpr int VEC = 16 / sizeof(TKV) < 8 ? 16 / sizeof(TKV) : 8;
+  static constexpr int LPR = D / VEC;     // lanes per row
+  static constexpr int RPI = 32 / LPR;    // rows per pass of a warp
+  static constexpr int TPW = kT / kWarps; // rows of a tile per warp
+  static constexpr int NP = TPW / RPI;    // passes per tile
+  static_assert(LPR <= 32 && 32 % LPR == 0, "a row fits a warp");
+  static_assert(TPW % RPI == 0 && NP >= 1, "whole passes per tile");
+};
 
 struct DecodeParams {
   const void* q;
@@ -44,37 +105,84 @@ struct DecodeParams {
   int q_code;  // 0 f32, 1 bf16
 };
 
+// The tokens [lo, hi) of one slot and its tiles.  Pages of at most kT
+// tokens go tp whole pages to a tile; a longer page is cut into tiles of kT
+// rows (cpp per page; its last may be shorter).  Tile rows are the tile's
+// tokens in order.
+struct Span {
+  int lo, hi, P, kT, tp, cpp, tile_tok;
+  bool multi;  // several whole pages per tile
+
+  __device__ Span(int lo_, int hi_, int P_, int kT_)
+      : lo(lo_), hi(hi_), P(P_), kT(kT_) {
+    multi = P <= kT;
+    tp = multi ? kT / P : 1;
+    cpp = multi ? 1 : (P + kT - 1) / kT;
+    tile_tok = multi ? tp * P : kT;
+  }
+  __device__ int start(int i) const {
+    return multi ? lo + i * tile_tok : lo + (i / cpp) * P + (i % cpp) * kT;
+  }
+  __device__ int end(int i) const {
+    const int s = start(i);
+    return min(hi, multi ? s + tile_tok : min(s + kT, (s / P + 1) * P));
+  }
+  __device__ int count() const {
+    const int len = hi - lo;
+    if (len <= 0) return 0;
+    return multi ? (len + tile_tok - 1) / tile_tok
+                 : (len / P) * cpp + (len % P + kT - 1) / kT;
+  }
+};
+
+// VEC elements of T from shared memory (8 or 16 bytes), widened to f32.
+template <typename T, int N>
+__device__ __forceinline__ void lds_vec(const T* p, float (&out)[N]) {
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  static_assert(kBytes == 16 || kBytes == 8, "8- or 16-byte loads");
+  if constexpr (kBytes == 16) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f32(e[i]);
+  } else {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = to_f32(e[i]);
+  }
+}
+
+template <typename TKV, int D, int G>
+constexpr size_t smem_bytes() {
+  return 128 + kStages * 2 * Geo<TKV, D>::kHalf +
+         kWarps * G * (D + 2) * sizeof(float) + 16 * kStages;
+}
+
 template <typename TKV, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-    paged_decode_kernel(const DecodeParams p) {
-  constexpr int VEC = Vec16<TKV>::N;   // elements per 16-byte load
-  constexpr int LPT = D / VEC;         // lanes reading one K/V row
-  constexpr int NSG = kThreads / LPT;  // token groups per block
-  static_assert(LPT <= 32 && 32 % LPT == 0, "row must fit a warp");
-
-  __shared__ float q_s[G][D];
-  __shared__ float sc[G][kTile];
-  __shared__ float m_s[G], l_s[G], alpha_s[G];
-  __shared__ int page_s[kTile];
-  __shared__ float red[NSG * D];
+    paged_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const DecodeParams p) {
+  using Gm = Geo<TKV, D>;
+  constexpr int VEC = Gm::VEC, LPR = Gm::LPR;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  const uint32_t raw = ft::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 127u) & ~127u) - raw;
+  uint8_t* smem = smem_raw + pad;  // stages, then the merge, then barriers
+  const uint32_t base = raw + pad;
+  float* m_s = reinterpret_cast<float*>(smem + kStages * 2 * Gm::kHalf);
+  float* l_s = m_s + kWarps * G;   // [kWarps][G]
+  float* acc_s = l_s + kWarps * G;  // [kWarps][G][D]
+  const uint32_t bars = base + kStages * 2 * Gm::kHalf +
+                        kWarps * G * (D + 2) * sizeof(float);
+  auto full = [&](int st) { return bars + 8 * st; };
+  auto empty = [&](int st) { return bars + 8 * (kStages + st); };
 
   const int s = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int P = p.page_size;
   const int L = p.lens[b];
-
-  for (int i = tid; i < G * D; i += kThreads) {
-    const size_t off = (static_cast<size_t>(b) * p.Hkv + h) * G * D + i;
-    const float x =
-        p.q_code == 0
-            ? static_cast<const float*>(p.q)[off]
-            : __bfloat162float(static_cast<const __nv_bfloat16*>(p.q)[off]);
-    q_s[i / D][i % D] = x * p.scale;
-  }
-  if (tid < G) {
-    m_s[tid] = REPRO_NEG_INF;
-    l_s[tid] = 0.f;
-  }
 
   // token range of this split, cut to what can be live
   const int split_tokens = p.bps * p.ppb * P;
@@ -88,154 +196,307 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     hi = min(hi, L);
   }
-  const int n_live = max((L + P - 1) / P, 1);
+  const Span sp(lo, hi, P, Gm::kT);
+  const int n = sp.count();
 
-  const int grp = tid / LPT;
-  const int lane_in = tid % LPT;
-  const int d0 = lane_in * VEC;
-  const size_t tok_stride = static_cast<size_t>(p.Hkv) * D;
-  const size_t page_stride = static_cast<size_t>(P) * tok_stride;
-  const TKV* kbase = static_cast<const TKV*>(p.k) + static_cast<size_t>(h) * D + d0;
-  const TKV* vbase = static_cast<const TKV*>(p.v) + static_cast<size_t>(h) * D + d0;
-  const float kvs = p.kv_scale > 0.f ? p.kv_scale : 1.f;
-  const int* trow = p.tables + static_cast<size_t>(b) * p.max_pages;
-
-  float acc[G][VEC];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      ft::mbar_init(full(st), 1);        // the producer's expect_tx
+      ft::mbar_init(empty(st), kWarps);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
 
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    const int n = min(kTile, hi - t0);
-    // page of every tile token, -1 when the token is dead
-    for (int i = tid; i < n; i += kThreads) {
-      const int t = t0 + i;
-      const int rank = t / P;
-      int r = p.window > 0 ? rank : min(rank, n_live - 1);
-      r = min(r, p.max_pages - 1);
-      const int pg = min(max(trow[r], 0), p.num_pages - 1);
-      bool live = true;  // dense: t < L by the range cut above
-      if (p.window > 0) {
-        const int wrap = ((cur_page - rank) % ring + ring) % ring;
-        int pos = (cur_page - wrap) * P + t % P;
-        if (pos >= L) pos -= ring * P;
-        live = pos >= 0 && pos < L && pos >= L - p.window;
+  if (warp == kWarps) {
+    // -- the producer: tile i into stage i % kStages, once it is free ------
+    if (lane == 0) {
+      const int* trow = p.tables + static_cast<size_t>(b) * p.max_pages;
+      const int n_live = max((L + P - 1) / P, 1);
+      const uint32_t box = (sp.multi ? P : Gm::kT) * Gm::kRowBytes;
+      for (int i = 0; i < n; ++i) {
+        const int st = i % kStages;
+        if (i >= kStages) ft::mbar_wait(empty(st), ((i / kStages) - 1) & 1);
+        const int t0 = sp.start(i);
+        const int np = sp.multi ? (sp.end(i) - t0 + P - 1) / P : 1;
+        const int off = t0 % P;  // 0 for whole pages
+        ft::mbar_expect_tx(full(st), 2u * np * box);
+        const uint32_t kd = base + st * 2 * Gm::kHalf;
+        for (int j = 0; j < np; ++j) {
+          const int rank = t0 / P + j;
+          int r = p.window > 0 ? rank : min(rank, n_live - 1);
+          r = min(r, p.max_pages - 1);
+          const int pg = min(max(__ldg(trow + r), 0), p.num_pages - 1);
+          const int row = pg * P + off;
+          ft::tma_load_2d(kd + j * box, &tk, full(st), h * D, row);
+          ft::tma_load_2d(kd + Gm::kHalf + j * box, &tv, full(st), h * D,
+                          row);
+        }
       }
-      page_s[i] = live ? pg : -1;
     }
-    __syncthreads();
-
-    // scores: LPT lanes per token row, every lane in the loop every pass
-    for (int base = 0; base < n; base += NSG) {
-      const int i = base + grp;
-      const int pg = i < n ? page_s[i] : -1;
-      float part[G];
+    __syncwarp();
+  } else {
+    // -- a consumer warp: its rows of every tile, its own online softmax --
+    const int grp = lane / LPR;        // row of the pass
+    const int d0 = (lane % LPR) * VEC;  // columns of the lane
+    const float kvs = p.kv_scale > 0.f ? p.kv_scale : 1.f;
+    float qr[G][VEC];
 #pragma unroll
-      for (int g = 0; g < G; ++g) part[g] = 0.f;
-      if (pg >= 0) {
-        float kv[VEC];
-        load_vec16(kbase + pg * page_stride + ((t0 + i) % P) * tok_stride, kv);
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const size_t off =
+            ((static_cast<size_t>(b) * p.Hkv + h) * G + g) * D + d0 + e;
+        const float x =
+            p.q_code == 0
+                ? static_cast<const float*>(p.q)[off]
+                : to_f32(static_cast<const __nv_bfloat16*>(p.q)[off]);
+        qr[g][e] = x * p.scale;
+      }
+    float m[G], l[G], acc[G][VEC];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      m[g] = REPRO_NEG_INF;
+      l[g] = 0.f;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    }
+
+    for (int i = 0; i < n; ++i) {
+      const int st = i % kStages;
+      ft::mbar_wait(full(st), (i / kStages) & 1);
+      const int t0 = sp.start(i), cnt = sp.end(i) - t0;
+      const TKV* ks = reinterpret_cast<const TKV*>(smem + st * 2 * Gm::kHalf);
+      const TKV* vs = ks + Gm::kT * D;
+
+      float sc[Gm::NP][G], mx[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) mx[g] = REPRO_NEG_INF;
+#pragma unroll
+      for (int pp = 0; pp < Gm::NP; ++pp) {
+        const int row = warp * Gm::TPW + pp * Gm::RPI + grp;
+        float part[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) part[g] = 0.f;
+        if (row < cnt) {
+          float kv[VEC];
+          lds_vec(ks + row * D + d0, kv);
+#pragma unroll
+          for (int g = 0; g < G; ++g)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) part[g] += qr[g][e] * kv[e];
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g)
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) part[g] += q_s[g][d0 + e] * kv[e];
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g)
-#pragma unroll
-        for (int off = LPT / 2; off > 0; off >>= 1)
-          part[g] += __shfl_xor_sync(0xffffffffu, part[g], off);
-      if (lane_in == 0 && i < n) {
+          for (int o = LPR / 2; o > 0; o >>= 1)
+            part[g] += __shfl_xor_sync(0xffffffffu, part[g], o);
+        bool live = row < cnt;
+        if (live && p.window > 0) {
+          const int t = t0 + row, rank = t / P;
+          const int wrap = ((cur_page - rank) % ring + ring) % ring;
+          int pos = (cur_page - wrap) * P + t % P;
+          if (pos >= L) pos -= ring * P;
+          live = pos >= 0 && pos < L && pos >= L - p.window;
+        }
 #pragma unroll
         for (int g = 0; g < G; ++g) {
           float x = part[g] * kvs;
           if (p.softcap > 0.f) x = p.softcap * tanhf(x / p.softcap);
-          sc[g][i] = pg >= 0 ? x : REPRO_NEG_INF;
+          sc[pp][g] = live ? x : REPRO_NEG_INF;
+          mx[g] = fmaxf(mx[g], sc[pp][g]);
         }
       }
-    }
-    __syncthreads();
-
-    // online-softmax update of (m, l) per query row; scores -> weights
-    for (int g = warp; g < G; g += kWarps) {
-      float mx = REPRO_NEG_INF;
-      for (int i = lane; i < n; i += 32) mx = fmaxf(mx, sc[g][i]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int i = lane; i < n; i += 32) {
-        const float x = sc[g][i];
-        const float pe = x > 0.5f * REPRO_NEG_INF ? expf(x - m_new) : 0.f;
-        sc[g][i] = pe;
-        sum += pe;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + weights . V, token groups in parallel
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float a = alpha_s[g];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= a;
-    }
-    for (int i = grp; i < n; i += NSG) {
-      const int pg = page_s[i];
-      if (pg < 0) continue;
-      float vv[VEC];
-      load_vec16(vbase + pg * page_stride + ((t0 + i) % P) * tok_stride, vv);
+      float alpha[G];
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        const float pe = sc[g][i] * kvs;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] += pe * vv[e];
+        for (int o = LPR; o < 32; o <<= 1)
+          mx[g] = fmaxf(mx[g], __shfl_xor_sync(0xffffffffu, mx[g], o));
+        const float m_new = fmaxf(m[g], mx[g]);
+        alpha[g] = expf(m[g] - m_new);
+        m[g] = m_new;
+      }
+
+      // the tile's p.V and sum of p, on their own, then into (l, acc)
+      float pv[G][VEC], ps[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        ps[g] = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) pv[g][e] = 0.f;
+      }
+#pragma unroll
+      for (int pp = 0; pp < Gm::NP; ++pp) {
+        const int row = warp * Gm::TPW + pp * Gm::RPI + grp;
+        if (row >= cnt) continue;
+        float vv[VEC];
+        lds_vec(vs + row * D + d0, vv);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float x = sc[pp][g];
+          const float pe = x > 0.5f * REPRO_NEG_INF ? expf(x - m[g]) : 0.f;
+          ps[g] += pe;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) pv[g][e] += pe * vv[e];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) ft::mbar_arrive(empty(st));  // the warp is done reading
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        l[g] = fmaf(l[g], alpha[g], ps[g]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][e] = fmaf(acc[g][e], alpha[g], pv[g][e] * kvs);
       }
     }
-    __syncthreads();  // page_s / sc are rewritten by the next tile
-  }
 
-  const size_t slot = (static_cast<size_t>(b) * p.Hkv + h) * p.S + s;
-  if (tid < G) {
-    p.m[slot * G + tid] = m_s[tid];
-    p.l[slot * G + tid] = l_s[tid];
-  }
+    // the warp's rows of a pass hold partial sums: add them up
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) red[grp * D + d0 + e] = acc[g][e];
-    __syncthreads();
-    for (int d = tid; d < D; d += kThreads) {
-      float x = 0.f;
-      for (int j = 0; j < NSG; ++j) x += red[j * D + d];
-      p.acc[(slot * G + g) * D + d] = x;
+      for (int o = LPR; o < 32; o <<= 1) {
+        l[g] += __shfl_xor_sync(0xffffffffu, l[g], o);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], o);
+      }
+    if (lane < LPR) {
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc_s[(warp * G + g) * D + d0 + e] = acc[g][e];
     }
-    __syncthreads();
+    if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        m_s[warp * G + g] = m[g];
+        l_s[warp * G + g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // -- merge the warps' partials with K2's formula ------------------------
+  const size_t slot = (static_cast<size_t>(b) * p.Hkv + h) * p.S + s;
+  for (int i = threadIdx.x; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float mx = REPRO_NEG_INF;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_s[w * G + g]);
+    float o = 0.f, ls = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(m_s[w * G + g] - mx);
+      o += acc_s[(w * G + g) * D + d] * c;
+      ls += l_s[w * G + g] * c;
+    }
+    p.acc[(slot * G + g) * D + d] = o;
+    if (d == 0) {
+      p.m[slot * G + g] = mx;
+      p.l[slot * G + g] = ls;
+    }
   }
 }
 
+template <typename T>
+constexpr CUtensorMapDataType tma_type();
+template <>
+constexpr CUtensorMapDataType tma_type<float>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+}
+template <>
+constexpr CUtensorMapDataType tma_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+constexpr CUtensorMapDataType tma_type<int8_t>() {
+  return CU_TENSOR_MAP_DATA_TYPE_UINT8;  // the bytes as they are
+}
+
+// A pool's tensor map: (num_pages * P) rows of Hkv * D elements, boxes of
+// box_rows whole head rows, unswizzled.  A decode step asks for the same
+// two maps per layer at every step and a map is a function of its key
+// alone, so the maps are kept (the host's share of the op is most of its
+// cost at the main shapes).
+int pool_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType type,
+             int elem_bytes, uint64_t cols, uint64_t rows, uint32_t D,
+             uint32_t box_rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    CUtensorMapDataType type;
+    uint64_t cols, rows;
+    uint32_t D, box_rows;
+  };
+  constexpr int kKept = 256;
+  static Entry kept[kKept];
+  static int n_kept = 0, next = 0;
+  static std::mutex mu;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < n_kept; ++i) {
+    const Entry& e = kept[i];
+    if (e.ptr == ptr && e.type == type && e.cols == cols && e.rows == rows &&
+        e.D == D && e.box_rows == box_rows) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  const int bad = ft::encode_2d(map, ptr, type, cols, rows, cols * elem_bytes,
+                                D, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (bad) return bad;
+  kept[next] = Entry{*map, ptr, type, cols, rows, D, box_rows};
+  next = (next + 1) % kKept;
+  n_kept = n_kept < kKept ? n_kept + 1 : kKept;
+  return 0;
+}
+
 template <typename TKV, int D, int G>
-void launch(const DecodeParams& p, cudaStream_t st) {
+int launch(const DecodeParams& p, cudaStream_t st) {
+  using Gm = Geo<TKV, D>;
+  const int P = p.page_size;
+  // a box of whole pages lands at stage row j * P: TMA wants 128-byte
+  // aligned destinations (the wrapper raises before this)
+  if (P <= Gm::kT && (P * Gm::kRowBytes) % 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t rows = static_cast<uint64_t>(p.num_pages) * P;
+  const uint64_t cols = static_cast<uint64_t>(p.Hkv) * D;
+  const uint32_t box_rows = P <= Gm::kT ? P : Gm::kT;
+  CUtensorMap tk, tv;
+  int bad = pool_map(&tk, p.k, tma_type<TKV>(), sizeof(TKV), cols, rows, D,
+                     box_rows);
+  if (!bad)
+    bad = pool_map(&tv, p.v, tma_type<TKV>(), sizeof(TKV), cols, rows, D,
+                   box_rows);
+  if (bad) return bad;
+  // the shared-memory limit, raised once per device
+  constexpr size_t bytes = smem_bytes<TKV, D, G>();
+  static std::atomic<uint64_t> raised{0};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = 1ull << (dev & 63);
+  if (!(raised.load() & bit)) {
+    err = cudaFuncSetAttribute(paged_decode_kernel<TKV, D, G>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    raised.fetch_or(bit);
+  }
   const dim3 grid(p.S, p.Hkv, p.B);
-  paged_decode_kernel<TKV, D, G><<<grid, kThreads, 0, st>>>(p);
+  paged_decode_kernel<TKV, D, G><<<grid, kThreads, bytes, st>>>(tk, tv, p);
+  return 0;
 }
 
 template <typename TKV, int D>
 int dispatch_group(const DecodeParams& p, cudaStream_t st) {
   switch (p.G) {
-    case 1: launch<TKV, D, 1>(p, st); return 0;
-    case 2: launch<TKV, D, 2>(p, st); return 0;
-    case 4: launch<TKV, D, 4>(p, st); return 0;
-    case 8: launch<TKV, D, 8>(p, st); return 0;
+    case 1: return launch<TKV, D, 1>(p, st);
+    case 2: return launch<TKV, D, 2>(p, st);
+    case 4: return launch<TKV, D, 4>(p, st);
+    case 8: return launch<TKV, D, 8>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -250,15 +511,15 @@ int dispatch_kv(int kv_code, const DecodeParams& p, cudaStream_t st) {
   }
 }
 
-}  // namespace
-
-extern "C" int paged_decode_partials(
-    int q_code, int kv_code, const void* q, const void* k_pages,
-    const void* v_pages, const void* tables, const void* lens, void* m,
-    void* l, void* acc, int B, int Hkv, int G, int D, int num_pages,
-    int page_size, int max_pages, int ppb, int num_splits, int bps,
-    float scale, int window, float softcap, float kv_scale, void* stream) {
-  if (B == 0) return 0;
+// K1 on `stream`: 0, or the first error.
+int run_decode(int q_code, int kv_code, const void* q, const void* k_pages,
+               const void* v_pages, const void* tables, const void* lens,
+               void* m, void* l, void* acc, int B, int Hkv, int G, int D,
+               int num_pages, int page_size, int max_pages, int ppb,
+               int num_splits, int bps, float scale, int window,
+               float softcap, float kv_scale, cudaStream_t st) {
+  if (page_size < 1 || num_splits < 1 || bps < 1 || ppb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   DecodeParams p;
   p.q = q;
   p.k = k_pages;
@@ -283,7 +544,6 @@ extern "C" int paged_decode_partials(
   p.softcap = softcap;
   p.kv_scale = kv_scale;
   p.q_code = q_code;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   int bad;
   switch (D) {
     case 64: bad = dispatch_kv<64>(kv_code, p, st); break;
@@ -292,4 +552,39 @@ extern "C" int paged_decode_partials(
   }
   if (bad) return bad;
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int paged_decode_partials(
+    int q_code, int kv_code, const void* q, const void* k_pages,
+    const void* v_pages, const void* tables, const void* lens, void* m,
+    void* l, void* acc, int B, int Hkv, int G, int D, int num_pages,
+    int page_size, int max_pages, int ppb, int num_splits, int bps,
+    float scale, int window, float softcap, float kv_scale, void* stream) {
+  if (B == 0 || Hkv == 0) return 0;
+  return run_decode(q_code, kv_code, q, k_pages, v_pages, tables, lens, m, l,
+                    acc, B, Hkv, G, D, num_pages, page_size, max_pages, ppb,
+                    num_splits, bps, scale, window, softcap, kv_scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// The decode op: K1's partials into (m, l, acc), then, with more than one
+// split, K2 merges them into `out` (B, Hkv, G, D) in the q dtype, on the
+// same stream.  With one split `out` is not written: the caller normalises.
+extern "C" int paged_decode_attention(
+    int q_code, int kv_code, const void* q, const void* k_pages,
+    const void* v_pages, const void* tables, const void* lens, void* m,
+    void* l, void* acc, void* out, int B, int Hkv, int G, int D,
+    int num_pages, int page_size, int max_pages, int ppb, int num_splits,
+    int bps, float scale, int window, float softcap, float kv_scale,
+    void* stream) {
+  if (B == 0 || Hkv == 0) return 0;
+  const int bad = run_decode(
+      q_code, kv_code, q, k_pages, v_pages, tables, lens, m, l, acc, B, Hkv,
+      G, D, num_pages, page_size, max_pages, ppb, num_splits, bps, scale,
+      window, softcap, kv_scale, static_cast<cudaStream_t>(stream));
+  if (bad || num_splits == 1) return bad;
+  return combine_partials(q_code, m, l, acc, out, B, Hkv, num_splits, G, D,
+                          stream);
 }

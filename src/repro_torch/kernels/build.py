@@ -47,6 +47,11 @@ SIGNATURES = {
     "paged_decode_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _I, _F, _F, _P],
+    # the decode op (K1, then K2 with more than one split): K1's arguments
+    # with the output after acc
+    "paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _I, _F, _F, _P],
     # out dtype code, m, l, acc, out, B, Hkv, S, G, D, stream
     "combine_partials": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # dtype codes, q, k_pages, v_pages, blocked tables, kv_lens, q_start,

@@ -3,13 +3,18 @@
 K1 (``paged_attention_partials``, CUDA ``csrc/paged_decode.cu``) replaces
 the TPU kernel ``repro/kernels/paged_attention/paged_attention.py::
 _decode_kernel``: one CUDA block per ``(batch, kv_head, split)`` slot walks
-its split's KV pages through the rank-clamped block table and emits the
-un-normalised online-softmax partials ``(m, l, acc)``.  K2
-(``combine_partials_kernel``, ``csrc/combine.cu``) replaces
-``_combine_kernel``: it merges the partials over the split axis,
+its split's KV pages through the rank-clamped block table (K/V tiles by TMA
+into a four-stage ring, four warps with their own online softmax, merged
+once at the end) and emits the un-normalised online-softmax partials
+``(m, l, acc)``.  K2 (``combine_partials_kernel``, ``csrc/combine.cu``)
+replaces ``_combine_kernel``: it merges the partials over the split axis,
 
     m* = max_s m_s          l* = Σ_s l_s · exp(m_s − m*)
     o  = Σ_s acc_s · exp(m_s − m*) / max(l*, 1e-30)
+
+The decode op ``paged_attention_kernel`` runs both from one C call
+(``paged_decode_attention``), with its partials in one buffer; both
+wrappers' launch counts count its launches.
 
 K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 ``_prefill_kernel``: chunked paged prefill, the same partials over Q-blocks
@@ -31,6 +36,7 @@ launches its kernel for CUDA tensors; it never falls back.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
@@ -181,6 +187,13 @@ def _token_live(lens: torch.Tensor, n_tokens: int, page_size: int,
             & (t // page_size < ring)[None, :])
 
 
+def _work_dtype(q: torch.Tensor) -> torch.dtype:
+    """The plain versions' arithmetic: f32, or f64 for f64 inputs (the
+    card's check evaluates them in f64 to see which side carries an
+    error)."""
+    return torch.float64 if q.dtype == torch.float64 else torch.float32
+
+
 def _paged_attention_partials_plain(q, k_pages, v_pages, block_tables, lens,
                                     *, scale, window, softcap, kv_scale,
                                     pages_per_block, num_splits):
@@ -195,15 +208,16 @@ def _paged_attention_partials_plain(q, k_pages, v_pages, block_tables, lens,
                             page_size=page_size, window=window,
                             padded_pages=padded, pages_per_block=ppb)
     T = bps * ppb * page_size  # tokens per split
-    k = k_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
-    v = v_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
+    work = _work_dtype(q)
+    k = k_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
+    v = v_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
     if kv_scale > 0:
         k = k * kv_scale
         v = v * kv_scale
     live = _token_live(lens, padded * page_size, page_size, window)
     live = live.reshape(B, 1, S, 1, T)
 
-    s = torch.einsum("bkgd,bstkd->bksgt", q.float() * scale, k)
+    s = torch.einsum("bkgd,bstkd->bksgt", q.to(work) * scale, k)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     neg = torch.tensor(NEG_INF, device=q.device)
@@ -213,6 +227,66 @@ def _paged_attention_partials_plain(q, k_pages, v_pages, block_tables, lens,
                     torch.tensor(0.0, device=q.device))
     acc = torch.einsum("bksgt,bstkd->bksgd", p, v)
     return m, p.sum(dim=-1), acc
+
+
+def _scratch_views(buf, B, n_kv, S, G, D):
+    """K1's outputs ``m``, ``l`` (B, n_kv, S, G) and ``acc`` (B, n_kv, S,
+    G, D), f32, as contiguous views of one buffer (m first, then l, then
+    acc): one allocation per decode op instead of three."""
+    n = B * n_kv * S * G
+    return (buf[:n].view(B, n_kv, S, G), buf[n:2 * n].view(B, n_kv, S, G),
+            buf[2 * n:].view(B, n_kv, S, G, D))
+
+
+def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
+                 softcap, kv_scale, pages_per_block, num_splits, combine):
+    """The host's work before one decode launch: the input checks (once),
+    the partition, one buffer for (m, l, acc) addressed by offsets, the
+    output when K2 runs (``combine`` and more than one split), and the C
+    entry's name and arguments but the stream.  Returns ``(name, args,
+    buf, S, out)``; see `_scratch_views` for ``buf``."""
+    B, n_kv, G, D = q.shape
+    num_pages, page_size = k_pages.shape[:2]
+    max_pages = block_tables.shape[1]
+    _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale)
+    ppb, _, S, bps = decode_partition(max_pages, pages_per_block, num_splits)
+    dev = q.device
+    n = B * n_kv * S * G
+    buf = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    head = (_Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], q.data_ptr(),
+            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
+            lens.data_ptr(), base, base + 4 * n, base + 8 * n)
+    tail = (B, n_kv, G, D, num_pages, page_size, max_pages, ppb, S, bps,
+            float(scale), int(window), float(softcap), float(kv_scale))
+    if combine and S > 1:
+        out = torch.empty((B, n_kv, G, D), dtype=q.dtype, device=dev)
+        return ("paged_decode_attention", (*head, out.data_ptr(), *tail), buf,
+                S, out)
+    return "paged_decode_partials", (*head, *tail), buf, S, None
+
+
+def _launch_decode(q, k_pages, v_pages, block_tables, lens, **kw):
+    """K1 on CUDA tensors, followed by K2 when ``combine`` and more than
+    one split is active, from one C call (``paged_decode_attention``; K1
+    alone is ``paged_decode_partials``) on the raw current stream.  The
+    decode step calls it once per layer, so the host's work is kept to
+    `_decode_call`.  Returns ``(buf, S, out)``; ``out`` is None unless K2
+    ran."""
+    name, args, buf, S, out = _decode_call(q, k_pages, v_pages, block_tables,
+                                           lens, **kw)
+    dev = q.device
+    lib = get_lib()
+    guard = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        err = getattr(lib, name)(
+            *args, torch._C._cuda_getCurrentRawStream(dev.index))
+    check(err, name)
+    paged_attention_partials.launches += 1
+    if out is not None:
+        combine_partials_kernel.launches += 1
+    return buf, S, out
 
 
 def paged_attention_partials(
@@ -235,32 +309,16 @@ def paged_attention_partials(
     q is f32 or bf16; the pools share its dtype, or are int8 with
     ``kv_scale > 0`` (dequantised in the kernel).
     """
+    kw = dict(scale=scale, window=window, softcap=softcap, kv_scale=kv_scale,
+              pages_per_block=pages_per_block, num_splits=num_splits)
     if not use_kernel("paged_attention_partials", q, k_pages, v_pages,
                       block_tables, lens):
-        return _paged_attention_partials_plain(
-            q, k_pages, v_pages, block_tables, lens, scale=scale,
-            window=window, softcap=softcap, kv_scale=kv_scale,
-            pages_per_block=pages_per_block, num_splits=num_splits)
+        return _paged_attention_partials_plain(q, k_pages, v_pages,
+                                               block_tables, lens, **kw)
+    buf, S, _ = _launch_decode(q, k_pages, v_pages, block_tables, lens,
+                               combine=False, **kw)
     B, n_kv, G, D = q.shape
-    num_pages, page_size = k_pages.shape[:2]
-    max_pages = block_tables.shape[1]
-    _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale)
-    ppb, _, S, bps = decode_partition(max_pages, pages_per_block, num_splits)
-    dev = q.device
-    m = torch.empty((B, n_kv, S, G), dtype=torch.float32, device=dev)
-    l = torch.empty((B, n_kv, S, G), dtype=torch.float32, device=dev)
-    acc = torch.empty((B, n_kv, S, G, D), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = get_lib().paged_decode_partials(
-            _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], q.data_ptr(),
-            k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
-            lens.data_ptr(), m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            B, n_kv, G, D, num_pages, page_size, max_pages, ppb, S, bps,
-            float(scale), int(window), float(softcap), float(kv_scale),
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "paged_decode_partials")
-    paged_attention_partials.launches += 1
-    return m, l, acc
+    return _scratch_views(buf, B, n_kv, S, G, D)
 
 
 paged_attention_partials.launches = 0
@@ -313,6 +371,23 @@ def _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale):
             group=G)
     _check_paged_inputs("decode kernel", q, n_kv, D, k_pages, v_pages,
                         block_tables, {"lens": lens}, kv_scale)
+    page_size = k_pages.shape[1]
+    if not decode_page_supported(k_pages.dtype, D, page_size):
+        raise UnsupportedFeature(
+            f"decode kernel: a page of {page_size} rows of {D} "
+            f"{k_pages.dtype} is not a multiple of 128 bytes, which a TMA "
+            "box of whole pages must land on", page_size=page_size,
+            head_dim=D)
+
+
+def decode_page_supported(kv_dtype: torch.dtype, D: int,
+                          page_size: int) -> bool:
+    """Whether K1 takes pools of ``kv_dtype`` with ``page_size`` rows of
+    ``D``: a page shorter than K1's tile (at most 32 tokens) is one TMA box
+    placed at a multiple of its bytes in the tile, which must be a
+    multiple of 128 bytes.  Only int8 pools at D = 64 with an odd page of
+    fewer than 32 tokens fail."""
+    return page_size >= 32 or (page_size * D * kv_dtype.itemsize) % 128 == 0
 
 
 def paged_attention_kernel(
@@ -329,12 +404,24 @@ def paged_attention_kernel(
     pages_per_block: int = 1,
     num_splits: int = 1,
 ) -> torch.Tensor:
-    """K1 partials followed by the split-K combine; (B, n_kv, G, D)."""
-    m, l, acc = paged_attention_partials(
-        q, k_pages, v_pages, block_tables, lens, scale=scale, window=window,
-        softcap=softcap, kv_scale=kv_scale,
-        pages_per_block=pages_per_block, num_splits=num_splits)
-    return combine_partials(m, l, acc, dtype=q.dtype)
+    """The decode op: K1's partials merged over the splits; (B, n_kv, G, D)
+    in the q dtype.  On CUDA tensors one C call launches K1 and, with more
+    than one split, K2 after it; one split keeps the plain normalise, as
+    the JAX package's combine rule does."""
+    kw = dict(scale=scale, window=window, softcap=softcap, kv_scale=kv_scale,
+              pages_per_block=pages_per_block, num_splits=num_splits)
+    if not use_kernel("paged_attention_kernel", q, k_pages, v_pages,
+                      block_tables, lens):
+        m, l, acc = _paged_attention_partials_plain(q, k_pages, v_pages,
+                                                    block_tables, lens, **kw)
+        return combine_partials(m, l, acc, dtype=q.dtype)
+    buf, S, out = _launch_decode(q, k_pages, v_pages, block_tables, lens,
+                                 combine=True, **kw)
+    if out is not None:
+        return out
+    return _combine_partials_plain(*_scratch_views(buf, *q.shape[:2], S,
+                                                   *q.shape[2:]),
+                                   dtype=q.dtype)
 
 
 # -- K3: chunked paged prefill ------------------------------------------------
@@ -397,8 +484,9 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                             page_size=page_size, window=0,
                             padded_pages=padded, pages_per_block=ppb)
     T = bps * ppb * page_size  # tokens per split
-    k = k_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
-    v = v_pages[pages.reshape(B, padded)].float().reshape(B, S, T, n_kv, D)
+    work = _work_dtype(q)
+    k = k_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
+    v = v_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
     if kv_scale > 0:
         k = k * kv_scale
         v = v * kv_scale
@@ -413,7 +501,7 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                <= qpos[:, :, None, :, None]))  # (B, NQ, S, R, T)
     live = live[:, None]
 
-    s = torch.einsum("bknrd,bstkd->bknsrt", qb.float() * scale, k)
+    s = torch.einsum("bknrd,bstkd->bknsrt", qb.to(work) * scale, k)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     s = torch.where(live, s, torch.tensor(NEG_INF, device=dev))
