@@ -10,7 +10,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
    sm_90a), print the card's name and power limit, the registers, shared
    memory and spills of the tensor-core kernels and of K1 (``-Xptxas
    -v``), and the count of HGMMA (wgmma) instructions in the library, which
-   must not be 0;
+   must not be 0, and of TF32 HGMMA instructions in the split-TF32
+   kernels, which must not be 0 either;
 2. kernels: each hand-written kernel — K1 paged decode partials, K2 split-K
    combine, K3 chunked paged prefill partials, K4 flex prefill — against
    its plain PyTorch version on the card, at the full-width llama2-7b
@@ -26,36 +27,51 @@ Phases, each of which fails the script (exit code 1) when it fails:
    lens 0, 1, 63, 64, 65, 512, 513 and 2048 (empty splits), the full
    32-page table in one split of 2048 keys, pages of 8 and 16 tokens at
    smoke width (f32, bf16, int8 pools).  The full-table cases of K1 and of
-   K3's CUDA-core route in f32 also print how far each side is from the
-   plain version evaluated in f64.
-   K3 and K4 have two routes each: bf16 runs the tensor-core kernels
-   ("_tc": wgmma, K/V by TMA), f32 (and K3's int8 pools) the CUDA-core
-   kernels ("_simt"); each route is checked and timed under its own name.
-   Edge cases of the tensor-core tile: K4 at Q = K = 2048, K3 resuming at
-   1536 over a full 32-page table, Q-blocks of 128 and 120 rows.  Times:
-   kernel, plain version, the bound the card sets, and one PyTorch library
-   call for the same function (K4: SDPA with the causal & padding mask;
-   the causal-only SDPA time is printed beside it);
+   K3 in f32 also print how far each side is from the plain version
+   evaluated in f64.
+   K3 and K4 run on the tensor cores by route: bf16 on the bf16 tile
+   ("_tc": wgmma, K/V by TMA), f32 on the split-TF32 tile ("_tf32x3":
+   every product as three TF32 products on wgmma); K3's int8 pools and
+   odd pages on its CUDA-core kernel ("_simt", timed at the main shapes
+   with int8 pools).  Each route is checked and
+   timed under its own name.  Edge cases of the tiles: K4 at Q = K = 2048,
+   K3 resuming at 1536 over a full 32-page table (both also against f64
+   in f32), Q-blocks of 128 and 120 rows, pages of 8, 16, 96 and 128
+   tokens, D = 64, and a case per kernel with distinct V rows and scores
+   that are not symmetric in the keys (a wrong key permutation in the
+   f32 tile's p.V shows there).  Times: kernel, plain version, the bound
+   the card sets (f32: the operations at 67 TFLOP/s, ``bound_ms``, and
+   three TF32 products per f32 one at 495 TFLOP/s, printed beside it),
+   and one PyTorch library call for the same function (K4: SDPA with the
+   causal & padding mask; the causal-only SDPA time is printed beside it);
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
-   steps through the kernels agree with the plain oracle path; chunked
-   prefill in chunks of 96 through K3 agrees with the monolithic prefill
-   through K4 and with the plain path; a smoke-size engine gives the
-   plain path's greedy tokens on the kernel path, monolithic and chunked,
-   with and without the prefix cache;
+   steps through the kernels (K4 and K3 on the split-TF32 tile) agree with
+   the plain oracle path; chunked prefill in chunks of 96 through K3 agrees
+   with the monolithic prefill through K4 and with the plain path; a
+   smoke-size engine gives the plain path's greedy tokens on the kernel
+   path, monolithic and chunked, with and without the prefix cache;
 4. engine: full llama2-7b (32 layers, random weights from a seed, bf16)
    served by ``repro_torch.serving.Engine``: 8 slots, max_seq_len 2048,
    12 greedy requests with prompts of 256..1536 tokens and 32 new tokens
    each, monolithic prefill.  Kernel launch counts are reset just before
-   and read just after: K1, K2 and K4's tensor-core route must have
-   launched, K3 and K4's CUDA-core route not;
+   and read just after: K1, K2 and K4's bf16 route must have launched, K3
+   and K4's f32 route not;
 5. chunked: the same weights served with ``prefill_chunk=512`` and
    ``prefix_cache=True``: a wave of 4 requests, then a wave of 8, each
    prompt a shared 1024-token head plus its own 128..512-token tail, 32
    new tokens each.  Counts reset before the first wave and read after
-   the second: K1, K2 and K3's tensor-core route must have launched, K4 and
-   K3's CUDA-core route not, and the second wave must hit at least
+   the second: K1, K2 and K3's bf16 route must have launched, K4 and
+   K3's other routes not, and the second wave must hit at least
    8 x 1024 cached tokens.  The profiled steps of both phases must
-   attribute device time to K4 (prefill step) and K3 (chunk step).
+   attribute device time to K4 (prefill step) and K3 (chunk step);
+6. f32 engine: after the bf16 weights are released, full llama2-7b at the
+   engine's default dtype, f32 (about 27 GB of weights), 4 slots: 4
+   greedy requests with prompts of 512..1536 tokens and 16 new tokens,
+   monolithic (K4's split-TF32 route, K1, K2; K3 and K4's bf16 route
+   never), then the same weights and prompts with ``prefill_chunk=512``
+   (K3's split-TF32 route, K1, K2; K4 and K3's other routes never); the
+   prefill logits of one request through the kernels agree with the plain
+   path (``impl="ref"``) within the model tolerance.
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -77,13 +93,18 @@ OUT = ROOT / "chiprun_out"
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 MODEL_TOL = 1e-3  # f32 logits, 4 layers at d_model 4096: summation order
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # dense, no tensor-core f32
+# dense peaks by input type: f32 on the CUDA cores (the tensor cores take no
+# IEEE f32), bf16 on the tensor cores
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+TF32_OPS = 495e12  # dense TF32 tensor cores: the f32 tile's 3 products
+
 SEED = 0
 # profiler names of the kernels, by kernel and route (substrings)
 KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
+                "paged_prefill_tf32x3": "paged_prefill_kernel_tf32<",
                 "paged_prefill_simt": "paged_prefill_kernel<",
                 "flex_prefill_tc": "flex_fwd_kernel_tc<",
-                "flex_prefill_simt": "flex_fwd_kernel<"}
+                "flex_prefill_tf32x3": "flex_fwd_kernel_tf32<"}
 
 
 def fail(msg):
@@ -421,30 +442,45 @@ def kernel_phase(torch, chk):
         k4_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
         k4_dev = device_ms(torch, lambda: fa.flex_attention_kernel(
             q, k, v, bm, **kw), KERNEL_NAMES[key], reps=3)
+        row = dict(ms=k4_ms, device_ms=k4_dev, plain_ms=k4_plain,
+                   bound_ms=k4_bound, bound_by="operations", library_ms=lib,
+                   library_causal_only_ms=lib_causal)
+        extra = ""
+        if dtype == torch.float32:
+            row["bound_tf32x3_ms"] = 1e3 * 3 * ops / TF32_OPS
+            extra = (f" (bound_ms: f32 operations at 67 TFLOP/s; three "
+                     f"TF32 products at 495 TFLOP/s: "
+                     f"{row['bound_tf32x3_ms']:.4f} ms)")
         log(f"  {key} {name}: kernel {k4_ms:.4f} ms (device "
             f"{fmt(k4_dev)}), plain {k4_plain:.3f} ms, bound {k4_bound:.4f} "
-            f"ms (operations), SDPA with the causal & padding mask "
+            f"ms (operations){extra}, SDPA with the causal & padding mask "
             f"{lib:.4f} ms (SDPA causal only, not the same function: "
             f"{lib_causal:.4f} ms)")
-        rows[(key, name)] = dict(ms=k4_ms, device_ms=k4_dev,
-                                 plain_ms=k4_plain, bound_ms=k4_bound,
-                                 bound_by="operations", library_ms=lib,
-                                 library_causal_only_ms=lib_causal)
+        rows[(key, name)] = row
         del q, k, v, got, want
     del exact
 
-    # K4 at max_seq_len: the TMA ring over 16 kv tiles per q tile
+    # K4 at max_seq_len: the TMA ring over 16 (bf16) or 32 (f32) kv tiles
+    # per q tile; f32 also against the plain version in f64
     Q2 = 2048
     l2 = torch.tensor([Q2, 1500], dtype=torch.int32, device=dev)
     m2 = flex.and_masks(flex.causal_mask, flex.padding_mask(l2))
     bm2 = flex.build_block_mask(m2, Q2, Q2, 128, 128, B=2, device=dev)
-    q, k, v = (torch.randn((2, Hf, Q2, D), generator=gen, device=dev
-                           ).to(torch.bfloat16) for _ in range(3))
     kw = dict(scale=D ** -0.5, mask_mod=m2, q_len=Q2, kv_len=Q2)
-    chk.close("flex_prefill_tc", "bfloat16 B2 H32 Q=K=2048 causal&padding",
-              fa.flex_attention_kernel(q, k, v, bm2, **kw),
-              fa._flex_attention_plain(q, k, v, bm2, **kw), BF16_TOL)
-    del q, k, v
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        key = "flex_prefill_" + fa.flex_route(dtype)
+        q, k, v = (torch.randn((2, Hf, Q2, D), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3))
+        got = fa.flex_attention_kernel(q, k, v, bm2, **kw)
+        want = fa._flex_attention_plain(q, k, v, bm2, **kw)
+        chk.close(key, f"{name} B2 H32 Q=K=2048 causal&padding", got, want,
+                  tol)
+        if dtype == torch.float32:
+            chk.versus_f64(key, f"{name} Q=K=2048", got, want,
+                           flex_f64(torch, q, k, v, l2, D ** -0.5))
+        del q, k, v, got, want
+    flex_permutation_case(torch, chk, gen)
 
     # -- K4 sweep: ragged tiles, GQA, D=64, every mask variant -----------
     cases = [  # (B, H, Hkv, Q, D, mask, q_block, kv_block)
@@ -491,6 +527,55 @@ def kernel_phase(torch, chk):
                       f"tiles {qbb}x{kbb}", got, want, tol)
     rows.update(prefill_kernel_phase(torch, chk, gen))
     return rows
+
+
+def flex_f64(torch, q, k, v, lens, scale):
+    """K4 under causal & padding(lens) evaluated densely in f64."""
+    Q, K = q.shape[2], k.shape[2]
+    dev = q.device
+    qi = torch.arange(Q, device=dev)[:, None]
+    ki = torch.arange(K, device=dev)[None, :]
+    live = (ki <= qi)[None] & (ki[None] < lens.long()[:, None, None])
+    out = torch.empty(q.shape, dtype=torch.float64, device=dev)
+    for b in range(q.shape[0]):  # one row at a time: f64 scores are large
+        s = (q[b].double() * scale) @ k[b].double().transpose(-1, -2)
+        s = s.masked_fill(~live[b][None], float("-inf"))
+        out[b] = torch.softmax(s, dim=-1) @ v[b].double()
+    return out
+
+
+def ramp_v(torch, v):
+    """V whose rows are distinct and ordered (key j: j / K plus a small
+    per-column term): with scores that are not symmetric in the keys, a
+    kernel that pairs a key's probability with another key's V row gives
+    another answer."""
+    K, D = v.shape[-2], v.shape[-1]
+    dev = v.device
+    ramp = (torch.arange(K, device=dev)[:, None] / K
+            + 1e-3 * torch.arange(D, device=dev)[None, :])
+    return (ramp.expand(v.shape) + 0.01 * v.float()).to(v.dtype).contiguous()
+
+
+def flex_permutation_case(torch, chk, gen):
+    """K4 on a ragged shape (Q = K = 200, kv tiles of 56 keys, not a
+    multiple of 8) with ordered V rows, in both dtypes."""
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    dev = torch.device("cuda")
+    B, H, Q, D = 2, 4, 224, 128
+    lens = torch.tensor([Q, 131], dtype=torch.int32, device=dev)
+    mm = flex.and_masks(flex.causal_mask, flex.padding_mask(lens))
+    bm = flex.build_block_mask(mm, Q, Q, 32, 56, B=B, device=dev)
+    kw = dict(scale=D ** -0.5, mask_mod=mm, q_len=Q, kv_len=Q)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn((B, H, Q, D), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3))
+        v = ramp_v(torch, v)
+        chk.close("flex_prefill_" + fa.flex_route(dtype),
+                  f"{name} ordered V rows, tiles 32x56",
+                  fa.flex_attention_kernel(q, k, v, bm, **kw),
+                  fa._flex_attention_plain(q, k, v, bm, **kw), tol)
 
 
 def op_host_parts(torch, args, kw):
@@ -632,12 +717,20 @@ def prefill_kernel_phase(torch, chk, gen):
     log(f"K3 main path: B={len(q_start)} C=512 H=Hkv={H} D={D} page={P} "
         f"max_pages={max_pages} ppb={ppb} splits={ns} q_block={qb} "
         f"q_start={q_start} q_lens={q_lens}")
-    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
-        name = str(dtype).replace("torch.", "")
-        key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
+    # f32 and bf16 on their tensor-core tiles; int8 pools (bf16 q) on the
+    # CUDA-core kernel, which the main paths never take
+    configs = ((torch.float32, False, F32_TOL), (torch.bfloat16, False,
+                                                 BF16_TOL),
+               (torch.bfloat16, True, BF16_TOL))
+    for dtype, int8, tol in configs:
+        name = "int8" if int8 else str(dtype).replace("torch.", "")
+        key = "paged_prefill_" + pa.prefill_route(
+            dtype, torch.int8 if int8 else dtype, P)
         q, kp, vp, tables, kv_lens, qs = chunk_inputs(
-            torch, gen, H, 1, D, P, max_pages, q_start, q_lens, dtype, dev)
-        kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=0.0,
+            torch, gen, H, 1, D, P, max_pages, q_start, q_lens, dtype, dev,
+            int8=int8)
+        kv_scale = 0.05 if int8 else 0.0
+        kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=kv_scale,
                   pages_per_block=ppb, num_splits=ns, q_block=qb)
         args = (q, kp, vp, tables, kv_lens, qs)
         got = pa.paged_prefill_partials(*args, **kw)
@@ -653,13 +746,18 @@ def prefill_kernel_phase(torch, chk, gen):
         k3_dev = device_ms(torch, lambda: pa.paged_prefill_partials(
             *args, **kw), KERNEL_NAMES[key], reps=3)
         # library yardstick: SDPA over K/V pre-gathered into contiguous
-        # form, with the causal-offset mask as a boolean attn_mask (the
-        # gather is not timed; the dead rows' all-false masks are moot)
+        # form (int8 pools dequantised), with the causal-offset mask as a
+        # boolean attn_mask (the gather is not timed; the dead rows'
+        # all-false masks are moot)
         B, C = q.shape[:2]
         L = int(kv_lens.max())
         safe = tables.clamp(min=0).long()
-        kc = kp[safe].reshape(B, -1, H, D)[:, :L].transpose(1, 2).contiguous()
-        vc = vp[safe].reshape(B, -1, H, D)[:, :L].transpose(1, 2).contiguous()
+
+        def gathered(pool):
+            x = pool[safe].reshape(B, -1, H, D)[:, :L].transpose(1, 2)
+            return (x.to(dtype) * kv_scale if int8 else x).contiguous()
+
+        kc, vc = gathered(kp), gathered(vp)
         pos = torch.arange(L, device=dev)
         qpos = qs[:, None].long() + torch.arange(C, device=dev)[None]
         mask = ((pos[None, None] < kv_lens[:, None, None])
@@ -671,25 +769,32 @@ def prefill_kernel_phase(torch, chk, gen):
                    for t in range(n))
         ops = 4 * D * H * keys
         item = q.element_size()
-        nbytes = (q.numel() * item + 2 * sum(kv_lens.tolist()) * H * D * item
-                  + tables.numel() * 4 + 2 * B * 4
+        nbytes = (q.numel() * item + 2 * sum(kv_lens.tolist()) * H * D
+                  * kp.element_size() + tables.numel() * 4 + 2 * B * 4
                   + sum(t.numel() * 4 for t in got))
-        k3_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
-        k3_by = "operations" if ops / PEAK_OPS[name] > nbytes / HBM_BPS \
-            else "bytes"
+        peak = PEAK_OPS[str(dtype).replace("torch.", "")]
+        k3_bound = 1e3 * max(nbytes / HBM_BPS, ops / peak)
+        k3_by = "operations" if ops / peak > nbytes / HBM_BPS else "bytes"
+        row = dict(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain,
+                   bound_ms=k3_bound, bound_by=k3_by, library_ms=lib)
+        extra = ""
+        if key.endswith("tf32x3"):
+            row["bound_tf32x3_ms"] = 1e3 * max(nbytes / HBM_BPS,
+                                               3 * ops / TF32_OPS)
+            extra = (f"; bound_ms is the f32 operations at 67 TFLOP/s, "
+                     f"three TF32 products at 495 TFLOP/s: "
+                     f"{row['bound_tf32x3_ms']:.4f} ms")
         log(f"  {key} {name}: kernel {k3_ms:.4f} ms (device "
             f"{fmt(k3_dev)}), plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
-            f"ms ({k3_by}: {ops:.3e} flop, {nbytes:.3e} B), SDPA with a "
-            f"causal-offset mask over pre-gathered KV {lib:.4f} ms")
-        rows[(key, name)] = dict(
-            ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain, bound_ms=k3_bound,
-            bound_by=k3_by, library_ms=lib)
+            f"ms ({k3_by}: {ops:.3e} flop, {nbytes:.3e} B{extra}), SDPA "
+            f"with a causal-offset mask over pre-gathered KV {lib:.4f} ms")
+        rows[(key, name)] = row
         del q, kp, vp, kc, vc, got, mask
 
     # -- K3 sweep: GQA, D=64, softcap, int8, split-K through K2, q_block
-    #    1 and 3, single-token chunk rows, R > 128 (three row tiles)
+    #    1 and 3, single-token chunk rows, R > 128 (three row tiles), every
+    #    route's pages
     both = ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL))
-    bf16 = ((torch.bfloat16, BF16_TOL),)
     sweep = [  # (G, D, P, max_pages, q_start, q_lens, ppb, S, q_block,
         #         softcap, int8, dtypes)
         (4, 128, 16, 9, [100, 0, 1], [40, 37, 0], 2, 1, 32, 0.0, False, both),
@@ -698,14 +803,20 @@ def prefill_kernel_phase(torch, chk, gen):
         (8, 64, 16, 6, [20, 33], [45, 1], 3, 2, 40, 0.0, False, both),
         (2, 64, 16, 9, [16, 130, 7], [1, 1, 1], 1, 2, 1, 0.0, True, both),
         # a 512-token chunk resuming at 1536 over a full 32-page table (kv
-        # 2048, 32 heads): the tensor-core tile's edge in bf16, the CUDA-core
-        # kernel's longest un-normalised sums in f32 (also held against the
-        # plain version in f64); then, in bf16, Q-blocks of R = q_block * G
-        # = 128 and 120 rows (not a multiple of 64)
+        # 2048, 32 heads): the tiles' longest un-normalised sums (f32 also
+        # held against the plain version in f64); then Q-blocks of R =
+        # q_block * G = 128 and 120 rows (not a multiple of 64)
         (1, 128, 64, 32, [1536, 1000], [512, 300], 2, 1, 128, 0.0, False,
          both),
-        (4, 128, 16, 9, [40, 3], [70, 64], 2, 1, 32, 0.0, False, bf16),
-        (8, 128, 16, 9, [0, 21], [45, 30], 2, 2, 15, 0.0, False, bf16),
+        (4, 128, 16, 9, [40, 3], [70, 64], 2, 1, 32, 0.0, False, both),
+        (8, 128, 16, 9, [0, 21], [45, 30], 2, 2, 15, 0.0, False, both),
+        # pages of 8 (eight to an f32 tile), 12 (the CUDA-core kernel in
+        # both dtypes), 96 and 128 (longer than the f32 tile: cut into
+        # boxes of 64 rows, the last of a 96-token page masked at 32)
+        (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, False, both),
+        (2, 64, 12, 9, [16, 50], [20, 7], 2, 2, 4, 0.0, False, both),
+        (1, 128, 96, 4, [100, 0], [200, 96], 2, 1, 64, 0.0, False, both),
+        (2, 128, 128, 4, [300, 17], [100, 64], 1, 2, 32, 10.0, False, both),
     ]
     for (G, Dd, Ps, mp, qst, qln, sp_ppb, sp_ns, sp_qb, cap, int8,
          dtypes) in sweep:
@@ -738,7 +849,32 @@ def prefill_kernel_phase(torch, chk, gen):
             chk.close("combine", f"prefill {tag}",
                       pa.combine_partials_kernel(*folded, dtype=dtype),
                       pa._combine_partials_plain(*folded, dtype=dtype), tol)
+    prefill_permutation_case(torch, chk, gen)
     return rows
+
+
+def prefill_permutation_case(torch, chk, gen):
+    """K3 with distinct, ordered V rows (each pool token's row is its own
+    index plus a small per-column term): pages of 16 (several to a tile),
+    a chunk of 100 at 37 and one of 64 at 0, in both dtypes."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        q, kp, vp, tables, kv_lens, qs = chunk_inputs(
+            torch, gen, 2, 4, 128, 16, 12, [37, 0], [100, 64], dtype, dev)
+        n, P, _, D = vp.shape
+        tok = torch.arange(n * P, device=dev).reshape(n, P, 1, 1) / (n * P)
+        vp = (tok + 1e-3 * torch.arange(D, device=dev) + 0.01 * vp.float()
+              ).to(dtype).contiguous()
+        args = (q, kp, vp, tables, kv_lens, qs)
+        kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=0.0,
+                  pages_per_block=2, num_splits=1, q_block=32)
+        got = pa.paged_prefill_partials(*args, **kw)
+        want = pa._paged_prefill_partials_plain(*args, **kw)
+        key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
+        for part, g_, w_ in zip("m l acc".split(), got, want):
+            chk.close(key, f"{name} ordered V rows {part}", g_, w_, tol)
 
 
 def model_phase(torch):
@@ -936,7 +1072,7 @@ def engine_phase(torch):
     check_path("engine", eng, reqs, new, counts,
                must=("paged_decode", "combine", "flex_prefill",
                      "flex_prefill/tc"),
-               never=("paged_prefill", "flex_prefill/simt"))
+               never=("paged_prefill", "flex_prefill/tf32x3"))
     ttft = sorted(r.metrics["ttft_s"] for r in reqs)
     new_tokens = sum(len(r.output) for r in reqs)
     stats = dict(
@@ -1032,7 +1168,8 @@ def chunked_phase(torch, params):
     check_path("chunked", eng, all_reqs, new, counts,
                must=("paged_decode", "combine", "paged_prefill",
                      "paged_prefill/tc"),
-               never=("flex_prefill", "paged_prefill/simt"))
+               never=("flex_prefill", "paged_prefill/tf32x3",
+                      "paged_prefill/simt"))
     if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
         fail(f"chunked: wave B hit {waves['B']['prefix_hit_tokens']} "
              f"cached tokens, fewer than 8 x {head_len}")
@@ -1058,6 +1195,103 @@ def chunked_phase(torch, params):
     log_profile("chunk_step", stats["profile_chunk_step"])
     check_attributed("chunk_step", stats["profile_chunk_step"],
                      "K3 paged_prefill")
+    return stats
+
+
+def f32_engine_phase(torch):
+    """The engine's default dtype, f32, at full width (after the bf16
+    weights are gone): 4 requests served monolithic (K4), then the same
+    weights and prompts chunked (K3), both on the split-TF32 tile; then
+    one request's prefill logits through the kernels against the plain
+    path."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama2-7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=4, max_seq_len=2048, seed=SEED)
+    torch.cuda.synchronize()
+    if eng.dtype != torch.float32:
+        fail(f"f32 engine: the engine's default dtype is {eng.dtype}")
+    log(f"f32 engine phase: llama2-7b, {cfg.n_layers} layers, the "
+        f"engine's default dtype (f32), 4 slots, max_seq_len 2048; weights "
+        f"and pools ready in {time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator().manual_seed(SEED + 2)
+    new = 16
+    plens = torch.randint(512, 1537, (4,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in plens]
+    runs = (
+        ("monolithic", {}, ("paged_decode", "combine", "flex_prefill",
+                            "flex_prefill/tf32x3"),
+         ("paged_prefill", "flex_prefill/tc")),
+        ("chunked 512", dict(prefill_chunk=512),
+         ("paged_decode", "combine", "paged_prefill",
+          "paged_prefill/tf32x3"),
+         ("flex_prefill", "paged_prefill/tc", "paged_prefill/simt")))
+    stats, outputs = {}, {}
+    for mode, kw, must, never in runs:
+        if kw:
+            eng = Engine(cfg, eng.params, max_slots=4, max_seq_len=2048,
+                         seed=SEED, **kw)
+        reqs = [Request(prompt=list(x), max_new_tokens=new) for x in prompts]
+        kernels.reset_launch_counts()
+        wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+        counts = kernels.launch_counts()
+        check_path(f"f32 engine ({mode})", eng, reqs, new, counts, must,
+                   never)
+        outputs[mode] = [r.output for r in reqs]
+        ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+        stats[mode] = dict(
+            prompt_lens=plens, wall_s=wall, tok_s=4 * new / wall,
+            ttft_s_max=ttft[-1], prefill_ms_per_step=prefill_ms,
+            decode_ms_median=statistics.median(decode_ms), launches=counts)
+        log(f"f32 engine ({mode}): {4 * new} tokens in {wall:.2f} s; "
+            f"prefill steps {[round(x) for x in prefill_ms]} ms; decode "
+            f"{stats[mode]['decode_ms_median']:.2f} ms/step (median); TTFT "
+            f"max {ttft[-1]:.3f} s; launches {counts}")
+    same = outputs["monolithic"] == outputs["chunked 512"]
+    log(f"f32 engine: greedy tokens monolithic vs chunked "
+        f"{'equal' if same else 'differ'} (not checked: K4 and K3 sum in "
+        f"other orders)")
+
+    # one request's prefill logits, kernels (K4 split-TF32) vs plain path
+    dev = torch.device("cuda")
+    model, params = eng.model, eng.params
+    n, P = plens[0], cfg.page_size
+    pps = -(-n // P)
+    tokens = torch.tensor([prompts[0]], device=dev)
+    lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
+    tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
+                                                                       pps)
+    pool = (cfg.n_layers, pps, P, cfg.n_kv_heads, cfg.resolved_head_dim)
+    logits = {}
+    for impl in ("kernel", "ref"):
+        st = {"pos": lens_t, "tables": tables,
+              "k_pages": torch.zeros(pool, device=dev),
+              "v_pages": torch.zeros(pool, device=dev)}
+        logits[impl], _ = model.prefill(params, tokens, st, lens=lens_t,
+                                        impl=impl)
+        del st
+    torch.cuda.synchronize()
+    got, want = logits["kernel"], logits["ref"]
+    if not bool(torch.isfinite(got).all()):
+        fail("f32 engine: non-finite prefill logits")
+    err = float((got - want).abs().max())
+    log(f"f32 engine: prefill logits of a {n}-token prompt ({cfg.n_layers} "
+        f"layers), "
+        f"kernel path vs plain path max|err| {err:.3e} (tol {MODEL_TOL:g}, "
+        f"|logit| max {float(want.abs().max()):.3f})")
+    if err > MODEL_TOL:
+        fail(f"f32 engine: prefill logits max|err| {err} beyond {MODEL_TOL}")
+    stats["prefill_logits_max_err"] = err
+    stats["tokens_equal_monolithic_chunked"] = same
+    stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return stats
 
 
@@ -1111,7 +1345,8 @@ def log_ptxas(text):
     lines = text.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and (
-                "_tc" in line or "paged_decode_kernel" in line):
+                "_tc" in line or "_tf32" in line
+                or "paged_decode_kernel" in line):
             fn = line.split("'")[1] if "'" in line else line
             info = [x.split("ptxas info    : ")[-1].strip()
                     for x in lines[i + 1:i + 4]
@@ -1119,15 +1354,26 @@ def log_ptxas(text):
             log(f"  ptxas {fn}: {'; '.join(info)}")
 
 
-def count_hgmma(lib):
-    """HGMMA (wgmma) instructions in the library's SASS, by cuobjdump."""
+def count_mma(lib):
+    """Tensor-core instructions in the library's SASS, by cuobjdump: all
+    HGMMA (wgmma), and in the split-TF32 kernels (``*_kernel_tf32``) the
+    TF32 HGMMA and the TF32 HMMA (mma.sync)."""
     tool = Path("/usr/local/cuda/bin/cuobjdump")
     out = subprocess.run([str(tool) if tool.exists() else "cuobjdump",
                           "-sass", str(lib)], capture_output=True, text=True,
                          timeout=300)
     if out.returncode:
         fail(f"cuobjdump failed: {out.stderr[-2000:]}")
-    return sum("HGMMA" in line for line in out.stdout.splitlines())
+    hgmma = tf32_hgmma = tf32_hmma = 0
+    in_tf32 = False
+    for line in out.stdout.splitlines():
+        if "Function :" in line:
+            in_tf32 = "_kernel_tf32" in line
+        hgmma += "HGMMA" in line
+        if in_tf32 and "TF32" in line:
+            tf32_hgmma += "HGMMA" in line
+            tf32_hmma += "HMMA" in line
+    return hgmma, tf32_hgmma, tf32_hmma
 
 
 def main():
@@ -1159,11 +1405,16 @@ def main():
     OUT.mkdir(exist_ok=True)
     (OUT / "build_log.txt").write_text(build.build_log)
     log_ptxas(build.build_log)
-    hgmma = count_hgmma(build.library_path())
-    log(f"HGMMA instructions in the built library: {hgmma}")
+    hgmma, tf32_hgmma, tf32_hmma = count_mma(build.library_path())
+    log(f"HGMMA instructions in the built library: {hgmma}; in the "
+        f"split-TF32 kernels: {tf32_hgmma} TF32 HGMMA (q.K and p.V), "
+        f"{tf32_hmma} TF32 HMMA")
     if hgmma <= 0:
         fail("the library holds no HGMMA: the tensor-core kernels do not "
              "use wgmma")
+    if tf32_hgmma <= 0:
+        fail("the split-TF32 kernels hold no TF32 HGMMA: their products do "
+             "not run on the tensor cores")
 
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
@@ -1178,6 +1429,8 @@ def main():
     engine, params = engine_phase(torch)
     torch.cuda.empty_cache()
     chunked = chunked_phase(torch, params)
+    del params
+    f32 = f32_engine_phase(torch)
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -1191,16 +1444,19 @@ def main():
         "combine": ("combine.cu", "src/repro/kernels/paged_attention/"
                     "paged_attention.py:161", "combine", "bfloat16"),
         "paged_prefill_tc": k3[:2] + ("paged_prefill/tc", "bfloat16"),
-        "paged_prefill_simt": k3[:2] + ("paged_prefill/simt", "float32"),
+        "paged_prefill_tf32x3": k3[:2] + ("paged_prefill/tf32x3", "float32"),
+        "paged_prefill_simt": k3[:2] + ("paged_prefill/simt", "int8"),
         "flex_prefill_tc": k4[:2] + ("flex_prefill/tc", "bfloat16"),
-        "flex_prefill_simt": k4[:2] + ("flex_prefill/simt", "float32"),
+        "flex_prefill_tf32x3": k4[:2] + ("flex_prefill/tf32x3", "float32"),
     }
+    phases = [engine["launches"], chunked["launches"]] + [
+        f32[mode]["launches"] for mode in ("monolithic", "chunked 512")]
     kernels_line = []
     for name, (fname, replaces, count, dtype) in meta.items():
         r = rows[(name, dtype)]
         kernels_line.append(dict(
             name=name, route="cuda", source=src + fname, replaces=replaces,
-            launches=engine["launches"][count] + chunked["launches"][count],
+            launches=sum(c[count] for c in phases),
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -1209,7 +1465,7 @@ def main():
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},
          "max_abs_err": chk.max_err, "engine": engine,
-         "chunked": chunked}, indent=1))
+         "chunked": chunked, "f32_engine": f32}, indent=1))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

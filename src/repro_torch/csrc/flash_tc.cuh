@@ -59,10 +59,20 @@ constexpr int kStages = 3;
 constexpr int kPanelBytes = kRows * 128;  // 128 rows x 64 bf16: one panel
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Byte offsets in the (1024-aligned) dynamic shared memory of a CTA.
+// Byte offsets in the (1024-aligned) dynamic shared memory of a CTA.  The
+// ring helpers below take any layout with the same members (flash_tf32.cuh
+// defines the f32 one): kThreads consumer threads, kBN keys per tile,
+// kStages stages of kTile bytes at kK (K) and kV (V), each holding
+// kPanels panels of kPanelCols columns, kStagePanel bytes apart, and the
+// barriers at kBar.
 template <int D>
 struct Layout {
   static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static constexpr int kThreads = flash_tc::kThreads;
+  static constexpr int kBN = flash_tc::kBN;
+  static constexpr int kStages = flash_tc::kStages;
+  static constexpr int kPanelCols = 64;  // bf16 columns per 128-byte row
+  static constexpr int kStagePanel = kPanelBytes;
   static constexpr int kPanels = D / 64;
   static constexpr int kTile = kPanels * kPanelBytes;  // Q, or one K/V stage
   static constexpr int kQ = 0;
@@ -291,30 +301,29 @@ __device__ __forceinline__ void store_q_chunk(uint8_t* q_s, int row, int ch,
 }
 
 // The ring's barriers: full[s] completes when stage s's boxes have landed,
-// empty[s] when every warp is done reading the tile in stage s.
-template <int D>
+// empty[s] when every consumer warp is done reading the tile in stage s.
+template <class L>
 __device__ __forceinline__ uint32_t full_bar(uint32_t base, int s) {
-  return base + Layout<D>::kBar + 8 * s;
+  return base + L::kBar + 8 * s;
 }
-template <int D>
+template <class L>
 __device__ __forceinline__ uint32_t empty_bar(uint32_t base, int s) {
-  return base + Layout<D>::kBar + 8 * (kStages + s);
+  return base + L::kBar + 8 * (L::kStages + s);
 }
 
 // Zero the V ring (tile rows that no box fills must not hold NaN bit
 // patterns: P is 0 there, but 0 * NaN is NaN), set up the barriers, and
 // make both visible to the async proxy.  The CTA's first step.
-template <int D>
+template <class L>
 __device__ __forceinline__ void init_ring(uint8_t* gen, uint32_t base) {
-  using L = Layout<D>;
-  for (int off = threadIdx.x * 16; off < kStages * L::kTile;
-       off += kThreads * 16)
+  for (int off = threadIdx.x * 16; off < L::kStages * L::kTile;
+       off += L::kThreads * 16)
     *reinterpret_cast<uint4*>(gen + L::kV + off) = make_uint4(0u, 0u, 0u, 0u);
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full_bar<D>(base, s), 1);  // the producer's expect_tx
-      mbar_init(empty_bar<D>(base, s), kThreads / 32);  // one per warp
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full_bar<L>(base, s), 1);  // the producer's expect_tx
+      mbar_init(empty_bar<L>(base, s), L::kThreads / 32);  // one per warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -323,21 +332,58 @@ __device__ __forceinline__ void init_ring(uint8_t* gen, uint32_t base) {
 }
 
 // Tile j's boxes into its stage of the ring (thread 0 only).
-template <int D, class Tile>
+template <class L, class Tile>
 __device__ __forceinline__ void issue_tile(const Tile& t, uint32_t base,
                                            int j) {
-  using L = Layout<D>;
-  const int s = j % kStages;
+  const int s = j % L::kStages;
   t.issue(j, base + L::kK + s * L::kTile, base + L::kV + s * L::kTile,
-          full_bar<D>(base, s));
+          full_bar<L>(base, s));
 }
 
 // Thread 0 starts the loads of the first kStages - 1 tiles, before the CTA
 // stores its Q tile, so that they are in flight meanwhile.
-template <int D, class Tile>
+template <class L, class Tile>
 __device__ __forceinline__ void prefetch(const Tile& t, uint32_t base, int n) {
   if (threadIdx.x == 0)
-    for (int j = 0; j < kStages - 1 && j < n; ++j) issue_tile<D>(t, base, j);
+    for (int j = 0; j < L::kStages - 1 && j < n; ++j)
+      issue_tile<L>(t, base, j);
+}
+
+// Thread 0 loads tile j (< n) into its stage once every warp has released
+// the tile that stage held (j - kStages).
+template <class L, class Tile>
+__device__ __forceinline__ void ring_refill(const Tile& t, uint32_t base,
+                                            int j, int n) {
+  if (threadIdx.x == 0 && j < n) {
+    if (j >= L::kStages)
+      mbar_wait(empty_bar<L>(base, j % L::kStages),
+                ((j / L::kStages) - 1) & 1);
+    issue_tile<L>(t, base, j);
+  }
+}
+
+// Every thread waits for tile i's boxes; returns its stage.
+template <class L>
+__device__ __forceinline__ int ring_wait(uint32_t base, int i) {
+  const int st = i % L::kStages;
+  mbar_wait(full_bar<L>(base, st), (i / L::kStages) & 1);
+  return st;
+}
+
+// Step i of the loop over n tiles: thread 0 refills the stage that tile
+// i - 1 held with tile i + kStages - 1 (keeping kStages - 1 tiles in
+// flight), then every thread waits for tile i.  Returns tile i's stage.
+template <class L, class Tile>
+__device__ __forceinline__ int ring_acquire(const Tile& t, uint32_t base,
+                                            int i, int n) {
+  ring_refill<L>(t, base, i + L::kStages - 1, n);
+  return ring_wait<L>(base, i);
+}
+
+// The warp is done reading stage st.
+template <class L>
+__device__ __forceinline__ void ring_release(uint32_t base, int st) {
+  if (threadIdx.x % 32 == 0) mbar_arrive(empty_bar<L>(base, st));
 }
 
 // The Q tile's plain stores become visible to wgmma.
@@ -365,6 +411,72 @@ __device__ __forceinline__ int thread_col(int j, int e) {
   return 8 * j + 2 * (threadIdx.x % 4) + e;
 }
 
+template <int D>
+__device__ __forceinline__ void acc_init(Acc<D>& a) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) a.o[i] = 0.f;
+  a.m[0] = a.m[1] = REPRO_NEG_INF;
+  a.l[0] = a.l[1] = 0.f;
+}
+
+// The scores of tile i after q.K, in the accumulator fragment of a tile of
+// N keys (s[4 j + 2 h + e]: row h, column thread_col(j, e)): the softcap
+// transform, then the masks as per-row column limits, applied only when a
+// limit stops short of the tile.
+template <int N, class Tile>
+__device__ __forceinline__ void score_tile(const Tile& t, int i,
+                                           const int (&key)[2],
+                                           float (&s)[N / 2]) {
+  if (t.transform()) {
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x) s[x] = t.score(s[x]);
+  }
+  const int lim0 = t.limit(i, key[0]), lim1 = t.limit(i, key[1]);
+  if (lim0 < N || lim1 < N) {
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (thread_col(jj, e & 1) >= ((e & 2) ? lim1 : lim0))
+          s[4 * jj + e] = REPRO_NEG_INF;
+  }
+}
+
+// The online softmax's running max over the tile's scores (reduced over
+// the quad of lanes sharing a row): updates m, rescales l by alpha, and
+// gives alpha (for o) and the max in log2 units of exp (0 for a row with
+// nothing live yet: masked scores, NEG_INF, must give 0).
+template <int N, int D>
+__device__ __forceinline__ void softmax_max(const float (&s)[N / 2],
+                                            float exp_scale, Acc<D>& a,
+                                            float (&alpha)[2],
+                                            float (&m_log2)[2]) {
+  float mx[2] = {a.m[0], a.m[1]};
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x)
+    mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    alpha[h] = exp2_approx((a.m[h] - mx[h]) * exp_scale);
+    a.m[h] = mx[h];
+    a.l[h] *= alpha[h];
+    m_log2[h] = (mx[h] == REPRO_NEG_INF ? 0.f : mx[h]) * exp_scale;
+  }
+}
+
+// After the last tile: l summed over the quad, m in natural units.
+template <int D>
+__device__ __forceinline__ void acc_finish(Acc<D>& a, float m_scale) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 1);
+    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 2);
+    if (a.m[h] != REPRO_NEG_INF) a.m[h] *= m_scale;
+  }
+}
+
 // The flash loop over `n` K/V tiles, after init_ring, prefetch and
 // q_ready.  Tile provides
 //   void issue(int i, uint32_t k_dst, uint32_t v_dst, uint32_t bar) const
@@ -380,32 +492,19 @@ __device__ __forceinline__ int thread_col(int j, int e) {
 //       1: P enters p.V as one bf16 value; 2: as hi + lo, two bf16 values
 //       (about 16 bits), at one more p.V product per tile, for partials
 //       that stay un-normalised over thousands of keys;
-// and `key[h]` is the tile-independent row_key of the thread's rows.
+// and `key[h]` is the tile-independent row_key of the thread's rows.  The
+// warpgroups run unsynchronised, so one's softmax can overlap the other's
+// products.
 template <int D, class Tile>
 __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
                                          const int (&key)[2], Acc<D>& a) {
   using L = Layout<D>;
   const int wg = threadIdx.x / 128;
-  const bool producer = threadIdx.x == 0;
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) a.o[i] = 0.f;
-  a.m[0] = a.m[1] = REPRO_NEG_INF;
-  a.l[0] = a.l[1] = 0.f;
+  acc_init(a);
   const uint32_t q_s = base + L::kQ + wg * 64 * 128;
 
   for (int i = 0; i < n; ++i) {
-    const int st = i % kStages;
-    // keep kStages - 1 tiles in flight: tile j goes into the stage that
-    // tile j - kStages = i - 1 held, once every warp has released it (the
-    // warpgroups run unsynchronised, so one's softmax can overlap the
-    // other's products)
-    const int j = i + kStages - 1;
-    if (producer && j < n) {
-      if (j >= kStages)
-        mbar_wait(empty_bar<D>(base, j % kStages), ((j / kStages) - 1) & 1);
-      issue_tile<D>(t, base, j);
-    }
-    mbar_wait(full_bar<D>(base, st), (i / kStages) & 1);
+    const int st = ring_acquire<L>(t, base, i, n);
     const uint32_t k_s = base + L::kK + st * L::kTile;
     const uint32_t v_s = base + L::kV + st * L::kTile;
 
@@ -421,34 +520,9 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
     wgmma_wait0();
     fence_regs(s);
 
-    if (t.transform()) {
-#pragma unroll
-      for (int x = 0; x < 64; ++x) s[x] = t.score(s[x]);
-    }
-    const int lim0 = t.limit(i, key[0]), lim1 = t.limit(i, key[1]);
-    if (lim0 < kBN || lim1 < kBN) {
-#pragma unroll
-      for (int jj = 0; jj < 16; ++jj)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (thread_col(jj, e & 1) >= ((e & 2) ? lim1 : lim0))
-            s[4 * jj + e] = REPRO_NEG_INF;
-    }
-    float mx[2] = {a.m[0], a.m[1]};
-#pragma unroll
-    for (int x = 0; x < 64; ++x)
-      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
+    score_tile<kBN>(t, i, key, s);
     float alpha[2], m_log2[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      alpha[h] = exp2_approx((a.m[h] - mx[h]) * t.exp_scale);
-      a.m[h] = mx[h];
-      a.l[h] *= alpha[h];
-      // a row with nothing live yet: masked scores (NEG_INF) must give 0
-      m_log2[h] = (mx[h] == REPRO_NEG_INF ? 0.f : mx[h]) * t.exp_scale;
-    }
+    softmax_max<kBN>(s, t.exp_scale, a, alpha, m_log2);
     uint32_t p_hi[32], p_lo[Tile::kPTerms == 2 ? 32 : 1];
 #pragma unroll
     for (int x = 0; x < 64; x += 2) {
@@ -476,14 +550,9 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
     wgmma_commit();
     wgmma_wait0();
     fence_regs(a.o);
-    if (threadIdx.x % 32 == 0) mbar_arrive(empty_bar<D>(base, st));
+    ring_release<L>(base, st);
   }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 1);
-    a.l[h] += __shfl_xor_sync(0xffffffffu, a.l[h], 2);
-    if (a.m[h] != REPRO_NEG_INF) a.m[h] *= t.m_scale;
-  }
+  acc_finish(a, t.m_scale);
 }
 
 // -- host: tensor maps -------------------------------------------------------

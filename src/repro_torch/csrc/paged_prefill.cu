@@ -19,35 +19,44 @@
 //
 // What bounds it: each query row does 4 D flops per key it attends (q.K
 // and p.V), over the whole cached prefix, so at chunks of hundreds of
-// tokens it is bound by operations, not bytes.  Two routes, chosen by the
-// wrapper from the dtypes and the page size:
+// tokens it is bound by operations, not bytes.  Three routes, chosen by
+// the wrapper from the dtypes and the page size:
 //
-// - bf16 q with bf16 pools and page_size % 8 == 0, <= 128 (the engine's
-//   case): paged_prefill_kernel_tc, the shared tensor-core tile of
-//   flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a three-stage
-//   ring).  The pools are viewed as one 2-D tensor map of (num_pages * P)
-//   rows of Hkv * D columns, and a K/V tile of up to 128 tokens is one box
-//   of (P rows, 64 columns) per page and 64-column panel, at column h * D
-//   and row page * P.  A box lands at a multiple of 1024 bytes, the period
-//   of the 128-byte swizzle, hence P % 8 == 0.  The page ids are read by
-//   the producing thread from the split's row of the blocked table
-//   (L1-cached: the three-stage ring leaves no room for a whole table row
-//   in shared memory at D = 128).  The query rows are gathered in place
-//   from (B, C, H, D) with zeros past the chunk.  The partials stay
-//   un-normalised over up to thousands of keys, so P enters p.V as two
-//   bf16 terms (hi + lo): one term's rounding would exceed the bf16
-//   tolerance of acc.
-// - f32 q, int8 pools, or other page sizes: paged_prefill_kernel, on the
-//   CUDA cores, with K4's f32 layout: a pre-scaled f32 q tile of up to 128
-//   rows in shared memory, 32-token K/V sub-tiles gathered through the
-//   page ids with 16-byte vector loads, rows padded against bank
-//   conflicts, online softmax in f32 and each thread's half of an output
-//   row in registers.  For D = 128 that is ~116 KB of shared memory, above
-//   the 48 KB default, hence cudaFuncAttributeMaxDynamicSharedMemorySize.
+// - bf16 q with bf16 pools and page_size % 8 == 0, <= 128 (the bf16
+//   engine's case): paged_prefill_kernel_tc, the shared bf16 tensor-core
+//   tile of flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a
+//   three-stage ring, 128 rows per CTA).  The pools are viewed as one 2-D
+//   tensor map of (num_pages * P) rows of Hkv * D columns, and a K/V tile
+//   of up to 128 tokens is one box of (P rows, 64 columns) per page and
+//   64-column panel, at column h * D and row page * P.  A box lands at a
+//   multiple of 1024 bytes, the period of the 128-byte swizzle, hence
+//   P % 8 == 0.  The page ids are read by the producing thread from the
+//   split's row of the blocked table (L1-cached: the ring leaves no room
+//   for a whole table row in shared memory at D = 128).  The query rows
+//   are gathered in place from (B, C, H, D) with zeros past the chunk.
+//   The partials stay un-normalised over up to thousands of keys, so P
+//   enters p.V as two bf16 terms (hi + lo): one term's rounding would
+//   exceed the bf16 tolerance of acc.
+// - f32 q with f32 pools and the same pages (the engine's default dtype):
+//   paged_prefill_kernel_tf32, the split-TF32 tile of flash_tf32.cuh
+//   (every product as three TF32 products, 64 rows per CTA, K/V tiles of
+//   64 keys): the same tensor maps in f32 boxes of 32 columns; a page of
+//   up to 64 tokens is one box (several to a tile), a longer one is cut
+//   into boxes of 64 rows, its last masked at the page's end.
+// - int8 pools (either q), or pages that are not a multiple of 8 tokens or
+//   are over 128: paged_prefill_kernel, on the CUDA cores, with a pre-scaled
+//   f32 q tile of up to 128 rows in shared memory, 32-token K/V sub-tiles
+//   gathered through the page ids with 16-byte vector loads (int8 times
+//   kv_scale), rows padded against bank conflicts, online softmax in f32
+//   and each thread's half of an output row in registers.  For D = 128
+//   that is ~116 KB of shared memory, above the 48 KB default, hence
+//   cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include "common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 namespace ft = flash_tc;
+namespace f3 = flash_tf32;
 
 namespace {
 
@@ -276,38 +285,56 @@ int dispatch_q(int q_code, int kv_code, const PrefillParams& p,
   }
 }
 
-// -- the tensor-core route (bf16 q and pools) ---------------------------------
+// -- the tensor-core routes ---------------------------------------------------
+// A K/V tile of the split, for either tile's layout Lay: up to Lay::kBN
+// keys of whole pages (npg pages of P <= kBN tokens, one box each), or, for
+// pages longer than kBN, one box of kBN rows cut from a page (cut boxes
+// per page; columns past the page's end are masked).
+template <class Lay>
 struct PrefillTile {
   static constexpr int kPTerms = 2;  // un-normalised partials: P as hi + lo
   const CUtensorMap* tk;
   const CUtensorMap* tv;
   const int* ids;  // the split's rows of the blocked table, bps x ppb
-  int P, ppb, npg, spb;  // page, pages per KV block, per tile, tiles per block
-  int blk_tokens, split0, L, col0, panels;
+  int P, ppb, npg, cut, box, spb;  // page, pages per KV block, per tile,
+                                   // tiles per page, box rows, per block
+  int bps, blk_tokens, split0, L, col0, panels;
   float scale, softcap;
   float exp_scale, m_scale;  // scale folded in, unless softcap applies
 
   __device__ void issue(int i, uint32_t kd, uint32_t vd, uint32_t bar) const {
-    const int bb = i / spb, pg0 = (i % spb) * npg;
+    const int bb = i / spb, r = i % spb;
+    const int pg0 = (r / cut) * npg, sub = r % cut;
     const int np = min(npg, ppb - pg0);
-    ft::mbar_expect_tx(bar, static_cast<uint32_t>(np * P * 128 * panels * 2));
+    ft::mbar_expect_tx(bar,
+                       static_cast<uint32_t>(np * box * 128 * panels * 2));
     for (int j = 0; j < np; ++j) {
-      const int row = __ldg(ids + bb * ppb + pg0 + j) * P;
-      const uint32_t off = static_cast<uint32_t>(j * P * 128);
+      const int row = __ldg(ids + bb * ppb + pg0 + j) * P + sub * box;
+      const uint32_t off = static_cast<uint32_t>(j * box * 128);
       for (int c = 0; c < panels; ++c) {
-        ft::tma_load_2d(kd + c * ft::kPanelBytes + off, tk, bar,
-                        col0 + 64 * c, row);
-        ft::tma_load_2d(vd + c * ft::kPanelBytes + off, tv, bar,
-                        col0 + 64 * c, row);
+        ft::tma_load_2d(kd + c * Lay::kStagePanel + off, tk, bar,
+                        col0 + Lay::kPanelCols * c, row);
+        ft::tma_load_2d(vd + c * Lay::kStagePanel + off, tv, bar,
+                        col0 + Lay::kPanelCols * c, row);
       }
     }
   }
   // key: the row's query position; live keys are kpos < L, kpos <= qpos
   __device__ int limit(int i, int qpos) const {
-    const int bb = i / spb, pg0 = (i % spb) * npg;
-    const int T = min(npg, ppb - pg0) * P;
-    const int k0 = split0 + bb * blk_tokens + pg0 * P;
+    const int bb = i / spb, r = i % spb;
+    const int pg0 = (r / cut) * npg, sub = r % cut;
+    const int T = cut > 1 ? min(box, P - sub * box)
+                          : min(npg, ppb - pg0) * P;
+    const int k0 = split0 + bb * blk_tokens + pg0 * P + sub * box;
     return min(T, min(L - k0, qpos - k0 + 1));
+  }
+  // tiles of the split that start below key `lim` (from the split's first)
+  __device__ int count(int lim) const {
+    if (lim <= 0) return 0;
+    const int rem = lim % blk_tokens;
+    const int part = cut > 1 ? (rem / P) * cut + (rem % P + box - 1) / box
+                             : (rem + npg * P - 1) / (npg * P);
+    return min(bps * spb, (lim / blk_tokens) * spb + part);
   }
   __device__ bool transform() const { return softcap > 0.f; }
   __device__ float score(float x) const {
@@ -315,80 +342,74 @@ struct PrefillTile {
   }
 };
 
-template <int D>
-__global__ void __launch_bounds__(ft::kThreads, 1)
-    paged_prefill_kernel_tc(const __grid_constant__ CUtensorMap tk,
-                            const __grid_constant__ CUtensorMap tv,
-                            const PrefillParams p) {
-  extern __shared__ __align__(16) uint8_t tc_smem[];
-  uint8_t* gen;
-  const uint32_t base = ft::smem_base(tc_smem, &gen);
-  const int tile = blockIdx.x % p.n_tiles;
-  const int nq = (blockIdx.x / p.n_tiles) % p.NQ;
-  const int s = blockIdx.x / (p.n_tiles * p.NQ);
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int L = p.kv_lens[b];
-  const int q0 = p.q_start[b] + nq * p.q_block;  // position of its token 0
-  const int H = p.Hkv * p.G;
-
-  ft::init_ring<D>(gen, base);
-
-  PrefillTile t;
-  t.tk = &tk;
-  t.tv = &tv;
+// The tile of CTA (split s, kv head h, batch b) over the maps tk, tv.
+template <class L, int D>
+__device__ __forceinline__ PrefillTile<L> make_tile(const PrefillParams& p,
+                                                    const CUtensorMap* tk,
+                                                    const CUtensorMap* tv,
+                                                    int s, int h, int b) {
+  PrefillTile<L> t;
+  t.tk = tk;
+  t.tv = tv;
   t.ids =
       p.tables + (static_cast<size_t>(b) * p.n_blocks + s * p.bps) * p.ppb;
   t.P = p.page_size;
   t.ppb = p.ppb;
-  t.npg = min(p.ppb, ft::kBN / p.page_size);
-  t.spb = (p.ppb + t.npg - 1) / t.npg;
+  t.npg = p.page_size <= L::kBN ? min(p.ppb, L::kBN / p.page_size) : 1;
+  t.cut = (p.page_size + L::kBN - 1) / L::kBN;
+  t.box = min(p.page_size, L::kBN);
+  t.spb = (p.ppb + t.npg - 1) / t.npg * t.cut;
+  t.bps = p.bps;
   t.blk_tokens = p.ppb * p.page_size;
   t.split0 = s * p.bps * t.blk_tokens;
-  t.L = L;
+  t.L = p.kv_lens[b];
   t.col0 = h * D;
-  t.panels = D / 64;
+  t.panels = D / L::kPanelCols;
   t.scale = p.scale;
   t.softcap = p.softcap;
   t.exp_scale = (p.softcap > 0.f ? 1.f : p.scale) * ft::kLog2e;
   t.m_scale = p.softcap > 0.f ? 1.f : p.scale;
-  // tiles that start below min(L, last query + 1): a prefix of the split
-  // (KV blocks, and tiles inside them, past either are skipped)
-  const int lim = min(L, q0 + p.q_block) - t.split0;
-  int n = 0;
-  if (lim > 0) {
-    const int tile_tokens = t.npg * t.P;
-    n = min(p.bps * t.spb, (lim / t.blk_tokens) * t.spb +
-                               (lim % t.blk_tokens + tile_tokens - 1) /
-                                   tile_tokens);
-  }
-  ft::prefetch<D>(t, base, n);
+  return t;
+}
 
-  for (int c = threadIdx.x; c < ft::kRows * (D / 8); c += ft::kThreads) {
-    const int r = c / (D / 8);
-    const int qr = tile * ft::kRows + r;  // row of the Q-block
-    const int tok = nq * p.q_block + qr / p.G;
-    const __nv_bfloat16* src =
-        qr < p.R && tok < p.C
-            ? static_cast<const __nv_bfloat16*>(p.q) +
-                  ((static_cast<size_t>(b) * p.C + tok) * H + h * p.G +
-                   qr % p.G) * D
-            : nullptr;
-    ft::store_q_chunk<D>(gen + ft::Layout<D>::kQ, r, c % (D / 8), src);
-  }
-  ft::q_ready();
+// Where CTA x of the grid sits: its row tile, Q-block and split.
+struct PrefillCta {
+  int tile, nq, s, q0;  // q0: absolute position of the Q-block's token 0
+};
 
-  int key[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh)
-    key[hh] = q0 + (tile * ft::kRows + ft::thread_row(hh)) / p.G;
-  ft::Acc<D> a;
-  ft::mainloop<D>(t, base, n, key, a);
+__device__ __forceinline__ PrefillCta prefill_cta(const PrefillParams& p) {
+  PrefillCta c;
+  c.tile = blockIdx.x % p.n_tiles;
+  c.nq = (blockIdx.x / p.n_tiles) % p.NQ;
+  c.s = blockIdx.x / (p.n_tiles * p.NQ);
+  c.q0 = p.q_start[blockIdx.z] + c.nq * p.q_block;
+  return c;
+}
 
+// The chunk token of row qr of the Q-block, and its q row (null past the
+// chunk or the Q-block).
+template <typename T, int D>
+__device__ __forceinline__ const T* q_row(const PrefillParams& p,
+                                          const PrefillCta& c, int qr) {
+  const int tok = c.nq * p.q_block + qr / p.G;
+  if (qr >= p.R || tok >= p.C) return nullptr;
+  return static_cast<const T*>(p.q) +
+         ((static_cast<size_t>(blockIdx.z) * p.C + tok) * (p.Hkv * p.G) +
+          blockIdx.y * p.G + qr % p.G) * D;
+}
+
+// The (m, l, acc) partials of the thread's rows; row0 is the CTA's first
+// row of the Q-block.
+template <int D>
+__device__ __forceinline__ void store_partials(const PrefillParams& p,
+                                               const PrefillCta& c, int row0,
+                                               const ft::Acc<D>& a) {
   const size_t slot =
-      ((static_cast<size_t>(b) * p.Hkv + h) * p.NQ + nq) * p.S + s;
+      ((static_cast<size_t>(blockIdx.z) * p.Hkv + blockIdx.y) * p.NQ + c.nq) *
+          p.S + c.s;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int qr = tile * ft::kRows + ft::thread_row(hh);
+    const int qr = row0 + ft::thread_row(hh);
     if (qr >= p.R) continue;
     const size_t o = slot * p.R + qr;
     if (threadIdx.x % 4 == 0) {
@@ -403,24 +424,112 @@ __global__ void __launch_bounds__(ft::kThreads, 1)
   }
 }
 
+// bf16 q and pools: the tile of flash_tc.cuh, 128 rows per CTA.
 template <int D>
-int launch_tc(const PrefillParams& p, int num_pages, cudaStream_t st) {
+__global__ void __launch_bounds__(ft::kThreads, 1)
+    paged_prefill_kernel_tc(const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const PrefillParams p) {
+  using L = ft::Layout<D>;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* gen;
+  const uint32_t base = ft::smem_base(tc_smem, &gen);
+  const PrefillCta c = prefill_cta(p);
+  ft::init_ring<L>(gen, base);
+  const PrefillTile<L> t = make_tile<L, D>(p, &tk, &tv, c.s, blockIdx.y,
+                                           blockIdx.z);
+  // tiles that start below min(L, last query + 1): a prefix of the split
+  // (KV blocks, and tiles inside them, past either are skipped)
+  const int n = t.count(min(t.L, c.q0 + p.q_block) - t.split0);
+  ft::prefetch<L>(t, base, n);
+
+  const int row0 = c.tile * ft::kRows;
+  for (int x = threadIdx.x; x < ft::kRows * (D / 8); x += ft::kThreads) {
+    const int r = x / (D / 8);
+    ft::store_q_chunk<D>(gen + L::kQ, r, x % (D / 8),
+                         q_row<__nv_bfloat16, D>(p, c, row0 + r));
+  }
+  ft::q_ready();
+
+  int key[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    key[hh] = c.q0 + (row0 + ft::thread_row(hh)) / p.G;
+  ft::Acc<D> a;
+  ft::mainloop<D>(t, base, n, key, a);
+  store_partials<D>(p, c, row0, a);
+}
+
+// f32 q and pools: the split-TF32 tile of flash_tf32.cuh, 64 rows per CTA.
+template <int D>
+__global__ void __launch_bounds__(f3::kThreads, 1)
+    paged_prefill_kernel_tf32(const __grid_constant__ CUtensorMap tk,
+                              const __grid_constant__ CUtensorMap tv,
+                              const PrefillParams p) {
+  using L = f3::Layout<D>;
+  extern __shared__ __align__(16) uint8_t tc_smem[];
+  uint8_t* gen;
+  const uint32_t base = ft::smem_base(tc_smem, &gen);
+  const PrefillCta c = prefill_cta(p);
+  ft::init_ring<L>(gen, base);
+  const PrefillTile<L> t = make_tile<L, D>(p, &tk, &tv, c.s, blockIdx.y,
+                                           blockIdx.z);
+  const int n = t.count(min(t.L, c.q0 + p.q_block) - t.split0);
+  ft::prefetch<L>(t, base, n);
+
+  const int row0 = c.tile * f3::kRows;
+  for (int x = threadIdx.x; x < f3::kRows * (D / 4); x += f3::kThreads) {
+    const int r = x / (D / 4);
+    f3::store_q_chunk<D>(gen, r, x % (D / 4),
+                         q_row<float, D>(p, c, row0 + r));
+  }
+  ft::q_ready();
+
+  int key[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    key[hh] = c.q0 + (row0 + ft::thread_row(hh)) / p.G;
+  ft::Acc<D> a;
+  f3::mainloop<D>(t, gen, base, n, key, a);
+  store_partials<D>(p, c, row0, a);
+}
+
+// The tensor-core launch of either tile: the pools as one 2-D tensor map
+// of (num_pages * P) rows of Hkv * D elements, boxes of min(P, kBN) rows.
+template <class L, int D, class Kernel>
+int launch_tile(Kernel kernel, const PrefillParams& p, int num_pages,
+                int rows_per_cta, bool f32, cudaStream_t st) {
   const uint64_t rows = static_cast<uint64_t>(num_pages) * p.page_size;
   const uint64_t cols = static_cast<uint64_t>(p.Hkv) * D;
+  const uint32_t box = p.page_size < L::kBN ? p.page_size : L::kBN;
+  const auto encode = f32 ? f3::encode_f32_sw128 : ft::encode_bf16_sw128;
+  const uint64_t row_bytes = cols * (f32 ? 4 : 2);
   CUtensorMap tk, tv;
-  int bad =
-      ft::encode_bf16_sw128(&tk, p.k, cols, rows, cols * 2, p.page_size);
-  if (!bad)
-    bad = ft::encode_bf16_sw128(&tv, p.v, cols, rows, cols * 2, p.page_size);
+  int bad = encode(&tk, p.k, cols, rows, row_bytes, box);
+  if (!bad) bad = encode(&tv, p.v, cols, rows, row_bytes, box);
   if (bad) return bad;
-  constexpr size_t bytes = ft::Layout<D>::kBytes;
+  constexpr size_t bytes = L::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(p.n_tiles * p.NQ * p.S, p.Hkv, p.B);
-  paged_prefill_kernel_tc<D><<<grid, ft::kThreads, bytes, st>>>(tk, tv, p);
+  PrefillParams q = p;
+  q.n_tiles = (p.R + rows_per_cta - 1) / rows_per_cta;
+  const dim3 grid(q.n_tiles * q.NQ * q.S, q.Hkv, q.B);
+  kernel<<<grid, L::kThreads, bytes, st>>>(tk, tv, q);
   return 0;
+}
+
+template <int D>
+int launch_tc(const PrefillParams& p, int num_pages, cudaStream_t st) {
+  return launch_tile<ft::Layout<D>, D>(paged_prefill_kernel_tc<D>, p,
+                                       num_pages, ft::kRows, false, st);
+}
+
+template <int D>
+int launch_tf32(const PrefillParams& p, int num_pages, cudaStream_t st) {
+  return launch_tile<f3::Layout<D>, D>(paged_prefill_kernel_tf32<D>, p,
+                                       num_pages, f3::kRows, true, st);
 }
 
 // The entry points' shared argument checks and parameter block.
@@ -460,6 +569,35 @@ int fill_params(PrefillParams* p, const void* q, const void* k_pages,
   return 0;
 }
 
+// The tensor-core routes, page_size % 8 == 0 and <= 128: bf16 q and pools
+// (f32 == 0) on the bf16 tile, f32 q and pools (f32 == 1) on the split-TF32
+// tile.
+int partials_tc(int f32, const void* q, const void* k_pages,
+                const void* v_pages, const void* tables, const void* kv_lens,
+                const void* q_start, void* m, void* l, void* acc, int B,
+                int C, int Hkv, int G, int D, int num_pages, int page_size,
+                int n_blocks, int ppb, int num_splits, int bps, int q_block,
+                float scale, float softcap, void* stream) {
+  if (B == 0 || C == 0 || Hkv == 0) return 0;
+  if (page_size % 8 || page_size > 128)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PrefillParams p;
+  int bad = fill_params(&p, q, k_pages, v_pages, tables, kv_lens, q_start, m,
+                        l, acc, B, C, Hkv, G, page_size, n_blocks, ppb,
+                        num_splits, bps, q_block, scale, softcap, 0.f);
+  if (bad) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D * 2 + f32) {
+    case 128: bad = launch_tc<64>(p, num_pages, st); break;
+    case 256: bad = launch_tc<128>(p, num_pages, st); break;
+    case 129: bad = launch_tf32<64>(p, num_pages, st); break;
+    case 257: bad = launch_tf32<128>(p, num_pages, st); break;
+    default: bad = static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (bad) return bad;
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int paged_prefill_partials(
@@ -485,27 +623,26 @@ extern "C" int paged_prefill_partials(
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core route: bf16 q and pools, page_size % 8 == 0 and <= 128.
+// The bf16 tensor-core route: bf16 q and pools.
 extern "C" int paged_prefill_partials_tc(
     const void* q, const void* k_pages, const void* v_pages,
     const void* tables, const void* kv_lens, const void* q_start, void* m,
     void* l, void* acc, int B, int C, int Hkv, int G, int D, int num_pages,
     int page_size, int n_blocks, int ppb, int num_splits, int bps,
     int q_block, float scale, float softcap, void* stream) {
-  if (B == 0 || C == 0 || Hkv == 0) return 0;
-  if (page_size % 8 || page_size > ft::kBN)
-    return static_cast<int>(cudaErrorInvalidValue);
-  PrefillParams p;
-  int bad = fill_params(&p, q, k_pages, v_pages, tables, kv_lens, q_start, m,
-                        l, acc, B, C, Hkv, G, page_size, n_blocks, ppb,
-                        num_splits, bps, q_block, scale, softcap, 0.f);
-  if (bad) return bad;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: bad = launch_tc<64>(p, num_pages, st); break;
-    case 128: bad = launch_tc<128>(p, num_pages, st); break;
-    default: bad = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (bad) return bad;
-  return static_cast<int>(cudaGetLastError());
+  return partials_tc(0, q, k_pages, v_pages, tables, kv_lens, q_start, m, l,
+                     acc, B, C, Hkv, G, D, num_pages, page_size, n_blocks,
+                     ppb, num_splits, bps, q_block, scale, softcap, stream);
+}
+
+// The split-TF32 tensor-core route: f32 q and pools.
+extern "C" int paged_prefill_partials_tf32(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* tables, const void* kv_lens, const void* q_start, void* m,
+    void* l, void* acc, int B, int C, int Hkv, int G, int D, int num_pages,
+    int page_size, int n_blocks, int ppb, int num_splits, int bps,
+    int q_block, float scale, float softcap, void* stream) {
+  return partials_tc(1, q, k_pages, v_pages, tables, kv_lens, q_start, m, l,
+                     acc, B, C, Hkv, G, D, num_pages, page_size, n_blocks,
+                     ppb, num_splits, bps, q_block, scale, softcap, stream);
 }

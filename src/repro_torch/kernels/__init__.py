@@ -63,6 +63,33 @@ def tensor_core_p(p: torch.Tensor, terms=None) -> torch.Tensor:
     return out
 
 
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest,
+    ties away from zero, keeping 10 explicit mantissa bits (the low 13 bits
+    of the f32 word become 0)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_product(op, a: torch.Tensor, b: torch.Tensor, terms=None
+                 ) -> torch.Tensor:
+    """``op(a, b)`` for a bilinear ``op`` (matmul, einsum) as the split-TF32
+    kernels evaluate it: with hi = tf32(x) and lo = tf32(x - hi), ``terms``
+    3 sums lo(a)·hi(b) + hi(a)·lo(b) + hi(a)·hi(b) (lo·lo dropped), 1 takes
+    hi(a)·hi(b) alone (one TF32 product), None is ``op(a, b)`` itself.
+    Used by the plain versions to show that the f32 tolerance fits the
+    kernels' arithmetic."""
+    if not terms:
+        return op(a, b)
+    a_hi, b_hi = tf32(a), tf32(b)
+    if terms == 1:
+        return op(a_hi, b_hi)
+    if terms != 3:
+        raise ValueError(f"tf32 terms must be 1 or 3, got {terms}")
+    a_lo, b_lo = tf32(a.float() - a_hi), tf32(b.float() - b_hi)
+    return op(a_lo, b_hi) + op(a_hi, b_lo) + op(a_hi, b_hi)
+
+
 def launch_wrappers():
     """The kernel wrappers of the main path, by kernel name."""
     from repro_torch.kernels.flex_attention.flex_attention import (
@@ -78,8 +105,9 @@ def launch_wrappers():
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset, and per route of
-    the wrappers that have several ("flex_prefill/tc", "flex_prefill/simt",
-    "paged_prefill/tc", "paged_prefill/simt")."""
+    the wrappers that have several ("flex_prefill/tc",
+    "flex_prefill/tf32x3", "paged_prefill/tc", "paged_prefill/tf32x3",
+    "paged_prefill/simt")."""
     counts = {}
     for k, fn in launch_wrappers().items():
         counts[k] = fn.launches

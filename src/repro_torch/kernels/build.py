@@ -60,21 +60,24 @@ SIGNATURES = {
     "paged_prefill_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _F, _P],
-    # dtype code, mask variant, q, k, v, o, kv_num_blocks, kv_indices,
-    # is_full, lens, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk,
-    # kv_blk, q_len, kv_len, scale, stream
-    "flex_attention_fwd": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _F, _P],
-    # the tensor-core routes (bf16 only): the same arguments without the
-    # dtype codes; K3's adds num_pages (the tensor map's rows) and drops
-    # kv_scale (no int8 pools)
+    # mask variant, q, k, v, o, kv_num_blocks, kv_indices, is_full, lens,
+    # B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk, q_len,
+    # kv_len, scale, stream: K4's routes, bf16 ("_tc") and f32 ("_tf32")
     "flex_attention_fwd_tc": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
+    "flex_attention_fwd_tf32": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _F, _P],
+    # K3's tensor-core routes, bf16 ("_tc") and f32 ("_tf32"): the CUDA-core
+    # arguments without the dtype codes, with num_pages (the tensor map's
+    # rows) and without kv_scale (no int8 pools)
     "paged_prefill_partials_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _F, _F, _P],
+    "paged_prefill_partials_tf32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                    _I, _I, _I, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

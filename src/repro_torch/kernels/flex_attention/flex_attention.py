@@ -6,10 +6,11 @@ TPU kernel ``repro/kernels/flex_attention/flex_attention.py::_flex_kernel``.
 One CUDA block per (batch, head, q-tile) visits only the kv tiles its
 ``BlockMask`` row lists, skips the element mask on ``is_full`` tiles,
 maps GQA heads by ``h // G`` and normalises in the kernel.  It has two
-routes, chosen by ``flex_route`` from the dtype alone: bf16 runs on the
-tensor cores (``flex_fwd_kernel_tc``: wgmma, K/V by TMA), f32 on the CUDA
-cores (``flex_fwd_kernel``).  Each route counts its own launches in
-``flex_attention_kernel.launches_by_route``.
+routes, chosen by ``flex_route`` from the dtype alone, both on the tensor
+cores with K/V by TMA: bf16 on the bf16 tile (``flex_fwd_kernel_tc``,
+wgmma), f32 on the split-TF32 tile (``flex_fwd_kernel_tf32``: every
+product as three TF32 products, which keeps the f32 tolerance).  Each
+route counts its own launches in ``flex_attention_kernel.launches_by_route``.
 
 Mask mods are compiled variants of the kernel, for the mods the prefill
 path composes: ``full_mask``, ``causal_mask``, ``padding_mask(lens)`` and
@@ -25,24 +26,25 @@ import torch
 
 from repro_torch.core import flex
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import tensor_core_p, use_kernel
+from repro_torch.kernels import tensor_core_p, tf32_product, use_kernel
 from repro_torch.kernels.build import check, get_lib
 
 NEG_INF = -1e30
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 FLEX_HEAD_DIMS = (64, 128)
 MAX_Q_BLOCK = 128
 
 # compiled mask variants: bit 0 = causal, bit 1 = padding(lens)
 FULL, CAUSAL, PADDING = 0, 1, 2
-ROUTES = ("tc", "simt")
+ROUTES = ("tc", "tf32x3")
 
 
 def flex_route(dtype: torch.dtype) -> str:
-    """K4's route for inputs of ``dtype``: "tc", the tensor-core kernel,
-    for bf16; "simt", the CUDA-core kernel, for f32 (TF32 tensor cores
-    keep about three digits, too few for the f32 contract)."""
-    return "tc" if dtype == torch.bfloat16 else "simt"
+    """K4's route for inputs of ``dtype``: "tc", the bf16 tensor-core
+    kernel, for bf16; "tf32x3", the split-TF32 tensor-core kernel, for
+    f32 (one TF32 product keeps about three digits, too few for the f32
+    contract; three, hi·hi + hi·lo + lo·hi, keep about 21 bits)."""
+    return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def mask_variant(mask_mod) -> Optional[Tuple[int, Optional[torch.Tensor]]]:
@@ -82,11 +84,13 @@ def _tile_maps(block_mask: flex.BlockMask, nk: int):
 
 
 def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
-                          kv_len, p_terms=None):
+                          kv_len, p_terms=None, tf32_terms=None):
     """Plain version of K4: the same tile selection, masks and softmax,
     evaluated densely one batch row at a time.  ``p_terms`` = 1 rounds
-    the probabilities to bf16 before p.V, as the tensor-core kernel does
-    (None keeps them f32; the sum stays f32 either way)."""
+    the probabilities to bf16 before p.V, as the bf16 tensor-core kernel
+    does (None keeps them f32; the sum stays f32 either way).
+    ``tf32_terms`` (3 or 1) evaluates q.K and p.V as the split-TF32 kernel
+    does (`tf32_product`; the scale applies after q.K there)."""
     B, H, Q, D = q.shape
     Hkv, K = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -108,14 +112,19 @@ def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
         mask = (ft | elem) & lt & valid  # (H or 1, Q, K)
         kh = k[b].float().repeat_interleave(G, dim=0)  # (H, K, D)
         vh = v[b].float().repeat_interleave(G, dim=0)
-        s = torch.matmul(q[b].float() * scale, kh.transpose(1, 2))
+        if tf32_terms:
+            s = tf32_product(torch.matmul, q[b].float(), kh.transpose(1, 2),
+                             tf32_terms) * scale
+        else:
+            s = torch.matmul(q[b].float() * scale, kh.transpose(1, 2))
         s = torch.where(mask, s, neg)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.where(mask, torch.exp(s - m),
                         torch.tensor(0.0, device=dev))
         l = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
-        out[b] = (torch.matmul(tensor_core_p(p, p_terms), vh) / l
-                  ).to(q.dtype)
+        pv = (tf32_product(torch.matmul, p, vh, tf32_terms) if tf32_terms
+              else torch.matmul(tensor_core_p(p, p_terms), vh))
+        out[b] = (pv / l).to(q.dtype)
     return out
 
 
@@ -153,7 +162,7 @@ def flex_attention_kernel(
                                      mask_mod=mask_mod, q_len=q_len,
                                      kv_len=kv_len)
     bits, lens = variant
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise UnsupportedFeature(f"flex kernel: dtypes q {q.dtype} k "
                                  f"{k.dtype} v {v.dtype}")
     if D not in FLEX_HEAD_DIMS or q_blk > MAX_Q_BLOCK or H % Hkv:
@@ -182,9 +191,6 @@ def flex_attention_kernel(
         if tuple(lens.shape) != (B,):
             raise EngineConfigError("flex kernel: padding lens must be (B,)")
     route = flex_route(q.dtype)
-    if route == "tc" and (D * q.element_size()) % 16:
-        raise EngineConfigError("flex kernel: TMA needs rows that are a "
-                                "multiple of 16 bytes", head_dim=D)
     o = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             nb.data_ptr(), idx.data_ptr(), full.data_ptr(),
@@ -193,13 +199,8 @@ def flex_attention_kernel(
             int(kv_len), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "tc":
-            name = "flex_attention_fwd_tc"
-            err = get_lib().flex_attention_fwd_tc(bits, *args, stream)
-        else:
-            name = "flex_attention_fwd"
-            err = get_lib().flex_attention_fwd(_DTYPE_CODES[q.dtype], bits,
-                                               *args, stream)
+        name = "flex_attention_fwd_" + ("tc" if route == "tc" else "tf32")
+        err = getattr(get_lib(), name)(bits, *args, stream)
     check(err, name)
     flex_attention_kernel.launches += 1
     flex_attention_kernel.launches_by_route[route] += 1

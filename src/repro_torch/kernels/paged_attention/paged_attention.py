@@ -21,12 +21,15 @@ K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 of ``q_block·G`` rows that attend causally, by absolute position, to the
 cached prefix and the chunk itself; ``combine_prefill_partials`` folds the
 Q-blocks into the batch and merges them with K2 (or the plain normalise
-for one split).  K3 has two routes, chosen by ``prefill_route`` from the
-dtypes and the page size: bf16 q and pools with a page of a multiple of 8
-tokens, at most 128, run on the tensor cores
-(``paged_prefill_kernel_tc``: wgmma, one TMA box per page); f32, int8
-pools and other pages on the CUDA cores (``paged_prefill_kernel``).  Each
-route counts its own launches in ``paged_prefill_partials.launches_by_route``.
+for one split).  K3 has three routes, chosen by ``prefill_route`` from the
+dtypes and the page size: q and pools of one dtype with a page of a
+multiple of 8 tokens, at most 128, run on the tensor cores with one TMA
+box per page — bf16 on the bf16 tile (``paged_prefill_kernel_tc``,
+wgmma), f32 on the split-TF32 tile (``paged_prefill_kernel_tf32``: every
+product as three TF32 products, which keeps the f32 tolerance); int8
+pools and other pages run on the CUDA cores (``paged_prefill_kernel``).
+Each route counts its own launches in
+``paged_prefill_partials.launches_by_route``.
 
 Partition and partial contract are the JAX package's (`decode_partition`,
 `_blocked_tables`), so the partials compare with the reference split by
@@ -42,7 +45,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import tensor_core_p, use_kernel
+from repro_torch.kernels import tensor_core_p, tf32_product, use_kernel
 from repro_torch.kernels.build import check, get_lib
 from repro_torch.kernels.paged_attention.contracts import decode_partition
 
@@ -53,22 +56,25 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 DECODE_HEAD_DIMS = (64, 128)
 DECODE_GROUPS = (1, 2, 4, 8)
-ROUTES = ("tc", "simt")
-# K3's tensor-core route: a page is one TMA box, placed at a multiple of the
-# 128-byte swizzle's 1024-byte period (8 rows of 128 bytes) inside a tile of
-# 128 keys
+ROUTES = ("tc", "tf32x3", "simt")
+# K3's tensor-core routes: a page is one TMA box (a page longer than the
+# f32 tile's 64 keys is cut into boxes of 64 rows), placed at a multiple of
+# the 128-byte swizzle's 1024-byte period (8 rows of 128 bytes)
 TC_PAGE_MULTIPLE, TC_MAX_PAGE = 8, 128
+_TC_ROUTES = {torch.bfloat16: "tc", torch.float32: "tf32x3"}
 
 
 def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
                   page_size: int) -> str:
-    """K3's route: "tc", the tensor-core kernel, for bf16 q and pools with
-    ``page_size`` a multiple of 8 and at most 128; "simt", the CUDA-core
-    kernel, for f32, int8 pools and every other page size."""
-    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+    """K3's route: for q and pools of one dtype and ``page_size`` a
+    multiple of 8, at most 128, "tc" (the bf16 tensor-core kernel) for
+    bf16 and "tf32x3" (the split-TF32 tensor-core kernel) for f32;
+    "simt", the CUDA-core kernel, for int8 pools and every other page
+    size."""
+    if (q_dtype == kv_dtype and q_dtype in _TC_ROUTES
             and page_size % TC_PAGE_MULTIPLE == 0
             and page_size <= TC_MAX_PAGE):
-        return "tc"
+        return _TC_ROUTES[q_dtype]
     return "simt"
 
 
@@ -466,14 +472,16 @@ def combine_prefill_partials(m: torch.Tensor, l: torch.Tensor,
 def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                                   q_start, *, scale, softcap, kv_scale,
                                   pages_per_block, num_splits, q_block,
-                                  p_terms=None):
+                                  p_terms=None, tf32_terms=None):
     """Plain version of K3: the same Q-block rows, gather, causal and
     length masks and per-split softmax partials, vectorised over every
     Q-block and split at once.  Skipped KV blocks are all-masked here,
     which leaves the partials exactly as skipping does.  ``p_terms``
     rounds the probabilities before p.V to that many bf16 terms, as the
-    tensor-core kernel feeds them (2: hi + lo); None keeps them f32, and
-    ``l`` sums them in f32 either way."""
+    bf16 tensor-core kernel feeds them (2: hi + lo); None keeps them f32,
+    and ``l`` sums them in f32 either way.  ``tf32_terms`` (3 or 1)
+    evaluates q.K and p.V as the split-TF32 kernel does (`tf32_product`;
+    the scale applies after q.K there)."""
     B, C, H, D = q.shape
     num_pages, page_size, n_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -501,14 +509,24 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                <= qpos[:, :, None, :, None]))  # (B, NQ, S, R, T)
     live = live[:, None]
 
-    s = torch.einsum("bknrd,bstkd->bknsrt", qb.to(work) * scale, k)
+    qk = "bknrd,bstkd->bknsrt"
+    if tf32_terms:
+        s = tf32_product(lambda a, b: torch.einsum(qk, a, b), qb.to(work),
+                         k, tf32_terms) * scale
+    else:
+        s = torch.einsum(qk, qb.to(work) * scale, k)
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     s = torch.where(live, s, torch.tensor(NEG_INF, device=dev))
     m = s.amax(dim=-1)  # (B, Hkv, NQ, S, R); NEG_INF where nothing is live
     p = torch.where(live, torch.exp(s - m[..., None]),
                     torch.tensor(0.0, device=dev))
-    acc = torch.einsum("bknsrt,bstkd->bknsrd", tensor_core_p(p, p_terms), v)
+    pv = "bknsrt,bstkd->bknsrd"
+    if tf32_terms:
+        acc = tf32_product(lambda a, b: torch.einsum(pv, a, b), p, v,
+                           tf32_terms)
+    else:
+        acc = torch.einsum(pv, tensor_core_p(p, p_terms), v)
     return m, p.sum(dim=-1), acc
 
 
@@ -561,9 +579,6 @@ def paged_prefill_partials(
                             ).int()
     NQ, R = -(-C // q_block), q_block * G
     route = prefill_route(q.dtype, k_pages.dtype, page_size)
-    if route == "tc" and (n_kv * D * k_pages.element_size()) % 16:
-        raise EngineConfigError("prefill kernel: TMA needs pool rows that "
-                                "are a multiple of 16 bytes", head_dim=D)
     dev = q.device
     m = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     l = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
@@ -574,9 +589,10 @@ def paged_prefill_partials(
             m.data_ptr(), l.data_ptr(), acc.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        if route == "tc":
-            name = "paged_prefill_partials_tc"
-            err = get_lib().paged_prefill_partials_tc(
+        if route != "simt":
+            name = "paged_prefill_partials_" + ("tc" if route == "tc"
+                                                else "tf32")
+            err = getattr(get_lib(), name)(
                 *ptrs, B, C, n_kv, G, D, num_pages, page_size, S * bps, ppb,
                 S, bps, q_block, float(scale), float(softcap), stream)
         else:

@@ -1,8 +1,9 @@
 """PyTorch port: the routes of K3 and K4 and their C interface.
 
-- (a) ``flex_route`` and ``prefill_route``: bf16 goes to the tensor-core
-  kernels ("tc"); f32, int8 pools and pages that are not a multiple of 8
-  tokens (or over 128) go to the CUDA-core kernels ("simt").
+- (a) ``flex_route`` and ``prefill_route``: bf16 goes to the bf16
+  tensor-core kernels ("tc"), f32 to the split-TF32 tensor-core kernels
+  ("tf32x3"); K3's int8 pools and pages that are not a multiple of 8
+  tokens (or over 128) go to its CUDA-core kernel ("simt").
 - (b) every ``extern "C"`` function of ``csrc/*.cu`` has a ``SIGNATURES``
   entry with as many parameters, parsed from the sources (a ctypes
   mismatch would otherwise show only on the card).
@@ -42,7 +43,7 @@ def rel_err(got, want):
 # -- (a) the routes ----------------------------------------------------------
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
-                                         (torch.float32, "simt")])
+                                         (torch.float32, "tf32x3")])
 def test_flex_route_by_dtype(dtype, route, D):
     assert fa.flex_route(dtype) == route
 
@@ -53,20 +54,35 @@ def test_flex_route_by_dtype(dtype, route, D):
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
 def test_prefill_route_by_dtype_and_page(q_dtype, kv_dtype, D, page):
-    tc = (q_dtype == kv_dtype == torch.bfloat16 and page % 8 == 0
-          and page <= 128)
-    assert pa.prefill_route(q_dtype, kv_dtype, page) == ("tc" if tc
-                                                          else "simt")
+    tile = page % 8 == 0 and page <= 128
+    want = "simt"
+    if tile and q_dtype == kv_dtype == torch.bfloat16:
+        want = "tc"
+    elif tile and q_dtype == kv_dtype == torch.float32:
+        want = "tf32x3"
+    assert pa.prefill_route(q_dtype, kv_dtype, page) == want
+
+
+@pytest.mark.parametrize("page", [8, 16, 64, 128, 12, 4, 136])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_prefill_int8_pools_and_odd_pages_stay_on_the_cuda_cores(q_dtype,
+                                                                 page):
+    assert pa.prefill_route(q_dtype, torch.int8, page) == "simt"
+    if page % 8 or page > 128:
+        assert pa.prefill_route(q_dtype, q_dtype, page) == "simt"
+    else:
+        assert pa.prefill_route(q_dtype, q_dtype, page) != "simt"
 
 
 def test_route_counts_in_launch_counts_and_reset():
     counts = kernels.launch_counts()
-    for name in ("flex_prefill", "paged_prefill"):
-        for route in ("tc", "simt"):
-            assert f"{name}/{route}" in counts
-    fa.flex_attention_kernel.launches_by_route["tc"] += 3
+    for name, routes in (("flex_prefill", ("tc", "tf32x3")),
+                         ("paged_prefill", ("tc", "tf32x3", "simt"))):
+        assert {k for k in counts if k.startswith(name + "/")} == {
+            f"{name}/{r}" for r in routes}
+    fa.flex_attention_kernel.launches_by_route["tf32x3"] += 3
     pa.paged_prefill_partials.launches_by_route["simt"] += 2
-    assert kernels.launch_counts()["flex_prefill/tc"] >= 3
+    assert kernels.launch_counts()["flex_prefill/tf32x3"] >= 3
     kernels.reset_launch_counts()
     assert all(n == 0 for n in kernels.launch_counts().values())
 
@@ -98,7 +114,11 @@ def c_entry_points():
 def test_every_entry_point_has_a_signature():
     found = c_entry_points()
     assert set(found) == set(build.SIGNATURES)
-    assert {"flex_attention_fwd_tc", "paged_prefill_partials_tc"} <= set(found)
+    assert {"flex_attention_fwd_tc", "flex_attention_fwd_tf32",
+            "paged_prefill_partials_tc",
+            "paged_prefill_partials_tf32"} <= set(found)
+    # K4's CUDA-core kernel is gone: every K4 input runs on a tensor core
+    assert "flex_attention_fwd" not in found
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))
