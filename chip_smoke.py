@@ -43,7 +43,21 @@ Phases, each of which fails the script (exit code 1) when it fails:
    the card sets (f32: the operations at 67 TFLOP/s, ``bound_ms``, and
    three TF32 products per f32 one at 495 TFLOP/s, printed beside it),
    and one PyTorch library call for the same function (K4: SDPA with the
-   causal & padding mask; the causal-only SDPA time is printed beside it);
+   causal & padding mask; the causal-only SDPA time is printed beside it).
+   K4's mask and score variants (the mods of core.flex lowered into the
+   kernel's descriptor) on both routes against the plain version with the
+   kernel's own product arithmetic (bf16: P in one bf16 term, 2e-2; f32:
+   three TF32 products, 2e-5): at B 4, H = Hkv = 32, D 128, Q = K = 4096
+   with padding lens 3500..4096, causal & padding, window & padding at
+   1024 and 4096 (also against f64 in f32) and one case of each other
+   family (document, prefix-LM | window, softcap, ALiBi), each timed
+   (device), bounded by its live pairs and timed beside SDPA with the same
+   boolean mask or ALiBi bias (none for softcap), and PyTorch's compiled
+   FlexAttention on window & padding as a yardstick; then a sweep at
+   small shapes over every mod (windows 1, 100, 1000; documents; prefix-LM
+   0, 100, Q; or; paged; softcap, ALiBi, compose_score both ways) with D
+   64, GQA, q tiles of 120 and ragged K.  K1 on ring tables at full width
+   (window 4096, 65 pages, lens 4160..5016);
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
    steps through the kernels (K4 and K3 on the split-TF32 tile) agree with
    the plain oracle path; chunked prefill in chunks of 96 through K3 agrees
@@ -71,7 +85,21 @@ Phases, each of which fails the script (exit code 1) when it fails:
    never), then the same weights and prompts with ``prefill_chunk=512``
    (K3's split-TF32 route, K1, K2; K4 and K3's other routes never); the
    prefill logits of one request through the kernels agree with the plain
-   path (``impl="ref"``) within the model tolerance.
+   path (``impl="ref"``) within the model tolerance, and so do those of a
+   4736-token prompt through the ``swa`` model (32 'W' layers, window
+   4096: K4's window & padding variant on the split-TF32 tile);
+7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
+   ``swa`` variant, every layer 'W' with window 4096, served from ring
+   pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
+   prompts of 4160..5000 tokens, 16 new tokens each, monolithic (K4's
+   window & padding variant on the bf16 tile, K1, K2 on ring tables),
+   then with ``prefill_chunk=512`` (the windowed chunks in plain ops, K1,
+   K2); K3 and K4's f32 route never launch, and every ring wraps.
+
+``--time-k4 [--src DIR]`` only times K4's causal & padding at the main
+path's shapes (B 8, Q = K = 1536) on both routes, from this checkout's
+package or another tree's: an A/B probe across commits (parent, change,
+change, parent).
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -105,6 +133,12 @@ KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
                 "paged_prefill_simt": "paged_prefill_kernel<",
                 "flex_prefill_tc": "flex_fwd_kernel_tc<",
                 "flex_prefill_tf32x3": "flex_fwd_kernel_tf32<"}
+
+
+def set_src(src):
+    """Run the repro_torch under ``src`` (this checkout's by default)."""
+    global SRC
+    SRC = src
 
 
 def fail(msg):
@@ -155,9 +189,11 @@ def time_ms(torch, fn, reps=10, warmup=2):
 
 
 def device_ms(torch, fn, kernel_name, reps=10):
-    """Mean device time per call of the CUDA kernels whose name contains
-    ``kernel_name`` (or one of a tuple of names), from torch.profiler
-    (None when it records none)."""
+    """Device time per call of the CUDA kernels whose name contains
+    ``kernel_name`` (or one of a tuple of names; each launched once per
+    call), from torch.profiler: each kernel's mean over the launches the
+    profiler recorded (it may drop some), summed (None when it records
+    none)."""
     names = (kernel_name,) if isinstance(kernel_name, str) else kernel_name
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -169,10 +205,11 @@ def device_ms(torch, fn, kernel_name, reps=10):
         torch.cuda.synchronize()
     total_us = 0.0
     for ev in prof.key_averages():
-        if any(x in ev.key for x in names):
+        if any(x in ev.key for x in names) and ev.count:
             total_us += getattr(ev, "device_time_total",
-                                getattr(ev, "cuda_time_total", 0.0))
-    return total_us / 1e3 / reps if total_us > 0 else None
+                                getattr(ev, "cuda_time_total", 0.0)
+                                ) / ev.count
+    return total_us / 1e3 if total_us > 0 else None
 
 
 def host_ms(torch, fn, reps=50):
@@ -477,8 +514,9 @@ def kernel_phase(torch, chk):
         chk.close(key, f"{name} B2 H32 Q=K=2048 causal&padding", got, want,
                   tol)
         if dtype == torch.float32:
+            live = flex.materialize(m2, 2, 1, Q2, Q2, device=dev)
             chk.versus_f64(key, f"{name} Q=K=2048", got, want,
-                           flex_f64(torch, q, k, v, l2, D ** -0.5))
+                           flex_f64_mask(torch, q, k, v, live, D ** -0.5))
         del q, k, v, got, want
     flex_permutation_case(torch, chk, gen)
 
@@ -525,23 +563,14 @@ def kernel_phase(torch, chk):
             chk.close("flex_prefill_" + fa.flex_route(dtype),
                       f"{name} B{Bs} H{Hs}/{Hk} Q{Qs} D{Dd} {mname} "
                       f"tiles {qbb}x{kbb}", got, want, tol)
+    # the cases added with the window variants draw from their own
+    # generator, so the cases after them keep their inputs
+    own = torch.Generator(device=dev)
+    own.manual_seed(SEED + 16)
+    rows.update(flex_variant_phase(torch, chk, own))
+    ring_decode_cases(torch, chk, own)
     rows.update(prefill_kernel_phase(torch, chk, gen))
     return rows
-
-
-def flex_f64(torch, q, k, v, lens, scale):
-    """K4 under causal & padding(lens) evaluated densely in f64."""
-    Q, K = q.shape[2], k.shape[2]
-    dev = q.device
-    qi = torch.arange(Q, device=dev)[:, None]
-    ki = torch.arange(K, device=dev)[None, :]
-    live = (ki <= qi)[None] & (ki[None] < lens.long()[:, None, None])
-    out = torch.empty(q.shape, dtype=torch.float64, device=dev)
-    for b in range(q.shape[0]):  # one row at a time: f64 scores are large
-        s = (q[b].double() * scale) @ k[b].double().transpose(-1, -2)
-        s = s.masked_fill(~live[b][None], float("-inf"))
-        out[b] = torch.softmax(s, dim=-1) @ v[b].double()
-    return out
 
 
 def ramp_v(torch, v):
@@ -576,6 +605,306 @@ def flex_permutation_case(torch, chk, gen):
                   f"{name} ordered V rows, tiles 32x56",
                   fa.flex_attention_kernel(q, k, v, bm, **kw),
                   fa._flex_attention_plain(q, k, v, bm, **kw), tol)
+
+
+def flex_f64_mask(torch, q, k, v, live, scale):
+    """K4 over a dense (B, 1|H, Q, K) live mask evaluated in f64, one batch
+    row at a time (rows with nothing live give 0)."""
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    G = q.shape[1] // k.shape[1]
+    for b in range(q.shape[0]):
+        kb = k[b].double().repeat_interleave(G, dim=0)
+        vb = v[b].double().repeat_interleave(G, dim=0)
+        s = (q[b].double() * scale) @ kb.transpose(-1, -2)
+        s = s.masked_fill(~live[b], float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+        out[b] = p @ vb
+    return out
+
+
+def op_block_mask(torch, mod, Q, K, qb, kb, B, window):
+    """The BlockMask that ``ops.flex_attention`` builds for ``mod``."""
+    from repro_torch.core import flex
+    dev = torch.device("cuda")
+    qb, kb = min(qb, Q), min(kb, K)
+    if mod is flex.causal_mask:
+        return flex.causal_block_mask(Q, K, qb, kb, device=dev)
+    if window > 0:
+        return flex.causal_block_mask(Q, K, qb, kb, window=window,
+                                      device=dev)
+    return flex.build_block_mask(
+        mod, Q, K, qb, kb, B=B if isinstance(mod, flex.AuxMod) else None,
+        device=dev)
+
+
+def check_flex_variant(torch, chk, tag, q, k, v, mod, score, qb=128, kb=128,
+                       window=0):
+    """The op (K4 on the card, padded to whole tiles) against the plain
+    version on the same BlockMask and padding, with the kernel's own
+    product arithmetic: P in one bf16 term (bf16, 2e-2), three TF32
+    products (f32, 2e-5).  Returns the kernel's output."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    from repro_torch.kernels.flex_attention.ops import flex_attention
+    B, H, Q, D = q.shape
+    K = k.shape[2]
+    got = flex_attention(q, k, v, mask_mod=mod, score_mod=score, q_block=qb,
+                         kv_block=kb, window=window)
+    bm = op_block_mask(torch, mod, Q, K, qb, kb, B, window)
+    pq, pk = -Q % bm.q_block, -K % bm.kv_block
+    f32 = q.dtype == torch.float32
+    want = fa._flex_attention_plain(
+        F.pad(q, (0, 0, 0, pq)), F.pad(k, (0, 0, 0, pk)),
+        F.pad(v, (0, 0, 0, pk)), bm, scale=D ** -0.5, mask_mod=mod,
+        score_mod=score, q_len=Q, kv_len=K, p_terms=None if f32 else 1,
+        tf32_terms=3 if f32 else None)[:, :, :Q]
+    name = str(q.dtype).replace("torch.", "")
+    chk.close("flex_prefill_" + fa.flex_route(q.dtype),
+              f"{name} {tag} ({fa.lower_mods(mod, score).name}, tiles "
+              f"{bm.q_block}x{bm.kv_block})", got,
+              want, F32_TOL if f32 else BF16_TOL)
+    return got
+
+
+def flex_variant_phase(torch, chk, gen):
+    """K4's mask and score variants on both routes.  Main shapes (B 4, H =
+    Hkv = 32, D 128, Q = K = 4096, padding lens 3500..4096): causal &
+    padding, window & padding at 1024 and 4096 (the analytic windowed
+    BlockMask, as the engine's prefill builds it; also against f64 in
+    f32), and one case of each other variant family, each checked, timed
+    (device), bounded by its live pairs and timed beside its library call;
+    then a sweep at small shapes over every mod of core.flex."""
+    import torch.nn.functional as F
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+
+    dev = torch.device("cuda")
+    rows = {}
+    B, H, D, Q = 4, 32, 128, 4096
+    lens = torch.randint(3500, Q + 1, (B,), generator=gen,
+                         device=dev).tolist()
+    lens[0] = Q
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pad = flex.padding_mask(lens_t)
+    bounds = torch.tensor([0, 600, 1700, 2300, 3100, Q], device=dev)
+    docs = (torch.arange(Q, device=dev)[None, :] >= bounds[1:-1, None]
+            ).sum(0).int()[None].repeat(B, 1).contiguous()
+    slopes = 2.0 ** (-8.0 * (torch.arange(H, device=dev) + 1) / H)
+    # name: (mask, score, window of the analytic BlockMask, library call)
+    main = {
+        "causal&padding": (flex.and_masks(flex.causal_mask, pad), None, 0,
+                           "mask"),
+        "window1024&padding": (flex.and_masks(
+            flex.sliding_window_mask(1024), pad), None, 1024, "mask"),
+        "window4096&padding": (flex.and_masks(
+            flex.sliding_window_mask(4096), pad), None, 4096, "mask"),
+        "causal&document": (flex.and_masks(flex.causal_mask,
+                                           flex.document_mask(docs)),
+                            None, 0, "mask"),
+        "prefix_lm|window": (flex.or_masks(flex.prefix_lm_mask(512),
+                                           flex.sliding_window_mask(1024)),
+                             None, 0, "mask"),
+        "causal+softcap": (flex.causal_mask, flex.softcap_score(30.0), 0,
+                           None),
+        "causal+alibi": (flex.causal_mask, flex.alibi_score(slopes), 0,
+                         "bias"),
+    }
+    log(f"K4 variants, main shapes: B={B} H=Hkv={H} D={D} Q=K={Q} padding "
+        f"lens {lens}")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        route = fa.flex_route(dtype)
+        shape = (B, H, Q, D)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for _ in range(3))
+        for case, (mod, score, window, lib_kind) in main.items():
+            got = check_flex_variant(torch, chk, f"main {case}", q, k, v,
+                                     mod, score, window=window)
+            live = flex.materialize(mod, B, 1, Q, Q, device=dev).expand(
+                B, 1, Q, Q)
+            if case.startswith("window") and dtype == torch.float32:
+                # the rows past each padding length differ by design (the
+                # windowed BlockMask's full tiles skip the padding mask)
+                keep = (torch.arange(Q, device=dev)[None, None, :, None]
+                        < lens_t[:, None, None, None])
+                plain = fa._flex_attention_plain(
+                    q, k, v, op_block_mask(torch, mod, Q, Q, 128, 128, B,
+                                           window), scale=D ** -0.5,
+                    mask_mod=mod, q_len=Q, kv_len=Q)
+                exact = flex_f64_mask(torch, q, k, v, live, D ** -0.5)
+                chk.versus_f64(f"flex_prefill_{route}",
+                               f"{name} main {case}, live rows",
+                               got * keep, plain * keep, exact * keep)
+                del plain, exact
+            del got
+            bm = op_block_mask(torch, mod, Q, Q, 128, 128, B, window)
+            kw = dict(scale=D ** -0.5, mask_mod=mod, score_mod=score,
+                      q_len=Q, kv_len=Q)
+            dev_ms = device_ms(torch, lambda: fa.flex_attention_kernel(
+                q, k, v, bm, **kw), KERNEL_NAMES["flex_prefill_" + route],
+                reps=3)
+            ev_ms = time_ms(torch, lambda: fa.flex_attention_kernel(
+                q, k, v, bm, **kw), reps=5)
+            pairs = int(live.sum()) * H
+            ops = 4 * D * pairs
+            nbytes = 4 * q.numel() * q.element_size()
+            bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
+            by = ("operations" if ops / PEAK_OPS[name] > nbytes / HBM_BPS
+                  else "bytes")
+            lib = None
+            if lib_kind == "mask":
+                lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=live), reps=3, warmup=1)
+            elif lib_kind == "bias":
+                qi = torch.arange(Q, device=dev)
+                bias = (-slopes[:, None, None] * (qi[:, None] - qi[None, :])
+                        ).to(dtype)[None]
+                bias = bias.masked_fill(~live, float("-inf"))
+                lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=bias), reps=3, warmup=1)
+                del bias
+            row = dict(ms=ev_ms, device_ms=dev_ms, bound_ms=bound,
+                       bound_by=by, library_ms=lib, live_pairs=pairs)
+            extra = ""
+            if dtype == torch.float32:
+                row["bound_tf32x3_ms"] = 1e3 * 3 * ops / TF32_OPS
+                extra = (f", three TF32 products "
+                         f"{row['bound_tf32x3_ms']:.4f} ms")
+            lib_txt = {"mask": f"SDPA with the boolean mask {fmt(lib)}",
+                       "bias": f"SDPA with the ALiBi bias {fmt(lib)}",
+                       None: "none (no single call computes it)"}[lib_kind]
+            log(f"  flex_prefill_{route} {name} {case}: kernel "
+                f"{ev_ms:.4f} ms (device {fmt(dev_ms)}), bound "
+                f"{bound:.4f} ms ({by}, {pairs:.4e} live pairs{extra}), "
+                f"library {lib_txt}")
+            rows[(f"flex_prefill_{route}:{case}", name)] = row
+            del live
+        if dtype == torch.bfloat16:
+            rows[("torch_flex_attention", name)] = torch_flex_yardstick(
+                torch, q, k, v, lens_t)
+        del q, k, v
+    flex_variant_sweep(torch, chk, gen)
+    return rows
+
+
+def torch_flex_yardstick(torch, q, k, v, lens_t):
+    """PyTorch's own FlexAttention (``torch.nn.attention.flex_attention``,
+    compiled) on window & padding at the main shapes: the paper's
+    baseline, timed as a yardstick; the port never calls it.  Returns
+    {window: ms}, or the reason it did not run."""
+    out = {}
+    try:
+        from torch.nn.attention.flex_attention import (create_block_mask,
+                                                       flex_attention)
+        B, _, Q, _ = q.shape
+        fn = torch.compile(flex_attention)
+        for window in (1024, 4096):
+            def mod(b, h, qi, ki, w=window):
+                return (ki <= qi) & (qi - ki < w) & (ki < lens_t[b])
+            t0 = time.perf_counter()
+            bm = create_block_mask(mod, B, None, Q, Q, device="cuda")
+            fn(q, k, v, block_mask=bm)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            out[window] = time_ms(torch, lambda: fn(q, k, v, block_mask=bm),
+                                  reps=5)
+            log(f"  torch.nn.attention.flex_attention bfloat16 window "
+                f"{window} & padding: {out[window]:.4f} ms (compile and "
+                f"first call {first:.1f} s)")
+    except Exception as e:  # a yardstick only: its failure fails nothing
+        log(f"  torch.nn.attention.flex_attention: not measured "
+            f"({type(e).__name__}: {str(e)[:200]})")
+        out["error"] = repr(e)[:500]
+    return out
+
+
+def flex_variant_sweep(torch, chk, gen):
+    """Every mod of core.flex on both routes at small shapes: D 64 and 128,
+    GQA (G 4), q tiles 128 and 120, K not a multiple of the tile (the op
+    pads); windows 1, 100 and 1000; documents contiguous and interleaved;
+    prefix_lm 0, 100 and Q; or(prefix_lm, window); paged_mask over 3
+    packed sequences; softcap 30, ALiBi, compose_score in both orders;
+    window & padding with softcap; ordered V rows."""
+    from repro_torch.core import flex
+    dev = torch.device("cuda")
+    B, H, Hkv, Q = 2, 8, 2, 1100
+    lens = torch.tensor([Q, 777], dtype=torch.int32, device=dev)
+    pad = flex.padding_mask(lens)
+    contiguous = (torch.arange(Q, device=dev) // 300).int()[None].repeat(
+        B, 1).contiguous()
+    interleaved = torch.randint(0, 3, (B, Q), generator=gen, device=dev,
+                                dtype=torch.int32)
+    slots = [400, 500, 200]
+    sid = torch.repeat_interleave(torch.arange(3, device=dev),
+                                  torch.tensor(slots, device=dev)).int()
+    pos = torch.cat([torch.arange(n, device=dev) for n in slots]).int()
+    seq_lens = torch.tensor([350, 500, 60], dtype=torch.int32, device=dev)
+    slopes = 2.0 ** (-8.0 * (torch.arange(H, device=dev) + 1) / H)
+    cap, alibi = flex.softcap_score(30.0), flex.alibi_score(slopes)
+    cases = [  # (tag, mask, score, window, D, q tile, kv tile)
+        ("window 1", flex.sliding_window_mask(1), None, 1, 128, 128, 128),
+        ("window 100 & padding", flex.and_masks(
+            flex.sliding_window_mask(100), pad), None, 100, 64, 120, 128),
+        ("window 1000 & padding", flex.and_masks(
+            flex.sliding_window_mask(1000), pad), None, 1000, 128, 128, 96),
+        ("window 100, streaming BlockMask", flex.sliding_window_mask(100),
+         None, 0, 128, 120, 128),
+        ("documents contiguous", flex.and_masks(
+            flex.causal_mask, flex.document_mask(contiguous)), None, 0, 128,
+         128, 128),
+        ("documents interleaved", flex.document_mask(interleaved), None, 0,
+         64, 120, 128),
+        ("prefix_lm 0", flex.prefix_lm_mask(0), None, 0, 128, 128, 128),
+        ("prefix_lm 100 & padding", flex.and_masks(
+            flex.prefix_lm_mask(100), pad), None, 0, 64, 128, 128),
+        ("prefix_lm Q", flex.prefix_lm_mask(Q), None, 0, 128, 120, 128),
+        ("prefix_lm 100 | window 50", flex.or_masks(
+            flex.prefix_lm_mask(100), flex.sliding_window_mask(50)), None,
+         0, 128, 128, 128),
+        ("paged, 3 packed sequences", flex.paged_mask(sid, pos, seq_lens),
+         None, 0, 128, 128, 128),
+        ("softcap 30", flex.causal_mask, cap, 0, 128, 128, 128),
+        ("alibi", flex.causal_mask, alibi, 0, 64, 120, 128),
+        ("softcap then alibi", flex.causal_mask, flex.compose_score(
+            cap, alibi), 0, 128, 128, 128),
+        ("alibi then softcap", flex.and_masks(
+            flex.causal_mask, pad), flex.compose_score(alibi, cap), 0, 128,
+         128, 128),
+        ("window 100 & padding + softcap", flex.and_masks(
+            flex.sliding_window_mask(100), pad), cap, 100, 128, 128, 128),
+    ]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tag, mod, score, window, D, qb, kb in cases:
+            q = torch.randn((B, H, Q, D), generator=gen, device=dev
+                            ).to(dtype)
+            k, v = (torch.randn((B, Hkv, Q, D), generator=gen, device=dev
+                                ).to(dtype) for _ in range(2))
+            if tag.startswith("documents interleaved"):
+                v = ramp_v(torch, v)  # ordered V rows
+            check_flex_variant(torch, chk, f"sweep {tag} B{B} H{H}/{Hkv} "
+                               f"Q=K={Q} D{D}", q, k, v, mod, score, qb, kb,
+                               window)
+
+
+def ring_decode_cases(torch, chk, gen):
+    """K1 (and K2, the decode op) at full width on ring tables, as the swa
+    engine decodes: window 4096, a ring of 65 pages of 64, lens 4160..5016
+    (the ring has wrapped), bf16 and f32, against the plain K1."""
+    from repro_torch.kernels.paged_attention import ops
+    dev = torch.device("cuda")
+    window, P = 4096, 64
+    ring = -(-window // P) + 1
+    lens = torch.randint(4160, 5017, (4,), generator=gen,
+                         device=dev).tolist()
+    ppb, ns = ops.choose_decode_params(ring, P, 128, None, None)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, 4, 32, 1, 128, P, ring, lens, dtype,
+                            dev, window=window)
+        kw = dict(scale=128 ** -0.5, window=window, pages_per_block=ppb,
+                  num_splits=ns)
+        check_decode(torch, chk, f"{name} ring of {ring} pages, window "
+                     f"{window}, lens {lens}", args, kw, dtype, tol)
 
 
 def op_host_parts(torch, args, kw):
@@ -993,10 +1322,12 @@ def model_phase(torch):
 PREFILL_KERNELS = ("paged_prefill", "flex_prefill")
 
 
-def drive(torch, eng, reqs):
-    """Add ``reqs`` and step the engine until they are done.  Returns the
-    wall seconds and the wall ms of each step, split into steps that
-    launched a prefill kernel (K3 or K4) and the others (decode)."""
+def drive(torch, eng, reqs, on_step=None):
+    """Add ``reqs`` and step the engine until they are done, calling
+    ``on_step()`` after each step.  Returns the wall seconds and the wall
+    ms of each step, split into steps that prefilled (launched a prefill
+    kernel, K3 or K4, or advanced a request's prefill: the 'W' layers'
+    chunks run no kernel) and the others (decode)."""
     from repro_torch import kernels
     for r in reqs:
         eng.add_request(r)
@@ -1006,13 +1337,17 @@ def drive(torch, eng, reqs):
         if all(r.done for r in reqs):
             break
         before = kernels.launch_counts()
+        filled = [r.prefill_pos for r in reqs]
         s0 = time.perf_counter()
         eng.step()
         torch.cuda.synchronize()
         dt = 1e3 * (time.perf_counter() - s0)
         after = kernels.launch_counts()
-        (prefill_ms if any(after[k] > before[k] for k in PREFILL_KERNELS)
-         else decode_ms).append(dt)
+        prefilled = (any(after[k] > before[k] for k in PREFILL_KERNELS)
+                     or filled != [r.prefill_pos for r in reqs])
+        (prefill_ms if prefilled else decode_ms).append(dt)
+        if on_step is not None:
+            on_step()
     return time.perf_counter() - t0, prefill_ms, decode_ms
 
 
@@ -1028,10 +1363,10 @@ def check_path(phase, eng, reqs, new, counts, must, never):
     if eng.scheduler.failed:
         fail(f"{phase}: the numerics guard failed a request (non-finite "
              "logits)")
-    missing = [k for k in must if counts[k] <= 0]
+    missing = [k for k in must if counts.get(k, 0) <= 0]
     if missing:
         fail(f"{phase}: kernels never launched on its path: {missing}")
-    stray = [k for k in never if counts[k] > 0]
+    stray = [k for k in never if counts.get(k, 0) > 0]
     if stray:
         fail(f"{phase}: kernels launched off its path: {stray} ({counts})")
 
@@ -1291,8 +1626,174 @@ def f32_engine_phase(torch):
         fail(f"f32 engine: prefill logits max|err| {err} beyond {MODEL_TOL}")
     stats["prefill_logits_max_err"] = err
     stats["tokens_equal_monolithic_chunked"] = same
+    stats["swa"] = swa_f32_check(torch, params)
     stats["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return stats
+
+
+def swa_engine_phase(torch, params):
+    """The ``swa`` variant of llama2-7b (every layer 'W', window 4096) at
+    full width in bf16, on the engine phase's weights (the shapes are
+    equal): 4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens (the host
+    reserves a page for every token, as in the JAX engine, though the
+    device tables are ring-wide), 4 prompts of 4160..5000 tokens and 16
+    new tokens each.  Served monolithic (K4's window & padding variant on
+    the bf16 tile; K1 and K2 on ring tables), then with
+    ``prefill_chunk=512`` (the 'W' layers' attend-then-write chunks in
+    plain ops, as in the JAX package; K1, K2).  K3 and K4's f32 route never
+    launch, and every request's last position passes window + page, so
+    its ring has wrapped."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, make_run
+    from repro_torch.serving import Engine, Request
+
+    cfg = make_run(get_config("llama2-7b"), "decode_32k", "swa").model
+    if set(cfg.pattern()) != {"W"} or cfg.window != 4096:
+        fail(f"swa engine: pattern {cfg.layer_pattern} window {cfg.window}")
+    rng = torch.Generator().manual_seed(SEED + 3)
+    new, slots, max_len = 16, 4, 5120
+    plens = torch.randint(4160, 5001, (slots,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in plens]
+    log(f"swa engine phase: llama2-7b swa ({cfg.n_layers} layers 'W', "
+        f"window {cfg.window}), bf16, {slots} slots, max_seq_len {max_len}, "
+        f"pool {slots} x {max_len} tokens; prompts {plens}, {new} new "
+        "tokens each")
+    runs = (
+        ("monolithic", {}, ("paged_decode", "combine", "flex_prefill",
+                            "flex_prefill/tc",
+                            "flex_prefill/tc/window&padding"),
+         ("paged_prefill", "flex_prefill/tf32x3")),
+        ("chunked 512", dict(prefill_chunk=512), ("paged_decode", "combine"),
+         ("paged_prefill", "flex_prefill")))
+    stats = {}
+    for mode, kw, must, never in runs:
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, max_slots=slots, max_seq_len=max_len,
+                     pool_tokens=slots * max_len, dtype=torch.bfloat16,
+                     seed=SEED, **kw)
+        if eng.pages_per_seq != -(-cfg.window // cfg.page_size) + 1:
+            fail(f"swa engine: tables {eng.pages_per_seq} pages wide, not "
+                 "the ring")
+        reqs = [Request(prompt=list(p), max_new_tokens=new) for p in prompts]
+        peak = {}
+
+        def at_peak():  # the memory report at the most pages in use
+            mem = eng.memory_report()
+            if mem["used_pages"] > peak.get("used_pages", -1):
+                peak.update(mem)
+
+        kernels.reset_launch_counts()
+        wall, prefill_ms, decode_ms = drive(torch, eng, reqs, at_peak)
+        counts = kernels.launch_counts()
+        check_path(f"swa engine ({mode})", eng, reqs, new, counts, must,
+                   never)
+        last = min(r.prompt_len + len(r.output) - 1 for r in reqs)
+        if last < cfg.window + cfg.page_size:
+            fail(f"swa engine ({mode}): last position {last} does not pass "
+                 f"window + page ({cfg.window + cfg.page_size})")
+        mem = peak
+        ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+        stats[mode] = dict(
+            prompt_lens=plens, new_tokens=slots * new, wall_s=wall,
+            tok_s=slots * new / wall, ttft_s_p50=ttft[len(ttft) // 2],
+            ttft_s_max=ttft[-1], prefill_ms_per_step=prefill_ms,
+            prefill_steps=len(prefill_ms),
+            decode_ms_median=statistics.median(decode_ms),
+            decode_steps=len(decode_ms), last_position_min=last,
+            preempted=eng.scheduler.preempted, memory_report=mem,
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts)
+        kind = "chunk" if kw else "prefill"
+        log(f"swa engine ({mode}): {slots * new} tokens in {wall:.2f} s = "
+            f"{stats[mode]['tok_s']:.1f} tok/s; TTFT p50 "
+            f"{stats[mode]['ttft_s_p50']:.3f} s max {ttft[-1]:.3f} s; "
+            f"{kind} steps {len(prefill_ms)} "
+            f"({[round(x) for x in prefill_ms]} ms); decode "
+            f"{stats[mode]['decode_ms_median']:.2f} ms/step (median of "
+            f"{len(decode_ms)}); preemptions {eng.scheduler.preempted}; "
+            f"max_memory_allocated "
+            f"{stats[mode]['max_memory_allocated_gb']:.2f} GB; memory "
+            f"report at its peak {mem}; launches {counts}")
+        del eng
+    return stats
+
+
+def swa_f32_check(torch, params):
+    """One 4736-token prompt's prefill logits through the f32 ``swa`` model
+    (32 'W' layers, window 4096, ring tables of 65 pages; K4's window &
+    padding variant on the split-TF32 tile) against the plain path."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, make_run
+    from repro_torch.models.api import build_model
+
+    dev = torch.device("cuda")
+    cfg = make_run(get_config("llama2-7b"), "decode_32k", "swa").model
+    model = build_model(cfg)
+    n, P = 4736, cfg.page_size
+    ring = -(-cfg.window // P) + 1
+    rng = torch.Generator().manual_seed(SEED + 4)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=rng).to(dev)
+    lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
+    tables = torch.arange(ring, dtype=torch.int32, device=dev).reshape(
+        1, 1, ring)
+    pool = (cfg.n_layers, ring, P, cfg.n_kv_heads, cfg.resolved_head_dim)
+    logits = {}
+    for impl in ("kernel", "ref"):
+        st = {"pos": lens_t, "tables": tables,
+              "k_pages": torch.zeros(pool, device=dev),
+              "v_pages": torch.zeros(pool, device=dev)}
+        kernels.reset_launch_counts()
+        logits[impl], _ = model.prefill(params, tokens, st, lens=lens_t,
+                                        impl=impl)
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            counts = kernels.launch_counts()
+        del st
+    need = "flex_prefill/tf32x3/window&padding"
+    if counts.get(need, 0) != cfg.n_layers:
+        fail(f"f32 swa: {need} launched {counts.get(need, 0)} times, not "
+             f"once per layer ({counts})")
+    got, want = logits["kernel"], logits["ref"]
+    if not bool(torch.isfinite(got).all()):
+        fail("f32 swa: non-finite prefill logits")
+    err = float((got - want).abs().max())
+    log(f"f32 swa: prefill logits of a {n}-token prompt ({cfg.n_layers} "
+        f"'W' layers, window {cfg.window}), kernel path vs plain path "
+        f"max|err| {err:.3e} (tol {MODEL_TOL:g}, |logit| max "
+        f"{float(want.abs().max()):.3f}); launches {counts}")
+    if err > MODEL_TOL:
+        fail(f"f32 swa: prefill logits max|err| {err} beyond {MODEL_TOL}")
+    return dict(prefill_logits_max_err=err, launches=counts)
+
+
+def time_k4(torch):
+    """Device ms of K4's causal & padding at the main path's shapes (B 8, H =
+    Hkv = 32, D 128, Q = K = 1536, padding lens from the seed) on both
+    routes, for an A/B call across trees (``--time-k4 --src``): uses only
+    the wrappers' arguments that older trees share."""
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    B, H, Q, D = 8, 32, 1536, 128
+    lens = torch.randint(256, Q + 1, (B,), generator=gen, device=dev)
+    lens[0] = Q
+    mm = flex.and_masks(flex.causal_mask, flex.padding_mask(lens))
+    bm = flex.build_block_mask(mm, Q, Q, 128, 128, B=B, device=dev)
+    out = {"src": str(SRC), "lens": lens.tolist()}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((B, H, Q, D), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3))
+        key = "flex_prefill_" + fa.flex_route(dtype)
+        kw = dict(scale=D ** -0.5, mask_mod=mm, q_len=Q, kv_len=Q)
+        call = lambda: fa.flex_attention_kernel(q, k, v, bm, **kw)  # noqa
+        out[key] = dict(
+            device_ms=[device_ms(torch, call, KERNEL_NAMES[key], reps=10)
+                       for _ in range(3)],
+            event_ms=[time_ms(torch, call, reps=10) for _ in range(3)])
+    log(json.dumps({"time_k4": out}))
 
 
 KINDS = (("K1 paged_decode", ("paged_decode_kernel",)),
@@ -1382,7 +1883,17 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="build and run the kernel phase only (a first "
                     "check of new kernels); prints no result line")
-    only_kernels = ap.parse_args().kernels_only
+    ap.add_argument("--time-k4", action="store_true",
+                    help="build and time K4's causal & padding at the "
+                    "main path's shapes only (an A/B probe); prints no "
+                    "result line")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to run "
+                    "(default: this checkout's; another tree's for an A/B "
+                    "call with --time-k4)")
+    args = ap.parse_args()
+    only_kernels = args.kernels_only
+    set_src(args.src.resolve())
     try:
         import torch
     except ImportError:
@@ -1416,6 +1927,9 @@ def main():
         fail("the split-TF32 kernels hold no TF32 HGMMA: their products do "
              "not run on the tensor cores")
 
+    if args.time_k4:
+        time_k4(torch)
+        return
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
     if only_kernels:
@@ -1429,6 +1943,8 @@ def main():
     engine, params = engine_phase(torch)
     torch.cuda.empty_cache()
     chunked = chunked_phase(torch, params)
+    torch.cuda.empty_cache()
+    swa = swa_engine_phase(torch, params)
     del params
     f32 = f32_engine_phase(torch)
 
@@ -1449,8 +1965,11 @@ def main():
         "flex_prefill_tc": k4[:2] + ("flex_prefill/tc", "bfloat16"),
         "flex_prefill_tf32x3": k4[:2] + ("flex_prefill/tf32x3", "float32"),
     }
-    phases = [engine["launches"], chunked["launches"]] + [
-        f32[mode]["launches"] for mode in ("monolithic", "chunked 512")]
+    modes = ("monolithic", "chunked 512")
+    phases = ([engine["launches"], chunked["launches"]]
+              + [swa[mode]["launches"] for mode in modes]
+              + [f32[mode]["launches"] for mode in modes]
+              + [f32["swa"]["launches"]])
     kernels_line = []
     for name, (fname, replaces, count, dtype) in meta.items():
         r = rows[(name, dtype)]
@@ -1465,7 +1984,8 @@ def main():
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},
          "max_abs_err": chk.max_err, "engine": engine,
-         "chunked": chunked, "f32_engine": f32}, indent=1))
+         "chunked": chunked, "swa_engine": swa, "f32_engine": f32},
+        indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,10 @@
   * ``prefill_attention_paged`` — one prompt chunk per sequence against
     the paged KV pools (its K/V already written) through K3 and the
     combine (``impl="kernel"``) or the prefill oracle (``impl="ref"``);
+  * ``prefill_attention_windowed_chunk`` — one prompt chunk of a
+    sliding-window layer against its intact ring pages and its own fresh
+    K/V (attend, then the caller writes), in plain ops as in the JAX
+    package;
   * ``decode_attention``  — one token against the paged KV pools through
     K1/K2 (``impl="kernel"``) or the plain oracle (``impl="ref"``).
 
@@ -26,6 +30,8 @@ from repro_torch.kernels import check_impl
 from repro_torch.kernels.flex_attention.ops import flex_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill)
+from repro_torch.kernels.paged_attention.paged_attention import (
+    ring_slot_positions)
 
 
 def prefill_attention(
@@ -41,8 +47,10 @@ def prefill_attention(
 ) -> torch.Tensor:
     """Full-sequence attention for prefill.  Returns (B, S, H, D).
 
-    ``impl="kernel"`` runs the flex kernel over the mask
-    ``causal ∧ padding(lens)``; ``impl="ref"`` the dense plain path.
+    ``impl="kernel"`` runs the flex kernel over the mask ``causal ∧
+    padding(lens)`` (``window ∧ padding(lens)`` for ``window > 0``, with
+    the analytic windowed block mask); ``impl="ref"`` the dense plain
+    path.
     """
     check_impl(impl)
     mods = []
@@ -61,7 +69,7 @@ def prefill_attention(
     vt = v.transpose(1, 2)
     if impl == "kernel":
         out = flex_attention(qt, kt, vt, mask_mod=mask_mod,
-                             score_mod=score_mod)
+                             score_mod=score_mod, window=window)
     else:
         out = _dense_attention(qt, kt, vt, mask_mod, score_mod)
     return out.transpose(1, 2)
@@ -111,6 +119,75 @@ def prefill_attention_paged(
                          q_start, softcap=softcap, impl=impl,
                          kv_scale=kv_scale, pages_per_block=pages_per_block,
                          num_splits=num_splits)
+
+
+def prefill_attention_windowed_chunk(
+    q: torch.Tensor,  # (B, C, H, D)
+    k_new: torch.Tensor,  # (B, C, Hkv, D) — the chunk's fresh K/V
+    v_new: torch.Tensor,
+    k_pages: torch.Tensor,  # (num_pages, P, Hkv, D) — ring pools, pre-write
+    v_pages: torch.Tensor,
+    block_tables: torch.Tensor,  # (B, ring or more)
+    q_start: torch.Tensor,  # (B,) cached prefix length (chunk NOT written)
+    q_lens: torch.Tensor,  # (B,) live chunk tokens
+    *,
+    window: int,
+    softcap: float = 0.0,
+    kv_scale: float = 0.0,
+) -> torch.Tensor:
+    """Sliding-window chunked prefill (attend, then the caller writes).
+
+    A ring-paged 'W' layer cannot write first: a long chunk's writes wrap
+    the ring and overwrite prefix slots that its earlier queries still
+    need.  So the chunk attends over the intact ring prefix (gathered: the
+    slots hold the last ``ring·P ≥ window`` prefix positions) plus its own
+    fresh K/V.  The JAX package computes this in jnp, outside any Pallas
+    kernel, over a working set the ring bounds; these are plain torch ops
+    likewise.  Returns (B, C, H, D)."""
+    B, C, H, D = q.shape
+    num_pages, P, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+
+    ring = -(-window // P) + 1
+    # mixed dense/windowed models share one table sized for the dense
+    # layers: only the first `ring` columns are ring slots here
+    block_tables = block_tables[:, :ring]
+    S = block_tables.shape[1] * P
+    safe = block_tables.clamp(0, num_pages - 1).long()
+    kpre = k_pages[safe].reshape(B, S, Hkv, D)
+    vpre = v_pages[safe].reshape(B, S, Hkv, D)
+    if kv_scale > 0:
+        kpre = (kpre.float() * kv_scale).to(q.dtype)
+        vpre = (vpre.float() * kv_scale).to(q.dtype)
+
+    # positions the ring slots hold with respect to the prefix (q_start)
+    start = q_start.long()
+    pre_pos = ring_slot_positions(start, P, ring, S)  # (B, S)
+    qpos = start[:, None] + torch.arange(C, device=dev)[None, :]  # (B, C)
+    table_live = (block_tables >= 0)[:, :, None].expand(B, -1, P)
+    live_pre = ((pre_pos >= 0) & (pre_pos < start[:, None])
+                & table_live.reshape(B, S))
+    # sliding window: k <= q and q - k < window (flex.sliding_window_mask)
+    mask_pre = (live_pre[:, None, :]
+                & (qpos[:, :, None] - pre_pos[:, None, :] < window))
+    ci = torch.arange(C, device=dev)
+    mask_new = ((ci[None, :] <= ci[:, None])
+                & (ci[:, None] - ci[None, :] < window))[None]  # (1, C, C)
+    mask_new = mask_new & (ci[None, None, :] < q_lens.long()[:, None, None])
+    mask = torch.cat([mask_pre, mask_new.expand(B, C, C)], dim=2)
+
+    k_all = torch.cat([kpre, k_new.to(kpre.dtype)], dim=1)
+    v_all = torch.cat([vpre, v_new.to(vpre.dtype)], dim=1)
+    qg = (q * scale).reshape(B, C, Hkv, G, D)
+    s = torch.einsum("bckgd,bskd->bkgcs", qg, k_all.to(q.dtype)).float()
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~mask[:, None, None], float("-inf"))
+    w = torch.nan_to_num(torch.softmax(s, dim=-1), nan=0.0)
+    out = torch.einsum("bkgcs,bskd->bckgd", w, v_all.float())
+    return out.reshape(B, C, H, D).to(q.dtype)
 
 
 def decode_attention(

@@ -1,19 +1,26 @@
 """FlexAttention-style composable masking (port of ``repro.core.flex``).
 
   * mask mods are vectorisable predicates over (b, h, q, k) index tensors;
-  * ``and_masks`` composes them;
+  * ``and_masks`` / ``or_masks`` compose them, ``compose_score`` chains
+    score mods;
   * ``build_block_mask`` compiles a mod into a ``BlockMask`` — per q-block
     lists of live kv-blocks plus a full/partial flag — which the flex
     prefill kernel (K4) uses to skip fully-masked tiles and to elide the
-    element-wise mask on full tiles.
+    element-wise mask on full tiles;
+  * the paper's paged mask «allow ⟺ (id_q = id_k) ∧ (k ≤ len(id_q))» is
+    ``paged_mask(seq_ids, pos, lens)`` over the gathered layout.
 
-All mods broadcast: inputs are integer tensors, the output a bool tensor.
-Composite mods keep their parts (``.parts``) so the CUDA kernel can map a
-composition of known mods onto one of its compiled mask variants.
+All mods broadcast: inputs are integer tensors, the output a bool tensor
+(a score tensor for score mods).  The mods stay recognisable to K4's
+wrapper, which lowers them into the CUDA kernel's mask descriptor: the
+parameterised mods are ``functools.partial`` objects of module-level
+functions, the ones that read tensors are ``AuxMod``s, and a combinator
+keeps its ``parts`` and its ``combine`` kind ("and", "or", "compose").
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
@@ -24,14 +31,18 @@ ScoreMod = Callable[..., torch.Tensor]  # (score, b, h, q_idx, kv_idx) -> score
 
 
 class AuxMod:
-    """A mask mod that reads auxiliary tensors (FlexAttention's "passed
-    as bias" trick): ``fn(b, h, q, k, *aux)``."""
+    """A mask or score mod that reads auxiliary tensors (FlexAttention's
+    "passed as bias" trick): ``fn(b, h, q, k, *aux)`` (mask) or
+    ``fn(score, b, h, q, k, *aux)`` (score)."""
 
     def __init__(self, fn: Callable, aux: Sequence[torch.Tensor],
-                 parts: Sequence = ()):
+                 is_score: bool = False, parts: Sequence = (),
+                 combine: Optional[str] = None):
         self.fn = fn
         self.aux = tuple(aux)
+        self.is_score = is_score
         self.parts = tuple(parts)
+        self.combine = combine
 
     def __call__(self, *args):
         return self.fn(*args, *self.aux)
@@ -51,6 +62,20 @@ def _split(mods):
     return fns, counts, tuple(aux)
 
 
+def _tagged(fn, aux, is_score, mods, combine):
+    """``fn`` as a mod that remembers its parts and combinator kind."""
+    if aux:
+        return AuxMod(fn, aux, is_score=is_score, parts=mods,
+                      combine=combine)
+
+    def plain(*args):
+        return fn(*args)
+
+    plain.parts = tuple(mods)
+    plain.combine = combine
+    return plain
+
+
 # ---------------------------------------------------------------------------
 # mask mods
 # ---------------------------------------------------------------------------
@@ -64,11 +89,12 @@ def causal_mask(b, h, q, k):
     return k <= q
 
 
-def sliding_window_mask(window: int) -> MaskMod:
-    def mod(b, h, q, k):
-        return (k <= q) & (q - k < window)
+def _window_fn(b, h, q, k, window):
+    return (k <= q) & (q - k < window)
 
-    return mod
+
+def sliding_window_mask(window: int) -> MaskMod:
+    return functools.partial(_window_fn, window=int(window))
 
 
 def _padding_fn(b, h, q, k, lens):
@@ -80,7 +106,26 @@ def padding_mask(lens: torch.Tensor) -> MaskMod:
     return AuxMod(_padding_fn, (lens,))
 
 
-def _combine(op, mods):
+def _document_fn(b, h, q, k, docs):
+    return docs[b, q] == docs[b, k]
+
+
+def document_mask(doc_ids: torch.Tensor) -> MaskMod:
+    """Jagged batches packed in one sequence: attend within a document
+    only (the paper's «id_q = id_k» predicate for packed layouts).
+    ``doc_ids``: (B, S)."""
+    return AuxMod(_document_fn, (doc_ids,))
+
+
+def _prefix_lm_fn(b, h, q, k, prefix_len):
+    return (k <= q) | (k < prefix_len)
+
+
+def prefix_lm_mask(prefix_len: int) -> MaskMod:
+    return functools.partial(_prefix_lm_fn, prefix_len=int(prefix_len))
+
+
+def _combine(op, kind, mods):
     fns, counts, aux = _split(mods)
 
     def fn(b, h, q, k, *aux_in):
@@ -92,28 +137,82 @@ def _combine(op, mods):
             out = r if out is None else op(out, r)
         return out
 
-    if aux:
-        return AuxMod(fn, aux, parts=mods)
-
-    def plain(b, h, q, k):
-        return fn(b, h, q, k)
-
-    plain.parts = tuple(mods)
-    return plain
+    return _tagged(fn, aux, False, mods, kind)
 
 
 def and_masks(*mods: MaskMod) -> MaskMod:
-    return _combine(lambda a, b: a & b, mods)
+    return _combine(lambda a, b: a & b, "and", mods)
+
+
+def or_masks(*mods: MaskMod) -> MaskMod:
+    return _combine(lambda a, b: a | b, "or", mods)
+
+
+def _paged_fn(b, h, q, k, sid, pos, lens):
+    same = sid[q] == sid[k]
+    live = pos[k] < lens[sid[q]]
+    return same & live
+
+
+def paged_mask(slot_seq_ids: torch.Tensor, slot_pos: torch.Tensor,
+               lens: torch.Tensor) -> MaskMod:
+    """The paper's fused paged predicate over a packed/paged layout:
+
+        allow ⟺ (id_q == id_k) ∧ (pos_k < len(id_q))
+
+    ``slot_seq_ids[s]``: which sequence owns packed slot s;
+    ``slot_pos[s]``:     that slot's logical position within its sequence;
+    ``lens[i]``:         live length of sequence i.
+    """
+    return AuxMod(_paged_fn, (slot_seq_ids, slot_pos, lens))
 
 
 # ---------------------------------------------------------------------------
 # score mods
 # ---------------------------------------------------------------------------
-def softcap_score(cap: float) -> ScoreMod:
-    def mod(score, b, h, q, k):
-        return cap * torch.tanh(score / cap)
+def identity_score(score, b, h, q, k):
+    return score
 
-    return mod
+
+def _softcap_fn(score, b, h, q, k, cap):
+    return cap * torch.tanh(score / cap)
+
+
+def softcap_score(cap: float) -> ScoreMod:
+    return functools.partial(_softcap_fn, cap=float(cap))
+
+
+def _alibi_fn(score, b, h, q, k, slopes):
+    return score - slopes[h] * (q - k)
+
+
+def alibi_score(slopes: torch.Tensor) -> ScoreMod:
+    """ALiBi: ``score - slopes[h] * (q - k)``, h the query head."""
+    return AuxMod(_alibi_fn, (slopes,), is_score=True)
+
+
+def compose_score(*mods: ScoreMod) -> ScoreMod:
+    """Apply ``mods`` in order."""
+    fns, counts, aux = _split(mods)
+
+    def fn(score, b, h, q, k, *aux_in):
+        i = 0
+        for f, n in zip(fns, counts):
+            score = f(score, b, h, q, k, *aux_in[i:i + n])
+            i += n
+        return score
+
+    return _tagged(fn, aux, True, mods, "compose")
+
+
+def materialize(mod: MaskMod, B: int, H: int, Q: int, K: int,
+                device=None) -> torch.Tensor:
+    """The mod over the whole (B, H, Q, K) index space (reference path)."""
+    b = torch.arange(B, device=device)[:, None, None, None]
+    h = torch.arange(H, device=device)[None, :, None, None]
+    q = torch.arange(Q, device=device)[None, None, :, None]
+    k = torch.arange(K, device=device)[None, None, None, :]
+    return mod(b, h, q, k)
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +244,9 @@ def build_block_mask(mod: MaskMod, Q: int, K: int, q_block: int = 128,
                      device=None) -> BlockMask:
     """Compile a mask mod into block sparsity (FlexAttention's
     create_block_mask).  Pass ``B`` for batch-dependent mods; the mask is
-    evaluated one batch row at a time."""
+    evaluated one batch row at a time, at indices clamped into (Q, K) so
+    that a mod reading tensors stays in bounds on the padded tiles (the
+    padding is masked out after; JAX's gathers clamp the same way)."""
     if device is None:
         aux = mod.aux if isinstance(mod, AuxMod) else ()
         device = aux[0].device if aux else torch.device("cpu")
@@ -158,7 +259,8 @@ def build_block_mask(mod: MaskMod, Q: int, K: int, q_block: int = 128,
 
     anys, alls = [], []
     for b in range(B if B is not None else 1):
-        m = mod(torch.tensor(b, device=device), 0, q, k) & valid
+        m = mod(torch.tensor(b, device=device), 0, q.clamp(max=Q - 1),
+                k.clamp(max=K - 1)) & valid
         m = m.reshape(nq, q_block, nk, kv_block)
         any_live = m.any(dim=3).any(dim=1)
         anys.append(any_live)

@@ -30,8 +30,10 @@
 // tiles are in flight, by plain 16-byte loads stored in the same swizzled
 // layout (the kernels' rows are gathered: GQA rows of K3, ragged tiles of
 // K4).  The softmax scale is folded into the exponent.  Masks apply in
-// registers, and only on tiles whose live columns stop short of kBN for one
-// of the thread's rows: every mask of K3 and K4 is "column < limit(row)".
+// registers, and only on tiles whose live columns do not span kBN for one
+// of the thread's rows, or that the kernel marks elementwise: the masks of
+// K3 and the engine's masks of K4 are per-row column ranges [lo, hi); K4's
+// other masks add element predicates (score_tile).
 //
 // What bounds it: at the main paths' shapes (prompts of 1536, chunks of
 // 512 over ~1300 cached keys) q.K and p.V are bound by operations (about
@@ -420,25 +422,35 @@ __device__ __forceinline__ void acc_init(Acc<D>& a) {
 }
 
 // The scores of tile i after q.K, in the accumulator fragment of a tile of
-// N keys (s[4 j + 2 h + e]: row h, column thread_col(j, e)): the softcap
-// transform, then the masks as per-row column limits, applied only when a
-// limit stops short of the tile.
+// N keys (s[4 j + 2 h + e]: row h, column thread_col(j, e)): the score
+// transform (K3's softcap; K4's softcap and ALiBi steps), then the masks:
+// per-row column limits [lo, hi), and, on the tiles the kernel marks
+// elementwise, its element predicate for the columns inside them.  Rows
+// whose limits span the tile and tiles without the predicate take no
+// per-element work.
 template <int N, class Tile>
 __device__ __forceinline__ void score_tile(const Tile& t, int i,
                                            const int (&key)[2],
                                            float (&s)[N / 2]) {
-  if (t.transform()) {
+  const int k0 = t.origin(i);
 #pragma unroll
-    for (int x = 0; x < N / 2; ++x) s[x] = t.score(s[x]);
+  for (int st = 0; st < Tile::kSteps; ++st) {
+    if (st >= t.steps()) break;
+    t.template apply_step<N>(st, k0, key, s);
   }
-  const int lim0 = t.limit(i, key[0]), lim1 = t.limit(i, key[1]);
-  if (lim0 < N || lim1 < N) {
+  int lo[2], hi[2];
+  t.bounds(i, key[0], lo[0], hi[0]);
+  t.bounds(i, key[1], lo[1], hi[1]);
+  const bool elem = t.elementwise(i);
+  if (elem || lo[0] > 0 || lo[1] > 0 || hi[0] < N || hi[1] < N) {
 #pragma unroll
     for (int jj = 0; jj < N / 8; ++jj)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (thread_col(jj, e & 1) >= ((e & 2) ? lim1 : lim0))
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1, c = thread_col(jj, e & 1);
+        if (c < lo[h] || c >= hi[h] || (elem && !t.live(key[h], k0 + c)))
           s[4 * jj + e] = REPRO_NEG_INF;
+      }
   }
 }
 
@@ -482,10 +494,19 @@ __device__ __forceinline__ void acc_finish(Acc<D>& a, float m_scale) {
 //   void issue(int i, uint32_t k_dst, uint32_t v_dst, uint32_t bar) const
 //       thread 0 only: expect_tx on `bar` and the TMA boxes of tile i
 //       (i increasing from 0);
-//   int limit(int i, int key) const
-//       live columns of tile i for a row whose row_key is `key`: [0, limit);
-//   bool transform() const, float score(float qk) const
-//       when transform() (softcap), scores are score(q.k), else q.k itself;
+//   void bounds(int i, int key, int& lo, int& hi) const
+//       live columns of tile i for a row whose row_key is `key`: [lo, hi);
+//   bool elementwise(int i) const, bool live(int key, int k) const
+//       when elementwise(i), a column c inside the bounds is live only if
+//       live(key, origin(i) + c) (K4's element predicates);
+//   int origin(int i) const
+//       the key index of tile i's column 0 (for score and live);
+//   static constexpr int kSteps, int steps() const,
+//   void apply_step<N>(int st, int k0, const int (&key)[2],
+//                      float (&s)[N / 2]) const
+//       the score transform as steps() <= kSteps passes over the tile's
+//       fragment (0: scores are q.k itself), step st given the tile's
+//       origin k0 and the rows' keys (thread_col gives a column);
 //   float exp_scale, m_scale
 //       score units -> log2 units of exp, and -> the natural units of m;
 //   static constexpr int kPTerms

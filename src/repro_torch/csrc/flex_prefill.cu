@@ -5,11 +5,31 @@
 // (q-tile rows, head, batch) visits only the kv tiles its BlockMask row
 // lists (kv_num_blocks / kv_indices), skips the element mask on is_full
 // tiles, reads K/V of head h / G (GQA), runs an online softmax in f32 and
-// normalises before the single store in the q dtype.  The mask is a
-// compile-time variant: bit 0 causal (k <= q), bit 1 padding (k < lens[b]);
-// the q_len / kv_len validity of the padded tiles always applies.  Tiles
-// are min(128, Q) x min(128, K): not powers of two in general, so both the
-// q rows and the kv sub-tiles are masked at their ragged edge.
+// normalises before the single store in the q dtype.  The q_len / kv_len
+// validity of the padded tiles always applies.  Tiles are min(128, Q) x
+// min(128, K): not powers of two in general, so both the q rows and the kv
+// sub-tiles are masked at their ragged edge.
+//
+// The Pallas kernel traces any mask_mod and score_mod into its body; here
+// the wrapper lowers the mods of core/flex (flex_attention.py, lower_mods)
+// into a descriptor that the kernel evaluates (FlexParams):
+//   mask   an or of up to kMaxTerms terms, each the and of a column range
+//          lo <= k < hi per row (lo = q - window + 1; hi = min(max(q + 1,
+//          prefix), plen[b]): causal, window, prefix-LM, padding and full
+//          are such ranges) and of element predicates (document: docs[b,
+//          q] == docs[b, k]; paged: sid[q] == sid[k] and pos[k] <
+//          lens[sid[q]]);
+//   score  up to kMaxSteps softcap (cap tanh(s / cap)) and ALiBi (s -
+//          slopes[h] (q - k), h the query head) steps on the scaled score,
+//          before the mask, as in the Pallas body.
+// Four kinds are compiled: a one-term mask without predicates (the
+// engine's causal & padding and window & padding) runs on per-row column
+// limits alone, with no per-element work beyond the edge tiles; any other
+// mask evaluates the terms per element on the tiles that are not full
+// (kKindElement); a score mod adds its steps per element (kKindScore; the
+// scale then applies inside the transform instead of in the exponent).
+// Aux reads clamp their indices into the aux tensors, as JAX's gathers do,
+// and happen only for in-range rows and keys.
 //
 // What bounds it: for prompts of hundreds of tokens and more, the q.K and
 // p.V products (4 Q K D flops per head, halved by the causal mask) far
@@ -29,6 +49,8 @@
 // columns past kv_blk (the next kv tile's keys, listed or not) are masked
 // by their index in the tile.  Rows past q_blk are computed and never
 // stored.
+#include <cstring>
+
 #include "common.cuh"
 #include "flash_tc.cuh"
 #include "flash_tf32.cuh"
@@ -39,6 +61,34 @@ namespace f3 = flash_tf32;
 namespace {
 
 constexpr int kMaxQBlock = 128;  // q rows per BlockMask tile
+// the descriptor's limits and codes (flex_attention.py: MAX_TERMS, ...)
+constexpr int kMaxTerms = 8, kMaxPreds = 4, kMaxSteps = 4;
+constexpr int kPredDocument = 1, kPredPaged = 2;
+constexpr int kStepSoftcap = 1, kStepAlibi = 2;
+constexpr int kKindElement = 1, kKindScore = 2;
+constexpr int kIntMax = 0x7fffffff;
+
+struct MaskTerm {
+  int window;       // lo = q - window + 1 when > 0
+  int prefix;       // hi <= max(q + 1, prefix): 0 causal, kIntMax none
+  const int* plen;  // hi <= plen[b] when set (padding)
+  int preds;        // bit d: predicate d must hold
+};
+
+struct Pred {
+  int kind;
+  const int* a;  // document: docs (nb rows of na); paged: sid (na)
+  const int* b;  // paged: pos (nb)
+  const int* c;  // paged: lens (nc)
+  int na, nb, nc;
+};
+
+struct Step {
+  int kind;
+  float cap;            // softcap
+  const float* slopes;  // ALiBi, n of them
+  int n;
+};
 
 struct FlexParams {
   const void* q;
@@ -48,32 +98,56 @@ struct FlexParams {
   const int* nb;
   const int* idx;
   const int* full;
-  const int* lens;
   int B, H, Hkv, Q, K, nq, max_kv, batched, q_blk, kv_blk, q_len, kv_len;
   float scale;
+  int nterms, npreds, nsteps;
+  MaskTerm term[kMaxTerms];
+  Pred pred[kMaxPreds];
+  Step step[kMaxSteps];
 };
+
+__device__ __forceinline__ int clampi(int x, int n) {
+  return min(max(x, 0), n - 1);
+}
+
+__device__ __forceinline__ bool pred_holds(const Pred& d, int b, int q,
+                                           int k) {
+  if (d.kind == kPredDocument) {
+    const int* row = d.a + static_cast<size_t>(clampi(b, d.nb)) * d.na;
+    return __ldg(row + clampi(q, d.na)) == __ldg(row + clampi(k, d.na));
+  }
+  const int sq = __ldg(d.a + clampi(q, d.na));
+  return sq == __ldg(d.a + clampi(k, d.na)) &&
+         __ldg(d.b + clampi(k, d.nb)) < __ldg(d.c + clampi(sq, d.nc));
+}
 
 // -- the tensor-core tiles ----------------------------------------------------
 // The BlockMask row's kv tiles for either tile's layout L, each read as
-// spk tiles of L::kBN keys.
-template <class L, int VARIANT>
+// spk tiles of L::kBN keys, masked and scored by the descriptor.
+template <class L, int KIND>
 struct FlexTile {
   static constexpr int kPTerms = 1;  // the output is normalised
+  static constexpr int kSteps = (KIND & kKindScore) ? kMaxSteps : 0;
   const CUtensorMap* tk;
   const CUtensorMap* tv;
-  const int* idx;   // this q tile's listed kv tiles
+  const FlexParams* p;  // the kernel's parameter block (the descriptor)
+  const int* idx;       // this q tile's listed kv tiles
   const int* full;
   int row0;         // (b * Hkv + hk) * K: this head's first row in the maps
   int kv_blk, spk;  // kv tile, and tensor-core tiles per kv tile
   int panels;
   uint32_t tx;      // bytes per K/V tile
-  int kv_len, plen;
+  int kv_len, b;
+  int win, pre, plen;  // the one-term kinds' range
   int n;            // tensor-core tiles of the row: listed kv tiles x spk
-  float exp_scale, m_scale;  // scale * log2(e), scale
+  float scale;
+  int nsteps, capbits;       // score steps; bit st: step st is a softcap
+  float sv[kMaxSteps];       // per step: 1 / cap, or this head's slope
+  float cap[kMaxSteps];      // per softcap step: its cap
+  float exp_scale, m_scale;  // score units -> log2 of exp, -> units of m
 
   __device__ void issue(int i, uint32_t kd, uint32_t vd, uint32_t bar) const {
-    const int j = i / spk, ks = (i % spk) * L::kBN;
-    const int row = row0 + __ldg(idx + j) * kv_blk + ks;
+    const int row = row0 + origin(i);
     ft::mbar_expect_tx(bar, tx);
     for (int c = 0; c < panels; ++c) {
       ft::tma_load_2d(kd + c * L::kStagePanel, tk, bar, L::kPanelCols * c,
@@ -82,33 +156,80 @@ struct FlexTile {
                       row);
     }
   }
-  // key: the row's query index, or -1 past q_len (nothing live)
-  __device__ int limit(int i, int qrow) const {
-    if (qrow < 0) return 0;
-    const int j = i / spk, ks = (i % spk) * L::kBN;
-    const int k0 = __ldg(idx + j) * kv_blk + ks;
-    int lim = min(kv_blk - ks, kv_len - k0);
-    if (!__ldg(full + j)) {
-      if (VARIANT & 1) lim = min(lim, qrow - k0 + 1);
-      if (VARIANT & 2) lim = min(lim, plen - k0);
-    }
-    return lim;
+  __device__ int origin(int i) const {
+    return __ldg(idx + i / spk) * kv_blk + (i % spk) * L::kBN;
   }
-  // the scale is folded into exp_scale and m_scale
-  __device__ bool transform() const { return false; }
-  __device__ float score(float x) const { return x; }
+  // key: the row's query index, or -1 past q_len (nothing live).  Full
+  // tiles take the validity alone; the one-term kinds' other tiles their
+  // range as well.
+  __device__ void bounds(int i, int key, int& lo, int& hi) const {
+    lo = 0;
+    if (key < 0) {
+      hi = 0;
+      return;
+    }
+    const int ks = (i % spk) * L::kBN, k0 = origin(i);
+    hi = min(kv_blk - ks, kv_len - k0);
+    if (!(KIND & kKindElement) && !__ldg(full + i / spk)) {
+      hi = min(hi, min(max(key + 1, pre), plen) - k0);
+      if (win > 0) lo = key + 1 - win - k0;
+    }
+  }
+  __device__ bool elementwise(int i) const {
+    return (KIND & kKindElement) && !__ldg(full + i / spk);
+  }
+  // the or of the descriptor's terms at (q, k)
+  __device__ bool live(int q, int k) const {
+#pragma unroll 1
+    for (int t = 0; t < p->nterms; ++t) {
+      const MaskTerm& m = p->term[t];
+      if (m.window > 0 && k < q + 1 - m.window) continue;
+      if (k >= max(q + 1, m.prefix)) continue;
+      if (m.plen != nullptr && k >= __ldg(m.plen + b)) continue;
+      bool ok = true;
+#pragma unroll 1
+      for (int d = 0; d < p->npreds && ok; ++d)
+        if ((m.preds >> d) & 1) ok = pred_holds(p->pred[d], b, q, k);
+      if (ok) return true;
+    }
+    return false;
+  }
+  __device__ int steps() const { return nsteps; }
+  // step st over the fragment; the first also applies the scale
+  template <int N>
+  __device__ void apply_step(int st, int k0, const int (&key)[2],
+                             float (&s)[N / 2]) const {
+    if (st == 0) {
+#pragma unroll
+      for (int x = 0; x < N / 2; ++x) s[x] *= scale;
+    }
+    const float v = sv[st];
+    if ((capbits >> st) & 1) {
+      const float c = cap[st];
+#pragma unroll
+      for (int x = 0; x < N / 2; ++x) s[x] = c * tanhf(s[x] * v);
+      return;
+    }
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[4 * jj + e] -= v * static_cast<float>(
+                             key[e >> 1] - k0 - ft::thread_col(jj, e & 1));
+  }
 };
 
 // The tile of the CTA's q tile (blockIdx.x / halves), head and batch.
-template <class L, int D, int VARIANT>
-__device__ __forceinline__ FlexTile<L, VARIANT> make_tile(
+template <class L, int D, int KIND>
+__device__ __forceinline__ FlexTile<L, KIND> make_tile(
     const FlexParams& p, const CUtensorMap* tk, const CUtensorMap* tv,
     int qb, uint32_t kbox) {
   const int h = blockIdx.y, b = blockIdx.z;
   const size_t row_off = (p.batched ? static_cast<size_t>(b) * p.nq : 0) + qb;
-  FlexTile<L, VARIANT> t;
+  FlexTile<L, KIND> t;
   t.tk = tk;
   t.tv = tv;
+  t.p = &p;
   t.idx = p.idx + row_off * p.max_kv;
   t.full = p.full + row_off * p.max_kv;
   t.row0 = (b * p.Hkv + h / (p.H / p.Hkv)) * p.K;
@@ -117,9 +238,33 @@ __device__ __forceinline__ FlexTile<L, VARIANT> make_tile(
   t.panels = D / L::kPanelCols;
   t.tx = 2u * kbox * 128u * t.panels;
   t.kv_len = p.kv_len;
-  t.plen = (VARIANT & 2) ? p.lens[b] : 0;
-  t.exp_scale = p.scale * ft::kLog2e;
-  t.m_scale = p.scale;
+  t.b = b;
+  t.win = p.term[0].window;
+  t.pre = p.term[0].prefix;
+  t.plen = p.term[0].plen != nullptr ? __ldg(p.term[0].plen + b) : kIntMax;
+  t.scale = p.scale;
+  if (KIND & kKindScore) {
+    t.nsteps = p.nsteps;
+    t.capbits = 0;
+#pragma unroll
+    for (int st = 0; st < kMaxSteps; ++st) {
+      const Step& sp = p.step[st];
+      t.cap[st] = sp.cap;
+      if (st >= p.nsteps) {
+        t.sv[st] = 0.f;
+      } else if (sp.kind == kStepSoftcap) {
+        t.capbits |= 1 << st;
+        t.sv[st] = 1.f / sp.cap;
+      } else {
+        t.sv[st] = __ldg(sp.slopes + min(h, sp.n - 1));
+      }
+    }
+    t.exp_scale = ft::kLog2e;  // the transform applies the scale
+    t.m_scale = 1.f;
+  } else {
+    t.exp_scale = p.scale * ft::kLog2e;
+    t.m_scale = p.scale;
+  }
   t.n = p.nb[row_off] * t.spk;
   return t;
 }
@@ -162,19 +307,19 @@ __device__ __forceinline__ void store_rows(const FlexParams& p, int q0,
 }
 
 // bf16: the tile of flash_tc.cuh, one CTA per q tile (up to 128 rows).
-template <int D, int VARIANT>
+template <int D, int KIND>
 __global__ void __launch_bounds__(ft::kThreads, 1)
     flex_fwd_kernel_tc(const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const FlexParams p, const uint32_t kbox) {
+                       const __grid_constant__ FlexParams p,
+                       const uint32_t kbox) {
   using L = ft::Layout<D>;
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* gen;
   const uint32_t base = ft::smem_base(tc_smem, &gen);
   const int qb = blockIdx.x, q0 = qb * p.q_blk;
   ft::init_ring<L>(gen, base);
-  const FlexTile<L, VARIANT> t = make_tile<L, D, VARIANT>(p, &tk, &tv, qb,
-                                                          kbox);
+  const FlexTile<L, KIND> t = make_tile<L, D, KIND>(p, &tk, &tv, qb, kbox);
   ft::prefetch<L>(t, base, t.n);
 
   const __nv_bfloat16* qg =
@@ -198,11 +343,12 @@ __global__ void __launch_bounds__(ft::kThreads, 1)
 // f32: the split-TF32 tile of flash_tf32.cuh, 64 rows per CTA, so a q
 // tile of more than 64 rows takes two CTAs: blockIdx.x = halves * q tile +
 // half.
-template <int D, int VARIANT>
+template <int D, int KIND>
 __global__ void __launch_bounds__(f3::kThreads, 1)
     flex_fwd_kernel_tf32(const __grid_constant__ CUtensorMap tk,
                          const __grid_constant__ CUtensorMap tv,
-                         const FlexParams p, const uint32_t kbox) {
+                         const __grid_constant__ FlexParams p,
+                       const uint32_t kbox) {
   using L = f3::Layout<D>;
   extern __shared__ __align__(16) uint8_t tc_smem[];
   uint8_t* gen;
@@ -211,8 +357,7 @@ __global__ void __launch_bounds__(f3::kThreads, 1)
   const int qb = blockIdx.x / halves, q0 = qb * p.q_blk;
   const int r0 = (blockIdx.x % halves) * f3::kRows;
   ft::init_ring<L>(gen, base);
-  const FlexTile<L, VARIANT> t = make_tile<L, D, VARIANT>(p, &tk, &tv, qb,
-                                                          kbox);
+  const FlexTile<L, KIND> t = make_tile<L, D, KIND>(p, &tk, &tv, qb, kbox);
   ft::prefetch<L>(t, base, t.n);
 
   const float* qg =
@@ -256,37 +401,96 @@ int launch_tile(Kernel kernel, const FlexParams& p, int ctas_per_tile,
   return 0;
 }
 
-template <int D, int VARIANT>
+template <int D, int KIND>
 int launch(int f32, const FlexParams& p, cudaStream_t st) {
   if (f32)
-    return launch_tile<f3::Layout<D>, D>(flex_fwd_kernel_tf32<D, VARIANT>, p,
+    return launch_tile<f3::Layout<D>, D>(flex_fwd_kernel_tf32<D, KIND>, p,
                                          p.q_blk > f3::kRows ? 2 : 1, true,
                                          st);
-  return launch_tile<ft::Layout<D>, D>(flex_fwd_kernel_tc<D, VARIANT>, p, 1,
+  return launch_tile<ft::Layout<D>, D>(flex_fwd_kernel_tc<D, KIND>, p, 1,
                                        false, st);
 }
 
 template <int D>
-int dispatch_variant(int f32, int variant, const FlexParams& p,
-                     cudaStream_t st) {
-  switch (variant) {
+int dispatch_kind(int f32, int kind, const FlexParams& p, cudaStream_t st) {
+  switch (kind) {
     case 0: return launch<D, 0>(f32, p, st);
-    case 1: return launch<D, 1>(f32, p, st);
-    case 2: return launch<D, 2>(f32, p, st);
-    case 3: return launch<D, 3>(f32, p, st);
+    case kKindElement: return launch<D, kKindElement>(f32, p, st);
+    case kKindScore: return launch<D, kKindScore>(f32, p, st);
+    case kKindElement | kKindScore:
+      return launch<D, kKindElement | kKindScore>(f32, p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// The descriptor from the wrapper's int64 words (flex_attention.py,
+// _descriptor): three counts, then 4 words per term, 7 per predicate and 3
+// per score step.  Returns 0, or cudaErrorInvalidValue for words that do
+// not describe `kind`.
+int fill_desc(FlexParams* p, int kind, const long long* w, int n) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (w == nullptr || n < 3) return bad;
+  const long long nt = w[0], np = w[1], ns = w[2];
+  if (nt < 0 || nt > kMaxTerms || np < 0 || np > kMaxPreds || ns < 0 ||
+      ns > kMaxSteps || n != 3 + 4 * nt + 7 * np + 3 * ns)
+    return bad;
+  p->nterms = static_cast<int>(nt);
+  p->npreds = static_cast<int>(np);
+  p->nsteps = static_cast<int>(ns);
+  const long long* x = w + 3;
+  for (int t = 0; t < nt; ++t, x += 4) {
+    MaskTerm& m = p->term[t];
+    m.window = static_cast<int>(x[0]);
+    m.prefix = static_cast<int>(x[1]);
+    m.plen = reinterpret_cast<const int*>(x[2]);
+    m.preds = static_cast<int>(x[3]);
+    if (m.preds < 0 || (m.preds >> np)) return bad;
+  }
+  for (int d = 0; d < np; ++d, x += 7) {
+    Pred& r = p->pred[d];
+    r.kind = static_cast<int>(x[0]);
+    r.a = reinterpret_cast<const int*>(x[1]);
+    r.b = reinterpret_cast<const int*>(x[2]);
+    r.c = reinterpret_cast<const int*>(x[3]);
+    r.na = static_cast<int>(x[4]);
+    r.nb = static_cast<int>(x[5]);
+    r.nc = static_cast<int>(x[6]);
+    const bool doc = r.kind == kPredDocument && r.a && r.na > 0 && r.nb > 0;
+    const bool paged = r.kind == kPredPaged && r.a && r.b && r.c &&
+                       r.na > 0 && r.nb > 0 && r.nc > 0;
+    if (!doc && !paged) return bad;
+  }
+  for (int st = 0; st < ns; ++st, x += 3) {
+    Step& sp = p->step[st];
+    sp.kind = static_cast<int>(x[0]);
+    sp.n = static_cast<int>(x[2]);
+    if (sp.kind == kStepSoftcap) {
+      const int32_t bits = static_cast<int32_t>(x[1]);
+      memcpy(&sp.cap, &bits, sizeof(float));
+    } else if (sp.kind == kStepAlibi && x[1] != 0 && sp.n > 0) {
+      sp.slopes = reinterpret_cast<const float*>(x[1]);
+    } else {
+      return bad;
+    }
+  }
+  const bool element = nt != 1 || p->term[0].preds != 0;
+  if (kind != ((element ? kKindElement : 0) | (ns > 0 ? kKindScore : 0)))
+    return bad;
+  return 0;
+}
+
 // The entry points' shared argument checks and parameter block.
-int fill_params(FlexParams* p, int variant, const void* q, const void* k,
+int fill_params(FlexParams* p, int kind, const void* q, const void* k,
                 const void* v, void* o, const void* kv_num_blocks,
-                const void* kv_indices, const void* is_full, const void* lens,
-                int B, int H, int Hkv, int Q, int K, int nq, int max_kv,
-                int batched, int q_blk, int kv_blk, int q_len, int kv_len,
-                float scale) {
-  if (q_blk > kMaxQBlock || ((variant & 2) && lens == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
+                const void* kv_indices, const void* is_full,
+                const void* desc, int desc_len, int B, int H, int Hkv,
+                int Q, int K, int nq, int max_kv, int batched, int q_blk,
+                int kv_blk, int q_len, int kv_len, float scale) {
+  if (q_blk > kMaxQBlock) return static_cast<int>(cudaErrorInvalidValue);
+  *p = FlexParams{};
+  const int bad =
+      fill_desc(p, kind, static_cast<const long long*>(desc), desc_len);
+  if (bad) return bad;
   p->q = q;
   p->k = k;
   p->v = v;
@@ -294,7 +498,6 @@ int fill_params(FlexParams* p, int variant, const void* q, const void* k,
   p->nb = static_cast<const int*>(kv_num_blocks);
   p->idx = static_cast<const int*>(kv_indices);
   p->full = static_cast<const int*>(is_full);
-  p->lens = static_cast<const int*>(lens);
   p->B = B;
   p->H = H;
   p->Hkv = Hkv;
@@ -313,21 +516,22 @@ int fill_params(FlexParams* p, int variant, const void* q, const void* k,
 
 // The tensor-core routes: f32 == 0 for bf16 q, k, v and o (the bf16
 // tile), f32 == 1 for f32 (the split-TF32 tile).
-int fwd(int f32, int variant, const void* q, const void* k, const void* v,
+int fwd(int f32, int kind, const void* q, const void* k, const void* v,
         void* o, const void* kv_num_blocks, const void* kv_indices,
-        const void* is_full, const void* lens, int B, int H, int Hkv, int Q,
-        int K, int D, int nq, int max_kv, int batched, int q_blk, int kv_blk,
-        int q_len, int kv_len, float scale, void* stream) {
+        const void* is_full, const void* desc, int desc_len, int B, int H,
+        int Hkv, int Q, int K, int D, int nq, int max_kv, int batched,
+        int q_blk, int kv_blk, int q_len, int kv_len, float scale,
+        void* stream) {
   if (B * H * nq == 0) return 0;
   FlexParams p;
-  int bad = fill_params(&p, variant, q, k, v, o, kv_num_blocks, kv_indices,
-                        is_full, lens, B, H, Hkv, Q, K, nq, max_kv, batched,
-                        q_blk, kv_blk, q_len, kv_len, scale);
+  int bad = fill_params(&p, kind, q, k, v, o, kv_num_blocks, kv_indices,
+                        is_full, desc, desc_len, B, H, Hkv, Q, K, nq, max_kv,
+                        batched, q_blk, kv_blk, q_len, kv_len, scale);
   if (bad) return bad;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 64: bad = dispatch_variant<64>(f32, variant, p, st); break;
-    case 128: bad = dispatch_variant<128>(f32, variant, p, st); break;
+    case 64: bad = dispatch_kind<64>(f32, kind, p, st); break;
+    case 128: bad = dispatch_kind<128>(f32, kind, p, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;
@@ -338,24 +542,24 @@ int fwd(int f32, int variant, const void* q, const void* k, const void* v,
 
 // bf16 q, k, v and o.
 extern "C" int flex_attention_fwd_tc(
-    int variant, const void* q, const void* k, const void* v, void* o,
+    int kind, const void* q, const void* k, const void* v, void* o,
     const void* kv_num_blocks, const void* kv_indices, const void* is_full,
-    const void* lens, int B, int H, int Hkv, int Q, int K, int D, int nq,
-    int max_kv, int batched, int q_blk, int kv_blk, int q_len, int kv_len,
-    float scale, void* stream) {
-  return fwd(0, variant, q, k, v, o, kv_num_blocks, kv_indices, is_full,
-             lens, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk,
-             q_len, kv_len, scale, stream);
+    const void* desc, int desc_len, int B, int H, int Hkv, int Q, int K,
+    int D, int nq, int max_kv, int batched, int q_blk, int kv_blk, int q_len,
+    int kv_len, float scale, void* stream) {
+  return fwd(0, kind, q, k, v, o, kv_num_blocks, kv_indices, is_full, desc,
+             desc_len, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk,
+             kv_blk, q_len, kv_len, scale, stream);
 }
 
 // f32 q, k, v and o.
 extern "C" int flex_attention_fwd_tf32(
-    int variant, const void* q, const void* k, const void* v, void* o,
+    int kind, const void* q, const void* k, const void* v, void* o,
     const void* kv_num_blocks, const void* kv_indices, const void* is_full,
-    const void* lens, int B, int H, int Hkv, int Q, int K, int D, int nq,
-    int max_kv, int batched, int q_blk, int kv_blk, int q_len, int kv_len,
-    float scale, void* stream) {
-  return fwd(1, variant, q, k, v, o, kv_num_blocks, kv_indices, is_full,
-             lens, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk,
-             q_len, kv_len, scale, stream);
+    const void* desc, int desc_len, int B, int H, int Hkv, int Q, int K,
+    int D, int nq, int max_kv, int batched, int q_blk, int kv_blk, int q_len,
+    int kv_len, float scale, void* stream) {
+  return fwd(1, kind, q, k, v, o, kv_num_blocks, kv_indices, is_full, desc,
+             desc_len, B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk,
+             kv_blk, q_len, kv_len, scale, stream);
 }

@@ -320,14 +320,19 @@ struct PrefillTile {
     }
   }
   // key: the row's query position; live keys are kpos < L, kpos <= qpos
-  __device__ int limit(int i, int qpos) const {
+  __device__ void bounds(int i, int qpos, int& lo, int& hi) const {
     const int bb = i / spb, r = i % spb;
     const int pg0 = (r / cut) * npg, sub = r % cut;
     const int T = cut > 1 ? min(box, P - sub * box)
                           : min(npg, ppb - pg0) * P;
     const int k0 = split0 + bb * blk_tokens + pg0 * P + sub * box;
-    return min(T, min(L - k0, qpos - k0 + 1));
+    lo = 0;
+    hi = min(T, min(L - k0, qpos - k0 + 1));
   }
+  // the masks are column limits alone; the softcap reads no position
+  __device__ bool elementwise(int) const { return false; }
+  __device__ bool live(int, int) const { return true; }
+  __device__ int origin(int) const { return 0; }
   // tiles of the split that start below key `lim` (from the split's first)
   __device__ int count(int lim) const {
     if (lim <= 0) return 0;
@@ -336,9 +341,14 @@ struct PrefillTile {
                              : (rem + npg * P - 1) / (npg * P);
     return min(bps * spb, (lim / blk_tokens) * spb + part);
   }
-  __device__ bool transform() const { return softcap > 0.f; }
-  __device__ float score(float x) const {
-    return softcap * tanhf(x * scale / softcap);
+  static constexpr int kSteps = 1;  // the softcap
+  __device__ int steps() const { return softcap > 0.f ? 1 : 0; }
+  template <int N>
+  __device__ void apply_step(int, int, const int (&)[2],
+                             float (&s)[N / 2]) const {
+#pragma unroll
+    for (int x = 0; x < N / 2; ++x)
+      s[x] = softcap * tanhf(s[x] * scale / softcap);
   }
 };
 

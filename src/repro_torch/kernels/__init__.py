@@ -104,15 +104,18 @@ def launch_wrappers():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per wrapper since the last reset, and per route of
-    the wrappers that have several ("flex_prefill/tc",
-    "flex_prefill/tf32x3", "paged_prefill/tc", "paged_prefill/tf32x3",
-    "paged_prefill/simt")."""
+    """Kernel launches per wrapper since the last reset, per route of the
+    wrappers that have several ("flex_prefill/tc", "flex_prefill/tf32x3",
+    "paged_prefill/tc", "paged_prefill/tf32x3", "paged_prefill/simt"),
+    and per route and mask variant of K4 ("flex_prefill/tc/window&padding":
+    only the variants launched since the reset)."""
     counts = {}
     for k, fn in launch_wrappers().items():
         counts[k] = fn.launches
         for route, n in getattr(fn, "launches_by_route", {}).items():
             counts[f"{k}/{route}"] = n
+        for variant, n in getattr(fn, "launches_by_variant", {}).items():
+            counts[f"{k}/{variant}"] = n
     return counts
 
 
@@ -122,3 +125,4 @@ def reset_launch_counts() -> None:
         routes = getattr(fn, "launches_by_route", {})
         for route in routes:
             routes[route] = 0
+        getattr(fn, "launches_by_variant", {}).clear()

@@ -60,13 +60,14 @@ SIGNATURES = {
     "paged_prefill_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _F, _P],
-    # mask variant, q, k, v, o, kv_num_blocks, kv_indices, is_full, lens,
-    # B, H, Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk, q_len,
-    # kv_len, scale, stream: K4's routes, bf16 ("_tc") and f32 ("_tf32")
-    "flex_attention_fwd_tc": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+    # compiled kind, q, k, v, o, kv_num_blocks, kv_indices, is_full, the
+    # mask and score descriptor (host int64 words) and its length, B, H,
+    # Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk, q_len, kv_len,
+    # scale, stream: K4's routes, bf16 ("_tc") and f32 ("_tf32")
+    "flex_attention_fwd_tc": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _F, _P],
-    "flex_attention_fwd_tf32": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+    "flex_attention_fwd_tf32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
     # K3's tensor-core routes, bf16 ("_tc") and f32 ("_tf32"): the CUDA-core

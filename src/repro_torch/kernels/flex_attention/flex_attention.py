@@ -12,15 +12,30 @@ wgmma), f32 on the split-TF32 tile (``flex_fwd_kernel_tf32``: every
 product as three TF32 products, which keeps the f32 tolerance).  Each
 route counts its own launches in ``flex_attention_kernel.launches_by_route``.
 
-Mask mods are compiled variants of the kernel, for the mods the prefill
-path composes: ``full_mask``, ``causal_mask``, ``padding_mask(lens)`` and
-``and_masks`` of those.  Any other mask mod, and any score mod, raises
-``UnsupportedFeature`` on both devices.
+Mask and score mods built from ``core.flex`` are lowered (``lower_mods``)
+into one compiled descriptor that both routes evaluate in the kernel: the
+mask in disjunctive normal form, an ``or`` of up to ``MAX_TERMS`` terms,
+each the ``and`` of a per-row column range ``[lo, hi)`` — causal, window,
+prefix-LM, padding and full are all such ranges — and of element
+predicates (``document_mask``, ``paged_mask``; up to ``MAX_PREDS``
+distinct ones); the score mod as up to ``MAX_STEPS`` softcap and ALiBi
+steps, applied to the scaled score before the mask, as in the Pallas body.
+A mask of one term without predicates (the engine's causal ∧ padding and
+window ∧ padding) runs on the per-row column limits alone; anything else
+evaluates the terms per element on the tiles that are not full.  Each
+descriptor family counts its launches in
+``flex_attention_kernel.launches_by_variant`` ("tc/window&padding", ...).
+A mod that is not built from ``core.flex`` (a Python function the kernel
+cannot trace) raises ``UnsupportedFeature`` on both devices.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import ctypes
+import functools
+import struct
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -33,10 +48,15 @@ NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
 FLEX_HEAD_DIMS = (64, 128)
 MAX_Q_BLOCK = 128
-
-# compiled mask variants: bit 0 = causal, bit 1 = padding(lens)
-FULL, CAUSAL, PADDING = 0, 1, 2
 ROUTES = ("tc", "tf32x3")
+
+# the descriptor's limits and codes (csrc/flex_prefill.cu: kMaxTerms, ...)
+MAX_TERMS, MAX_PREDS, MAX_STEPS = 8, 4, 4
+PRED_DOCUMENT, PRED_PAGED = 1, 2
+STEP_SOFTCAP, STEP_ALIBI = 1, 2
+KIND_ELEMENT, KIND_SCORE = 1, 2  # compiled kinds: bit flags
+_INT_MAX = 2 ** 31 - 1
+_MAX_WINDOW = 2 ** 30
 
 
 def flex_route(dtype: torch.dtype) -> str:
@@ -47,26 +67,207 @@ def flex_route(dtype: torch.dtype) -> str:
     return "tc" if dtype == torch.bfloat16 else "tf32x3"
 
 
-def mask_variant(mask_mod) -> Optional[Tuple[int, Optional[torch.Tensor]]]:
-    """Map a mask mod onto ``(variant bits, padding lens)``, or None when
-    it is not a composition of the kernel's compiled mods."""
-    if mask_mod is flex.full_mask:
-        return FULL, None
-    if mask_mod is flex.causal_mask:
-        return CAUSAL, None
-    if isinstance(mask_mod, flex.AuxMod) and mask_mod.fn is flex._padding_fn:
-        return PADDING, mask_mod.aux[0]
-    parts = getattr(mask_mod, "parts", ())
-    if not parts:
+@dataclass(frozen=True, eq=False)
+class Term:
+    """One ``and`` term of a lowered mask: keys in ``[lo, hi)`` with
+    lo = q - window + 1 (no bound for None), hi = min(max(q + 1, prefix)
+    (no bound for None; 0 is causal), lens[b] of every padding tensor),
+    and every element predicate (the ``AuxMod``s of ``preds``)."""
+    window: Optional[int] = None
+    prefix: Optional[int] = None
+    plens: Tuple[torch.Tensor, ...] = ()
+    preds: Tuple[flex.AuxMod, ...] = ()
+
+    def __and__(self, other: "Term") -> "Term":
+        def low(a, b):
+            return b if a is None else a if b is None else min(a, b)
+        preds = self.preds + tuple(p for p in other.preds
+                                   if all(p is not x for x in self.preds))
+        return Term(low(self.window, other.window),
+                    low(self.prefix, other.prefix),
+                    self.plens + other.plens, preds)
+
+    @property
+    def name(self) -> str:
+        parts = []
+        if self.window is not None:
+            parts.append("window")
+        elif self.prefix is not None:
+            parts.append("causal" if self.prefix <= 0 else "prefix_lm")
+        if self.plens:
+            parts.append("padding")
+        parts += ["document" if p.fn is flex._document_fn else "paged"
+                  for p in self.preds]
+        return "&".join(parts) or "full"
+
+
+@dataclass(frozen=True, eq=False)
+class Lowered:
+    """A mask and score mod as K4 compiles them: the mask as an ``or`` of
+    ``terms``, the score mod as ``steps`` ((STEP_SOFTCAP, cap) or
+    (STEP_ALIBI, slopes)), applied in order."""
+    terms: Tuple[Term, ...]
+    steps: Tuple[tuple, ...] = ()
+
+    @property
+    def preds(self) -> List[flex.AuxMod]:
+        out: List[flex.AuxMod] = []
+        for t in self.terms:
+            out += [p for p in t.preds if all(p is not x for x in out)]
+        return out
+
+    @property
+    def kind(self) -> int:
+        """The compiled kind: KIND_ELEMENT unless the mask is one term of
+        column ranges alone, KIND_SCORE when there is a score mod."""
+        element = len(self.terms) != 1 or bool(self.terms[0].preds)
+        return (KIND_ELEMENT if element else 0) | (
+            KIND_SCORE if self.steps else 0)
+
+    @property
+    def name(self) -> str:
+        mask = "|".join(t.name for t in self.terms) or "none"
+        return mask + "".join(
+            "+softcap" if k == STEP_SOFTCAP else "+alibi"
+            for k, _ in self.steps)
+
+
+def _mask_terms(mod) -> Optional[Tuple[Term, ...]]:
+    """The mask mod in disjunctive normal form, or None when it is not
+    built from ``core.flex``."""
+    if mod is flex.full_mask:
+        return (Term(),)
+    if mod is flex.causal_mask:
+        return (Term(prefix=0),)
+    if isinstance(mod, functools.partial) and not mod.args:
+        if mod.func is flex._window_fn:
+            w = mod.keywords["window"]
+            return (Term(window=w, prefix=0),) if w > 0 else ()
+        if mod.func is flex._prefix_lm_fn:
+            return (Term(prefix=mod.keywords["prefix_len"]),)
         return None
-    bits, lens = FULL, None
-    for part in parts:
-        sub = mask_variant(part)
-        if sub is None or (sub[1] is not None and lens is not None):
+    if isinstance(mod, flex.AuxMod) and not mod.is_score:
+        if mod.fn is flex._padding_fn:
+            return (Term(plens=mod.aux),)
+        if mod.fn in (flex._document_fn, flex._paged_fn):
+            return (Term(preds=(mod,)),)
+    kind = getattr(mod, "combine", None)
+    if kind not in ("and", "or"):
+        return None
+    terms: Optional[Tuple[Term, ...]] = None
+    for part in mod.parts:
+        sub = _mask_terms(part)
+        if sub is None:
             return None
-        bits |= sub[0]
-        lens = sub[1] if sub[1] is not None else lens
-    return bits, lens
+        if terms is None:
+            terms = sub
+        elif kind == "or":
+            terms = terms + sub
+        else:
+            terms = tuple(a & b for a in terms for b in sub)
+    return terms
+
+
+def _score_steps(mod) -> Optional[Tuple[tuple, ...]]:
+    """The score mod as softcap / ALiBi steps, or None when it is not
+    built from ``core.flex``."""
+    if mod is None or mod is flex.identity_score:
+        return ()
+    if (isinstance(mod, functools.partial) and not mod.args
+            and mod.func is flex._softcap_fn):
+        return ((STEP_SOFTCAP, mod.keywords["cap"]),)
+    if isinstance(mod, flex.AuxMod) and mod.fn is flex._alibi_fn:
+        return ((STEP_ALIBI, mod.aux[0]),)
+    if getattr(mod, "combine", None) != "compose":
+        return None
+    steps: Tuple[tuple, ...] = ()
+    for part in mod.parts:
+        sub = _score_steps(part)
+        if sub is None:
+            return None
+        steps += sub
+    return steps
+
+
+def lower_mods(mask_mod, score_mod=None) -> Lowered:
+    """Lower a mask mod and a score mod built from ``core.flex`` into K4's
+    descriptor; raise ``UnsupportedFeature`` for anything else (a Python
+    function the kernel cannot trace) or past the descriptor's limits.
+    Runs on both devices, so that the CPU sees what the card refuses."""
+    terms = _mask_terms(mask_mod)
+    if terms is None:
+        raise UnsupportedFeature("flex kernel: the mask mod is not built "
+                                 "from core.flex mods (a Python mod cannot "
+                                 "be compiled into the CUDA kernel)")
+    steps = _score_steps(score_mod)
+    if steps is None:
+        raise UnsupportedFeature("flex kernel: the score mod is not built "
+                                 "from core.flex mods (a Python mod cannot "
+                                 "be compiled into the CUDA kernel)")
+    low = Lowered(terms, steps)
+    if (len(terms) > MAX_TERMS or len(low.preds) > MAX_PREDS
+            or len(steps) > MAX_STEPS):
+        raise UnsupportedFeature(
+            f"flex kernel: {len(terms)} or-terms, {len(low.preds)} element "
+            f"predicates, {len(steps)} score steps (the descriptor holds "
+            f"{MAX_TERMS}, {MAX_PREDS}, {MAX_STEPS})")
+    return low
+
+
+def _descriptor(low: Lowered, B: int, device) -> Tuple[ctypes.Array, list]:
+    """The descriptor's words for the C entry (int64: counts, then per
+    term window, prefix, padding-bound pointer and predicate bits, per
+    predicate kind, three pointers and their lengths, per step kind, value
+    and length), and the device tensors it points into (kept alive until
+    the launch)."""
+    keep: list = []
+
+    def dev(x, dtype):
+        x = torch.as_tensor(x).to(device=device, dtype=dtype).contiguous()
+        keep.append(x)
+        return x
+
+    preds = low.preds
+    words = [len(low.terms), len(preds), len(low.steps)]
+    for t in low.terms:
+        plen = 0
+        if t.plens:
+            bound = None
+            for lens in t.plens:
+                if tuple(lens.shape) != (B,):
+                    raise EngineConfigError("flex kernel: padding lens "
+                                            "must be (B,)")
+                x = dev(lens, torch.int32)
+                bound = x if bound is None else torch.minimum(bound, x)
+            plen = dev(bound, torch.int32).data_ptr()
+        bits = sum(1 << i for i, p in enumerate(preds)
+                   if any(p is x for x in t.preds))
+        window = 0 if t.window is None else min(t.window, _MAX_WINDOW)
+        prefix = (_INT_MAX if t.prefix is None
+                  else max(0, min(t.prefix, _INT_MAX)))
+        words += [window, prefix, plen, bits]
+    for p in preds:
+        if p.fn is flex._document_fn:
+            docs = dev(p.aux[0], torch.int32)
+            if docs.dim() != 2:
+                raise EngineConfigError("flex kernel: document ids must be "
+                                        "(B, S)")
+            words += [PRED_DOCUMENT, docs.data_ptr(), 0, 0,
+                      docs.shape[1], docs.shape[0], 0]
+        else:
+            sid, pos, lens = (dev(x, torch.int32).reshape(-1)
+                              for x in p.aux)
+            words += [PRED_PAGED, sid.data_ptr(), pos.data_ptr(),
+                      lens.data_ptr(), sid.numel(), pos.numel(),
+                      lens.numel()]
+    for kind, value in low.steps:
+        if kind == STEP_SOFTCAP:
+            bits = struct.unpack("<i", struct.pack("<f", value))[0]
+            words += [kind, bits, 0]
+        else:
+            slopes = dev(value, torch.float32).reshape(-1)
+            words += [kind, slopes.data_ptr(), slopes.numel()]
+    return (ctypes.c_int64 * len(words))(*words), keep
 
 
 def _tile_maps(block_mask: flex.BlockMask, nk: int):
@@ -84,11 +285,15 @@ def _tile_maps(block_mask: flex.BlockMask, nk: int):
 
 
 def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
-                          kv_len, p_terms=None, tf32_terms=None):
-    """Plain version of K4: the same tile selection, masks and softmax,
-    evaluated densely one batch row at a time.  ``p_terms`` = 1 rounds
-    the probabilities to bf16 before p.V, as the bf16 tensor-core kernel
-    does (None keeps them f32; the sum stays f32 either way).
+                          kv_len, score_mod=None, p_terms=None,
+                          tf32_terms=None):
+    """Plain version of K4: the same tile selection, score mod, masks and
+    softmax, evaluated densely one batch row at a time, score mod then
+    mask as in the Pallas body.  The mods see indices clamped into
+    (q_len, kv_len), so that mods reading tensors stay in bounds on the
+    padded tiles (whose scores the validity mask drops).  ``p_terms`` = 1
+    rounds the probabilities to bf16 before p.V, as the bf16 tensor-core
+    kernel does (None keeps them f32; the sum stays f32 either way).
     ``tf32_terms`` (3 or 1) evaluates q.K and p.V as the split-TF32 kernel
     does (`tf32_product`; the scale applies after q.K there)."""
     B, H, Q, D = q.shape
@@ -101,15 +306,17 @@ def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
     ki = torch.arange(K, device=dev)[None, :]
     hi = torch.arange(H, device=dev)[:, None, None]
     valid = (qi < q_len) & (ki < kv_len)
+    qc = qi.clamp(max=max(q_len - 1, 0))[None]
+    kc = ki.clamp(max=max(kv_len - 1, 0))[None]
     neg = torch.tensor(NEG_INF, device=dev)
     out = torch.empty_like(q)
     for b in range(B):
+        bt = torch.tensor(b, device=dev)
         lt = listed[b] if block_mask.batched else listed
         ft = full[b] if block_mask.batched else full
         lt = lt.repeat_interleave(qb, 0).repeat_interleave(kb, 1)
         ft = ft.repeat_interleave(qb, 0).repeat_interleave(kb, 1)
-        elem = mask_mod(torch.tensor(b, device=dev), hi, qi[None], ki[None])
-        mask = (ft | elem) & lt & valid  # (H or 1, Q, K)
+        mask = (ft | mask_mod(bt, hi, qc, kc)) & lt & valid  # (H|1, Q, K)
         kh = k[b].float().repeat_interleave(G, dim=0)  # (H, K, D)
         vh = v[b].float().repeat_interleave(G, dim=0)
         if tf32_terms:
@@ -117,6 +324,8 @@ def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
                              tf32_terms) * scale
         else:
             s = torch.matmul(q[b].float() * scale, kh.transpose(1, 2))
+        if score_mod is not None:
+            s = score_mod(s, bt, hi, qc, kc)
         s = torch.where(mask, s, neg)
         m = s.amax(dim=-1, keepdim=True)
         p = torch.where(mask, torch.exp(s - m),
@@ -150,18 +359,11 @@ def flex_attention_kernel(
     if Q % q_blk or K % kv_blk:
         raise EngineConfigError("flex kernel: Q and K must be padded to "
                                 "the block mask's tiles", Q=Q, K=K)
-    if score_mod is not None:
-        raise UnsupportedFeature("flex kernel: score mods are not compiled "
-                                 "into the CUDA kernel yet")
-    variant = mask_variant(mask_mod)
-    if variant is None:
-        raise UnsupportedFeature("flex kernel: mask mod is not a "
-                                 "composition of full/causal/padding")
+    low = lower_mods(mask_mod, score_mod)
     if not use_kernel("flex_attention", q, k, v, block_mask.kv_indices):
         return _flex_attention_plain(q, k, v, block_mask, scale=scale,
-                                     mask_mod=mask_mod, q_len=q_len,
-                                     kv_len=kv_len)
-    bits, lens = variant
+                                     mask_mod=mask_mod, score_mod=score_mod,
+                                     q_len=q_len, kv_len=kv_len)
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise UnsupportedFeature(f"flex kernel: dtypes q {q.dtype} k "
                                  f"{k.dtype} v {v.dtype}")
@@ -186,26 +388,27 @@ def flex_attention_kernel(
             or full.shape != idx.shape):
         raise EngineConfigError("flex kernel: block mask shapes do not "
                                 "match the q tiles", q_tiles=nq)
-    if lens is not None:
-        lens = lens.to(device=q.device, dtype=torch.int32).contiguous()
-        if tuple(lens.shape) != (B,):
-            raise EngineConfigError("flex kernel: padding lens must be (B,)")
+    desc, keep = _descriptor(low, B, q.device)
     route = flex_route(q.dtype)
     o = torch.empty_like(q)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            nb.data_ptr(), idx.data_ptr(), full.data_ptr(),
-            lens.data_ptr() if lens is not None else None, B, H, Hkv, Q, K,
-            D, nq, max_kv, int(batched), q_blk, kv_blk, int(q_len),
-            int(kv_len), float(scale))
+            nb.data_ptr(), idx.data_ptr(), full.data_ptr(), desc, len(desc),
+            B, H, Hkv, Q, K, D, nq, max_kv, int(batched), q_blk, kv_blk,
+            int(q_len), int(kv_len), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         name = "flex_attention_fwd_" + ("tc" if route == "tc" else "tf32")
-        err = getattr(get_lib(), name)(bits, *args, stream)
+        err = getattr(get_lib(), name)(low.kind, *args, stream)
     check(err, name)
+    del keep  # the kernel is enqueued; the stream orders any reuse
     flex_attention_kernel.launches += 1
     flex_attention_kernel.launches_by_route[route] += 1
+    variants = flex_attention_kernel.launches_by_variant
+    key = f"{route}/{low.name}"
+    variants[key] = variants.get(key, 0) + 1
     return o
 
 
 flex_attention_kernel.launches = 0
 flex_attention_kernel.launches_by_route = dict.fromkeys(ROUTES, 0)
+flex_attention_kernel.launches_by_variant = {}

@@ -1,8 +1,9 @@
 """Public op: flex attention (the prefill path).
 
 Builds the BlockMask the same way the JAX op does (analytic causal fast
-path, else the streaming builder, batched for aux-carrying mods), pads to
-whole tiles and dispatches to K4 or to the plain oracle.
+path, the analytic windowed one for ``window > 0``, else the streaming
+builder, batched for aux-carrying mods), pads to whole tiles and
+dispatches to K4 or to the plain oracle.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ def flex_attention(
     score_mod: Optional[flex.ScoreMod] = None,
     block_mask: Optional[flex.BlockMask] = None,
     scale: Optional[float] = None,
+    window: int = 0,
     impl: str = "kernel",
     q_block: int = 128,
     kv_block: int = 128,
@@ -48,8 +50,13 @@ def flex_attention(
         if mask_mod is flex.causal_mask:
             block_mask = flex.causal_block_mask(Q, K, q_block, kv_block,
                                                 device=q.device)
+        elif window > 0:
+            block_mask = flex.causal_block_mask(Q, K, q_block, kv_block,
+                                                window=window,
+                                                device=q.device)
         else:
-            # aux-carrying mods may be batch-dependent (padding masks):
+            # aux-carrying mods may be batch-dependent (padding and
+            # document masks):
             # build a per-batch block mask, like create_block_mask(B=...)
             batched = isinstance(mask_mod, flex.AuxMod)
             block_mask = flex.build_block_mask(

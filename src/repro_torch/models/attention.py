@@ -15,7 +15,6 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cache as kvcache
-from repro_torch.errors import UnsupportedFeature
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.spec import ParamSpec
 
@@ -95,23 +94,30 @@ def attn_prefill_chunked(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     ``x``: (B, C, d) chunk activations; ``q_start``: (B,) tokens already
     cached (RoPE and masks use absolute positions ``q_start + i``);
     ``q_lens``: (B,) live tokens of the chunk; ``tables``: (B,
-    n_kv_shards, pages_per_shard).  Write first, then attend over
-    ``kv_lens = q_start + q_lens`` tokens through the block table (K3
-    under ``impl="kernel"``).  Sliding-window layers are not ported.
+    n_kv_shards, pages_per_shard).  Dense layers write first, then attend
+    over ``kv_lens = q_start + q_lens`` tokens through the block table (K3
+    under ``impl="kernel"``).  Sliding-window layers attend first, over
+    the intact ring prefix and the chunk's fresh K/V, then write (a ring
+    wrap would otherwise overwrite prefix slots the chunk still needs).
     """
-    if window > 0:
-        raise UnsupportedFeature("chunked prefill of sliding-window layers "
-                                 "is not ported yet", window=window)
     B, C, _ = x.shape
     pos = q_start.long()[:, None] + torch.arange(C, device=x.device)[None]
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
     t = tables.reshape(B, -1)
+    kv_scale = cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0
+    if window > 0:
+        o = core_attn.prefill_attention_windowed_chunk(
+            q, k, v, k_pages, v_pages, t, q_start, q_lens, window=window,
+            kv_scale=kv_scale)
+        kvcache.write_layer_prefill_at(k_pages, v_pages, t, kv_quant(cfg, k),
+                                       kv_quant(cfg, v), q_start, q_lens,
+                                       window=window)
+        return _out(p, o)
     kvcache.write_layer_prefill_at(k_pages, v_pages, t, kv_quant(cfg, k),
                                    kv_quant(cfg, v), q_start, q_lens)
     o = core_attn.prefill_attention_paged(
         q, k_pages, v_pages, t, (q_start + q_lens).to(torch.int32),
-        q_start.to(torch.int32), impl=impl,
-        kv_scale=cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0,
+        q_start.to(torch.int32), impl=impl, kv_scale=kv_scale,
         pages_per_block=pages_per_block, num_splits=num_splits)
     return _out(p, o)
 

@@ -3,10 +3,12 @@
 ``params_from_numpy(tree, device, dtype)`` takes the JAX params as numpy
 arrays (``jax.tree_util.tree_map(np.asarray, params)``) and returns the
 port's params on ``device`` (the card unless the caller passes
-``device="cpu"``, as for every entry point): the same layouts, with the scanned pattern groups
-(``groups/0A`` stacked ``(n_groups, ...)``) unstacked into one dict per
-layer under ``layers``.  The port needs no JAX for this: it reads plain
-nested dicts of arrays.
+``device="cpu"``, as for every entry point): the same layouts, with the
+scanned pattern groups (``groups/0A``, ``groups/1W`` stacked
+``(n_groups, ...)``; a ``W`` layer carries the same parameters as an
+``A`` one) unstacked into one dict per layer under ``layers``, in the
+pattern's order.  The port needs no JAX for this: it reads plain nested
+dicts of arrays.
 """
 
 from __future__ import annotations
@@ -35,9 +37,10 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
     groups = tree.get("groups", {})
     rem = tree.get("rem", {})
     codes = {key[1:] for key in list(groups) + list(rem)}
-    if codes - {"A"}:
+    if codes - {"A", "W"}:
         raise UnsupportedFeature(f"layer codes {sorted(codes)}: the port "
-                                 "converts all-'A' dense models only")
+                                 "converts dense models of 'A' and 'W' "
+                                 "layers only")
     per_layer = []
     units = sorted(groups, key=lambda k: int(k[:-1]))
     n_groups = (np.asarray(groups[units[0]]["ln1"]["scale"]).shape[0]

@@ -1,5 +1,6 @@
-"""Decoder-only transformer, family ``dense`` with every layer ``A``
-(port of the serving half of ``repro.models.transformer``).
+"""Decoder-only transformer, family ``dense`` with any pattern of global
+(``A``) and sliding-window (``W``) attention layers (port of the serving
+half of ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors with the JAX layouts, one dict per
 layer under ``params["layers"]`` (the JAX package stacks them per pattern
@@ -12,7 +13,11 @@ group; ``models.convert`` unstacks).  Two entry points share them:
 
 The serving state is a dict: ``pos`` (B,), ``k_pages``/``v_pages``
 (n_layers, num_pages, P, Hkv, D) and ``tables`` (B, 1, pages_per_seq).
-The pools are updated in place.
+The pools are updated in place.  A ``W`` layer attends over the last
+``cfg.window`` positions and keeps its K/V in a ring of ``ceil(window /
+P) + 1`` pages: the first columns of its table row, reused in place, so a
+model whose every layer is ``W`` needs only ring-wide tables (the
+engine's ``pages_per_seq``).
 """
 
 from __future__ import annotations
@@ -34,18 +39,23 @@ def layer_spec(cfg: ModelConfig) -> Dict:
 
 
 class TransformerModel:
-    """Dense decoder: global attention in every layer, gated or plain MLP."""
+    """Dense decoder: global (``A``) or sliding-window (``W``) attention
+    per layer, gated or plain MLP."""
 
     def __init__(self, cfg: ModelConfig):
-        if (set(cfg.pattern()) != {"A"} or cfg.is_moe or cfg.d_ff <= 0
+        codes = set(cfg.pattern())
+        if (codes - {"A", "W"} or cfg.is_moe or cfg.d_ff <= 0
                 or cfg.activation not in layers.ACTIVATIONS):
             raise UnsupportedFeature(
-                "the port runs dense all-'A' models with a silu/relu2 MLP; "
-                f"pattern {cfg.layer_pattern!r}, activation "
+                "the port runs dense models of 'A' and 'W' layers with a "
+                f"silu/relu2 MLP; pattern {cfg.layer_pattern!r}, activation "
                 f"{cfg.activation!r} are still to be ported",
                 pattern=cfg.layer_pattern, activation=cfg.activation)
         self.cfg = cfg
         self.n_attn_layers = cfg.n_layers
+        # windowed iff the pattern has 'W' layers (as the JAX model)
+        self.window = cfg.window if "W" in codes else 0
+        self.windows = [cfg.window if c == "W" else 0 for c in cfg.pattern()]
 
     # -- spec / params ----------------------------------------------------
     def param_spec(self) -> Dict:
@@ -81,7 +91,7 @@ class TransformerModel:
             h = layers.apply_norm(p["ln1"], x)
             x = x + attn.attn_prefill(
                 p["attn"], h, cfg, state["k_pages"][li], state["v_pages"][li],
-                state["tables"], lens, impl=impl)
+                state["tables"], lens, window=self.windows[li], impl=impl)
             x = self._apply_ffn(p, x)
         x = layers.apply_norm(params["ln_f"], x)
         last_idx = torch.clamp(lens.long() - 1, min=0)
@@ -114,8 +124,9 @@ class TransformerModel:
             h = layers.apply_norm(p["ln1"], x)
             x = x + attn.attn_prefill_chunked(
                 p["attn"], h, cfg, state["k_pages"][li], state["v_pages"][li],
-                state["tables"], q_start, q_lens, impl=impl,
-                pages_per_block=pages_per_block, num_splits=num_splits)
+                state["tables"], q_start, q_lens, window=self.windows[li],
+                impl=impl, pages_per_block=pages_per_block,
+                num_splits=num_splits)
             x = self._apply_ffn(p, x)
         x = layers.apply_norm(params["ln_f"], x)
         last_idx = torch.clamp(q_lens.long() - 1, min=0)
@@ -138,7 +149,7 @@ class TransformerModel:
             h = layers.apply_norm(p["ln1"], x)
             x = x + attn.attn_decode(
                 p["attn"], h, cfg, state["k_pages"][li], state["v_pages"][li],
-                state["tables"], pos, impl=impl,
+                state["tables"], pos, window=self.windows[li], impl=impl,
                 pages_per_block=pages_per_block, num_splits=num_splits)
             x = self._apply_ffn(p, x)
         x = layers.apply_norm(params["ln_f"], x)

@@ -21,9 +21,17 @@ share one global budget of ``prefill_chunk`` tokens per step, interleaved
 with the decode of the RUNNING rows.  ``prefix_cache=True`` shares the
 full pages of a common prompt head across requests (``core.prefix_cache``):
 admission attaches to the longest cached prefix and prefill runs only the
-suffix.  The JAX engine's gates on both (no windowed, cross-attention or
-recurrent layers) hold here because ``build_model`` builds only dense
-all-``A`` models.
+suffix; it refuses windowed models, as the JAX engine does (their ring
+pages are overwritten in place).  The JAX engine's other gates (no
+cross-attention or recurrent layers) hold here because ``build_model``
+builds only dense models of ``A`` and ``W`` layers.
+
+Sliding-window (``W``) layers keep their K/V in a ring of ``ceil(window
+/ P) + 1`` pages, the first columns of each table row.  When every
+attention layer is ``W``, the device tables are only ring-wide, and a
+host row longer than the ring is truncated by design; as in the JAX
+engine, the host page manager still reserves a page for every token of a
+request, so a pool must hold the requests' full lengths all the same.
 
 Not ported yet (raise ``UnsupportedFeature``): fault injection,
 ``fork_request`` and the contiguous baseline (``paged=False``).
@@ -86,6 +94,11 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.model = build_model(cfg)
+        if prefix_cache and self.model.window > 0:
+            raise EngineConfigError(
+                "prefix_cache requires window=0: windowed layers overwrite "
+                "their ring pages in place, so cached pages shared from a "
+                "live donor would be mutated", window=self.model.window)
         self.impl = impl
         self.prefill_chunk = prefill_chunk
         self.pages_per_block = pages_per_block
@@ -102,7 +115,18 @@ class Engine:
         self.gen.manual_seed(seed + 1)
 
         ps = cfg.page_size
-        self.pages_per_seq = -(-max_seq_len // ps)
+        window = self.model.window
+        # ring-sized tables are sound only when EVERY attention layer is
+        # windowed: a mixed pattern's 'A' layers carry live KV for the
+        # whole sequence (its 'W' layers use columns 0..ring-1 as the ring)
+        self._ring_tables = window > 0 and "A" not in cfg.pattern()
+        ring = -(-window // ps) + 1
+        if self._ring_tables:
+            self.pages_per_seq = ring
+        elif window > 0:
+            self.pages_per_seq = max(-(-max_seq_len // ps), ring)
+        else:
+            self.pages_per_seq = -(-max_seq_len // ps)
         if pool_tokens is None:
             num_pages = max_slots * self.pages_per_seq
         else:
@@ -240,19 +264,23 @@ class Engine:
         slots that are not RUNNING at -1 (a PREFILLING row must neither
         receive the decode placeholder's K/V nor be attended over).  A row
         outgrowing the device table is a hard error (its KV tail would be
-        dropped silently)."""
-        t = np.full((self.max_slots, 1, self.pages_per_seq), -1, np.int32)
+        dropped silently), except in a model whose every attention layer
+        is windowed: its row is a ring, and ``row[:ring]`` IS the table
+        (the ring slots are overwritten in place, so the host's extra
+        pages never carry live data)."""
+        pps = self.pages_per_seq
+        t = np.full((self.max_slots, 1, pps), -1, np.int32)
         for slot, req in self.scheduler.running.items():
             if decode and req.status is not Status.RUNNING:
                 continue
             row = self.mgr.tables.get(req.rid, [])
-            if len(row) > self.pages_per_seq:
+            if len(row) > pps and not self._ring_tables:
                 raise SchedulerInvariantError(
                     f"request {req.rid} holds {len(row)} pages but the "
-                    f"device block table is {self.pages_per_seq} pages wide "
+                    f"device block table is {pps} pages wide "
                     f"(max_seq_len={self.max_seq_len}); refusing to "
                     f"truncate its KV tail silently", rid=req.rid)
-            t[slot, 0, :len(row)] = row
+            t[slot, 0, :min(len(row), pps)] = row[:pps]
         return t
 
     def _tables_array(self, decode: bool = False) -> torch.Tensor:

@@ -74,10 +74,23 @@ def test_flex_causal_padding_matches_pallas(B, H, Hkv, Q, D, qb, kb):
 
 
 def test_flex_kernel_rejects_mods_it_does_not_compile():
+    """A mod written in Python (not built from core.flex) cannot be
+    compiled into the CUDA kernel: it raises on the CPU as on the card,
+    alone and inside a composition.  (The window and softcap that this
+    test used to refuse are parity cases of test_torch_flex_mods.py.)"""
     q = torch.zeros((1, 2, 8, 16))
-    window = tflex.sliding_window_mask(4)
-    with pytest.raises(UnsupportedFeature):
-        tflex_attention(q, q, q, mask_mod=tflex.and_masks(window,
-                                                          tflex.causal_mask))
-    with pytest.raises(UnsupportedFeature):
-        tflex_attention(q, q, q, score_mod=tflex.softcap_score(5.0))
+
+    def my_mask(b, h, q, k):
+        return (k <= q) & ((q - k) % 2 == 0)
+
+    def my_score(s, b, h, q, k):
+        return s * 0.5
+
+    for mask_mod in (my_mask, tflex.and_masks(tflex.causal_mask, my_mask),
+                     tflex.or_masks(my_mask, tflex.sliding_window_mask(4))):
+        with pytest.raises(UnsupportedFeature):
+            tflex_attention(q, q, q, mask_mod=mask_mod)
+    for score_mod in (my_score, tflex.compose_score(
+            tflex.softcap_score(5.0), my_score)):
+        with pytest.raises(UnsupportedFeature):
+            tflex_attention(q, q, q, score_mod=score_mod)

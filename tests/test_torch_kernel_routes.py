@@ -7,6 +7,13 @@
 - (b) every ``extern "C"`` function of ``csrc/*.cu`` has a ``SIGNATURES``
   entry with as many parameters, parsed from the sources (a ctypes
   mismatch would otherwise show only on the card).
+- (d) K4's mod lowering: the descriptor the wrapper hands the C entry
+  (``lower_mods`` then ``_descriptor``), decoded and evaluated here as the
+  kernel evaluates it (terms of column ranges and element predicates, or
+  of the terms, score steps in order, aux reads clamped), equals the mods
+  themselves on every (b, h, q, k) of a small grid; each descriptor family
+  has its compiled kind and its launch counter; past the descriptor's
+  limits, or for a mod written in Python, the lowering raises.
 - (c) the tensor-core kernels feed P to p.V in bf16: K4 as one bf16
   term, K3 as two (hi + lo).  The plain K4 and K3 versions with that
   rounding stay within the card's bf16 tolerance, ``|a - b| <= 2e-2 *
@@ -18,6 +25,7 @@
 """
 
 import re
+import struct
 
 import numpy as np
 import pytest
@@ -25,6 +33,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import flex
+from repro_torch.errors import UnsupportedFeature
 from repro_torch.kernels import build
 from repro_torch.kernels.flex_attention import flex_attention as fa
 from repro_torch.kernels.paged_attention import paged_attention as pa
@@ -188,3 +197,172 @@ def test_prefill_plain_with_p_in_two_bf16_terms_within_tolerance(splits):
     assert errs[2] <= BF16_TOL
     # one term is what the two are for: ~2^8 times the error of two
     assert errs[1] > 100 * errs[2], errs
+
+
+# -- (d) K4's mod lowering ---------------------------------------------------
+def run_descriptor(kind, words, keep, B, H, Q, K, scores):
+    """The mask (B, H, Q, K) and the transformed ``scores`` (B, H, Q, K) as
+    csrc/flex_prefill.cu evaluates the descriptor's int64 words (FlexTile:
+    bounds, live, score; fill_desc's layout), reading aux tensors through
+    their addresses in ``keep``."""
+    mem = {x.data_ptr(): x.reshape(-1).numpy() for x in keep}
+    nt, npd, ns = words[:3]
+    x = 3
+    terms, preds, steps = [], [], []
+    for _ in range(nt):
+        terms.append(words[x:x + 4])
+        x += 4
+    for _ in range(npd):
+        preds.append(words[x:x + 7])
+        x += 7
+    for _ in range(ns):
+        steps.append(words[x:x + 3])
+        x += 3
+    assert x == len(words)
+    element = nt != 1 or terms[0][3] != 0
+    assert kind == (fa.KIND_ELEMENT if element else 0) | (
+        fa.KIND_SCORE if ns else 0)
+    b = np.arange(B)[:, None, None, None]
+    h = np.arange(H)[None, :, None, None]
+    q = np.arange(Q)[None, None, :, None]
+    k = np.arange(K)[None, None, None, :]
+
+    def clamp(i, n):
+        return np.clip(i, 0, n - 1)
+
+    def pred(d):
+        kd, a, pb, pc, na, nb, nc = d
+        if kd == fa.PRED_DOCUMENT:
+            docs = mem[a].reshape(nb, na)
+            row = clamp(b, nb)
+            return docs[row, clamp(q, na)] == docs[row, clamp(k, na)]
+        sq = mem[a][clamp(q, na)]
+        return ((sq == mem[a][clamp(k, na)])
+                & (mem[pb][clamp(k, nb)] < mem[pc][clamp(sq, nc)]))
+
+    live = np.zeros((B, H, Q, K), bool)
+    for window, prefix, plen, bits in terms:
+        m = k < np.maximum(q + 1, prefix)
+        if window > 0:
+            m = m & (k >= q + 1 - window)
+        if plen:
+            m = m & (k < mem[plen][b])
+        for d in range(npd):
+            if (bits >> d) & 1:
+                m = m & pred(preds[d])
+        live |= np.broadcast_to(m, live.shape)
+    s = scores.copy()
+    for kd, value, n in steps:
+        if kd == fa.STEP_SOFTCAP:
+            cap = struct.unpack("<f", struct.pack("<i", value))[0]
+            s = cap * np.tanh(s / cap)
+        else:
+            s = s - mem[value][clamp(h, n)] * (q - k)
+    return live, s
+
+
+LOWER_CASES = {  # name: (mask, score, kind, variant name)
+    "causal&padding": (lambda L: flex.and_masks(
+        flex.causal_mask, flex.padding_mask(L["lens"])), None, 0,
+        "causal&padding"),
+    "window&padding": (lambda L: flex.and_masks(
+        flex.sliding_window_mask(5), flex.padding_mask(L["lens"])), None, 0,
+        "window&padding"),
+    "full": (lambda L: flex.full_mask, None, 0, "full"),
+    "prefix_lm": (lambda L: flex.prefix_lm_mask(7), None, 0, "prefix_lm"),
+    "two paddings": (lambda L: flex.and_masks(
+        flex.padding_mask(L["lens"]), flex.causal_mask,
+        flex.padding_mask(L["lens2"])), None, 0, "causal&padding"),
+    "window0": (lambda L: flex.sliding_window_mask(0), None,
+                fa.KIND_ELEMENT, "none"),
+    "document": (lambda L: flex.and_masks(
+        flex.causal_mask, flex.document_mask(L["docs"])), None,
+        fa.KIND_ELEMENT, "causal&document"),
+    "paged": (lambda L: flex.paged_mask(L["sid"], L["pos"], L["slens"]),
+              None, fa.KIND_ELEMENT, "paged"),
+    "or": (lambda L: flex.or_masks(flex.prefix_lm_mask(6),
+                                   flex.sliding_window_mask(3)), None,
+           fa.KIND_ELEMENT, "prefix_lm|window"),
+    "and of ors": (lambda L: flex.and_masks(
+        flex.or_masks(flex.causal_mask, flex.document_mask(L["docs"])),
+        flex.or_masks(flex.padding_mask(L["lens"]),
+                      flex.sliding_window_mask(4))), None, fa.KIND_ELEMENT,
+        "causal&padding|window|padding&document|window&document"),
+    "softcap": (lambda L: flex.causal_mask, lambda L: flex.softcap_score(
+        2.0), fa.KIND_SCORE, "causal+softcap"),
+    "compose": (lambda L: flex.and_masks(
+        flex.sliding_window_mask(5), flex.padding_mask(L["lens"])),
+        lambda L: flex.compose_score(flex.alibi_score(L["slopes"]),
+                                     flex.identity_score,
+                                     flex.softcap_score(3.0)),
+        fa.KIND_SCORE, "window&padding+alibi+softcap"),
+    "document+alibi": (lambda L: flex.document_mask(L["docs"]),
+                       lambda L: flex.alibi_score(L["slopes"]),
+                       fa.KIND_ELEMENT | fa.KIND_SCORE,
+                       "document+alibi"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LOWER_CASES))
+def test_mod_lowering_evaluates_as_the_mods(name):
+    B, H, Q = 2, 3, 19
+    rng = np.random.default_rng(4)
+    aux = {"lens": torch.tensor([Q, 11], dtype=torch.int32),
+           "lens2": torch.tensor([9, 15], dtype=torch.int64),
+           "docs": torch.from_numpy(rng.integers(0, 3, (B, Q))),
+           "sid": torch.tensor([0] * 7 + [1] * 5 + [2] * 7),
+           "pos": torch.tensor(list(range(7)) + list(range(5))
+                               + list(range(7))),
+           "slens": torch.tensor([4, 5, 7]),
+           "slopes": torch.tensor([0.5, 0.25, 0.125])}
+    make_mask, make_score, kind, vname = LOWER_CASES[name]
+    mask = make_mask(aux)
+    score = make_score(aux) if make_score else None
+    low = fa.lower_mods(mask, score)
+    assert (low.kind, low.name) == (kind, vname)
+    words, keep = fa._descriptor(low, B, torch.device("cpu"))
+    scores = (rng.standard_normal((B, H, Q, Q)) * 4).astype(np.float32)
+    live, got = run_descriptor(low.kind, list(words), keep, B, H, Q, Q,
+                               scores)
+    want = np.broadcast_to(flex.materialize(mask, B, H, Q, Q).numpy(),
+                           live.shape)
+    np.testing.assert_array_equal(live, want)
+    if score is not None:
+        idx = [torch.arange(n).reshape(shape) for n, shape in (
+            (B, (B, 1, 1, 1)), (H, (1, H, 1, 1)), (Q, (1, 1, Q, 1)),
+            (Q, (1, 1, 1, Q)))]
+        np.testing.assert_allclose(
+            got, score(torch.from_numpy(scores), *idx).numpy(), rtol=1e-6,
+            atol=1e-5)
+
+
+def test_mod_lowering_limits_and_python_mods_raise():
+    terms = [flex.sliding_window_mask(w) for w in range(1, 11)]
+    with pytest.raises(UnsupportedFeature):
+        fa.lower_mods(flex.or_masks(*terms))  # 10 or-terms > 8
+    docs = [flex.document_mask(torch.zeros((1, 4), dtype=torch.int32))
+            for _ in range(5)]
+    with pytest.raises(UnsupportedFeature):
+        fa.lower_mods(flex.and_masks(*docs))  # 5 predicates > 4
+    caps = [flex.softcap_score(float(c)) for c in range(1, 6)]
+    with pytest.raises(UnsupportedFeature):
+        fa.lower_mods(flex.causal_mask, flex.compose_score(*caps))
+    with pytest.raises(UnsupportedFeature):
+        fa.lower_mods(lambda b, h, q, k: k <= q)
+    with pytest.raises(UnsupportedFeature):
+        fa.lower_mods(flex.causal_mask, lambda s, b, h, q, k: s)
+    # the same predicate twice in a nest is one predicate of the descriptor
+    doc = flex.document_mask(torch.zeros((1, 4), dtype=torch.int32))
+    low = fa.lower_mods(flex.and_masks(flex.or_masks(doc, flex.causal_mask),
+                                       flex.or_masks(doc, flex.full_mask)))
+    assert len(low.terms) == 4 and len(low.preds) == 1
+
+
+def test_variant_counts_in_launch_counts_and_reset():
+    kernels.reset_launch_counts()
+    variants = fa.flex_attention_kernel.launches_by_variant
+    variants["tc/window&padding"] = 3
+    assert kernels.launch_counts()["flex_prefill/tc/window&padding"] == 3
+    kernels.reset_launch_counts()
+    assert "flex_prefill/tc/window&padding" not in kernels.launch_counts()
+    assert all(n == 0 for n in kernels.launch_counts().values())
