@@ -57,7 +57,21 @@ Phases, each of which fails the script (exit code 1) when it fails:
    small shapes over every mod (windows 1, 100, 1000; documents; prefix-LM
    0, 100, Q; or; paged; softcap, ALiBi, compose_score both ways) with D
    64, GQA, q tiles of 120 and ragged K.  K1 on ring tables at full width
-   (window 4096, 65 pages, lens 4160..5016);
+   (window 4096, 65 pages, lens 4160..5016).  The GQA groups and head dims
+   of the Nemotron-4 family: K1 at G 3, 6, 12, 16 and 24 by D 64, 128 and
+   192 with f32, bf16 and int8 pools, on a ring table at G 6, on int8
+   pools with odd 7-token pages at D 64 and 192, and at G 32 (two
+   chunks over the grid) against G 16 on the same pools, timed; K3 on its
+   three routes and K4 on both tiles at D 192 with G 6 and 12 (K3 at the
+   engine's
+   q_block: R = 126 and 120 rows; K4 causal & padding and window &
+   padding); and K1, K3 and K4 at the real heads of nemotron-4-15b (48 /
+   8, D 128), llama3-405b (128 / 8, D 128) and nemotron-4-340b (96 / 8, D
+   192) at batch 4 (K1) and 2 (K3, K4), each timed (device) beside its
+   bound and SDPA with ``enable_gqa``.  The f32 cases whose plain version
+   carries rounding of the order of the f32 tolerance (K3's full table,
+   D 192, the real heads' long rows) are held against the plain version
+   evaluated in f64 instead;
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
    steps through the kernels (K4 and K3 on the split-TF32 tile) agree with
    the plain oracle path; chunked prefill in chunks of 96 through K3 agrees
@@ -88,6 +102,23 @@ Phases, each of which fails the script (exit code 1) when it fails:
    path (``impl="ref"``) within the model tolerance, and so do those of a
    4736-token prompt through the ``swa`` model (32 'W' layers, window
    4096: K4's window & padding variant on the split-TF32 tile);
+8. nemotron-4-15b (after the llama2-7b weights are gone): full width and
+   depth in bf16 (32 layers, d_model 6144, 48 heads over 8: G 6, d_ff
+   24576, vocab 256000; about 31.2 GB of weights), 8 slots, max_seq_len
+   2048: 8 greedy requests of 256..1536 tokens, 16 new tokens, monolithic
+   (K4's bf16 tile, K1, K2; K3 and K4's f32 route never), then a wave of 2
+   and a wave of 6 on a shared 1024-token head with ``prefill_chunk=512,
+   prefix_cache=True`` (K3's bf16 tile at R = 126 rows, K1, K2; K4 and
+   K3's other routes never; the second wave hits the cache);
+9. nemotron-4-15b at 4 layers in f32: prefill and two decode steps'
+   logits of a 1000-token prompt through the kernels against the plain
+   path within the model tolerance, monolithic (K4's split-TF32 tile, K1
+   in f32 at G 6) and chunked by 512 (K3's split-TF32 tile);
+10. nemotron-4-340b at 2 layers in bf16 (d_model 18432, 96 heads over 8:
+   G 12, D 192; about 32.7 GB): the same logits against the plain path
+   within ``BF16_MODEL_TOL`` (relative), monolithic and chunked by 512,
+   then 4 requests through the engine, monolithic (K4's bf16 tile at D
+   192, K1, K2) and with ``prefill_chunk=512`` (K3's bf16 tile).
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -99,7 +130,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
 ``--time-k4 [--src DIR]`` only times K4's causal & padding at the main
 path's shapes (B 8, Q = K = 1536) on both routes, from this checkout's
 package or another tree's: an A/B probe across commits (parent, change,
-change, parent).
+change, parent).  ``--time-main [--src DIR]`` does the same for K1, K3
+and K4 at the main path's shapes (D 128, G 1) in bf16 and f32.
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -120,6 +152,13 @@ OUT = ROOT / "chiprun_out"
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 MODEL_TOL = 1e-3  # f32 logits, 4 layers at d_model 4096: summation order
+# bf16 logits against the plain path: max|a - b| <= tol * (1 + max|b|).
+# With random weights the attention scores have a std of ~7, so the
+# softmax is sharp and one bf16 rounding of q, k or P (2^-8 relative)
+# moves a head's output by a few percent; through the layers and the
+# unembedding that moves the logits by a few percent of their scale.  A
+# wrong tile or key moves them by their scale.
+BF16_MODEL_TOL = 5e-2
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 # dense peaks by input type: f32 on the CUDA cores (the tensor cores take no
 # IEEE f32), bf16 on the tensor cores
@@ -247,14 +286,29 @@ class Checker:
         if bool(bad.any()):
             fail(f"{kernel} {what}: max|err| {worst:.3e} beyond tol {tol}")
 
-    def versus_f64(self, kernel, what, got, plain, exact):
+    def versus_f64(self, kernel, what, got, plain, exact, tol=None):
         """Log how far the kernel's and the f32 plain version's outputs are
         from the plain version evaluated in f64 (which side carries an
-        error); checks nothing."""
+        error).  With ``tol``, the kernel is held against the f64
+        evaluation, ``|got - exact| <= tol * (1 + |exact|)``: the check for
+        the cases whose f32 plain version carries rounding of the order of
+        the f32 tolerance itself (partials over 2048 keys, rows of 192)."""
         def err(a, b):
             return float((a.double() - b).abs().max())
+        kerr = err(got, exact)
         log(f"  {kernel:12s} {what:44s} vs f64: kernel max|err| "
-            f"{err(got, exact):.3e}, f32 plain {err(plain, exact):.3e}")
+            f"{kerr:.3e}, f32 plain {err(plain, exact):.3e}"
+            + ("" if tol is None else f" (checked: |err| <= {tol:g} * "
+               "(1 + |f64|))"))
+        if tol is None:
+            return
+        if not bool(self.torch.isfinite(got).all()):
+            fail(f"{kernel} {what}: non-finite values")
+        bad = (got.double() - exact).abs() > tol * (1 + exact.abs())
+        self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), kerr)
+        if bool(bad.any()):
+            fail(f"{kernel} {what}: max|err| {kerr:.3e} from f64 beyond "
+                 f"tol {tol}")
 
 
 def paged_inputs(torch, gen, B, Hkv, G, D, P, max_pages, lens, dtype, dev,
@@ -570,6 +624,11 @@ def kernel_phase(torch, chk):
     rows.update(flex_variant_phase(torch, chk, own))
     ring_decode_cases(torch, chk, own)
     rows.update(prefill_kernel_phase(torch, chk, gen))
+    # the GQA groups and head dims of the Nemotron-4 slice, from their own
+    # generator, so the cases above keep their inputs
+    heads = torch.Generator(device=dev)
+    heads.manual_seed(SEED + 17)
+    rows.update(gqa_head_phase(torch, chk, heads))
     return rows
 
 
@@ -933,20 +992,25 @@ def op_host_parts(torch, args, kw):
     return {k: 1e3 * host_ms(torch, f, reps=200) for k, f in parts.items()}
 
 
-def check_decode(torch, chk, tag, args, kw, dtype, tol, f64=False):
+def check_decode(torch, chk, tag, args, kw, dtype, tol, f64=False,
+                 hold_f64=False):
     """K1's partials, K2 and the decode op against their plain versions;
-    with ``f64``, also how far each side is from the plain version in f64."""
+    with ``f64``, also how far each side is from the plain version in f64;
+    with ``hold_f64``, K1's partials are checked against the f64 evaluation
+    instead of the f32 plain version (rows of 192)."""
     from repro_torch.kernels.paged_attention import paged_attention as pa
     kw = dict(dict(window=0, softcap=0.0, kv_scale=0.0), **kw)
     got = pa.paged_attention_partials(*args, **kw)
     want = pa._paged_attention_partials_plain(*args, **kw)
-    for part, g_, w_ in zip("m l acc".split(), got, want):
-        chk.close("paged_decode", f"{tag} {part}", g_, w_, tol)
-    if f64:
+    if not hold_f64:
+        for part, g_, w_ in zip("m l acc".split(), got, want):
+            chk.close("paged_decode", f"{tag} {part}", g_, w_, tol)
+    if f64 or hold_f64:
         q, kp, vp = (x.double() for x in args[:3])
         exact = pa._paged_attention_partials_plain(q, kp, vp, *args[3:], **kw)
         for part, g_, w_, x_ in zip("m l acc".split(), got, want, exact):
-            chk.versus_f64("paged_decode", f"{tag} {part}", g_, w_, x_)
+            chk.versus_f64("paged_decode", f"{tag} {part}", g_, w_, x_,
+                           tol=tol if hold_f64 else None)
         del exact
     chk.close("combine", tag, pa.combine_partials_kernel(*got, dtype=dtype),
               pa._combine_partials_plain(*got, dtype=dtype), tol)
@@ -1163,16 +1227,20 @@ def prefill_kernel_phase(torch, chk, gen):
             want = pa._paged_prefill_partials_plain(*args, **kw)
             tag = (f"{name} G{G} D{Dd} q_block{sp_qb} S{sp_ns} cap{cap:g} "
                    f"{'int8' if int8 else ''}")
-            for part, g_, w_ in zip("m l acc".split(), got, want):
-                chk.close(key, f"{tag} {part}", g_, w_, tol)
             if mp == 32 and dtype == torch.float32:
+                # the full table in f32: the f32 plain version's own
+                # rounding over 2048 keys is of the order of the f32
+                # tolerance, so the kernel is held against f64 instead
                 exact = pa._paged_prefill_partials_plain(
                     *(x.double() for x in args[:3]), *args[3:], **kw)
                 for part, g_, w_, x_ in zip("m l acc".split(), got, want,
                                             exact):
                     chk.versus_f64(key, f"{tag} full table {part}", g_, w_,
-                                   x_)
+                                   x_, tol=tol)
                 del exact
+            else:
+                for part, g_, w_ in zip("m l acc".split(), got, want):
+                    chk.close(key, f"{tag} {part}", g_, w_, tol)
             S = got[0].shape[3]
             folded = [fold_prefill(x, S) for x in got]
             chk.close("combine", f"prefill {tag}",
@@ -1204,6 +1272,388 @@ def prefill_permutation_case(torch, chk, gen):
         key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
         for part, g_, w_ in zip("m l acc".split(), got, want):
             chk.close(key, f"{name} ordered V rows {part}", g_, w_, tol)
+
+
+# the repo's configs whose attention heads the kernel phase runs at reduced
+# batch and length: (name, H, Hkv, D)
+REAL_HEADS = (("nemotron-4-15b", 48, 8, 128), ("llama3-405b", 128, 8, 128),
+              ("nemotron-4-340b", 96, 8, 192))
+
+
+def gqa_head_phase(torch, chk, gen):
+    """K1 at every GQA group and head dim, K3 and K4 at D = 192, and all
+    three at the real heads of nemotron-4-15b, llama3-405b and
+    nemotron-4-340b (timed).  Returns the timed rows."""
+    gqa_decode_cases(torch, chk, gen)
+    gqa_prefill_cases(torch, chk, gen)
+    gqa_flex_cases(torch, chk, gen)
+    rows = decode_chunk_cost(torch, chk, gen)
+    for name, H, Hkv, D in REAL_HEADS:
+        rows.update(real_heads_decode(torch, chk, gen, name, H, Hkv, D))
+        rows.update(real_heads_prefill(torch, chk, gen, name, H, Hkv, D))
+        rows.update(real_heads_flex(torch, chk, gen, name, H, Hkv, D))
+    return rows
+
+
+def gqa_decode_cases(torch, chk, gen):
+    """K1 (with K2 and the decode op) at G in {3, 6, 12, 16, 24} and D in
+    {64, 128, 192}, with f32, bf16 and int8 pools (int8 with bf16 q); a
+    ring table at G 6; int8 pools with odd pages of 7 tokens at D 64 and
+    192 (each page its own TMA box at a 128-byte aligned stage offset).
+    f32 at D = 192 is held against the plain version in f64."""
+    from repro_torch.kernels.paged_attention import ops
+    dev = torch.device("cuda")
+    pools = ((torch.float32, False, F32_TOL), (torch.bfloat16, False,
+                                               BF16_TOL),
+             (torch.bfloat16, True, BF16_TOL))
+    lens, B, Hkv, P, mp = [140, 17, 1], 3, 2, 16, 9
+    for G in (3, 6, 12, 16, 24):
+        for D in (64, 128, 192):
+            for dtype, int8, tol in pools:
+                name = "int8" if int8 else str(dtype).replace("torch.", "")
+                args = paged_inputs(torch, gen, B, Hkv, G, D, P, mp, lens,
+                                    dtype, dev, int8=int8)
+                kw = dict(scale=D ** -0.5, kv_scale=0.05 if int8 else 0.0,
+                          pages_per_block=2, num_splits=2)
+                check_decode(torch, chk, f"{name} G{G} D{D} Hkv{Hkv}", args,
+                             kw, dtype, tol,
+                             hold_f64=dtype == torch.float32 and D == 192)
+    window = 100
+    ring = -(-window // P) + 1
+    for D in (128, 192):
+        for dtype, int8, tol in pools[:2]:
+            name = str(dtype).replace("torch.", "")
+            args = paged_inputs(torch, gen, B, Hkv, 6, D, P, ring,
+                                [7, 150, 333], dtype, dev, window=window)
+            kw = dict(scale=D ** -0.5, window=window, pages_per_block=2,
+                      num_splits=2)
+            check_decode(torch, chk, f"{name} G6 D{D} ring of {ring} pages "
+                         f"window {window}", args, kw, dtype, tol,
+                         hold_f64=dtype == torch.float32 and D == 192)
+    odd = [1, 6, 7, 8, 50, 100]
+    mp7 = -(-max(odd) // 7)
+    for D in (64, 192):
+        for G in (1, 6):
+            ppb, ns = ops.choose_decode_params(mp7, 7, D, None, 2)
+            args = paged_inputs(torch, gen, len(odd), Hkv, G, D, 7, mp7, odd,
+                                torch.bfloat16, dev, int8=True)
+            kw = dict(scale=D ** -0.5, kv_scale=0.05, pages_per_block=ppb,
+                      num_splits=ns)
+            check_decode(torch, chk, f"int8 G{G} D{D} odd page 7 ppb {ppb} "
+                         f"S {ns}", args, kw, torch.bfloat16, BF16_TOL)
+
+
+def gqa_prefill_cases(torch, chk, gen):
+    """K3 on its three routes at D = 192 with G 6 and 12, at the engine's
+    q_block (21 and 10: R = 126 and 120 rows, a partial row tile on both
+    tiles): bf16 ("tc"), f32 ("tf32x3", held against f64), int8 pools
+    with bf16 q and f32 q on pages of 12 ("simt"; f32 held against
+    f64)."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    D, Hkv = 192, 2
+    cases = ((torch.bfloat16, False, 16, BF16_TOL),
+             (torch.float32, False, 16, F32_TOL),
+             (torch.bfloat16, True, 16, BF16_TOL),
+             (torch.float32, False, 12, F32_TOL))
+    for G in (6, 12):
+        for dtype, int8, P, tol in cases:
+            mp = -(-160 // P)
+            q_start, q_lens = [100, 0, 37], [40, 37, 0]
+            _, _, qb = ops.choose_prefill_params(mp, P, D, max(q_lens), G)
+            args = chunk_inputs(torch, gen, Hkv, G, D, P, mp, q_start,
+                                q_lens, dtype, dev, int8=int8)
+            kw = dict(scale=D ** -0.5, softcap=0.0,
+                      kv_scale=0.05 if int8 else 0.0, pages_per_block=2,
+                      num_splits=2, q_block=qb)
+            key = "paged_prefill_" + pa.prefill_route(
+                dtype, torch.int8 if int8 else dtype, P)
+            name = "int8" if int8 else str(dtype).replace("torch.", "")
+            tag = f"{name} G{G} D{D} page {P} q_block {qb} (R {qb * G})"
+            got = pa.paged_prefill_partials(*args, **kw)
+            want = pa._paged_prefill_partials_plain(*args, **kw)
+            if dtype == torch.float32:
+                exact = pa._paged_prefill_partials_plain(
+                    *(x.double() for x in args[:3]), *args[3:], **kw)
+                for part, g_, w_, x_ in zip("m l acc".split(), got, want,
+                                            exact):
+                    chk.versus_f64(key, f"{tag} {part}", g_, w_, x_,
+                                   tol=tol)
+            else:
+                for part, g_, w_ in zip("m l acc".split(), got, want):
+                    chk.close(key, f"{tag} {part}", g_, w_, tol)
+            folded = [fold_prefill(x, got[0].shape[3]) for x in got]
+            chk.close("combine", f"prefill {tag}",
+                      pa.combine_partials_kernel(*folded, dtype=dtype),
+                      pa._combine_partials_plain(*folded, dtype=dtype), tol)
+
+
+def gqa_flex_cases(torch, chk, gen):
+    """K4 on both tiles at D = 192 with G 6 and 12: causal & padding and
+    window(64) & padding at Q = K = 200 (ragged tiles of 128), against the
+    plain version with the kernel's product arithmetic; f32 also against
+    f64."""
+    from repro_torch.core import flex
+    dev = torch.device("cuda")
+    B, Hkv, Q, D = 2, 2, 200, 192
+    lens = torch.tensor([Q, 131], dtype=torch.int32, device=dev)
+    pad = flex.padding_mask(lens)
+    for G in (6, 12):
+        for mname, mod, window in (
+                ("causal&padding", flex.and_masks(flex.causal_mask, pad), 0),
+                ("window64&padding",
+                 flex.and_masks(flex.sliding_window_mask(64), pad), 64)):
+            for dtype, _ in ((torch.float32, F32_TOL),
+                             (torch.bfloat16, BF16_TOL)):
+                q = torch.randn((B, Hkv * G, Q, D), generator=gen,
+                                device=dev).to(dtype)
+                k, v = (torch.randn((B, Hkv, Q, D), generator=gen,
+                                    device=dev).to(dtype) for _ in range(2))
+                tag = f"G{G} D{D} Q=K={Q} {mname}"
+                got = check_flex_variant(torch, chk, tag, q, k, v, mod, None,
+                                         window=window)
+                if dtype == torch.float32:
+                    live = flex.materialize(mod, B, 1, Q, Q, device=dev)
+                    exact = flex_f64_mask(torch, q, k, v, live, D ** -0.5)
+                    chk.versus_f64("flex_prefill_tf32x3", f"float32 {tag}",
+                                   got, got, exact, tol=F32_TOL)
+
+
+def decode_chunk_cost(torch, chk, gen):
+    """What K1's grid split costs past 16 heads: the same pools (batch 4,
+    8 kv heads, D 128, bf16, a 2048-token table, lens 256..2048) read for
+    G 16 (one chunk: one pass over the K/V) and G 32 (two chunks, each
+    reading the K/V again), checked and timed (device)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    B, Hkv, D, P, mp = 4, 8, 128, 64, 32
+    lens = torch.randint(256, mp * P + 1, (B,), generator=gen,
+                         device=dev).tolist()
+    args = paged_inputs(torch, gen, B, Hkv, 32, D, P, mp, lens,
+                        torch.bfloat16, dev)
+    kw = dict(scale=D ** -0.5, pages_per_block=2, num_splits=4)
+    rows, times = {}, {}
+    for G in (16, 32):
+        a = (args[0][:, :, :G].contiguous(),) + args[1:]
+        check_decode(torch, chk, f"bfloat16 G{G} D{D} Hkv{Hkv} (chunks "
+                     f"{pa.decode_group_plan(G)[2]})", a, kw, torch.bfloat16,
+                     BF16_TOL)
+        full = dict(window=0, softcap=0.0, kv_scale=0.0, **kw)
+        times[G] = device_ms(torch, lambda: pa.paged_attention_partials(
+            *a, **full), "paged_decode_kernel", reps=5)
+    kv_bytes = 2 * sum(lens) * Hkv * D * 2
+    log(f"  paged_decode bfloat16 G 32 in two chunks (each reading the "
+        f"{kv_bytes / 1e6:.1f} MB of K/V again) vs G 16 in one: device "
+        f"{fmt(times[32])} vs {fmt(times[16])}")
+    rows[("paged_decode chunks", "bfloat16")] = dict(
+        device_ms_g16=times[16], device_ms_g32=times[32], kv_bytes=kv_bytes)
+    return rows
+
+
+def real_heads_decode(torch, chk, gen, cfg_name, H, Hkv, D):
+    """K1 and the decode op at a config's real heads, batch 4, a 2048-token
+    table of 64-token pages at the engine's partition, lens 256..2048, in
+    f32 (held against f64: G heads of up to 2048 keys each give the f32
+    plain version's rounding many chances to reach the tolerance), bf16
+    and int8 pools; timed (device) beside its byte bound and SDPA over
+    pre-gathered KV (GQA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    B, P, mp = 4, 64, 32
+    G = H // Hkv
+    ppb, ns = ops.choose_decode_params(mp, P, D, None, None)
+    lens = torch.randint(256, mp * P + 1, (B,), generator=gen,
+                         device=dev).tolist()
+    rows = {}
+    for dtype, int8, tol in ((torch.float32, False, F32_TOL),
+                             (torch.bfloat16, False, BF16_TOL),
+                             (torch.bfloat16, True, BF16_TOL)):
+        name = "int8" if int8 else str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, B, Hkv, G, D, P, mp, lens, dtype,
+                            dev, int8=int8)
+        q, kp, vp, tables, lens_t = args
+        kw = dict(scale=D ** -0.5, kv_scale=0.05 if int8 else 0.0,
+                  pages_per_block=ppb, num_splits=ns)
+        tag = f"{cfg_name} heads H{H}/{Hkv} D{D} {name}"
+        check_decode(torch, chk, f"{tag} lens {lens}", args, kw, dtype, tol,
+                     hold_f64=dtype == torch.float32)
+        full = dict(window=0, softcap=0.0, **kw)
+        dev_ms = device_ms(torch, lambda: pa.paged_attention_partials(
+            *args, **full), "paged_decode_kernel", reps=5)
+        L = max(lens)
+        safe = tables.clamp(min=0).long()
+
+        def gathered(pool):
+            x = pool[safe].reshape(B, mp * P, Hkv, D)[:, :L].transpose(1, 2)
+            return (x.to(dtype) * 0.05 if int8 else x).contiguous()
+
+        kc, vc = gathered(kp), gathered(vp)
+        keep = (torch.arange(L, device=dev)[None, :] < lens_t[:, None]
+                ).reshape(B, 1, 1, L)
+        qs = q.reshape(B, H, 1, D)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=keep, enable_gqa=True), reps=5)
+        live = sum(lens)
+        nbytes = (2 * live * Hkv * D * kp.element_size()
+                  + q.numel() * q.element_size() + tables.numel() * 4
+                  + B * 4 + B * Hkv * ns * G * (D + 2) * 4)
+        ops_ = 4 * live * H * D
+        peak = PEAK_OPS["float32" if dtype == torch.float32 else "bfloat16"]
+        bound = 1e3 * max(nbytes / HBM_BPS, ops_ / peak)
+        by = "operations" if ops_ / peak > nbytes / HBM_BPS else "bytes"
+        gw, slices, chunks, _ = pa.decode_group_plan(G)
+        log(f"  paged_decode {tag}: device {fmt(dev_ms)}, bound "
+            f"{bound:.4f} ms ({by}), SDPA over pre-gathered KV (GQA, K1+K2) "
+            f"{lib:.4f} ms; G {G} as {chunks} chunk(s) of {slices} "
+            f"slice(s) of {gw} heads per warp; ppb {ppb}, {ns} splits")
+        rows[(f"paged_decode {cfg_name}", name)] = dict(
+            device_ms=dev_ms, bound_ms=bound, bound_by=by, library_ms=lib,
+            G=G, D=D, plan=(gw, slices, chunks))
+        del args, q, kp, vp, kc, vc
+    return rows
+
+
+def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
+    """K3 at a config's real heads on its three routes: a chunk step of 2
+    rows (512 tokens at 0; 300 tokens resuming at 1061) over a 2048-token
+    table of 64-token pages, at the engine's q_block; timed (device)
+    beside its bound and SDPA with the causal-offset mask over pre-gathered
+    KV (GQA).  f32 is held against f64 (un-normalised partials over up to
+    1361 keys for G x 812 rows per kv head: the f32 plain version's own
+    rounding reaches the tolerance)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    P, mp = 64, 32
+    G = H // Hkv
+    q_start, q_lens = [0, 1061], [512, 300]
+    ppb, ns, qb = ops.choose_prefill_params(mp, P, D, 512, G)
+    rows = {}
+    for dtype, int8, tol in ((torch.bfloat16, False, BF16_TOL),
+                             (torch.float32, False, F32_TOL),
+                             (torch.bfloat16, True, BF16_TOL)):
+        name = "int8" if int8 else str(dtype).replace("torch.", "")
+        key = "paged_prefill_" + pa.prefill_route(
+            dtype, torch.int8 if int8 else dtype, P)
+        args = chunk_inputs(torch, gen, Hkv, G, D, P, mp, q_start, q_lens,
+                            dtype, dev, int8=int8)
+        q, kp, vp, tables, kv_lens, qs = args
+        kw = dict(scale=D ** -0.5, softcap=0.0,
+                  kv_scale=0.05 if int8 else 0.0, pages_per_block=ppb,
+                  num_splits=ns, q_block=qb)
+        tag = f"{cfg_name} heads H{H}/{Hkv} D{D} {name} q_block {qb}"
+        got = pa.paged_prefill_partials(*args, **kw)
+        want = pa._paged_prefill_partials_plain(*args, **kw)
+        if dtype == torch.float32:
+            exact = pa._paged_prefill_partials_plain(
+                *(x.double() for x in args[:3]), *args[3:], **kw)
+            for part, g_, w_, x_ in zip("m l acc".split(), got, want, exact):
+                chk.versus_f64(key, f"{tag} {part}", g_, w_, x_, tol=tol)
+            del exact
+        else:
+            for part, g_, w_ in zip("m l acc".split(), got, want):
+                chk.close(key, f"{tag} {part}", g_, w_, tol)
+        del want
+        dev_ms = device_ms(torch, lambda: pa.paged_prefill_partials(
+            *args, **kw), KERNEL_NAMES[key], reps=3)
+        B, C = q.shape[:2]
+        L = int(kv_lens.max())
+        safe = tables.clamp(min=0).long()
+
+        def gathered(pool):
+            x = pool[safe].reshape(B, -1, Hkv, D)[:, :L].transpose(1, 2)
+            return (x.to(dtype) * 0.05 if int8 else x).contiguous()
+
+        kc, vc = gathered(kp), gathered(vp)
+        pos = torch.arange(L, device=dev)
+        qpos = qs[:, None].long() + torch.arange(C, device=dev)[None]
+        mask = ((pos[None, None] < kv_lens[:, None, None])
+                & (pos[None, None] <= qpos[:, :, None]))[:, None]
+        qt = q.transpose(1, 2).contiguous()
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kc, vc, attn_mask=mask, enable_gqa=True), reps=5)
+        keys = sum(s + t + 1 for s, n in zip(q_start, q_lens)
+                   for t in range(n))
+        ops_ = 4 * D * H * keys
+        nbytes = (q.numel() * q.element_size() + 2 * sum(kv_lens.tolist())
+                  * Hkv * D * kp.element_size() + tables.numel() * 4 + 2 * B
+                  * 4 + sum(t.numel() * 4 for t in got))
+        peak = PEAK_OPS["float32" if dtype == torch.float32 else "bfloat16"]
+        bound = 1e3 * max(nbytes / HBM_BPS, ops_ / peak)
+        by = "operations" if ops_ / peak > nbytes / HBM_BPS else "bytes"
+        extra = ""
+        if dtype == torch.float32:
+            extra = (f"; three TF32 products at 495 TFLOP/s: "
+                     f"{1e3 * max(nbytes / HBM_BPS, 3 * ops_ / TF32_OPS):.4f}"
+                     " ms")
+        log(f"  {key} {tag} (R {qb * G}): device {fmt(dev_ms)}, bound "
+            f"{bound:.4f} ms ({by}{extra}), SDPA with the causal-offset "
+            f"mask over pre-gathered KV (GQA) {lib:.4f} ms")
+        rows[(f"{key} {cfg_name}", name)] = dict(
+            device_ms=dev_ms, bound_ms=bound, bound_by=by, library_ms=lib,
+            G=G, D=D, q_block=qb)
+        del args, q, kp, vp, kc, vc, got, mask
+    return rows
+
+
+def real_heads_flex(torch, chk, gen, cfg_name, H, Hkv, D):
+    """K4 at a config's real heads on both tiles: batch 2, Q = K = 1024,
+    causal & padding (lens 1024 and 700), 128 x 128 BlockMask tiles; timed
+    (device) beside its bound (live pairs) and SDPA with the same boolean
+    mask (GQA)."""
+    import torch.nn.functional as F
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    dev = torch.device("cuda")
+    B, Q = 2, 1024
+    plens = [Q, 700]
+    lens_t = torch.tensor(plens, dtype=torch.int32, device=dev)
+    mm = flex.and_masks(flex.causal_mask, flex.padding_mask(lens_t))
+    bm = flex.build_block_mask(mm, Q, Q, 128, 128, B=B, device=dev)
+    exact = (torch.ones(Q, Q, dtype=torch.bool, device=dev).tril()[None]
+             & (torch.arange(Q, device=dev)[None, None, :]
+                < lens_t[:, None, None]))[:, None]
+    rows = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        name = str(dtype).replace("torch.", "")
+        key = "flex_prefill_" + fa.flex_route(dtype)
+        q = torch.randn((B, H, Q, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hkv, Q, D), generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        kw = dict(scale=D ** -0.5, mask_mod=mm, q_len=Q, kv_len=Q)
+        got = fa.flex_attention_kernel(q, k, v, bm, **kw)
+        f32 = dtype == torch.float32
+        want = fa._flex_attention_plain(
+            q, k, v, bm, p_terms=None if f32 else 1,
+            tf32_terms=3 if f32 else None, **kw)
+        tag = f"{cfg_name} heads H{H}/{Hkv} D{D} {name} Q=K={Q}"
+        chk.close(key, f"{tag} causal&padding", got, want, tol)
+        del want
+        dev_ms = device_ms(torch, lambda: fa.flex_attention_kernel(
+            q, k, v, bm, **kw), KERNEL_NAMES[key], reps=3)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=exact, enable_gqa=True), reps=5)
+        pairs = sum(min(qq + 1, L) for L in plens for qq in range(Q))
+        ops_ = 4 * D * H * pairs
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        bound = 1e3 * max(nbytes / HBM_BPS, ops_ / PEAK_OPS[name])
+        extra = (f"; three TF32 products at 495 TFLOP/s: "
+                 f"{1e3 * 3 * ops_ / TF32_OPS:.4f} ms" if f32 else "")
+        log(f"  {key} {tag}: device {fmt(dev_ms)}, bound {bound:.4f} ms "
+            f"(operations{extra}), "
+            f"{1e9 * dev_ms / pairs / H if dev_ms else 0:.3f} ps per live "
+            f"pair and head; SDPA with the causal & padding "
+            f"mask (GQA) {lib:.4f} ms")
+        rows[(f"{key} {cfg_name}", name)] = dict(
+            device_ms=dev_ms, bound_ms=bound, bound_by="operations",
+            library_ms=lib, G=H // Hkv, D=D, live_pairs=pairs)
+        del q, k, v, got
+    del exact
+    return rows
 
 
 def model_phase(torch):
@@ -1767,6 +2217,345 @@ def swa_f32_check(torch, params):
     return dict(prefill_logits_max_err=err, launches=counts)
 
 
+def nemotron_engine_phase(torch):
+    """nemotron-4-15b at full width and depth in bf16 (32 layers, d_model
+    6144, 48 heads over 8 kv heads: G 6, d_ff 24576, vocab 256000, page
+    64; random weights from the seed, about 31.2 GB): 8 slots, max_seq_len
+    2048; 8 greedy requests of 256..1536 tokens, 16 new tokens each,
+    monolithic (K4's bf16 tile at G 6, K1, K2); then the same weights with
+    ``prefill_chunk=512, prefix_cache=True``: a wave of 2 and a wave of 6
+    requests sharing a 1024-token head (K3's bf16 tile at q_block 21, R =
+    126 rows; K1, K2; K4 never), the second wave hitting the cache."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("nemotron-4-15b")
+    G = cfg.n_heads // cfg.n_kv_heads
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
+                 seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(eng.params))
+    log(f"nemotron-4-15b phase: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (G {G}), "
+        f"D {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, bf16 ({n_params / 1e9:.2f} B parameters, "
+        f"{2 * n_params / 1e9:.1f} GB), 8 slots, max_seq_len 2048, pool "
+        f"{eng.num_pages} pages of {cfg.page_size}; weights and pools "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator().manual_seed(SEED + 5)
+    new = 16
+    plens = torch.randint(256, 1537, (8,), generator=rng).tolist()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    kernels.reset_launch_counts()
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+    counts = kernels.launch_counts()
+    check_path("nemotron-4-15b (monolithic)", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc"),
+               never=("paged_prefill", "flex_prefill/tf32x3"))
+    ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+    stats = {"monolithic": dict(
+        prompt_lens=plens, new_tokens=8 * new, wall_s=wall,
+        tok_s=8 * new / wall, ttft_s_p50=ttft[len(ttft) // 2],
+        ttft_s_max=ttft[-1], prefill_ms_per_step=prefill_ms,
+        decode_ms_per_step_median=statistics.median(decode_ms),
+        decode_steps=len(decode_ms),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts)}
+    m = stats["monolithic"]
+    log(f"nemotron-4-15b (monolithic): {8 * new} tokens in {wall:.2f} s = "
+        f"{m['tok_s']:.1f} tok/s; TTFT p50 {m['ttft_s_p50']:.3f} s max "
+        f"{ttft[-1]:.3f} s; prefill steps {[round(x) for x in prefill_ms]} "
+        f"ms; decode {m['decode_ms_per_step_median']:.2f} ms/step (median "
+        f"of {len(decode_ms)}); max_memory_allocated "
+        f"{m['max_memory_allocated_gb']:.2f} GB; launches {counts}")
+    stats["profile_decode_step"] = profile_steps_on(torch, eng, cfg, rng)
+    log_profile("nemotron-4-15b decode_step", stats["profile_decode_step"])
+
+    params = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=512,
+                 prefix_cache=True)
+    _, _, qb = ops.choose_prefill_params(eng.pages_per_seq, cfg.page_size,
+                                         cfg.resolved_head_dim, 512, G)
+    head = torch.randint(0, cfg.vocab_size, (1024,), generator=rng).tolist()
+    kernels.reset_launch_counts()
+    waves, all_reqs = {}, []
+    for name, n in (("A", 2), ("B", 6)):
+        tails = torch.randint(128, 513, (n,), generator=rng).tolist()
+        wreqs = [Request(prompt=head + torch.randint(
+            0, cfg.vocab_size, (t,), generator=rng).tolist(),
+            max_new_tokens=new) for t in tails]
+        hits0 = eng.prefix_cache.hit_tokens
+        wall, chunk_ms, dms = drive(torch, eng, wreqs)
+        all_reqs += wreqs
+        ttft = sorted(r.metrics["ttft_s"] for r in wreqs)
+        waves[name] = dict(
+            requests=n, prompt_lens=[r.prompt_len for r in wreqs],
+            wall_s=wall, tok_s=n * new / wall,
+            ttft_s_p50=ttft[len(ttft) // 2], ttft_s_max=ttft[-1],
+            prefix_hit_tokens=eng.prefix_cache.hit_tokens - hits0,
+            chunk_ms_per_step=chunk_ms,
+            decode_ms_median=statistics.median(dms))
+        w = waves[name]
+        log(f"nemotron-4-15b chunked wave {name}: {n * new} tokens in "
+            f"{wall:.2f} s = {w['tok_s']:.1f} tok/s; TTFT p50 "
+            f"{w['ttft_s_p50']:.3f} s max {w['ttft_s_max']:.3f} s; chunk "
+            f"steps {[round(x) for x in chunk_ms]} ms; decode "
+            f"{w['decode_ms_median']:.2f} ms/step; prefix hit tokens "
+            f"{w['prefix_hit_tokens']}")
+    counts = kernels.launch_counts()
+    check_path("nemotron-4-15b (chunked 512 + prefix cache)", eng, all_reqs,
+               new, counts,
+               must=("paged_decode", "combine", "paged_prefill",
+                     "paged_prefill/tc"),
+               never=("flex_prefill", "paged_prefill/tf32x3",
+                      "paged_prefill/simt"))
+    if waves["B"]["prefix_hit_tokens"] < 6 * 1024:
+        fail(f"nemotron-4-15b: wave B hit "
+             f"{waves['B']['prefix_hit_tokens']} cached tokens, fewer than "
+             f"6 x 1024")
+    stats["chunked"] = dict(
+        waves=waves, launches=counts, q_block=qb, rows=qb * G,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"nemotron-4-15b (chunked): K3 at q_block {qb} (R {qb * G} rows); "
+        f"max_memory_allocated "
+        f"{stats['chunked']['max_memory_allocated_gb']:.2f} GB; launches "
+        f"{counts}")
+    return stats
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _leaves(x)
+    else:
+        yield tree
+
+
+def profile_steps_on(torch, eng, cfg, rng):
+    """One profiled decode step of 8 fresh short requests, after a step
+    that prefills them (the launch counts were read before)."""
+    from repro_torch.serving import Request
+    for _ in range(8):
+        eng.add_request(Request(prompt=torch.randint(
+            0, cfg.vocab_size, (512,), generator=rng).tolist(),
+            max_new_tokens=4))
+    eng.step()
+    torch.cuda.synchronize()
+    return profile_steps(torch, eng, 1)
+
+
+def logits_pair(torch, model, params, tokens, pool, chunk=None):
+    """Prefill logits of one prompt, then two decode steps' logits, through
+    the plain path (impl "ref"; greedy) and the kernels (teacher-forced
+    with the plain path's tokens, so both see the same inputs); with
+    ``chunk``, the prompt is prefilled by ``prefill_chunk`` in chunks of
+    that size.  Returns {impl: (3, V) logits} and the kernel path's launch
+    counts."""
+    from repro_torch import kernels
+    dev = tokens.device
+    dtype = next(_leaves(params)).dtype  # the pools take the weights' dtype
+    n = tokens.shape[1]
+    pps = pool[1]
+    tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
+                                                                       pps)
+    lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
+    out, counts, forced = {}, {}, []
+    for impl in ("ref", "kernel"):
+        st = {"pos": lens_t, "tables": tables,
+              "k_pages": torch.zeros(pool, dtype=dtype, device=dev),
+              "v_pages": torch.zeros(pool, dtype=dtype, device=dev)}
+        kernels.reset_launch_counts()
+        if chunk is None:
+            logits, st = model.prefill(params, tokens, st, lens=lens_t,
+                                       impl=impl)
+        else:
+            start = 0
+            while start < n:
+                c = min(chunk, n - start)
+                logits, st = model.prefill_chunk(
+                    params, tokens[:, start:start + c], st,
+                    torch.tensor([start], dtype=torch.int32, device=dev),
+                    torch.tensor([c], dtype=torch.int32, device=dev),
+                    impl=impl)
+                start += c
+            st = dict(st, pos=lens_t)
+        seq = [logits]
+        for i in range(2):
+            if impl == "ref":
+                forced.append(logits.argmax(-1))
+            logits, st = model.decode_step(params, forced[i], st, impl=impl)
+            seq.append(logits)
+        torch.cuda.synchronize()
+        out[impl] = torch.stack(seq).float()
+        counts[impl] = kernels.launch_counts()
+        del st
+    return out, counts["kernel"]
+
+
+def nemotron_f32_check(torch):
+    """nemotron-4-15b at full width and 4 layers in f32 (about 18.8 GB):
+    one 1000-token prompt's prefill and two decode steps' logits through
+    the kernels against the plain path, monolithic (K4's split-TF32 tile,
+    K1 in f32 at G 6) and chunked by 512 (K3's split-TF32 tile)."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("nemotron-4-15b").replace(n_layers=4)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"nemotron-4-15b f32 check: 4 layers at full width, f32 weights "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    n, P = 1000, cfg.page_size
+    pps = -(-(n + 2) // P)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (cfg.n_layers, pps, P, cfg.n_kv_heads, cfg.resolved_head_dim)
+    stats = {}
+    for mode, chunk, must in (
+            ("monolithic", None, ("flex_prefill/tf32x3", "paged_decode")),
+            ("chunked 512", 512, ("paged_prefill/tf32x3", "paged_decode"))):
+        out, counts = logits_pair(torch, model, params, tokens, pool, chunk)
+        got, want = out["kernel"], out["ref"]
+        if not bool(torch.isfinite(got).all()):
+            fail(f"nemotron-4-15b f32 ({mode}): non-finite logits")
+        missing = [k for k in must if counts.get(k, 0) <= 0]
+        if missing:
+            fail(f"nemotron-4-15b f32 ({mode}): kernels never launched: "
+                 f"{missing} ({counts})")
+        err = float((got - want).abs().max())
+        log(f"nemotron-4-15b f32 ({mode}): prefill + 2 decode logits of a "
+            f"{n}-token prompt, kernel path vs plain path max|err| "
+            f"{err:.3e} (tol {MODEL_TOL:g}, |logit| max "
+            f"{float(want.abs().max()):.3f}); launches {counts}")
+        if err > MODEL_TOL:
+            fail(f"nemotron-4-15b f32 ({mode}): max|err| {err} beyond "
+                 f"{MODEL_TOL}")
+        stats[mode] = dict(max_err=err, launches=counts)
+    return stats
+
+
+def nemotron_340b_phase(torch):
+    """nemotron-4-340b at full width and 2 layers in bf16 (d_model 18432,
+    96 heads over 8 kv heads: G 12, D 192, d_ff 73728, its untied
+    256000-row embedding and unembedding; about 32.7 GB): one 1000-token
+    prompt's prefill and two decode steps' logits through the kernels
+    against the plain path within ``BF16_MODEL_TOL``, monolithic (K4's
+    bf16 tile at D 192, K1) and chunked by 512 (K3's bf16 tile); then 4
+    requests through the engine, monolithic and with
+    ``prefill_chunk=512``."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = torch.device("cuda")
+    cfg = get_config("nemotron-4-340b").replace(n_layers=2)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    log(f"nemotron-4-340b phase: 2 layers at full width (d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, D "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}), bf16 "
+        f"({2 * n_params / 1e9:.1f} GB) ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n, P = 1000, cfg.page_size
+    pps = -(-(n + 2) // P)
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (cfg.n_layers, pps, P, cfg.n_kv_heads, cfg.resolved_head_dim)
+    stats = {}
+    for mode, chunk, must in (
+            ("logits monolithic", None, ("flex_prefill/tc", "paged_decode")),
+            ("logits chunked 512", 512, ("paged_prefill/tc",
+                                         "paged_decode"))):
+        out, counts = logits_pair(torch, model, params, tokens, pool, chunk)
+        got, want = out["kernel"], out["ref"]
+        if not bool(torch.isfinite(got).all()):
+            fail(f"nemotron-4-340b ({mode}): non-finite logits")
+        missing = [k for k in must if counts.get(k, 0) <= 0]
+        if missing:
+            fail(f"nemotron-4-340b ({mode}): kernels never launched: "
+                 f"{missing} ({counts})")
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        rel = err / (1 + scale)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        log(f"nemotron-4-340b ({mode}): prefill + 2 decode logits of a "
+            f"{n}-token prompt, kernel path vs plain path max|err| "
+            f"{err:.3e} = {rel:.3e} of (1 + max|logit|) (tol "
+            f"{BF16_MODEL_TOL:g}; max|logit| {scale:.3f}), greedy argmax "
+            f"agreement {agree:.2f}; launches {counts}")
+        if rel > BF16_MODEL_TOL:
+            fail(f"nemotron-4-340b ({mode}): max|err| {err} beyond "
+                 f"{BF16_MODEL_TOL} * (1 + {scale})")
+        stats[mode] = dict(max_err=err, rel_to_scale=rel,
+                           argmax_agreement=agree, launches=counts)
+    rng = torch.Generator().manual_seed(SEED + 6)
+    plens = torch.randint(256, 1025, (4,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (k,), generator=rng).tolist()
+               for k in plens]
+    for mode, kw, must, never in (
+            ("engine monolithic", {}, ("paged_decode", "combine",
+                                       "flex_prefill/tc"),
+             ("paged_prefill", "flex_prefill/tf32x3")),
+            ("engine chunked 512", dict(prefill_chunk=512),
+             ("paged_decode", "combine", "paged_prefill/tc"),
+             ("flex_prefill", "paged_prefill/tf32x3",
+              "paged_prefill/simt"))):
+        eng = Engine(cfg, params, max_slots=4, max_seq_len=2048,
+                     dtype=torch.bfloat16, seed=SEED, **kw)
+        reqs = [Request(prompt=list(x), max_new_tokens=8) for x in prompts]
+        kernels.reset_launch_counts()
+        wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+        counts = kernels.launch_counts()
+        check_path(f"nemotron-4-340b ({mode})", eng, reqs, 8, counts, must,
+                   never)
+        log(f"nemotron-4-340b ({mode}): {4 * 8} tokens in {wall:.2f} s; "
+            f"prefill steps {[round(x) for x in prefill_ms]} ms; decode "
+            f"{statistics.median(decode_ms):.2f} ms/step; launches {counts}")
+        stats[mode] = dict(prompt_lens=plens, wall_s=wall,
+                           prefill_ms_per_step=prefill_ms,
+                           decode_ms_median=statistics.median(decode_ms),
+                           launches=counts)
+        del eng
+    stats["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
+                                        / 1e9)
+    return stats
+
+
 def time_k4(torch):
     """Device ms of K4's causal & padding at the main path's shapes (B 8, H =
     Hkv = 32, D 128, Q = K = 1536, padding lens from the seed) on both
@@ -1794,6 +2583,43 @@ def time_k4(torch):
                        for _ in range(3)],
             event_ms=[time_ms(torch, call, reps=10) for _ in range(3)])
     log(json.dumps({"time_k4": out}))
+
+
+def time_main(torch):
+    """Device ms of K1, K3 and K4 at the main path's shapes (D 128, G 1;
+    K1: B 8, lens from the seed over 32 pages of 64, 2 pages per block, 4
+    splits; K3: the 512-token chunk step of the kernel phase; K4: causal &
+    padding at B 8, Q = K = 1536) in bf16 and f32, for an A/B call across
+    trees (``--time-main --src``): uses only the wrappers' arguments that
+    older trees share.  Three medians of 10 launches each."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    B, H, D, P, mp = 8, 32, 128, 64, 32
+    lens = torch.randint(256, 2049, (B,), generator=gen, device=dev).tolist()
+    out = {"src": str(SRC), "lens": lens}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, B, H, 1, D, P, mp, lens, dtype, dev)
+        kw = dict(scale=D ** -0.5, pages_per_block=2, num_splits=4)
+        call = lambda: pa.paged_attention_partials(*args, **kw)  # noqa
+        out[f"paged_decode {name}"] = [
+            device_ms(torch, call, "paged_decode_kernel", reps=10)
+            for _ in range(3)]
+        q_start = [0, 512, 1024, 1024 + 37, 512, 0, 1, 1]
+        q_lens = [512, 512, 512, 512, 300, 200, 0, 0]
+        cargs = chunk_inputs(torch, gen, H, 1, D, P, mp, q_start, q_lens,
+                             dtype, dev)
+        ckw = dict(scale=D ** -0.5, pages_per_block=2, num_splits=1,
+                   q_block=128)
+        key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
+        call = lambda: pa.paged_prefill_partials(*cargs, **ckw)  # noqa
+        out[key] = [device_ms(torch, call, KERNEL_NAMES[key], reps=10)
+                    for _ in range(3)]
+        del args, cargs
+    log(json.dumps({"time_main": out}))
+    time_k4(torch)
 
 
 KINDS = (("K1 paged_decode", ("paged_decode_kernel",)),
@@ -1887,6 +2713,9 @@ def main():
                     help="build and time K4's causal & padding at the "
                     "main path's shapes only (an A/B probe); prints no "
                     "result line")
+    ap.add_argument("--time-main", action="store_true",
+                    help="build and time K1, K3 and K4 at the main path's "
+                    "shapes only (an A/B probe); prints no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run "
                     "(default: this checkout's; another tree's for an A/B "
@@ -1906,6 +2735,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 parity needs IEEE
     torch.backends.cudnn.allow_tf32 = False
 
+    t_run = time.perf_counter()
     smi = nvidia_smi()
     log(smi)
     from repro_torch.kernels import build
@@ -1930,6 +2760,9 @@ def main():
     if args.time_k4:
         time_k4(torch)
         return
+    if args.time_main:
+        time_main(torch)
+        return
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
     if only_kernels:
@@ -1938,15 +2771,30 @@ def main():
             "result line)")
         (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         return
+    def done(phase):
+        log(f"-- {phase} done at {time.perf_counter() - t_run:.1f} s")
+
+    done("build and kernel phase")
     model_phase(torch)
+    done("model phase")
     torch.cuda.empty_cache()
     engine, params = engine_phase(torch)
+    done("engine phase")
     torch.cuda.empty_cache()
     chunked = chunked_phase(torch, params)
+    done("chunked phase")
     torch.cuda.empty_cache()
     swa = swa_engine_phase(torch, params)
+    done("swa engine phase")
     del params
     f32 = f32_engine_phase(torch)
+    done("f32 engine phase")
+    nemo = nemotron_engine_phase(torch)
+    done("nemotron-4-15b phase")
+    nemo_f32 = nemotron_f32_check(torch)
+    done("nemotron-4-15b f32 check")
+    nemo_340b = nemotron_340b_phase(torch)
+    done("nemotron-4-340b phase")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -1969,7 +2817,12 @@ def main():
     phases = ([engine["launches"], chunked["launches"]]
               + [swa[mode]["launches"] for mode in modes]
               + [f32[mode]["launches"] for mode in modes]
-              + [f32["swa"]["launches"]])
+              + [f32["swa"]["launches"]]
+              + [nemo["monolithic"]["launches"], nemo["chunked"]["launches"]]
+              + [nemo_f32[mode]["launches"] for mode in modes]
+              + [nemo_340b[k]["launches"] for k in (
+                  "logits monolithic", "logits chunked 512",
+                  "engine monolithic", "engine chunked 512")])
     kernels_line = []
     for name, (fname, replaces, count, dtype) in meta.items():
         r = rows[(name, dtype)]
@@ -1984,7 +2837,9 @@ def main():
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},
          "max_abs_err": chk.max_err, "engine": engine,
-         "chunked": chunked, "swa_engine": swa, "f32_engine": f32},
+         "chunked": chunked, "swa_engine": swa, "f32_engine": f32,
+         "nemotron_4_15b": nemo, "nemotron_4_15b_f32": nemo_f32,
+         "nemotron_4_340b": nemo_340b},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -5,9 +5,10 @@
 // repro/kernels/paged_attention/paged_attention.py::_prefill_kernel (K3,
 // csrc/paged_prefill.cu) for bf16 inputs.  A CTA of two consumer warpgroups
 // (256 threads) holds up to 128 query rows, 64 per warpgroup, and walks a
-// list of K/V tiles of kBN = 128 keys that its kernel defines:
+// list of K/V tiles of kBN keys (128, or 64 at D = 192) that its kernel
+// defines:
 //
-//   S = Q K^T      wgmma m64n128k16, bf16 in, f32 out, Q and K from shared
+//   S = Q K^T      wgmma m64n{kBN}k16, bf16 in, f32 out, Q and K from shared
 //                  memory (K-major, 128-byte swizzle);
 //   softmax        online, in f32 on the accumulator fragment: each thread
 //                  holds two rows, reduced over the quad of lanes sharing
@@ -44,8 +45,11 @@
 //
 // Shared memory at D = 128: Q 32 KB + 3 stages x (K 32 KB + V 32 KB) =
 // 224 KB of the 227 KB (D = 64: 112 KB), above the 48 KB default, hence
-// cudaFuncAttributeMaxDynamicSharedMemorySize.  Every tile is placed at a
-// multiple of 1024 bytes, the period of the 128-byte swizzle.
+// cudaFuncAttributeMaxDynamicSharedMemorySize.  At D = 192 the same ring of
+// 128-key stages would take 336 KB, so a stage holds 64 keys: Q 48 KB + 3 x
+// (24 KB + 24 KB) = 192 KB; q.K is then m64n64 and p.V m64n192, and o
+// holds 96 registers per thread.  Every tile is placed at a multiple of
+// 1024 bytes, the period of the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
@@ -56,29 +60,32 @@ namespace flash_tc {
 
 constexpr int kThreads = 256;  // two consumer warpgroups
 constexpr int kRows = 128;     // query rows per CTA, 64 per warpgroup
-constexpr int kBN = 128;       // keys per K/V tile
 constexpr int kStages = 3;
-constexpr int kPanelBytes = kRows * 128;  // 128 rows x 64 bf16: one panel
+constexpr int kPanelBytes = kRows * 128;  // 128 rows x 64 bf16: a Q panel
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The head dims both tiles take (paged_attention.py: HEAD_DIMS).
+constexpr bool head_dim_ok(int D) { return D == 64 || D == 128 || D == 192; }
 
 // Byte offsets in the (1024-aligned) dynamic shared memory of a CTA.  The
 // ring helpers below take any layout with the same members (flash_tf32.cuh
 // defines the f32 one): kThreads consumer threads, kBN keys per tile,
 // kStages stages of kTile bytes at kK (K) and kV (V), each holding
 // kPanels panels of kPanelCols columns, kStagePanel bytes apart, and the
-// barriers at kBar.
+// barriers at kBar.  Q (kQTile bytes at kQ) has panels of kPanelBytes.
 template <int D>
 struct Layout {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(head_dim_ok(D), "head dim 64, 128 or 192");
   static constexpr int kThreads = flash_tc::kThreads;
-  static constexpr int kBN = flash_tc::kBN;
+  static constexpr int kBN = D <= 128 ? 128 : 64;  // keys per K/V stage
   static constexpr int kStages = flash_tc::kStages;
   static constexpr int kPanelCols = 64;  // bf16 columns per 128-byte row
-  static constexpr int kStagePanel = kPanelBytes;
+  static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 64;
-  static constexpr int kTile = kPanels * kPanelBytes;  // Q, or one K/V stage
+  static constexpr int kQTile = kPanels * kPanelBytes;  // Q
+  static constexpr int kTile = kPanels * kStagePanel;   // one K/V stage
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;
+  static constexpr int kK = kQTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;  // full, then empty
   // dynamic shared memory to request: 1024 bytes of alignment slack
@@ -207,6 +214,27 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 64] (+)= a[64 x 16] * b[16 x 64]: a and b K-major in shared
+// memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 128] += a[64 x 16] * b[16 x 128]: a as bf16 pairs in registers, b
 // MN-major in shared memory (128-byte swizzle, transposed operand).
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
@@ -260,6 +288,46 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[64 x 192] += a[64 x 16] * b[16 x 192]: a as bf16 pairs in registers, b
+// MN-major in shared memory (128-byte swizzle, transposed operand).
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                             const uint32_t* a, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95 "
+      "}, {%96, %97, %98, %99}, %100, "
+      "p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
                                          uint64_t db);
@@ -272,6 +340,26 @@ template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t* a, uint64_t db) {
   wgmma_rs_n128(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<192>(float (&o)[96],
+                                              const uint32_t* a, uint64_t db) {
+  wgmma_rs_n192(o, a, db);
+}
+
+// S = Q K^T over a tile of N keys: m64n{N}k16.
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_qk<128>(float (&s)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  wgmma_ss_n128(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_ss_n64(s, da, db, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -520,6 +608,7 @@ template <int D, class Tile>
 __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
                                          const int (&key)[2], Acc<D>& a) {
   using L = Layout<D>;
+  constexpr int BN = L::kBN;
   const int wg = threadIdx.x / 128;
   acc_init(a);
   const uint32_t q_s = base + L::kQ + wg * 64 * 128;
@@ -529,24 +618,25 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
     const uint32_t k_s = base + L::kK + st * L::kTile;
     const uint32_t v_s = base + L::kV + st * L::kTile;
 
-    float s[64];
+    float s[BN / 2];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_ss_n128(s, make_desc(q_s + off, 16), make_desc(k_s + off, 16),
-                    kk > 0);
+      const uint32_t col = (kk % 4) * 32;  // k16 step in its panel
+      wgmma_qk<BN>(s, make_desc(q_s + (kk / 4) * kPanelBytes + col, 16),
+                   make_desc(k_s + (kk / 4) * L::kStagePanel + col, 16),
+                   kk > 0);
     }
     wgmma_commit();
     wgmma_wait0();
     fence_regs(s);
 
-    score_tile<kBN>(t, i, key, s);
+    score_tile<BN>(t, i, key, s);
     float alpha[2], m_log2[2];
-    softmax_max<kBN>(s, t.exp_scale, a, alpha, m_log2);
-    uint32_t p_hi[32], p_lo[Tile::kPTerms == 2 ? 32 : 1];
+    softmax_max<BN>(s, t.exp_scale, a, alpha, m_log2);
+    uint32_t p_hi[BN / 4], p_lo[Tile::kPTerms == 2 ? BN / 4 : 1];
 #pragma unroll
-    for (int x = 0; x < 64; x += 2) {
+    for (int x = 0; x < BN / 2; x += 2) {
       const int h = (x >> 1) & 1;
       const float p0 = exp2_approx(fmaf(s[x], t.exp_scale, -m_log2[h]));
       const float p1 = exp2_approx(fmaf(s[x + 1], t.exp_scale, -m_log2[h]));
@@ -563,8 +653,8 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
 
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint64_t dv = make_desc(v_s + kk * 16 * 128, kPanelBytes);
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = make_desc(v_s + kk * 16 * 128, L::kStagePanel);
       wgmma_pv<D>(a.o, p_hi + 4 * kk, dv);
       if constexpr (Tile::kPTerms == 2) wgmma_pv<D>(a.o, p_lo + 4 * kk, dv);
     }

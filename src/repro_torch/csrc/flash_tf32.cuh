@@ -20,7 +20,8 @@
 // per tile over the up to 2048 keys of K3's un-normalised partials.
 //
 // The CTA is ONE consumer warpgroup (128 threads) of 64 query rows; K/V
-// tiles hold kBN = 64 keys and arrive by TMA (f32 boxes of 32 columns,
+// tiles hold kBN = 64 keys (32 at D = 192) and arrive by TMA (f32 boxes of
+// 32 columns,
 // 128-byte swizzle) into the flash_tc ring (ring_wait / ring_refill /
 // ring_release: a full and an empty mbarrier per stage, thread 0
 // producing) of kStages = 2.  Q is loaded once per CTA by plain 16-byte
@@ -45,7 +46,9 @@
 //                  the stage's K tile (free once q.K is done): no shared
 //                  memory beyond the ring;
 //   O += P V       wgmma m64n{D}k8 .tf32 with P hi/lo from registers as
-//                  the A operand and V^T hi/lo as B.
+//                  the A operand and V^T hi/lo as B (at D = 192 in two
+//                  halves of m64n96, one after the other, so that the
+//                  fresh accumulator takes 48 registers, not 96).
 //
 // P from registers: the f32 accumulator gives a thread keys 2t and 2t + 1
 // of each group of 8 (t = lane % 4); the tf32 A fragment wants columns t
@@ -67,8 +70,11 @@
 //
 // Shared memory at D = 128: Q hi 32 KB + Q lo 32 KB + K lo 32 KB + 2
 // stages x (K 32 KB + V 32 KB) = 224 KB of the 227 KB (D = 64: 112 KB), so
-// one CTA (4 warps) per SM at D = 128.  Every tile and panel sits at a
-// multiple of 1024 bytes, the period of the 128-byte swizzle.
+// one CTA (4 warps) per SM at D = 128.  At D = 192 64-key tiles would take
+// 7 x 48 KB = 336 KB, so a K/V tile holds 32 keys: Q hi 48 KB + Q lo 48 KB
+// + K lo 24 KB + 2 x (24 KB + 24 KB) = 216 KB (q.K m64n32).  Every tile and
+// panel sits at a multiple of 1024 bytes, the period of the 128-byte
+// swizzle.
 #pragma once
 
 #include "flash_tc.cuh"
@@ -79,25 +85,27 @@ namespace ft = flash_tc;
 
 constexpr int kThreads = 128;  // one consumer warpgroup
 constexpr int kRows = 64;      // query rows per CTA
-constexpr int kBN = 64;        // keys per K/V tile
-constexpr int kPanelBytes = 64 * 128;  // 64 rows x 32 f32: one panel
+constexpr int kPanelBytes = 64 * 128;  // 64 rows x 32 f32: a Q panel
 
 // Byte offsets in the (1024-aligned) dynamic shared memory of a CTA, with
 // the members the flash_tc ring helpers read.
 template <int D>
 struct Layout {
-  static_assert(D == 64 || D == 128, "head dim 64 or 128");
+  static_assert(ft::head_dim_ok(D), "head dim 64, 128 or 192");
   static constexpr int kThreads = flash_tf32::kThreads;
-  static constexpr int kBN = flash_tf32::kBN;
+  static constexpr int kBN = D <= 128 ? 64 : 32;  // keys per K/V tile
   static constexpr int kStages = 2;
   static constexpr int kPanelCols = 32;  // f32 columns per 128-byte row
-  static constexpr int kStagePanel = kPanelBytes;
+  static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 32;
-  static constexpr int kTile = kPanels * kPanelBytes;  // 64 rows of D f32
+  static constexpr int kQTile = kPanels * kPanelBytes;  // 64 rows of D f32
+  static constexpr int kTile = kPanels * kStagePanel;   // kBN rows of D f32
+  // p.V in kPvParts products of D / kPvParts columns each
+  static constexpr int kPvParts = D <= 128 ? 1 : 2;
   static constexpr int kQ = 0;  // Q hi
-  static constexpr int kQlo = kTile;
-  static constexpr int kKlo = 2 * kTile;
-  static constexpr int kK = 3 * kTile;
+  static constexpr int kQlo = kQTile;
+  static constexpr int kKlo = 2 * kQTile;
+  static constexpr int kK = kKlo + kTile;
   static constexpr int kV = kK + kStages * kTile;
   static constexpr int kBar = kV + kStages * kTile;  // full, then empty
   static constexpr size_t kBytes = 1024 + kBar + 16 * kStages;
@@ -184,6 +192,23 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= a[64 x 8] * b[8 x 32], TF32 in, f32 out: a and b K-major
+// in shared memory (128-byte swizzle); scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15 "
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // d[64 x 128] += a[64 x 8] * b[8 x 128], TF32 in, f32 out: a as TF32 words
 // in registers (the m16n8k8 A fragment per warp), b K-major in shared
 // memory (128-byte swizzle).
@@ -237,8 +262,34 @@ __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-template <int D>
-__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2], const uint32_t* a,
+// d[64 x 96] += a[64 x 8] * b[8 x 96], as wgmma_tf32_rs_n128.
+__device__ __forceinline__ void wgmma_tf32_rs_n96(float (&d)[48],
+                                                  const uint32_t* a,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47 "
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x N] += a[64 x 8] * b[8 x N]: p.V (or one part of it) over N columns.
+template <int N>
+__device__ __forceinline__ void wgmma_pv(float (&o)[N / 2], const uint32_t* a,
                                          uint64_t db);
 template <>
 __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
@@ -246,14 +297,35 @@ __device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t* a,
   wgmma_tf32_rs_n64(o, a, db);
 }
 template <>
+__device__ __forceinline__ void wgmma_pv<96>(float (&o)[48], const uint32_t* a,
+                                             uint64_t db) {
+  wgmma_tf32_rs_n96(o, a, db);
+}
+template <>
 __device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
                                               const uint32_t* a, uint64_t db) {
   wgmma_tf32_rs_n128(o, a, db);
 }
 
+// S = Q K^T over a tile of N keys: m64n{N}k8.
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&s)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_qk<64>(float (&s)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_tf32_n64(s, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_qk<32>(float (&s)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  wgmma_tf32_n32(s, da, db, scale_d);
+}
+
 // S = Q K^T for the stage's split K tile: small terms first.
 template <int D>
-__device__ __forceinline__ void qk(uint32_t base, int st, float (&s)[32]) {
+__device__ __forceinline__ void qk(uint32_t base, int st,
+                                   float (&s)[Layout<D>::kBN / 2]) {
   using L = Layout<D>;
   const uint32_t q_hi = base + L::kQ, q_lo = base + L::kQlo;
   const uint32_t k_hi = base + L::kK + st * L::kTile, k_lo = base + L::kKlo;
@@ -264,9 +336,11 @@ __device__ __forceinline__ void qk(uint32_t base, int st, float (&s)[32]) {
     const uint32_t kb = pass == 1 ? k_lo : k_hi;
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
-      const uint32_t off = (kk / 4) * kPanelBytes + (kk % 4) * 32;
-      wgmma_tf32_n64(s, ft::make_desc(qa + off, 16),
-                     ft::make_desc(kb + off, 16), pass > 0 || kk > 0);
+      const uint32_t col = (kk % 4) * 32;  // k8 step in its panel
+      const uint32_t kp = (kk / 4) * L::kStagePanel + col;
+      wgmma_qk<L::kBN>(s, ft::make_desc(qa + (kk / 4) * kPanelBytes + col,
+                                        16),
+                       ft::make_desc(kb + kp, 16), pass > 0 || kk > 0);
     }
   }
   ft::wgmma_commit();
@@ -274,7 +348,7 @@ __device__ __forceinline__ void qk(uint32_t base, int st, float (&s)[32]) {
   ft::fence_regs(s);
 }
 
-// V of stage st as V^T (K-major: D rows of the tile's 64 keys, two
+// V of stage st as V^T (K-major: D rows of the tile's kBN keys, kBN / 32
 // 32-key panels of D x 128 bytes, 128-byte swizzle): hi in place of the
 // stage's V tile, lo into its K tile (free once every warp is past q.K),
 // keys permuted within each group of 8 (key 2t + e at k-index t + 4e, the
@@ -288,19 +362,20 @@ __device__ __forceinline__ void transpose_v(uint8_t* gen, int st) {
   uint8_t* v = gen + L::kV + st * L::kTile;
   uint8_t* lo = gen + L::kK + st * L::kTile;
   const int w = threadIdx.x / 32, l = threadIdx.x % 32;
-  float4 x[2][kChunks];
+  constexpr int kHalves = L::kBN / 32;  // 32-key panels of V^T
+  float4 x[kHalves][kChunks];
 #pragma unroll
-  for (int kh = 0; kh < 2; ++kh)
+  for (int kh = 0; kh < kHalves; ++kh)
 #pragma unroll
     for (int i = 0; i < kChunks; ++i) {
       const int key = 32 * kh + l, ch = w + 4 * i;  // chunk of 4 columns
       x[kh][i] = *reinterpret_cast<const float4*>(
-          v + (ch / 8) * kPanelBytes + key * 128 +
+          v + (ch / 8) * L::kStagePanel + key * 128 +
           (((ch % 8) ^ (key & 7)) << 4));
     }
   __syncthreads();  // every V read is done, and every warp's q.K
 #pragma unroll
-  for (int kh = 0; kh < 2; ++kh) {
+  for (int kh = 0; kh < kHalves; ++kh) {
     const int k8 = l & 7;
     const int c = (l & ~7) + (k8 >> 1) + 4 * (k8 & 1);  // k-index in panel
 #pragma unroll
@@ -322,38 +397,43 @@ __device__ __forceinline__ void transpose_v(uint8_t* gen, int st) {
   __syncthreads();
 }
 
-// Issue pv (the accumulator fragment of o) = P V over the stage's
-// transposed V (hi in the V tile, lo in the K tile), P in s (the
-// probabilities, f32) split into TF32 A fragments (ph, pl; they must live
-// until the products complete): columns t, t + 4 of key group j are keys
-// 8 j + 2 t and 8 j + 2 t + 1.  Small terms first; the caller waits.
-template <int D>
-__device__ __forceinline__ void pv_issue(uint32_t base, int st,
-                                         const float (&s)[32],
-                                         uint32_t (&ph)[32],
-                                         uint32_t (&pl)[32],
-                                         float (&pv)[D / 2]) {
-  using L = Layout<D>;
+// P in s (the probabilities, f32) split into TF32 A fragments (ph, pl;
+// they must live until the products complete): columns t, t + 4 of key
+// group j are keys 8 j + 2 t and 8 j + 2 t + 1.
+template <int N>
+__device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&ph)[N],
+                                        uint32_t (&pl)[N]) {
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     split(s[4 * j + 0], ph[4 * j + 0], pl[4 * j + 0]);
     split(s[4 * j + 2], ph[4 * j + 1], pl[4 * j + 1]);
     split(s[4 * j + 1], ph[4 * j + 2], pl[4 * j + 2]);
     split(s[4 * j + 3], ph[4 * j + 3], pl[4 * j + 3]);
   }
+}
+
+// Issue pv (the accumulator fragment of o's columns [c0, c0 + N)) = P V
+// over the stage's transposed V (hi in the V tile, lo in the K tile), P as
+// split by split_p.  Small terms first; the caller waits.
+template <int D, int N, int BN = Layout<D>::kBN>
+__device__ __forceinline__ void pv_issue(uint32_t base, int st, int c0,
+                                         const uint32_t (&ph)[BN / 2],
+                                         const uint32_t (&pl)[BN / 2],
+                                         float (&pv)[N / 2]) {
+  using L = Layout<D>;
 #pragma unroll
-  for (int x = 0; x < D / 2; ++x) pv[x] = 0.f;
-  const uint32_t vt_hi = base + L::kV + st * L::kTile;
-  const uint32_t vt_lo = base + L::kK + st * L::kTile;
+  for (int x = 0; x < N / 2; ++x) pv[x] = 0.f;
+  const uint32_t vt_hi = base + L::kV + st * L::kTile + c0 * 128;
+  const uint32_t vt_lo = base + L::kK + st * L::kTile + c0 * 128;
   ft::wgmma_fence();
 #pragma unroll
   for (int pass = 0; pass < 3; ++pass) {
     const uint32_t* a = pass == 0 ? pl : ph;
     const uint32_t b = pass == 1 ? vt_lo : vt_hi;
 #pragma unroll
-    for (int kk = 0; kk < kBN / 8; ++kk) {
+    for (int kk = 0; kk < L::kBN / 8; ++kk) {
       const uint32_t off = (kk / 4) * (D * 128) + (kk % 4) * 32;
-      wgmma_pv<D>(pv, a + 4 * kk, ft::make_desc(b + off, 16));
+      wgmma_pv<N>(pv, a + 4 * kk, ft::make_desc(b + off, 16));
     }
   }
   ft::wgmma_commit();
@@ -369,33 +449,40 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
                                          uint32_t base, int n,
                                          const int (&key)[2], ft::Acc<D>& a) {
   using L = Layout<D>;
+  constexpr int BN = L::kBN, NP = D / L::kPvParts;
   ft::acc_init(a);
   if (n > 0) split_k<D>(gen, ft::ring_acquire<L>(t, base, 0, n));
   for (int i = 0; i < n; ++i) {
     const int st = i % L::kStages;
-    float s[32];
+    float s[BN / 2];
     qk<D>(base, st, s);
-    ft::score_tile<kBN>(t, i, key, s);
+    ft::score_tile<BN>(t, i, key, s);
     float alpha[2], m_log2[2];
-    ft::softmax_max<kBN>(s, t.exp_scale, a, alpha, m_log2);
+    ft::softmax_max<BN>(s, t.exp_scale, a, alpha, m_log2);
 #pragma unroll
-    for (int x = 0; x < 32; ++x) {
+    for (int x = 0; x < BN / 2; ++x) {
       const int h = (x >> 1) & 1;
       s[x] = ft::exp2_approx(fmaf(s[x], t.exp_scale, -m_log2[h]));
       a.l[h] += s[x];
     }
 
     transpose_v<D>(gen, st);
-    uint32_t ph[32], pl[32];
-    float pv[D / 2];
-    pv_issue<D>(base, st, s, ph, pl, pv);
-    // tile i + 1's K split overlaps tile i's p.V products: K lo is free
-    if (i + 1 < n) split_k<D>(gen, ft::ring_wait<L>(base, i + 1));
-    ft::wgmma_wait0();
-    ft::fence_regs(pv);
+    uint32_t ph[BN / 2], pl[BN / 2];
+    split_p(s, ph, pl);
 #pragma unroll
-    for (int x = 0; x < D / 2; ++x)
-      a.o[x] = fmaf(a.o[x], alpha[(x >> 1) & 1], pv[x]);
+    for (int part = 0; part < L::kPvParts; ++part) {
+      float pv[NP / 2];
+      pv_issue<D, NP>(base, st, part * NP, ph, pl, pv);
+      // tile i + 1's K split overlaps tile i's p.V products: K lo is free
+      if (part == 0 && i + 1 < n)
+        split_k<D>(gen, ft::ring_wait<L>(base, i + 1));
+      ft::wgmma_wait0();
+      ft::fence_regs(pv);
+#pragma unroll
+      for (int x = 0; x < NP / 2; ++x)
+        a.o[part * NP / 2 + x] =
+            fmaf(a.o[part * NP / 2 + x], alpha[(x >> 1) & 1], pv[x]);
+    }
     ft::ring_release<L>(base, st);
     ft::ring_refill<L>(t, base, i + L::kStages, n);
   }

@@ -532,6 +532,7 @@ int fwd(int f32, int kind, const void* q, const void* k, const void* v,
   switch (D) {
     case 64: bad = dispatch_kind<64>(f32, kind, p, st); break;
     case 128: bad = dispatch_kind<128>(f32, kind, p, st); break;
+    case 192: bad = dispatch_kind<192>(f32, kind, p, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

@@ -22,34 +22,36 @@
 // tokens it is bound by operations, not bytes.  Three routes, chosen by
 // the wrapper from the dtypes and the page size:
 //
-// - bf16 q with bf16 pools and page_size % 8 == 0, <= 128 (the bf16
-//   engine's case): paged_prefill_kernel_tc, the shared bf16 tensor-core
-//   tile of flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a
-//   three-stage ring, 128 rows per CTA).  The pools are viewed as one 2-D
-//   tensor map of (num_pages * P) rows of Hkv * D columns, and a K/V tile
-//   of up to 128 tokens is one box of (P rows, 64 columns) per page and
-//   64-column panel, at column h * D and row page * P.  A box lands at a
-//   multiple of 1024 bytes, the period of the 128-byte swizzle, hence
-//   P % 8 == 0.  The page ids are read by the producing thread from the
-//   split's row of the blocked table (L1-cached: the ring leaves no room
-//   for a whole table row in shared memory at D = 128).  The query rows
-//   are gathered in place from (B, C, H, D) with zeros past the chunk.
-//   The partials stay un-normalised over up to thousands of keys, so P
-//   enters p.V as two bf16 terms (hi + lo): one term's rounding would
-//   exceed the bf16 tolerance of acc.
+// - bf16 q with bf16 pools and page_size % 8 == 0, <= 128 (the bf16 engine's
+//   case): paged_prefill_kernel_tc, the shared bf16 tensor-core tile of
+//   flash_tc.cuh (wgmma for q.K and p.V, K/V by TMA into a three-stage ring,
+//   128 rows per CTA).  The pools are viewed as one 2-D tensor map of
+//   (num_pages * P) rows of Hkv * D columns, and a K/V tile of up to kBN
+//   tokens (128; 64 at D = 192) is one box of (P rows, 64 columns) per page
+//   and 64-column panel, at column h * D and row page * P (a page longer than
+//   kBN is cut into boxes of kBN rows).  A box lands at a multiple of 1024
+//   bytes, the period of the 128-byte swizzle, hence P % 8 == 0.  The page ids
+//   are read by the producing thread from the split's row of the blocked table
+//   (L1-cached: the ring leaves no room for a whole table row in shared memory
+//   at D = 128). The query rows are gathered in place from (B, C, H, D) with
+//   zeros past the chunk.  The partials stay un-normalised over up to
+//   thousands of keys, so P enters p.V as two bf16 terms (hi + lo): one term's
+//   rounding would exceed the bf16 tolerance of acc.
 // - f32 q with f32 pools and the same pages (the engine's default dtype):
 //   paged_prefill_kernel_tf32, the split-TF32 tile of flash_tf32.cuh
 //   (every product as three TF32 products, 64 rows per CTA, K/V tiles of
-//   64 keys): the same tensor maps in f32 boxes of 32 columns; a page of
-//   up to 64 tokens is one box (several to a tile), a longer one is cut
-//   into boxes of 64 rows, its last masked at the page's end.
+//   kBN = 64 keys; 32 at D = 192): the same tensor maps in f32 boxes of 32
+//   columns; a page of up to kBN tokens is one box (several to a tile), a
+//   longer one is cut into boxes of kBN rows, its last masked at the
+//   page's end.
 // - int8 pools (either q), or pages that are not a multiple of 8 tokens or
 //   are over 128: paged_prefill_kernel, on the CUDA cores, with a pre-scaled
 //   f32 q tile of up to 128 rows in shared memory, 32-token K/V sub-tiles
 //   gathered through the page ids with 16-byte vector loads (int8 times
 //   kv_scale), rows padded against bank conflicts, online softmax in f32
-//   and each thread's half of an output row in registers.  For D = 128
-//   that is ~116 KB of shared memory, above the 48 KB default, hence
+//   and each thread's half of an output row in registers (D / 2 columns,
+//   interleaved: 96 at D = 192).  For D = 128 that is ~116 KB of shared
+//   memory (D = 192: ~165 KB), above the 48 KB default, hence
 //   cudaFuncAttributeMaxDynamicSharedMemorySize.
 #include "common.cuh"
 #include "flash_tc.cuh"
@@ -602,6 +604,8 @@ int partials_tc(int f32, const void* q, const void* k_pages,
     case 256: bad = launch_tc<128>(p, num_pages, st); break;
     case 129: bad = launch_tf32<64>(p, num_pages, st); break;
     case 257: bad = launch_tf32<128>(p, num_pages, st); break;
+    case 384: bad = launch_tc<192>(p, num_pages, st); break;
+    case 385: bad = launch_tf32<192>(p, num_pages, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;
@@ -627,6 +631,7 @@ extern "C" int paged_prefill_partials(
   switch (D) {
     case 64: bad = dispatch_q<64>(q_code, kv_code, p, st); break;
     case 128: bad = dispatch_q<128>(q_code, kv_code, p, st); break;
+    case 192: bad = dispatch_q<192>(q_code, kv_code, p, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

@@ -18,10 +18,49 @@ from typing import Dict
 
 import torch
 
-from repro_torch.errors import EngineConfigError
+from repro_torch.errors import EngineConfigError, UnsupportedFeature
 
 
 IMPLS = ("kernel", "ref")
+# head dims of every route of K1, K3 and K4 (csrc/flash_tc.cuh: head_dim_ok)
+HEAD_DIMS = (64, 128, 192)
+SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block, bytes
+# the tensor-core tiles of K3 and K4 (csrc/flash_tc.cuh, flash_tf32.cuh):
+# query rows per CTA, K/V stages and bytes per element, by route
+_TILES = {"tc": (128, 3, 2), "tf32x3": (64, 2, 4)}
+
+
+def check_head_dim(kernel: str, D: int) -> None:
+    """Raise ``UnsupportedFeature`` unless ``D`` is one of ``HEAD_DIMS``:
+    what the wrappers check before a launch (the plain versions take any
+    D); a pure function of D, so the CPU tests hold the card's refusals."""
+    if D in HEAD_DIMS:
+        return
+    later = (" (head_dim 256 comes with the slice that ports recurrentgemma-"
+             "9b's rglru family, ROADMAP Queue 1 item 4)" if D == 256 else "")
+    raise UnsupportedFeature(f"{kernel}: head_dim {D} is not taken (takes "
+                             f"{HEAD_DIMS}){later}", head_dim=D)
+
+
+def tile_keys(route: str, D: int) -> int:
+    """Keys per K/V stage of a tensor-core tile ("tc" or "tf32x3") at head
+    dim ``D``: 128 and 64 up to D = 128, 64 and 32 at D = 192, where the
+    longer stages would not fit (``Layout<D>::kBN``)."""
+    if route == "tc":
+        return 128 if D <= 128 else 64
+    return 64 if D <= 128 else 32
+
+
+def tile_smem_bytes(route: str, D: int) -> int:
+    """Dynamic shared memory of a tensor-core tile's CTA, computed as
+    ``Layout<D>::kBytes`` computes it: the Q tile (hi and lo for
+    "tf32x3", whose K lo tile follows), the ring of K and V stages, 16
+    bytes of barriers per stage, and 1024 bytes of alignment slack."""
+    rows, stages, item = _TILES[route]
+    q = rows * D * item
+    stage = tile_keys(route, D) * D * item
+    fixed = q if route == "tc" else 2 * q + stage
+    return 1024 + fixed + 2 * stages * stage + 16 * stages
 
 
 def check_impl(impl: str) -> None:

@@ -41,12 +41,12 @@ import torch
 
 from repro_torch.core import flex
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import tensor_core_p, tf32_product, use_kernel
+from repro_torch.kernels import (check_head_dim, tensor_core_p, tf32_product,
+                                  use_kernel)
 from repro_torch.kernels.build import check, get_lib
 
 NEG_INF = -1e30
 _DTYPES = (torch.float32, torch.bfloat16)
-FLEX_HEAD_DIMS = (64, 128)
 MAX_Q_BLOCK = 128
 ROUTES = ("tc", "tf32x3")
 
@@ -367,9 +367,9 @@ def flex_attention_kernel(
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise UnsupportedFeature(f"flex kernel: dtypes q {q.dtype} k "
                                  f"{k.dtype} v {v.dtype}")
-    if D not in FLEX_HEAD_DIMS or q_blk > MAX_Q_BLOCK or H % Hkv:
-        raise UnsupportedFeature(f"flex kernel: head_dim {D} (takes "
-                                 f"{FLEX_HEAD_DIMS}), q tile {q_blk} (max "
+    check_head_dim("flex kernel", D)
+    if q_blk > MAX_Q_BLOCK or H % Hkv:
+        raise UnsupportedFeature(f"flex kernel: q tile {q_blk} (max "
                                  f"{MAX_Q_BLOCK}), heads {H}/{Hkv}")
     if (k.shape != (B, Hkv, K, D) or v.shape != k.shape
             or not all(t.is_contiguous() and t.data_ptr() % 16 == 0

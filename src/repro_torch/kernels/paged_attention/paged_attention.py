@@ -45,7 +45,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import tensor_core_p, tf32_product, use_kernel
+from repro_torch.kernels import (HEAD_DIMS, check_head_dim, tensor_core_p,
+                                  tf32_product, use_kernel)
 from repro_torch.kernels.build import check, get_lib
 from repro_torch.kernels.paged_attention.contracts import decode_partition
 
@@ -54,12 +55,13 @@ NEG_INF = -1e30
 # dtype codes of the C interface
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-DECODE_HEAD_DIMS = (64, 128)
-DECODE_GROUPS = (1, 2, 4, 8)
+DECODE_GROUP_WIDTHS = (1, 2, 4, 8)  # K1's compiled query heads per warp
+_DECODE_MAX_CTA_GROUP = 16  # query heads of one K1 CTA, at most
 ROUTES = ("tc", "tf32x3", "simt")
-# K3's tensor-core routes: a page is one TMA box (a page longer than the
-# f32 tile's 64 keys is cut into boxes of 64 rows), placed at a multiple of
-# the 128-byte swizzle's 1024-byte period (8 rows of 128 bytes)
+# K3's tensor-core routes: a page is one TMA box (a page longer than a
+# tile's K/V stage, `kernels.tile_keys`, is cut into boxes of that many
+# rows), placed at a multiple of the 128-byte swizzle's 1024-byte period
+# (8 rows of 128 bytes)
 TC_PAGE_MULTIPLE, TC_MAX_PAGE = 8, 128
 _TC_ROUTES = {torch.bfloat16: "tc", torch.float32: "tf32x3"}
 
@@ -76,6 +78,15 @@ def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
             and page_size <= TC_MAX_PAGE):
         return _TC_ROUTES[q_dtype]
     return "simt"
+
+
+def simt_smem_bytes(D: int, ppb: int) -> int:
+    """Dynamic shared memory of K3's CUDA-core kernel (route "simt"),
+    computed as ``launch`` in csrc/paged_prefill.cu does: a pre-scaled f32
+    q tile of 128 rows, a K and a V sub-tile of 32 tokens (q and K rows
+    padded by one float), the probabilities, and the KV block's page
+    ids."""
+    return 4 * (128 * (D + 1) + 32 * (D + 1) + 32 * D + 128 * 33) + 4 * ppb
 
 
 def _combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
@@ -370,30 +381,55 @@ def _check_paged_inputs(kernel, q, n_kv, D, k_pages, v_pages, block_tables,
 
 def _check_decode_inputs(q, k_pages, v_pages, block_tables, lens, kv_scale):
     B, n_kv, G, D = q.shape
-    if D not in DECODE_HEAD_DIMS or G not in DECODE_GROUPS:
-        raise UnsupportedFeature(
-            f"decode kernel takes head_dim in {DECODE_HEAD_DIMS} and GQA "
-            f"group in {DECODE_GROUPS}, got D={D} G={G}", head_dim=D,
-            group=G)
+    check_head_dim("decode kernel", D)
     _check_paged_inputs("decode kernel", q, n_kv, D, k_pages, v_pages,
                         block_tables, {"lens": lens}, kv_scale)
-    page_size = k_pages.shape[1]
-    if not decode_page_supported(k_pages.dtype, D, page_size):
+    if not decode_supported(k_pages.dtype, D, G, k_pages.shape[1]):
         raise UnsupportedFeature(
-            f"decode kernel: a page of {page_size} rows of {D} "
-            f"{k_pages.dtype} is not a multiple of 128 bytes, which a TMA "
-            "box of whole pages must land on", page_size=page_size,
-            head_dim=D)
+            f"decode kernel: pools of {k_pages.dtype}, D={D}, G={G}, page "
+            f"{k_pages.shape[1]}", head_dim=D, group=G)
 
 
-def decode_page_supported(kv_dtype: torch.dtype, D: int,
-                          page_size: int) -> bool:
-    """Whether K1 takes pools of ``kv_dtype`` with ``page_size`` rows of
-    ``D``: a page shorter than K1's tile (at most 32 tokens) is one TMA box
-    placed at a multiple of its bytes in the tile, which must be a
-    multiple of 128 bytes.  Only int8 pools at D = 64 with an odd page of
-    fewer than 32 tokens fail."""
-    return page_size >= 32 or (page_size * D * kv_dtype.itemsize) % 128 == 0
+def decode_supported(kv_dtype: torch.dtype, D: int, G: int,
+                     page_size: int) -> bool:
+    """Whether K1 takes pools of ``kv_dtype`` (f32, bf16 or int8) with
+    pages of ``page_size`` rows of head dim ``D`` for a GQA group of ``G``
+    query heads: any G >= 1 (`decode_group_plan`), D in ``HEAD_DIMS``, any
+    page (a page shorter than K1's tile is one TMA box at a 128-byte
+    aligned stage offset, so odd int8 pages at D = 64 fit too).  The C
+    entry refuses the same shapes."""
+    return (kv_dtype in _KV_CODES and D in HEAD_DIMS and G >= 1
+            and page_size >= 1)
+
+
+def decode_group_plan(G: int) -> Tuple[int, int, int, int]:
+    """How K1 cuts a group of ``G`` query heads (``plan`` in
+    csrc/paged_decode.cu): ``(gw, slices, chunks, gc)``.  The group is cut
+    into ``chunks`` of ``gc`` heads over the grid (one chunk up to 16
+    heads, so one pass over the kv head's K/V; each more chunk reads it
+    again); a chunk runs in ``slices`` groups of four warps, each keeping
+    ``gw`` heads (1, 2 or 4 heads in one slice of the next width up; 5..8
+    in two slices of 4; 9..16 in two of 8), the heads past ``gc`` dead."""
+    if G < 1:
+        raise UnsupportedFeature(f"decode kernel: GQA group {G}", group=G)
+    chunks = -(-G // _DECODE_MAX_CTA_GROUP)
+    gc = -(-G // chunks)
+    if gc <= 4:
+        return (1 if gc == 1 else 2 if gc == 2 else 4), 1, chunks, gc
+    return (4 if gc <= 8 else 8), 2, chunks, gc
+
+
+def decode_smem_bytes(kv_dtype: torch.dtype, D: int, G: int) -> int:
+    """K1's dynamic shared memory for a group of ``G`` heads, computed as
+    ``smem_bytes`` in csrc/paged_decode.cu: four stages of K and V tiles
+    (the largest power of two of rows, at most 32, that fits 8 KB each),
+    the merge of four warps' (m, l, acc) per head of the CTA, barriers and
+    128 bytes of slack."""
+    gw, slices, _, _ = decode_group_plan(G)
+    row = D * kv_dtype.itemsize
+    tile = min(32, 16384 // (2 * row))
+    tile = 1 << (tile.bit_length() - 1)
+    return 128 + 4 * 2 * tile * row + 4 * slices * gw * (D + 2) * 4 + 64
 
 
 def paged_attention_kernel(
@@ -562,11 +598,12 @@ def paged_prefill_partials(
             q_block=q_block)
     B, C, H, D = q.shape
     num_pages, page_size, n_kv = k_pages.shape[:3]
-    if D not in DECODE_HEAD_DIMS or H % max(n_kv, 1) or q_block < 1:
+    check_head_dim("prefill kernel", D)
+    if H % max(n_kv, 1) or q_block < 1:
         raise UnsupportedFeature(
-            f"prefill kernel takes head_dim in {DECODE_HEAD_DIMS}, heads a "
-            f"multiple of the kv heads and q_block >= 1, got D={D} H={H} "
-            f"n_kv={n_kv} q_block={q_block}", head_dim=D, q_block=q_block)
+            f"prefill kernel takes heads a multiple of the kv heads and "
+            f"q_block >= 1, got H={H} n_kv={n_kv} q_block={q_block}",
+            q_block=q_block)
     _check_paged_inputs("prefill kernel", q, n_kv, D, k_pages, v_pages,
                         block_tables, {"kv_lens": kv_lens,
                                        "q_start": q_start}, kv_scale)

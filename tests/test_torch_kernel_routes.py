@@ -14,6 +14,12 @@
   themselves on every (b, h, q, k) of a small grid; each descriptor family
   has its compiled kind and its launch counter; past the descriptor's
   limits, or for a mod written in Python, the lowering raises.
+- (e) the head dims and GQA groups the kernels take, as pure functions of
+  (D, G, dtypes, page): every route takes D in {64, 128, 192} and K1 any
+  G >= 1 (``decode_group_plan`` cuts the group as the C side's ``plan``);
+  D = 256 raises ``UnsupportedFeature`` naming the slice that will take
+  it; each tile's shared memory at D = 192, computed as the C side
+  computes it, fits the 232,448 bytes of one block.
 - (c) the tensor-core kernels feed P to p.V in bf16: K4 as one bf16
   term, K3 as two (hi + lo).  The plain K4 and K3 versions with that
   rounding stay within the card's bf16 tolerance, ``|a - b| <= 2e-2 *
@@ -26,12 +32,15 @@
 
 import re
 import struct
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels
+from repro_torch.kernels import (HEAD_DIMS, SMEM_LIMIT, check_head_dim,
+                                 tile_keys, tile_smem_bytes)
 from repro_torch.core import flex
 from repro_torch.errors import UnsupportedFeature
 from repro_torch.kernels import build
@@ -50,7 +59,7 @@ def rel_err(got, want):
 
 
 # -- (a) the routes ----------------------------------------------------------
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
                                          (torch.float32, "tf32x3")])
 def test_flex_route_by_dtype(dtype, route, D):
@@ -58,7 +67,7 @@ def test_flex_route_by_dtype(dtype, route, D):
 
 
 @pytest.mark.parametrize("page", [8, 16, 64, 128, 12, 4, 136, 256])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 192])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
@@ -366,3 +375,96 @@ def test_variant_counts_in_launch_counts_and_reset():
     kernels.reset_launch_counts()
     assert "flex_prefill/tc/window&padding" not in kernels.launch_counts()
     assert all(n == 0 for n in kernels.launch_counts().values())
+
+
+# -- (e) head dims, GQA groups and shared memory ------------------------------
+CSRC = Path(build.CSRC)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192])
+@pytest.mark.parametrize("G", [1, 2, 3, 6, 8, 12, 16, 24, 48])
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
+                                      torch.int8])
+def test_every_route_takes_the_head_dims_and_k1_any_group(kv_dtype, G, D):
+    for kernel in ("decode kernel", "prefill kernel", "flex kernel"):
+        check_head_dim(kernel, D)
+    for page in (1, 7, 16, 64, 96):
+        assert pa.decode_supported(kv_dtype, D, G, page)
+
+
+@pytest.mark.parametrize("D", [256, 32, 96, 160])
+def test_other_head_dims_raise_naming_the_slice(D):
+    for kernel in ("decode kernel", "prefill kernel", "flex kernel"):
+        with pytest.raises(UnsupportedFeature) as err:
+            check_head_dim(kernel, D)
+        assert ("rglru" in str(err.value)) is (D == 256)
+    assert not pa.decode_supported(torch.bfloat16, D, 1, 64)
+    # the decode wrapper's input checks refuse it too
+    q = torch.zeros((1, 1, 1, D))
+    pools = torch.zeros((2, 16, 1, D))
+    with pytest.raises(UnsupportedFeature):
+        pa._check_decode_inputs(q, pools, pools,
+                                torch.zeros((1, 2), dtype=torch.int32),
+                                torch.ones((1,), dtype=torch.int32), 0.0)
+
+
+@pytest.mark.parametrize("G", list(range(1, 65)))
+def test_decode_group_plan_covers_the_group(G):
+    gw, slices, chunks, gc = pa.decode_group_plan(G)
+    assert gw in pa.DECODE_GROUP_WIDTHS and slices in (1, 2)
+    assert gc <= 16 and chunks * gc >= G and (chunks - 1) * gc < G
+    assert gw * slices >= gc > gw * (slices - 1) or gw == 1
+    assert (chunks == 1) is (G <= 16)  # one pass over K/V up to 16 heads
+    assert (slices == 2) is (gc > 4)
+
+
+def test_decode_group_plan_at_the_configs_groups():
+    # llama2-7b, nemotron-4-15b, nemotron-4-340b, llama3-405b, and a group
+    # of 48 heads over one kv head (re-read: three chunks)
+    assert pa.decode_group_plan(1) == (1, 1, 1, 1)
+    assert pa.decode_group_plan(6) == (4, 2, 1, 6)
+    assert pa.decode_group_plan(12) == (8, 2, 1, 12)
+    assert pa.decode_group_plan(16) == (8, 2, 1, 16)
+    assert pa.decode_group_plan(48) == (8, 2, 3, 16)
+    with pytest.raises(UnsupportedFeature):
+        pa.decode_group_plan(0)
+
+
+def test_decode_plan_and_tiles_stay_in_step_with_the_c_side():
+    decode = (CSRC / "paged_decode.cu").read_text()
+    assert "constexpr int kMaxCtaGroup = 16;" in decode
+    widths = sorted(int(x) for x in re.findall(
+        r"case (\d+): return launch<TKV, D, \d+>", decode))
+    assert tuple(widths) == pa.DECODE_GROUP_WIDTHS
+    for src, route in (("flash_tc.cuh", "tc"), ("flash_tf32.cuh", "tf32x3")):
+        m = re.search(r"kBN = D <= 128 \? (\d+) : (\d+);",
+                      (CSRC / src).read_text())
+        assert (int(m.group(1)), int(m.group(2))) == (
+            tile_keys(route, 128), tile_keys(route, 192))
+    assert "return D == 64 || D == 128 || D == 192;" in (
+        CSRC / "flash_tc.cuh").read_text()
+    assert HEAD_DIMS == (64, 128, 192)
+
+
+@pytest.mark.parametrize("D", [64, 128, 192])
+def test_tile_shared_memory_fits_one_block(D):
+    for route in ("tc", "tf32x3"):
+        assert tile_smem_bytes(route, D) <= SMEM_LIMIT
+    assert pa.simt_smem_bytes(D, ppb=8) <= SMEM_LIMIT
+    for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for G in range(1, 49):
+            assert pa.decode_smem_bytes(kv_dtype, D, G) <= SMEM_LIMIT
+
+
+def test_tiles_at_d192_take_shorter_stages():
+    # the bytes of the C layouts: Q 48 KB + 3 x (24 + 24) KB on the bf16
+    # tile; Q hi + Q lo 96 KB + K lo 24 KB + 2 x (24 + 24) KB on the
+    # split-TF32 tile (each + 1024 bytes of slack and the barriers)
+    assert tile_smem_bytes("tc", 192) == 1024 + 196608 + 48
+    assert tile_smem_bytes("tf32x3", 192) == 1024 + 221184 + 32
+    assert (tile_keys("tc", 192), tile_keys("tf32x3", 192)) == (64, 32)
+    # the D = 128 stages would not fit at D = 192: 7 x 48 KB
+    assert 1024 + 7 * 128 * 192 * 2 > SMEM_LIMIT
+    assert 1024 + 7 * 64 * 192 * 4 > SMEM_LIMIT
+    assert tile_smem_bytes("tc", 128) == 1024 + 229376 + 48
+    assert pa.simt_smem_bytes(192, ppb=2) == 4 * 41248 + 8
