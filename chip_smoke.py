@@ -31,13 +31,15 @@ Phases, each of which fails the script (exit code 1) when it fails:
    evaluated in f64.
    K3 and K4 run on the tensor cores by route: bf16 on the bf16 tile
    ("_tc": wgmma, K/V by TMA), f32 on the split-TF32 tile ("_tf32x3":
-   every product as three TF32 products on wgmma); K3's int8 pools and
-   odd pages on its CUDA-core kernel ("_simt", timed at the main shapes
-   with int8 pools).  Each route is checked and
-   timed under its own name.  Edge cases of the tiles: K4 at Q = K = 2048,
-   K3 resuming at 1536 over a full 32-page table (both also against f64
-   in f32), Q-blocks of 128 and 120 rows, pages of 8, 16, 96 and 128
-   tokens, D = 64, and a case per kernel with distinct V rows and scores
+   every product as three TF32 products on wgmma); K3's int8 pools on
+   either tile ("_tc/int8", "_tf32x3/int8": int8 boxes widened into a
+   working stage, kv_scale folded in; both timed at the main shapes) and
+   its odd pages ("/odd": the gaps between boxes masked).  Each route is
+   checked and timed under its own name.  Edge cases of the tiles: K4 at
+   Q = K = 2048, K3 resuming at 1536 over a full 32-page table (both also
+   against f64 in f32), Q-blocks of 128 and 120 rows, pages of 7 (at D 64
+   and 192, G 1 and 6, every pool), 8, 12, 16, 96, 128 and 200 tokens, D
+   = 64, and a case per kernel with distinct V rows and scores
    that are not symmetric in the keys (a wrong key permutation in the
    f32 tile's p.V shows there).  Times: kernel, plain version, the bound
    the card sets (f32: the operations at 67 TFLOP/s, ``bound_ms``, and
@@ -61,9 +63,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
    of the Nemotron-4 family: K1 at G 3, 6, 12, 16 and 24 by D 64, 128 and
    192 with f32, bf16 and int8 pools, on a ring table at G 6, on int8
    pools with odd 7-token pages at D 64 and 192, and at G 32 (two
-   chunks over the grid) against G 16 on the same pools, timed; K3 on its
-   three routes and K4 on both tiles at D 192 with G 6 and 12 (K3 at the
-   engine's
+   chunks over the grid) against G 16 on the same pools, timed; K3 on
+   both tiles (pages of 16; odd pages of 12, int8 pools with either q)
+   and K4 on both tiles at D 192 with G 6 and 12 (K3 at the engine's
    q_block: R = 126 and 120 rows; K4 causal & padding and window &
    padding); and K1, K3 and K4 at the real heads of nemotron-4-15b (48 /
    8, D 128), llama3-405b (128 / 8, D 128) and nemotron-4-340b (96 / 8, D
@@ -75,7 +77,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
    steps through the kernels (K4 and K3 on the split-TF32 tile) agree with
    the plain oracle path; chunked prefill in chunks of 96 through K3 agrees
-   with the monolithic prefill through K4 and with the plain path; a
+   with the monolithic prefill through K4 and with the plain path, and so
+   does the chunked prefill over int8 pools (K3's "tf32x3/int8"); a
    smoke-size engine gives the plain path's greedy tokens on the kernel
    path, monolithic and chunked, with and without the prefix cache;
 4. engine: full llama2-7b (32 layers, random weights from a seed, bf16)
@@ -92,6 +95,16 @@ Phases, each of which fails the script (exit code 1) when it fails:
    K3's other routes not, and the second wave must hit at least
    8 x 1024 cached tokens.  The profiled steps of both phases must
    attribute device time to K4 (prefill step) and K3 (chunk step);
+5b. int8 engine: the same weights, prompts and knobs with an int8 KV
+   cache (``kv_dtype="int8"``: the same 256 pages at half the bytes, which
+   is checked): K3's "tc/int8", K1 and K2 must launch, K4 and K3's other
+   variants never, the second wave must hit 8 x 1024 tokens; its chunk
+   step, decode step, TTFT, tok/s and peak memory are printed beside the
+   bf16 pools', with the share of equal greedy tokens (not checked); one
+   1536-token prompt's chunked prefill and two decode steps' logits
+   through the kernels agree with the plain path on int8 pools (on the
+   same weights in f32, the int8 K/V teacher-forced) within
+   ``BF16_MODEL_TOL`` of the logits' scale;
 6. f32 engine: after the bf16 weights are released, full llama2-7b at the
    engine's default dtype, f32 (about 27 GB of weights), 4 slots: 4
    greedy requests with prompts of 512..1536 tokens and 16 new tokens,
@@ -131,7 +144,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
 path's shapes (B 8, Q = K = 1536) on both routes, from this checkout's
 package or another tree's: an A/B probe across commits (parent, change,
 change, parent).  ``--time-main [--src DIR]`` does the same for K1, K3
-and K4 at the main path's shapes (D 128, G 1) in bf16 and f32.
+and K4 at the main path's shapes (D 128, G 1) in bf16 and f32, and for
+K3 with bf16 q over int8 pools (whichever kernel the tree runs it on).
 
 The last two lines of standard output are the kernels JSON line and the
 result line ``{"ok": true, "device": {...}}``.  Without CUDA, or without
@@ -139,6 +153,7 @@ the repository's ``src/repro_torch`` beside this file, it exits non-zero
 and prints no result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -166,12 +181,23 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 TF32_OPS = 495e12  # dense TF32 tensor cores: the f32 tile's 3 products
 
 SEED = 0
-# profiler names of the kernels, by kernel and route (substrings)
+# profiler names of the kernels, by kernel and tile (substrings; K3's int8
+# variants are instances of the same templates)
 KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
                 "paged_prefill_tf32x3": "paged_prefill_kernel_tf32<",
-                "paged_prefill_simt": "paged_prefill_kernel<",
                 "flex_prefill_tc": "flex_fwd_kernel_tc<",
                 "flex_prefill_tf32x3": "flex_fwd_kernel_tf32<"}
+
+
+def kernel_name(key):
+    """The profiler name of a check key ("paged_prefill_tc/int8" etc.)."""
+    return KERNEL_NAMES[key.split("/")[0]]
+
+
+def k3_routes_except(*keep):
+    """K3's launch-count keys of every tile and variant but ``keep``."""
+    from repro_torch.kernels.paged_attention.paged_attention import ROUTES
+    return tuple(f"paged_prefill/{r}" for r in ROUTES if r not in keep)
 
 
 def set_src(src):
@@ -286,25 +312,34 @@ class Checker:
         if bool(bad.any()):
             fail(f"{kernel} {what}: max|err| {worst:.3e} beyond tol {tol}")
 
-    def versus_f64(self, kernel, what, got, plain, exact, tol=None):
+    def versus_f64(self, kernel, what, got, plain, exact, tol=None,
+                   mag=None):
         """Log how far the kernel's and the f32 plain version's outputs are
         from the plain version evaluated in f64 (which side carries an
         error).  With ``tol``, the kernel is held against the f64
         evaluation, ``|got - exact| <= tol * (1 + |exact|)``: the check for
         the cases whose f32 plain version carries rounding of the order of
-        the f32 tolerance itself (partials over 2048 keys, rows of 192)."""
+        the f32 tolerance itself (partials over 2048 keys, rows of 192).
+        With ``mag``, the bound is ``tol * (1 + mag)``: K3's acc on int8
+        pools, whose sums over int8 V up to 127 * kv_scale reach hundreds
+        while single elements cancel to near 0, takes the magnitude its
+        sum is taken over (the sum of p * |v| * kv_scale), which is what
+        f32 rounding follows."""
         def err(a, b):
             return float((a.double() - b).abs().max())
         kerr = err(got, exact)
+        scale = exact.abs() if mag is None else mag
+        rel = float(((got.double() - exact).abs() / (1 + scale)).max())
         log(f"  {kernel:12s} {what:44s} vs f64: kernel max|err| "
             f"{kerr:.3e}, f32 plain {err(plain, exact):.3e}"
-            + ("" if tol is None else f" (checked: |err| <= {tol:g} * "
-               "(1 + |f64|))"))
+            + ("" if tol is None else
+               f" (checked: |err| <= {tol:g} * (1 + "
+               f"{'|f64|' if mag is None else 'sum p|v|'}): {rel:.3e})"))
         if tol is None:
             return
         if not bool(self.torch.isfinite(got).all()):
             fail(f"{kernel} {what}: non-finite values")
-        bad = (got.double() - exact).abs() > tol * (1 + exact.abs())
+        bad = (got.double() - exact).abs() > tol * (1 + scale)
         self.max_err[kernel] = max(self.max_err.get(kernel, 0.0), kerr)
         if bool(bad.any()):
             fail(f"{kernel} {what}: max|err| {kerr:.3e} from f64 beyond "
@@ -532,7 +567,7 @@ def kernel_phase(torch, chk):
         nbytes = 4 * q.numel() * q.element_size()
         k4_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
         k4_dev = device_ms(torch, lambda: fa.flex_attention_kernel(
-            q, k, v, bm, **kw), KERNEL_NAMES[key], reps=3)
+            q, k, v, bm, **kw), kernel_name(key), reps=3)
         row = dict(ms=k4_ms, device_ms=k4_dev, plain_ms=k4_plain,
                    bound_ms=k4_bound, bound_by="operations", library_ms=lib,
                    library_causal_only_ms=lib_causal)
@@ -1094,10 +1129,58 @@ def fold_prefill(t, S):
     return t.transpose(1, 2).reshape(B * NQ, Hkv, S, *t.shape[4:]).contiguous()
 
 
+def check_k3(torch, chk, key, tag, args, kw, got, tol, f64=False):
+    """K3's partials ``got`` against its plain version on ``args``; with
+    ``f64`` (the f32 cases whose plain version carries rounding of the
+    order of the f32 tolerance: long tables, D 192, int8 pools) against
+    the plain version evaluated in f64 instead, acc on int8 pools bounded
+    by the magnitude its sum is taken over (``Checker.versus_f64``)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    want = pa._paged_prefill_partials_plain(*args, **kw)
+    if not f64:
+        for part, g_, w_ in zip(("m", "l", "acc"), got, want):
+            chk.close(key, f"{tag} {part}", g_, w_, tol)
+        return
+    dbl = [x.double() for x in args[:3]]
+    exact = pa._paged_prefill_partials_plain(*dbl, *args[3:], **kw)
+    mag = None
+    if kw["kv_scale"] > 0:
+        mag = pa._paged_prefill_partials_plain(dbl[0], dbl[1], dbl[2].abs(),
+                                               *args[3:], **kw)[2]
+    for part, g_, w_, x_ in zip(("m", "l", "acc"), got, want, exact):
+        chk.versus_f64(key, f"{tag} {part}", g_, w_, x_, tol=tol,
+                       mag=mag if part == "acc" else None)
+
+
+def k3_bound(torch, q, kp, tables, kv_lens, got, q_start, q_lens, H, D):
+    """K3's least time on the card for this call, ms: the larger of the
+    bytes it must move (q, the live K/V rows, tables, lens, partials) at
+    3.35 TB/s and its operations (4 D per live (row, key) pair and head)
+    at the peak of q's type (bf16 989, f32 67 TFLOP/s), whichever bounds
+    it, and the operations as the split-TF32 tile does them (three TF32
+    products, two on int8 pools) at 495 TFLOP/s (f32 q; else None)."""
+    keys = sum(s + t + 1 for s, n in zip(q_start, q_lens) for t in range(n))
+    ops = 4 * D * H * keys
+    Hkv = kp.shape[2]
+    nbytes = (q.numel() * q.element_size() + 2 * sum(kv_lens.tolist()) * Hkv
+              * D * kp.element_size() + tables.numel() * 4
+              + 2 * q.shape[0] * 4 + sum(t.numel() * 4 for t in got))
+    f32 = q.dtype == torch.float32
+    peak = PEAK_OPS["float32" if f32 else "bfloat16"]
+    bound = 1e3 * max(nbytes / HBM_BPS, ops / peak)
+    by = "operations" if ops / peak > nbytes / HBM_BPS else "bytes"
+    tf32 = None
+    if f32:
+        products = 2 if kp.dtype == torch.int8 else 3
+        tf32 = 1e3 * max(nbytes / HBM_BPS, products * ops / TF32_OPS)
+    return bound, by, ops, nbytes, tf32
+
+
 def prefill_kernel_phase(torch, chk, gen):
     """K3 against its plain version: the main path's chunk step, then a
     sweep; K2 merges the sweep's split-K partials."""
     import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention import paged_attention as pa
 
     dev = torch.device("cuda")
@@ -1110,34 +1193,41 @@ def prefill_kernel_phase(torch, chk, gen):
     log(f"K3 main path: B={len(q_start)} C=512 H=Hkv={H} D={D} page={P} "
         f"max_pages={max_pages} ppb={ppb} splits={ns} q_block={qb} "
         f"q_start={q_start} q_lens={q_lens}")
-    # f32 and bf16 on their tensor-core tiles; int8 pools (bf16 q) on the
-    # CUDA-core kernel, which the main paths never take
+    # f32 and bf16 q on their tensor-core tiles, over pools of q's dtype
+    # and over int8 pools (the int8 variants; f32 q held against f64);
+    # then the same over odd pages of 12 tokens (the "/odd" variants: boxes
+    # 16 rows apart, the gaps masked) at the KV-block width the engine
+    # takes for them (10 pages)
     configs = ((torch.float32, False, F32_TOL), (torch.bfloat16, False,
                                                  BF16_TOL),
-               (torch.bfloat16, True, BF16_TOL))
-    for dtype, int8, tol in configs:
-        name = "int8" if int8 else str(dtype).replace("torch.", "")
+               (torch.bfloat16, True, BF16_TOL), (torch.float32, True,
+                                                  F32_TOL))
+    for (dtype, int8, tol), Pc in [(c, P) for c in configs] + [
+            (c, 12) for c in configs]:
+        mp = -(-max_pages * P // Pc)
+        cppb = ppb if Pc == P else ops.choose_prefill_params(
+            mp, Pc, D, 512, 1)[0]
+        name = (("int8" if int8 else str(dtype).replace("torch.", ""))
+                + ("" if Pc == P else f" page {Pc}"))
         key = "paged_prefill_" + pa.prefill_route(
-            dtype, torch.int8 if int8 else dtype, P)
+            dtype, torch.int8 if int8 else dtype, Pc)
         q, kp, vp, tables, kv_lens, qs = chunk_inputs(
-            torch, gen, H, 1, D, P, max_pages, q_start, q_lens, dtype, dev,
+            torch, gen, H, 1, D, Pc, mp, q_start, q_lens, dtype, dev,
             int8=int8)
         kv_scale = 0.05 if int8 else 0.0
         kw = dict(scale=D ** -0.5, softcap=0.0, kv_scale=kv_scale,
-                  pages_per_block=ppb, num_splits=ns, q_block=qb)
+                  pages_per_block=cppb, num_splits=ns, q_block=qb)
         args = (q, kp, vp, tables, kv_lens, qs)
         got = pa.paged_prefill_partials(*args, **kw)
-        want = pa._paged_prefill_partials_plain(*args, **kw)
         torch.cuda.synchronize()
-        for part, g_, w_ in zip("m l acc".split(), got, want):
-            chk.close(key, f"{name} main {part}", g_, w_, tol)
-        del want
+        check_k3(torch, chk, key, f"{name} main", args, kw, got, tol,
+                 f64=int8 and dtype == torch.float32)
         k3_ms = time_ms(torch, lambda: pa.paged_prefill_partials(*args, **kw),
                         reps=5)
         k3_plain = time_ms(torch, lambda: pa._paged_prefill_partials_plain(
             *args, **kw), reps=3, warmup=1)
         k3_dev = device_ms(torch, lambda: pa.paged_prefill_partials(
-            *args, **kw), KERNEL_NAMES[key], reps=3)
+            *args, **kw), kernel_name(key), reps=3)
         # library yardstick: SDPA over K/V pre-gathered into contiguous
         # form (int8 pools dequantised), with the causal-offset mask as a
         # boolean attn_mask (the gather is not timed; the dead rows'
@@ -1158,29 +1248,21 @@ def prefill_kernel_phase(torch, chk, gen):
         qt = q.transpose(1, 2).contiguous()
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kc, vc, attn_mask=mask), reps=5)
-        keys = sum(s + t + 1 for s, n in zip(q_start, q_lens)
-                   for t in range(n))
-        ops = 4 * D * H * keys
-        item = q.element_size()
-        nbytes = (q.numel() * item + 2 * sum(kv_lens.tolist()) * H * D
-                  * kp.element_size() + tables.numel() * 4 + 2 * B * 4
-                  + sum(t.numel() * 4 for t in got))
-        peak = PEAK_OPS[str(dtype).replace("torch.", "")]
-        k3_bound = 1e3 * max(nbytes / HBM_BPS, ops / peak)
-        k3_by = "operations" if ops / peak > nbytes / HBM_BPS else "bytes"
+        k3_bound_ms, k3_by, flops, nbytes, tf32 = k3_bound(
+            torch, q, kp, tables, kv_lens, got, q_start, q_lens, H, D)
         row = dict(ms=k3_ms, device_ms=k3_dev, plain_ms=k3_plain,
-                   bound_ms=k3_bound, bound_by=k3_by, library_ms=lib)
+                   bound_ms=k3_bound_ms, bound_by=k3_by, library_ms=lib)
         extra = ""
-        if key.endswith("tf32x3"):
-            row["bound_tf32x3_ms"] = 1e3 * max(nbytes / HBM_BPS,
-                                               3 * ops / TF32_OPS)
+        if tf32 is not None:
+            row["bound_tf32x3_ms"] = tf32
             extra = (f"; bound_ms is the f32 operations at 67 TFLOP/s, "
-                     f"three TF32 products at 495 TFLOP/s: "
-                     f"{row['bound_tf32x3_ms']:.4f} ms")
+                     f"{2 if int8 else 3} TF32 products at 495 TFLOP/s: "
+                     f"{tf32:.4f} ms")
         log(f"  {key} {name}: kernel {k3_ms:.4f} ms (device "
-            f"{fmt(k3_dev)}), plain {k3_plain:.4f} ms, bound {k3_bound:.4f} "
-            f"ms ({k3_by}: {ops:.3e} flop, {nbytes:.3e} B{extra}), SDPA "
-            f"with a causal-offset mask over pre-gathered KV {lib:.4f} ms")
+            f"{fmt(k3_dev)}), plain {k3_plain:.4f} ms, bound "
+            f"{k3_bound_ms:.4f} ms ({k3_by}: {flops:.3e} flop, {nbytes:.3e} "
+            f"B{extra}), SDPA with a causal-offset mask over pre-gathered "
+            f"KV {lib:.4f} ms")
         rows[(key, name)] = row
         del q, kp, vp, kc, vc, got, mask
 
@@ -1203,13 +1285,18 @@ def prefill_kernel_phase(torch, chk, gen):
          both),
         (4, 128, 16, 9, [40, 3], [70, 64], 2, 1, 32, 0.0, False, both),
         (8, 128, 16, 9, [0, 21], [45, 30], 2, 2, 15, 0.0, False, both),
-        # pages of 8 (eight to an f32 tile), 12 (the CUDA-core kernel in
-        # both dtypes), 96 and 128 (longer than the f32 tile: cut into
-        # boxes of 64 rows, the last of a 96-token page masked at 32)
+        # pages of 8 (eight to an f32 tile), 12 (odd: boxes 16 rows apart,
+        # the gaps masked per element), 96 and 128 (longer than the f32
+        # tile: cut into boxes of 64 rows, the last of a 96-token page
+        # masked at 32), 200 (longer than either tile: boxes of 128 and 64
+        # rows, the last of the page masked at 72 and 8)
         (2, 128, 8, 12, [30, 5, 0], [9, 1, 9], 2, 3, 1, 0.0, False, both),
         (2, 64, 12, 9, [16, 50], [20, 7], 2, 2, 4, 0.0, False, both),
+        (2, 64, 12, 9, [16, 50], [20, 7], 2, 2, 4, 0.0, True, both),
         (1, 128, 96, 4, [100, 0], [200, 96], 2, 1, 64, 0.0, False, both),
         (2, 128, 128, 4, [300, 17], [100, 64], 1, 2, 32, 10.0, False, both),
+        (1, 128, 200, 3, [100, 0], [300, 150], 1, 2, 64, 0.0, False, both),
+        (1, 128, 200, 3, [100, 0], [300, 150], 1, 2, 64, 0.0, True, both),
     ]
     for (G, Dd, Ps, mp, qst, qln, sp_ppb, sp_ns, sp_qb, cap, int8,
          dtypes) in sweep:
@@ -1224,30 +1311,62 @@ def prefill_kernel_phase(torch, chk, gen):
                       pages_per_block=sp_ppb, num_splits=sp_ns,
                       q_block=sp_qb)
             got = pa.paged_prefill_partials(*args, **kw)
-            want = pa._paged_prefill_partials_plain(*args, **kw)
-            tag = (f"{name} G{G} D{Dd} q_block{sp_qb} S{sp_ns} cap{cap:g} "
-                   f"{'int8' if int8 else ''}")
-            if mp == 32 and dtype == torch.float32:
-                # the full table in f32: the f32 plain version's own
-                # rounding over 2048 keys is of the order of the f32
-                # tolerance, so the kernel is held against f64 instead
-                exact = pa._paged_prefill_partials_plain(
-                    *(x.double() for x in args[:3]), *args[3:], **kw)
-                for part, g_, w_, x_ in zip("m l acc".split(), got, want,
-                                            exact):
-                    chk.versus_f64(key, f"{tag} full table {part}", g_, w_,
-                                   x_, tol=tol)
-                del exact
-            else:
-                for part, g_, w_ in zip("m l acc".split(), got, want):
-                    chk.close(key, f"{tag} {part}", g_, w_, tol)
+            tag = (f"{name} G{G} D{Dd} page {Ps} q_block{sp_qb} S{sp_ns} "
+                   f"cap{cap:g} {'int8' if int8 else ''}"
+                   f"{' full table' if mp == 32 else ''}")
+            # the full table and int8 pools in f32: the f32 plain version's
+            # own rounding (over 2048 keys; over V up to 127 * 0.05) is of
+            # the order of the f32 tolerance, so the kernel is held against
+            # f64 instead
+            check_k3(torch, chk, key, tag, args, kw, got, tol,
+                     f64=dtype == torch.float32 and (mp == 32 or int8))
             S = got[0].shape[3]
             folded = [fold_prefill(x, S) for x in got]
             chk.close("combine", f"prefill {tag}",
                       pa.combine_partials_kernel(*folded, dtype=dtype),
                       pa._combine_partials_plain(*folded, dtype=dtype), tol)
     prefill_permutation_case(torch, chk, gen)
+    prefill_odd_page_cases(torch, chk, gen)
     return rows
+
+
+def prefill_odd_page_cases(torch, chk, gen):
+    """K3 on pages of 7 tokens (up to 16 boxes 8 rows apart in a stage,
+    the gaps masked per element) at D 64 and 192, G 1 and 6, over pools of
+    q's dtype and int8 pools, both q dtypes, two splits through K2 (f32 on
+    int8 pools held against f64)."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    q_start, q_lens = [93, 0, 40], [40, 57, 0]
+    mp = -(-max(s + n for s, n in zip(q_start, q_lens)) // 7)
+    for D in (64, 192):
+        for G in (1, 6):
+            for int8 in (False, True):
+                for dtype, tol in ((torch.float32, F32_TOL),
+                                   (torch.bfloat16, BF16_TOL)):
+                    ppb, ns, qb = ops.choose_prefill_params(mp, 7, D, 57, G,
+                                                            num_splits=2)
+                    args = chunk_inputs(torch, gen, 2, G, D, 7, mp, q_start,
+                                        q_lens, dtype, dev, int8=int8)
+                    kw = dict(scale=D ** -0.5, softcap=0.0,
+                              kv_scale=0.05 if int8 else 0.0,
+                              pages_per_block=ppb, num_splits=ns,
+                              q_block=qb)
+                    key = "paged_prefill_" + pa.prefill_route(
+                        dtype, torch.int8 if int8 else dtype, 7)
+                    name = str(dtype).replace("torch.", "")
+                    tag = (f"{name}{' int8' if int8 else ''} G{G} D{D} odd "
+                           f"page 7 ppb {ppb} S {ns}")
+                    got = pa.paged_prefill_partials(*args, **kw)
+                    check_k3(torch, chk, key, tag, args, kw, got, tol,
+                             f64=int8 and dtype == torch.float32)
+                    folded = [fold_prefill(x, got[0].shape[3]) for x in got]
+                    chk.close("combine", f"prefill {tag}",
+                              pa.combine_partials_kernel(*folded,
+                                                         dtype=dtype),
+                              pa._combine_partials_plain(*folded,
+                                                         dtype=dtype), tol)
 
 
 def prefill_permutation_case(torch, chk, gen):
@@ -1344,10 +1463,11 @@ def gqa_decode_cases(torch, chk, gen):
 
 
 def gqa_prefill_cases(torch, chk, gen):
-    """K3 on its three routes at D = 192 with G 6 and 12, at the engine's
+    """K3 on both tiles at D = 192 with G 6 and 12, at the engine's
     q_block (21 and 10: R = 126 and 120 rows, a partial row tile on both
-    tiles): bf16 ("tc"), f32 ("tf32x3", held against f64), int8 pools
-    with bf16 q and f32 q on pages of 12 ("simt"; f32 held against
+    tiles): bf16 ("tc"), f32 ("tf32x3", held against f64) on pages of 16,
+    and on odd pages of 12, over pools of q's dtype and int8 pools
+    ("tc/int8/odd", "tf32x3/odd", "tf32x3/int8/odd"; f32 held against
     f64)."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention import paged_attention as pa
@@ -1355,8 +1475,9 @@ def gqa_prefill_cases(torch, chk, gen):
     D, Hkv = 192, 2
     cases = ((torch.bfloat16, False, 16, BF16_TOL),
              (torch.float32, False, 16, F32_TOL),
-             (torch.bfloat16, True, 16, BF16_TOL),
-             (torch.float32, False, 12, F32_TOL))
+             (torch.bfloat16, True, 12, BF16_TOL),
+             (torch.float32, False, 12, F32_TOL),
+             (torch.float32, True, 12, F32_TOL))
     for G in (6, 12):
         for dtype, int8, P, tol in cases:
             mp = -(-160 // P)
@@ -1369,20 +1490,12 @@ def gqa_prefill_cases(torch, chk, gen):
                       num_splits=2, q_block=qb)
             key = "paged_prefill_" + pa.prefill_route(
                 dtype, torch.int8 if int8 else dtype, P)
-            name = "int8" if int8 else str(dtype).replace("torch.", "")
+            name = str(dtype).replace("torch.", "") + (" int8" if int8
+                                                       else "")
             tag = f"{name} G{G} D{D} page {P} q_block {qb} (R {qb * G})"
             got = pa.paged_prefill_partials(*args, **kw)
-            want = pa._paged_prefill_partials_plain(*args, **kw)
-            if dtype == torch.float32:
-                exact = pa._paged_prefill_partials_plain(
-                    *(x.double() for x in args[:3]), *args[3:], **kw)
-                for part, g_, w_, x_ in zip("m l acc".split(), got, want,
-                                            exact):
-                    chk.versus_f64(key, f"{tag} {part}", g_, w_, x_,
-                                   tol=tol)
-            else:
-                for part, g_, w_ in zip("m l acc".split(), got, want):
-                    chk.close(key, f"{tag} {part}", g_, w_, tol)
+            check_k3(torch, chk, key, tag, args, kw, got, tol,
+                     f64=dtype == torch.float32)
             folded = [fold_prefill(x, got[0].shape[3]) for x in got]
             chk.close("combine", f"prefill {tag}",
                       pa.combine_partials_kernel(*folded, dtype=dtype),
@@ -1517,7 +1630,8 @@ def real_heads_decode(torch, chk, gen, cfg_name, H, Hkv, D):
 
 
 def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
-    """K3 at a config's real heads on its three routes: a chunk step of 2
+    """K3 at a config's real heads on both tiles and bf16 q over int8
+    pools ("tc/int8"): a chunk step of 2
     rows (512 tokens at 0; 300 tokens resuming at 1061) over a 2048-token
     table of 64-token pages, at the engine's q_block; timed (device)
     beside its bound and SDPA with the causal-offset mask over pre-gathered
@@ -1547,19 +1661,10 @@ def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
                   num_splits=ns, q_block=qb)
         tag = f"{cfg_name} heads H{H}/{Hkv} D{D} {name} q_block {qb}"
         got = pa.paged_prefill_partials(*args, **kw)
-        want = pa._paged_prefill_partials_plain(*args, **kw)
-        if dtype == torch.float32:
-            exact = pa._paged_prefill_partials_plain(
-                *(x.double() for x in args[:3]), *args[3:], **kw)
-            for part, g_, w_, x_ in zip("m l acc".split(), got, want, exact):
-                chk.versus_f64(key, f"{tag} {part}", g_, w_, x_, tol=tol)
-            del exact
-        else:
-            for part, g_, w_ in zip("m l acc".split(), got, want):
-                chk.close(key, f"{tag} {part}", g_, w_, tol)
-        del want
+        check_k3(torch, chk, key, tag, args, kw, got, tol,
+                 f64=dtype == torch.float32)
         dev_ms = device_ms(torch, lambda: pa.paged_prefill_partials(
-            *args, **kw), KERNEL_NAMES[key], reps=3)
+            *args, **kw), kernel_name(key), reps=3)
         B, C = q.shape[:2]
         L = int(kv_lens.max())
         safe = tables.clamp(min=0).long()
@@ -1576,20 +1681,10 @@ def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
         qt = q.transpose(1, 2).contiguous()
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kc, vc, attn_mask=mask, enable_gqa=True), reps=5)
-        keys = sum(s + t + 1 for s, n in zip(q_start, q_lens)
-                   for t in range(n))
-        ops_ = 4 * D * H * keys
-        nbytes = (q.numel() * q.element_size() + 2 * sum(kv_lens.tolist())
-                  * Hkv * D * kp.element_size() + tables.numel() * 4 + 2 * B
-                  * 4 + sum(t.numel() * 4 for t in got))
-        peak = PEAK_OPS["float32" if dtype == torch.float32 else "bfloat16"]
-        bound = 1e3 * max(nbytes / HBM_BPS, ops_ / peak)
-        by = "operations" if ops_ / peak > nbytes / HBM_BPS else "bytes"
-        extra = ""
-        if dtype == torch.float32:
-            extra = (f"; three TF32 products at 495 TFLOP/s: "
-                     f"{1e3 * max(nbytes / HBM_BPS, 3 * ops_ / TF32_OPS):.4f}"
-                     " ms")
+        bound, by, _, _, tf32 = k3_bound(torch, q, kp, tables, kv_lens, got,
+                                         q_start, q_lens, H, D)
+        extra = ("" if tf32 is None else
+                 f"; three TF32 products at 495 TFLOP/s: {tf32:.4f} ms")
         log(f"  {key} {tag} (R {qb * G}): device {fmt(dev_ms)}, bound "
             f"{bound:.4f} ms ({by}{extra}), SDPA with the causal-offset "
             f"mask over pre-gathered KV (GQA) {lib:.4f} ms")
@@ -1634,7 +1729,7 @@ def real_heads_flex(torch, chk, gen, cfg_name, H, Hkv, D):
         chk.close(key, f"{tag} causal&padding", got, want, tol)
         del want
         dev_ms = device_ms(torch, lambda: fa.flex_attention_kernel(
-            q, k, v, bm, **kw), KERNEL_NAMES[key], reps=3)
+            q, k, v, bm, **kw), kernel_name(key), reps=3)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=exact, enable_gqa=True), reps=5)
         pairs = sum(min(qq + 1, L) for L in plens for qq in range(Q))
@@ -1654,6 +1749,79 @@ def real_heads_flex(torch, chk, gen, cfg_name, H, Hkv, D):
         del q, k, v, got
     del exact
     return rows
+
+
+class Int8Tape:
+    """Teacher-forces an int8 KV cache between two passes of a model, as
+    the token inputs are: the first pass records the int8 K/V that
+    ``models.attention.kv_quant`` writes, the second writes that record in
+    place of its own, call by call, and counts the elements where its own
+    rounding differed.  Two paths whose activations differ by rounding
+    alone (1e-6 in f32) still round some K/V values to the other int8
+    step (0.05 apart), and a flip can move the logits by more than the
+    kernels' own error.  With the tape both passes attend over the same
+    cache, and the comparison sees the attention arithmetic."""
+
+    def __init__(self, torch):
+        self.torch, self.tape = torch, []
+        self.differ = self.total = 0
+
+    @contextlib.contextmanager
+    def pass_(self, replay):
+        from repro_torch.models import attention
+        orig, calls = attention.kv_quant, iter(range(len(self.tape)))
+
+        def quant(cfg, x):
+            q = orig(cfg, x)
+            if q.dtype != self.torch.int8:
+                return q
+            if not replay:
+                self.tape.append(q.clone())
+                return q
+            want = self.tape[next(calls)]
+            if want.shape != q.shape:
+                fail(f"int8 tape: {tuple(q.shape)} written where "
+                     f"{tuple(want.shape)} was recorded")
+            self.differ += int((want != q).sum())
+            self.total += q.numel()
+            return want
+
+        attention.kv_quant = quant
+        try:
+            yield
+        finally:
+            attention.kv_quant = orig
+
+    def report(self):
+        return (f"{self.differ} of {self.total} int8 K/V values of the "
+                f"second pass rounded to another step than the first's")
+
+
+def chunked_logits(torch, model, params, tokens, lens_t, tables, pool,
+                   impl, pool_dtype):
+    """The last prompt token's logits of every row, prefilled by
+    ``prefill_chunk`` in chunks of 96 tokens from pools of ``pool_dtype``
+    (zeros) and ``tables``."""
+    dev = tokens.device
+    S = tokens.shape[1]
+    st = {"tables": tables,
+          "k_pages": torch.zeros(pool, dtype=pool_dtype, device=dev),
+          "v_pages": torch.zeros(pool, dtype=pool_dtype, device=dev)}
+    last = None
+    start = torch.zeros_like(lens_t)
+    while bool((start < lens_t).any()):
+        ql = torch.clamp(torch.clamp(lens_t - start, max=96), min=0)
+        C = int(ql.max())
+        idx = (start[:, None] + torch.arange(C, device=dev)[None]).long()
+        chunk = torch.gather(tokens, 1, idx.clamp(max=S - 1))
+        logits, _ = model.prefill_chunk(params, chunk, st, start, ql,
+                                        impl=impl)
+        if last is None:
+            last = torch.zeros_like(logits)
+        ends = (start + ql == lens_t) & (ql > 0)
+        last[ends] = logits[ends]
+        start = start + ql
+    return last
 
 
 def model_phase(torch):
@@ -1705,23 +1873,9 @@ def model_phase(torch):
 
     # chunked prefill in chunks of 96 (not a multiple of the page): K3
     # against the monolithic prefill through K4, and against the plain path
-    chunked = {}
-    for impl in ("kernel", "ref"):
-        st = {"tables": tables, "k_pages": torch.zeros(pool, device=dev),
-              "v_pages": torch.zeros(pool, device=dev)}
-        last = torch.zeros_like(outs["kernel"][0])
-        start = torch.zeros_like(lens_t)
-        while bool((start < lens_t).any()):
-            ql = torch.clamp(torch.clamp(lens_t - start, max=96), min=0)
-            C = int(ql.max())
-            idx = (start[:, None] + torch.arange(C, device=dev)[None]).long()
-            chunk = torch.gather(tokens, 1, idx.clamp(max=S - 1))
-            logits, _ = model.prefill_chunk(params, chunk, st, start, ql,
-                                            impl=impl)
-            ends = (start + ql == lens_t) & (ql > 0)
-            last[ends] = logits[ends]
-            start = start + ql
-        chunked[impl] = last
+    chunked = {impl: chunked_logits(torch, model, params, tokens, lens_t,
+                                    tables, pool, impl, torch.float32)
+               for impl in ("kernel", "ref")}
     torch.cuda.synchronize()
     mono = outs["kernel"][0]
     err_mono = float((chunked["kernel"] - mono).abs().max())
@@ -1733,8 +1887,39 @@ def model_phase(torch):
         fail("model phase: non-finite chunked logits")
     if max(err_mono, err_plain) > MODEL_TOL:
         fail(f"model phase: chunked logits beyond {MODEL_TOL}")
-    del params, outs, chunked
 
+    # the same chunks over int8 pools (kv_dtype "int8"): K3's int8 variant
+    # of the split-TF32 tile against the plain path
+    from repro_torch import kernels
+    # (the plain path writes the kernel path's int8 K/V: Int8Tape)
+    model8 = build_model(cfg.replace(kv_dtype="int8"))
+    int8, tape = {}, Int8Tape(torch)
+    for impl in ("kernel", "ref"):
+        kernels.reset_launch_counts()
+        with tape.pass_(replay=impl == "ref"):
+            int8[impl] = chunked_logits(torch, model8, params, tokens,
+                                        lens_t, tables, pool, impl,
+                                        torch.int8)
+        torch.cuda.synchronize()
+        if impl == "kernel":
+            int8_counts = kernels.launch_counts()
+    err8 = float((int8["kernel"] - int8["ref"]).abs().max())
+    log(f"model phase: chunked prefill (chunks of 96) over int8 pools, K3 "
+        f"tf32x3/int8 vs the plain path max|err| {err8:.3e} (tol "
+        f"{MODEL_TOL:g}, |logit| max {float(int8['ref'].abs().max()):.3f}; "
+        f"{tape.report()}); launches {int8_counts}")
+    if not bool(torch.isfinite(int8["kernel"]).all()):
+        fail("model phase: non-finite chunked logits over int8 pools")
+    if err8 > MODEL_TOL:
+        fail(f"model phase: chunked logits over int8 pools beyond "
+             f"{MODEL_TOL}")
+    if int8_counts["paged_prefill/tf32x3/int8"] <= 0 or any(
+            int8_counts[k] for k in k3_routes_except("tf32x3/int8")):
+        fail(f"model phase: the int8 chunks did not run on K3's "
+             f"tf32x3/int8 variant alone ({int8_counts})")
+    del params, outs, chunked, int8
+    model_stats = {"int8_chunked_logits_max_err": err8,
+                   "int8_chunked_launches": int8_counts}
     # greedy tokens on a smoke-size engine: the kernel path, monolithic
     # and chunked, with and without the prefix cache, against the plain
     # path run monolithic without the cache.  Prompts share a 40-token
@@ -1767,6 +1952,7 @@ def model_phase(torch):
     log(f"smoke engine: greedy tokens equal on every path "
         f"({sum(len(t) for t in toks['plain'])} tokens each; prefix hit "
         f"tokens {hits})")
+    return model_stats
 
 
 PREFILL_KERNELS = ("paged_prefill", "flex_prefill")
@@ -1953,13 +2139,13 @@ def chunked_phase(torch, params):
     check_path("chunked", eng, all_reqs, new, counts,
                must=("paged_decode", "combine", "paged_prefill",
                      "paged_prefill/tc"),
-               never=("flex_prefill", "paged_prefill/tf32x3",
-                      "paged_prefill/simt"))
+               never=("flex_prefill", *k3_routes_except("tc")))
     if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
         fail(f"chunked: wave B hit {waves['B']['prefix_hit_tokens']} "
              f"cached tokens, fewer than 8 x {head_len}")
     mem = eng.memory_report()
     stats = dict(waves=waves, launches=counts,
+                 outputs=[r.output for r in all_reqs],
                  preempted=eng.scheduler.preempted,
                  prefill_stalls=eng.scheduler.prefill_stalls,
                  memory_report=mem,
@@ -1980,6 +2166,177 @@ def chunked_phase(torch, params):
     log_profile("chunk_step", stats["profile_chunk_step"])
     check_attributed("chunk_step", stats["profile_chunk_step"],
                      "K3 paged_prefill")
+    return stats
+
+
+def int8_engine_phase(torch, params, bf16):
+    """The chunked phase's model, weights and traffic with an int8 KV cache
+    (``kv_dtype="int8"``, the repo's KV-memory knob): llama2-7b at full
+    width and depth in bf16, 8 slots, max_seq_len 2048, the same 256-page
+    pool at half the bytes, ``prefill_chunk=512, prefix_cache=True``, a
+    wave of 4 then a wave of 8 on a shared 1024-token head (the same
+    prompts).  K3's int8 variant of the bf16 tile, K1 and K2 must launch,
+    K4 and K3's other variants never; every request finishes, the second
+    wave hits at least 8 x 1024 cached tokens, and ``pool_bytes`` is half
+    the bf16 phase's.  Then one 1536-token prompt's chunked prefill and
+    two decode steps' logits through the kernels against the plain path
+    on int8 pools, run on the same weights in f32 (the bf16 plain path's
+    own rounding over 32 layers exceeds the tolerance), with the int8 K/V
+    teacher-forced (``Int8Tape``), within ``BF16_MODEL_TOL`` of the
+    logits' scale.  The
+    share of greedy tokens equal to the bf16 phase's is printed, not
+    checked: quantising the cache changes tokens."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config("llama2-7b").replace(kv_dtype="int8")
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=512,
+                 prefix_cache=True)
+    if eng.state["k_pages"].dtype != torch.int8:
+        fail(f"int8 engine: pools of {eng.state['k_pages'].dtype}")
+    rng = torch.Generator().manual_seed(SEED + 1)  # the chunked phase's
+    head_len, new = 1024, 32
+    head = torch.randint(0, cfg.vocab_size, (head_len,), generator=rng)
+
+    def wave(n):
+        tails = torch.randint(128, 513, (n,), generator=rng).tolist()
+        return [Request(prompt=head.tolist() + torch.randint(
+            0, cfg.vocab_size, (t,), generator=rng).tolist(),
+            max_new_tokens=new) for t in tails]
+
+    log(f"int8 engine phase: llama2-7b, bf16 weights, kv_dtype int8 "
+        f"(kv_scale {cfg.kv_scale}), 8 slots, max_seq_len 2048, pool "
+        f"{eng.num_pages} pages of {cfg.page_size}, prefill_chunk 512, "
+        f"prefix cache on; the chunked phase's prompts")
+    kernels.reset_launch_counts()
+    waves, all_reqs = {}, []
+    for name, n in (("A", 4), ("B", 8)):
+        reqs = wave(n)
+        hits0 = eng.prefix_cache.hit_tokens
+        wall, chunk_ms, decode_ms = drive(torch, eng, reqs)
+        all_reqs += reqs
+        ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+        new_tokens = sum(len(r.output) for r in reqs)
+        waves[name] = dict(
+            requests=n, new_tokens=new_tokens, wall_s=wall,
+            tok_s=new_tokens / wall, ttft_s_p50=ttft[len(ttft) // 2],
+            ttft_s_max=ttft[-1],
+            prefix_hit_tokens=eng.prefix_cache.hit_tokens - hits0,
+            chunk_ms_per_step=chunk_ms,
+            chunk_ms_median=statistics.median(chunk_ms),
+            decode_ms_median=statistics.median(decode_ms))
+        w, b = waves[name], bf16["waves"][name]
+        log(f"int8 wave {name} (bf16 pools' wave beside it): "
+            f"{new_tokens} tokens in {wall:.2f} s = {w['tok_s']:.1f} tok/s "
+            f"({b['tok_s']:.1f}); TTFT p50 {w['ttft_s_p50']:.3f} s "
+            f"({b['ttft_s_p50']:.3f}); chunk steps median "
+            f"{w['chunk_ms_median']:.1f} ms ({b['chunk_ms_median']:.1f}): "
+            f"{[round(x) for x in chunk_ms]}; decode median "
+            f"{w['decode_ms_median']:.2f} ms/step "
+            f"({b['decode_ms_median']:.2f}); prefix hit tokens "
+            f"{w['prefix_hit_tokens']}")
+    counts = kernels.launch_counts()
+    check_path("int8 engine", eng, all_reqs, new, counts,
+               must=("paged_decode", "combine", "paged_prefill",
+                     "paged_prefill/tc/int8"),
+               never=("flex_prefill", *k3_routes_except("tc/int8")))
+    if waves["B"]["prefix_hit_tokens"] < 8 * head_len:
+        fail(f"int8 engine: wave B hit {waves['B']['prefix_hit_tokens']} "
+             f"cached tokens, fewer than 8 x {head_len}")
+    mem = eng.memory_report()
+    bf16_pool = bf16["memory_report"]["pool_bytes"]
+    if 2 * mem["pool_bytes"] != bf16_pool:
+        fail(f"int8 engine: pool_bytes {mem['pool_bytes']:.0f} is not half "
+             f"the bf16 pools' {bf16_pool:.0f}")
+    outputs = [r.output for r in all_reqs]
+    same = [a == b for x, y in zip(outputs, bf16["outputs"])
+            for a, b in zip(x, y)]
+    stats = dict(
+        waves=waves, launches=counts, memory_report=mem,
+        greedy_tokens_equal_to_bf16=sum(same) / len(same),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"int8 engine: pool_bytes {mem['pool_bytes'] / 1e9:.3f} GB "
+        f"(bf16 {bf16_pool / 1e9:.3f}); max_memory_allocated "
+        f"{stats['max_memory_allocated_gb']:.2f} GB (bf16 "
+        f"{bf16['max_memory_allocated_gb']:.2f}); greedy tokens equal to "
+        f"the bf16 phase's: {sum(same)} of {len(same)} (not checked); "
+        f"launches {counts}")
+    # where the time goes: one profiled chunk step of 4 fresh requests on
+    # the cached head (after the launch counts were read), as the chunked
+    # phase's
+    for r in wave(4):
+        eng.add_request(r)
+    stats["profile_chunk_step"] = profile_steps(torch, eng, 1)
+    log_profile("int8 chunk_step", stats["profile_chunk_step"])
+    check_attributed("int8 chunk_step", stats["profile_chunk_step"],
+                     "K3 paged_prefill")
+    del eng
+    torch.cuda.empty_cache()
+
+    # one 1536-token prompt, chunked by 512, over int8 pools: the kernels
+    # (bf16) against the plain path on the same weights in f32.  The plain
+    # path in bf16 rounds its scores to bf16, and over 32 layers of random
+    # weights its logits move past BF16_MODEL_TOL from the kernels', on
+    # int8 pools and on bf16 pools alike: both distances are printed
+    # beside the check.
+    import gc
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+    n = 1536
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (cfg.n_layers, -(-(n + 2) // cfg.page_size), cfg.page_size,
+            cfg.n_kv_heads, cfg.resolved_head_dim)
+    model = build_model(cfg)
+    p32 = _map(params, lambda x: x.float())
+    tape = Int8Tape(torch)
+    out, lcounts = logits_pair(torch, model, params, tokens, pool, 512,
+                               pool_dtype=torch.int8, tape=tape,
+                               ref_params=p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain16, _ = logits_pair(torch, model, params, tokens, pool, 512,
+                             pool_dtype=torch.int8, tape=Int8Tape(torch))
+    bf16_pools, _ = logits_pair(torch, build_model(get_config("llama2-7b")),
+                                params, tokens, pool, 512)
+    got, want = out["kernel"], out["ref"]
+    if not bool(torch.isfinite(got).all()):
+        fail("int8 engine: non-finite logits")
+    if lcounts["paged_prefill/tc/int8"] <= 0 or lcounts["paged_decode"] <= 0:
+        fail(f"int8 engine: the logits' kernel path did not run K3 "
+             f"tc/int8 and K1 ({lcounts})")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rel = err / (1 + scale)
+    def rel_to(out):
+        return float((out["kernel"] - out["ref"]).abs().max()) / (
+            1 + float(out["ref"].abs().max()))
+
+    rel16, rel16_pools = rel_to(plain16), rel_to(bf16_pools)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"int8 engine: prefill (chunks of 512) + 2 decode logits of a "
+        f"{n}-token prompt over int8 pools, kernel path (bf16) vs the "
+        f"plain path on the weights in f32: max|err| {err:.3e} = "
+        f"{rel:.3e} of (1 + max|logit|) (tol {BF16_MODEL_TOL:g}; "
+        f"max|logit| {scale:.3f}), greedy argmax agreement {agree:.2f} "
+        f"({tape.report()}); vs the plain path in bf16 {rel16:.3e}, and "
+        f"on bf16 pools {rel16_pools:.3e} (neither checked); launches "
+        f"{lcounts}")
+    if rel > BF16_MODEL_TOL:
+        fail(f"int8 engine: logits max|err| {err} beyond {BF16_MODEL_TOL} "
+             f"* (1 + {scale})")
+    stats["logits"] = dict(max_err=err, rel_to_scale=rel,
+                           rel_to_scale_vs_bf16_plain=rel16,
+                           bf16_pools_rel_to_scale_vs_bf16_plain=rel16_pools,
+                           argmax_agreement=agree, launches=lcounts,
+                           int8_values_differing=tape.differ,
+                           int8_values=tape.total)
     return stats
 
 
@@ -2018,7 +2375,7 @@ def f32_engine_phase(torch):
         ("chunked 512", dict(prefill_chunk=512),
          ("paged_decode", "combine", "paged_prefill",
           "paged_prefill/tf32x3"),
-         ("flex_prefill", "paged_prefill/tc", "paged_prefill/simt")))
+         ("flex_prefill", *k3_routes_except("tf32x3"))))
     stats, outputs = {}, {}
     for mode, kw, must, never in runs:
         if kw:
@@ -2321,8 +2678,7 @@ def nemotron_engine_phase(torch):
                new, counts,
                must=("paged_decode", "combine", "paged_prefill",
                      "paged_prefill/tc"),
-               never=("flex_prefill", "paged_prefill/tf32x3",
-                      "paged_prefill/simt"))
+               never=("flex_prefill", *k3_routes_except("tc")))
     if waves["B"]["prefix_hit_tokens"] < 6 * 1024:
         fail(f"nemotron-4-15b: wave B hit "
              f"{waves['B']['prefix_hit_tokens']} cached tokens, fewer than "
@@ -2335,6 +2691,16 @@ def nemotron_engine_phase(torch):
         f"{stats['chunked']['max_memory_allocated_gb']:.2f} GB; launches "
         f"{counts}")
     return stats
+
+
+def _map(tree, fn):
+    """``tree`` (nested dicts and lists of tensors) with ``fn`` applied to
+    every tensor."""
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(x, fn) for x in tree)
+    return fn(tree)
 
 
 def _leaves(tree):
@@ -2361,16 +2727,20 @@ def profile_steps_on(torch, eng, cfg, rng):
     return profile_steps(torch, eng, 1)
 
 
-def logits_pair(torch, model, params, tokens, pool, chunk=None):
+def logits_pair(torch, model, params, tokens, pool, chunk=None,
+                pool_dtype=None, tape=None, ref_params=None):
     """Prefill logits of one prompt, then two decode steps' logits, through
     the plain path (impl "ref"; greedy) and the kernels (teacher-forced
     with the plain path's tokens, so both see the same inputs); with
     ``chunk``, the prompt is prefilled by ``prefill_chunk`` in chunks of
-    that size.  Returns {impl: (3, V) logits} and the kernel path's launch
-    counts."""
+    that size.  The pools take ``pool_dtype`` (int8 for a model of
+    kv_dtype "int8"), by default the weights' dtype; with an ``Int8Tape``,
+    the kernel path writes the plain path's int8 K/V; with ``ref_params``
+    (the same weights in f32) the plain path runs on them.  Returns
+    {impl: (3, V) logits} and the kernel path's launch counts."""
     from repro_torch import kernels
     dev = tokens.device
-    dtype = next(_leaves(params)).dtype  # the pools take the weights' dtype
+    dtype = pool_dtype or next(_leaves(params)).dtype
     n = tokens.shape[1]
     pps = pool[1]
     tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
@@ -2382,26 +2752,32 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None):
               "k_pages": torch.zeros(pool, dtype=dtype, device=dev),
               "v_pages": torch.zeros(pool, dtype=dtype, device=dev)}
         kernels.reset_launch_counts()
-        if chunk is None:
-            logits, st = model.prefill(params, tokens, st, lens=lens_t,
-                                       impl=impl)
-        else:
-            start = 0
-            while start < n:
-                c = min(chunk, n - start)
-                logits, st = model.prefill_chunk(
-                    params, tokens[:, start:start + c], st,
-                    torch.tensor([start], dtype=torch.int32, device=dev),
-                    torch.tensor([c], dtype=torch.int32, device=dev),
-                    impl=impl)
-                start += c
-            st = dict(st, pos=lens_t)
-        seq = [logits]
-        for i in range(2):
-            if impl == "ref":
-                forced.append(logits.argmax(-1))
-            logits, st = model.decode_step(params, forced[i], st, impl=impl)
-            seq.append(logits)
+        taped = (tape.pass_(replay=impl == "kernel") if tape is not None
+                 else contextlib.nullcontext())
+        w = ref_params if impl == "ref" and ref_params is not None else (
+            params)
+        with taped:
+            if chunk is None:
+                logits, st = model.prefill(w, tokens, st, lens=lens_t,
+                                           impl=impl)
+            else:
+                start = 0
+                while start < n:
+                    c = min(chunk, n - start)
+                    i32 = dict(dtype=torch.int32, device=dev)
+                    logits, st = model.prefill_chunk(
+                        w, tokens[:, start:start + c], st,
+                        torch.tensor([start], **i32),
+                        torch.tensor([c], **i32), impl=impl)
+                    start += c
+                st = dict(st, pos=lens_t)
+            seq = [logits]
+            for i in range(2):
+                if impl == "ref":
+                    forced.append(logits.argmax(-1))
+                logits, st = model.decode_step(w, forced[i], st,
+                                               impl=impl)
+                seq.append(logits)
         torch.cuda.synchronize()
         out[impl] = torch.stack(seq).float()
         counts[impl] = kernels.launch_counts()
@@ -2533,8 +2909,7 @@ def nemotron_340b_phase(torch):
              ("paged_prefill", "flex_prefill/tf32x3")),
             ("engine chunked 512", dict(prefill_chunk=512),
              ("paged_decode", "combine", "paged_prefill/tc"),
-             ("flex_prefill", "paged_prefill/tf32x3",
-              "paged_prefill/simt"))):
+             ("flex_prefill", *k3_routes_except("tc")))):
         eng = Engine(cfg, params, max_slots=4, max_seq_len=2048,
                      dtype=torch.bfloat16, seed=SEED, **kw)
         reqs = [Request(prompt=list(x), max_new_tokens=8) for x in prompts]
@@ -2579,7 +2954,7 @@ def time_k4(torch):
         kw = dict(scale=D ** -0.5, mask_mod=mm, q_len=Q, kv_len=Q)
         call = lambda: fa.flex_attention_kernel(q, k, v, bm, **kw)  # noqa
         out[key] = dict(
-            device_ms=[device_ms(torch, call, KERNEL_NAMES[key], reps=10)
+            device_ms=[device_ms(torch, call, kernel_name(key), reps=10)
                        for _ in range(3)],
             event_ms=[time_ms(torch, call, reps=10) for _ in range(3)])
     log(json.dumps({"time_k4": out}))
@@ -2615,9 +2990,17 @@ def time_main(torch):
                    q_block=128)
         key = "paged_prefill_" + pa.prefill_route(dtype, dtype, P)
         call = lambda: pa.paged_prefill_partials(*cargs, **ckw)  # noqa
-        out[key] = [device_ms(torch, call, KERNEL_NAMES[key], reps=10)
+        out[key] = [device_ms(torch, call, kernel_name(key), reps=10)
                     for _ in range(3)]
         del args, cargs
+    # K3 over int8 pools with bf16 q, on whatever kernel the tree runs it
+    cargs = chunk_inputs(torch, gen, H, 1, D, P, mp, q_start, q_lens,
+                         torch.bfloat16, dev, int8=True)
+    call = lambda: pa.paged_prefill_partials(*cargs, kv_scale=0.05,  # noqa
+                                             **ckw)
+    key = "paged_prefill " + pa.prefill_route(torch.bfloat16, torch.int8, P)
+    out[key] = [device_ms(torch, call, "paged_prefill_kernel", reps=10)
+                for _ in range(3)]
     log(json.dumps({"time_main": out}))
     time_k4(torch)
 
@@ -2775,7 +3158,7 @@ def main():
         log(f"-- {phase} done at {time.perf_counter() - t_run:.1f} s")
 
     done("build and kernel phase")
-    model_phase(torch)
+    model = model_phase(torch)
     done("model phase")
     torch.cuda.empty_cache()
     engine, params = engine_phase(torch)
@@ -2783,6 +3166,9 @@ def main():
     torch.cuda.empty_cache()
     chunked = chunked_phase(torch, params)
     done("chunked phase")
+    torch.cuda.empty_cache()
+    int8 = int8_engine_phase(torch, params, chunked)
+    done("int8 engine phase")
     torch.cuda.empty_cache()
     swa = swa_engine_phase(torch, params)
     done("swa engine phase")
@@ -2809,12 +3195,16 @@ def main():
                     "paged_attention.py:161", "combine", "bfloat16"),
         "paged_prefill_tc": k3[:2] + ("paged_prefill/tc", "bfloat16"),
         "paged_prefill_tf32x3": k3[:2] + ("paged_prefill/tf32x3", "float32"),
-        "paged_prefill_simt": k3[:2] + ("paged_prefill/simt", "int8"),
+        "paged_prefill_tc/int8": k3[:2] + ("paged_prefill/tc/int8", "int8"),
+        "paged_prefill_tf32x3/int8": k3[:2] + ("paged_prefill/tf32x3/int8",
+                                               "int8"),
         "flex_prefill_tc": k4[:2] + ("flex_prefill/tc", "bfloat16"),
         "flex_prefill_tf32x3": k4[:2] + ("flex_prefill/tf32x3", "float32"),
     }
     modes = ("monolithic", "chunked 512")
-    phases = ([engine["launches"], chunked["launches"]]
+    phases = ([model["int8_chunked_launches"], engine["launches"],
+               chunked["launches"], int8["launches"],
+               int8["logits"]["launches"]]
               + [swa[mode]["launches"] for mode in modes]
               + [f32[mode]["launches"] for mode in modes]
               + [f32["swa"]["launches"]]
@@ -2836,8 +3226,9 @@ def main():
     (OUT / "chip_smoke_last.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kernels_line,
          "times": {f"{k}/{d}": v for (k, d), v in rows.items()},
-         "max_abs_err": chk.max_err, "engine": engine,
-         "chunked": chunked, "swa_engine": swa, "f32_engine": f32,
+         "max_abs_err": chk.max_err, "model": model, "engine": engine,
+         "chunked": chunked, "int8_engine": int8, "swa_engine": swa,
+         "f32_engine": f32,
          "nemotron_4_15b": nemo, "nemotron_4_15b_f32": nemo_f32,
          "nemotron_4_340b": nemo_340b},
         indent=1, default=str))

@@ -23,34 +23,3 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
-
-// Elements of T in one 16-byte vector load.
-template <typename T>
-struct Vec16 {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-// One coalesced 16-byte load of N = 16/sizeof(T) elements, widened to f32.
-// `p` must be 16-byte aligned (row strides are multiples of 16 bytes).
-template <typename T>
-__device__ __forceinline__ void load_vec16(const T* p,
-                                           float (&out)[Vec16<T>::N]) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int i = 0; i < Vec16<T>::N; ++i) out[i] = to_f32(e[i]);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}

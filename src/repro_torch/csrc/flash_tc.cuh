@@ -73,9 +73,22 @@ constexpr bool head_dim_ok(int D) { return D == 64 || D == 128 || D == 192; }
 // kStages stages of kTile bytes at kK (K) and kV (V), each holding
 // kPanels panels of kPanelCols columns, kStagePanel bytes apart, and the
 // barriers at kBar.  Q (kQTile bytes at kQ) has panels of kPanelBytes.
-template <int D>
+//
+// With I8 (int8 pools) the ring's stages hold the int8 K and V as TMA
+// lands them, unswizzled (kTile = kBN rows of D bytes), and one bf16
+// working stage (kWK, kWV: the layout TMA's bf16 boxes would give) takes
+// the tile the products read: widen_stage writes it from the ring.  An
+// int8 value is exact in bf16 (8-bit significand), so the working stage
+// holds the integers themselves; the kernel folds kv_scale into the score
+// scale and into acc at the store.  At D = 128: Q 32 KB + 3 x (16 + 16)
+// KB + 64 KB = 192 KB; at D = 192 (64-key stages): 48 + 72 + 48 = 168 KB.
+// The ring of three bf16 stages does not fit beside the int8 ring, so the
+// working stage is single.
+template <int D, bool I8 = false>
 struct Layout {
   static_assert(head_dim_ok(D), "head dim 64, 128 or 192");
+  static constexpr bool kInt8 = I8;
+  static constexpr int kD = D;
   static constexpr int kThreads = flash_tc::kThreads;
   static constexpr int kBN = D <= 128 ? 128 : 64;  // keys per K/V stage
   static constexpr int kStages = flash_tc::kStages;
@@ -83,11 +96,14 @@ struct Layout {
   static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 64;
   static constexpr int kQTile = kPanels * kPanelBytes;  // Q
-  static constexpr int kTile = kPanels * kStagePanel;   // one K/V stage
+  static constexpr int kWTile = kPanels * kStagePanel;  // a bf16 K/V stage
+  static constexpr int kTile = I8 ? kBN * D : kWTile;   // a ring stage
   static constexpr int kQ = 0;
   static constexpr int kK = kQTile;
   static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;  // full, then empty
+  static constexpr int kWK = kV + kStages * kTile;  // I8: the working stage
+  static constexpr int kWV = kWK + kWTile;
+  static constexpr int kBar = I8 ? kWV + kWTile : kWK;  // full, then empty
   // dynamic shared memory to request: 1024 bytes of alignment slack
   static constexpr size_t kBytes = 1024 + kBar + 16 * kStages;
 };
@@ -146,6 +162,72 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
 // Generic-proxy shared-memory writes become visible to TMA and wgmma.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// -- int8 pools ----------------------------------------------------------------
+// The 4 int8 of a word as exact f32: byte b becomes the f32 2^23 + (b ^
+// 0x80) by a byte permute, less 2^23 + 128 (no int-to-float conversion,
+// which runs at a quarter of the rate).
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t x = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(x, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+}
+
+// The 4 int8 of a word as two bf16 pairs (low bytes first): the f32 of a
+// value of 8 bits has 16 zero low bits, so its high half is the exact bf16.
+__device__ __forceinline__ uint2 i8x4_to_bf16(uint32_t w) {
+  float f[4];
+  i8x4_to_f32(w, f);
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+// Ring stage st's int8 K and V (kBN rows of D bytes) as bf16 into the
+// working stage, where TMA's bf16 boxes would have put them: 16 bytes of a
+// row become two 16-byte chunks c ^ (row % 8) of its 64-column panel.  A
+// warp's reads are one contiguous run; its writes meet each bank four
+// times for 512 bytes, the least a 16-byte store can.  Rows no box filled
+// hold int8 bytes, finite as bf16 (P is 0 there).  The caller fences and
+// synchronises.
+template <class L>
+__device__ __forceinline__ void widen_stage(uint32_t base, int st) {
+  constexpr int kCh = L::kD / 16;  // 16-byte int8 chunks of a row
+  constexpr int kItems = L::kBN * kCh;
+  static_assert(2 * kItems % L::kThreads == 0, "whole passes");
+#pragma unroll 2
+  for (int it = 0; it < 2 * kItems / L::kThreads; ++it) {
+    const int x = threadIdx.x + it * L::kThreads;
+    const int kv = x >= kItems;
+    const int y = x - kv * kItems, r = y / kCh, c = y % kCh;
+    const uint4 w = lds128(base + (kv ? L::kV : L::kK) + st * L::kTile +
+                           r * L::kD + c * 16);
+    const uint2 a = i8x4_to_bf16(w.x), b = i8x4_to_bf16(w.y);
+    const uint2 e = i8x4_to_bf16(w.z), f = i8x4_to_bf16(w.w);
+    const uint32_t row = base + (kv ? L::kWV : L::kWK) +
+                         (c / 4) * L::kStagePanel + r * 128;
+    const int cw = 2 * (c % 4);
+    sts128(row + ((cw ^ (r & 7)) << 4), make_uint4(a.x, a.y, b.x, b.y));
+    sts128(row + (((cw + 1) ^ (r & 7)) << 4), make_uint4(e.x, e.y, f.x, f.y));
+  }
 }
 
 // -- wgmma -------------------------------------------------------------------
@@ -603,11 +685,13 @@ __device__ __forceinline__ void acc_finish(Acc<D>& a, float m_scale) {
 //       that stay un-normalised over thousands of keys;
 // and `key[h]` is the tile-independent row_key of the thread's rows.  The
 // warpgroups run unsynchronised, so one's softmax can overlap the other's
-// products.
-template <int D, class Tile>
+// products.  On the int8 layout (L::kInt8) every tile is first widened into
+// the working stage by the whole CTA, between two CTA barriers (the stage
+// is single, so the warpgroups run in step), and its ring stage is
+// released at once.
+template <int D, class Tile, class L = Layout<D>>
 __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
                                          const int (&key)[2], Acc<D>& a) {
-  using L = Layout<D>;
   constexpr int BN = L::kBN;
   const int wg = threadIdx.x / 128;
   acc_init(a);
@@ -615,8 +699,17 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
 
   for (int i = 0; i < n; ++i) {
     const int st = ring_acquire<L>(t, base, i, n);
-    const uint32_t k_s = base + L::kK + st * L::kTile;
-    const uint32_t v_s = base + L::kV + st * L::kTile;
+    uint32_t k_s = base + L::kK + st * L::kTile;
+    uint32_t v_s = base + L::kV + st * L::kTile;
+    if constexpr (L::kInt8) {
+      if (i > 0) __syncthreads();  // every warp's products of tile i - 1
+      widen_stage<L>(base, st);
+      fence_proxy_async();
+      __syncthreads();
+      ring_release<L>(base, st);
+      k_s = base + L::kWK;
+      v_s = base + L::kWV;
+    }
 
     float s[BN / 2];
     wgmma_fence();
@@ -661,7 +754,7 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint32_t base, int n,
     wgmma_commit();
     wgmma_wait0();
     fence_regs(a.o);
-    ring_release<L>(base, st);
+    if constexpr (!L::kInt8) ring_release<L>(base, st);
   }
   acc_finish(a, t.m_scale);
 }
@@ -694,8 +787,8 @@ constexpr int kErrEncode = 901;
 
 // A matrix of `rows` rows of `cols` elements of `type`, `row_bytes` apart,
 // read in boxes of (box_rows, box_cols) with `swizzle` (the tensor-core tile:
-// bf16, 64 columns, the 128-byte swizzle; K1: whole unswizzled head rows of
-// f32, bf16 or int8).  Out-of-range rows of a box read as zeros.  Returns 0
+// bf16, 64 columns, the 128-byte swizzle; K1 and the tiles' int8 rings:
+// whole unswizzled head rows).  Out-of-range rows of a box read as zeros.  Returns 0
 // or an error code.
 inline int encode_2d(CUtensorMap* map, const void* ptr,
                      CUtensorMapDataType type, uint64_t cols, uint64_t rows,
@@ -720,6 +813,14 @@ inline int encode_bf16_sw128(CUtensorMap* map, const void* ptr, uint64_t cols,
                              uint32_t box_rows) {
   return encode_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cols, rows,
                    row_bytes, 64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The int8 rings' boxes: whole head rows of D bytes, unswizzled (the bytes
+// as they are; widen_stage reads them).
+inline int encode_i8_rows(CUtensorMap* map, const void* ptr, uint64_t cols,
+                          uint64_t rows, uint32_t D, uint32_t box_rows) {
+  return encode_2d(map, ptr, CU_TENSOR_MAP_DATA_TYPE_UINT8, cols, rows, cols,
+                   D, box_rows, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace flash_tc

@@ -88,26 +88,39 @@ constexpr int kRows = 64;      // query rows per CTA
 constexpr int kPanelBytes = 64 * 128;  // 64 rows x 32 f32: a Q panel
 
 // Byte offsets in the (1024-aligned) dynamic shared memory of a CTA, with
-// the members the flash_tc ring helpers read.
-template <int D>
+// the members the flash_tc ring helpers read.  With I8 (int8 pools) the
+// ring holds the int8 K and V as TMA lands them (kBN rows of D bytes,
+// unswizzled), three stages of them, and the products read one f32
+// working tile of each (kWK: K as TMA's f32 boxes would give it; kWV: V^T):
+// widen_k and widen_vt write them.  An int8 value is exact in TF32 (11-bit
+// significand), so K and V need no lo part and no K lo tile: q.K and p.V
+// are two TF32 products each (q and P as hi + lo against the exact K and
+// V), not three.  At D = 128: Q hi + lo 64 KB + 3 x (8 + 8) KB + 64 KB =
+// 176 KB; at D = 192: 96 + 36 + 48 = 180 KB.
+template <int D, bool I8 = false>
 struct Layout {
   static_assert(ft::head_dim_ok(D), "head dim 64, 128 or 192");
+  static constexpr bool kInt8 = I8;
+  static constexpr int kD = D;
   static constexpr int kThreads = flash_tf32::kThreads;
   static constexpr int kBN = D <= 128 ? 64 : 32;  // keys per K/V tile
-  static constexpr int kStages = 2;
+  static constexpr int kStages = I8 ? 3 : 2;
   static constexpr int kPanelCols = 32;  // f32 columns per 128-byte row
   static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 32;
   static constexpr int kQTile = kPanels * kPanelBytes;  // 64 rows of D f32
-  static constexpr int kTile = kPanels * kStagePanel;   // kBN rows of D f32
+  static constexpr int kWTile = kPanels * kStagePanel;  // kBN rows of D f32
+  static constexpr int kTile = I8 ? kBN * D : kWTile;   // a ring stage
   // p.V in kPvParts products of D / kPvParts columns each
   static constexpr int kPvParts = D <= 128 ? 1 : 2;
   static constexpr int kQ = 0;  // Q hi
   static constexpr int kQlo = kQTile;
-  static constexpr int kKlo = 2 * kQTile;
-  static constexpr int kK = kKlo + kTile;
+  static constexpr int kKlo = 2 * kQTile;  // not I8
+  static constexpr int kK = I8 ? 2 * kQTile : kKlo + kTile;
   static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBar = kV + kStages * kTile;  // full, then empty
+  static constexpr int kWK = kV + kStages * kTile;  // I8: the working tiles
+  static constexpr int kWV = kWK + kWTile;
+  static constexpr int kBar = I8 ? kWV + kWTile : kWK;  // full, then empty
   static constexpr size_t kBytes = 1024 + kBar + 16 * kStages;
 };
 
@@ -322,18 +335,21 @@ __device__ __forceinline__ void wgmma_qk<32>(float (&s)[16], uint64_t da,
   wgmma_tf32_n32(s, da, db, scale_d);
 }
 
-// S = Q K^T for the stage's split K tile: small terms first.
-template <int D>
+// S = Q K^T for the stage's split K tile: small terms first.  On the int8
+// layout K is the exact working tile: lo(q) K + hi(q) K.
+template <int D, class L = Layout<D>>
 __device__ __forceinline__ void qk(uint32_t base, int st,
-                                   float (&s)[Layout<D>::kBN / 2]) {
-  using L = Layout<D>;
+                                   float (&s)[L::kBN / 2]) {
+  constexpr int kPasses = L::kInt8 ? 2 : 3;
   const uint32_t q_hi = base + L::kQ, q_lo = base + L::kQlo;
-  const uint32_t k_hi = base + L::kK + st * L::kTile, k_lo = base + L::kKlo;
+  const uint32_t k_hi =
+      L::kInt8 ? base + L::kWK : base + L::kK + st * L::kTile;
+  const uint32_t k_lo = base + L::kKlo;
   ft::wgmma_fence();
 #pragma unroll
-  for (int pass = 0; pass < 3; ++pass) {
+  for (int pass = 0; pass < kPasses; ++pass) {
     const uint32_t qa = pass == 0 ? q_lo : q_hi;
-    const uint32_t kb = pass == 1 ? k_lo : k_hi;
+    const uint32_t kb = !L::kInt8 && pass == 1 ? k_lo : k_hi;
 #pragma unroll
     for (int kk = 0; kk < D / 8; ++kk) {
       const uint32_t col = (kk % 4) * 32;  // k8 step in its panel
@@ -397,6 +413,79 @@ __device__ __forceinline__ void transpose_v(uint8_t* gen, int st) {
   __syncthreads();
 }
 
+// V^T's byte offset of key `key`, column d (transpose_v's layout: 32-key
+// panels of D rows of 128 bytes, 128-byte swizzle, keys permuted within
+// each group of 8).
+template <int D>
+__device__ __forceinline__ int vt_offset(int key, int d) {
+  const int l = key % 32, k8 = l & 7;
+  const int c = (l & ~7) + (k8 >> 1) + 4 * (k8 & 1);  // k-index in panel
+  return (key / 32) * (D * 128) + d * 128 + (((c >> 2) ^ (d & 7)) << 4) +
+         (c & 3) * 4;
+}
+
+// Ring stage st's int8 K as f32 into the working K tile, where TMA's f32
+// boxes would have put it (16 bytes of a row become four 16-byte chunks of
+// its 32-column panel), then visible to wgmma.  Rows no box filled hold
+// int8 bytes, finite in f32.
+template <int D, class L>
+__device__ __forceinline__ void widen_k(uint8_t* gen, int st) {
+  constexpr int kCh = D / 16;  // 16-byte int8 chunks of a row
+  const uint8_t* src = gen + L::kK + st * L::kTile;
+  uint8_t* dst = gen + L::kWK;
+  static_assert(L::kBN * kCh % kThreads == 0, "whole passes");
+#pragma unroll
+  for (int it = 0; it < L::kBN * kCh / kThreads; ++it) {
+    const int x = threadIdx.x + it * kThreads;
+    const int r = x / kCh, c = x % kCh;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + r * D + c * 16);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+    uint8_t* row = dst + (c / 2) * L::kStagePanel + r * 128;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float f[4];
+      ft::i8x4_to_f32(words[e], f);
+      *reinterpret_cast<float4*>(row + (((4 * (c % 2) + e) ^ (r & 7)) << 4)) =
+          make_float4(f[0], f[1], f[2], f[3]);
+    }
+  }
+  ft::fence_proxy_async();
+  __syncthreads();
+}
+
+// Ring stage st's int8 V as f32 V^T into the working V tile, in
+// transpose_v's layout (no lo: the values are exact).  The 32 lanes of a
+// warp take 32 keys of one chunk pass, lane l reading its row's chunk (c +
+// l) % kCh: a read meets each bank of a 16-byte group at most four times
+// (the least for 512 bytes at D = 64 and 128), and each of its 16 writes,
+// at one column d for 32 keys, meets every bank once.  First a CTA barrier:
+// every warp's p.V of the last tile (which read the tile) is done.
+template <int D, class L>
+__device__ __forceinline__ void widen_vt(uint8_t* gen, int st) {
+  constexpr int kCh = D / 16;
+  const uint8_t* src = gen + L::kV + st * L::kTile;
+  uint8_t* vt = gen + L::kWV;
+  __syncthreads();
+#pragma unroll
+  for (int it = 0; it < L::kBN * kCh / kThreads; ++it) {
+    const int x = threadIdx.x + it * kThreads;
+    const int key = x % L::kBN, c = (x / L::kBN + key) % kCh;
+    const uint4 w = *reinterpret_cast<const uint4*>(src + key * D + c * 16);
+    const uint32_t words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float f[4];
+      ft::i8x4_to_f32(words[e], f);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float*>(vt + vt_offset<D>(key, 16 * c + 4 * e + q)) =
+            f[q];
+    }
+  }
+  ft::fence_proxy_async();
+  __syncthreads();
+}
+
 // P in s (the probabilities, f32) split into TF32 A fragments (ph, pl;
 // they must live until the products complete): columns t, t + 4 of key
 // group j are keys 8 j + 2 t and 8 j + 2 t + 1.
@@ -413,23 +502,25 @@ __device__ __forceinline__ void split_p(const float (&s)[N], uint32_t (&ph)[N],
 }
 
 // Issue pv (the accumulator fragment of o's columns [c0, c0 + N)) = P V
-// over the stage's transposed V (hi in the V tile, lo in the K tile), P as
-// split by split_p.  Small terms first; the caller waits.
-template <int D, int N, int BN = Layout<D>::kBN>
+// over the stage's transposed V (hi in the V tile, lo in the K tile; on the
+// int8 layout the exact V^T of the working tile), P as split by split_p.
+// Small terms first; the caller waits.
+template <int D, int N, class L = Layout<D>>
 __device__ __forceinline__ void pv_issue(uint32_t base, int st, int c0,
-                                         const uint32_t (&ph)[BN / 2],
-                                         const uint32_t (&pl)[BN / 2],
+                                         const uint32_t (&ph)[L::kBN / 2],
+                                         const uint32_t (&pl)[L::kBN / 2],
                                          float (&pv)[N / 2]) {
-  using L = Layout<D>;
+  constexpr int kPasses = L::kInt8 ? 2 : 3;
 #pragma unroll
   for (int x = 0; x < N / 2; ++x) pv[x] = 0.f;
-  const uint32_t vt_hi = base + L::kV + st * L::kTile + c0 * 128;
+  const uint32_t vt_hi =
+      (L::kInt8 ? base + L::kWV : base + L::kV + st * L::kTile) + c0 * 128;
   const uint32_t vt_lo = base + L::kK + st * L::kTile + c0 * 128;
   ft::wgmma_fence();
 #pragma unroll
-  for (int pass = 0; pass < 3; ++pass) {
+  for (int pass = 0; pass < kPasses; ++pass) {
     const uint32_t* a = pass == 0 ? pl : ph;
-    const uint32_t b = pass == 1 ? vt_lo : vt_hi;
+    const uint32_t b = !L::kInt8 && pass == 1 ? vt_lo : vt_hi;
 #pragma unroll
     for (int kk = 0; kk < L::kBN / 8; ++kk) {
       const uint32_t off = (kk / 4) * (D * 128) + (kk % 4) * 32;
@@ -440,22 +531,30 @@ __device__ __forceinline__ void pv_issue(uint32_t base, int st, int c0,
 }
 
 // The flash loop over `n` K/V tiles, after ft::init_ring, ft::prefetch and
-// ft::q_ready on this file's Layout<D>.  Tile provides what flash_tc's
-// mainloop documents, except kPTerms (P is always hi + lo here).  Per tile:
-// q.K, softmax, V transpose, p.V issued; the next tile's K split while p.V
-// runs; then o, the stage's release and its refill two tiles ahead.
-template <int D, class Tile>
+// ft::q_ready on the Layout L.  Tile provides what flash_tc's mainloop
+// documents, except kPTerms (P is always hi + lo here).  Per tile: q.K,
+// softmax, V transpose, p.V issued; the next tile's K split while p.V
+// runs; then o, the stage's release and its refill kStages tiles ahead.
+// On the int8 layout the K split is widen_k (into the working K tile, free
+// once every warp's q.K is done: widen_vt's barrier) and the V transpose
+// widen_vt.
+template <int D, class Tile, class L = Layout<D>>
 __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
                                          uint32_t base, int n,
                                          const int (&key)[2], ft::Acc<D>& a) {
-  using L = Layout<D>;
   constexpr int BN = L::kBN, NP = D / L::kPvParts;
+  const auto prepare_k = [&](int st) {
+    if constexpr (L::kInt8)
+      widen_k<D, L>(gen, st);
+    else
+      split_k<D>(gen, st);
+  };
   ft::acc_init(a);
-  if (n > 0) split_k<D>(gen, ft::ring_acquire<L>(t, base, 0, n));
+  if (n > 0) prepare_k(ft::ring_acquire<L>(t, base, 0, n));
   for (int i = 0; i < n; ++i) {
     const int st = i % L::kStages;
     float s[BN / 2];
-    qk<D>(base, st, s);
+    qk<D, L>(base, st, s);
     ft::score_tile<BN>(t, i, key, s);
     float alpha[2], m_log2[2];
     ft::softmax_max<BN>(s, t.exp_scale, a, alpha, m_log2);
@@ -466,16 +565,19 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
       a.l[h] += s[x];
     }
 
-    transpose_v<D>(gen, st);
+    if constexpr (L::kInt8)
+      widen_vt<D, L>(gen, st);
+    else
+      transpose_v<D>(gen, st);
     uint32_t ph[BN / 2], pl[BN / 2];
     split_p(s, ph, pl);
 #pragma unroll
     for (int part = 0; part < L::kPvParts; ++part) {
       float pv[NP / 2];
-      pv_issue<D, NP>(base, st, part * NP, ph, pl, pv);
-      // tile i + 1's K split overlaps tile i's p.V products: K lo is free
-      if (part == 0 && i + 1 < n)
-        split_k<D>(gen, ft::ring_wait<L>(base, i + 1));
+      pv_issue<D, NP, L>(base, st, part * NP, ph, pl, pv);
+      // tile i + 1's K split overlaps tile i's p.V products: K lo (the
+      // working K tile on the int8 layout) is free
+      if (part == 0 && i + 1 < n) prepare_k(ft::ring_wait<L>(base, i + 1));
       ft::wgmma_wait0();
       ft::fence_regs(pv);
 #pragma unroll

@@ -26,8 +26,9 @@ IMPLS = ("kernel", "ref")
 HEAD_DIMS = (64, 128, 192)
 SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block, bytes
 # the tensor-core tiles of K3 and K4 (csrc/flash_tc.cuh, flash_tf32.cuh):
-# query rows per CTA, K/V stages and bytes per element, by route
-_TILES = {"tc": (128, 3, 2), "tf32x3": (64, 2, 4)}
+# query rows per CTA, K/V stages (on pools of q's dtype, on int8 pools) and
+# bytes per element, by tile
+_TILES = {"tc": (128, 3, 3, 2), "tf32x3": (64, 2, 3, 4)}
 
 
 def check_head_dim(kernel: str, D: int) -> None:
@@ -43,24 +44,34 @@ def check_head_dim(kernel: str, D: int) -> None:
 
 
 def tile_keys(route: str, D: int) -> int:
-    """Keys per K/V stage of a tensor-core tile ("tc" or "tf32x3") at head
-    dim ``D``: 128 and 64 up to D = 128, 64 and 32 at D = 192, where the
-    longer stages would not fit (``Layout<D>::kBN``)."""
-    if route == "tc":
+    """Keys per K/V stage of a tensor-core tile at head dim ``D`` (route
+    "tc" or "tf32x3", or one of their variants, "tc/int8" etc.): 128 and
+    64 up to D = 128, 64 and 32 at D = 192, where the longer stages would
+    not fit (``Layout<D>::kBN``)."""
+    if route.split("/")[0] == "tc":
         return 128 if D <= 128 else 64
     return 64 if D <= 128 else 32
 
 
 def tile_smem_bytes(route: str, D: int) -> int:
     """Dynamic shared memory of a tensor-core tile's CTA, computed as
-    ``Layout<D>::kBytes`` computes it: the Q tile (hi and lo for
-    "tf32x3", whose K lo tile follows), the ring of K and V stages, 16
-    bytes of barriers per stage, and 1024 bytes of alignment slack."""
-    rows, stages, item = _TILES[route]
+    ``Layout<D, I8>::kBytes`` computes it: the Q tile (hi and lo for
+    "tf32x3", whose K lo tile follows on pools of q's dtype), the ring of
+    K and V stages, 16 bytes of barriers per stage, and 1024 bytes of
+    alignment slack.  On int8 pools (a route with "int8") the ring's stages
+    hold int8 rows and one working stage of K and V in the tile's element
+    type follows it."""
+    tile = route.split("/")[0]
+    rows, stages, stages_i8, item = _TILES[tile]
     q = rows * D * item
-    stage = tile_keys(route, D) * D * item
-    fixed = q if route == "tc" else 2 * q + stage
-    return 1024 + fixed + 2 * stages * stage + 16 * stages
+    work = tile_keys(tile, D) * D * item  # a K or V stage in the tile's type
+    fixed = q if tile == "tc" else 2 * q
+    if "int8" in route.split("/"):
+        ring = 2 * stages_i8 * tile_keys(tile, D) * D
+        return 1024 + fixed + ring + 2 * work + 16 * stages_i8
+    if tile == "tf32x3":
+        fixed += work  # the K lo tile
+    return 1024 + fixed + 2 * stages * work + 16 * stages
 
 
 def check_impl(impl: str) -> None:
@@ -114,18 +125,22 @@ def tf32_product(op, a: torch.Tensor, b: torch.Tensor, terms=None
                  ) -> torch.Tensor:
     """``op(a, b)`` for a bilinear ``op`` (matmul, einsum) as the split-TF32
     kernels evaluate it: with hi = tf32(x) and lo = tf32(x - hi), ``terms``
-    3 sums lo(a)·hi(b) + hi(a)·lo(b) + hi(a)·hi(b) (lo·lo dropped), 1 takes
-    hi(a)·hi(b) alone (one TF32 product), None is ``op(a, b)`` itself.
-    Used by the plain versions to show that the f32 tolerance fits the
-    kernels' arithmetic."""
+    3 sums lo(a)·hi(b) + hi(a)·lo(b) + hi(a)·hi(b) (lo·lo dropped), 2 sums
+    lo(a)·hi(b) + hi(a)·hi(b) (``b`` exact in TF32: the int8 pools' K and
+    V), 1 takes hi(a)·hi(b) alone (one TF32 product), None is ``op(a, b)``
+    itself.  Used by the plain versions to show that the f32 tolerance
+    fits the kernels' arithmetic."""
     if not terms:
         return op(a, b)
     a_hi, b_hi = tf32(a), tf32(b)
     if terms == 1:
         return op(a_hi, b_hi)
-    if terms != 3:
-        raise ValueError(f"tf32 terms must be 1 or 3, got {terms}")
-    a_lo, b_lo = tf32(a.float() - a_hi), tf32(b.float() - b_hi)
+    if terms not in (2, 3):
+        raise ValueError(f"tf32 terms must be 1, 2 or 3, got {terms}")
+    a_lo = tf32(a.float() - a_hi)
+    if terms == 2:
+        return op(a_lo, b_hi) + op(a_hi, b_hi)
+    b_lo = tf32(b.float() - b_hi)
     return op(a_lo, b_hi) + op(a_hi, b_lo) + op(a_hi, b_hi)
 
 
@@ -144,10 +159,12 @@ def launch_wrappers():
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset, per route of the
-    wrappers that have several ("flex_prefill/tc", "flex_prefill/tf32x3",
-    "paged_prefill/tc", "paged_prefill/tf32x3", "paged_prefill/simt"),
-    and per route and mask variant of K4 ("flex_prefill/tc/window&padding":
-    only the variants launched since the reset)."""
+    wrappers that have several ("flex_prefill/tc", "flex_prefill/tf32x3";
+    K3's tiles by input: "paged_prefill/tc", "paged_prefill/tc/int8",
+    "paged_prefill/tc/odd", "paged_prefill/tc/int8/odd" and the same of
+    "tf32x3"), and per route and mask variant of K4
+    ("flex_prefill/tc/window&padding": only the variants launched since the
+    reset)."""
     counts = {}
     for k, fn in launch_wrappers().items():
         counts[k] = fn.launches

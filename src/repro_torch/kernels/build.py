@@ -54,12 +54,6 @@ SIGNATURES = {
                                _F, _I, _F, _F, _P],
     # out dtype code, m, l, acc, out, B, Hkv, S, G, D, stream
     "combine_partials": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # dtype codes, q, k_pages, v_pages, blocked tables, kv_lens, q_start,
-    # m, l, acc, B, C, Hkv, G, D, page_size, n_blocks, ppb, num_splits,
-    # bps, q_block, scale, softcap, kv_scale, stream
-    "paged_prefill_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                               _F, _F, _F, _P],
     # compiled kind, q, k, v, o, kv_num_blocks, kv_indices, is_full, the
     # mask and score descriptor (host int64 words) and its length, B, H,
     # Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk, q_len, kv_len,
@@ -70,15 +64,17 @@ SIGNATURES = {
     "flex_attention_fwd_tf32": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _F, _P],
-    # K3's tensor-core routes, bf16 ("_tc") and f32 ("_tf32"): the CUDA-core
-    # arguments without the dtype codes, with num_pages (the tensor map's
-    # rows) and without kv_scale (no int8 pools)
+    # K3's tiles, bf16 q ("_tc") and f32 q ("_tf32"): q, k_pages, v_pages,
+    # blocked tables, kv_lens, q_start, m, l, acc, B, C, Hkv, G, D,
+    # num_pages (the tensor map's rows), page_size, n_blocks, ppb,
+    # num_splits, bps, q_block, scale, softcap, kv_scale (> 0: int8
+    # pools), stream
     "paged_prefill_partials_tc": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                   _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _I, _I, _F, _F, _P],
+                                  _I, _I, _F, _F, _F, _P],
     "paged_prefill_partials_tf32": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                                    _I, _I, _I, _F, _F, _P],
+                                    _I, _I, _I, _F, _F, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -21,15 +21,26 @@ K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 of ``q_block·G`` rows that attend causally, by absolute position, to the
 cached prefix and the chunk itself; ``combine_prefill_partials`` folds the
 Q-blocks into the batch and merges them with K2 (or the plain normalise
-for one split).  K3 has three routes, chosen by ``prefill_route`` from the
-dtypes and the page size: q and pools of one dtype with a page of a
-multiple of 8 tokens, at most 128, run on the tensor cores with one TMA
-box per page — bf16 on the bf16 tile (``paged_prefill_kernel_tc``,
-wgmma), f32 on the split-TF32 tile (``paged_prefill_kernel_tf32``: every
-product as three TF32 products, which keeps the f32 tolerance); int8
-pools and other pages run on the CUDA cores (``paged_prefill_kernel``).
-Each route counts its own launches in
-``paged_prefill_partials.launches_by_route``.
+for one split).  Every input of K3 runs on the tensor cores, on one of two
+tiles chosen by the q dtype (``prefill_route``): bf16 q on the bf16 tile
+(``paged_prefill_kernel_tc``, wgmma), f32 q on the split-TF32 tile
+(``paged_prefill_kernel_tf32``: every product as three TF32 products,
+which keeps the f32 tolerance).  Each takes pools of q's dtype or int8
+pools, and pages of any size: a page is one TMA box at a stage row that is
+a multiple of 8 (the 128-byte swizzle's 1024-byte period); when the page
+is not a multiple of 8 tokens the rows between boxes are masked per
+element, and a page longer than a tile's K/V stage (`kernels.tile_keys`)
+is cut into boxes of that many rows.  What limits the page is the tensor
+map's 32-bit row coordinate: ``num_pages·page_size`` must stay below
+2^31.  On int8 pools each tile is widened into a working stage of the
+tile's element type, where the int8 values are exact (bf16 and TF32 hold
+8-bit integers), and ``kv_scale`` is folded into the score scale and
+into ``acc`` after the products: closer to exact than the JAX reference's
+``bf16(k·kv_scale)`` for bf16 q (``repro/kernels/paged_attention/
+ref.py``), and on the split-TF32 tile two TF32 products in place of three
+(K and V have no low part).  Each tile and input variant ("tc",
+"tc/int8", "tc/odd", "tc/int8/odd" and the same of "tf32x3") counts its
+own launches in ``paged_prefill_partials.launches_by_route``.
 
 Partition and partial contract are the JAX package's (`decode_partition`,
 `_blocked_tables`), so the partials compare with the reference split by
@@ -57,36 +68,29 @@ _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 DECODE_GROUP_WIDTHS = (1, 2, 4, 8)  # K1's compiled query heads per warp
 _DECODE_MAX_CTA_GROUP = 16  # query heads of one K1 CTA, at most
-ROUTES = ("tc", "tf32x3", "simt")
-# K3's tensor-core routes: a page is one TMA box (a page longer than a
-# tile's K/V stage, `kernels.tile_keys`, is cut into boxes of that many
-# rows), placed at a multiple of the 128-byte swizzle's 1024-byte period
-# (8 rows of 128 bytes)
-TC_PAGE_MULTIPLE, TC_MAX_PAGE = 8, 128
-_TC_ROUTES = {torch.bfloat16: "tc", torch.float32: "tf32x3"}
+# K3's tiles by q dtype, and their input variants: int8 pools, and pages
+# that are not a multiple of 8 tokens (the rows between boxes masked)
+_TILE_BY_Q = {torch.bfloat16: "tc", torch.float32: "tf32x3"}
+ROUTES = tuple(f"{tile}{i8}{odd}" for tile in ("tc", "tf32x3")
+               for i8 in ("", "/int8") for odd in ("", "/odd"))
+_MAX_POOL_ROWS = 2 ** 31  # the tensor map's row coordinate is a 32-bit int
 
 
 def prefill_route(q_dtype: torch.dtype, kv_dtype: torch.dtype,
                   page_size: int) -> str:
-    """K3's route: for q and pools of one dtype and ``page_size`` a
-    multiple of 8, at most 128, "tc" (the bf16 tensor-core kernel) for
-    bf16 and "tf32x3" (the split-TF32 tensor-core kernel) for f32;
-    "simt", the CUDA-core kernel, for int8 pools and every other page
-    size."""
-    if (q_dtype == kv_dtype and q_dtype in _TC_ROUTES
-            and page_size % TC_PAGE_MULTIPLE == 0
-            and page_size <= TC_MAX_PAGE):
-        return _TC_ROUTES[q_dtype]
-    return "simt"
-
-
-def simt_smem_bytes(D: int, ppb: int) -> int:
-    """Dynamic shared memory of K3's CUDA-core kernel (route "simt"),
-    computed as ``launch`` in csrc/paged_prefill.cu does: a pre-scaled f32
-    q tile of 128 rows, a K and a V sub-tile of 32 tokens (q and K rows
-    padded by one float), the probabilities, and the KV block's page
-    ids."""
-    return 4 * (128 * (D + 1) + 32 * (D + 1) + 32 * D + 128 * 33) + 4 * ppb
+    """K3's tile and input variant: "tc" (the bf16 tensor-core tile) for
+    bf16 q, "tf32x3" (the split-TF32 tile) for f32 q, with "/int8" for
+    int8 pools and "/odd" for a page that is not a multiple of 8 tokens.
+    Pools of another dtype than q's or int8, or a page below 1 token, take
+    no tile and raise ``UnsupportedFeature``."""
+    tile = _TILE_BY_Q.get(q_dtype)
+    if tile is None or kv_dtype not in (q_dtype, torch.int8) or page_size < 1:
+        raise UnsupportedFeature(
+            f"prefill kernel: q {q_dtype}, pools {kv_dtype}, page "
+            f"{page_size} (takes f32 or bf16 q over pools of its dtype or "
+            "int8, pages >= 1)", dtype=str(q_dtype))
+    return (tile + ("/int8" if kv_dtype == torch.int8 else "")
+            + ("/odd" if page_size % 8 else ""))
 
 
 def _combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
@@ -512,12 +516,16 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
     """Plain version of K3: the same Q-block rows, gather, causal and
     length masks and per-split softmax partials, vectorised over every
     Q-block and split at once.  Skipped KV blocks are all-masked here,
-    which leaves the partials exactly as skipping does.  ``p_terms``
-    rounds the probabilities before p.V to that many bf16 terms, as the
-    bf16 tensor-core kernel feeds them (2: hi + lo); None keeps them f32,
-    and ``l`` sums them in f32 either way.  ``tf32_terms`` (3 or 1)
-    evaluates q.K and p.V as the split-TF32 kernel does (`tf32_product`;
-    the scale applies after q.K there)."""
+    which leaves the partials exactly as skipping does.  On int8 pools
+    (``kv_scale > 0``) K and V stay the integers they are and
+    ``kv_scale`` is folded in after the products, as the kernel folds it:
+    ``s = (q·k)·scale·kv_scale``, ``acc = (p·v)·kv_scale``.
+    ``p_terms`` rounds the probabilities before p.V to that many bf16
+    terms, as the bf16 tensor-core kernel feeds them (2: hi + lo); None
+    keeps them f32, and ``l`` sums them in f32 either way.  ``tf32_terms``
+    (3 or 1) evaluates q.K and p.V as the split-TF32 kernel does
+    (`tf32_product`; the scale applies after q.K there); on int8 pools 3
+    becomes 2, the kernel's two products against the exact K and V."""
     B, C, H, D = q.shape
     num_pages, page_size, n_kv, _ = k_pages.shape
     max_pages = block_tables.shape[1]
@@ -531,9 +539,9 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
     work = _work_dtype(q)
     k = k_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
     v = v_pages[pages.reshape(B, padded)].to(work).reshape(B, S, T, n_kv, D)
-    if kv_scale > 0:
-        k = k * kv_scale
-        v = v * kv_scale
+    fold = kv_scale > 0
+    if fold and tf32_terms == 3:
+        tf32_terms = 2
     qb, NQ = _prefill_q_blocks(q, n_kv, q_block)
     dev = q.device
     kvpos = torch.arange(padded * page_size, device=dev).reshape(S, T)
@@ -549,8 +557,12 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
     if tf32_terms:
         s = tf32_product(lambda a, b: torch.einsum(qk, a, b), qb.to(work),
                          k, tf32_terms) * scale
+    elif fold:
+        s = torch.einsum(qk, qb.to(work), k) * scale
     else:
         s = torch.einsum(qk, qb.to(work) * scale, k)
+    if fold:
+        s = s * kv_scale
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     s = torch.where(live, s, torch.tensor(NEG_INF, device=dev))
@@ -563,6 +575,8 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
                            tf32_terms)
     else:
         acc = torch.einsum(pv, tensor_core_p(p, p_terms), v)
+    if fold:
+        acc = acc * kv_scale
     return m, p.sum(dim=-1), acc
 
 
@@ -587,7 +601,7 @@ def paged_prefill_partials(
 
     The chunk's K/V must already be in the pages (write-then-attend, on
     the same stream).  q is f32 or bf16; the pools share its dtype, or are
-    int8 with ``kv_scale > 0``.
+    int8 with ``kv_scale > 0``; pages of any size.
     """
     if not use_kernel("paged_prefill_partials", q, k_pages, v_pages,
                       block_tables, kv_lens, q_start):
@@ -616,28 +630,26 @@ def paged_prefill_partials(
                             ).int()
     NQ, R = -(-C // q_block), q_block * G
     route = prefill_route(q.dtype, k_pages.dtype, page_size)
+    if num_pages * page_size >= _MAX_POOL_ROWS:
+        raise UnsupportedFeature(
+            f"prefill kernel: a pool of {num_pages} pages of {page_size} "
+            f"tokens has 2^31 rows or more (the tensor map's row coordinate"
+            " is 32-bit)", page_size=page_size)
     dev = q.device
     m = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     l = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     acc = torch.empty((B, n_kv, NQ, S, R, D), dtype=torch.float32,
                       device=dev)
-    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            pages.data_ptr(), kv_lens.data_ptr(), q_start.data_ptr(),
-            m.data_ptr(), l.data_ptr(), acc.data_ptr())
+    name = "paged_prefill_partials_" + ("tc" if route.startswith("tc")
+                                        else "tf32")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if route != "simt":
-            name = "paged_prefill_partials_" + ("tc" if route == "tc"
-                                                else "tf32")
-            err = getattr(get_lib(), name)(
-                *ptrs, B, C, n_kv, G, D, num_pages, page_size, S * bps, ppb,
-                S, bps, q_block, float(scale), float(softcap), stream)
-        else:
-            name = "paged_prefill_partials"
-            err = get_lib().paged_prefill_partials(
-                _Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], *ptrs, B, C,
-                n_kv, G, D, page_size, S * bps, ppb, S, bps, q_block,
-                float(scale), float(softcap), float(kv_scale), stream)
+        err = getattr(get_lib(), name)(
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            pages.data_ptr(), kv_lens.data_ptr(), q_start.data_ptr(),
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, C, n_kv, G, D,
+            num_pages, page_size, S * bps, ppb, S, bps, q_block,
+            float(scale), float(softcap), float(kv_scale),
+            torch.cuda.current_stream().cuda_stream)
     check(err, name)
     paged_prefill_partials.launches += 1
     paged_prefill_partials.launches_by_route[route] += 1

@@ -2,8 +2,9 @@
 
 - (a) ``flex_route`` and ``prefill_route``: bf16 goes to the bf16
   tensor-core kernels ("tc"), f32 to the split-TF32 tensor-core kernels
-  ("tf32x3"); K3's int8 pools and pages that are not a multiple of 8
-  tokens (or over 128) go to its CUDA-core kernel ("simt").
+  ("tf32x3"); K3 takes every input on them, its int8 pools and pages that
+  are not a multiple of 8 tokens as variants of either tile ("tc/int8",
+  "tf32x3/odd", ...), each counted apart; other pool dtypes raise.
 - (b) every ``extern "C"`` function of ``csrc/*.cu`` has a ``SIGNATURES``
   entry with as many parameters, parsed from the sources (a ctypes
   mismatch would otherwise show only on the card).
@@ -72,35 +73,54 @@ def test_flex_route_by_dtype(dtype, route, D):
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
 def test_prefill_route_by_dtype_and_page(q_dtype, kv_dtype, D, page):
-    tile = page % 8 == 0 and page <= 128
-    want = "simt"
-    if tile and q_dtype == kv_dtype == torch.bfloat16:
-        want = "tc"
-    elif tile and q_dtype == kv_dtype == torch.float32:
-        want = "tf32x3"
+    want = "tc" if q_dtype == torch.bfloat16 else "tf32x3"
+    if kv_dtype == torch.int8:
+        want += "/int8"
+    if page % 8:
+        want += "/odd"
     assert pa.prefill_route(q_dtype, kv_dtype, page) == want
+    # every variant is a route the wrapper counts, and its tile fits
+    assert want in pa.ROUTES
+    assert tile_smem_bytes(want, D) <= SMEM_LIMIT
 
 
 @pytest.mark.parametrize("page", [8, 16, 64, 128, 12, 4, 136])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 def test_prefill_int8_pools_and_odd_pages_stay_on_the_cuda_cores(q_dtype,
                                                                  page):
-    assert pa.prefill_route(q_dtype, torch.int8, page) == "simt"
-    if page % 8 or page > 128:
-        assert pa.prefill_route(q_dtype, q_dtype, page) == "simt"
-    else:
-        assert pa.prefill_route(q_dtype, q_dtype, page) != "simt"
+    """Int8 pools and odd pages, which once ran on a CUDA-core kernel, now
+    take the tensor-core tile of their q dtype, as variants; every page
+    from 1 to 256 tokens does, and pools of another dtype take no tile."""
+    tile = "tc" if q_dtype == torch.bfloat16 else "tf32x3"
+    for kv_dtype in (q_dtype, torch.int8):
+        for p in (page, *range(1, 257)):
+            route = pa.prefill_route(q_dtype, kv_dtype, p)
+            assert route.split("/")[0] == tile
+            assert ("/int8" in route) is (kv_dtype == torch.int8)
+            assert route.endswith("/odd") is (p % 8 != 0)
+    other = torch.float32 if q_dtype == torch.bfloat16 else torch.bfloat16
+    for kv_dtype in (other, torch.float16):
+        with pytest.raises(UnsupportedFeature):
+            pa.prefill_route(q_dtype, kv_dtype, page)
+    with pytest.raises(UnsupportedFeature):
+        pa.prefill_route(torch.float16, torch.float16, page)
+    with pytest.raises(UnsupportedFeature):
+        pa.prefill_route(q_dtype, q_dtype, 0)
 
 
 def test_route_counts_in_launch_counts_and_reset():
     counts = kernels.launch_counts()
+    k3 = ("tc", "tc/odd", "tc/int8", "tc/int8/odd", "tf32x3", "tf32x3/odd",
+          "tf32x3/int8", "tf32x3/int8/odd")
     for name, routes in (("flex_prefill", ("tc", "tf32x3")),
-                         ("paged_prefill", ("tc", "tf32x3", "simt"))):
+                         ("paged_prefill", k3)):
         assert {k for k in counts if k.startswith(name + "/")} == {
             f"{name}/{r}" for r in routes}
+    assert set(pa.ROUTES) == set(k3)
     fa.flex_attention_kernel.launches_by_route["tf32x3"] += 3
-    pa.paged_prefill_partials.launches_by_route["simt"] += 2
+    pa.paged_prefill_partials.launches_by_route["tc/int8"] += 2
     assert kernels.launch_counts()["flex_prefill/tf32x3"] >= 3
+    assert kernels.launch_counts()["paged_prefill/tc/int8"] >= 2
     kernels.reset_launch_counts()
     assert all(n == 0 for n in kernels.launch_counts().values())
 
@@ -135,8 +155,12 @@ def test_every_entry_point_has_a_signature():
     assert {"flex_attention_fwd_tc", "flex_attention_fwd_tf32",
             "paged_prefill_partials_tc",
             "paged_prefill_partials_tf32"} <= set(found)
-    # K4's CUDA-core kernel is gone: every K4 input runs on a tensor core
+    # K4's and K3's CUDA-core kernels are gone: every input of either runs
+    # on a tensor core
     assert "flex_attention_fwd" not in found
+    assert "paged_prefill_partials" not in found
+    assert "paged_prefill_kernel<" not in (
+        build.CSRC / "paged_prefill.cu").read_text()
 
 
 @pytest.mark.parametrize("name", sorted(build.SIGNATURES))
@@ -443,14 +467,23 @@ def test_decode_plan_and_tiles_stay_in_step_with_the_c_side():
             tile_keys(route, 128), tile_keys(route, 192))
     assert "return D == 64 || D == 128 || D == 192;" in (
         CSRC / "flash_tc.cuh").read_text()
+    # the stages tile_smem_bytes counts: three on the bf16 tile; two on the
+    # split-TF32 tile, three of int8 beside its working tiles
+    assert "constexpr int kStages = 3;" in (CSRC / "flash_tc.cuh").read_text()
+    assert "kStages = I8 ? 3 : 2;" in (CSRC / "flash_tf32.cuh").read_text()
     assert HEAD_DIMS == (64, 128, 192)
 
 
 @pytest.mark.parametrize("D", [64, 128, 192])
 def test_tile_shared_memory_fits_one_block(D):
-    for route in ("tc", "tf32x3"):
+    for route in pa.ROUTES:
         assert tile_smem_bytes(route, D) <= SMEM_LIMIT
-    assert pa.simt_smem_bytes(D, ppb=8) <= SMEM_LIMIT
+    # the int8 layouts: a ring of int8 stages beside one working stage
+    # takes less than the tile's own ring
+    for tile in ("tc", "tf32x3"):
+        assert tile_smem_bytes(tile + "/int8", D) < tile_smem_bytes(tile, D)
+        assert tile_smem_bytes(tile + "/int8/odd", D) == tile_smem_bytes(
+            tile + "/int8", D)
     for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
         for G in range(1, 49):
             assert pa.decode_smem_bytes(kv_dtype, D, G) <= SMEM_LIMIT
@@ -467,4 +500,13 @@ def test_tiles_at_d192_take_shorter_stages():
     assert 1024 + 7 * 128 * 192 * 2 > SMEM_LIMIT
     assert 1024 + 7 * 64 * 192 * 4 > SMEM_LIMIT
     assert tile_smem_bytes("tc", 128) == 1024 + 229376 + 48
-    assert pa.simt_smem_bytes(192, ppb=2) == 4 * 41248 + 8
+    # int8 pools, as Layout<D, true> lays them out: Q, three stages of
+    # int8 K and V, one working K and V stage of the tile's element type
+    assert tile_smem_bytes("tc/int8", 128) == (
+        1024 + 32768 + 3 * 2 * 16384 + 2 * 32768 + 48)  # 192 KB + slack
+    assert tile_smem_bytes("tc/int8", 192) == (
+        1024 + 49152 + 3 * 2 * 12288 + 2 * 24576 + 48)  # 168 KB
+    assert tile_smem_bytes("tf32x3/int8", 128) == (
+        1024 + 2 * 32768 + 3 * 2 * 8192 + 2 * 32768 + 48)  # 176 KB
+    assert tile_smem_bytes("tf32x3/int8", 192) == (
+        1024 + 2 * 49152 + 3 * 2 * 6144 + 2 * 24576 + 48)  # 180 KB
