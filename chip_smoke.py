@@ -70,10 +70,18 @@ Phases, each of which fails the script (exit code 1) when it fails:
    padding); and K1, K3 and K4 at the real heads of nemotron-4-15b (48 /
    8, D 128), llama3-405b (128 / 8, D 128) and nemotron-4-340b (96 / 8, D
    192) at batch 4 (K1) and 2 (K3, K4), each timed (device) beside its
-   bound and SDPA with ``enable_gqa``.  The f32 cases whose plain version
-   carries rounding of the order of the f32 tolerance (K3's full table,
-   D 192, the real heads' long rows) are held against the plain version
-   evaluated in f64 instead;
+   bound and SDPA with ``enable_gqa``.  Head dim 256, at recurrentgemma-
+   9b's heads (16 over one kv head: G 16): K1, K2 and the decode op on
+   ring tables as its 'W' layers decode (batch 8, window 2048, a ring of
+   33 pages of 64, lens 2200..3000) in f32, bf16 and int8; K3 on each of
+   its eight routes at G 1 and 16, and timed at the real heads' chunk
+   step on four; K4 under window 2048 & padding (B 2, Q = K = 3072) on
+   both tiles, and causal & document and causal + softcap; each timed
+   case beside its plain version, its bound and SDPA, its errors kept as
+   the kernel's D-256 instance (``<kernel>/d256``).  The f32 cases whose
+   plain version carries rounding of the order of the f32 tolerance
+   (K3's full table, D 192 and 256, the real heads' long rows) are held
+   against the plain version evaluated in f64 instead;
 3. model: llama2-7b widths at 4 layers in f32: prefill and 3 decode
    steps through the kernels (K4 and K3 on the split-TF32 tile) agree with
    the plain oracle path; chunked prefill in chunks of 96 through K3 agrees
@@ -131,7 +139,22 @@ Phases, each of which fails the script (exit code 1) when it fails:
    G 12, D 192; about 32.7 GB): the same logits against the plain path
    within ``BF16_MODEL_TOL`` (relative), monolithic and chunked by 512,
    then 4 requests through the engine, monolithic (K4's bf16 tile at D
-   192, K1, K2) and with ``prefill_chunk=512`` (K3's bf16 tile).
+   192, K1, K2) and with ``prefill_chunk=512`` (K3's bf16 tile);
+11. recurrentgemma-9b (after the Nemotron weights are gone): full width
+   and depth in bf16 (38 layers of pattern RRW: 26 RG-LRU blocks, 12 'W'
+   layers of window 2048; 16 heads over one kv head: G 16, D 256; GeGLU
+   d_ff 12288; about 20.9 GB), 8 slots, max_seq_len 3072, ring tables of
+   33 pages: 8 greedy requests (four of 2200..3000 tokens, four of
+   256..1024), 32 new tokens each, monolithic: K4's window & padding
+   variant on the bf16 tile, K1 and K2 at D 256 must launch, K3 never;
+   tok/s, decode ms per step, TTFT, pool and recurrent-state bytes, peak
+   memory, a profiled prefill and decode step by kind and the RG-LRU scan
+   alone; a 2200-token prompt's prefill and two decode steps' logits
+   against the plain path on the same weights in f32 within
+   ``BF16_MODEL_TOL`` of the logits' scale;
+12. recurrentgemma-9b at 6 layers (RRWRRW) in f32: the same logits
+   through K4's split-TF32 tile and K1 in f32 at D 256 against the plain
+   path within the model tolerance.
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -664,6 +687,10 @@ def kernel_phase(torch, chk):
     heads = torch.Generator(device=dev)
     heads.manual_seed(SEED + 17)
     rows.update(gqa_head_phase(torch, chk, heads))
+    # head dim 256 (recurrentgemma-9b), from its own generator
+    d256 = torch.Generator(device=dev)
+    d256.manual_seed(SEED + 18)
+    rows.update(head_dim_256_phase(torch, chk, d256))
     return rows
 
 
@@ -1462,23 +1489,30 @@ def gqa_decode_cases(torch, chk, gen):
                          f"S {ns}", args, kw, torch.bfloat16, BF16_TOL)
 
 
-def gqa_prefill_cases(torch, chk, gen):
+def gqa_prefill_cases(torch, chk, gen, D=192, groups=(6, 12), Hkv=2,
+                      every_route=False):
     """K3 on both tiles at D = 192 with G 6 and 12, at the engine's
     q_block (21 and 10: R = 126 and 120 rows, a partial row tile on both
     tiles): bf16 ("tc"), f32 ("tf32x3", held against f64) on pages of 16,
     and on odd pages of 12, over pools of q's dtype and int8 pools
     ("tc/int8/odd", "tf32x3/odd", "tf32x3/int8/odd"; f32 held against
-    f64)."""
+    f64).  With ``every_route``, each of the eight routes (either tile, q's
+    dtype or int8 pools, pages of 16 or 12) at the given D, groups and kv
+    heads."""
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention import paged_attention as pa
     dev = torch.device("cuda")
-    D, Hkv = 192, 2
     cases = ((torch.bfloat16, False, 16, BF16_TOL),
              (torch.float32, False, 16, F32_TOL),
              (torch.bfloat16, True, 12, BF16_TOL),
              (torch.float32, False, 12, F32_TOL),
              (torch.float32, True, 12, F32_TOL))
-    for G in (6, 12):
+    if every_route:
+        cases = tuple((dt, i8, P, tol) for P in (16, 12) for i8 in (False,
+                                                                   True)
+                      for dt, tol in ((torch.bfloat16, BF16_TOL),
+                                      (torch.float32, F32_TOL)))
+    for G in groups:
         for dtype, int8, P, tol in cases:
             mp = -(-160 // P)
             q_start, q_lens = [100, 0, 37], [40, 37, 0]
@@ -1629,7 +1663,7 @@ def real_heads_decode(torch, chk, gen, cfg_name, H, Hkv, D):
     return rows
 
 
-def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
+def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D, plain=False):
     """K3 at a config's real heads on both tiles and bf16 q over int8
     pools ("tc/int8"): a chunk step of 2
     rows (512 tokens at 0; 300 tokens resuming at 1061) over a 2048-token
@@ -1637,7 +1671,9 @@ def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
     beside its bound and SDPA with the causal-offset mask over pre-gathered
     KV (GQA).  f32 is held against f64 (un-normalised partials over up to
     1361 keys for G x 812 rows per kv head: the f32 plain version's own
-    rounding reaches the tolerance)."""
+    rounding reaches the tolerance).  With ``plain``, f32 q over int8 pools
+    ("tf32x3/int8", held against f64) as well, and each route also timed
+    by events beside its plain version."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention import paged_attention as pa
@@ -1647,10 +1683,15 @@ def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
     q_start, q_lens = [0, 1061], [512, 300]
     ppb, ns, qb = ops.choose_prefill_params(mp, P, D, 512, G)
     rows = {}
-    for dtype, int8, tol in ((torch.bfloat16, False, BF16_TOL),
-                             (torch.float32, False, F32_TOL),
-                             (torch.bfloat16, True, BF16_TOL)):
+    routes = ((torch.bfloat16, False, BF16_TOL),
+              (torch.float32, False, F32_TOL),
+              (torch.bfloat16, True, BF16_TOL))
+    if plain:
+        routes += ((torch.float32, True, F32_TOL),)
+    for dtype, int8, tol in routes:
         name = "int8" if int8 else str(dtype).replace("torch.", "")
+        if int8 and dtype == torch.float32:
+            name = "float32 int8"
         key = "paged_prefill_" + pa.prefill_route(
             dtype, torch.int8 if int8 else dtype, P)
         args = chunk_inputs(torch, gen, Hkv, G, D, P, mp, q_start, q_lens,
@@ -1691,6 +1732,15 @@ def real_heads_prefill(torch, chk, gen, cfg_name, H, Hkv, D):
         rows[(f"{key} {cfg_name}", name)] = dict(
             device_ms=dev_ms, bound_ms=bound, bound_by=by, library_ms=lib,
             G=G, D=D, q_block=qb)
+        if plain:
+            r = rows[(f"{key} {cfg_name}", name)]
+            r["ms"] = time_ms(torch, lambda: pa.paged_prefill_partials(
+                *args, **kw), reps=5)
+            r["plain_ms"] = time_ms(
+                torch, lambda: pa._paged_prefill_partials_plain(*args, **kw),
+                reps=2, warmup=1)
+            log(f"  {key} {tag}: kernel {r['ms']:.4f} ms by events, plain "
+                f"{r['plain_ms']:.3f} ms")
         del args, q, kp, vp, kc, vc, got, mask
     return rows
 
@@ -1748,6 +1798,208 @@ def real_heads_flex(torch, chk, gen, cfg_name, H, Hkv, D):
             library_ms=lib, G=H // Hkv, D=D, live_pairs=pairs)
         del q, k, v, got
     del exact
+    return rows
+
+
+RG_HEADS = ("recurrentgemma-9b", 16, 1, 256)  # name, H, Hkv, D
+
+
+def head_dim_256_phase(torch, chk, gen):
+    """K1, K2, K3 and K4 at head dim 256: recurrentgemma-9b's attention
+    layers (16 query heads over one kv head: G 16).  K1 and the decode op
+    on ring tables past the window, at the engine's batch, in f32, bf16
+    and int8; K3 on each of its eight routes at G 1 and 16, then timed at
+    the real heads on four; K4 under window 2048 & padding on both tiles,
+    and two other mod families.  Each timed case gives its device ms, its
+    bound and SDPA (``enable_gqa``).  The errors are kept apart, as the
+    kernels' D-256 instances (``<kernel>/d256``).  Returns the timed
+    rows."""
+    sub = Checker(torch)
+    name, H, Hkv, D = RG_HEADS
+    log(f"head dim 256 ({name}'s heads: H {H} over Hkv {Hkv}, G "
+        f"{H // Hkv}):")
+    rows = d256_decode(torch, sub, gen)
+    gqa_prefill_cases(torch, sub, gen, D=D, groups=(1, 16), Hkv=Hkv,
+                      every_route=True)
+    for (key, dtype), row in real_heads_prefill(
+            torch, sub, gen, name, H, Hkv, D, plain=True).items():
+        # "paged_prefill_tc/int8 recurrentgemma-9b", "float32 int8" ->
+        # "paged_prefill_tc/int8/d256", "int8"
+        rows[(key.replace(f" {name}", "/d256"), dtype.split()[-1])] = row
+    rows.update(d256_flex(torch, sub, gen))
+    for kernel, err in sub.max_err.items():
+        chk.max_err[kernel + "/d256"] = err
+    return rows
+
+
+def d256_decode(torch, chk, gen):
+    """K1, K2 and the decode op as recurrentgemma-9b's 'W' layers decode:
+    batch 8, 16 heads over one kv head, D 256, window 2048 on a ring of 33
+    pages of 64, lens 2200..3000 (every ring has wrapped), at the engine's
+    partition; f32 (held against f64), bf16 and int8 pools (bf16 q); each
+    timed (events and device) beside its plain version, its byte bound and
+    SDPA over the ring's slots with the live-slot mask (GQA)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    _, H, Hkv, D = RG_HEADS
+    B, P, window = 8, 64, 2048
+    G = H // Hkv
+    ring = -(-window // P) + 1
+    ppb, ns = ops.choose_decode_params(ring, P, D, None, None)
+    lens = torch.randint(2200, 3001, (B,), generator=gen,
+                         device=dev).tolist()
+    rows = {}
+    for dtype, int8, tol in ((torch.float32, False, F32_TOL),
+                             (torch.bfloat16, False, BF16_TOL),
+                             (torch.bfloat16, True, BF16_TOL)):
+        name = "int8" if int8 else str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, B, Hkv, G, D, P, ring, lens, dtype,
+                            dev, int8=int8, window=window)
+        q, kp, vp, tables, lens_t = args
+        kw = dict(scale=D ** -0.5, window=window,
+                  kv_scale=0.05 if int8 else 0.0, pages_per_block=ppb,
+                  num_splits=ns)
+        tag = f"G{G} D{D} {name} ring of {ring} pages, window {window}"
+        check_decode(torch, chk, f"{tag} lens {lens}", args, kw, dtype, tol,
+                     hold_f64=dtype == torch.float32)
+        full = dict(softcap=0.0, **kw)
+        got = pa.paged_attention_partials(*args, **full)
+        k1 = dict(
+            ms=time_ms(torch, lambda: pa.paged_attention_partials(
+                *args, **full)),
+            device_ms=device_ms(torch, lambda: pa.paged_attention_partials(
+                *args, **full), "paged_decode_kernel", reps=5),
+            plain_ms=time_ms(torch, lambda: pa._paged_attention_partials_plain(
+                *args, **full), reps=3))
+        k2 = dict(
+            ms=time_ms(torch, lambda: pa.combine_partials_kernel(
+                *got, dtype=dtype)),
+            device_ms=device_ms(torch, lambda: pa.combine_partials_kernel(
+                *got, dtype=dtype), "combine_kernel", reps=5),
+            plain_ms=time_ms(torch, lambda: pa._combine_partials_plain(
+                *got, dtype=dtype)))
+        n_slots = ring * P
+        kc, vc = ((pool[tables.long()].reshape(B, n_slots, Hkv, D)
+                   .transpose(1, 2).to(dtype) * (0.05 if int8 else 1.0))
+                  .contiguous() for pool in (kp, vp))
+        keep = pa._token_live(lens_t, n_slots, P, window).reshape(
+            B, 1, 1, n_slots)
+        qs = q.reshape(B, H, 1, D)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kc, vc, attn_mask=keep, enable_gqa=True))
+        live = sum(min(L, window) for L in lens)
+        item = q.element_size()
+        partials = sum(t.numel() * 4 for t in got)
+        nbytes = (2 * live * Hkv * D * kp.element_size() + q.numel() * item
+                  + tables.numel() * 4 + B * 4 + partials)
+        ops_ = 4 * live * H * D
+        peak = PEAK_OPS["float32" if dtype == torch.float32 else "bfloat16"]
+        k1.update(bound_ms=1e3 * max(nbytes / HBM_BPS, ops_ / peak),
+                  bound_by=("operations" if ops_ / peak > nbytes / HBM_BPS
+                            else "bytes"), library_ms=lib)
+        k2.update(bound_ms=1e3 * (partials + B * H * D * item) / HBM_BPS,
+                  bound_by="bytes", library_ms=None)
+        gw, slices, chunks, _ = pa.decode_group_plan(G)
+        log(f"  paged_decode {tag}: kernel {k1['ms']:.4f} ms (device "
+            f"{fmt(k1['device_ms'])}), plain {k1['plain_ms']:.3f} ms, "
+            f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}), SDPA over "
+            f"the ring's slots with the live mask (GQA, K1+K2) {lib:.4f} "
+            f"ms; G {G} as {chunks} chunk(s) of {slices} slice(s) of {gw} "
+            f"heads per warp; ppb {ppb}, {ns} splits")
+        log(f"  combine      {tag} (G x D = {G * D}): kernel {k2['ms']:.4f} "
+            f"ms (device {fmt(k2['device_ms'])}), plain "
+            f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
+            f"(bytes)")
+        rows[("paged_decode/d256", name)] = k1
+        rows[("combine/d256", name)] = k2
+        del args, q, kp, vp, kc, vc, got
+    return rows
+
+
+def d256_flex(torch, chk, gen):
+    """K4 as recurrentgemma-9b's 'W' layers prefill: batch 2, 16 heads over
+    one kv head, D 256, Q = K = 3072 under window 2048 & padding (lens 3072
+    and 2600; the analytic windowed BlockMask, as the engine builds it), on
+    both tiles against the plain version with the kernel's product
+    arithmetic (f32 also against f64 on the live rows), timed (events and
+    device) beside the plain version, the bound of its live pairs and SDPA
+    with the same boolean mask (GQA); then causal & document and causal +
+    softcap at Q = K = 1100 on both tiles."""
+    import torch.nn.functional as F
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    dev = torch.device("cuda")
+    _, H, Hkv, D = RG_HEADS
+    B, Q, window = 2, 3072, 2048
+    lens_t = torch.tensor([Q, 2600], dtype=torch.int32, device=dev)
+    mod = flex.and_masks(flex.sliding_window_mask(window),
+                         flex.padding_mask(lens_t))
+    bm = op_block_mask(torch, mod, Q, Q, 128, 128, B, window)
+    live = flex.materialize(mod, B, 1, Q, Q, device=dev).expand(B, 1, Q, Q)
+    keep = (torch.arange(Q, device=dev)[None, None, :, None]
+            < lens_t[:, None, None, None])
+    pairs = int(live.sum()) * H
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        route = fa.flex_route(dtype)
+        q = torch.randn((B, H, Q, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hkv, Q, D), generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        tag = f"G{H // Hkv} D{D} Q=K={Q} window{window}&padding"
+        got = check_flex_variant(torch, chk, tag, q, k, v, mod, None,
+                                 window=window)
+        kw = dict(scale=D ** -0.5, mask_mod=mod, q_len=Q, kv_len=Q)
+        if dtype == torch.float32:
+            # rows past each padding length differ by design (the windowed
+            # BlockMask's full tiles skip the padding mask)
+            plain = fa._flex_attention_plain(q, k, v, bm, **kw)
+            exact = flex_f64_mask(torch, q, k, v, live, D ** -0.5)
+            chk.versus_f64(f"flex_prefill_{route}", f"{name} {tag}, live "
+                           f"rows", got * keep, plain * keep, exact * keep)
+            del plain, exact
+        row = dict(
+            ms=time_ms(torch, lambda: fa.flex_attention_kernel(
+                q, k, v, bm, **kw), reps=5),
+            device_ms=device_ms(torch, lambda: fa.flex_attention_kernel(
+                q, k, v, bm, **kw), KERNEL_NAMES["flex_prefill_" + route],
+                reps=3),
+            plain_ms=time_ms(torch, lambda: fa._flex_attention_plain(
+                q, k, v, bm, **kw), reps=2, warmup=1),
+            library_ms=time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=live, enable_gqa=True), reps=3, warmup=1))
+        ops_ = 4 * D * pairs
+        nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+        row.update(bound_ms=1e3 * max(nbytes / HBM_BPS, ops_ / PEAK_OPS[name]),
+                   bound_by="operations", live_pairs=pairs)
+        extra = ""
+        if dtype == torch.float32:
+            row["bound_tf32x3_ms"] = 1e3 * 3 * ops_ / TF32_OPS
+            extra = f"; three TF32 products {row['bound_tf32x3_ms']:.4f} ms"
+        log(f"  flex_prefill_{route} {name} {tag}: kernel {row['ms']:.4f} ms "
+            f"(device {fmt(row['device_ms'])}), plain {row['plain_ms']:.3f} "
+            f"ms, bound {row['bound_ms']:.4f} ms (operations, {pairs:.4e} "
+            f"live pairs{extra}), SDPA with the boolean mask (GQA) "
+            f"{row['library_ms']:.4f} ms")
+        rows[(f"flex_prefill_{route}/d256", name)] = row
+        del q, k, v, got
+    del live, keep
+    Q2 = 1100
+    docs = (torch.arange(Q2, device=dev) // 300).int()[None].repeat(
+        B, 1).contiguous()
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn((B, H, Q2, D), generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn((B, Hkv, Q2, D), generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        for tag, mm, score in (
+                ("causal&document", flex.and_masks(
+                    flex.causal_mask, flex.document_mask(docs)), None),
+                ("causal+softcap 30", flex.causal_mask,
+                 flex.softcap_score(30.0))):
+            check_flex_variant(torch, chk, f"G{H // Hkv} D{D} Q=K={Q2} {tag}",
+                               q, k, v, mm, score)
     return rows
 
 
@@ -2734,13 +2986,14 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
     with the plain path's tokens, so both see the same inputs); with
     ``chunk``, the prompt is prefilled by ``prefill_chunk`` in chunks of
     that size.  The pools take ``pool_dtype`` (int8 for a model of
-    kv_dtype "int8"), by default the weights' dtype; with an ``Int8Tape``,
-    the kernel path writes the plain path's int8 K/V; with ``ref_params``
-    (the same weights in f32) the plain path runs on them.  Returns
+    kv_dtype "int8"), by default the dtype of the weights the path runs
+    on; with an ``Int8Tape``, the kernel path writes the plain path's int8
+    K/V; with ``ref_params`` (the same weights in f32) the plain path runs
+    on them.  A model with 'R' layers carries its recurrent state from
+    prefill to decode in the state dict.  Returns
     {impl: (3, V) logits} and the kernel path's launch counts."""
     from repro_torch import kernels
     dev = tokens.device
-    dtype = pool_dtype or next(_leaves(params)).dtype
     n = tokens.shape[1]
     pps = pool[1]
     tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
@@ -2748,14 +3001,15 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
     lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
     out, counts, forced = {}, {}, []
     for impl in ("ref", "kernel"):
+        w = ref_params if impl == "ref" and ref_params is not None else (
+            params)
+        dtype = pool_dtype or next(_leaves(w)).dtype
         st = {"pos": lens_t, "tables": tables,
               "k_pages": torch.zeros(pool, dtype=dtype, device=dev),
               "v_pages": torch.zeros(pool, dtype=dtype, device=dev)}
         kernels.reset_launch_counts()
         taped = (tape.pass_(replay=impl == "kernel") if tape is not None
                  else contextlib.nullcontext())
-        w = ref_params if impl == "ref" and ref_params is not None else (
-            params)
         with taped:
             if chunk is None:
                 logits, st = model.prefill(w, tokens, st, lens=lens_t,
@@ -2929,6 +3183,230 @@ def nemotron_340b_phase(torch):
     stats["max_memory_allocated_gb"] = (torch.cuda.max_memory_allocated()
                                         / 1e9)
     return stats
+
+
+def rec_state_bytes(eng):
+    """Bytes of the engine's recurrent state (``state["rec"]``)."""
+    return sum(x.numel() * x.element_size()
+               for x in _leaves(eng.state.get("rec", {})))
+
+
+def rglru_scan_ms(torch, cfg, B, S, dtype):
+    """Device ms of one RG-LRU prefill scan (``rglru.linear_scan``, plain
+    PyTorch: the log-depth doubling) over (B, S, lru_width) inputs of the
+    model's dtype, by events: the part of a prefill step that the profile
+    files under "other"."""
+    from repro_torch.models import rglru
+    dev = torch.device("cuda")
+    w = cfg.lru_width or cfg.d_model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    log_a = -torch.rand((B, S, w), generator=gen, device=dev)
+    b = torch.randn((B, S, w), generator=gen, device=dev).to(dtype)
+    ms = time_ms(torch, lambda: rglru.linear_scan(log_a, b), reps=5)
+    del log_a, b
+    return ms
+
+
+def rglru_engine_phase(torch):
+    """recurrentgemma-9b at full width and depth in bf16 (38 layers of
+    pattern RRW: 26 RG-LRU blocks and 12 'W' layers of window 2048; d_model
+    4096, 16 heads over one kv head: G 16, D 256; GeGLU d_ff 12288, vocab
+    256000; random weights from the seed, about 20.9 GB), 8 slots,
+    max_seq_len 3072, ring tables of 33 pages of 64 and a pool of 8 x 3072
+    tokens: 8 greedy requests, four of 2200..3000 tokens (past the window:
+    K4's window cuts and every ring wraps) and four of 256..1024, 32 new
+    tokens each, monolithic.  K4's window & padding variant on the bf16
+    tile, K1 and K2 must launch, at D 256, and K3 never.  Then one profiled
+    prefill step and one decode step, the RG-LRU scan timed at the
+    prefill's shape, and a 2200-token prompt's prefill and two decode
+    steps' logits through the kernels against the plain path on the same
+    weights in f32 (``BF16_MODEL_TOL`` of the logits' scale)."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("recurrentgemma-9b")
+    G, D = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=3072, pool_tokens=8 * 3072,
+                 dtype=torch.bfloat16, seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(eng.params))
+    ring = -(-cfg.window // cfg.page_size) + 1
+    if eng.pages_per_seq != ring:
+        fail(f"recurrentgemma-9b: tables of {eng.pages_per_seq} pages, not "
+             f"the ring's {ring}")
+    log(f"recurrentgemma-9b phase: {cfg.n_layers} layers of pattern "
+        f"{cfg.layer_pattern} ({eng.model.n_rec_layers} 'R', "
+        f"{eng.model.n_attn_layers} 'W' of window {cfg.window}), d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (G {G}), D "
+        f"{D}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16 "
+        f"({n_params / 1e9:.2f} B parameters, {2 * n_params / 1e9:.1f} GB), "
+        f"8 slots, max_seq_len 3072, ring tables of {ring} pages of "
+        f"{cfg.page_size}, pool {eng.num_pages} pages; recurrent state "
+        f"{rec_state_bytes(eng) / 1e6:.2f} MB; weights and pools ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator().manual_seed(SEED + 9)
+    new = 32
+    plens = (torch.randint(2200, 3001, (4,), generator=rng).tolist()
+             + torch.randint(256, 1025, (4,), generator=rng).tolist())
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    kernels.reset_launch_counts()
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+    counts = kernels.launch_counts()
+    check_path("recurrentgemma-9b", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc", "flex_prefill/tc/window&padding"),
+               never=("paged_prefill", "flex_prefill/tf32x3"))
+    if max(plens) + new <= ring * cfg.page_size:
+        fail("recurrentgemma-9b: no ring wrapped")
+    mem = eng.memory_report()
+    ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+    stats = dict(
+        prompt_lens=plens, new_tokens=8 * new, wall_s=wall,
+        tok_s=8 * new / wall, ttft_s_p50=ttft[len(ttft) // 2],
+        ttft_s_max=ttft[-1], prefill_ms_per_step=prefill_ms,
+        decode_ms_per_step_median=statistics.median(decode_ms),
+        decode_steps=len(decode_ms), preempted=eng.scheduler.preempted,
+        pool_bytes=mem["pool_bytes"], rec_state_bytes=rec_state_bytes(eng),
+        memory_report=mem,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts)
+    log(f"recurrentgemma-9b (monolithic): {8 * new} tokens in {wall:.2f} s "
+        f"= {stats['tok_s']:.1f} tok/s; TTFT p50 {stats['ttft_s_p50']:.3f} "
+        f"s max {ttft[-1]:.3f} s; prefill steps "
+        f"{[round(x) for x in prefill_ms]} ms; decode "
+        f"{stats['decode_ms_per_step_median']:.2f} ms/step (median of "
+        f"{len(decode_ms)}); preemptions {eng.scheduler.preempted}; pool "
+        f"{mem['pool_bytes'] / 1e6:.1f} MB, recurrent state "
+        f"{stats['rec_state_bytes'] / 1e6:.2f} MB; max_memory_allocated "
+        f"{stats['max_memory_allocated_gb']:.2f} GB; launches {counts}")
+    # where the time goes (after the launch counts were read): the step
+    # that admits 8 fresh prompts of 2200 tokens (their prefill and first
+    # decode), then a decode step; and the RG-LRU scan alone at the
+    # prefill's shape
+    for _ in range(8):
+        eng.add_request(Request(prompt=torch.randint(
+            0, cfg.vocab_size, (2200,), generator=rng).tolist(),
+            max_new_tokens=4))
+    stats["profile_prefill_step"] = profile_steps(torch, eng, 1)
+    stats["profile_decode_step"] = profile_steps(torch, eng, 1)
+    for name in ("prefill_step", "decode_step"):
+        log_profile(f"recurrentgemma-9b {name}", stats["profile_" + name])
+    check_attributed("recurrentgemma-9b prefill_step",
+                     stats["profile_prefill_step"], "K4 flex_prefill")
+    check_attributed("recurrentgemma-9b decode_step",
+                     stats["profile_decode_step"], "K1 paged_decode")
+    scan = rglru_scan_ms(torch, cfg, 8, 2200, torch.bfloat16)
+    stats["rglru_scan_ms_per_layer"] = scan
+    log(f"recurrentgemma-9b: RG-LRU scan (8 x 2200 x {cfg.lru_width}, bf16) "
+        f"{scan:.3f} ms per layer, {eng.model.n_rec_layers * scan:.1f} ms "
+        f"over the {eng.model.n_rec_layers} 'R' layers of a prefill step")
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the logits: the kernels (bf16) against the plain path on the same
+    # weights in f32 (the bf16 plain path's own rounding over 38 layers
+    # is of the order of the tolerance: its distance is printed too)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 9)
+    n = 2200
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    model = build_model(cfg)
+    pool = (model.n_attn_layers, ring, cfg.page_size, cfg.n_kv_heads, D)
+    p32 = _map(params, lambda x: x.float())
+    out, lcounts = logits_pair(torch, model, params, tokens, pool,
+                               ref_params=p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    plain16, _ = logits_pair(torch, model, params, tokens, pool)
+    got, want = out["kernel"], out["ref"]
+    if not bool(torch.isfinite(got).all()):
+        fail("recurrentgemma-9b: non-finite logits")
+    missing = [k for k in ("flex_prefill/tc/window&padding", "paged_decode")
+               if lcounts.get(k, 0) <= 0]
+    if missing:
+        fail(f"recurrentgemma-9b logits: kernels never launched: {missing}")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    rel = err / (1 + scale)
+    rel16 = float((plain16["kernel"] - plain16["ref"]).abs().max()) / (
+        1 + float(plain16["ref"].abs().max()))
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"recurrentgemma-9b: prefill + 2 decode logits of a {n}-token "
+        f"prompt (past the window), kernel path (bf16) vs the plain path on "
+        f"the weights in f32: max|err| {err:.3e} = {rel:.3e} of (1 + "
+        f"max|logit|) (tol {BF16_MODEL_TOL:g}; max|logit| {scale:.3f}), "
+        f"greedy argmax agreement {agree:.2f}; vs the plain path in bf16 "
+        f"{rel16:.3e} (not checked); launches {lcounts}")
+    if rel > BF16_MODEL_TOL:
+        fail(f"recurrentgemma-9b: logits max|err| {err} beyond "
+             f"{BF16_MODEL_TOL} * (1 + {scale})")
+    stats["logits"] = dict(max_err=err, rel_to_scale=rel,
+                           rel_to_scale_vs_bf16_plain=rel16,
+                           argmax_agreement=agree, launches=lcounts)
+    return stats
+
+
+def rglru_f32_check(torch):
+    """recurrentgemma-9b at full width and 6 layers (RRWRRW: two 'W'
+    layers) in f32 (about 13.7 GB): a 2200-token prompt's prefill and two
+    decode steps' logits through the kernels (K4's split-TF32 tile under
+    window 2048 & padding, K1 in f32 at G 16, D 256, on ring tables past
+    the window) against the plain path within the model tolerance."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("recurrentgemma-9b").replace(n_layers=6)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = model.init_params(gen, torch.float32, dev)
+    torch.cuda.synchronize()
+    log(f"recurrentgemma-9b f32 check: {cfg.n_layers} layers "
+        f"({cfg.pattern()}) at full width, f32 weights ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n = 2200
+    ring = -(-cfg.window // cfg.page_size) + 1
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (model.n_attn_layers, ring, cfg.page_size, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    out, counts = logits_pair(torch, model, params, tokens, pool)
+    got, want = out["kernel"], out["ref"]
+    if not bool(torch.isfinite(got).all()):
+        fail("recurrentgemma-9b f32: non-finite logits")
+    missing = [k for k in ("flex_prefill/tf32x3/window&padding",
+                           "paged_decode") if counts.get(k, 0) <= 0]
+    if missing:
+        fail(f"recurrentgemma-9b f32: kernels never launched: {missing} "
+             f"({counts})")
+    err = float((got - want).abs().max())
+    log(f"recurrentgemma-9b f32: prefill + 2 decode logits of a {n}-token "
+        f"prompt, kernel path vs plain path max|err| {err:.3e} (tol "
+        f"{MODEL_TOL:g}, |logit| max {float(want.abs().max()):.3f}); "
+        f"launches {counts}")
+    if err > MODEL_TOL:
+        fail(f"recurrentgemma-9b f32: max|err| {err} beyond {MODEL_TOL}")
+    return dict(max_err=err, launches=counts)
 
 
 def time_k4(torch):
@@ -3181,12 +3659,33 @@ def main():
     done("nemotron-4-15b f32 check")
     nemo_340b = nemotron_340b_phase(torch)
     done("nemotron-4-340b phase")
+    rg = rglru_engine_phase(torch)
+    done("recurrentgemma-9b phase")
+    rg_f32 = rglru_f32_check(torch)
+    done("recurrentgemma-9b f32 check")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
           "paged_attention.py:440", "paged_prefill")
     k4 = ("flex_prefill.cu", "src/repro/kernels/flex_attention/"
           "flex_attention.py:38", "flex_prefill")
+    d256 = {  # the D-256 instances, launched by the recurrentgemma phases
+        name + "/d256": v for name, v in (
+            ("paged_decode", ("paged_decode.cu", "src/repro/kernels/"
+                              "paged_attention/paged_attention.py:223",
+                              "paged_decode", "bfloat16")),
+            ("combine", ("combine.cu", "src/repro/kernels/paged_attention/"
+                         "paged_attention.py:161", "combine", "bfloat16")),
+            ("paged_prefill_tc", k3[:2] + ("paged_prefill/tc", "bfloat16")),
+            ("paged_prefill_tf32x3", k3[:2] + ("paged_prefill/tf32x3",
+                                               "float32")),
+            ("paged_prefill_tc/int8", k3[:2] + ("paged_prefill/tc/int8",
+                                                "int8")),
+            ("paged_prefill_tf32x3/int8", k3[:2] + (
+                "paged_prefill/tf32x3/int8", "int8")),
+            ("flex_prefill_tc", k4[:2] + ("flex_prefill/tc", "bfloat16")),
+            ("flex_prefill_tf32x3", k4[:2] + ("flex_prefill/tf32x3",
+                                              "float32")))}
     meta = {  # line name: (source, TPU kernel, launch-count key, dtype)
         "paged_decode": ("paged_decode.cu", "src/repro/kernels/"
                          "paged_attention/paged_attention.py:223",
@@ -3213,12 +3712,15 @@ def main():
               + [nemo_340b[k]["launches"] for k in (
                   "logits monolithic", "logits chunked 512",
                   "engine monolithic", "engine chunked 512")])
+    rg_phases = [rg["launches"], rg["logits"]["launches"],
+                 rg_f32["launches"]]
     kernels_line = []
-    for name, (fname, replaces, count, dtype) in meta.items():
+    for name, (fname, replaces, count, dtype) in {**meta, **d256}.items():
         r = rows[(name, dtype)]
         kernels_line.append(dict(
             name=name, route="cuda", source=src + fname, replaces=replaces,
-            launches=sum(c[count] for c in phases),
+            launches=sum(c[count] for c in (
+                rg_phases if name in d256 else phases)),
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
@@ -3230,7 +3732,8 @@ def main():
          "chunked": chunked, "int8_engine": int8, "swa_engine": swa,
          "f32_engine": f32,
          "nemotron_4_15b": nemo, "nemotron_4_15b_f32": nemo_f32,
-         "nemotron_4_340b": nemo_340b},
+         "nemotron_4_340b": nemo_340b, "recurrentgemma_9b": rg,
+         "recurrentgemma_9b_f32": rg_f32},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

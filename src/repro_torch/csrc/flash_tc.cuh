@@ -5,8 +5,8 @@
 // repro/kernels/paged_attention/paged_attention.py::_prefill_kernel (K3,
 // csrc/paged_prefill.cu) for bf16 inputs.  A CTA of two consumer warpgroups
 // (256 threads) holds up to 128 query rows, 64 per warpgroup, and walks a
-// list of K/V tiles of kBN keys (128, or 64 at D = 192) that its kernel
-// defines:
+// list of K/V tiles of kBN keys (128, or 64 at D = 192 and 256) that its
+// kernel defines:
 //
 //   S = Q K^T      wgmma m64n{kBN}k16, bf16 in, f32 out, Q and K from shared
 //                  memory (K-major, 128-byte swizzle);
@@ -16,18 +16,19 @@
 //   O += P V       P rounded to bf16 and fed from registers as the A
 //                  operand (the accumulator fragment is already A's
 //                  layout), V from shared memory as the transposed
-//                  (MN-major) B operand, wgmma m64n{D}k16.  K4 normalises
+//                  (MN-major) B operand, wgmma m64n{D}k16 (two m64n128k16
+//                  halves at D = 256).  K4 normalises
 //                  its output, so one bf16 term of P is enough; K3 emits
 //                  un-normalised partials summed over up to thousands of
 //                  keys, where one term's 2^-9 rounding exceeds the bf16
 //                  tolerance, so it feeds P as hi + lo (two products).
 //
 // K/V tiles arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle, boxes of
-// 64 columns) into a ring of kStages = 3 stages with a "full" and an "empty"
-// mbarrier each: thread 0 keeps the next two tiles in flight while tile i
-// computes, refilling a stage once all eight warps have released it.  The
-// warpgroups never wait for each other at a CTA barrier, so one's softmax
-// can overlap the other's products.  Q is loaded once, while the first
+// 64 columns) into a ring of kStages = 3 stages (2 at D = 256) with a "full"
+// and an "empty" mbarrier each: thread 0 keeps the next kStages - 1 tiles in
+// flight while tile i computes, refilling a stage once all eight warps
+// have released it.  The warpgroups never wait for each other at a CTA
+// barrier, so one's softmax can overlap the other's products.  Q is loaded once, while the first
 // tiles are in flight, by plain 16-byte loads stored in the same swizzled
 // layout (the kernels' rows are gathered: GQA rows of K3, ragged tiles of
 // K4).  The softmax scale is folded into the exponent.  Masks apply in
@@ -48,8 +49,11 @@
 // cudaFuncAttributeMaxDynamicSharedMemorySize.  At D = 192 the same ring of
 // 128-key stages would take 336 KB, so a stage holds 64 keys: Q 48 KB + 3 x
 // (24 KB + 24 KB) = 192 KB; q.K is then m64n64 and p.V m64n192, and o
-// holds 96 registers per thread.  Every tile is placed at a multiple of
-// 1024 bytes, the period of the 128-byte swizzle.
+// holds 96 registers per thread.  At D = 256 three 64-key stages beside Q
+// (64 KB) would take 256 KB, so the ring has two: Q 64 KB + 2 x (32 KB + 32
+// KB) = 192 KB; p.V is two m64n128 products and o holds 128 registers per
+// thread.  Every tile is placed at a multiple of 1024 bytes, the period of
+// the 128-byte swizzle.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the tensor-map encoder's types
@@ -60,12 +64,13 @@ namespace flash_tc {
 
 constexpr int kThreads = 256;  // two consumer warpgroups
 constexpr int kRows = 128;     // query rows per CTA, 64 per warpgroup
-constexpr int kStages = 3;
 constexpr int kPanelBytes = kRows * 128;  // 128 rows x 64 bf16: a Q panel
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The head dims both tiles take (paged_attention.py: HEAD_DIMS).
-constexpr bool head_dim_ok(int D) { return D == 64 || D == 128 || D == 192; }
+constexpr bool head_dim_ok(int D) {
+  return D == 64 || D == 128 || D == 192 || D == 256;
+}
 
 // Byte offsets in the (1024-aligned) dynamic shared memory of a CTA.  The
 // ring helpers below take any layout with the same members (flash_tf32.cuh
@@ -81,17 +86,18 @@ constexpr bool head_dim_ok(int D) { return D == 64 || D == 128 || D == 192; }
 // int8 value is exact in bf16 (8-bit significand), so the working stage
 // holds the integers themselves; the kernel folds kv_scale into the score
 // scale and into acc at the store.  At D = 128: Q 32 KB + 3 x (16 + 16)
-// KB + 64 KB = 192 KB; at D = 192 (64-key stages): 48 + 72 + 48 = 168 KB.
-// The ring of three bf16 stages does not fit beside the int8 ring, so the
-// working stage is single.
+// KB + 64 KB = 192 KB; at D = 192 (64-key stages): 48 + 72 + 48 = 168 KB;
+// at D = 256: 64 + 96 + 64 = 224 KB, so the int8 ring keeps three stages
+// where the bf16 ring has two.  The ring of three bf16 stages does not fit
+// beside the int8 ring, so the working stage is single.
 template <int D, bool I8 = false>
 struct Layout {
-  static_assert(head_dim_ok(D), "head dim 64, 128 or 192");
+  static_assert(head_dim_ok(D), "head dim 64, 128, 192 or 256");
   static constexpr bool kInt8 = I8;
   static constexpr int kD = D;
   static constexpr int kThreads = flash_tc::kThreads;
   static constexpr int kBN = D <= 128 ? 128 : 64;  // keys per K/V stage
-  static constexpr int kStages = flash_tc::kStages;
+  static constexpr int kStages = D <= 192 || I8 ? 3 : 2;
   static constexpr int kPanelCols = 64;  // bf16 columns per 128-byte row
   static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 64;
@@ -427,6 +433,16 @@ template <>
 __device__ __forceinline__ void wgmma_pv<192>(float (&o)[96],
                                               const uint32_t* a, uint64_t db) {
   wgmma_rs_n192(o, a, db);
+}
+// D = 256: columns 0..127 and 128..255 as two m64n128 products, the second
+// on V's panels 2 and 3 (two LBOs on from the first: the descriptor's
+// address field counts 16-byte units, and its LBO sits at bit 16).
+template <>
+__device__ __forceinline__ void wgmma_pv<256>(float (&o)[128],
+                                              const uint32_t* a, uint64_t db) {
+  const uint64_t two_panels = 2 * ((db >> 16) & 0x3FFF);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o), a, db);
+  wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(o + 64), a, db + two_panels);
 }
 
 // S = Q K^T over a tile of N keys: m64n{N}k16.

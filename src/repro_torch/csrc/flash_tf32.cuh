@@ -20,12 +20,12 @@
 // per tile over the up to 2048 keys of K3's un-normalised partials.
 //
 // The CTA is ONE consumer warpgroup (128 threads) of 64 query rows; K/V
-// tiles hold kBN = 64 keys (32 at D = 192) and arrive by TMA (f32 boxes of
-// 32 columns,
-// 128-byte swizzle) into the flash_tc ring (ring_wait / ring_refill /
-// ring_release: a full and an empty mbarrier per stage, thread 0
-// producing) of kStages = 2.  Q is loaded once per CTA by plain 16-byte
-// loads and stored as hi and lo in the swizzled layout.  Per tile i:
+// tiles hold kBN = 64 keys (32 at D = 192 and 256) and arrive by TMA (f32
+// boxes of 32 columns, 128-byte swizzle) into the flash_tc ring (ring_wait
+// / ring_refill / ring_release: a full and an empty mbarrier per stage,
+// thread 0 producing) of kStages = 2 (1 at D = 256).  Q is loaded once per
+// CTA by plain 16-byte loads and stored as hi and lo in the swizzled
+// layout.  Per tile i:
 //
 //   K split        the warpgroup rounds the K tile to hi in place and
 //                  writes its lo into the K lo tile (layout-oblivious:
@@ -48,7 +48,8 @@
 //   O += P V       wgmma m64n{D}k8 .tf32 with P hi/lo from registers as
 //                  the A operand and V^T hi/lo as B (at D = 192 in two
 //                  halves of m64n96, one after the other, so that the
-//                  fresh accumulator takes 48 registers, not 96).
+//                  fresh accumulator takes 48 registers, not 96; at D =
+//                  256 in four quarters of m64n64, 32 registers).
 //
 // P from registers: the f32 accumulator gives a thread keys 2t and 2t + 1
 // of each group of 8 (t = lane % 4); the tf32 A fragment wants columns t
@@ -72,7 +73,11 @@
 // stages x (K 32 KB + V 32 KB) = 224 KB of the 227 KB (D = 64: 112 KB), so
 // one CTA (4 warps) per SM at D = 128.  At D = 192 64-key tiles would take
 // 7 x 48 KB = 336 KB, so a K/V tile holds 32 keys: Q hi 48 KB + Q lo 48 KB
-// + K lo 24 KB + 2 x (24 KB + 24 KB) = 216 KB (q.K m64n32).  Every tile and
+// + K lo 24 KB + 2 x (24 KB + 24 KB) = 216 KB (q.K m64n32).  At D = 256 Q
+// hi + lo alone take 128 KB, and two stages of 32 keys would make 288 KB,
+// so the ring has ONE stage: Q 128 KB + K lo 32 KB + (32 KB + 32 KB) = 224
+// KB; the next tile's loads then start only once this tile is done (no
+// overlap of loads with products: correct, not fast).  Every tile and
 // panel sits at a multiple of 1024 bytes, the period of the 128-byte
 // swizzle.
 #pragma once
@@ -96,15 +101,16 @@ constexpr int kPanelBytes = 64 * 128;  // 64 rows x 32 f32: a Q panel
 // significand), so K and V need no lo part and no K lo tile: q.K and p.V
 // are two TF32 products each (q and P as hi + lo against the exact K and
 // V), not three.  At D = 128: Q hi + lo 64 KB + 3 x (8 + 8) KB + 64 KB =
-// 176 KB; at D = 192: 96 + 36 + 48 = 180 KB.
+// 176 KB; at D = 192: 96 + 36 + 48 = 180 KB; at D = 256, with two int8
+// stages: 128 + 32 + 64 = 224 KB.
 template <int D, bool I8 = false>
 struct Layout {
-  static_assert(ft::head_dim_ok(D), "head dim 64, 128 or 192");
+  static_assert(ft::head_dim_ok(D), "head dim 64, 128, 192 or 256");
   static constexpr bool kInt8 = I8;
   static constexpr int kD = D;
   static constexpr int kThreads = flash_tf32::kThreads;
   static constexpr int kBN = D <= 128 ? 64 : 32;  // keys per K/V tile
-  static constexpr int kStages = I8 ? 3 : 2;
+  static constexpr int kStages = D <= 192 ? (I8 ? 3 : 2) : (I8 ? 2 : 1);
   static constexpr int kPanelCols = 32;  // f32 columns per 128-byte row
   static constexpr int kStagePanel = kBN * 128;
   static constexpr int kPanels = D / 32;
@@ -112,7 +118,7 @@ struct Layout {
   static constexpr int kWTile = kPanels * kStagePanel;  // kBN rows of D f32
   static constexpr int kTile = I8 ? kBN * D : kWTile;   // a ring stage
   // p.V in kPvParts products of D / kPvParts columns each
-  static constexpr int kPvParts = D <= 128 ? 1 : 2;
+  static constexpr int kPvParts = D <= 128 ? 1 : D <= 192 ? 2 : 4;
   static constexpr int kQ = 0;  // Q hi
   static constexpr int kQlo = kQTile;
   static constexpr int kKlo = 2 * kQTile;  // not I8
@@ -537,7 +543,8 @@ __device__ __forceinline__ void pv_issue(uint32_t base, int st, int c0,
 // runs; then o, the stage's release and its refill kStages tiles ahead.
 // On the int8 layout the K split is widen_k (into the working K tile, free
 // once every warp's q.K is done: widen_vt's barrier) and the V transpose
-// widen_vt.
+// widen_vt.  With one stage the next tile lands in the stage this tile
+// holds, so its K split waits for the refill after the release.
 template <int D, class Tile, class L = Layout<D>>
 __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
                                          uint32_t base, int n,
@@ -577,7 +584,8 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
       pv_issue<D, NP, L>(base, st, part * NP, ph, pl, pv);
       // tile i + 1's K split overlaps tile i's p.V products: K lo (the
       // working K tile on the int8 layout) is free
-      if (part == 0 && i + 1 < n) prepare_k(ft::ring_wait<L>(base, i + 1));
+      if (L::kStages > 1 && part == 0 && i + 1 < n)
+        prepare_k(ft::ring_wait<L>(base, i + 1));
       ft::wgmma_wait0();
       ft::fence_regs(pv);
 #pragma unroll
@@ -587,6 +595,7 @@ __device__ __forceinline__ void mainloop(const Tile& t, uint8_t* gen,
     }
     ft::ring_release<L>(base, st);
     ft::ring_refill<L>(t, base, i + L::kStages, n);
+    if (L::kStages == 1 && i + 1 < n) prepare_k(ft::ring_wait<L>(base, i + 1));
   }
   ft::acc_finish(a, t.m_scale);
 }

@@ -37,7 +37,8 @@
 // on the tensor cores, chosen by the wrapper from the dtype alone:
 //
 // - bf16: flex_fwd_kernel_tc, the shared bf16 tile of flash_tc.cuh (wgmma
-//   for q.K and p.V, K/V by TMA into a three-stage ring, 128 rows per CTA).
+//   for q.K and p.V, K/V by TMA into a three-stage ring, two at D = 256,
+//   128 rows per CTA).
 // - f32 (the engine's default dtype): flex_fwd_kernel_tf32, the
 //   split-TF32 tile of flash_tf32.cuh (every product as three TF32
 //   products, which keeps the f32 contract; 64 rows per CTA, so a q tile
@@ -533,6 +534,7 @@ int fwd(int f32, int kind, const void* q, const void* k, const void* v,
     case 64: bad = dispatch_kind<64>(f32, kind, p, st); break;
     case 128: bad = dispatch_kind<128>(f32, kind, p, st); break;
     case 192: bad = dispatch_kind<192>(f32, kind, p, st); break;
+    case 256: bad = dispatch_kind<256>(f32, kind, p, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

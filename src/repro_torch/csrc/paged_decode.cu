@@ -21,9 +21,10 @@
 // - A ring of kStages = 4 stages of 16 KB in shared memory, each holding
 //   the K and V rows of one tile of kT tokens of this head (the largest
 //   power of two of whole rows that fits, at most 32: 32 for bf16 at D =
-//   128, 16 for f32; at D = 192, 16 for bf16 and 8 for f32).  One producer
-//   thread (lane 0 of the last warp) fills it by TMA: one unswizzled box of
-//   whole head rows (D columns) per page touched by the tile, from the
+//   128, 16 for f32; at D = 192 and 256, 16 for bf16 and 8 for f32).  One
+//   producer thread (lane 0 of the last warp) fills it by TMA: one
+//   unswizzled box of whole head rows (D columns) per page touched by the
+//   tile, from the
 //   pools viewed as a 2-D tensor of (num_pages * P) rows of Hkv * D
 //   elements; pages of up to kT tokens go several to a tile, each at a
 //   128-byte aligned stage offset (TMA's destination alignment: a page
@@ -40,8 +41,9 @@
 //   general), reads them in passes of 32 / LPR rows, a row over LPR lanes
 //   (D / VEC lanes of one 8- or 16-byte vector each where that divides a
 //   warp; else 32 lanes of D / 32 columns in vectors of VEC elements, 6 = 3
-//   x 2 at D = 192; neighbouring lanes read neighbouring bytes, so no bank
-//   is met twice), and keeps its own online softmax: the max over the
+//   x 2 at D = 192, 8 = 2 x 4 for f32 at D = 256; neighbouring lanes read
+//   neighbouring bytes, so no bank is met twice), and keeps its own online
+//   softmax: the max over the
 //   warp's scores of the tile updates its (m, l), and the tile's p.V is
 //   summed on its own before it enters the accumulator held in registers.
 //   A warp releases the stage with one arrival on its empty barrier and
@@ -135,7 +137,8 @@ struct Geo {
   static constexpr bool kWide = D / VEC16 > 32 || 32 % (D / VEC16) != 0;
   static constexpr int LPR = kWide ? 32 : D / VEC16;  // lanes per row
   static constexpr int C = D / LPR;                   // columns per lane
-  static constexpr int VEC = kWide ? (C & -C) : VEC16;  // per vector
+  static constexpr int VEC =  // elements per vector, at most 16 bytes
+      kWide ? ((C & -C) < VEC16 ? (C & -C) : VEC16) : VEC16;
   static constexpr int NV = C / VEC;                  // vectors per lane
   static constexpr int RPI = 32 / LPR;     // rows per pass of a warp
   static constexpr int TPW = kT / kWarps;  // rows of a tile per warp
@@ -665,6 +668,7 @@ int run_decode(int q_code, int kv_code, const void* q, const void* k_pages,
     case 64: bad = dispatch_kv<64>(kv_code, p, pl.gw, st); break;
     case 128: bad = dispatch_kv<128>(kv_code, p, pl.gw, st); break;
     case 192: bad = dispatch_kv<192>(kv_code, p, pl.gw, st); break;
+    case 256: bad = dispatch_kv<256>(kv_code, p, pl.gw, st); break;
     default: bad = static_cast<int>(cudaErrorInvalidValue);
   }
   if (bad) return bad;

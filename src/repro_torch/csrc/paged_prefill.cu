@@ -22,11 +22,11 @@
 // tensor cores, on one of two tiles chosen by the q dtype:
 //
 // - bf16 q: paged_prefill_kernel_tc, the bf16 tile of flash_tc.cuh (wgmma
-//   for q.K and p.V, K/V by TMA into a three-stage ring, 128 rows per CTA,
-//   K/V tiles of kBN = 128 keys; 64 at D = 192);
+//   for q.K and p.V, K/V by TMA into a three-stage ring, two at D = 256,
+//   128 rows per CTA, K/V tiles of kBN = 128 keys; 64 at D = 192 and 256);
 // - f32 q: paged_prefill_kernel_tf32, the split-TF32 tile of flash_tf32.cuh
 //   (every product as three TF32 products, 64 rows per CTA, kBN = 64; 32
-//   at D = 192).
+//   at D = 192 and 256, with a single stage at D = 256).
 //
 // The pools are one 2-D tensor map of (num_pages * P) rows of Hkv * D
 // columns.  A K/V tile holds up to kBN keys of whole pages, one box per
@@ -383,6 +383,8 @@ int launch_d(int f32, int D, const PrefillParams& p, int num_pages,
     case 129: return launch_tf32<64, I8, Odd>(p, num_pages, st);
     case 257: return launch_tf32<128, I8, Odd>(p, num_pages, st);
     case 385: return launch_tf32<192, I8, Odd>(p, num_pages, st);
+    case 512: return launch_tc<256, I8, Odd>(p, num_pages, st);
+    case 513: return launch_tf32<256, I8, Odd>(p, num_pages, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

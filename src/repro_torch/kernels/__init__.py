@@ -23,34 +23,44 @@ from repro_torch.errors import EngineConfigError, UnsupportedFeature
 
 IMPLS = ("kernel", "ref")
 # head dims of every route of K1, K3 and K4 (csrc/flash_tc.cuh: head_dim_ok)
-HEAD_DIMS = (64, 128, 192)
+HEAD_DIMS = (64, 128, 192, 256)
 SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block, bytes
 # the tensor-core tiles of K3 and K4 (csrc/flash_tc.cuh, flash_tf32.cuh):
-# query rows per CTA, K/V stages (on pools of q's dtype, on int8 pools) and
-# bytes per element, by tile
-_TILES = {"tc": (128, 3, 3, 2), "tf32x3": (64, 2, 3, 4)}
+# query rows per CTA and bytes per element, by tile
+_TILES = {"tc": (128, 2), "tf32x3": (64, 4)}
 
 
 def check_head_dim(kernel: str, D: int) -> None:
     """Raise ``UnsupportedFeature`` unless ``D`` is one of ``HEAD_DIMS``:
     what the wrappers check before a launch (the plain versions take any
     D); a pure function of D, so the CPU tests hold the card's refusals."""
-    if D in HEAD_DIMS:
-        return
-    later = (" (head_dim 256 comes with the slice that ports recurrentgemma-"
-             "9b's rglru family, ROADMAP Queue 1 item 4)" if D == 256 else "")
-    raise UnsupportedFeature(f"{kernel}: head_dim {D} is not taken (takes "
-                             f"{HEAD_DIMS}){later}", head_dim=D)
+    if D not in HEAD_DIMS:
+        raise UnsupportedFeature(f"{kernel}: head_dim {D} is not taken "
+                                 f"(takes {HEAD_DIMS})", head_dim=D)
 
 
 def tile_keys(route: str, D: int) -> int:
     """Keys per K/V stage of a tensor-core tile at head dim ``D`` (route
     "tc" or "tf32x3", or one of their variants, "tc/int8" etc.): 128 and
-    64 up to D = 128, 64 and 32 at D = 192, where the longer stages would
-    not fit (``Layout<D>::kBN``)."""
+    64 up to D = 128, 64 and 32 above, where the longer stages would not
+    fit (``Layout<D>::kBN``)."""
     if route.split("/")[0] == "tc":
         return 128 if D <= 128 else 64
     return 64 if D <= 128 else 32
+
+
+def tile_stages(route: str, D: int) -> int:
+    """K/V stages in a tensor-core tile's ring (``Layout<D, I8>::kStages``):
+    on the bf16 tile three, two at D = 256 (Q 64 KB + 2 x 64 KB) but three
+    of int8; on the split-TF32 tile two, three of int8, and at D = 256,
+    where Q hi + lo alone take 128 KB, one (two of int8)."""
+    parts = route.split("/")
+    int8 = "int8" in parts
+    if parts[0] == "tc":
+        return 3 if D <= 192 or int8 else 2
+    if D <= 192:
+        return 3 if int8 else 2
+    return 2 if int8 else 1
 
 
 def tile_smem_bytes(route: str, D: int) -> int:
@@ -62,13 +72,14 @@ def tile_smem_bytes(route: str, D: int) -> int:
     hold int8 rows and one working stage of K and V in the tile's element
     type follows it."""
     tile = route.split("/")[0]
-    rows, stages, stages_i8, item = _TILES[tile]
+    rows, item = _TILES[tile]
+    stages = tile_stages(route, D)
     q = rows * D * item
     work = tile_keys(tile, D) * D * item  # a K or V stage in the tile's type
     fixed = q if tile == "tc" else 2 * q
     if "int8" in route.split("/"):
-        ring = 2 * stages_i8 * tile_keys(tile, D) * D
-        return 1024 + fixed + ring + 2 * work + 16 * stages_i8
+        ring = 2 * stages * tile_keys(tile, D) * D
+        return 1024 + fixed + ring + 2 * work + 16 * stages
     if tile == "tf32x3":
         fixed += work  # the K lo tile
     return 1024 + fixed + 2 * stages * work + 16 * stages

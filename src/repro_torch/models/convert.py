@@ -6,9 +6,9 @@ port's params on ``device`` (the card unless the caller passes
 ``device="cpu"``, as for every entry point): the same layouts, with the
 scanned pattern groups (``groups/0A``, ``groups/1W`` stacked
 ``(n_groups, ...)``; a ``W`` layer carries the same parameters as an
-``A`` one) unstacked into one dict per layer under ``layers``, in the
-pattern's order.  The port needs no JAX for this: it reads plain nested
-dicts of arrays.
+``A`` one, an ``R`` layer a ``rec`` dict in place of ``attn``) unstacked
+into one dict per layer under ``layers``, in the pattern's order.  The
+port needs no JAX for this: it reads plain nested dicts of arrays.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
     groups = tree.get("groups", {})
     rem = tree.get("rem", {})
     codes = {key[1:] for key in list(groups) + list(rem)}
-    if codes - {"A", "W"}:
+    if codes - {"A", "W", "R"}:
         raise UnsupportedFeature(f"layer codes {sorted(codes)}: the port "
-                                 "converts dense models of 'A' and 'W' "
+                                 "converts models of 'A', 'W' and 'R' "
                                  "layers only")
     per_layer = []
     units = sorted(groups, key=lambda k: int(k[:-1]))

@@ -57,14 +57,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------
-# the activations of the dense configs: SwiGLU (llama, granite) and
-# squared ReLU (nemotron)
-ACTIVATIONS = ("silu", "relu2")
+# the activations of the ported configs: SwiGLU (llama, granite), GeGLU
+# (recurrentgemma) and squared ReLU (nemotron)
+ACTIVATIONS = ("silu", "gelu", "relu2")
 
 
 def mlp_spec(cfg: ModelConfig) -> Dict:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.activation == "silu":  # gated (SwiGLU)
+    if cfg.activation in ("silu", "gelu"):  # gated (SwiGLU / GeGLU)
         return {"wg": ParamSpec((d, f), ("embed", "mlp")),
                 "wu": ParamSpec((d, f), ("embed", "mlp")),
                 "wd": ParamSpec((f, d), ("mlp", "embed"))}
@@ -75,6 +75,8 @@ def mlp_spec(cfg: ModelConfig) -> Dict:
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.activation == "silu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
+    elif cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
+        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
     else:  # relu2, checked when the model is built
         h = torch.square(F.relu(x @ p["wu"]))
     return h @ p["wd"]

@@ -3,9 +3,10 @@
 Model builders describe parameters as a tree (dicts and lists) of
 ``ParamSpec`` leaves; ``materialize`` draws them with the JAX package's
 scheme — N(0, 0.02²) by default, ones/zeros for norms, ``small_normal``
-scaled by 1/sqrt(fan-in) — from an explicit ``torch.Generator`` on the
-target device.  The draws differ from JAX's (different generators); the
-parity tests convert the JAX weights instead (``models.convert``).
+scaled by 1/sqrt(fan-in), ``a_log`` the RG-LRU's Λ — from an explicit
+``torch.Generator`` on the target device.  The draws differ from JAX's
+(different generators); the parity tests convert the JAX weights instead
+(``models.convert``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 class ParamSpec(NamedTuple):
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"  # normal | zeros | ones | small_normal
+    init: str = "normal"  # normal | zeros | ones | small_normal | a_log
     scale: float = 0.02
 
 
@@ -28,6 +29,10 @@ def _make(spec: ParamSpec, gen: torch.Generator, dtype, device):
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
+    if spec.init == "a_log":  # RG-LRU Λ init: a = σ(Λ) in [0.9, 0.999]
+        u = torch.rand(spec.shape, generator=gen, device=device,
+                       dtype=torch.float32) * (0.999 - 0.9) + 0.9
+        return torch.log(u / (1 - u)).to(dtype)
     scale = spec.scale
     if spec.init == "small_normal":
         scale = spec.scale / math.sqrt(max(spec.shape[-1], 1))

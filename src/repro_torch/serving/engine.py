@@ -22,16 +22,20 @@ with the decode of the RUNNING rows.  ``prefix_cache=True`` shares the
 full pages of a common prompt head across requests (``core.prefix_cache``):
 admission attaches to the longest cached prefix and prefill runs only the
 suffix; it refuses windowed models, as the JAX engine does (their ring
-pages are overwritten in place).  The JAX engine's other gates (no
-cross-attention or recurrent layers) hold here because ``build_model``
-builds only dense models of ``A`` and ``W`` layers.
+pages are overwritten in place).  Recurrent (``R``) layers refuse
+``prefill_chunk`` and ``prefix_cache``, as in the JAX engine; their state
+lives per slot (``state["rec"]``), is written for the admitted slots
+after each monolithic prefill and stepped by every decode.  The JAX
+engine's gate on cross-attention holds here because ``build_model``
+builds no cross-attention layers.
 
 Sliding-window (``W``) layers keep their K/V in a ring of ``ceil(window
 / P) + 1`` pages, the first columns of each table row.  When every
-attention layer is ``W``, the device tables are only ring-wide, and a
-host row longer than the ring is truncated by design; as in the JAX
-engine, the host page manager still reserves a page for every token of a
-request, so a pool must hold the requests' full lengths all the same.
+attention layer is ``W`` (no ``A`` layer), the device tables are only
+ring-wide, and a host row longer than the ring is truncated by design;
+as in the JAX engine, the host page manager still reserves a page for
+every token of a request, so a pool must hold the requests' full lengths
+all the same.
 
 Not ported yet (raise ``UnsupportedFeature``): fault injection,
 ``fork_request`` and the contiguous baseline (``paged=False``).
@@ -87,9 +91,18 @@ class Engine:
         if not (cfg.paged_attention if paged is None else paged):
             raise UnsupportedFeature("the contiguous baseline (paged=False) "
                                      "is not ported yet", feature="paged")
-        if prefill_chunk is not None and prefill_chunk < 1:
-            raise EngineConfigError("prefill_chunk must be >= 1 (or None)",
-                                    prefill_chunk=prefill_chunk)
+        recurrent = any(c in "RMS" for c in cfg.pattern())
+        if prefill_chunk is not None:
+            if prefill_chunk < 1:
+                raise EngineConfigError(
+                    "prefill_chunk must be >= 1 (or None)",
+                    prefill_chunk=prefill_chunk)
+            if recurrent:
+                raise EngineConfigError(
+                    "chunked prefill does not support recurrent layers "
+                    f"(pattern {cfg.layer_pattern!r}): their prefill state "
+                    "replay assumes the whole prompt",
+                    pattern=cfg.layer_pattern)
         check_impl(impl)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -99,6 +112,11 @@ class Engine:
                 "prefix_cache requires window=0: windowed layers overwrite "
                 "their ring pages in place, so cached pages shared from a "
                 "live donor would be mutated", window=self.model.window)
+        if prefix_cache and recurrent:
+            raise EngineConfigError(
+                "prefix_cache does not support recurrent layers (pattern "
+                f"{cfg.layer_pattern!r}): their state is not "
+                "page-addressed", pattern=cfg.layer_pattern)
         self.impl = impl
         self.prefill_chunk = prefill_chunk
         self.pages_per_block = pages_per_block
@@ -146,12 +164,17 @@ class Engine:
         pool = (self.model.n_attn_layers, self.num_pages, cfg.page_size,
                 cfg.n_kv_heads, cfg.resolved_head_dim)
         pool_dt = kv_pool_dtype(cfg, self.dtype)
-        return {
+        st = {
             "pos": torch.zeros((self.max_slots,), dtype=torch.int32,
                                device=self.device),
             "k_pages": torch.zeros(pool, dtype=pool_dt, device=self.device),
             "v_pages": torch.zeros(pool, dtype=pool_dt, device=self.device),
         }
+        rec = self.model.init_rec_state(self.max_slots, self.dtype,
+                                        self.device)
+        if rec is not None:  # recurrent state slots
+            st["rec"] = rec
+        return st
 
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> int:
@@ -308,10 +331,14 @@ class Engine:
         sub_state = {"pos": lens_t, "k_pages": st["k_pages"],
                      "v_pages": st["v_pages"],
                      "tables": self._tables_array()[idx, 0]}
-        logits, _ = self.model.prefill(
+        logits, new_st = self.model.prefill(
             self.params, torch.from_numpy(batch).to(self.device), sub_state,
             lens=lens_t, impl=self.impl)
         st["pos"][idx] = lens_t  # pools were written in place
+        if "rec" in new_st:  # the admitted slots' recurrent state
+            for code, tree in new_st["rec"].items():
+                for k, v in tree.items():
+                    st["rec"][code][k][:, idx] = v
         for i, r in enumerate(reqs):
             r.prefill_pos = int(lens[i])
         self._cache_insert_live(reqs)

@@ -16,11 +16,12 @@
   has its compiled kind and its launch counter; past the descriptor's
   limits, or for a mod written in Python, the lowering raises.
 - (e) the head dims and GQA groups the kernels take, as pure functions of
-  (D, G, dtypes, page): every route takes D in {64, 128, 192} and K1 any
-  G >= 1 (``decode_group_plan`` cuts the group as the C side's ``plan``);
-  D = 256 raises ``UnsupportedFeature`` naming the slice that will take
-  it; each tile's shared memory at D = 192, computed as the C side
-  computes it, fits the 232,448 bytes of one block.
+  (D, G, dtypes, page): every route takes D in {64, 128, 192, 256} and K1
+  any G >= 1 (``decode_group_plan`` cuts the group as the C side's
+  ``plan``); other head dims raise ``UnsupportedFeature``; each tile's
+  shared memory at D = 192 and 256, computed as the C side computes it
+  (stages by ``tile_stages``), fits the 232,448 bytes of one block, and so
+  does K1's at every G.
 - (c) the tensor-core kernels feed P to p.V in bf16: K4 as one bf16
   term, K3 as two (hi + lo).  The plain K4 and K3 versions with that
   rounding stay within the card's bf16 tolerance, ``|a - b| <= 2e-2 *
@@ -60,7 +61,7 @@ def rel_err(got, want):
 
 
 # -- (a) the routes ----------------------------------------------------------
-@pytest.mark.parametrize("D", [64, 128, 192])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "tc"),
                                          (torch.float32, "tf32x3")])
 def test_flex_route_by_dtype(dtype, route, D):
@@ -68,7 +69,7 @@ def test_flex_route_by_dtype(dtype, route, D):
 
 
 @pytest.mark.parametrize("page", [8, 16, 64, 128, 12, 4, 136, 256])
-@pytest.mark.parametrize("D", [64, 128, 192])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("q_dtype,kv_dtype", [
     (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
     (torch.bfloat16, torch.int8), (torch.float32, torch.int8)])
@@ -405,7 +406,7 @@ def test_variant_counts_in_launch_counts_and_reset():
 CSRC = Path(build.CSRC)
 
 
-@pytest.mark.parametrize("D", [64, 128, 192])
+@pytest.mark.parametrize("D", [64, 128, 192, 256])
 @pytest.mark.parametrize("G", [1, 2, 3, 6, 8, 12, 16, 24, 48])
 @pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16,
                                       torch.int8])
@@ -416,12 +417,15 @@ def test_every_route_takes_the_head_dims_and_k1_any_group(kv_dtype, G, D):
         assert pa.decode_supported(kv_dtype, D, G, page)
 
 
-@pytest.mark.parametrize("D", [256, 32, 96, 160])
+@pytest.mark.parametrize("D", [320, 32, 96, 160])
 def test_other_head_dims_raise_naming_the_slice(D):
     for kernel in ("decode kernel", "prefill kernel", "flex kernel"):
         with pytest.raises(UnsupportedFeature) as err:
             check_head_dim(kernel, D)
-        assert ("rglru" in str(err.value)) is (D == 256)
+        # every head dim the reference's configs use is taken: the
+        # message names the ones that are, and no slice to come
+        assert str(HEAD_DIMS) in str(err.value)
+        assert "slice" not in str(err.value)
     assert not pa.decode_supported(torch.bfloat16, D, 1, 64)
     # the decode wrapper's input checks refuse it too
     q = torch.zeros((1, 1, 1, D))
@@ -465,13 +469,29 @@ def test_decode_plan_and_tiles_stay_in_step_with_the_c_side():
                       (CSRC / src).read_text())
         assert (int(m.group(1)), int(m.group(2))) == (
             tile_keys(route, 128), tile_keys(route, 192))
-    assert "return D == 64 || D == 128 || D == 192;" in (
+        assert tile_keys(route, 256) == tile_keys(route, 192)
+    assert "return D == 64 || D == 128 || D == 192 || D == 256;" in (
         CSRC / "flash_tc.cuh").read_text()
-    # the stages tile_smem_bytes counts: three on the bf16 tile; two on the
-    # split-TF32 tile, three of int8 beside its working tiles
-    assert "constexpr int kStages = 3;" in (CSRC / "flash_tc.cuh").read_text()
-    assert "kStages = I8 ? 3 : 2;" in (CSRC / "flash_tf32.cuh").read_text()
-    assert HEAD_DIMS == (64, 128, 192)
+    # the stages tile_smem_bytes counts: on the bf16 tile three, two at D =
+    # 256 but three of int8; on the split-TF32 tile two, three of int8
+    # beside its working tiles, and at D = 256 one (two of int8)
+    assert "kStages = D <= 192 || I8 ? 3 : 2;" in (
+        CSRC / "flash_tc.cuh").read_text()
+    assert "kStages = D <= 192 ? (I8 ? 3 : 2) : (I8 ? 2 : 1);" in (
+        CSRC / "flash_tf32.cuh").read_text()
+    assert [kernels.tile_stages(r, D) for D in (192, 256) for r in (
+        "tc", "tc/int8", "tf32x3", "tf32x3/int8")] == [3, 3, 2, 3,
+                                                       2, 3, 1, 2]
+    assert HEAD_DIMS == (64, 128, 192, 256)
+    # every entry point dispatches every head dim
+    for src, pattern in (
+            ("paged_decode.cu", r"case (\d+): bad = dispatch_kv"),
+            ("flex_prefill.cu", r"case (\d+): bad = dispatch_kind"),
+            ("paged_prefill.cu", r"case (\d+): return launch_tc<")):
+        cases = sorted(int(x) for x in re.findall(
+            pattern, (CSRC / src).read_text()))
+        assert cases == sorted(
+            2 * D if src == "paged_prefill.cu" else D for D in HEAD_DIMS)
 
 
 @pytest.mark.parametrize("D", [64, 128, 192])
@@ -510,3 +530,29 @@ def test_tiles_at_d192_take_shorter_stages():
         1024 + 2 * 32768 + 3 * 2 * 8192 + 2 * 32768 + 48)  # 176 KB
     assert tile_smem_bytes("tf32x3/int8", 192) == (
         1024 + 2 * 49152 + 3 * 2 * 6144 + 2 * 24576 + 48)  # 180 KB
+
+
+def test_tiles_at_d256_fit_one_block():
+    """recurrentgemma-9b's head dim: every route of both tiles and K1 at
+    every group fit one block.  The bytes of the C layouts: Q 64 KB + 2 x
+    (32 + 32) KB on the bf16 tile, Q 64 KB + 3 x (16 + 16) KB of int8 + a
+    working stage of 2 x 32 KB on int8 pools; Q hi + Q lo 128 KB + K lo 32
+    KB + ONE stage of (32 + 32) KB on the split-TF32 tile, Q 128 KB + 2 x
+    (8 + 8) KB of int8 + 2 x 32 KB on int8 pools (each + 1024 bytes of
+    slack and the barriers)."""
+    for route in pa.ROUTES:
+        assert tile_smem_bytes(route, 256) <= SMEM_LIMIT
+    assert tile_smem_bytes("tc", 256) == 1024 + 196608 + 32
+    assert tile_smem_bytes("tc/int8", 256) == (
+        1024 + 65536 + 3 * 2 * 16384 + 2 * 32768 + 48)
+    assert tile_smem_bytes("tf32x3", 256) == 1024 + 229376 + 16
+    assert tile_smem_bytes("tf32x3/int8", 256) == (
+        1024 + 2 * 65536 + 2 * 2 * 8192 + 2 * 32768 + 32)
+    # a second split-TF32 stage, or a third bf16 one, would not fit
+    assert 1024 + 229376 + 65536 > SMEM_LIMIT
+    assert 1024 + 65536 + 3 * 65536 > SMEM_LIMIT
+    for kv_dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for G in range(1, 49):
+            assert pa.decode_smem_bytes(kv_dtype, 256, G) <= SMEM_LIMIT
+    # recurrentgemma-9b's group: 16 heads over one kv head, two slices of 8
+    assert pa.decode_group_plan(16) == (8, 2, 1, 16)

@@ -24,8 +24,9 @@ def test_build_model_families():
     build_model(tget_smoke("granite-8b"))  # dense GQA
     with pytest.raises(UnsupportedFeature):
         build_model(tget_smoke("olmoe-1b-7b"))
+    build_model(tget_smoke("recurrentgemma-9b"))  # rglru: 'R' and 'W'
     with pytest.raises(UnsupportedFeature):
-        build_model(tget_smoke("recurrentgemma-9b"))
+        build_model(tget_smoke("xlstm-350m"))
     with pytest.raises(EngineConfigError):
         build_model(tget_smoke("llama2-7b").replace(family="nope"))
 
