@@ -21,9 +21,16 @@ Phases, each of which fails the script (exit code 1) when it fails:
    1536) and on small sweeps (GQA, window, softcap, int8, D = 64, split-K,
    q_block 1 and 3, single-token chunks, Q-blocks over 128 rows), in f32
    (tolerance 2e-5) and bf16 (2e-2), with |a - b| <= tol * (1 + |b|).
-   The decode op (K1 then K2 from one call, ``paged_attention_kernel``)
-   is checked beside K1 and K2 everywhere and timed beside SDPA: its wall
-   time, its kernels' device time and the host's share.  K1's edge cases:
+   The decode op (K1 then K2 from one call, ``paged_attention_kernel``,
+   at every split count) is checked beside K1 and K2 everywhere: against
+   its plain version and against the two wrappers called one after the
+   other bit for bit (``torch.equal``), all-dead slots exact zeros, and at
+   every split count 1 to 8 and 12 with one K2 launch each; timed beside
+   SDPA: its wall time, its kernels' device time and the host's share.
+   K2 on K3's partials (``combine_prefill_partials``, strided, into (B, C,
+   H, D)) against its plain version at S 1, 2 and 4 on every K3 route and
+   on every K3 case of the sweeps, and timed per layer at the main chunk
+   step beside the folded path it replaced.  K1's edge cases:
    lens 0, 1, 63, 64, 65, 512, 513 and 2048 (empty splits), the full
    32-page table in one split of 2048 keys, pages of 8 and 16 tokens at
    smoke width (f32, bf16, int8 pools).  The full-table cases of K1 and of
@@ -94,7 +101,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    12 greedy requests with prompts of 256..1536 tokens and 32 new tokens
    each, monolithic prefill.  Kernel launch counts are reset just before
    and read just after: K1, K2 and K4's bf16 route must have launched, K3
-   and K4's f32 route not;
+   and K4's f32 route not.  In every engine phase K2 must launch at the
+   decode layout (``combine/decode``) whenever K1 launches, and on K3's
+   partials (``combine/prefill``) exactly when K3 launches; the profiled
+   chunk steps must show K2 time;
 5. chunked: the same weights served with ``prefill_chunk=512`` and
    ``prefix_cache=True``: a wave of 4 requests, then a wave of 8, each
    prompt a shared 1024-token head plus its own 128..512-token tail, 32
@@ -429,6 +439,8 @@ def kernel_phase(torch, chk):
         op = pa.paged_attention_kernel(*op_args, **kw)
         chk.close("decode_op", f"{name} main (K1 + K2, one call)", op,
                   pa._combine_partials_plain(*want, dtype=dtype), tol)
+        if not torch.equal(op, out_k):
+            fail(f"decode op {name} main: not K1's partials then K2")
 
         k1_ms = time_ms(torch, lambda: pa.paged_attention_partials(
             q, kp, vp, tables, lens_t, **kw))
@@ -522,6 +534,11 @@ def kernel_phase(torch, chk):
     del q, kp, vp
 
     decode_edge_cases(torch, chk, gen)
+    # every split count from 1 to 8, and 12, from their own generator, so
+    # the cases after them keep their inputs
+    splits = torch.Generator(device=dev)
+    splits.manual_seed(SEED + 19)
+    decode_split_cases(torch, chk, splits)
 
     # -- K1 + K2 sweep: GQA, window, softcap, int8, D=64 ------------------
     sweep = [  # (G, D, ppb, splits, window, softcap, int8)
@@ -1056,10 +1073,12 @@ def op_host_parts(torch, args, kw):
 
 def check_decode(torch, chk, tag, args, kw, dtype, tol, f64=False,
                  hold_f64=False):
-    """K1's partials, K2 and the decode op against their plain versions;
-    with ``f64``, also how far each side is from the plain version in f64;
-    with ``hold_f64``, K1's partials are checked against the f64 evaluation
-    instead of the f32 plain version (rows of 192)."""
+    """K1's partials, K2 and the decode op against their plain versions,
+    the decode op (one C call) against K1's and K2's wrappers called one
+    after the other bit for bit (``torch.equal``), all-dead slots exact
+    zeros; with ``f64``, also how far each side is from the plain version
+    in f64; with ``hold_f64``, K1's partials are checked against the f64
+    evaluation instead of the f32 plain version (rows of 192)."""
     from repro_torch.kernels.paged_attention import paged_attention as pa
     kw = dict(dict(window=0, softcap=0.0, kv_scale=0.0), **kw)
     got = pa.paged_attention_partials(*args, **kw)
@@ -1074,10 +1093,17 @@ def check_decode(torch, chk, tag, args, kw, dtype, tol, f64=False,
             chk.versus_f64("paged_decode", f"{tag} {part}", g_, w_, x_,
                            tol=tol if hold_f64 else None)
         del exact
-    chk.close("combine", tag, pa.combine_partials_kernel(*got, dtype=dtype),
+    split = pa.combine_partials_kernel(*got, dtype=dtype)  # K1 -> K2
+    chk.close("combine", tag, split,
               pa._combine_partials_plain(*got, dtype=dtype), tol)
-    chk.close("decode_op", tag, pa.paged_attention_kernel(*args, **kw),
+    op = pa.paged_attention_kernel(*args, **kw)
+    chk.close("decode_op", tag, op,
               pa._combine_partials_plain(*want, dtype=dtype), tol)
+    if not torch.equal(op, split):
+        fail(f"decode op {tag}: not K1's partials then K2 bit for bit")
+    dead = op[args[4] == 0]
+    if not torch.equal(dead, torch.zeros_like(dead)):
+        fail(f"decode op {tag}: all-dead slots are not exact zeros")
 
 
 def decode_edge_cases(torch, chk, gen):
@@ -1129,6 +1155,31 @@ def decode_edge_cases(torch, chk, gen):
                              tol)
 
 
+def decode_split_cases(torch, chk, gen):
+    """The decode op at every split count from 1 to 8 and at 12, at the
+    main widths (B 8, 32 heads, D 128, a 2048-token table of 64-token
+    pages, 2 pages per block) with the edge lens 0, 1, 63, 64, 65, 512,
+    513 and 2048, in f32 and bf16 (``check_decode``), each op launching K2
+    once at the decode layout."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    lens = [0, 1, 63, 64, 65, 512, 513, 2048]
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.bfloat16, BF16_TOL)):
+        name = str(dtype).replace("torch.", "")
+        args = paged_inputs(torch, gen, len(lens), 32, 1, 128, 64, 32, lens,
+                            dtype, dev)
+        for S in (*range(1, 9), 12):
+            kw = dict(scale=128 ** -0.5, pages_per_block=2, num_splits=S)
+            check_decode(torch, chk, f"{name} edge lens, S {S}", args, kw,
+                         dtype, tol)
+            before = dict(pa.combine_partials_kernel.launches_by_route)
+            pa.paged_attention_kernel(*args, **kw)
+            after = pa.combine_partials_kernel.launches_by_route
+            moved = {k: after[k] - before[k] for k in after}
+            if moved != {"decode": 1, "prefill": 0}:
+                fail(f"decode op at S {S}: K2 launches {moved}")
+
+
 def chunk_inputs(torch, gen, Hkv, G, D, P, max_pages, q_start, q_lens, dtype,
                  dev, int8=False):
     """Chunk queries (B, C, H, D), pools, tables with each live row's pages
@@ -1154,6 +1205,114 @@ def fold_prefill(t, S):
     """(B, Hkv, NQ, S, R[, D]) partials → the combine's (B·NQ, Hkv, S, R[, D])."""
     B, Hkv, NQ = t.shape[:3]
     return t.transpose(1, 2).reshape(B * NQ, Hkv, S, *t.shape[4:]).contiguous()
+
+
+def folded_prefill_combine(torch, m, l, acc, C, q_block, dtype):
+    """The prefill combine as it ran on the card before the strided K2:
+    the Q-blocks folded into the batch (three transposing copies), the
+    plain normalise at one split (K2 at the decode layout above), then a
+    permuting copy into (B, C, H, D)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    B, n_kv, NQ, S, R = m.shape
+    D, G = acc.shape[-1], R // q_block
+    folded = [fold_prefill(x, S) for x in (m, l, acc)]
+    o = (pa.combine_partials_kernel(*folded, dtype=dtype) if S > 1
+         else pa._combine_partials_plain(*folded, dtype=dtype))
+    o = o.reshape(B, NQ, n_kv, q_block, G, D).permute(0, 1, 3, 2, 4, 5)
+    return o.reshape(B, NQ * q_block, n_kv * G, D)[:, :C]
+
+
+def check_prefill_combine(torch, chk, tag, got, C, q_block, dtype, tol):
+    """The strided K2 on K3's partials ``got`` where they lie, into (B, C,
+    H, D), against its plain version (``combine/prefill``)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    before = pa.combine_partials_kernel.launches_by_route["prefill"]
+    out = pa.combine_prefill_partials(*got, C, q_block, dtype=dtype)
+    if pa.combine_partials_kernel.launches_by_route["prefill"] != before + 1:
+        fail(f"prefill combine {tag}: K2 did not launch on its route")
+    want = pa._combine_prefill_plain(*got, C, q_block, dtype=dtype)
+    chk.close("combine/prefill", f"{tag} S{got[0].shape[3]} C{C}", out,
+              want, tol)
+
+
+def all_device_ms(torch, fn, reps=5):
+    """Device time per call of every CUDA kernel ``fn`` launches, from
+    torch.profiler (None when it records none)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+             for ev in prof.key_averages()
+             if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+    return us / 1e3 / reps if us > 0 else None
+
+
+def time_prefill_combine(torch, chk, name, got, C, q_block, dtype, tol):
+    """The prefill combine of one layer at the main chunk shape: the
+    strided K2 (events and device) against the way the card ran it before
+    (`folded_prefill_combine`: events and the device time of all its
+    kernels), the plain version, and the byte bound (the partials read
+    once, the output written once)."""
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    new = lambda: pa.combine_prefill_partials(  # noqa: E731
+        *got, C, q_block, dtype=dtype)
+    old = lambda: folded_prefill_combine(  # noqa: E731
+        torch, *got, C, q_block, dtype)
+    chk.close("combine/prefill", f"{name} main chunk step (S 1) against "
+              "the folded path", new(), old(), tol)
+    out = new()
+    nbytes = (sum(t.numel() * 4 for t in got)
+              + out.numel() * out.element_size())
+    row = dict(ms=time_ms(torch, new), device_ms=device_ms(
+        torch, new, "combine_kernel"),
+        plain_ms=time_ms(torch, lambda: pa._combine_prefill_plain(
+            *got, C, q_block, dtype=dtype), reps=5),
+        bound_ms=1e3 * nbytes / HBM_BPS, bound_by="bytes", library_ms=None,
+        folded_ms=time_ms(torch, old), folded_device_ms=all_device_ms(
+            torch, old))
+    log(f"  combine/prefill {name} (per layer, {nbytes / 1e6:.1f} MB): "
+        f"kernel {row['ms']:.4f} ms (device {fmt(row['device_ms'])}), "
+        f"before (fold + plain + permute) {row['folded_ms']:.4f} ms (device "
+        f"{fmt(row['folded_device_ms'])}), plain {row['plain_ms']:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms (bytes)")
+    return row
+
+
+def prefill_combine_cases(torch, chk, gen):
+    """The strided K2 on K3's partials at S 1, 2 and 4 on each of K3's
+    eight routes (bf16 or f32 q; pools of q's dtype or int8; pages of 16
+    or 12), at G 6 with the engine's q_block (21: R = 126 rows) and a
+    chunk of 40 tokens (not a multiple of q_block), D 128, against its
+    plain version."""
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention import paged_attention as pa
+    dev = torch.device("cuda")
+    G, D, q_start, q_lens = 6, 128, [100, 0, 37], [40, 37, 0]
+    for P in (16, 12):
+        mp = -(-160 // P)
+        for int8 in (False, True):
+            for dtype, tol in ((torch.bfloat16, BF16_TOL),
+                               (torch.float32, F32_TOL)):
+                args = chunk_inputs(torch, gen, 2, G, D, P, mp, q_start,
+                                    q_lens, dtype, dev, int8=int8)
+                route = pa.prefill_route(dtype, torch.int8 if int8 else
+                                         dtype, P)
+                for S in (1, 2, 4):
+                    _, _, qb = ops.choose_prefill_params(mp, P, D, 40, G)
+                    kw = dict(scale=D ** -0.5, softcap=0.0,
+                              kv_scale=0.05 if int8 else 0.0,
+                              pages_per_block=1, num_splits=S, q_block=qb)
+                    got = pa.paged_prefill_partials(*args, **kw)
+                    check_prefill_combine(
+                        torch, chk, f"{route} G{G} D{D} page {P} q_block "
+                        f"{qb} (R {qb * G})", got, args[0].shape[1], qb,
+                        dtype, tol)
 
 
 def check_k3(torch, chk, key, tag, args, kw, got, tol, f64=False):
@@ -1291,6 +1450,9 @@ def prefill_kernel_phase(torch, chk, gen):
             f"B{extra}), SDPA with a causal-offset mask over pre-gathered "
             f"KV {lib:.4f} ms")
         rows[(key, name)] = row
+        if not int8 and Pc == P:
+            rows[("combine/prefill", name)] = time_prefill_combine(
+                torch, chk, name, got, C, qb, dtype, tol)
         del q, kp, vp, kc, vc, got, mask
 
     # -- K3 sweep: GQA, D=64, softcap, int8, split-K through K2, q_block
@@ -1347,13 +1509,14 @@ def prefill_kernel_phase(torch, chk, gen):
             # f64 instead
             check_k3(torch, chk, key, tag, args, kw, got, tol,
                      f64=dtype == torch.float32 and (mp == 32 or int8))
-            S = got[0].shape[3]
-            folded = [fold_prefill(x, S) for x in got]
-            chk.close("combine", f"prefill {tag}",
-                      pa.combine_partials_kernel(*folded, dtype=dtype),
-                      pa._combine_partials_plain(*folded, dtype=dtype), tol)
+            check_prefill_combine(torch, chk, tag, got, args[0].shape[1],
+                                  sp_qb, dtype, tol)
     prefill_permutation_case(torch, chk, gen)
     prefill_odd_page_cases(torch, chk, gen)
+    # K2 on K3's partials at every route, from its own generator
+    own = torch.Generator(device=dev)
+    own.manual_seed(SEED + 20)
+    prefill_combine_cases(torch, chk, own)
     return rows
 
 
@@ -1388,12 +1551,8 @@ def prefill_odd_page_cases(torch, chk, gen):
                     got = pa.paged_prefill_partials(*args, **kw)
                     check_k3(torch, chk, key, tag, args, kw, got, tol,
                              f64=int8 and dtype == torch.float32)
-                    folded = [fold_prefill(x, got[0].shape[3]) for x in got]
-                    chk.close("combine", f"prefill {tag}",
-                              pa.combine_partials_kernel(*folded,
-                                                         dtype=dtype),
-                              pa._combine_partials_plain(*folded,
-                                                         dtype=dtype), tol)
+                    check_prefill_combine(torch, chk, tag, got,
+                                          args[0].shape[1], qb, dtype, tol)
 
 
 def prefill_permutation_case(torch, chk, gen):
@@ -1530,10 +1689,8 @@ def gqa_prefill_cases(torch, chk, gen, D=192, groups=(6, 12), Hkv=2,
             got = pa.paged_prefill_partials(*args, **kw)
             check_k3(torch, chk, key, tag, args, kw, got, tol,
                      f64=dtype == torch.float32)
-            folded = [fold_prefill(x, got[0].shape[3]) for x in got]
-            chk.close("combine", f"prefill {tag}",
-                      pa.combine_partials_kernel(*folded, dtype=dtype),
-                      pa._combine_partials_plain(*folded, dtype=dtype), tol)
+            check_prefill_combine(torch, chk, tag, got, args[0].shape[1], qb,
+                                  dtype, tol)
 
 
 def gqa_flex_cases(torch, chk, gen):
@@ -1630,6 +1787,8 @@ def real_heads_decode(torch, chk, gen, cfg_name, H, Hkv, D):
         full = dict(window=0, softcap=0.0, **kw)
         dev_ms = device_ms(torch, lambda: pa.paged_attention_partials(
             *args, **full), "paged_decode_kernel", reps=5)
+        op_ms = device_ms(torch, lambda: pa.paged_attention_kernel(
+            *args, **full), ("paged_decode_kernel", "combine_kernel"), reps=5)
         L = max(lens)
         safe = tables.clamp(min=0).long()
 
@@ -1655,10 +1814,11 @@ def real_heads_decode(torch, chk, gen, cfg_name, H, Hkv, D):
         log(f"  paged_decode {tag}: device {fmt(dev_ms)}, bound "
             f"{bound:.4f} ms ({by}), SDPA over pre-gathered KV (GQA, K1+K2) "
             f"{lib:.4f} ms; G {G} as {chunks} chunk(s) of {slices} "
-            f"slice(s) of {gw} heads per warp; ppb {ppb}, {ns} splits")
+            f"slice(s) of {gw} heads per warp; ppb {ppb}, {ns} splits; the "
+            f"decode op (K1 + K2) device {fmt(op_ms)}")
         rows[(f"paged_decode {cfg_name}", name)] = dict(
             device_ms=dev_ms, bound_ms=bound, bound_by=by, library_ms=lib,
-            G=G, D=D, plan=(gw, slices, chunks))
+            G=G, D=D, plan=(gw, slices, chunks), op_device_ms=op_ms)
         del args, q, kp, vp, kc, vc
     return rows
 
@@ -1880,6 +2040,9 @@ def d256_decode(torch, chk, gen):
                 *got, dtype=dtype), "combine_kernel", reps=5),
             plain_ms=time_ms(torch, lambda: pa._combine_partials_plain(
                 *got, dtype=dtype)))
+        # the decode op: K1 and K2 from one call
+        op_dev = device_ms(torch, lambda: pa.paged_attention_kernel(
+            *args, **full), ("paged_decode_kernel", "combine_kernel"), reps=5)
         n_slots = ring * P
         kc, vc = ((pool[tables.long()].reshape(B, n_slots, Hkv, D)
                    .transpose(1, 2).to(dtype) * (0.05 if int8 else 1.0))
@@ -1912,6 +2075,8 @@ def d256_decode(torch, chk, gen):
             f"ms (device {fmt(k2['device_ms'])}), plain "
             f"{k2['plain_ms']:.4f} ms, bound {k2['bound_ms']:.4f} ms "
             f"(bytes)")
+        log(f"  decode_op    {tag}: device K1 + K2 {fmt(op_dev)}")
+        k1["op_device_ms"] = op_dev
         rows[("paged_decode/d256", name)] = k1
         rows[("combine/d256", name)] = k2
         del args, q, kp, vp, kc, vc, got
@@ -2241,8 +2406,17 @@ def drive(torch, eng, reqs, on_step=None):
 
 def check_path(phase, eng, reqs, new, counts, must, never):
     """Fail unless every request finished with ``new`` tokens, no request
-    failed, every kernel in ``must`` launched and none in ``never``."""
+    failed, every kernel in ``must`` launched and none in ``never``.  K2's
+    layouts follow from the phase's kernels: a phase that decodes (K1)
+    launches ``combine/decode``; a phase that runs K3 launches
+    ``combine/prefill``, any other never."""
     from repro_torch.serving import Status
+    if "paged_decode" in must:
+        must = (*must, "combine/decode")
+    if any(k.startswith("paged_prefill") for k in must):
+        must = (*must, "combine/prefill")
+    else:
+        never = (*never, "combine/prefill")
     bad = [r.rid for r in reqs
            if r.status is not Status.FINISHED or len(r.output) != new]
     if bad:
@@ -2418,6 +2592,8 @@ def chunked_phase(torch, params):
     log_profile("chunk_step", stats["profile_chunk_step"])
     check_attributed("chunk_step", stats["profile_chunk_step"],
                      "K3 paged_prefill")
+    check_attributed("chunk_step", stats["profile_chunk_step"],
+                     "K2 combine")
     return stats
 
 
@@ -2526,6 +2702,8 @@ def int8_engine_phase(torch, params, bf16):
     log_profile("int8 chunk_step", stats["profile_chunk_step"])
     check_attributed("int8 chunk_step", stats["profile_chunk_step"],
                      "K3 paged_prefill")
+    check_attributed("int8 chunk_step", stats["profile_chunk_step"],
+                     "K2 combine")
     del eng
     torch.cuda.empty_cache()
 
@@ -3439,12 +3617,15 @@ def time_k4(torch):
 
 
 def time_main(torch):
-    """Device ms of K1, K3 and K4 at the main path's shapes (D 128, G 1;
-    K1: B 8, lens from the seed over 32 pages of 64, 2 pages per block, 4
-    splits; K3: the 512-token chunk step of the kernel phase; K4: causal &
-    padding at B 8, Q = K = 1536) in bf16 and f32, for an A/B call across
-    trees (``--time-main --src``): uses only the wrappers' arguments that
-    older trees share.  Three medians of 10 launches each."""
+    """Device ms of K1, K2, the decode op, K3, the prefill combine and K4
+    at the main path's shapes (D 128, G 1; K1: B 8, lens from the seed
+    over 32 pages of 64, 2 pages per block, 4 splits; K2 on K1's partials;
+    the decode op, K1 and K2 from one call; K3: the 512-token chunk step
+    of the kernel phase, one split, whose partials the prefill combine
+    takes, every kernel it launches counted; K4: causal & padding at B 8,
+    Q = K = 1536) in bf16 and f32, for an A/B call across trees
+    (``--time-main --src``): uses only the wrappers' arguments that older
+    trees share.  Three medians of 10 launches each."""
     from repro_torch.kernels.paged_attention import paged_attention as pa
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -3460,6 +3641,15 @@ def time_main(torch):
         out[f"paged_decode {name}"] = [
             device_ms(torch, call, "paged_decode_kernel", reps=10)
             for _ in range(3)]
+        got = call()
+        call = lambda: pa.combine_partials_kernel(*got, dtype=dtype)  # noqa
+        out[f"combine {name}"] = [
+            device_ms(torch, call, "combine_kernel", reps=10)
+            for _ in range(3)]
+        call = lambda: pa.paged_attention_kernel(*args, **kw)  # noqa
+        out[f"decode_op {name}"] = [
+            device_ms(torch, call, ("paged_decode_kernel", "combine_kernel"),
+                      reps=10) for _ in range(3)]
         q_start = [0, 512, 1024, 1024 + 37, 512, 0, 1, 1]
         q_lens = [512, 512, 512, 512, 300, 200, 0, 0]
         cargs = chunk_inputs(torch, gen, H, 1, D, P, mp, q_start, q_lens,
@@ -3470,7 +3660,13 @@ def time_main(torch):
         call = lambda: pa.paged_prefill_partials(*cargs, **ckw)  # noqa
         out[key] = [device_ms(torch, call, kernel_name(key), reps=10)
                     for _ in range(3)]
-        del args, cargs
+        got = call()
+        C = cargs[0].shape[1]
+        call = lambda: pa.combine_prefill_partials(  # noqa
+            *got, C, 128, dtype=dtype)
+        out[f"combine_prefill {name}"] = [
+            all_device_ms(torch, call, reps=10) for _ in range(3)]
+        del args, cargs, got
     # K3 over int8 pools with bf16 q, on whatever kernel the tree runs it
     cargs = chunk_inputs(torch, gen, H, 1, D, P, mp, q_start, q_lens,
                          torch.bfloat16, dev, int8=True)
@@ -3675,7 +3871,8 @@ def main():
                               "paged_attention/paged_attention.py:223",
                               "paged_decode", "bfloat16")),
             ("combine", ("combine.cu", "src/repro/kernels/paged_attention/"
-                         "paged_attention.py:161", "combine", "bfloat16")),
+                         "paged_attention.py:161", "combine/decode",
+                         "bfloat16")),
             ("paged_prefill_tc", k3[:2] + ("paged_prefill/tc", "bfloat16")),
             ("paged_prefill_tf32x3", k3[:2] + ("paged_prefill/tf32x3",
                                                "float32")),
@@ -3690,8 +3887,12 @@ def main():
         "paged_decode": ("paged_decode.cu", "src/repro/kernels/"
                          "paged_attention/paged_attention.py:223",
                          "paged_decode", "bfloat16"),
+        # K2 at the decode layout, and on K3's partials
         "combine": ("combine.cu", "src/repro/kernels/paged_attention/"
-                    "paged_attention.py:161", "combine", "bfloat16"),
+                    "paged_attention.py:161", "combine/decode", "bfloat16"),
+        "combine/prefill": ("combine.cu", "src/repro/kernels/"
+                            "paged_attention/paged_attention.py:161",
+                            "combine/prefill", "bfloat16"),
         "paged_prefill_tc": k3[:2] + ("paged_prefill/tc", "bfloat16"),
         "paged_prefill_tf32x3": k3[:2] + ("paged_prefill/tf32x3", "float32"),
         "paged_prefill_tc/int8": k3[:2] + ("paged_prefill/tc/int8", "int8"),

@@ -69,8 +69,8 @@
 // The arithmetic stays on the CUDA cores: at G <= 16 decode does at most
 // 16 flops per bf16 byte, below what the tensor cores would need.
 //
-// paged_decode_attention launches K1 and then, with more than one split,
-// K2 (combine.cu) on the same stream, and returns the first error.
+// paged_decode_attention launches K1 and then K2 (combine.cu), at every
+// split count, on the same stream, and returns the first error.
 #include <atomic>
 #include <mutex>
 
@@ -80,9 +80,13 @@
 namespace ft = flash_tc;
 
 // K2's C entry (combine.cu), launched by the decode op after K1.
-extern "C" int combine_partials(int out_code, const void* m, const void* l,
-                                const void* acc, void* out, int B, int Hkv,
-                                int S, int G, int D, void* stream);
+extern "C" int combine_partials(
+    int out_code, const void* m, const void* l, const void* acc, void* out,
+    int B, int Hkv, int NQ, int S, int R, int D, int G, int q_block, int C,
+    long long m_b, long long m_h, long long m_nq, long long m_s,
+    long long m_r, long long a_b, long long a_h, long long a_nq,
+    long long a_s, long long a_r, long long o_b, long long o_tok,
+    long long o_head, void* stream);
 
 namespace {
 
@@ -690,9 +694,9 @@ extern "C" int paged_decode_partials(
                     static_cast<cudaStream_t>(stream));
 }
 
-// The decode op: K1's partials into (m, l, acc), then, with more than one
-// split, K2 merges them into `out` (B, Hkv, G, D) in the q dtype, on the
-// same stream.  With one split `out` is not written: the caller normalises.
+// The decode op: K1's partials into (m, l, acc), then K2 merges them into
+// `out` (B, Hkv, G, D) in the q dtype, on the same stream, at every split
+// count (at one split K2 is the plain normalise, bit for bit).
 extern "C" int paged_decode_attention(
     int q_code, int kv_code, const void* q, const void* k_pages,
     const void* v_pages, const void* tables, const void* lens, void* m,
@@ -705,7 +709,12 @@ extern "C" int paged_decode_attention(
       q_code, kv_code, q, k_pages, v_pages, tables, lens, m, l, acc, B, Hkv,
       G, D, num_pages, page_size, max_pages, ppb, num_splits, bps, scale,
       window, softcap, kv_scale, static_cast<cudaStream_t>(stream));
-  if (bad || num_splits == 1) return bad;
-  return combine_partials(q_code, m, l, acc, out, B, Hkv, num_splits, G, D,
-                          stream);
+  if (bad) return bad;
+  // the partials (B, Hkv, S, G[, D]) as K3's layout with one Q-block of
+  // one token, into (B, 1, Hkv G, D)
+  const long long S = num_splits, H = static_cast<long long>(Hkv) * G;
+  return combine_partials(q_code, m, l, acc, out, B, Hkv, 1, num_splits, G,
+                          D, G, 1, 1, Hkv * S * G, S * G, 0, G, 1,
+                          Hkv * S * G * D, S * G * D, 0, G * D, D, H * D, 0,
+                          D, stream);
 }

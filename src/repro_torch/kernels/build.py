@@ -37,6 +37,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates a 64-bit address).
@@ -47,13 +48,15 @@ SIGNATURES = {
     "paged_decode_partials": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                               _F, _I, _F, _F, _P],
-    # the decode op (K1, then K2 with more than one split): K1's arguments
-    # with the output after acc
+    # the decode op (K1, then K2): K1's arguments with the output after acc
     "paged_decode_attention": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _I, _F, _F, _P],
-    # out dtype code, m, l, acc, out, B, Hkv, S, G, D, stream
-    "combine_partials": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # K2: out dtype code, m, l, acc, out, B, Hkv, NQ, S, R, D, G, q_block,
+    # C, the element strides of m and l (b, h, nq, s, r), of acc (the
+    # same; d is 1) and of out (b, token, head; d is 1), stream
+    "combine_partials": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, *[_L] * 13, _P],
     # compiled kind, q, k, v, o, kv_num_blocks, kv_indices, is_full, the
     # mask and score descriptor (host int64 words) and its length, B, H,
     # Hkv, Q, K, D, nq, max_kv, batched, q_blk, kv_blk, q_len, kv_len,

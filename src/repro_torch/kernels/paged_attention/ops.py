@@ -2,8 +2,8 @@
 oracle, GQA-aware).
 
 ``paged_attention(...)`` is the attention-over-pages op of decode:
-``impl="kernel"`` runs K1 (split-K partials) and the combine (K2 when
-split-K is active); ``impl="ref"`` runs the plain oracle.
+``impl="kernel"`` runs K1 (split-K partials) and the combine (K2, at
+every split count); ``impl="ref"`` runs the plain oracle.
 ``paged_prefill(...)`` is its chunked-prefill counterpart: K3 and the same
 combine, or the prefill oracle.  Any other ``impl`` raises
 ``EngineConfigError``.
@@ -52,7 +52,7 @@ def choose_decode_params(
     K+V budget; split-K grows with the block count but keeps at least
     ``_MIN_BLOCKS_PER_SPLIT`` blocks per split and at most ``_MAX_SPLITS``
     splits.  Explicit values pass through (clamped).  The combine runs
-    as K2 whenever more than one split is active.
+    as K2 at every split count.
     """
     if pages_per_block is None:
         target = max(1, _TARGET_BLOCK_TOKENS // max(1, int(page_size)))

@@ -6,22 +6,26 @@ _decode_kernel``: one CUDA block per ``(batch, kv_head, split)`` slot walks
 its split's KV pages through the rank-clamped block table (K/V tiles by TMA
 into a four-stage ring, four warps with their own online softmax, merged
 once at the end) and emits the un-normalised online-softmax partials
-``(m, l, acc)``.  K2 (``combine_partials_kernel``, ``csrc/combine.cu``)
-replaces ``_combine_kernel``: it merges the partials over the split axis,
+``(m, l, acc)``.  K2 replaces ``_combine_kernel``: it merges the partials
+over the split axis,
 
     m* = max_s m_s          l* = Σ_s l_s · exp(m_s − m*)
     o  = Σ_s acc_s · exp(m_s − m*) / max(l*, 1e-30)
 
-The decode op ``paged_attention_kernel`` runs both from one C call
-(``paged_decode_attention``), with its partials in one buffer; both
-wrappers' launch counts count its launches.
+in two places (``combine_partials_kernel``, ``csrc/combine.cu``).  The
+decode op ``paged_attention_kernel`` launches K1's partials and then K2,
+at every split count, from one C call (``paged_decode_attention``), with
+its partials in one buffer.  ``combine_prefill_partials`` runs K2 on K3's
+partials where they lie, writing (B, C, H, D) directly.  K2 takes its
+partials and its output by strides, so the decode layout is K3's with one
+Q-block of one token.  ``combine_partials_kernel`` counts its launches per
+layout (``launches_by_route``: "decode", "prefill").
 
 K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 ``_prefill_kernel``: chunked paged prefill, the same partials over Q-blocks
 of ``q_block·G`` rows that attend causally, by absolute position, to the
-cached prefix and the chunk itself; ``combine_prefill_partials`` folds the
-Q-blocks into the batch and merges them with K2 (or the plain normalise
-for one split).  Every input of K3 runs on the tensor cores, on one of two
+cached prefix and the chunk itself.  Every input of K3 runs on the tensor
+cores, on one of two
 tiles chosen by the q dtype (``prefill_route``): bf16 q on the bf16 tile
 (``paged_prefill_kernel_tc``, wgmma), f32 q on the split-TF32 tile
 (``paged_prefill_kernel_tf32``: every product as three TF32 products,
@@ -97,7 +101,7 @@ def _combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
                             acc: torch.Tensor,
                             dtype=torch.float32) -> torch.Tensor:
     """Plain combine epilogue (the ``_combine_partials_jnp`` counterpart,
-    and the plain version of K2)."""
+    and the plain version of K2 at the decode layout)."""
     m_g = m.amax(dim=2, keepdim=True)  # (B, Hkv, 1, G)
     corr = torch.exp(m - m_g)
     l_g = (l * corr).sum(dim=2)  # (B, Hkv, G)
@@ -105,51 +109,85 @@ def _combine_partials_plain(m: torch.Tensor, l: torch.Tensor,
     return (o / torch.clamp(l_g, min=1e-30)[..., None]).to(dtype)
 
 
+def _combine_prefill_plain(m: torch.Tensor, l: torch.Tensor,
+                           acc: torch.Tensor, C: int, q_block: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """Plain version of K2 at K3's layout (the JAX
+    ``combine_prefill_partials``): m, l (B, Hkv, NQ, S, R), acc (B, Hkv,
+    NQ, S, R, D) reduced over S with K2's formula; row ``r`` of Q-block
+    ``nq`` is token ``nq·q_block + r // G`` of head ``h·G + r % G``, tokens
+    past ``C`` dropped.  Returns (B, C, H, D) in ``dtype``."""
+    B, n_kv, NQ, S, R = m.shape
+    D = acc.shape[-1]
+    G = R // q_block
+    m_g = m.amax(dim=3, keepdim=True)
+    corr = torch.exp(m - m_g)
+    l_g = (l * corr).sum(dim=3)  # (B, Hkv, NQ, R)
+    o = (acc * corr[..., None]).sum(dim=3)  # (B, Hkv, NQ, R, D)
+    o = (o / torch.clamp(l_g, min=1e-30)[..., None]).to(dtype)
+    o = o.reshape(B, n_kv, NQ, q_block, G, D).permute(0, 2, 3, 1, 4, 5)
+    return o.reshape(B, NQ * q_block, n_kv * G, D)[:, :C]
+
+
+def _check_partials(m, l, acc):
+    """m, l f32 of one shape and strides, acc f32 of that shape and D with
+    unit column stride: what K2 takes."""
+    if (m.dtype != torch.float32 or l.dtype != torch.float32
+            or acc.dtype != torch.float32 or m.shape != l.shape
+            or m.stride() != l.stride() or acc.shape[:-1] != m.shape
+            or acc.stride(-1) != 1):
+        raise EngineConfigError(
+            "combine: m and l must be f32 of one shape and strides, acc f32 "
+            f"of that shape by D with unit column stride (m {tuple(m.shape)} "
+            f"{m.dtype}, l {tuple(l.shape)}, acc {tuple(acc.shape)} "
+            f"{acc.dtype})")
+
+
+def _launch_combine(m, l, acc, out, dims, strides, route):
+    """K2 on CUDA tensors into ``out`` (f32 or bf16): ``dims`` (B, Hkv, NQ,
+    S, R, D, G, q_block, C) and ``strides``, the element strides of m and l
+    (b, h, nq, s, r), of acc (the same; d is 1) and of the output (b,
+    token, head; d is 1).  Counts one launch of ``route``."""
+    dev = m.device
+    guard = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
+             else contextlib.nullcontext())
+    with guard:
+        err = get_lib().combine_partials(
+            _Q_CODES[out.dtype], m.data_ptr(), l.data_ptr(), acc.data_ptr(),
+            out.data_ptr(), *dims, *strides,
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    check(err, "combine_partials")
+    combine_partials_kernel.launches += 1
+    combine_partials_kernel.launches_by_route[route] += 1
+    return out
+
+
 def combine_partials_kernel(m: torch.Tensor, l: torch.Tensor,
                             acc: torch.Tensor,
                             dtype=torch.float32) -> torch.Tensor:
-    """K2: merge split-K partials, one CUDA block per (batch, kv_head).
-
-    m, l: (B, Hkv, S, G) f32; acc: (B, Hkv, S, G, D) f32.  Returns
-    (B, Hkv, G, D) in ``dtype`` (f32 or bf16).
-    """
+    """K2 at the decode layout: m, l (B, Hkv, S, G) f32; acc (B, Hkv, S, G,
+    D) f32.  Returns (B, Hkv, G, D) in ``dtype`` (f32 or bf16)."""
     if not use_kernel("combine_partials", m, l, acc):
         return _combine_partials_plain(m, l, acc, dtype)
-    B, Hkv, S, G = m.shape
-    D = acc.shape[-1]
+    _check_partials(m, l, acc)
     if dtype not in _Q_CODES:
         raise UnsupportedFeature(f"combine output dtype {dtype}",
                                  dtype=str(dtype))
-    for name, t, shape in (("m", m, (B, Hkv, S, G)), ("l", l, (B, Hkv, S, G)),
-                           ("acc", acc, (B, Hkv, S, G, D))):
-        if (t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise EngineConfigError(f"combine_partials: {name} must be a "
-                                    f"contiguous f32 {shape} tensor")
+    B, Hkv, S, G = m.shape
+    D = acc.shape[-1]
     out = torch.empty((B, Hkv, G, D), dtype=dtype, device=m.device)
-    with torch.cuda.device(m.device):
-        err = get_lib().combine_partials(
-            _Q_CODES[dtype], m.data_ptr(), l.data_ptr(), acc.data_ptr(),
-            out.data_ptr(), B, Hkv, S, G, D,
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "combine_partials")
-    combine_partials_kernel.launches += 1
+    # one Q-block of one token: R = G rows, output (B, 1, Hkv·G, D)
+    mb, mh, ms, mg = m.stride()
+    ab, ah, as_, ag = acc.stride()[:4]
+    _launch_combine(m, l, acc, out, (B, Hkv, 1, S, G, D, G, 1, 1),
+                    (mb, mh, 0, ms, mg, ab, ah, 0, as_, ag,
+                     Hkv * G * D, 0, D), "decode")
     return out
 
 
 combine_partials_kernel.launches = 0
-
-
-def combine_partials(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
-                     dtype=torch.float32) -> torch.Tensor:
-    """Merge split-K partials over the split axis (flash-decoding).
-
-    K2 runs when more than one split is active.  A single split needs no
-    cross-split correction: its epilogue is one squeeze + normalise.
-    """
-    if m.shape[2] > 1:
-        return combine_partials_kernel(m, l, acc, dtype=dtype)
-    return _combine_partials_plain(m, l, acc, dtype=dtype)
+combine_partials_kernel.launches_by_route = dict.fromkeys(
+    ("decode", "prefill"), 0)
 
 
 def _blocked_tables(block_tables: torch.Tensor, lens: torch.Tensor, *,
@@ -263,9 +301,9 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
                  softcap, kv_scale, pages_per_block, num_splits, combine):
     """The host's work before one decode launch: the input checks (once),
     the partition, one buffer for (m, l, acc) addressed by offsets, the
-    output when K2 runs (``combine`` and more than one split), and the C
-    entry's name and arguments but the stream.  Returns ``(name, args,
-    buf, S, out)``; see `_scratch_views` for ``buf``."""
+    output when K2 runs (``combine``), and the C entry's name and arguments
+    but the stream.  Returns ``(name, args, buf, S, out)``; see
+    `_scratch_views` for ``buf``."""
     B, n_kv, G, D = q.shape
     num_pages, page_size = k_pages.shape[:2]
     max_pages = block_tables.shape[1]
@@ -280,7 +318,7 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
             lens.data_ptr(), base, base + 4 * n, base + 8 * n)
     tail = (B, n_kv, G, D, num_pages, page_size, max_pages, ppb, S, bps,
             float(scale), int(window), float(softcap), float(kv_scale))
-    if combine and S > 1:
+    if combine:
         out = torch.empty((B, n_kv, G, D), dtype=q.dtype, device=dev)
         return ("paged_decode_attention", (*head, out.data_ptr(), *tail), buf,
                 S, out)
@@ -288,12 +326,11 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
 
 
 def _launch_decode(q, k_pages, v_pages, block_tables, lens, **kw):
-    """K1 on CUDA tensors, followed by K2 when ``combine`` and more than
-    one split is active, from one C call (``paged_decode_attention``; K1
-    alone is ``paged_decode_partials``) on the raw current stream.  The
-    decode step calls it once per layer, so the host's work is kept to
-    `_decode_call`.  Returns ``(buf, S, out)``; ``out`` is None unless K2
-    ran."""
+    """K1 on CUDA tensors, followed by K2 when ``combine``, from one C call
+    (``paged_decode_attention``; K1 alone is ``paged_decode_partials``) on
+    the raw current stream.  The decode step calls it once per layer, so
+    the host's work is kept to `_decode_call`.  Returns ``(buf, S, out)``;
+    ``out`` is None unless K2 ran."""
     name, args, buf, S, out = _decode_call(q, k_pages, v_pages, block_tables,
                                            lens, **kw)
     dev = q.device
@@ -307,6 +344,7 @@ def _launch_decode(q, k_pages, v_pages, block_tables, lens, **kw):
     paged_attention_partials.launches += 1
     if out is not None:
         combine_partials_kernel.launches += 1
+        combine_partials_kernel.launches_by_route["decode"] += 1
     return buf, S, out
 
 
@@ -451,23 +489,17 @@ def paged_attention_kernel(
     num_splits: int = 1,
 ) -> torch.Tensor:
     """The decode op: K1's partials merged over the splits; (B, n_kv, G, D)
-    in the q dtype.  On CUDA tensors one C call launches K1 and, with more
-    than one split, K2 after it; one split keeps the plain normalise, as
-    the JAX package's combine rule does."""
+    in the q dtype.  On CUDA tensors one C call launches K1 and K2 after
+    it, at every split count."""
     kw = dict(scale=scale, window=window, softcap=softcap, kv_scale=kv_scale,
               pages_per_block=pages_per_block, num_splits=num_splits)
     if not use_kernel("paged_attention_kernel", q, k_pages, v_pages,
                       block_tables, lens):
         m, l, acc = _paged_attention_partials_plain(q, k_pages, v_pages,
                                                     block_tables, lens, **kw)
-        return combine_partials(m, l, acc, dtype=q.dtype)
-    buf, S, out = _launch_decode(q, k_pages, v_pages, block_tables, lens,
-                                 combine=True, **kw)
-    if out is not None:
-        return out
-    return _combine_partials_plain(*_scratch_views(buf, *q.shape[:2], S,
-                                                   *q.shape[2:]),
-                                   dtype=q.dtype)
+        return _combine_partials_plain(m, l, acc, dtype=q.dtype)
+    return _launch_decode(q, k_pages, v_pages, block_tables, lens,
+                          combine=True, **kw)[2]
 
 
 # -- K3: chunked paged prefill ------------------------------------------------
@@ -491,22 +523,30 @@ def _prefill_q_blocks(q: torch.Tensor, n_kv: int, q_block: int
 def combine_prefill_partials(m: torch.Tensor, l: torch.Tensor,
                              acc: torch.Tensor, C: int, q_block: int, *,
                              dtype=torch.float32) -> torch.Tensor:
-    """Merge chunked-prefill split-K partials through the decode combine.
+    """Merge chunked-prefill split-K partials into (B, C, H, D).
 
     m, l: (B, Hkv, NQ, S, R); acc: (B, Hkv, NQ, S, R, D) with
-    ``R = q_block·G``.  The Q-block axis folds into the batch axis, so
-    `combine_partials` applies unchanged: K2 when more than one split is
-    active, the plain normalise for one.  Returns (B, C, H, D).
+    ``R = q_block·G``.  On CUDA tensors K2 reads them where they lie and
+    writes (B, C, H, D) in ``dtype`` once, at every S (route "prefill");
+    on CPU tensors `_combine_prefill_plain` computes the same function.
     """
+    if not use_kernel("combine_prefill_partials", m, l, acc):
+        return _combine_prefill_plain(m, l, acc, C, q_block, dtype)
+    _check_partials(m, l, acc)
+    if dtype not in _Q_CODES:
+        raise UnsupportedFeature(f"combine output dtype {dtype}",
+                                 dtype=str(dtype))
     B, n_kv, NQ, S, R = m.shape
     D = acc.shape[-1]
     G = R // q_block
-    m2 = m.transpose(1, 2).reshape(B * NQ, n_kv, S, R).contiguous()
-    l2 = l.transpose(1, 2).reshape(B * NQ, n_kv, S, R).contiguous()
-    acc2 = acc.transpose(1, 2).reshape(B * NQ, n_kv, S, R, D).contiguous()
-    o = combine_partials(m2, l2, acc2, dtype=dtype)  # (B·NQ, n_kv, R, D)
-    o = o.reshape(B, NQ, n_kv, q_block, G, D).permute(0, 1, 3, 2, 4, 5)
-    return o.reshape(B, NQ * q_block, n_kv * G, D)[:, :C]
+    if R != q_block * G:
+        raise EngineConfigError(f"combine: {R} rows per Q-block are not "
+                                f"q_block {q_block} times a group")
+    out = torch.empty((B, C, n_kv * G, D), dtype=dtype, device=m.device)
+    _launch_combine(m, l, acc, out, (B, n_kv, NQ, S, R, D, G, q_block, C),
+                    (*m.stride(), *acc.stride()[:5], *out.stride()[:3]),
+                    "prefill")
+    return out
 
 
 def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,

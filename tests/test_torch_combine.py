@@ -45,9 +45,9 @@ def test_combine_matches_pallas_and_oracle(pallas_interpret, S, G):
     close(port.reshape(B, Hkv * G, -1), oracle, ATTN_TOL)
     close(tref.combine_partials_ref(t(m), t(l), t(acc)), oracle, ATTN_TOL)
     assert torch.equal(port[1, 1], torch.zeros_like(port[1, 1]))  # exact 0
-    # K2 when S > 1, the one-split epilogue otherwise: one function
-    for fn in (tpa._combine_partials_plain, tpa.combine_partials):
-        close(fn(t(m), t(l), t(acc)), pallas, ATTN_TOL)
+    # the plain version, which the CPU paths of the decode and prefill
+    # combines run, at every split count
+    close(tpa._combine_partials_plain(t(m), t(l), t(acc)), pallas, ATTN_TOL)
 
 
 @pytest.mark.parametrize("ppb,ns,window", [(2, 2, 0), (1, 3, 0), (2, 2, 20),

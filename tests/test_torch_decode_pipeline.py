@@ -8,9 +8,10 @@ package, from numpy inputs with a fixed seed.
   A plain model of that order, at 2048 keys in one split and in four,
   equals K1's plain version and the Pallas ``_decode_kernel`` (interpret
   mode) within ``ATTN_TOL`` in f32.
-- (b) The decode op's scratch: ``m``, ``l`` and ``acc`` as views of one
-  buffer have the shapes, dtype and contiguity that K2's wrapper checks,
-  and are what the op's C call is given.
+- (b) The decode op's C call at every split count, one included: K1's
+  ``m``, ``l`` and ``acc`` as views of one buffer, with the shapes, dtype
+  and contiguity that K2's wrapper checks, then the output, which K2
+  writes; K1 alone (the partials) takes the same buffer and no output.
 - (c) ``paged_attention_kernel`` (the decode op) on CPU tensors equals the
   JAX ``paged_attention_kernel`` at the engine's decode partition (2 pages
   per block, 4 splits, page 64, D 128; heads cut to 4) within ``ATTN_TOL``.
@@ -23,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels.paged_attention import paged_attention as tpa
 from repro_torch.kernels.paged_attention.contracts import decode_partition
 
@@ -98,16 +100,31 @@ def test_warp_order_matches_plain_and_pallas_at_2048_keys(
         close(a, c, ATTN_TOL)
 
 
-@pytest.mark.parametrize("splits", [1, 4])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 12])
 def test_decode_op_scratch_is_one_buffer_that_the_combine_takes(splits):
     rng = np.random.default_rng(3)
-    q, kp, vp, tables, lens = paged_case(rng, 3, 4, 2, 64, 16, 8,
-                                         [100, 7, 128])
-    name, args, buf, S, out = tpa._decode_call(
-        t(q), t(kp), t(vp), t(tables), t(lens), scale=0.125, window=0,
-        softcap=0.0, kv_scale=0.0, pages_per_block=2, num_splits=splits,
-        combine=True)
+    q, kp, vp, tables, lens = paged_case(rng, 3, 4, 2, 64, 16, 16,
+                                         [100, 7, 256])
+    kw = dict(scale=0.125, window=0, softcap=0.0, kv_scale=0.0,
+              pages_per_block=1, num_splits=splits)
     B, n_kv, G, D = q.shape
+    name, args, buf, S, out = tpa._decode_call(
+        t(q), t(kp), t(vp), t(tables), t(lens), combine=True, **kw)
+    assert S == splits
+    # the C call's arguments are its signature's, but the stream
+    assert len(args) + 1 == len(build.SIGNATURES[name])
+    # K1's partials into one buffer, then K2 into the op's output (B,
+    # n_kv, G, D) in the q dtype, whose pointer follows acc's: at one
+    # split too
+    assert name == "paged_decode_attention"
+    assert out.shape == (B, n_kv, G, D) and out.dtype == torch.float32
+    assert args[10] == out.data_ptr()
+    # K1 alone: the same buffer's layout and no output
+    alone = tpa._decode_call(t(q), t(kp), t(vp), t(tables), t(lens),
+                             combine=False, **kw)
+    assert alone[0] == "paged_decode_partials" and alone[4] is None
+    assert len(alone[1]) + 1 == len(build.SIGNATURES[alone[0]])
+    assert alone[2].numel() == buf.numel()
     m, l, acc = tpa._scratch_views(buf, B, n_kv, S, G, D)
     n = B * n_kv * S * G
     for x, shape in ((m, (B, n_kv, S, G)), (l, (B, n_kv, S, G)),
@@ -120,11 +137,6 @@ def test_decode_op_scratch_is_one_buffer_that_the_combine_takes(splits):
     assert buf.numel() == n * (D + 2)
     # the C call's pointers are the views' addresses, in its order
     assert args[7:10] == (m.data_ptr(), l.data_ptr(), acc.data_ptr())
-    assert (name, out is None) == (("paged_decode_attention", False)
-                                   if S > 1 else
-                                   ("paged_decode_partials", True))
-    if out is not None:  # the op's output, after acc in the arguments
-        assert args[10] == out.data_ptr() and out.shape == (B, n_kv, G, D)
     # filled, they combine like separately allocated partials
     m.copy_(t(rng.standard_normal(m.shape).astype(np.float32)))
     l.copy_(t(rng.random(l.shape).astype(np.float32)))
