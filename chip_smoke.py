@@ -173,6 +173,34 @@ Phases, each of which fails the script (exit code 1) when it fails:
    then with ``prefill_chunk=512`` (the windowed chunks in plain ops, K1,
    K2); K3 and K4's f32 route never launch, and every ring wraps.
 
+7b. baseline (after 7, on the bf16 weights): the paper's comparison.
+   The engine phase's 12 prompts served twice, paged (K4, K1, K2; a pool
+   of the live tokens rounded up to whole pages plus one page of headroom
+   per slot) and as the contiguous baseline (``paged=False``: max-length
+   buffers of 8.59 GB; K4 prefill, decode attention in plain ops; K1 and
+   K3 never launch): decode ms per step, TTFT, ``memory_report`` at the
+   step with the most live tokens, peak memory, one profiled decode step
+   by kind (the baseline's attention in a column of its own) and that
+   attention timed alone; at 4 layers in f32, 6 prompts over 4 slots on
+   both engines: equal greedy tokens, every sampled row's logits within
+   ``MODEL_TOL`` of the paged engine's;
+7c. fork: llama2-7b in bf16 with the prefix cache: a parent of 1007
+   tokens attaches to a cached 960-token head (K3), decodes, and forks 3
+   children (K1, K2 over aliased and copied pages): at most one new page
+   per fork, each copied tail page equal to the parent's bit for bit; at
+   4 layers in f32 each greedy child's tokens equal a fresh request's on
+   its prefix and the parent's equal its run without forks;
+7d. faults: 4 layers at full width in bf16, chunked by 64 (K3): NaN
+   injected into one row fails it alone, the others' tokens bit-identical
+   to a run without faults; a transient decode error retried to the same
+   tokens; ``Backpressure`` from a bounded queue; the JAX suite's chaos
+   soak (``SOAK_SEED``, lengths scaled by the page) with the allocator's
+   invariants after every step;
+7e. page state: the device-side allocator (``core.paging.PageState``):
+   2000 random reserve / extend / free / fork operations on CUDA tensors,
+   its tables, refcounts, lengths and free stack equal to the
+   ``HostPageManager``'s after each.
+
 ``--time-k4 [--src DIR]`` only times K4's causal & padding at the main
 path's shapes (B 8, Q = K = 1536) on both routes, from this checkout's
 package or another tree's: an A/B probe across commits (parent, change,
@@ -214,6 +242,7 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 TF32_OPS = 495e12  # dense TF32 tensor cores: the f32 tile's 3 products
 
 SEED = 0
+SOAK_SEED = 0xFA57  # the fault suite's pinned seed (tests/test_faults.py)
 # profiler names of the kernels, by kernel and tile (substrings; K3's int8
 # variants are instances of the same templates)
 KERNEL_NAMES = {"paged_prefill_tc": "paged_prefill_kernel_tc<",
@@ -3587,6 +3616,548 @@ def rglru_f32_check(torch):
     return dict(max_err=err, launches=counts)
 
 
+def headroom_pool(cfg, reqs, slots):
+    """Tokens of a pool that holds the ``slots`` longest of ``reqs`` at
+    their full length, each rounded up to whole pages, plus the
+    scheduler's one page of headroom per slot: the live tokens, so that
+    ``memory_report`` shows the paper's overhead and nothing preempts."""
+    P = cfg.page_size
+    pages = sorted(-(-(r.prompt_len + r.max_new_tokens) // P) for r in reqs)
+    return (sum(pages[-slots:]) + slots) * P
+
+
+def annotated(torch, module, name):
+    """Context manager: calls of ``module.name`` run under a profiler
+    range of that name (the baseline's decode attention, a plain-ops
+    path whose kernels the profile files by kernel name otherwise)."""
+    @contextlib.contextmanager
+    def ctx():
+        plain = getattr(module, name)
+
+        def wrapped(*a, **k):
+            with torch.profiler.record_function(name):
+                return plain(*a, **k)
+        setattr(module, name, wrapped)
+        try:
+            yield
+        finally:
+            setattr(module, name, plain)
+    return ctx()
+
+
+def record_rows(eng):
+    """Record the logits of every row the engine samples (prefill and
+    decode), in call order: ``eng.sampled`` (a list of CPU tensors)."""
+    eng.sampled = []
+    plain = eng._sample_and_append
+
+    def wrapped(reqs, logits, first):
+        eng.sampled.append(logits.float().cpu())
+        return plain(reqs, logits, first)
+    eng._sample_and_append = wrapped
+
+
+def baseline_phase(torch, params):
+    """The paper's comparison (Fig. 4, Figs. 1-2): full-width llama2-7b in
+    bf16 (params of the engine phase), 8 slots, max_seq_len 2048, page 64,
+    the engine phase's 12 prompts of 256..1536 tokens and 32 new tokens
+    each, served twice: paged (K4, K1, K2) with a pool of the live tokens
+    rounded up to whole pages, and as the contiguous baseline
+    (``paged=False``: max-length buffers, K4 prefill, decode attention in
+    plain ops; K1 and K3 never).  For each: decode ms per step, TTFT,
+    ``memory_report`` at the step with the most live tokens, peak memory,
+    and one profiled decode step by kind, the baseline's attention in a
+    column of its own.  Then at 4 layers of full width in f32 both engines
+    greedy on 6 prompts over 4 slots: equal tokens, and every sampled row's
+    logits within ``MODEL_TOL`` of the paged engine's."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import attention as core_attn
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config("llama2-7b")
+    n_req, new = 12, 32
+
+    def prompts():  # the engine phase's prompts
+        rng = torch.Generator().manual_seed(SEED)
+        plens = torch.randint(256, 1537, (n_req,), generator=rng).tolist()
+        return [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                             generator=rng).tolist(),
+                        max_new_tokens=new) for n in plens]
+
+    pool = headroom_pool(cfg, prompts(), 8)
+    stats = {}
+    for name, kw in (("paged", dict(pool_tokens=pool)),
+                     ("contiguous", dict(paged=False))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                     dtype=torch.bfloat16, seed=SEED, **kw)
+        reqs = prompts()
+        peak = {"live": -1}
+
+        def on_step():
+            live = sum(r.total_len for r in eng.scheduler.running.values())
+            if live > peak["live"]:
+                peak.update(live=live, report=eng.memory_report())
+        kernels.reset_launch_counts()
+        wall, prefill_ms, decode_ms = drive(torch, eng, reqs, on_step)
+        counts = kernels.launch_counts()
+        if name == "paged":
+            check_path("baseline/paged", eng, reqs, new, counts,
+                       must=("paged_decode", "combine", "flex_prefill",
+                             "flex_prefill/tc"),
+                       never=("paged_prefill", "flex_prefill/tf32x3"))
+        else:
+            check_path("baseline/contiguous", eng, reqs, new, counts,
+                       must=("flex_prefill", "flex_prefill/tc"),
+                       never=("paged_decode", "combine", "paged_prefill",
+                              "flex_prefill/tf32x3"))
+        ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+        st = dict(
+            pool_tokens=pool if name == "paged" else None,
+            wall_s=wall, ttft_s_p50=ttft[len(ttft) // 2],
+            ttft_s_max=ttft[-1],
+            decode_ms_per_step_median=statistics.median(decode_ms),
+            decode_steps=len(decode_ms), prefill_ms_per_step=prefill_ms,
+            preempted=eng.scheduler.preempted,
+            memory_report=peak["report"], peak_live_tokens=peak["live"],
+            max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+            launches=counts, outputs=[r.output for r in reqs])
+        log(f"baseline/{name}: decode {st['decode_ms_per_step_median']:.2f} "
+            f"ms/step (median of {len(decode_ms)}); TTFT p50 "
+            f"{st['ttft_s_p50']:.3f} s max {st['ttft_s_max']:.3f} s; "
+            f"prefill steps {[round(x) for x in prefill_ms]} ms; "
+            f"preemptions {st['preempted']}; memory_report at "
+            f"{peak['live']} live tokens {peak['report']}; "
+            f"max_memory_allocated {st['max_memory_allocated_gb']:.2f} GB; "
+            f"launches {counts}")
+        # one profiled decode step, on a wave of 8 prompts of 1024 tokens
+        rng = torch.Generator().manual_seed(SEED + 7)
+        for _ in range(8):
+            eng.add_request(Request(prompt=torch.randint(
+                0, cfg.vocab_size, (1024,), generator=rng).tolist(),
+                max_new_tokens=4))
+        eng.step()  # their prefill and first decode
+        torch.cuda.synchronize()
+        with annotated(torch, core_attn, "decode_attention_contiguous"):
+            st["profile_decode_step"] = profile_steps(
+                torch, eng, 1, annotation="decode_attention_contiguous")
+        log_profile(f"baseline/{name} decode_step",
+                    st["profile_decode_step"])
+        if "annotated_kernels" in st["profile_decode_step"]:
+            log(f"baseline/{name}: its decode attention's kernels, ms per "
+                f"step: {st['profile_decode_step']['annotated_kernels']}")
+        if name == "contiguous":
+            # the same attention timed alone by events, one layer's call at
+            # this step's lengths, times the layers
+            dev = torch.device("cuda")
+            lens = eng.state["pos"].clone()
+            q = torch.randn((8, cfg.n_heads, cfg.resolved_head_dim),
+                            device=dev).to(torch.bfloat16)
+            kb, vb = eng.state["k_buf"][0], eng.state["v_buf"][0]
+            st["contiguous_attention_ms_per_layer"] = time_ms(
+                torch, lambda: core_attn.decode_attention_contiguous(
+                    q, kb, vb, lens))
+            # the library yardstick: SDPA over the same buffers and rows
+            # (the buffers are head-major, (B, Hkv, max_len, D), as SDPA
+            # takes them)
+            live = (torch.arange(kb.shape[2], device=dev)[None]
+                    < lens[:, None])[:, None, None, :]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            st["sdpa_ms_per_layer"] = time_ms(
+                torch, lambda: sdpa(q[:, :, None], kb, vb, attn_mask=live))
+            log(f"baseline/contiguous: decode attention timed alone "
+                f"{st['contiguous_attention_ms_per_layer']:.4f} ms per "
+                f"layer x {cfg.n_layers} layers = "
+                f"{st['contiguous_attention_ms_per_layer'] * cfg.n_layers:.3f}"
+                f" ms per step (lens {lens.tolist()}); SDPA over the same "
+                f"buffers {st['sdpa_ms_per_layer']:.4f} ms per layer")
+        stats[name] = st
+        del eng
+    torch.cuda.empty_cache()
+
+    # equal greedy tokens and logits within MODEL_TOL, 4 layers in f32
+    cfg4 = cfg.replace(n_layers=4)
+    rng = torch.Generator().manual_seed(SEED + 3)
+    plens = torch.randint(100, 700, (6,), generator=rng).tolist()
+    toks = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in plens]
+    runs, params4 = {}, None
+    for name, kw in (("paged", {}), ("contiguous", dict(paged=False))):
+        eng = Engine(cfg4, params4, max_slots=4, max_seq_len=1024,
+                     seed=SEED, **kw)
+        params4 = eng.params
+        record_rows(eng)
+        reqs = [Request(prompt=list(p), max_new_tokens=8) for p in toks]
+        eng.generate(reqs)
+        runs[name] = ([r.output for r in reqs], eng.sampled)
+        del eng
+    del params4
+    (tp, lp), (tc, lc) = runs["paged"], runs["contiguous"]
+    if tp != tc:
+        fail(f"baseline: contiguous greedy tokens {tc} != paged {tp}")
+    if len(lp) != len(lc) or any(a.shape != b.shape for a, b in zip(lp, lc)):
+        fail("baseline: the two engines sampled different rows")
+    err = max(float((a - b).abs().max()) for a, b in zip(lc, lp))
+    scale = max(float(b.abs().max()) for b in lp)
+    log(f"baseline (4 layers, f32): greedy tokens equal "
+        f"({sum(len(x) for x in tp)} tokens); {len(lp)} sampled calls, "
+        f"logits max|err| {err:.3e} (tol {MODEL_TOL:g}, |logit| max "
+        f"{scale:.3f})")
+    if err > MODEL_TOL:
+        fail(f"baseline: contiguous logits beyond {MODEL_TOL} of paged")
+    stats["f32_check"] = dict(logits_max_err=err, logits_scale=scale,
+                              tokens=sum(len(x) for x in tp))
+    return stats
+
+
+def fork_phase(torch, params):
+    """Fork with copy-on-write at full width: llama2-7b in bf16 (params of
+    the engine phase), 4 slots, max_seq_len 2048, the prefix cache on.  A
+    warm request caches a 960-token head; the parent (the head and a
+    47-token tail) attaches to it (K3 on its suffix), decodes, and forks 3
+    children, one every 5 decode steps.  Each fork adds at most one page,
+    and each child's tail page equals the parent's bit for bit right after
+    the fork; K1, K2, K3 and K4 launch.  Then at 4 layers in f32: each
+    greedy child's tokens equal a fresh request's on the same prefix, and
+    the parent's equal its run without forks."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serving import Engine, Request
+
+    cfg = get_config("llama2-7b")
+    rng = torch.Generator().manual_seed(SEED + 4)
+    head = torch.randint(0, cfg.vocab_size, (960,), generator=rng).tolist()
+    tail = torch.randint(0, cfg.vocab_size, (47,), generator=rng).tolist()
+    P = cfg.page_size
+
+    def run(eng, n_child, new, child_new, check=None):
+        """Warm, then the parent with ``n_child`` forks; returns the
+        parent, the children and each fork's page delta."""
+        eng.generate([Request(prompt=list(head), max_new_tokens=2)])
+        parent = Request(prompt=head + tail, max_new_tokens=new)
+        eng.add_request(parent)
+        children, deltas = [], []
+        while len(children) < n_child:
+            for _ in range(5):
+                eng.step()
+            used = eng.mgr.used_pages
+            child = eng.fork_request(parent, max_new_tokens=child_new)
+            deltas.append(eng.mgr.used_pages - used)
+            if check is not None:
+                check(parent, child)
+            children.append(child)
+        for _ in range(1000):
+            if parent.done and all(c.done for c in children):
+                break
+            eng.step()
+        return parent, children, deltas
+
+    tails_equal = []
+
+    def check(parent, child):
+        n = eng.mgr.lens[parent.rid]
+        if n % P:
+            src = eng.mgr.tables[parent.rid][n // P]
+            dst = eng.mgr.tables[child.rid][n // P]
+            st = eng.state
+            torch.cuda.synchronize()
+            tails_equal.append(
+                bool(torch.equal(st["k_pages"][:, src], st["k_pages"][:, dst]))
+                and bool(torch.equal(st["v_pages"][:, src],
+                                     st["v_pages"][:, dst])))
+
+    eng = Engine(cfg, params, max_slots=4, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefix_cache=True)
+    kernels.reset_launch_counts()
+    parent, children, deltas = run(eng, 3, 32, 16, check)
+    counts = kernels.launch_counts()
+    check_path("fork", eng, [parent], 32, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc", "paged_prefill",
+                     "paged_prefill/tc"),
+               never=("flex_prefill/tf32x3",
+                      *k3_routes_except("tc")))
+    if any(c.status.value != "finished" or len(c.output) != 16
+           for c in children):
+        fail(f"fork: a child did not finish with 16 tokens "
+             f"({[(c.status.value, len(c.output)) for c in children]})")
+    if parent.cached_prefix < len(head):
+        fail(f"fork: the parent attached {parent.cached_prefix} cached "
+             f"tokens, fewer than the {len(head)}-token head")
+    if any(d > 1 for d in deltas):
+        fail(f"fork: a fork added more than one page ({deltas})")
+    if len(tails_equal) != 3 or not all(tails_equal):
+        fail(f"fork: a copied tail page differs from the parent's "
+             f"({tails_equal})")
+    stats = dict(page_deltas=deltas, tails_equal=tails_equal,
+                 parent_cached_prefix=parent.cached_prefix,
+                 memory_report=eng.memory_report(), launches=counts)
+    log(f"fork: parent of {parent.prompt_len} tokens ({parent.cached_prefix}"
+        f" from the prefix cache), 3 forks adding {deltas} pages, tail "
+        f"pages equal {tails_equal}; launches {counts}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # tokens at 4 layers in f32
+    cfg4 = cfg.replace(n_layers=4)
+    eng = Engine(cfg4, max_slots=4, max_seq_len=2048, seed=SEED,
+                 prefix_cache=True)
+    params4 = eng.params
+    parent, children, _ = run(eng, 3, 24, 8)
+    alone = Engine(cfg4, params4, max_slots=1, max_seq_len=2048, seed=SEED)
+    ref = alone.generate([Request(prompt=head + tail,
+                                  max_new_tokens=24)])[0]
+    fresh = [alone.generate([Request(prompt=list(c.prompt),
+                                     max_new_tokens=8)])[0].output
+             for c in children]
+    if parent.output != ref.output:
+        fail(f"fork (f32): the parent's tokens {parent.output} != its run "
+             f"without forks {ref.output}")
+    if [c.output for c in children] != fresh:
+        fail(f"fork (f32): children {[c.output for c in children]} != "
+             f"fresh requests {fresh}")
+    log(f"fork (4 layers, f32): parent tokens equal its run alone, 3 "
+        f"children's equal fresh requests on their prefixes")
+    del eng, alone, params4
+    return stats
+
+
+def allocator_ok(mgr):
+    """The host manager's invariants without a prefix cache: refcounts
+    equal table occurrences, and the free list holds exactly the pages
+    nobody references, once each."""
+    occ = [0] * mgr.num_pages
+    for row in mgr.tables.values():
+        for p in row:
+            occ[p] += 1
+    free = set(mgr.free_list)
+    return (len(free) == len(mgr.free_list)
+            and mgr.refcount == occ
+            and all((mgr.refcount[p] == 0) == (p in free)
+                    for p in range(mgr.num_pages)))
+
+
+def faults_phase(torch):
+    """The fault surface at full width, 4 layers of llama2-7b in bf16, 4
+    slots, max_seq_len 512, pages of 64, chunked prefill by 64 (K3): NaN
+    injected into one request's third sample fails that request alone and
+    the others' tokens are bit-identical to a run without faults; a
+    transient error at decode is retried to the same tokens; a bounded
+    queue sheds with ``Backpressure``; then the chaos soak of the JAX
+    suite, its lengths scaled by the page (310 steps of random admits,
+    cancels and injected faults under ``SOAK_SEED``), allocator invariants
+    after every step, every request terminal at the end."""
+    import random
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.errors import (Backpressure, EngineError, InternalError,
+                                    NumericsError)
+    from repro_torch.serving import Engine, Request, Status
+    from repro_torch.serving.faults import FaultPlan, FaultRule
+
+    cfg = get_config("llama2-7b").replace(n_layers=4)
+    P = cfg.page_size
+    knobs = dict(max_slots=4, max_seq_len=512, prefill_chunk=P,
+                 dtype=torch.bfloat16, seed=SEED)
+
+    def batch():  # three decoders and a long prompt mid-prefill
+        return ([Request(prompt=[3 + i] * (P // 2 + 16 * i),
+                         max_new_tokens=10) for i in range(3)]
+                + [Request(prompt=[9] * (4 * P + 37), max_new_tokens=4)])
+
+    kernels.reset_launch_counts()
+    clean = Engine(cfg, **knobs)
+    params = clean.params
+    ref = clean.generate(batch(), max_steps=300)
+    reqs = batch()
+    plan = FaultPlan([FaultRule(site="sample", kind="nan", rid=reqs[1].rid,
+                                nth=3)])
+    faulty = Engine(cfg, params, faults=plan, **knobs)
+    faulty.generate(reqs, max_steps=300)
+    if not (reqs[1].status is Status.FAILED
+            and isinstance(reqs[1].error, NumericsError)
+            and len(reqs[1].output) == 2):
+        fail(f"faults: the NaN row was not failed at its third sample "
+             f"({reqs[1].status}, {reqs[1].error})")
+    if [reqs[i].output for i in (0, 2, 3)] != [ref[i].output
+                                                for i in (0, 2, 3)]:
+        fail("faults: a survivor's tokens differ from the run without "
+             "faults")
+    if faulty.mgr.used_pages != 0:
+        fail("faults: the failed request's pages did not come back")
+
+    plan = FaultPlan([FaultRule(site="decode", kind="transient", nth=3)])
+    retry = Engine(cfg, params, faults=plan, **knobs)
+    again = retry.generate(batch(), max_steps=300)
+    if retry.stats["transient_retries"] != 1 or [
+            r.output for r in again] != [r.output for r in ref]:
+        fail(f"faults: the transient decode error was not retried to the "
+             f"same tokens ({retry.robustness_report()})")
+
+    queue = Engine(cfg, params, max_waiting=2, **knobs)
+    try:
+        for _ in range(3):
+            queue.add_request(Request(prompt=[1] * 8, max_new_tokens=2))
+        fail("faults: a third request did not meet Backpressure")
+    except Backpressure as e:
+        shed = dict(reason=e.reason, queue_depth=e.queue_depth)
+    del clean, faulty, retry, queue
+    checks = kernels.launch_counts()  # the four runs above, on their own
+
+    # the chaos soak, with the lengths of the JAX suite's times P / 8
+    rnd = random.Random(SOAK_SEED)
+    plan = FaultPlan(seed=SOAK_SEED, rules=[
+        FaultRule(site="extend", kind="alloc_fail", prob=0.02, times=None),
+        FaultRule(site="reserve", kind="alloc_fail", prob=0.01, times=None),
+        FaultRule(site="sample", kind="nan", prob=0.004, times=None),
+        FaultRule(site="decode", kind="transient", prob=0.01, times=None),
+        FaultRule(site="prefill", kind="transient", prob=0.01, times=None)])
+    k = P // 8
+    soak = Engine(cfg, params, max_slots=3, max_seq_len=64 * k,
+                  pool_tokens=120 * k, prefill_chunk=8 * k, faults=plan,
+                  max_waiting=6, admit_watermark=0.95, max_step_retries=6,
+                  dtype=torch.bfloat16, seed=SEED)
+    all_reqs, shed_n, escapes = [], 0, 0
+
+    def submit():
+        nonlocal shed_n
+        r = Request(prompt=[1 + rnd.randrange(50)] * (
+            k * rnd.choice((5, 9, 14, 26))),
+            max_new_tokens=rnd.randint(2, 8),
+            deadline_steps=(rnd.randint(15, 60) if rnd.random() < 0.3
+                            else None))
+        try:
+            soak.add_request(r)
+            all_reqs.append(r)
+        except Backpressure:
+            shed_n += 1
+
+    kernels.reset_launch_counts()  # the soak's launches, on their own
+    for _ in range(2):
+        submit()
+    for _ in range(310):
+        if rnd.random() < 0.5:
+            submit()
+        live = [r for r in all_reqs if not r.done]
+        if live and rnd.random() < 0.06:
+            soak.cancel_request(rnd.choice(live).rid)
+        try:
+            soak.step()
+        except InternalError as e:
+            fail(f"faults: soak step raised an internal error {e!r} "
+                 f"(cause {e.__cause__!r})")
+        except EngineError:
+            escapes += 1
+        if not allocator_ok(soak.mgr):
+            fail("faults: allocator invariants broken in the soak")
+    soak.faults = None
+    soak.mgr.plan = FaultPlan([])
+    for _ in range(600):
+        if all(r.done for r in all_reqs):
+            break
+        soak.step()
+    counts = kernels.launch_counts()
+    rep = soak.robustness_report()
+    statuses = sorted({r.status.value for r in all_reqs})
+    if not (all(r.done for r in all_reqs) and soak.mgr.used_pages == 0
+            and allocator_ok(soak.mgr) and plan.fires >= 5
+            and rep["failed"] >= 1 and rep["cancelled"] >= 3
+            and shed_n == rep["shed"]):
+        fail(f"faults: the soak did not end clean or barely exercised "
+             f"the fault surface ({rep}, fires {plan.fires}, statuses "
+             f"{statuses})")
+    for what, c in (("fault checks", checks), ("soak", counts)):
+        missing = [k for k in ("paged_decode", "combine/decode",
+                               "paged_prefill/tc", "combine/prefill")
+                   if c[k] <= 0]
+        if missing or c["flex_prefill"]:
+            fail(f"faults: the {what} ran off the chunked path ({missing} "
+                 f"never launched, or K4 did: {c})")
+    stats = dict(shed=shed, soak_report=rep, soak_fires=plan.fires,
+                 soak_requests=len(all_reqs), soak_escapes=escapes,
+                 soak_statuses=statuses, checks_launches=checks,
+                 launches=counts)
+    log(f"faults (4 layers, bf16): NaN row failed alone, survivors "
+        f"bit-identical; transient decode error retried to the same "
+        f"tokens; Backpressure {shed}; soak of {len(all_reqs)} requests, "
+        f"{plan.fires} fault fires, {escapes} structured escapes, report "
+        f"{rep}, statuses {statuses}; launches: fault checks {checks}, "
+        f"soak {counts}")
+    return stats
+
+
+def page_state_phase(torch):
+    """The device-side allocator (``core.paging.PageState``) on CUDA
+    tensors: 2000 random reserve / extend / free / fork operations on a
+    512-page pool of 16 sequences x 48 pages (page 64), each applied where
+    the host manager accepted it; after every operation the tables,
+    refcounts, lengths and free stack equal the ``HostPageManager``'s."""
+    import random
+
+    from repro_torch.core import paging
+    from repro_torch.core.paging import HostPageManager
+
+    dev = torch.device("cuda")
+    P, num_pages, max_seqs, max_pages = 64, 512, 16, 48
+    rnd = random.Random(SEED)
+    mgr = HostPageManager(num_pages, P)
+    state = paging.init_state(num_pages, max_seqs, max_pages, device=dev)
+    live, applied = set(), {"reserve": 0, "extend": 0, "free": 0, "fork": 0}
+    t0 = time.perf_counter()
+    for i in range(10_000):
+        if sum(applied.values()) == 2000:
+            break
+        op = rnd.choice(list(applied))
+        idle = [s for s in range(max_seqs) if s not in live]
+        if op == "reserve" and idle:
+            seq, n = rnd.choice(idle), rnd.randint(1, max_pages * P)
+            if not mgr.reserve(seq, n):
+                mgr.tables.pop(seq, None)
+                continue
+            state = paging.reserve(state, seq, n, P)
+            live.add(seq)
+        elif op == "extend" and live:
+            seq, by = rnd.choice(sorted(live)), rnd.randint(1, 3 * P)
+            if mgr.lens[seq] + by > max_pages * P or not mgr.extend(seq, by):
+                continue
+            state = paging.reserve(state, seq, mgr.lens[seq], P)
+        elif op == "free" and live:
+            seq = rnd.choice(sorted(live))
+            mgr.free(seq)
+            state = paging.free(state, seq, P)
+            live.discard(seq)
+        elif op == "fork" and live and idle:
+            src, dst = rnd.choice(sorted(live)), rnd.choice(idle)
+            if not mgr.fork(src, dst):
+                continue
+            state, _ = paging.fork(state, src, dst, P)
+            live.add(dst)
+        else:
+            continue
+        applied[op] += 1
+        top = int(state.free_top)
+        tables = state.block_tables.cpu()
+        lens = state.seq_lens.cpu().tolist()
+        ok = (state.free_stack[:top].tolist() == mgr.free_list
+              and state.refcount.tolist() == mgr.refcount
+              and all(tables[s, :len(mgr.tables[s])].tolist()
+                      == mgr.tables[s] and lens[s] == mgr.lens[s]
+                      for s in live))
+        if not ok:
+            fail(f"page state: the device state left the host manager's "
+                 f"after operation {i} ({op})")
+    wall = time.perf_counter() - t0
+    if sum(applied.values()) < 2000:
+        fail(f"page state: only {applied} operations applied")
+    log(f"page state: {sum(applied.values())} operations on CUDA tensors "
+        f"({applied}) equal the host manager's after each, {wall:.1f} s "
+        f"with the checks")
+    return dict(applied=applied, wall_s=wall)
+
+
 def time_k4(torch):
     """Device ms of K4's causal & padding at the main path's shapes (B 8, H =
     Hkv = 32, D 128, Q = K = 1536, padding lens from the seed) on both
@@ -3694,9 +4265,16 @@ def check_attributed(step, prof, kind):
              f"({prof['by_kind']})")
 
 
-def profile_steps(torch, eng, n):
+def kind_of(name):
+    return next((k for k, keys in KINDS if any(x in name for x in keys)),
+                "other")
+
+
+def profile_steps(torch, eng, n, annotation=None):
     """Device time per engine step by kernel kind, and the device's busy
-    share of the step's wall time, from torch.profiler."""
+    share of the step's wall time, from torch.profiler.  With
+    ``annotation``, the kernels launched under the profiler range of that
+    name (``annotated``) move from their kinds into a kind of their own."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -3709,18 +4287,41 @@ def profile_steps(torch, eng, n):
     by_kind = {k: 0.0 for k, _ in KINDS}
     by_kind["other"] = 0.0
     for ev in prof.key_averages():
-        if not str(getattr(ev, "device_type", "")).endswith("CUDA"):
+        if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
+                or ev.key == annotation):  # the range itself on the GPU row
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
-        kind = next((k for k, keys in KINDS
-                     if any(x in ev.key for x in keys)), "other")
-        by_kind[kind] += us / 1e3 / n
+        by_kind[kind_of(ev.key)] += us / 1e3 / n
+    under_by_name = {}
+    if annotation is not None:
+        # each op's kernels, by the op's ancestors on the CPU
+        under = 0.0
+        for fe in prof.events():
+            if not getattr(fe, "kernels", None):
+                continue
+            up = fe.cpu_parent
+            while up is not None and up.name != annotation:
+                up = up.cpu_parent
+            if up is None:
+                continue
+            for kern in fe.kernels:
+                ms = kern.duration / 1e3 / n
+                by_kind[kind_of(kern.name)] -= ms
+                under += ms
+                key = f"{fe.name}: {kern.name[:60]}"
+                under_by_name[key] = under_by_name.get(key, 0.0) + ms
+        by_kind[annotation] = under
     busy = sum(by_kind.values())
-    return dict(wall_ms=wall_ms, device_ms=busy if busy > 0 else None,
-                busy_share=(f"{busy / wall_ms:.3f} of wall" if busy > 0
-                            else "not measured"),
-                by_kind={k: round(v, 4) for k, v in by_kind.items()})
+    out = dict(wall_ms=wall_ms, device_ms=busy if busy > 0 else None,
+               busy_share=(f"{busy / wall_ms:.3f} of wall" if busy > 0
+                           else "not measured"),
+               by_kind={k: round(v, 4) for k, v in by_kind.items()})
+    if under_by_name:  # the annotated range's kernels, largest first
+        out["annotated_kernels"] = {
+            k: round(v, 4) for k, v in sorted(
+                under_by_name.items(), key=lambda kv: -kv[1])[:8]}
+    return out
 
 
 def log_ptxas(text):
@@ -3846,7 +4447,18 @@ def main():
     torch.cuda.empty_cache()
     swa = swa_engine_phase(torch, params)
     done("swa engine phase")
+    base = baseline_phase(torch, params)
+    done("baseline phase")
+    torch.cuda.empty_cache()
+    fork = fork_phase(torch, params)
+    done("fork phase")
     del params
+    torch.cuda.empty_cache()
+    faults = faults_phase(torch)
+    done("faults phase")
+    page_state = page_state_phase(torch)
+    done("page state phase")
+    torch.cuda.empty_cache()
     f32 = f32_engine_phase(torch)
     done("f32 engine phase")
     nemo = nemotron_engine_phase(torch)
@@ -3912,7 +4524,10 @@ def main():
               + [nemo_f32[mode]["launches"] for mode in modes]
               + [nemo_340b[k]["launches"] for k in (
                   "logits monolithic", "logits chunked 512",
-                  "engine monolithic", "engine chunked 512")])
+                  "engine monolithic", "engine chunked 512")]
+              + [base[k]["launches"] for k in ("paged", "contiguous")]
+              + [fork["launches"], faults["checks_launches"],
+                 faults["launches"]])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []
@@ -3934,6 +4549,8 @@ def main():
          "f32_engine": f32,
          "nemotron_4_15b": nemo, "nemotron_4_15b_f32": nemo_f32,
          "nemotron_4_340b": nemo_340b, "recurrentgemma_9b": rg,
+         "baseline": base, "fork": fork, "faults": faults,
+         "page_state": page_state,
          "recurrentgemma_9b_f32": rg_f32},
         indent=1, default=str))
     log(nvidia_smi())

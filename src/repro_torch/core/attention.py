@@ -12,7 +12,10 @@
     K/V (attend, then the caller writes), in plain ops as in the JAX
     package;
   * ``decode_attention``  — one token against the paged KV pools through
-    K1/K2 (``impl="kernel"``) or the plain oracle (``impl="ref"``).
+    K1/K2 (``impl="kernel"``) or the plain oracle (``impl="ref"``);
+  * ``decode_attention_contiguous`` — one token against max-length
+    contiguous buffers, the paper's baseline, in plain ops as in the JAX
+    package (no kernel: the baseline is what the paged kernels beat).
 
 All functions are GQA-aware.  ``impl`` is "kernel" (the default) or
 "ref"; anything else raises ``EngineConfigError``.
@@ -215,3 +218,37 @@ def decode_attention(
                            kv_scale=kv_scale,
                            pages_per_block=pages_per_block,
                            num_splits=num_splits)
+
+
+def decode_attention_contiguous(
+    q: torch.Tensor,  # (B, H, D)
+    k: torch.Tensor,  # (B, Hkv, max_len, D), head-major
+    v: torch.Tensor,
+    lens: torch.Tensor,  # (B,)
+    *,
+    window: int = 0,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The paper's baseline: decode against a max-length contiguous cache.
+    Position ``s`` is live when ``s < lens`` (and ``s >= lens - window``
+    for ``window > 0``); dead scores are -1e30 before the softmax, so a row
+    with no live position averages its buffer, as the JAX function does.
+    The buffers are head-major, so both products are strided batched
+    matmuls over (B, Hkv) that read K and V in place.  Returns (B, H, D)."""
+    B, H, D = q.shape
+    Hkv, S = k.shape[1], k.shape[2]
+    G = H // Hkv
+    pos = torch.arange(S, device=q.device)[None, :]
+    lens = lens.long()[:, None]
+    live = pos < lens
+    if window > 0:
+        live &= pos >= lens - window
+    qg = (q * (1.0 / math.sqrt(D))).reshape(B, Hkv, G, D)
+    s = torch.matmul(qg, k.to(q.dtype).transpose(-2, -1)).float()
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(live[:, None, None, :], s,
+                    torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    out = torch.matmul(w.to(v.dtype), v)
+    return out.reshape(B, H, D)

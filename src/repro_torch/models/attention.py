@@ -1,9 +1,12 @@
 """GQA attention layer: projections + RoPE around the core attention ops
-(port of ``repro.models.attention``: prefill, chunked prefill and decode).
+(port of ``repro.models.attention``: prefill, chunked prefill and decode,
+over the paged pools or the contiguous baseline's buffers).
 
-The paged KV pools are updated **in place**: ``attn_prefill``,
+The KV caches are updated **in place**: ``attn_prefill``,
 ``attn_prefill_chunked`` and ``attn_decode`` scatter the new K/V into the
-pools they are given and return only the layer output.
+pools they are given, ``attn_prefill_contiguous`` and
+``attn_decode_contiguous`` store it by position in the max-length
+buffers; all return only the layer output.
 """
 
 from __future__ import annotations
@@ -81,6 +84,25 @@ def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return _out(p, o)
 
 
+def attn_prefill_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                            k_buf: torch.Tensor, v_buf: torch.Tensor,
+                            slots: torch.Tensor, lens: torch.Tensor, *,
+                            window: int = 0, impl: str = "kernel"
+                            ) -> torch.Tensor:
+    """Prefill into the contiguous baseline: attend over the prompt as
+    `attn_prefill` does (K4 under ``impl="kernel"``) and store its K/V at
+    positions 0..S-1 of buffer rows ``slots`` (B,), in place.  k_buf/v_buf:
+    (max_slots, Hkv, max_len, hd).  Windowed layers store every position
+    too: the buffer has no ring, and decode masks the window."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _qkv(p, x, pos, cfg.rope_theta)
+    kvcache.write_contiguous_prefill(k_buf, v_buf, slots, k, v)
+    o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
+                                    impl=impl)
+    return _out(p, o)
+
+
 def attn_prefill_chunked(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                          k_pages: torch.Tensor, v_pages: torch.Tensor,
                          tables: torch.Tensor, q_start: torch.Tensor,
@@ -142,4 +164,19 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         (positions + 1).to(torch.int32), window=window, impl=impl,
         kv_scale=cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0,
         pages_per_block=pages_per_block, num_splits=num_splits)
+    return _out(p, o)
+
+
+def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                           k_buf: torch.Tensor, v_buf: torch.Tensor,
+                           positions: torch.Tensor, *, window: int = 0
+                           ) -> torch.Tensor:
+    """The paper's baseline decode: store the token's K/V at ``positions``
+    in the max-length buffers (in place), then attend over lens =
+    positions + 1 tokens of each row.  k_buf/v_buf: (B, Hkv, max_len, hd).
+    """
+    q, k, v = _qkv(p, x, positions, cfg.rope_theta)
+    kvcache.write_contiguous_decode(k_buf, v_buf, positions, k, v)
+    o = core_attn.decode_attention_contiguous(q, k_buf, v_buf,
+                                              positions + 1, window=window)
     return _out(p, o)

@@ -16,11 +16,18 @@ The serving state is a dict: ``pos`` (B,), ``k_pages``/``v_pages``
 (n_attn_layers, num_pages, P, Hkv, D), indexed per attention layer, and
 ``tables`` (B, 1, pages_per_seq); with ``R`` layers also ``rec["R"]``,
 ``h`` (n_R, B, w) and ``conv`` (n_R, B, cw - 1, w).  The pools and the
-recurrent state are updated in place.  A ``W`` layer attends over the
-last ``cfg.window`` positions and keeps its K/V in a ring of ``ceil(window
-/ P) + 1`` pages: the first columns of its table row, reused in place, so
-a model without ``A`` layers needs only ring-wide tables (the engine's
-``pages_per_seq``).
+recurrent state are updated in place.  ``prefill`` and ``decode_step``
+also take the contiguous baseline's state instead of the paged one:
+``k_buf``/``v_buf`` (n_attn_layers, max_slots, Hkv, max_len, D), and for
+``prefill`` the buffer row of each prompt, ``slots`` (B,).  Every layer
+runs through the same loop on either state; prefill attention is K4
+either way, decode attention on the buffers the contiguous plain path.
+
+A ``W`` layer attends over the last ``cfg.window`` positions.  On the
+paged state it keeps its K/V in a ring of ``ceil(window / P) + 1`` pages:
+the first columns of its table row, reused in place, so a model without
+``A`` layers needs only ring-wide tables (the engine's
+``pages_per_seq``).  On the contiguous state it keeps every position.
 """
 
 from __future__ import annotations
@@ -111,7 +118,9 @@ class TransformerModel:
         """tokens: (B, S) prompts (right-padded).  Returns (last-token
         logits (B, V), state with ``pos = lens``).  ``state["tables"]``
         must already map pages (the engine reserves before calling); the
-        pools in ``state`` receive the prompts' K/V in place.  With ``R``
+        pools in ``state`` receive the prompts' K/V in place.  With the
+        contiguous state (``k_buf``, ``v_buf``, ``slots``) the prompts'
+        K/V land by position in the buffer rows ``slots``.  With ``R``
         layers the returned state holds ``rec``: each row's recurrent
         state after its own last token (``rglru.rglru_prefill``)."""
         cfg = self.cfg
@@ -126,6 +135,11 @@ class TransformerModel:
             if self.codes[li] == "R":
                 o, final = rglru.rglru_prefill(p["rec"], h, lens, cfg)
                 rec.append(final)
+            elif "k_buf" in state:
+                o = attn.attn_prefill_contiguous(
+                    p["attn"], h, cfg, state["k_buf"][self.slot[li]],
+                    state["v_buf"][self.slot[li]], state["slots"], lens,
+                    window=self.windows[li], impl=impl)
             else:
                 ai = self.slot[li]
                 o = attn.attn_prefill(
@@ -194,8 +208,10 @@ class TransformerModel:
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B,) → (logits (B, V), state with ``pos + 1``).  Each
         attention layer appends its K/V to the pools in place and attends
-        over the pages through the block table; each ``R`` layer steps its
-        recurrent state in ``state["rec"]``, in place."""
+        over the pages through the block table (with the contiguous state:
+        stores its K/V at ``pos`` in ``k_buf``/``v_buf`` and attends over
+        the buffers); each ``R`` layer steps its recurrent state in
+        ``state["rec"]``, in place."""
         cfg = self.cfg
         pos = state["pos"]
         x = layers.embed_tokens(params["embed"], tokens)
@@ -208,6 +224,11 @@ class TransformerModel:
                     p["rec"], h, {k: v[ri] for k, v in rec.items()}, cfg)
                 for k, v in new.items():
                     rec[k][ri] = v
+            elif "k_buf" in state:
+                o = attn.attn_decode_contiguous(
+                    p["attn"], h, cfg, state["k_buf"][self.slot[li]],
+                    state["v_buf"][self.slot[li]], pos,
+                    window=self.windows[li])
             else:
                 ai = self.slot[li]
                 o = attn.attn_decode(

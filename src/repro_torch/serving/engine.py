@@ -1,6 +1,7 @@
 """Serving engine: continuous batching over the paged KV cache (port of
 ``repro.serving.engine``: paged prefill, monolithic or chunked, the
-global prefix cache, and decode).
+global prefix cache, decode, fork with copy-on-write, the fault surface,
+and the contiguous baseline).
 
 The model's prefill and decode steps run against global K/V page pools on
 the device, updated in place; the scheduler's host-side page manager
@@ -37,8 +38,27 @@ as in the JAX engine, the host page manager still reserves a page for
 every token of a request, so a pool must hold the requests' full lengths
 all the same.
 
-Not ported yet (raise ``UnsupportedFeature``): fault injection,
-``fork_request`` and the contiguous baseline (``paged=False``).
+``paged=False`` serves the paper's baseline instead: one max-length
+buffer per slot (``state["k_buf"]``/``state["v_buf"]``), written by
+position.  Prefill attention is K4 as in the paged engine, decode
+attention the plain contiguous path, and every layer (``A``, ``W``,
+``R``) runs through the model's one loop.  The host page manager still
+admits by pages, as in the JAX engine.  The baseline refuses
+``prefill_chunk``, ``prefix_cache`` and ``kv_dtype="int8"``
+(``EngineConfigError``): the JAX baseline mixes int8 and unquantised K/V.
+
+``fork_request`` shares a RUNNING request's full pages with a child
+(refcount++) and copies its partial tail page (``core.cache.copy_page``);
+it refuses windowed models (``InvalidRequest``), whose ring pages both
+rows would overwrite in place.
+
+The fault surface is the JAX engine's: a ``FaultPlan`` (``faults``)
+wraps the host page manager (``FaultyPageManager``), the prefix cache's
+attach, the prefill/decode dispatch (transient errors, retried up to
+``max_step_retries`` times) and each sampled row (NaN logits, caught by
+the NaN guard, always on); ``max_waiting`` and ``admit_watermark``
+shed requests at ``add_request`` with ``Backpressure``.  ``stats`` and
+``robustness_report`` count what happened.
 """
 
 from __future__ import annotations
@@ -50,15 +70,18 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.cache import copy_page, init_contiguous
 from repro_torch.core.paging import HostPageManager
 from repro_torch.core.prefix_cache import PrefixCache
 from repro_torch.device import resolve_device
 from repro_torch.errors import (EngineConfigError, EngineError,
-                                InternalError, NumericsError, RequestTooLong,
-                                SchedulerInvariantError, UnsupportedFeature)
+                                InternalError, InvalidRequest, NumericsError,
+                                PoolExhausted, RequestTooLong,
+                                SchedulerInvariantError, TransientDeviceError)
 from repro_torch.kernels import check_impl
 from repro_torch.models.api import build_model
 from repro_torch.models.attention import kv_pool_dtype
+from repro_torch.serving.faults import FaultPlan, FaultyPageManager
 from repro_torch.serving.request import Request, Status
 from repro_torch.serving.sampler import (SampleParams, sample,
                                          validate_sample_params)
@@ -83,19 +106,22 @@ class Engine:
         prefill_chunk: Optional[int] = None,  # prompt tokens prefilled per
         # step across the PREFILLING rows (None = whole prompts at once)
         prefix_cache: bool = False,  # radix-indexed page sharing
-        faults=None,
+        faults: Optional[FaultPlan] = None,  # deterministic fault injection
+        max_waiting: Optional[int] = None,  # bounded wait queue
+        admit_watermark: Optional[float] = None,  # shed above this pool
+        # utilization (a fraction in (0, 1]); None = off
+        max_step_retries: int = 3,  # transient retries per dispatch
     ):
-        if faults is not None:
-            raise UnsupportedFeature("faults is not ported yet",
-                                     feature="faults")
-        if not (cfg.paged_attention if paged is None else paged):
-            raise UnsupportedFeature("the contiguous baseline (paged=False) "
-                                     "is not ported yet", feature="paged")
+        self.paged = cfg.paged_attention if paged is None else paged
         recurrent = any(c in "RMS" for c in cfg.pattern())
         if prefill_chunk is not None:
             if prefill_chunk < 1:
                 raise EngineConfigError(
                     "prefill_chunk must be >= 1 (or None)",
+                    prefill_chunk=prefill_chunk)
+            if not self.paged:
+                raise EngineConfigError(
+                    "chunked prefill requires the paged engine (paged=True)",
                     prefill_chunk=prefill_chunk)
             if recurrent:
                 raise EngineConfigError(
@@ -103,6 +129,14 @@ class Engine:
                     f"(pattern {cfg.layer_pattern!r}): their prefill state "
                     "replay assumes the whole prompt",
                     pattern=cfg.layer_pattern)
+        if not self.paged and cfg.kv_dtype == "int8":
+            raise EngineConfigError(
+                "the contiguous baseline (paged=False) keeps unquantised "
+                "K/V: kv_dtype='int8' needs the paged engine",
+                kv_dtype=cfg.kv_dtype)
+        if prefix_cache and not self.paged:
+            raise EngineConfigError(
+                "prefix_cache requires the paged engine (paged=True)")
         check_impl(impl)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -150,26 +184,40 @@ class Engine:
         else:
             num_pages = max(-(-pool_tokens // ps), self.pages_per_seq)
         self.num_pages = num_pages
-        self.mgr = HostPageManager(num_pages, ps)
-        self.prefix_cache = PrefixCache(self.mgr) if prefix_cache else None
+        self.faults = faults
+        self.max_step_retries = max_step_retries
+        self.mgr = (FaultyPageManager(num_pages, ps, faults)
+                    if faults is not None else HostPageManager(num_pages, ps))
+        self.prefix_cache = (PrefixCache(self.mgr, faults=faults)
+                             if prefix_cache else None)
         self.scheduler = Scheduler(self.mgr, max_slots, max_seq_len,
                                    prefill_chunk=prefill_chunk,
+                                   max_waiting=max_waiting,
+                                   admit_watermark=admit_watermark,
                                    prefix_cache=self.prefix_cache)
         self.state = self._init_state()
         self.steps = 0
+        self.stats: Dict[str, int] = {"transient_retries": 0}
 
     # ------------------------------------------------------------------
     def _init_state(self) -> Dict:
         cfg = self.cfg
-        pool = (self.model.n_attn_layers, self.num_pages, cfg.page_size,
-                cfg.n_kv_heads, cfg.resolved_head_dim)
-        pool_dt = kv_pool_dtype(cfg, self.dtype)
-        st = {
-            "pos": torch.zeros((self.max_slots,), dtype=torch.int32,
-                               device=self.device),
-            "k_pages": torch.zeros(pool, dtype=pool_dt, device=self.device),
-            "v_pages": torch.zeros(pool, dtype=pool_dt, device=self.device),
-        }
+        n_attn, Hkv = self.model.n_attn_layers, cfg.n_kv_heads
+        hd = cfg.resolved_head_dim
+        st = {"pos": torch.zeros((self.max_slots,), dtype=torch.int32,
+                                 device=self.device)}
+        if self.paged:
+            pool = (n_attn, self.num_pages, cfg.page_size, Hkv, hd)
+            pool_dt = kv_pool_dtype(cfg, self.dtype)
+            st["k_pages"] = torch.zeros(pool, dtype=pool_dt,
+                                        device=self.device)
+            st["v_pages"] = torch.zeros(pool, dtype=pool_dt,
+                                        device=self.device)
+        else:
+            # the paper's baseline: contiguous max-length per-slot buffers
+            buf = init_contiguous(n_attn, self.max_slots, self.max_seq_len,
+                                  Hkv, hd, self.dtype, device=self.device)
+            st["k_buf"], st["v_buf"] = buf.k, buf.v
         rec = self.model.init_rec_state(self.max_slots, self.dtype,
                                         self.device)
         if rec is not None:  # recurrent state slots
@@ -181,8 +229,10 @@ class Engine:
         """Validate and enqueue ``req``.
 
         Raises structured errors before the request holds any resources:
-        ``InvalidRequest`` (bad sampling params) or ``RequestTooLong``
-        (prompt + budget exceeds max_seq_len).
+        ``InvalidRequest`` (bad sampling params), ``RequestTooLong``
+        (prompt + budget exceeds max_seq_len), or ``Backpressure`` (wait
+        queue full, or the pool above the admission watermark; it carries
+        a retry hint).
         """
         validate_sample_params(req)
         if req.prompt_len + req.max_new_tokens > self.max_seq_len:
@@ -193,7 +243,7 @@ class Engine:
                 limit=self.max_seq_len)
         req.metrics["t_arrive"] = time.perf_counter()
         req.metrics["step_arrive"] = self.steps
-        self.scheduler.add(req)
+        self.scheduler.add(req)  # may raise Backpressure (nothing held)
         return req.rid
 
     def generate(self, reqs: List[Request],
@@ -228,23 +278,44 @@ class Engine:
         finished: List[Request] = []
         if self.prefill_chunk is None:
             if admitted:
-                self._prefill(admitted)
+                self._dispatch("prefill", self._prefill, admitted)
                 # prefill's sampled token may already hit EOS / max_new
                 finished += self._finish_done()
         elif any(r.status is Status.PREFILLING
                  for r in self.scheduler.running.values()):
             # each PREFILLING row caches its share of one chunk budget;
             # rows whose last chunk lands sample their first token
-            self._prefill_chunk_step()
+            self._dispatch("prefill", self._prefill_chunk_step)
             finished += self._finish_done()
         if self._any_running():
-            self.scheduler.extend_for_decode()
+            if self.paged:  # the baseline's buffers need no pages
+                self.scheduler.extend_for_decode()
             # extend may have failed the last decoder (starvation)
             if self._any_running():
-                self._decode()
+                self._dispatch("decode", self._decode)
                 finished += self._finish_done()
         finished += self._drain_failed()
         return finished
+
+    def _dispatch(self, site: str, fn, *args):
+        """Run a prefill or decode dispatch with transient-fault retries.
+
+        The plan's transient site fires before ``fn`` mutates any state,
+        so a retry re-runs the dispatch from scratch, at once; after
+        ``max_step_retries`` retries the structured error escapes.
+        """
+        for attempt in range(self.max_step_retries + 1):
+            try:
+                if (self.faults is not None
+                        and self.faults.fire(site) == "transient"):
+                    raise TransientDeviceError(
+                        f"injected transient device error at {site} "
+                        "dispatch", site=site, attempt=attempt)
+                return fn(*args)
+            except TransientDeviceError:
+                self.stats["transient_retries"] += 1
+                if attempt >= self.max_step_retries:
+                    raise
 
     def _any_running(self) -> bool:
         return any(r.status is Status.RUNNING
@@ -275,10 +346,93 @@ class Engine:
                 return r
         return None
 
+    def robustness_report(self) -> Dict[str, int]:
+        """Counters of the failure surface (beside ``memory_report``)."""
+        s = self.scheduler
+        pc = self.prefix_cache
+        return {
+            "failed": s.failed,
+            "cancelled": s.cancelled,
+            "shed": s.shed,
+            "deadline_misses": s.deadline_misses,
+            "preempted": s.preempted,
+            "prefill_stalls": s.prefill_stalls,
+            "transient_retries": self.stats["transient_retries"],
+            "fault_fires": self.faults.fires if self.faults else 0,
+            # prefix-cache hit surface (all 0 when the cache is off)
+            "prefix_hits": pc.hits if pc else 0,
+            "prefix_misses": pc.misses if pc else 0,
+            "prefix_hit_tokens": pc.hit_tokens if pc else 0,
+            "prefix_evicted_pages": pc.evicted_pages if pc else 0,
+        }
+
+    # ------------------------------------------------------------------
+    # prefix sharing (paper §III contribution 1: fork + copy-on-write)
     def fork_request(self, src: Request, max_new_tokens: int = 64,
                      **sampling) -> Request:
-        raise UnsupportedFeature("fork_request is not ported yet",
-                                 rid=src.rid, feature="fork_request")
+        """Fork a RUNNING request: the child aliases the parent's full KV
+        pages (refcount++, no copy) and gets a copy of the partial tail
+        page.  The child enters the batch at once (no re-prefill of the
+        shared prefix) and decodes from the parent's position.
+
+        Refused (``InvalidRequest``) unless ``src`` is RUNNING on the
+        paged engine, and on windowed models: a 'W' layer writes at
+        column ``(pos // P) % ring`` of its row, which is one of the
+        shared pages, so parent and child would overwrite each other's
+        K/V.  ``RequestTooLong`` when the child would outgrow
+        ``max_seq_len``; ``PoolExhausted`` without a free slot or a page
+        for the tail.
+        """
+        if src.status is not Status.RUNNING or not self.paged:
+            raise InvalidRequest("fork requires a RUNNING request on the "
+                                 "paged engine", rid=src.rid)
+        if self.model.window > 0:
+            raise InvalidRequest(
+                "fork requires window=0: windowed layers overwrite their "
+                "ring pages in place, so shared pages would be written by "
+                "both rows", rid=src.rid, window=self.model.window)
+        if src.total_len + max_new_tokens > self.max_seq_len:
+            raise RequestTooLong("fork child exceeds engine max_seq_len",
+                                 rid=src.rid, limit=self.max_seq_len)
+        slots = self.scheduler.free_slots()
+        if not slots:
+            raise PoolExhausted("no free slot for fork", rid=src.rid,
+                                resource="slots")
+        ps = self.cfg.page_size
+        # page math follows the cached length (== the parent's decode
+        # position): the last sampled token is the next decode input, not
+        # yet in the pools
+        cached_len = self.mgr.lens[src.rid]
+        full_pages = cached_len // ps
+        need_tail = 1 if cached_len % ps else 0
+        if need_tail + self.scheduler.headroom > self.mgr.available_pages:
+            raise PoolExhausted("no pages for fork tail", rid=src.rid,
+                                resource="pages")
+        seq = src.prompt + src.output
+        child = Request(prompt=list(seq), max_new_tokens=max_new_tokens,
+                        parent=src.rid, **sampling)
+        child.metrics["t_arrive"] = time.perf_counter()
+        # all-or-nothing: on a dry pool the manager rolls its refcount
+        # bumps back and returns False, leaving no child row behind
+        if not self.mgr.fork(src.rid, child.rid):
+            raise PoolExhausted("no pages for fork tail", rid=src.rid,
+                                resource="pages")
+        st = self.state
+        if need_tail:  # copy-on-write: the child's own tail page
+            copy_page(st["k_pages"], st["v_pages"],
+                      self.mgr.tables[src.rid][full_pages],
+                      self.mgr.tables[child.rid][full_pages])
+        slot = slots[0]
+        child.status = Status.RUNNING
+        child.slot = slot
+        self.scheduler.running[slot] = child
+        st["pos"][slot] = st["pos"][src.slot]
+        if "rec" in st:  # the parent's recurrent state
+            for tree in st["rec"].values():
+                for v in tree.values():
+                    v[:, slot] = v[:, src.slot]
+        child.metrics["ttft_s"] = 0.0  # prefix shared: no prefill
+        return child
 
     # ------------------------------------------------------------------
     def _tables_np(self, decode: bool = False) -> np.ndarray:
@@ -328,13 +482,17 @@ class Engine:
         idx = torch.as_tensor(slots, device=self.device)
         lens_t = torch.from_numpy(lens).to(self.device)
         st = self.state
-        sub_state = {"pos": lens_t, "k_pages": st["k_pages"],
-                     "v_pages": st["v_pages"],
-                     "tables": self._tables_array()[idx, 0]}
+        if self.paged:
+            sub_state = {"pos": lens_t, "k_pages": st["k_pages"],
+                         "v_pages": st["v_pages"],
+                         "tables": self._tables_array()[idx, 0]}
+        else:  # the baseline: each prompt into its slot's buffer row
+            sub_state = {"pos": lens_t, "k_buf": st["k_buf"],
+                         "v_buf": st["v_buf"], "slots": idx}
         logits, new_st = self.model.prefill(
             self.params, torch.from_numpy(batch).to(self.device), sub_state,
             lens=lens_t, impl=self.impl)
-        st["pos"][idx] = lens_t  # pools were written in place
+        st["pos"][idx] = lens_t  # the caches were written in place
         if "rec" in new_st:  # the admitted slots' recurrent state
             for code, tree in new_st["rec"].items():
                 for k, v in tree.items():
@@ -460,7 +618,8 @@ class Engine:
 
     def _decode(self) -> None:
         st = dict(self.state)
-        st["tables"] = self._tables_array(decode=True)
+        if self.paged:
+            st["tables"] = self._tables_array(decode=True)
         tokens = np.zeros((self.max_slots,), np.int64)
         live = np.zeros((self.max_slots,), bool)
         reqs: List[Optional[Request]] = [None] * self.max_slots
@@ -484,6 +643,14 @@ class Engine:
 
     def _sample_and_append(self, reqs: List[Request], logits: torch.Tensor,
                            first: bool) -> None:
+        if self.faults is not None and reqs:
+            # injected NaN logits: per-row poison, caught by the guard
+            bad = [i for i, r in enumerate(reqs)
+                   if self.faults.fire("sample", rid=r.rid) == "nan"]
+            if bad:
+                logits = logits.clone()
+                logits[torch.as_tensor(bad, device=logits.device)] = float(
+                    "nan")
         if reqs:
             # NaN guard, per-row isolation: a poisoned row fails *its*
             # request; survivors sample as if the bad row never existed
@@ -531,15 +698,22 @@ class Engine:
 
     # ------------------------------------------------------------------
     def memory_report(self) -> Dict[str, float]:
-        """KV memory accounting at the pool dtype's itemsize (the paper's
-        <5% overhead metric)."""
+        """KV memory accounting at the cache dtype's itemsize (the paper's
+        <5% overhead metric).  The baseline reserves its whole buffers, and
+        reports ``used_pages`` -1."""
         cfg = self.cfg
         Hkv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
         n_attn = self.model.n_attn_layers
-        item = self.state["k_pages"].element_size()
-        cache_bytes = (2 * n_attn * self.num_pages * cfg.page_size
-                       * Hkv * hd * item)
-        reserved = self.mgr.bytes_reserved(Hkv, hd, n_attn, item)
+        if self.paged:
+            item = self.state["k_pages"].element_size()
+            cache_bytes = (2 * n_attn * self.num_pages * cfg.page_size
+                           * Hkv * hd * item)
+            reserved = self.mgr.bytes_reserved(Hkv, hd, n_attn, item)
+        else:
+            item = self.state["k_buf"].element_size()
+            cache_bytes = (2 * n_attn * self.max_slots * self.max_seq_len
+                           * Hkv * hd * item)
+            reserved = cache_bytes
         live_tokens = sum(r.total_len
                           for r in self.scheduler.running.values())
         minimum = live_tokens * 2 * n_attn * Hkv * hd * item
@@ -549,7 +723,7 @@ class Engine:
             "reserved_bytes": float(reserved),
             "theoretical_min_bytes": float(minimum),
             "overhead_frac": (reserved / minimum - 1.0) if minimum else 0.0,
-            "used_pages": float(self.mgr.used_pages),
+            "used_pages": float(self.mgr.used_pages) if self.paged else -1.0,
             # prefix-cache residency: `cached_pages` are indexed in the
             # radix trie; the `reclaimable` subset is evictable on demand
             "cached_pages": float(pc.resident_pages) if pc else 0.0,

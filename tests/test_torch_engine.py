@@ -1,9 +1,9 @@
 """PyTorch port: one greedy ``serve_batch``-style wave through the port's
 engine gives the JAX ``Engine(impl="ref")``'s tokens, token for token,
 with the same preemptions (8 slots, an oversubscribed pool); the sampler's
-top-k / top-p masks equal the JAX ones on the same logits; the engine's
-unported features (fault injection, the contiguous baseline,
-``fork_request``) raise ``UnsupportedFeature``."""
+top-k / top-p masks equal the JAX ones on the same logits; what the port
+still refuses (unported model families and layer codes, per-request
+context) raises, and cancel releases a running request."""
 
 import jax
 import jax.numpy as jnp
@@ -82,17 +82,29 @@ def test_sampler_masks_match_reference():
 
 
 def test_unported_features_raise():
-    cfg = tget_smoke("llama2-7b")
-    for kw in (dict(faults=object()), dict(paged=False)):
+    """What the port still refuses: the model families it has not ported
+    (``UnsupportedFeature`` from the engine), the layer codes 'M', 'S'
+    and 'C', and an engine request with per-request context (the JAX
+    engine's ``add_request(req, extra)`` for cross-attention models).
+    The engine's own surface (the baseline, fork, faults) is ported and
+    held against the JAX package in ``tests/test_torch_contiguous.py``,
+    ``test_torch_fork.py`` and ``test_torch_faults.py``.  Cancellation
+    releases a running request's pages."""
+    for name in ("granite-moe-1b-a400m", "llama-3.2-vision-11b",
+                 "whisper-medium", "xlstm-350m"):
         with pytest.raises(UnsupportedFeature):
-            Engine(cfg, device="cpu", **kw)
+            Engine(tget_smoke(name), device="cpu")
+    cfg = tget_smoke("llama2-7b")
+    for pattern in ("AM", "AS", "CA"):
+        with pytest.raises(UnsupportedFeature):
+            Engine(cfg.replace(layer_pattern=pattern), device="cpu")
     eng = Engine(cfg, device="cpu", max_slots=2, max_seq_len=32)
     req = Request(prompt=[1, 2, 3], max_new_tokens=8)
     with pytest.raises(InvalidRequest):
         eng.add_request(Request(prompt=[1], temperature=-1.0))
+    with pytest.raises(TypeError):
+        eng.add_request(req, {"image": np.zeros((1, 4))})
     eng.add_request(req)
     eng.step()
-    with pytest.raises(UnsupportedFeature):
-        eng.fork_request(req)
     assert eng.cancel_request(req.rid)
     assert req.status is Status.CANCELLED and eng.mgr.used_pages == 0
