@@ -165,6 +165,39 @@ Phases, each of which fails the script (exit code 1) when it fails:
 12. recurrentgemma-9b at 6 layers (RRWRRW) in f32: the same logits
    through K4's split-TF32 tile and K1 in f32 at D 256 against the plain
    path within the model tolerance.
+13. the MoE family (after 12), each config at full width and depth in
+   bf16 at its capacity factor 1.25 (granite-moe-1b-a400m: 24 layers,
+   16 heads over 8: G 2, D 64, 32 experts top-8, about 2.7 GB;
+   olmoe-1b-7b: 16 layers, G 1, D 128, 64 experts top-8, about 13.8 GB),
+   8 slots, max_seq_len 2048: the engine phase's 12 prompts, monolithic
+   (K4's bf16 tile, K1, K2; K3 never), with the share of dropped expert
+   choices in prefill and decode, a profiled prefill and decode step
+   with the MoE's router, dispatch, experts and combine in columns of
+   their own and the bytes a decode step reads; then chunked by 512 with
+   the prefix cache on a shared 1024-token head (K3's bf16 tile; K4
+   never; the second wave hits the cache); a 1024-token prompt's logits
+   against the plain path on the weights in f32 within
+   ``BF16_MODEL_TOL`` of their scale, the routing teacher-forced
+   (``RouteTape``; the choices that differ unforced are counted); and at
+   4 layers in f32 the same within ``MODEL_TOL``, monolithic and chunked
+   by 512 (the split-TF32 tiles);
+14. llama-3.2-vision-11b at full width and depth in bf16 (40 layers
+   CAAAA: 8 cross-attention layers over 1601 image tokens, 32 'A'
+   layers; G 4, D 128; about 19.6 GB; the gates drawn non-zero): 8
+   requests with their own random (1601, 1280) images, monolithic (K4,
+   K1, K2), a profiled prefill and decode step with the cross-attention
+   in columns of its own, the dense cross-attention per layer beside
+   SDPA; chunked by 512 with first chunks and resumes in one step (K3,
+   K1, K2); a fork (the child's slot holds the parent's image K/V);
+   ``prefix_cache=True`` refused; the logits through the kernels against
+   the plain path at full depth, in f32 (``MODEL_TOL``) and in bf16
+   (``BF16_MODEL_TOL``; over these 40 random layers the bf16 plain path
+   itself ends past it from the f32 one, which is printed); and at one
+   CAAAA unit in f32 the logits
+   within ``MODEL_TOL``, monolithic and chunked, and the contiguous
+   baseline's greedy tokens equal to the paged engine's.
+   The kernel phase's real-heads tables include granite-moe-1b-a400m
+   (16 / 8, D 64) and llama-3.2-vision-11b (32 / 8, D 128).
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -1611,13 +1644,16 @@ def prefill_permutation_case(torch, chk, gen):
 # the repo's configs whose attention heads the kernel phase runs at reduced
 # batch and length: (name, H, Hkv, D)
 REAL_HEADS = (("nemotron-4-15b", 48, 8, 128), ("llama3-405b", 128, 8, 128),
-              ("nemotron-4-340b", 96, 8, 192))
+              ("nemotron-4-340b", 96, 8, 192),
+              ("granite-moe-1b-a400m", 16, 8, 64),
+              ("llama-3.2-vision-11b", 32, 8, 128))
 
 
 def gqa_head_phase(torch, chk, gen):
     """K1 at every GQA group and head dim, K3 and K4 at D = 192, and all
-    three at the real heads of nemotron-4-15b, llama3-405b and
-    nemotron-4-340b (timed).  Returns the timed rows."""
+    three at the real heads of nemotron-4-15b, llama3-405b,
+    nemotron-4-340b, granite-moe-1b-a400m (G 2, D 64) and
+    llama-3.2-vision-11b (G 4, D 128) (timed).  Returns the timed rows."""
     gqa_decode_cases(torch, chk, gen)
     gqa_prefill_cases(torch, chk, gen)
     gqa_flex_cases(torch, chk, gen)
@@ -2404,15 +2440,16 @@ def model_phase(torch):
 PREFILL_KERNELS = ("paged_prefill", "flex_prefill")
 
 
-def drive(torch, eng, reqs, on_step=None):
-    """Add ``reqs`` and step the engine until they are done, calling
-    ``on_step()`` after each step.  Returns the wall seconds and the wall
-    ms of each step, split into steps that prefilled (launched a prefill
-    kernel, K3 or K4, or advanced a request's prefill: the 'W' layers'
-    chunks run no kernel) and the others (decode)."""
+def drive(torch, eng, reqs, on_step=None, extras=None):
+    """Add ``reqs`` (with ``extras``, one per request, when given) and step
+    the engine until they are done, calling ``on_step()`` after each step.
+    Returns the wall seconds and the wall ms of each step, split into
+    steps that prefilled (launched a prefill kernel, K3 or K4, or advanced
+    a request's prefill: the 'W' layers' chunks run no kernel) and the
+    others (decode)."""
     from repro_torch import kernels
-    for r in reqs:
-        eng.add_request(r)
+    for r, e in zip(reqs, extras or [None] * len(reqs)):
+        eng.add_request(r, e)
     prefill_ms, decode_ms = [], []
     t0 = time.perf_counter()
     for _ in range(10_000):
@@ -3187,7 +3224,7 @@ def profile_steps_on(torch, eng, cfg, rng):
 
 
 def logits_pair(torch, model, params, tokens, pool, chunk=None,
-                pool_dtype=None, tape=None, ref_params=None):
+                pool_dtype=None, tape=None, ref_params=None, extra=None):
     """Prefill logits of one prompt, then two decode steps' logits, through
     the plain path (impl "ref"; greedy) and the kernels (teacher-forced
     with the plain path's tokens, so both see the same inputs); with
@@ -3197,7 +3234,9 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
     on; with an ``Int8Tape``, the kernel path writes the plain path's int8
     K/V; with ``ref_params`` (the same weights in f32) the plain path runs
     on them.  A model with 'R' layers carries its recurrent state from
-    prefill to decode in the state dict.  Returns
+    prefill to decode in the state dict, one with 'C' layers its image
+    K/V (from ``extra``); a ``RouteTape`` forces the MoE routing as the
+    int8 tape forces K/V.  Returns
     {impl: (3, V) logits} and the kernel path's launch counts."""
     from repro_torch import kernels
     dev = tokens.device
@@ -3220,7 +3259,7 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
         with taped:
             if chunk is None:
                 logits, st = model.prefill(w, tokens, st, lens=lens_t,
-                                           impl=impl)
+                                           extra=extra, impl=impl)
             else:
                 start = 0
                 while start < n:
@@ -3229,7 +3268,7 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
                     logits, st = model.prefill_chunk(
                         w, tokens[:, start:start + c], st,
                         torch.tensor([start], **i32),
-                        torch.tensor([c], **i32), impl=impl)
+                        torch.tensor([c], **i32), extra=extra, impl=impl)
                     start += c
                 st = dict(st, pos=lens_t)
             seq = [logits]
@@ -3244,6 +3283,90 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
         counts[impl] = kernels.launch_counts()
         del st
     return out, counts["kernel"]
+
+
+def layer_gaps(torch, model, params, tokens, pool, extra=None, forced=False,
+               tape=None):
+    """Where two paths on the same weights part: the prefill of ``tokens``
+    through the plain path (impl "ref"), then the kernels, and after each
+    layer the distance of the kernel path's residual stream from the plain
+    path's, ``||a - b|| / ||b||`` over the whole (1, S, d_model) stream.
+    The paths differ only in the attention of the 'A' layers (K4 against
+    the plain attention); every other op runs the same code.  With
+    ``forced`` each layer of the kernel path starts from the plain path's
+    input, so its distance is the layer's own; without, it is everything
+    the layers before it passed on.  A ``RouteTape`` forces the MoE
+    routing.  Returns (the distances per layer, the plain path's norm
+    ``||b||`` per layer, the last token's logits' max|err| as a share of
+    1 + max|logit|, None when ``forced``)."""
+    dev = tokens.device
+    n = tokens.shape[1]
+    pps = pool[1]
+    tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
+                                                                       pps)
+    lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
+    dtype = next(_leaves(params)).dtype
+    plain_ffn, seen, gaps, norms, logits = model._apply_ffn, [], [], [], {}
+    for impl in ("ref", "kernel"):
+        calls = iter(range(len(model.codes)))
+
+        def ffn(p, x, live=None, n_live=None):
+            y = plain_ffn(p, x, live, n_live)
+            if impl == "ref":
+                seen.append(y)
+                return y
+            want = seen[next(calls)].float()
+            norms.append(float(want.norm()))
+            gaps.append(float((y.float() - want).norm()) / norms[-1])
+            return seen[len(gaps) - 1] if forced else y
+        st = {"pos": lens_t, "tables": tables,
+              "k_pages": torch.zeros(pool, dtype=dtype, device=dev),
+              "v_pages": torch.zeros(pool, dtype=dtype, device=dev)}
+        model._apply_ffn = ffn
+        taped = (tape.pass_(replay=impl == "kernel") if tape is not None
+                 else contextlib.nullcontext())
+        try:
+            with taped:
+                out, _ = model.prefill(params, tokens, st, lens=lens_t,
+                                       extra=extra, impl=impl)
+        finally:
+            del model._apply_ffn
+        logits[impl] = out.float()
+        del st
+    if forced:
+        return gaps, norms, None
+    scale = 1 + float(logits["ref"].abs().max())
+    return gaps, norms, float((logits["kernel"] - logits["ref"]).abs().max()
+                              ) / scale
+
+
+def log_gaps(name, codes, gaps, norms, share):
+    """One line of ``layer_gaps``' distances: every layer's; free, the
+    growth from the first 'A' layer to the last layer and the logits';
+    forced, the largest, and what the layers' own differences would make
+    after the last layer if the residual stream only carried them on:
+    added in one direction (``Σ e_l / ||b_L||``, e_l = distance_l ·
+    ||b_l||) or independently (``sqrt(Σ e_l²) / ||b_L||``)."""
+    per = [float(f"{g:.3g}") for g in gaps]
+    if share is None:
+        e = [g * n for g, n in zip(gaps, norms)]
+        coherent = sum(e) / norms[-1]
+        independent = sum(x * x for x in e) ** 0.5 / norms[-1]
+        log(f"{name}: each layer's own residual-stream distance, kernel vs "
+            f"plain path, from the plain path's input {per}; largest "
+            f"{max(gaps):.3e}; carried to the last layer: {coherent:.3e} "
+            f"added in one direction, {independent:.3e} independently "
+            f"(||b|| from {norms[0]:.4g} to {norms[-1]:.4g})")
+        return dict(per_layer=gaps, norms=norms, largest=max(gaps),
+                    coherent=coherent, independent=independent)
+    first = next(i for i, c in enumerate(codes) if c == "A")
+    growth = gaps[-1] / gaps[first] if gaps[first] else float("inf")
+    log(f"{name}: residual-stream distance kernel vs plain path after each "
+        f"layer {per}; after the first 'A' layer {gaps[first]:.3e}, after "
+        f"the last layer {gaps[-1]:.3e} ({growth:.1f}x); last-token logits "
+        f"max|err| {share:.3e} of (1 + max|logit|)")
+    return dict(per_layer=gaps, first_a=gaps[first], last=gaps[-1],
+                growth=growth, logits_share=share)
 
 
 def nemotron_f32_check(torch):
@@ -3616,6 +3739,786 @@ def rglru_f32_check(torch):
     return dict(max_err=err, launches=counts)
 
 
+# -- the MoE and cross-attention families -------------------------------------
+MOE_PARTS = ("router", "dispatch", "experts", "combine")
+CROSS_PARTS = ("cross_kv", "cross_attn")
+
+
+class RouteTape:
+    """Teacher-forces the MoE routing between two passes of a model, as
+    ``Int8Tape`` forces int8 K/V: the first pass records each MoE layer's
+    top-k experts (``models.moe.top_k_route``), the second takes the
+    recorded experts in place of its own, call by call, with its own
+    gates at them (renormalised), and counts the choices its own top-k
+    made otherwise.  Routing is discrete: two paths whose router logits
+    differ by rounding flip a near-tie, and a flipped choice moves its
+    token's FFN output by a whole expert's.  With the tape both passes
+    route alike, and the comparison sees the arithmetic."""
+
+    def __init__(self, torch):
+        self.torch, self.tape = torch, []
+        self.differ = self.total = 0
+
+    @contextlib.contextmanager
+    def pass_(self, replay):
+        from repro_torch.models import moe
+        torch = self.torch
+        orig, calls = moe.top_k_route, iter(range(len(self.tape)))
+
+        def route(probs, k):
+            gates, idx = orig(probs, k)
+            if not replay:
+                self.tape.append(idx.clone())
+                return gates, idx
+            want = self.tape[next(calls)]
+            if want.shape != idx.shape:
+                fail(f"route tape: {tuple(idx.shape)} routed where "
+                     f"{tuple(want.shape)} was recorded")
+            self.differ += int((idx[:, :, None] != want[:, None, :])
+                               .all(-1).sum())
+            self.total += idx.numel()
+            g = probs.gather(1, want)
+            return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
+
+        moe.top_k_route = route
+        try:
+            yield
+        finally:
+            moe.top_k_route = orig
+
+    def report(self):
+        return (f"{self.differ} of {self.total} expert choices of the "
+                f"second pass differed from the first's")
+
+
+class DropCount:
+    """The kept and the live (token, choice) pairs of every MoE dispatch
+    while on, split into decode calls (as many tokens as the engine's
+    slots) and the others (prefill, chunks), and the distinct experts the
+    live tokens of a decode call choose.  It keeps references to the
+    dispatch's inputs and outputs and sums them after the run: nothing is
+    launched or read on the host inside a step."""
+
+    def __init__(self, torch, slots):
+        self.torch, self.slots, self.calls = torch, slots, []
+
+    @contextlib.contextmanager
+    def on(self):
+        from repro_torch.models import moe
+        orig = moe.dispatch
+
+        def wrapped(idx, C, E, live=None):
+            out = orig(idx, C, E, live)
+            self.calls.append((idx, out[1], live))
+            return out
+
+        moe.dispatch = wrapped
+        try:
+            yield
+        finally:
+            moe.dispatch = orig
+
+    def shares(self):
+        """{kind: (dropped share, kept, live choices)}."""
+        out = {}
+        for kind in ("prefill", "decode"):
+            kept = live = 0
+            for idx, ok, lv in self.calls:
+                T, k = idx.shape
+                if (T == self.slots) != (kind == "decode"):
+                    continue
+                kept += int(ok.sum())
+                live += k * (T if lv is None else int(lv.sum()))
+            out[kind] = (1 - kept / live if live else None, kept, live)
+        return out
+
+    def decode_experts(self):
+        """The mean count of distinct experts that a decode call's live
+        tokens choose (the experts whose weights the step needs)."""
+        n = [int(idx[lv].unique().numel()) for idx, _, lv in self.calls
+             if idx.shape[0] == self.slots]
+        return sum(n) / len(n) if n else None
+
+
+def annotate_all(torch, module, names):
+    """``annotated`` for several functions of one module at once."""
+    stack = contextlib.ExitStack()
+    for name in names:
+        stack.enter_context(annotated(torch, module, name))
+    return stack
+
+
+def weight_bytes(params, moe_only=False):
+    """Bytes of the weights a decode step reads: every layer's (only the
+    experts with ``moe_only``) and the unembedding; the embedding table
+    gives only the batch's rows unless it is tied to the unembedding."""
+    layers = params["layers"]
+    if moe_only:
+        return sum(x.numel() * x.element_size() for p in layers
+                   if "moe" in p for k, x in p["moe"].items()
+                   if k != "router")
+    total = sum(x.numel() * x.element_size() for x in _leaves(layers))
+    emb = params["embed"]
+    total += sum(x.numel() * x.element_size() for x in _leaves(params["ln_f"]))
+    head = emb.get("head", emb["tok"])
+    return total + head.numel() * head.element_size()
+
+
+def set_gates(torch, params, rng):
+    """Draw every cross-attention gate from U(0.5, 1) (the JAX init is 0,
+    and tanh(0) = 0 would hide the cross-attention path)."""
+    for p in params["layers"]:
+        if "gate" in p:
+            p["gate"].fill_(0.5 + 0.5 * float(torch.rand((), generator=rng)))
+
+
+def images(torch, n, cfg, seed, dtype):
+    """``n`` random (n_image_tokens, d_vision) image embeddings on the card,
+    from ``seed``: the per-request extras of a cross-attention model."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [{"image_embeds": torch.randn(
+        (cfg.n_image_tokens, cfg.d_vision), generator=gen, device=dev
+    ).to(dtype)} for _ in range(n)]
+
+
+def serve_stats(torch, reqs, wall, prefill_ms, decode_ms, counts):
+    ttft = sorted(r.metrics["ttft_s"] for r in reqs)
+    new_tokens = sum(len(r.output) for r in reqs)
+    return dict(
+        prompt_lens=[r.prompt_len for r in reqs], new_tokens=new_tokens,
+        wall_s=wall, tok_s=new_tokens / wall, ttft_s_p50=ttft[len(ttft) // 2],
+        ttft_s_max=ttft[-1], prefill_ms_per_step=prefill_ms,
+        decode_ms_per_step_median=(statistics.median(decode_ms)
+                                   if decode_ms else None),
+        decode_steps=len(decode_ms),
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=counts)
+
+
+def log_serve(name, st):
+    log(f"{name}: {st['new_tokens']} tokens in {st['wall_s']:.2f} s = "
+        f"{st['tok_s']:.1f} tok/s; TTFT p50 {st['ttft_s_p50']:.3f} s max "
+        f"{st['ttft_s_max']:.3f} s; prefill steps "
+        f"{[round(x) for x in st['prefill_ms_per_step']]} ms; decode "
+        f"{fmt(st['decode_ms_per_step_median'])}/step (median of "
+        f"{st['decode_steps']}); max_memory_allocated "
+        f"{st['max_memory_allocated_gb']:.2f} GB; launches {st['launches']}")
+
+
+def profile_pair(torch, eng, cfg, rng, module, parts, extras=None):
+    """One profiled prefill step (8 fresh prompts of 1024 tokens, their
+    prefill and first decode) and one decode step, with the kernels of
+    ``module``'s functions ``parts`` in columns of their own."""
+    from repro_torch.serving import Request
+    for i in range(8):
+        eng.add_request(Request(prompt=torch.randint(
+            0, cfg.vocab_size, (1024,), generator=rng).tolist(),
+            max_new_tokens=4), extras[i] if extras else None)
+    out = {}
+    with annotate_all(torch, module, parts):
+        out["prefill_step"] = profile_steps(torch, eng, 1, annotation=parts)
+        out["decode_step"] = profile_steps(torch, eng, 1, annotation=parts)
+    for name, prof in out.items():
+        log_profile(f"{cfg.name} {name}", prof)
+    check_attributed(f"{cfg.name} prefill_step", out["prefill_step"],
+                     "K4 flex_prefill")
+    check_attributed(f"{cfg.name} decode_step", out["decode_step"],
+                     "K1 paged_decode")
+    for _ in range(8):  # finish the wave
+        eng.step()
+    return out
+
+
+def check_logits(name, out, counts, must, tol, rel=False):
+    """Hold the kernel path's logits against the plain path's: max|err|
+    <= tol (or tol * (1 + max|logit|) with ``rel``); every kernel in
+    ``must`` launched, and K2 after K1."""
+    got, want = out["kernel"], out["ref"]
+    if not bool(got.isfinite().all()):
+        fail(f"{name}: non-finite logits")
+    if "paged_decode" in must:  # K1's partials merge in K2
+        must = (*must, "combine/decode")
+    missing = [k for k in must if counts.get(k, 0) <= 0]
+    if missing:
+        fail(f"{name}: kernels never launched: {missing} ({counts})")
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    bound = tol * (1 + scale) if rel else tol
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    log(f"{name}: prefill + 2 decode logits, kernel path vs plain path "
+        f"max|err| {err:.3e} (bound {bound:.3e}; max|logit| {scale:.3f}); "
+        f"greedy argmax agreement {agree:.2f}; launches {counts}")
+    if err > bound:
+        fail(f"{name}: logits max|err| {err} beyond {bound}")
+    return dict(max_err=err, bound=bound, scale=scale, argmax_agreement=agree,
+                launches=counts)
+
+
+def moe_engine_phase(torch, name):
+    """A MoE config (granite-moe-1b-a400m: 24 layers, d_model 1024, 16
+    heads over 8: G 2, D 64, 32 experts top-8 of d_ff 512; olmoe-1b-7b: 16
+    layers, d_model 2048, 16 heads over 16: G 1, D 128, 64 experts top-8
+    of d_ff 1024) at full width and depth in bf16 (random weights from the
+    seed), at the config's capacity factor 1.25, 8 slots, max_seq_len
+    2048: the engine phase's 12 prompts of 256..1536 tokens, 32 new
+    tokens each, monolithic (K4's bf16 tile, K1, K2; K3 never); the share
+    of dropped expert choices in prefill and decode; a profiled prefill
+    and decode step with the MoE's router, dispatch, experts and combine
+    in columns of their own; then the same weights with
+    ``prefill_chunk=512, prefix_cache=True``: a wave of 4 and a wave of 8
+    on a shared 1024-token head (K3's bf16 tile, K1, K2; K4 never; the
+    second wave hits the cache); the logits of a 1024-token prompt
+    (prefill and two decode steps) through the kernels against the plain
+    path on the weights in f32 (``BF16_MODEL_TOL`` of the logits' scale)
+    with the routing teacher-forced (``RouteTape``; the choices that
+    differ unforced are counted); and the decode step's bytes."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(name)
+    G, D = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
+                 seed=SEED)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(eng.params))
+    experts_b = weight_bytes(eng.params, moe_only=True)
+    step_b = weight_bytes(eng.params)
+    log(f"{name} phase: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"heads {cfg.n_heads}/{cfg.n_kv_heads} (G {G}), D {D}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.expert_ff}, "
+        f"capacity factor {cfg.moe_capacity}, vocab {cfg.vocab_size}, bf16 "
+        f"({n_params / 1e9:.3f} B parameters, {2 * n_params / 1e9:.2f} GB; "
+        f"experts {experts_b / 1e9:.2f} GB), 8 slots, max_seq_len 2048, "
+        f"pool {eng.num_pages} pages of {cfg.page_size}; weights and pools "
+        f"ready in {time.perf_counter() - t0:.1f} s")
+    rng = torch.Generator().manual_seed(SEED)
+    new = 32
+    plens = torch.randint(256, 1537, (12,), generator=rng).tolist()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    drops = DropCount(torch, 8)
+    kernels.reset_launch_counts()
+    with drops.on():
+        wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+    counts = kernels.launch_counts()
+    check_path(f"{name} (monolithic)", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc"),
+               never=("paged_prefill", "flex_prefill/tf32x3"))
+    stats = {"monolithic": serve_stats(torch, reqs, wall, prefill_ms,
+                                       decode_ms, counts)}
+    m = stats["monolithic"]
+    m["dropped"] = {k: dict(share=v[0], kept=v[1], live=v[2])
+                    for k, v in drops.shares().items()}
+    chosen = drops.decode_experts()
+    chosen_b = experts_b * chosen / cfg.n_experts
+    m["decode_bytes"] = dict(
+        weights=step_b, experts=experts_b,
+        weights_bound_ms=1e3 * step_b / HBM_BPS,
+        experts_bound_ms=1e3 * experts_b / HBM_BPS,
+        experts_chosen=chosen, experts_chosen_bytes=chosen_b,
+        experts_chosen_bound_ms=1e3 * chosen_b / HBM_BPS)
+    log_serve(f"{name} (monolithic)", m)
+    log(f"{name}: dropped expert choices at {cfg.moe_capacity}: prefill "
+        f"{m['dropped']['prefill']}, decode {m['dropped']['decode']}; a "
+        f"decode step reads {step_b / 1e9:.3f} GB of weights (>= "
+        f"{m['decode_bytes']['weights_bound_ms']:.3f} ms at 3.35 TB/s), of "
+        f"which the experts {experts_b / 1e9:.3f} GB (>= "
+        f"{m['decode_bytes']['experts_bound_ms']:.3f} ms; the bmm reads "
+        f"every expert, empty slots too); its live tokens choose "
+        f"{chosen:.2f} of {cfg.n_experts} experts per layer on average, "
+        f"{chosen_b / 1e9:.3f} GB (>= "
+        f"{m['decode_bytes']['experts_chosen_bound_ms']:.3f} ms)")
+    stats["profile"] = profile_pair(torch, eng, cfg, rng, moe, MOE_PARTS)
+
+    params = eng.params
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=512,
+                 prefix_cache=True)
+    head = torch.randint(0, cfg.vocab_size, (1024,), generator=rng).tolist()
+    kernels.reset_launch_counts()
+    waves, all_reqs = {}, []
+    for wave, n in (("A", 4), ("B", 8)):
+        tails = torch.randint(128, 513, (n,), generator=rng).tolist()
+        wreqs = [Request(prompt=head + torch.randint(
+            0, cfg.vocab_size, (t,), generator=rng).tolist(),
+            max_new_tokens=new) for t in tails]
+        hits0 = eng.prefix_cache.hit_tokens
+        wall, chunk_ms, dms = drive(torch, eng, wreqs)
+        all_reqs += wreqs
+        w = serve_stats(torch, wreqs, wall, chunk_ms, dms, None)
+        w["prefix_hit_tokens"] = eng.prefix_cache.hit_tokens - hits0
+        waves[wave] = w
+        log(f"{name} chunked wave {wave}: {w['new_tokens']} tokens in "
+            f"{wall:.2f} s = {w['tok_s']:.1f} tok/s; TTFT p50 "
+            f"{w['ttft_s_p50']:.3f} s; chunk steps "
+            f"{[round(x) for x in chunk_ms]} ms; decode "
+            f"{fmt(w['decode_ms_per_step_median'])}/step; prefix hit tokens "
+            f"{w['prefix_hit_tokens']}")
+    counts = kernels.launch_counts()
+    check_path(f"{name} (chunked 512 + prefix cache)", eng, all_reqs, new,
+               counts, must=("paged_decode", "combine", "paged_prefill",
+                             "paged_prefill/tc"),
+               never=("flex_prefill", *k3_routes_except("tc")))
+    if waves["B"]["prefix_hit_tokens"] < 8 * 1024:
+        fail(f"{name}: wave B hit {waves['B']['prefix_hit_tokens']} cached "
+             "tokens, fewer than 8 x 1024")
+    stats["chunked"] = dict(
+        waves=waves, launches=counts,
+        max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"{name} (chunked): max_memory_allocated "
+        f"{stats['chunked']['max_memory_allocated_gb']:.2f} GB; launches "
+        f"{counts}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the logits, the kernels (bf16) against the plain path on the weights
+    # in f32, the routing forced
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 11)
+    n = 1024
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    model = build_model(cfg)
+    pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
+            cfg.page_size, cfg.n_kv_heads, D)
+    p32 = _map(params, lambda x: x.float())
+    tape = RouteTape(torch)
+    out, lcounts = logits_pair(torch, model, params, tokens, pool,
+                               tape=tape, ref_params=p32)
+    del p32
+    gaps = {}  # beside the VLM's: bf16 kernels against bf16 plain
+    for key, kw in (("bf16", {}), ("bf16 forced", dict(forced=True))):
+        gaps[key] = log_gaps(
+            f"{name} prefill ({key}, routing forced)", model.codes,
+            *layer_gaps(torch, model, params, tokens, pool,
+                        tape=RouteTape(torch), **kw))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["logits"] = check_logits(
+        f"{name} (bf16, full depth, routing forced)", out, lcounts,
+        ("flex_prefill/tc", "paged_decode"), BF16_MODEL_TOL, rel=True)
+    stats["logits"]["unforced_choices_differing"] = [tape.differ, tape.total]
+    stats["layer_gaps"] = gaps
+    log(f"{name}: {tape.report()}")
+    return stats
+
+
+def moe_f32_check(torch, name):
+    """A MoE config at full width and 4 layers in f32: one 1000-token
+    prompt's prefill and two decode steps' logits through the kernels
+    against the plain path within the model tolerance, monolithic (K4's
+    split-TF32 tile, K1 in f32) and chunked by 512 (K3's split-TF32 tile),
+    the routing forced."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config(name).replace(n_layers=4)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, torch.float32, dev)
+    n, P = 1000, cfg.page_size
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (cfg.n_layers, -(-(n + 2) // P), P, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    stats = {}
+    for mode, chunk, must in (
+            ("monolithic", None, ("flex_prefill/tf32x3", "paged_decode")),
+            ("chunked 512", 512, ("paged_prefill/tf32x3", "paged_decode"))):
+        tape = RouteTape(torch)
+        out, counts = logits_pair(torch, model, params, tokens, pool, chunk,
+                                  tape=tape)
+        stats[mode] = check_logits(f"{name} f32 4 layers ({mode})", out,
+                                   counts, must, MODEL_TOL)
+        stats[mode]["unforced_choices_differing"] = [tape.differ,
+                                                     tape.total]
+        log(f"{name} f32 ({mode}): {tape.report()}")
+    return stats
+
+
+def cross_attention_times(torch, cfg, eng):
+    """The dense cross-attention (``core.attention.prefill_attention``,
+    plain path) per layer, by events, beside SDPA (``enable_gqa``) over
+    the same tensors: a prefill of 8 x 1536 queries and a decode step of
+    8 queries over 1601 image keys of the engine's cross state, bf16."""
+    import torch.nn.functional as F
+    from repro_torch.core import attention as core_attn
+    dev = torch.device("cuda")
+    k, v = eng.state["cross_k"][0], eng.state["cross_v"][0]
+    out = {}
+    for what, S in (("prefill 8 x 1536", 1536), ("decode 8 x 1", 1)):
+        q = torch.randn((8, S, cfg.n_heads, cfg.resolved_head_dim),
+                        device=dev).to(torch.bfloat16)
+        dense = time_ms(torch, lambda: core_attn.prefill_attention(
+            q, k, v, causal=False, impl="ref"), reps=5)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), reps=5)
+        got = core_attn.prefill_attention(q, k, v, causal=False, impl="ref")
+        want = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        err = float((got.float() - want.transpose(1, 2).float()).abs().max())
+        out[what] = dict(dense_ms=dense, sdpa_ms=sdpa, max_abs_diff=err)
+        log(f"{cfg.name} cross-attention {what} over {k.shape[1]} image "
+            f"keys, per layer: dense plain path {dense:.4f} ms, SDPA "
+            f"{sdpa:.4f} ms (max|diff| {err:.3e})")
+    return out
+
+
+def chunk_kinds(eng):
+    """Record, for every chunk step of ``eng``, its rows at their first
+    chunk and its resumes: a list of (firsts, resumes).  A step that holds
+    both runs the model's ``partial`` cross mode (padding rows pose as
+    resumes, but only live rows count here)."""
+    kinds, plain = [], eng._run_chunk
+
+    def run_chunk(slots, rs, batch, starts, q_lens):
+        firsts = int((starts[:len(slots)] == 0).sum())
+        kinds.append((firsts, len(slots) - firsts))
+        return plain(slots, rs, batch, starts, q_lens)
+    eng._run_chunk = run_chunk
+    return kinds
+
+
+def common_prefix(a, b):
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def vlm_engine_phase(torch):
+    """llama-3.2-vision-11b at full width and depth in bf16 (40 layers of
+    pattern CAAAA: 8 cross-attention layers over 1601 image tokens and 32
+    'A' layers; d_model 4096, 32 heads over 8: G 4, D 128, d_ff 14336,
+    vocab 128256; random weights from the seed, the gates drawn from U(0.5,
+    1)), 8 slots, max_seq_len 2048: 8 greedy requests of 256..1536 tokens,
+    each with its own random (1601, 1280) image embeddings, 32 new tokens,
+    monolithic (K4's bf16 tile, K1, K2; K3 never); a profiled prefill and
+    decode step with the cross-attention in columns of its own; the dense
+    cross-attention timed beside SDPA; then chunked by 512 (K3's bf16 tile,
+    K1, K2; K4 never), with steps that hold first chunks and resumes
+    together; a request forked (the child's slot gets the parent's image
+    K/V); ``prefix_cache=True`` refused; and the logits of a 1024-token
+    prompt through the kernels against the plain path, in f32 on the same
+    weights (``MODEL_TOL``) and in bf16 (``BF16_MODEL_TOL`` of the
+    logits' scale)."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.errors import EngineConfigError
+    from repro_torch.models import attention
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request, Status
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-3.2-vision-11b")
+    G, D = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
+                 seed=SEED)
+    rng = torch.Generator().manual_seed(SEED + 13)
+    set_gates(torch, eng.params, rng)
+    params = eng.params
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    step_b = weight_bytes(params)
+    cross_b = sum(eng.state[k].numel() * eng.state[k].element_size()
+                  for k in ("cross_k", "cross_v"))
+    log(f"llama-3.2-vision-11b phase: {cfg.n_layers} layers of pattern "
+        f"{cfg.layer_pattern} ({eng.model.n_cross_layers} 'C' over "
+        f"{cfg.n_image_tokens} image tokens, {eng.model.n_attn_layers} "
+        f"'A'), d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} "
+        f"(G {G}), D {D}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, bf16 "
+        f"({n_params / 1e9:.3f} B parameters, {2 * n_params / 1e9:.2f} GB), "
+        f"8 slots, max_seq_len 2048, pool {eng.num_pages} pages "
+        f"({eng.memory_report()['pool_bytes'] / 1e9:.3f} GB), cross state "
+        f"{cross_b / 1e9:.3f} GB; ready in {time.perf_counter() - t0:.1f} s")
+    new = 32
+    plens = torch.randint(256, 1537, (8,), generator=rng).tolist()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    extras = images(torch, 8, cfg, SEED + 13, torch.bfloat16)
+    kernels.reset_launch_counts()
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs, extras=extras)
+    counts = kernels.launch_counts()
+    check_path("llama-3.2-vision-11b (monolithic)", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc"),
+               never=("paged_prefill", "flex_prefill/tf32x3"))
+    stats = {"monolithic": serve_stats(torch, reqs, wall, prefill_ms,
+                                       decode_ms, counts)}
+    m = stats["monolithic"]
+    m["decode_bytes"] = dict(weights=step_b, cross_state=cross_b,
+                             weights_bound_ms=1e3 * step_b / HBM_BPS,
+                             cross_bound_ms=1e3 * cross_b / HBM_BPS)
+    log_serve("llama-3.2-vision-11b (monolithic)", m)
+    log(f"llama-3.2-vision-11b: a decode step reads {step_b / 1e9:.3f} GB of "
+        f"weights (>= {m['decode_bytes']['weights_bound_ms']:.3f} ms at 3.35 "
+        f"TB/s) and {cross_b / 1e9:.3f} GB of image K/V (>= "
+        f"{m['decode_bytes']['cross_bound_ms']:.3f} ms)")
+    stats["profile"] = profile_pair(
+        torch, eng, cfg, rng, attention, CROSS_PARTS,
+        images(torch, 8, cfg, SEED + 14, torch.bfloat16))
+    stats["cross_attention"] = cross_attention_times(torch, cfg, eng)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # chunked by 512: a step's budget holds one request's last chunk and
+    # the next one's first (the model's partial cross mode)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=2048,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=512)
+    mixed = chunk_kinds(eng)
+    creqs = [Request(prompt=list(r.prompt), max_new_tokens=new)
+             for r in reqs]
+    kernels.reset_launch_counts()
+    wall, chunk_ms, dms = drive(torch, eng, creqs, extras=extras)
+    counts = kernels.launch_counts()
+    check_path("llama-3.2-vision-11b (chunked 512)", eng, creqs, new, counts,
+               must=("paged_decode", "combine", "paged_prefill",
+                     "paged_prefill/tc"),
+               never=("flex_prefill", *k3_routes_except("tc")))
+    n_mixed = sum(1 for f, r in mixed if f and r)
+    if not n_mixed:
+        fail(f"llama-3.2-vision-11b (chunked): no chunk step held a first "
+             f"chunk beside a resume ({mixed})")
+    stats["chunked"] = serve_stats(torch, creqs, wall, chunk_ms, dms, counts)
+    stats["chunked"]["steps_first_and_resume"] = n_mixed
+    stats["chunked"]["agree_with_monolithic"] = sum(
+        a.output == b.output for a, b in zip(reqs, creqs))
+    stats["chunked"]["tokens_before_divergence"] = [
+        common_prefix(a.output, b.output) for a, b in zip(reqs, creqs)]
+    log_serve("llama-3.2-vision-11b (chunked 512)", stats["chunked"])
+    log(f"llama-3.2-vision-11b (chunked): {n_mixed} of {len(mixed)} chunk "
+        f"steps held first chunks beside resumes; "
+        f"{stats['chunked']['agree_with_monolithic']} of 8 requests' greedy "
+        f"tokens equal to the monolithic run's, the first "
+        f"{stats['chunked']['tokens_before_divergence']} of 32 alike (bf16, "
+        f"K3 against K4: not checked; the f32 check holds the chunked "
+        f"engine's tokens to the monolithic one's)")
+
+    # fork: the child's slot gets the parent's image K/V
+    parent = Request(prompt=list(reqs[0].prompt), max_new_tokens=8)
+    eng.add_request(parent, extras[0])
+    while parent.status is not Status.RUNNING or not parent.output:
+        eng.step()
+    kernels.reset_launch_counts()
+    child = eng.fork_request(parent, max_new_tokens=8)
+    same = all(torch.equal(eng.state[k][:, child.slot],
+                           eng.state[k][:, parent.slot])
+               for k in ("cross_k", "cross_v"))
+    while not (parent.done and child.done):
+        eng.step()
+    fcounts = kernels.launch_counts()
+    if not same or child.status is not Status.FINISHED:
+        fail(f"llama-3.2-vision-11b fork: cross rows copied {same}, child "
+             f"{child.status}")
+    stats["fork"] = dict(cross_rows_equal=same, child=child.output,
+                         parent=parent.output, launches=fcounts)
+    log(f"llama-3.2-vision-11b fork: the child's image K/V equal the "
+        f"parent's; child tokens {child.output}, parent {parent.output}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        Engine(cfg, params, max_slots=2, max_seq_len=256,
+               dtype=torch.bfloat16, prefix_cache=True)
+    except EngineConfigError as e:
+        log(f"llama-3.2-vision-11b: prefix_cache=True refused: {e}")
+    else:
+        fail("llama-3.2-vision-11b: prefix_cache=True was not refused")
+
+    # the logits at full depth: the kernels in f32 against the plain path
+    # in f32 (MODEL_TOL), and in bf16 against the plain path in bf16
+    # (BF16_MODEL_TOL of the scale).  Over these 40 random layers the bf16
+    # plain path itself ends 4.8-5.2 % of (1 + max|logit|) from the f32
+    # one (measured on an H100), at BF16_MODEL_TOL: the bf16 paths'
+    # distances from the f32 plain path are printed, not checked.
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    n = 1024
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    model = build_model(cfg)
+    pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
+            cfg.page_size, cfg.n_kv_heads, D)
+    img = {"image_embeds": extras[1]["image_embeds"][None]}
+    p32 = _map(params, lambda x: x.float())
+    out32, c32 = logits_pair(torch, model, p32, tokens, pool, extra=img)
+    out16, c16 = logits_pair(torch, model, params, tokens, pool, extra=img)
+    # where the bf16 paths part: layer by layer, free and each layer from
+    # the plain path's input, in f32, and with every gate at 0 (no
+    # cross-attention)
+    name = "llama-3.2-vision-11b prefill"
+    gaps = {}
+    for key, w, kw in (("bf16", params, {}),
+                       ("bf16 forced", params, dict(forced=True)),
+                       ("f32", p32, {})):
+        gaps[key] = log_gaps(f"{name} ({key})", model.codes, *layer_gaps(
+            torch, model, w, tokens, pool, img, **kw))
+    gates = [p["gate"] for p in params["layers"] if "gate" in p]
+    kept = [g.clone() for g in gates]
+    for g in gates:
+        g.zero_()
+    gaps["bf16 gates 0"] = log_gaps(f"{name} (bf16, gates 0)", model.codes,
+                                    *layer_gaps(torch, model, params, tokens,
+                                                pool, img))
+    for g, k in zip(gates, kept):
+        g.copy_(k)
+    del p32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["logits_f32"] = check_logits(
+        "llama-3.2-vision-11b (f32, full depth)", out32, c32,
+        ("flex_prefill/tf32x3", "paged_decode"), MODEL_TOL)
+    stats["logits"] = check_logits(
+        "llama-3.2-vision-11b (bf16, full depth)", out16, c16,
+        ("flex_prefill/tc", "paged_decode"), BF16_MODEL_TOL, rel=True)
+    want = out32["ref"]
+    scale = 1 + float(want.abs().max())
+    stats["logits"]["to_f32_plain"] = {
+        path: float((out16[impl] - want).abs().max()) / scale
+        for path, impl in (("bf16 kernel", "kernel"), ("bf16 plain", "ref"))}
+    stats["layer_gaps"] = gaps
+    log(f"llama-3.2-vision-11b: distance from the f32 plain path, of (1 + "
+        f"max|logit|): {stats['logits']['to_f32_plain']} (not checked)")
+    return stats
+
+
+def vlm_f32_check(torch):
+    """llama-3.2-vision-11b at one unit (5 layers, CAAAA) in f32, the gates
+    drawn from U(0.5, 1): a 1000-token prompt's prefill and two decode
+    steps' logits through the kernels against the plain path, monolithic
+    and chunked by 512 (``MODEL_TOL``); then 4 requests with their images
+    on 4 slots through the paged engine, the contiguous baseline
+    (``paged=False``) and the paged engine chunked by 512, with steps
+    that hold first chunks beside resumes (the model's ``partial`` cross
+    mode; K3, K1, K2): each engine's greedy tokens equal to the paged
+    monolithic one's, and the logits of every token each request sampled
+    within ``MODEL_TOL`` of that one's."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("llama-3.2-vision-11b").replace(n_layers=5)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, torch.float32, dev)
+    set_gates(torch, params, torch.Generator().manual_seed(SEED + 15))
+    n, P = 1000, cfg.page_size
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (model.n_attn_layers, -(-(n + 2) // P), P, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    extras = images(torch, 4, cfg, SEED + 15, torch.float32)
+    img = {"image_embeds": extras[0]["image_embeds"][None]}
+    stats = {}
+    for mode, chunk, must in (
+            ("monolithic", None, ("flex_prefill/tf32x3", "paged_decode")),
+            ("chunked 512", 512, ("paged_prefill/tf32x3", "paged_decode"))):
+        out, counts = logits_pair(torch, model, params, tokens, pool, chunk,
+                                  extra=img)
+        stats[mode] = check_logits(f"llama-3.2-vision-11b f32 one unit "
+                                   f"({mode})", out, counts, must, MODEL_TOL)
+
+    # the contiguous baseline and the chunked engine against the paged
+    # monolithic engine
+    rng = torch.Generator().manual_seed(SEED + 3)
+    plens = torch.randint(100, 700, (4,), generator=rng).tolist()
+    toks = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in plens]
+    runs = {}
+    for name, kw in (("paged", {}), ("contiguous", dict(paged=False)),
+                     ("chunked 512", dict(prefill_chunk=512))):
+        eng = Engine(cfg, params, max_slots=4, max_seq_len=1024, seed=SEED,
+                     **kw)
+        record_rows(eng)
+        kinds = chunk_kinds(eng) if "prefill_chunk" in kw else None
+        rs = [Request(prompt=list(p), max_new_tokens=8) for p in toks]
+        kernels.reset_launch_counts()
+        eng.generate(rs, extras)
+        runs[name] = dict(tokens=[r.output for r in rs],
+                          rows=[torch.stack(eng.by_request[id(r)])
+                                for r in rs],
+                          launches=kernels.launch_counts(), kinds=kinds)
+        if kinds is not None:
+            check_path(f"llama-3.2-vision-11b f32 one unit ({name} engine)",
+                       eng, rs, 8, runs[name]["launches"],
+                       must=("paged_decode", "combine", "paged_prefill",
+                             "paged_prefill/tf32x3"),
+                       never=("flex_prefill",
+                              *k3_routes_except("tf32x3")))
+        del eng
+    want = runs["paged"]
+    for name, key in (("contiguous", "baseline"),
+                      ("chunked 512", "chunked_engine")):
+        got = runs[name]
+        if got["tokens"] != want["tokens"]:
+            fail(f"llama-3.2-vision-11b {name} engine (one unit, f32): "
+                 f"greedy tokens {got['tokens']} != paged monolithic "
+                 f"{want['tokens']}")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got["rows"], want["rows"]))
+        extra_note = ""
+        if got["kinds"] is not None:
+            n_mixed = sum(1 for f, r in got["kinds"] if f and r)
+            extra_note = (f"; {n_mixed} of {len(got['kinds'])} chunk steps "
+                          f"held first chunks beside resumes "
+                          f"{got['kinds']}")
+            if not n_mixed:
+                fail(f"llama-3.2-vision-11b {name} engine (one unit, f32): "
+                     f"no chunk step held a first chunk beside a resume "
+                     f"({got['kinds']})")
+        log(f"llama-3.2-vision-11b {name} engine (one unit, f32): greedy "
+            f"tokens equal to the paged monolithic engine's "
+            f"({sum(len(x) for x in want['tokens'])} tokens); logits of "
+            f"every sampled token max|err| {err:.3e} (tol {MODEL_TOL:g})"
+            f"{extra_note}; launches {got['launches']}")
+        if err > MODEL_TOL:
+            fail(f"llama-3.2-vision-11b {name} engine: logits beyond "
+                 f"{MODEL_TOL}")
+        stats[key] = dict(tokens_equal=True, logits_max_err=err,
+                          launches=got["launches"], chunk_steps=got["kinds"])
+    return stats
+
+
 def headroom_pool(cfg, reqs, slots):
     """Tokens of a pool that holds the ``slots`` longest of ``reqs`` at
     their full length, each rounded up to whole pages, plus the
@@ -3647,12 +4550,16 @@ def annotated(torch, module, name):
 
 def record_rows(eng):
     """Record the logits of every row the engine samples (prefill and
-    decode), in call order: ``eng.sampled`` (a list of CPU tensors)."""
-    eng.sampled = []
+    decode), in call order: ``eng.sampled`` (a list of CPU tensors), and
+    by request: ``eng.by_request[id(req)]`` (one row per token)."""
+    eng.sampled, eng.by_request = [], {}
     plain = eng._sample_and_append
 
     def wrapped(reqs, logits, first):
-        eng.sampled.append(logits.float().cpu())
+        rows = logits.float().cpu()
+        eng.sampled.append(rows)
+        for r, row in zip(reqs, rows):
+            eng.by_request.setdefault(id(r), []).append(row)
         return plain(reqs, logits, first)
     eng._sample_and_append = wrapped
 
@@ -4273,8 +5180,12 @@ def kind_of(name):
 def profile_steps(torch, eng, n, annotation=None):
     """Device time per engine step by kernel kind, and the device's busy
     share of the step's wall time, from torch.profiler.  With
-    ``annotation``, the kernels launched under the profiler range of that
-    name (``annotated``) move from their kinds into a kind of their own."""
+    ``annotation`` (a name, or a tuple of names), the kernels launched
+    under the profiler range of that name (``annotated``; the nearest
+    such range above them) move from their kinds into a kind of their
+    own."""
+    names = ((annotation,) if isinstance(annotation, str)
+             else tuple(annotation or ()))
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4288,30 +5199,30 @@ def profile_steps(torch, eng, n, annotation=None):
     by_kind["other"] = 0.0
     for ev in prof.key_averages():
         if (not str(getattr(ev, "device_type", "")).endswith("CUDA")
-                or ev.key == annotation):  # the range itself on the GPU row
+                or ev.key in names):  # the range itself on the GPU row
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         by_kind[kind_of(ev.key)] += us / 1e3 / n
     under_by_name = {}
-    if annotation is not None:
+    if names:
         # each op's kernels, by the op's ancestors on the CPU
-        under = 0.0
+        under = dict.fromkeys(names, 0.0)
         for fe in prof.events():
             if not getattr(fe, "kernels", None):
                 continue
             up = fe.cpu_parent
-            while up is not None and up.name != annotation:
+            while up is not None and up.name not in names:
                 up = up.cpu_parent
             if up is None:
                 continue
             for kern in fe.kernels:
                 ms = kern.duration / 1e3 / n
                 by_kind[kind_of(kern.name)] -= ms
-                under += ms
+                under[up.name] += ms
                 key = f"{fe.name}: {kern.name[:60]}"
                 under_by_name[key] = under_by_name.get(key, 0.0) + ms
-        by_kind[annotation] = under
+        by_kind.update(under)
     busy = sum(by_kind.values())
     out = dict(wall_ms=wall_ms, device_ms=busy if busy > 0 else None,
                busy_share=(f"{busy / wall_ms:.3f} of wall" if busy > 0
@@ -4471,6 +5382,16 @@ def main():
     done("recurrentgemma-9b phase")
     rg_f32 = rglru_f32_check(torch)
     done("recurrentgemma-9b f32 check")
+    moe_runs = {}
+    for name in ("granite-moe-1b-a400m", "olmoe-1b-7b"):
+        moe_runs[name] = moe_engine_phase(torch, name)
+        done(f"{name} phase")
+        moe_runs[name]["f32"] = moe_f32_check(torch, name)
+        done(f"{name} f32 check")
+    vlm = vlm_engine_phase(torch)
+    done("llama-3.2-vision-11b phase")
+    vlm_f32 = vlm_f32_check(torch)
+    done("llama-3.2-vision-11b f32 check")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -4527,7 +5448,16 @@ def main():
                   "engine monolithic", "engine chunked 512")]
               + [base[k]["launches"] for k in ("paged", "contiguous")]
               + [fork["launches"], faults["checks_launches"],
-                 faults["launches"]])
+                 faults["launches"]]
+              + [r[k]["launches"] for r in moe_runs.values()
+                 for k in ("monolithic", "chunked", "logits")]
+              + [r["f32"][mode]["launches"] for r in moe_runs.values()
+                 for mode in modes]
+              + [vlm[k]["launches"] for k in ("monolithic", "chunked",
+                                               "logits", "logits_f32")]
+              + [vlm["fork"]["launches"]]
+              + [vlm_f32[mode]["launches"] for mode in modes]
+              + [vlm_f32["chunked_engine"]["launches"]])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []
@@ -4551,7 +5481,8 @@ def main():
          "nemotron_4_340b": nemo_340b, "recurrentgemma_9b": rg,
          "baseline": base, "fork": fork, "faults": faults,
          "page_state": page_state,
-         "recurrentgemma_9b_f32": rg_f32},
+         "recurrentgemma_9b_f32": rg_f32, "moe": moe_runs,
+         "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -8,7 +8,7 @@ from repro_torch.models.transformer import TransformerModel
 
 # families the JAX package builds, and those the port has ported
 FAMILIES = ("dense", "moe", "vlm", "rglru", "xlstm", "encdec")
-PORTED = ("dense", "rglru")
+PORTED = ("dense", "moe", "vlm", "rglru")
 
 
 def build_model(cfg: ModelConfig):

@@ -1,6 +1,7 @@
 """GQA attention layer: projections + RoPE around the core attention ops
 (port of ``repro.models.attention``: prefill, chunked prefill and decode,
-over the paged pools or the contiguous baseline's buffers).
+over the paged pools or the contiguous baseline's buffers; and
+cross-attention over per-request image K/V).
 
 The KV caches are updated **in place**: ``attn_prefill``,
 ``attn_prefill_chunked`` and ``attn_decode`` scatter the new K/V into the
@@ -179,4 +180,26 @@ def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     kvcache.write_contiguous_decode(k_buf, v_buf, positions, k, v)
     o = core_attn.decode_attention_contiguous(q, k_buf, v_buf,
                                               positions + 1, window=window)
+    return _out(p, o)
+
+
+def cross_kv(p: Dict, ctx: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V from the (projected) image context (B, T, d):
+    (B, T, Hkv, hd) each, no positional rotation."""
+    return _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
+
+
+def cross_attn(p: Dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Cross attention: q from x (B, S, d) or (B, d) without RoPE, over
+    precomputed k/v (B, T, Hkv, hd), no mask, through the dense plain
+    path (the JAX package's ``impl="jnp"``)."""
+    q = _proj(x, p["wq"])
+    squeeze = x.dim() == 2
+    if squeeze:
+        q = q[:, None]
+    o = core_attn.prefill_attention(q, k, v, causal=False, impl="ref")
+    if squeeze:
+        o = o[:, 0]
     return _out(p, o)

@@ -37,10 +37,10 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
     groups = tree.get("groups", {})
     rem = tree.get("rem", {})
     codes = {key[1:] for key in list(groups) + list(rem)}
-    if codes - {"A", "W", "R"}:
+    if codes - {"A", "W", "R", "C"}:
         raise UnsupportedFeature(f"layer codes {sorted(codes)}: the port "
-                                 "converts models of 'A', 'W' and 'R' "
-                                 "layers only")
+                                 "converts models of 'A', 'W', 'R' and "
+                                 "'C' layers only")
     per_layer = []
     units = sorted(groups, key=lambda k: int(k[:-1]))
     n_groups = (np.asarray(groups[units[0]]["ln1"]["scale"]).shape[0]
@@ -50,6 +50,9 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
             per_layer.append(_to_torch(groups[key], device, dtype, index=g))
     for key in sorted(rem, key=lambda k: int(k[:-1])):
         per_layer.append(_to_torch(rem[key], device, dtype))
-    return {"embed": _to_torch(tree["embed"], device, dtype),
-            "ln_f": _to_torch(tree["ln_f"], device, dtype),
-            "layers": per_layer}
+    out = {"embed": _to_torch(tree["embed"], device, dtype),
+           "ln_f": _to_torch(tree["ln_f"], device, dtype),
+           "layers": per_layer}
+    if "vision_proj" in tree:
+        out["vision_proj"] = _to_torch(tree["vision_proj"], device, dtype)
+    return out

@@ -1,0 +1,161 @@
+"""Mixture-of-Experts FFN: top-k routing with capacity-bounded gather
+dispatch (port of ``repro.models.moe``), used by granite-moe (32 experts,
+top-8) and olmoe (64 experts, top-8).
+
+The law is the JAX package's: router logits in the activation dtype, an
+f32 softmax, ``top_k`` with the gates renormalised by ``max(Σ, 1e-9)``,
+the capacity ``C = max(1, int(T·k/E·factor))`` of the config's
+``moe_capacity`` (dropless, ``C = T``, when it is 0), each (token, choice)
+ranked within its expert by a cumsum over the ``T·k`` assignments in
+token-major order, the ``(E, C)`` dispatch buffer of token ids with
+sentinel ``T``, the gated expert MLP and an f32 combine.  The expert
+products are batched matmuls (``einsum`` in the JAX package, outside any
+Pallas kernel).  The combine gathers each token's ``k`` choices and sums
+them over ``k``, so a token's output does not depend on atomics.  The
+JAX function's second output, the load-balance loss ``E·Σ me·ce`` over
+the top-1 choices, is ``aux_loss``: serving does not use it.
+
+``live`` (a bool per token) is the port's addition: a token that is not
+live (prefill padding, a chunk's dead tail, a dead decode slot) takes no
+rank in any expert, does not count in ``T`` for the capacity, and gets a
+zero output.  With every token live the result is the JAX function's.
+Its count ``n_live`` is a host int (the engine knows it), so nothing here
+reads the device on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.spec import ParamSpec
+
+
+def moe_spec(cfg: ModelConfig) -> Dict:
+    d, E, f = cfg.d_model, cfg.n_experts, cfg.expert_ff
+    return {
+        "router": ParamSpec((d, E), ("embed", None)),
+        "wg": ParamSpec((E, d, f), ("experts", "embed", None)),
+        "wu": ParamSpec((E, d, f), ("experts", "embed", None)),
+        "wd": ParamSpec((E, f, d), ("experts", None, "embed")),
+    }
+
+
+def top_k_route(probs: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(gates (T, k) f32, renormalised; experts (T, k)) from the router's
+    f32 probabilities.  A stable descending sort breaks ties toward the
+    lower expert index, as ``jax.lax.top_k`` does."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    vals, idx = vals[:, :k], idx[:, :k]
+    return vals / torch.clamp(vals.sum(-1, keepdim=True), min=1e-9), idx
+
+
+def capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    """Slots per expert at the config's ``moe_capacity``: ``n_tokens``
+    when it is 0 (dropless)."""
+    if not cfg.moe_capacity:
+        return n_tokens
+    return max(1, int(n_tokens * cfg.top_k / cfg.n_experts
+                      * cfg.moe_capacity))
+
+
+def router(p: Dict, x: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router of ``x`` (T, d): logits in the activation dtype, an f32
+    softmax (T, E), and the top-k gates and experts (T, k)."""
+    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    gates, idx = top_k_route(probs, k)
+    return probs, gates, idx
+
+
+def aux_loss(probs: torch.Tensor, idx: torch.Tensor,
+             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The load-balance loss (Switch/OLMoE style) of the router's
+    ``probs`` (T, E) and experts ``idx`` (T, k): ``E·Σ me·ce``, the mean
+    probability times the top-1 share of each expert over the ``live``
+    tokens (every token when None)."""
+    T, E = probs.shape
+    top1 = (idx[:, :1] == torch.arange(E, device=probs.device)).float()
+    w = (torch.ones(T, device=probs.device) if live is None
+         else live.reshape(T).float())
+    w = w[:, None] / torch.clamp(w.sum(), min=1)
+    return E * torch.sum((probs * w).sum(0) * (top1 * w).sum(0))
+
+
+def dispatch(idx: torch.Tensor, C: int, E: int,
+             live: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Rank each (token, choice) of ``idx`` (T, k) within its expert by a
+    cumsum in token-major order; keep the ranks below ``C``.  Returns
+    (slot (T·k,), ok (T·k,), disp (E, C) token ids with sentinel T).  A
+    token that is not ``live`` sends its choices to expert E: no rank, not
+    kept."""
+    T, k = idx.shape
+    dev = idx.device
+    assign = idx.reshape(-1)  # (T*k,) expert of each (token, choice)
+    if live is not None:
+        assign = torch.where(live[:, None].expand(T, k).reshape(-1), assign,
+                             torch.full_like(assign, E))
+    # (E, T*k): the scan runs along the inner dim (a scan along the outer
+    # dim of a (T*k, E) one-hot keeps only E threads busy on the card)
+    onehot = (torch.arange(E, device=dev)[:, None] == assign).int()
+    pos_in_e = torch.cumsum(onehot, 1) - onehot  # rank within expert
+    slot = (pos_in_e * onehot).sum(0)  # (T*k,); expert E: no row, 0
+    ok = (slot < C) & (assign < E)
+    token_of = torch.arange(T, device=dev)[:, None].expand(T, k).reshape(-1)
+    # kept (expert, slot) pairs are unique; dropped ones all land on the
+    # discarded row E
+    disp = torch.full((E + 1, C), T, dtype=torch.long, device=dev)
+    disp[torch.where(ok, assign, E), torch.where(ok, slot, 0)] = torch.where(
+        ok, token_of, T)
+    return slot, ok, disp[:E]
+
+
+def experts(p: Dict, x: torch.Tensor, disp: torch.Tensor,
+            cfg: ModelConfig) -> torch.Tensor:
+    """The gated expert MLPs over the dispatched rows of ``x`` (T, d):
+    (E, C, d).  Empty slots (sentinel T) read an arbitrary row; their
+    outputs are never combined."""
+    xe = x[torch.clamp(disp, max=x.shape[0] - 1)]  # (E, C, d)
+    g = torch.bmm(xe, p["wg"])
+    if cfg.activation == "silu":
+        h = F.silu(g) * torch.bmm(xe, p["wu"])
+    else:  # jax.nn.gelu's default: the tanh form
+        h = F.gelu(g, approximate="tanh") * torch.bmm(xe, p["wu"])
+    return torch.bmm(h, p["wd"])
+
+
+def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
+            slot: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Each token's k kept choices of ``ye`` (E, C, d), weighted by their
+    gates and summed over k in f32: (T, d) f32.  A gather and a sum, not
+    a scatter-add, so a decode step does not depend on atomics."""
+    E, C, d = ye.shape
+    T, k = idx.shape
+    src = (torch.clamp(idx, max=E - 1) * C
+           + torch.where(ok, slot, 0).reshape(T, k))
+    c = ye.reshape(E * C, d)[src].float() * gates[..., None]  # (T, k, d)
+    return torch.where(ok.reshape(T, k, 1), c, 0.0).sum(1)
+
+
+def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+              live: Optional[torch.Tensor] = None,
+              n_live: Optional[int] = None) -> torch.Tensor:
+    """x: (B, S, d) or (B, d); ``live`` of x's leading shape (or None:
+    every token live), ``n_live`` its count (read from ``live`` on the
+    host when None).  Returns the FFN's output, of x's shape and dtype."""
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    T = xf.shape[0]
+    _, gates, idx = router(p, xf, cfg.top_k)
+    n = T
+    if live is not None:
+        live = live.reshape(T)
+        n = int(live.sum()) if n_live is None else n_live
+    slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
+    out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
+    return out.to(x.dtype).reshape(shape)

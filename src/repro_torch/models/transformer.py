@@ -1,33 +1,48 @@
 """Decoder-only transformer of global (``A``) and sliding-window (``W``)
-attention layers and RG-LRU recurrent (``R``) layers: families ``dense``
-and ``rglru`` (port of the serving half of ``repro.models.transformer``).
+attention layers, RG-LRU recurrent (``R``) layers and cross-attention
+(``C``) layers, each followed by a dense or MoE FFN: families ``dense``,
+``moe``, ``vlm`` and ``rglru`` (port of the serving half of
+``repro.models.transformer``).
 
 Parameters are plain dicts of tensors with the JAX layouts, one dict per
 layer under ``params["layers"]`` (the JAX package stacks them per pattern
 group; ``models.convert`` unstacks): an attention layer carries ``attn``,
-an ``R`` layer ``rec``.  Three entry points share them:
+a ``C`` layer ``attn`` and a scalar ``gate``, an ``R`` layer ``rec``; the
+FFN is ``mlp`` or ``moe`` (``models.moe``).  A ``vlm`` model also has
+``vision_proj`` (d_vision, d_model), which projects the per-request image
+embeddings (``extra["image_embeds"]``, (B, n_image_tokens, d_vision))
+into the cross-attention context.  Three entry points share them:
 
     prefill       — whole prompts, K/V scattered into the paged pools
-    prefill_chunk — one prompt chunk per sequence, resuming from the
-                    cached prefix pages (attention layers only)
+    prefill_chunk — one prompt chunk per sequence, resuming from
+                    the cached prefix pages (no ``R`` layers)
     decode_step   — one token per sequence against the paged pools
 
 The serving state is a dict: ``pos`` (B,), ``k_pages``/``v_pages``
 (n_attn_layers, num_pages, P, Hkv, D), indexed per attention layer, and
 ``tables`` (B, 1, pages_per_seq); with ``R`` layers also ``rec["R"]``,
-``h`` (n_R, B, w) and ``conv`` (n_R, B, cw - 1, w).  The pools and the
-recurrent state are updated in place.  ``prefill`` and ``decode_step``
-also take the contiguous baseline's state instead of the paged one:
-``k_buf``/``v_buf`` (n_attn_layers, max_slots, Hkv, max_len, D), and for
-``prefill`` the buffer row of each prompt, ``slots`` (B,).  Every layer
-runs through the same loop on either state; prefill attention is K4
-either way, decode attention on the buffers the contiguous plain path.
+``h`` (n_R, B, w) and ``conv`` (n_R, B, cw - 1, w); with ``C`` layers
+``cross_k``/``cross_v`` (n_cross, B, n_image_tokens, Hkv, D), which
+``prefill`` and ``prefill_chunk`` return for the rows they project and
+``decode_step`` reads.  The pools and the recurrent state are updated in
+place.  ``prefill`` and ``decode_step`` also take the contiguous
+baseline's state instead of the paged one: ``k_buf``/``v_buf``
+(n_attn_layers, max_slots, Hkv, max_len, D), and for ``prefill`` the
+buffer row of each prompt, ``slots`` (B,).  Every layer runs through the
+same loop on either state; prefill attention is K4 either way, decode
+attention on the buffers the contiguous plain path.  Cross-attention runs
+the dense plain path everywhere, as in the JAX package.
 
 A ``W`` layer attends over the last ``cfg.window`` positions.  On the
 paged state it keeps its K/V in a ring of ``ceil(window / P) + 1`` pages:
 the first columns of its table row, reused in place, so a model without
 ``A`` layers needs only ring-wide tables (the engine's
 ``pages_per_seq``).  On the contiguous state it keeps every position.
+
+MoE layers route only the live tokens (``models.moe``): prefill's ``pos <
+lens``, a chunk's ``i < q_lens``, and in decode the rows the caller marks
+``live``; ``n_live``, their count, comes from the caller's host (read
+from the device when it is not given).
 """
 
 from __future__ import annotations
@@ -37,13 +52,20 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.errors import UnsupportedFeature
+from repro_torch.errors import InvalidRequest, UnsupportedFeature
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, moe, rglru
 from repro_torch.models import spec as pspec
+from repro_torch.models.spec import ParamSpec
 
 ATTN_CODES = "AW"
-CODES = "AWR"  # the layer codes the port runs
+CODES = "AWRC"  # the layer codes the port runs
+
+
+def _ffn_spec(cfg: ModelConfig) -> Dict:
+    if cfg.is_moe:
+        return {"ln2": layers.norm_spec(cfg), "moe": moe.moe_spec(cfg)}
+    return {"ln2": layers.norm_spec(cfg), "mlp": layers.mlp_spec(cfg)}
 
 
 def layer_spec(code: str, cfg: ModelConfig) -> Dict:
@@ -52,34 +74,38 @@ def layer_spec(code: str, cfg: ModelConfig) -> Dict:
         out["rec"] = rglru.rglru_spec(cfg)
     else:
         out["attn"] = attn.attn_spec(cfg)
-    out.update(ln2=layers.norm_spec(cfg), mlp=layers.mlp_spec(cfg))
+    if code == "C":
+        out["gate"] = ParamSpec((), (), "zeros")
+    out.update(_ffn_spec(cfg))
     return out
 
 
 class TransformerModel:
-    """Global (``A``) or sliding-window (``W``) attention or RG-LRU (``R``)
-    per layer, each followed by a gated or plain MLP."""
+    """Global (``A``) or sliding-window (``W``) attention, RG-LRU (``R``)
+    or cross-attention (``C``) per layer, each followed by a gated or
+    plain MLP or an MoE FFN."""
 
     def __init__(self, cfg: ModelConfig):
         codes = cfg.pattern()
-        if (set(codes) - set(CODES) or cfg.is_moe or cfg.d_ff <= 0
+        if (set(codes) - set(CODES)
+                or (not cfg.is_moe and cfg.d_ff <= 0)
                 or cfg.activation not in layers.ACTIVATIONS):
             raise UnsupportedFeature(
-                "the port runs 'A', 'W' and 'R' layers with a dense "
-                f"{'/'.join(layers.ACTIVATIONS)} MLP; pattern "
-                f"{cfg.layer_pattern!r} ('M', 'S' and 'C' layers), "
-                f"activation {cfg.activation!r} and MoE are still to be "
-                "ported", pattern=cfg.layer_pattern,
-                activation=cfg.activation)
+                "the port runs 'A', 'W', 'R' and 'C' layers with a dense "
+                f"{'/'.join(layers.ACTIVATIONS)} MLP or an MoE FFN; pattern "
+                f"{cfg.layer_pattern!r} ('M' and 'S' layers) and activation "
+                f"{cfg.activation!r} are still to be ported",
+                pattern=cfg.layer_pattern, activation=cfg.activation)
         self.cfg = cfg
         self.codes = codes
         self.n_attn_layers = sum(c in ATTN_CODES for c in codes)
         self.n_rec_layers = codes.count("R")
+        self.n_cross_layers = codes.count("C")
         # windowed iff the pattern has 'W' layers (as the JAX model)
         self.window = cfg.window if "W" in codes else 0
-        # per layer: its index among the attention (or the 'R') layers,
-        # and its window (mirrors the JAX model's ai counter)
-        self.slot = [codes[:li].count("R") if c == "R"
+        # per layer: its index among the layers of its kind (attention,
+        # 'R' or 'C'), and its window (the JAX model's ai/ci counters)
+        self.slot = [codes[:li].count(c) if c in "RC"
                      else sum(x in ATTN_CODES for x in codes[:li])
                      for li, c in enumerate(codes)]
         self.windows = [cfg.window if c == "W" else 0 for c in codes]
@@ -87,9 +113,13 @@ class TransformerModel:
     # -- spec / params ----------------------------------------------------
     def param_spec(self) -> Dict:
         cfg = self.cfg
-        return {"embed": layers.embed_spec(cfg),
-                "ln_f": layers.norm_spec(cfg),
-                "layers": [layer_spec(c, cfg) for c in self.codes]}
+        out = {"embed": layers.embed_spec(cfg),
+               "ln_f": layers.norm_spec(cfg),
+               "layers": [layer_spec(c, cfg) for c in self.codes]}
+        if cfg.family == "vlm":
+            out["vision_proj"] = ParamSpec((cfg.d_vision, cfg.d_model),
+                                           (None, "embed"))
+        return out
 
     def init_rec_state(self, B: int, dtype=torch.float32, device=None
                        ) -> Optional[Dict]:
@@ -107,13 +137,50 @@ class TransformerModel:
         return pspec.materialize(self.param_spec(), gen, dtype, device)
 
     # -- layer application --------------------------------------------------
-    def _apply_ffn(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
-        return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x),
-                                    self.cfg)
+    def _apply_ffn(self, p: Dict, x: torch.Tensor,
+                   live: Optional[torch.Tensor] = None,
+                   n_live: Optional[int] = None) -> torch.Tensor:
+        h = layers.apply_norm(p["ln2"], x)
+        if "moe" in p:
+            return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
+                                     n_live=n_live)
+        return x + layers.apply_mlp(p["mlp"], h, self.cfg)
+
+    def _live_tokens(self, lens: torch.Tensor, width: int,
+                     n_live: Optional[int]
+                     ) -> Tuple[Optional[torch.Tensor], Optional[int]]:
+        """The tokens the MoE FFN routes, ``i < lens`` over (B, width),
+        and their count (read on the host unless given); (None, None)
+        for a dense FFN."""
+        if not self.cfg.is_moe:
+            return None, None
+        live = torch.arange(width, device=lens.device)[None] < lens[:, None]
+        return live, int(live.sum()) if n_live is None else n_live
+
+    def project_extra(self, params: Dict, extra: Optional[Dict]
+                      ) -> Optional[torch.Tensor]:
+        """The cross-attention context (B, n_image_tokens, d_model):
+        ``extra["image_embeds"] @ vision_proj`` (as given, without
+        ``vision_proj``), or None without ``C`` layers."""
+        if not self.n_cross_layers:
+            return None
+        if not extra or "image_embeds" not in extra:
+            raise InvalidRequest(
+                "cross-attention layers need extra['image_embeds'] of "
+                f"shape (B, {self.cfg.n_image_tokens}, {self.cfg.d_vision})")
+        img, w = extra["image_embeds"], params.get("vision_proj")
+        return img if w is None else img.to(w.dtype) @ w
+
+    def _cross(self, p: Dict, h: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(p["gate"]) * attn.cross_attn(p["attn"], h, k, v,
+                                                       self.cfg)
 
     # -- prefill / decode -----------------------------------------------------
     def prefill(self, params: Dict, tokens: torch.Tensor, state: Dict,
-                lens: Optional[torch.Tensor] = None, impl: str = "kernel"
+                lens: Optional[torch.Tensor] = None,
+                extra: Optional[Dict] = None, impl: str = "kernel",
+                n_live: Optional[int] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, S) prompts (right-padded).  Returns (last-token
         logits (B, V), state with ``pos = lens``).  ``state["tables"]``
@@ -122,19 +189,28 @@ class TransformerModel:
         contiguous state (``k_buf``, ``v_buf``, ``slots``) the prompts'
         K/V land by position in the buffer rows ``slots``.  With ``R``
         layers the returned state holds ``rec``: each row's recurrent
-        state after its own last token (``rglru.rglru_prefill``)."""
+        state after its own last token (``rglru.rglru_prefill``); with
+        ``C`` layers ``cross_k``/``cross_v`` of the rows' image context
+        (``extra``).  ``n_live``: the live tokens, ``sum(lens)``."""
         cfg = self.cfg
         B, S = tokens.shape
         if lens is None:
             lens = torch.full((B,), S, dtype=torch.int32,
                               device=tokens.device)
+        live, n_live = self._live_tokens(lens, S, n_live)
+        img = self.project_extra(params, extra)
         x = layers.embed_tokens(params["embed"], tokens)
-        rec = []
+        rec, cross = [], []
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
-            if self.codes[li] == "R":
+            code = self.codes[li]
+            if code == "R":
                 o, final = rglru.rglru_prefill(p["rec"], h, lens, cfg)
                 rec.append(final)
+            elif code == "C":
+                k, v = attn.cross_kv(p["attn"], img)
+                cross.append((k, v))
+                o = self._cross(p, h, k, v)
             elif "k_buf" in state:
                 o = attn.attn_prefill_contiguous(
                     p["attn"], h, cfg, state["k_buf"][self.slot[li]],
@@ -146,7 +222,7 @@ class TransformerModel:
                     p["attn"], h, cfg, state["k_pages"][ai],
                     state["v_pages"][ai], state["tables"], lens,
                     window=self.windows[li], impl=impl)
-            x = self._apply_ffn(p, x + o)
+            x = self._apply_ffn(p, x + o, live, n_live)
         x = layers.apply_norm(params["ln_f"], x)
         last_idx = torch.clamp(lens.long() - 1, min=0)
         last = x[torch.arange(B, device=x.device), last_idx]
@@ -155,13 +231,18 @@ class TransformerModel:
         if rec:
             out["rec"] = {"R": {k: torch.stack([r[k] for r in rec])
                                 for k in rec[0]}}
+        if cross:
+            out["cross_k"] = torch.stack([k for k, _ in cross])
+            out["cross_v"] = torch.stack([v for _, v in cross])
         return logits, out
 
     def prefill_chunk(self, params: Dict, tokens: torch.Tensor,
                       state: Dict, q_start: torch.Tensor,
-                      q_lens: torch.Tensor, impl: str = "kernel",
+                      q_lens: torch.Tensor, extra: Optional[Dict] = None,
+                      impl: str = "kernel",
                       pages_per_block: Optional[int] = None,
-                      num_splits: Optional[int] = None
+                      num_splits: Optional[int] = None,
+                      n_live: Optional[int] = None
                       ) -> Tuple[torch.Tensor, Dict]:
         """Chunked prefill: one prompt chunk per sequence, resuming from
         the cached prefix.
@@ -174,6 +255,15 @@ class TransformerModel:
         last live token and the state with ``pos = q_start + q_lens``;
         the pools receive the chunk's K/V in place.  ``prefill`` is the
         one-chunk case (``q_start = 0``, ``q_lens = lens``).
+        ``n_live``: the live tokens, ``sum(q_lens)``.
+
+        Cross-attention K/V are projected only for the rows at their
+        first chunk (``q_start == 0``, read on the host, as the JAX model
+        reads it): every row (``full``, also when ``state`` holds no
+        ``cross_k``), some of them (``partial``: their fresh K/V replace
+        their rows of ``state["cross_k"]``/``["cross_v"]``, the other rows
+        keep theirs) or none (``reuse``).  ``extra`` holds the image
+        embeddings of every row of the batch.
 
         Recurrent (``R``) layers are not chunkable, as in the JAX package:
         their state would have to be carried across chunks.
@@ -185,45 +275,87 @@ class TransformerModel:
                 f"(pattern {cfg.layer_pattern!r}): carrying recurrent "
                 "state across chunks is an open ROADMAP item",
                 pattern=cfg.layer_pattern)
-        B = tokens.shape[0]
+        B, C = tokens.shape
+        dev = tokens.device
+        live, n_live = self._live_tokens(q_lens, C, n_live)
+        mode, rows, img = "reuse", None, None
+        if self.n_cross_layers:
+            firsts = torch.nonzero(q_start.cpu() == 0).flatten()
+            if "cross_k" not in state or len(firsts) == B:
+                mode = "full"
+                img = self.project_extra(params, extra)
+            elif len(firsts):
+                mode, rows = "partial", firsts.to(dev)
+                img = self.project_extra(params, {
+                    "image_embeds": extra["image_embeds"][rows]})
         x = layers.embed_tokens(params["embed"], tokens)
+        cross = []
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
-            x = x + attn.attn_prefill_chunked(
-                p["attn"], h, cfg, state["k_pages"][li], state["v_pages"][li],
-                state["tables"], q_start, q_lens, window=self.windows[li],
-                impl=impl, pages_per_block=pages_per_block,
-                num_splits=num_splits)
-            x = self._apply_ffn(p, x)
+            if self.codes[li] == "C":
+                ci = self.slot[li]
+                if mode == "full":
+                    k, v = attn.cross_kv(p["attn"], img)
+                else:
+                    k, v = state["cross_k"][ci], state["cross_v"][ci]
+                    if mode == "partial":  # fresh K/V of the first rows
+                        k_new, v_new = attn.cross_kv(p["attn"], img)
+                        k = k.index_put((rows,), k_new.to(k.dtype))
+                        v = v.index_put((rows,), v_new.to(v.dtype))
+                cross.append((k, v))
+                x = x + self._cross(p, h, k, v)
+            else:
+                ai = self.slot[li]
+                x = x + attn.attn_prefill_chunked(
+                    p["attn"], h, cfg, state["k_pages"][ai],
+                    state["v_pages"][ai], state["tables"], q_start, q_lens,
+                    window=self.windows[li], impl=impl,
+                    pages_per_block=pages_per_block, num_splits=num_splits)
+            x = self._apply_ffn(p, x, live, n_live)
         x = layers.apply_norm(params["ln_f"], x)
         last_idx = torch.clamp(q_lens.long() - 1, min=0)
         last = x[torch.arange(B, device=x.device), last_idx]
         logits = layers.unembed(params["embed"], last, cfg)
-        return logits, dict(state, pos=q_start + q_lens)
+        out = dict(state, pos=q_start + q_lens)
+        if cross:
+            out["cross_k"] = torch.stack([k for k, _ in cross])
+            out["cross_v"] = torch.stack([v for _, v in cross])
+        return logits, out
 
     def decode_step(self, params: Dict, tokens: torch.Tensor, state: Dict,
                     impl: str = "kernel",
                     pages_per_block: Optional[int] = None,
-                    num_splits: Optional[int] = None
+                    num_splits: Optional[int] = None,
+                    live: Optional[torch.Tensor] = None,
+                    n_live: Optional[int] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B,) → (logits (B, V), state with ``pos + 1``).  Each
         attention layer appends its K/V to the pools in place and attends
         over the pages through the block table (with the contiguous state:
         stores its K/V at ``pos`` in ``k_buf``/``v_buf`` and attends over
         the buffers); each ``R`` layer steps its recurrent state in
-        ``state["rec"]``, in place."""
+        ``state["rec"]``, in place; each ``C`` layer attends over
+        ``state["cross_k"]``/``["cross_v"]``.  ``live`` (B,) bool marks
+        the rows whose tokens the MoE FFN routes (None: every row), and
+        ``n_live`` counts them (read from ``live`` on the host when
+        None)."""
         cfg = self.cfg
         pos = state["pos"]
         x = layers.embed_tokens(params["embed"], tokens)
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
-            if self.codes[li] == "R":
+            code = self.codes[li]
+            if code == "R":
                 ri = self.slot[li]
                 rec = state["rec"]["R"]
                 o, new = rglru.rglru_decode(
                     p["rec"], h, {k: v[ri] for k, v in rec.items()}, cfg)
                 for k, v in new.items():
                     rec[k][ri] = v
+            elif code == "C":
+                ci = self.slot[li]
+                o = self._cross(p, h, state["cross_k"][ci],
+                                state["cross_v"][ci])
             elif "k_buf" in state:
                 o = attn.attn_decode_contiguous(
                     p["attn"], h, cfg, state["k_buf"][self.slot[li]],
@@ -236,7 +368,7 @@ class TransformerModel:
                     state["v_pages"][ai], state["tables"], pos,
                     window=self.windows[li], impl=impl,
                     pages_per_block=pages_per_block, num_splits=num_splits)
-            x = self._apply_ffn(p, x + o)
+            x = self._apply_ffn(p, x + o, live, n_live)
         x = layers.apply_norm(params["ln_f"], x)
         logits = layers.unembed(params["embed"], x, cfg)
         return logits, dict(state, pos=pos + 1)

@@ -26,9 +26,19 @@ suffix; it refuses windowed models, as the JAX engine does (their ring
 pages are overwritten in place).  Recurrent (``R``) layers refuse
 ``prefill_chunk`` and ``prefix_cache``, as in the JAX engine; their state
 lives per slot (``state["rec"]``), is written for the admitted slots
-after each monolithic prefill and stepped by every decode.  The JAX
-engine's gate on cross-attention holds here because ``build_model``
-builds no cross-attention layers.
+after each monolithic prefill and stepped by every decode.
+
+Cross-attention (``C``) layers read a per-request image context:
+``add_request(req, extra)`` takes ``extra["image_embeds"]`` of shape
+(n_image_tokens, d_vision) and refuses a cross model's request without
+it (``InvalidRequest``) before it holds anything.  The projected K/V live
+per slot (``state["cross_k"]``/``["cross_v"]``, (n_cross, max_slots,
+n_image_tokens, Hkv, D)), written for the admitted slots after a
+monolithic prefill and after each chunk that holds a request's first
+chunk, and copied to a fork's child.  Cross models refuse the prefix
+cache, as the JAX engine does: their self-attention K/V depend on the
+image, not on the tokens alone.  MoE FFNs route only the live tokens:
+the engine passes each step's live-token count from the host.
 
 Sliding-window (``W``) layers keep their K/V in a ring of ``ceil(window
 / P) + 1`` pages, the first columns of each table row.  When every
@@ -42,8 +52,8 @@ all the same.
 buffer per slot (``state["k_buf"]``/``state["v_buf"]``), written by
 position.  Prefill attention is K4 as in the paged engine, decode
 attention the plain contiguous path, and every layer (``A``, ``W``,
-``R``) runs through the model's one loop.  The host page manager still
-admits by pages, as in the JAX engine.  The baseline refuses
+``R``, ``C``) runs through the model's one loop.  The host page manager
+still admits by pages, as in the JAX engine.  The baseline refuses
 ``prefill_chunk``, ``prefix_cache`` and ``kv_dtype="int8"``
 (``EngineConfigError``): the JAX baseline mixes int8 and unquantised K/V.
 
@@ -146,6 +156,12 @@ class Engine:
                 "prefix_cache requires window=0: windowed layers overwrite "
                 "their ring pages in place, so cached pages shared from a "
                 "live donor would be mutated", window=self.model.window)
+        if prefix_cache and self.model.n_cross_layers:
+            raise EngineConfigError(
+                "prefix_cache does not support encoder/cross-attention "
+                "models: self-attention K/V depend on the per-request "
+                "image/audio context, so token-keyed page sharing would "
+                "be wrong", family=cfg.family)
         if prefix_cache and recurrent:
             raise EngineConfigError(
                 "prefix_cache does not support recurrent layers (pattern "
@@ -222,19 +238,39 @@ class Engine:
                                         self.device)
         if rec is not None:  # recurrent state slots
             st["rec"] = rec
+        if self.model.n_cross_layers:  # per-slot image K/V
+            ck = (self.model.n_cross_layers, self.max_slots,
+                  cfg.n_image_tokens, Hkv, hd)
+            st["cross_k"] = torch.zeros(ck, dtype=self.dtype,
+                                        device=self.device)
+            st["cross_v"] = torch.zeros(ck, dtype=self.dtype,
+                                        device=self.device)
         return st
 
     # ------------------------------------------------------------------
-    def add_request(self, req: Request) -> int:
-        """Validate and enqueue ``req``.
+    def add_request(self, req: Request, extra: Optional[Dict] = None
+                    ) -> int:
+        """Validate and enqueue ``req``, with its per-request context
+        ``extra`` (a model with cross-attention layers needs
+        ``extra["image_embeds"]``, (n_image_tokens, d_vision); other
+        models ignore it).
 
         Raises structured errors before the request holds any resources:
-        ``InvalidRequest`` (bad sampling params), ``RequestTooLong``
-        (prompt + budget exceeds max_seq_len), or ``Backpressure`` (wait
-        queue full, or the pool above the admission watermark; it carries
-        a retry hint).
+        ``InvalidRequest`` (bad sampling params, a cross model's missing
+        or mis-shaped image embeddings), ``RequestTooLong`` (prompt +
+        budget exceeds max_seq_len), or ``Backpressure`` (wait queue
+        full, or the pool above the admission watermark; it carries a
+        retry hint).
         """
         validate_sample_params(req)
+        if self.model.n_cross_layers:
+            want = (self.cfg.n_image_tokens, self.cfg.d_vision)
+            got = tuple(getattr((extra or {}).get("image_embeds"),
+                                "shape", ()))
+            if got != want:
+                raise InvalidRequest(
+                    "a cross-attention model needs extra['image_embeds'] "
+                    f"of shape {want}, got {got or None}", rid=req.rid)
         if req.prompt_len + req.max_new_tokens > self.max_seq_len:
             raise RequestTooLong(
                 f"request exceeds engine max_seq_len: prompt_len "
@@ -243,14 +279,17 @@ class Engine:
                 limit=self.max_seq_len)
         req.metrics["t_arrive"] = time.perf_counter()
         req.metrics["step_arrive"] = self.steps
+        if extra is not None:
+            req.metrics["_extra"] = extra  # modality embeddings
         self.scheduler.add(req)  # may raise Backpressure (nothing held)
         return req.rid
 
     def generate(self, reqs: List[Request],
+                 extras: Optional[List[Optional[Dict]]] = None,
                  max_steps: int = 100_000) -> List[Request]:
         """Blocking helper: run until the given requests all finish."""
-        for r in reqs:
-            self.add_request(r)
+        for r, e in zip(reqs, extras or [None] * len(reqs)):
+            self.add_request(r, e)
         for _ in range(max_steps):
             if all(r.done for r in reqs):
                 break
@@ -427,6 +466,11 @@ class Engine:
         child.slot = slot
         self.scheduler.running[slot] = child
         st["pos"][slot] = st["pos"][src.slot]
+        if "_extra" in src.metrics:  # a re-prefill after preemption
+            child.metrics["_extra"] = src.metrics["_extra"]
+        for key in ("cross_k", "cross_v"):  # the parent's image K/V
+            if key in st:
+                st[key][:, slot] = st[key][:, src.slot]
         if "rec" in st:  # the parent's recurrent state
             for tree in st["rec"].values():
                 for v in tree.values():
@@ -491,12 +535,16 @@ class Engine:
                          "v_buf": st["v_buf"], "slots": idx}
         logits, new_st = self.model.prefill(
             self.params, torch.from_numpy(batch).to(self.device), sub_state,
-            lens=lens_t, impl=self.impl)
+            lens=lens_t, extra=self._collect_extra(reqs), impl=self.impl,
+            n_live=int(lens.sum()))
         st["pos"][idx] = lens_t  # the caches were written in place
         if "rec" in new_st:  # the admitted slots' recurrent state
             for code, tree in new_st["rec"].items():
                 for k, v in tree.items():
                     st["rec"][code][k][:, idx] = v
+        for key in ("cross_k", "cross_v"):  # their image K/V
+            if key in new_st:
+                st[key][:, idx] = new_st[key]
         for i, r in enumerate(reqs):
             r.prefill_pos = int(lens[i])
         self._cache_insert_live(reqs)
@@ -516,33 +564,60 @@ class Engine:
         batch = np.zeros((B, C), np.int64)
         for i, t in enumerate(toks):
             batch[i, :q_lens[i]] = t[starts[i]:lens[i]]
-        logits = self._run_chunk(slots, batch, starts, q_lens)
+        logits = self._run_chunk(slots, reqs, batch, starts, q_lens)
         for i, r in enumerate(reqs):
             r.prefill_pos = int(lens[i])
         self._cache_insert_live(reqs)
         self._sample_and_append(reqs, logits, first=True)
 
-    def _run_chunk(self, slots: List[int], batch: np.ndarray,
-                   starts: np.ndarray, q_lens: np.ndarray) -> torch.Tensor:
+    def _run_chunk(self, slots: List[int], reqs: List[Request],
+                   batch: np.ndarray, starts: np.ndarray,
+                   q_lens: np.ndarray) -> torch.Tensor:
         """One ``prefill_chunk`` call over the rows of ``batch`` (rows past
-        ``slots`` are dead padding); the live slots' positions advance to
-        ``starts + q_lens``.  Returns each row's last-live-token logits."""
+        ``slots`` are dead padding, posing as resumes); the live slots'
+        positions advance to ``starts + q_lens``, and their image K/V are
+        written back.  Returns each row's last-live-token logits."""
         n, B = len(slots), batch.shape[0]
         tables = np.full((B, self.pages_per_seq), -1, np.int32)
         tables[:n] = self._tables_np()[np.asarray(slots), 0]
         st = self.state
         sub_state = {"k_pages": st["k_pages"], "v_pages": st["v_pages"],
                      "tables": torch.from_numpy(tables).to(self.device)}
+        idx = torch.as_tensor(slots, device=self.device)
+        for key in ("cross_k", "cross_v"):  # the rows' cached image K/V
+            if key in st:
+                sub = st[key].new_zeros((st[key].shape[0], B)
+                                        + st[key].shape[2:])
+                sub[:, :n] = st[key][:, idx]
+                sub_state[key] = sub
         q_start = torch.from_numpy(starts).to(self.device)
         q_len_t = torch.from_numpy(q_lens).to(self.device)
-        logits, _ = self.model.prefill_chunk(
+        logits, new_st = self.model.prefill_chunk(
             self.params, torch.from_numpy(batch).to(self.device), sub_state,
-            q_start=q_start, q_lens=q_len_t, impl=self.impl,
+            q_start=q_start, q_lens=q_len_t,
+            extra=self._collect_extra(reqs, pad_to=B), impl=self.impl,
             pages_per_block=self.pages_per_block,
-            num_splits=self.num_splits)
-        idx = torch.as_tensor(slots, device=self.device)
+            num_splits=self.num_splits, n_live=int(q_lens.sum()))
         st["pos"][idx] = (q_start + q_len_t)[:n]  # pools written in place
+        for key in ("cross_k", "cross_v"):
+            if key in new_st:
+                st[key][:, idx] = new_st[key][:, :n]
         return logits
+
+    def _collect_extra(self, reqs: List[Request],
+                       pad_to: Optional[int] = None) -> Optional[Dict]:
+        """The batch's image embeddings (B, n_image_tokens, d_vision) on
+        the device, zeros for rows without them (padding rows), or None
+        for a model without cross-attention layers."""
+        if not self.model.n_cross_layers:
+            return None
+        img = torch.zeros((pad_to or len(reqs), self.cfg.n_image_tokens,
+                           self.cfg.d_vision), dtype=self.dtype,
+                          device=self.device)
+        for i, r in enumerate(reqs):
+            if "_extra" in r.metrics:
+                img[i] = torch.as_tensor(r.metrics["_extra"]["image_embeds"])
+        return {"image_embeds": img}
 
     def _cache_insert_live(self, reqs: List[Request]) -> None:
         """Index each request's written full pages into the prefix cache
@@ -600,7 +675,8 @@ class Engine:
             batch[i, :ql] = (req.prompt + req.output)[st0:st0 + ql]
             starts[i] = st0
             q_lens[i] = ql
-        logits = self._run_chunk([s for s, _, _, _ in sel], batch, starts,
+        logits = self._run_chunk([s for s, _, _, _ in sel],
+                                 [r for _, r, _, _ in sel], batch, starts,
                                  q_lens)
 
         done_rows, done_reqs = [], []
@@ -629,12 +705,12 @@ class Engine:
             tokens[slot] = (req.prompt + req.output)[-1]
             live[slot] = True
             reqs[slot] = req
+        mask = torch.from_numpy(live).to(self.device)
         logits, new_st = self.model.decode_step(
             self.params, torch.from_numpy(tokens).to(self.device), st,
             impl=self.impl, pages_per_block=self.pages_per_block,
-            num_splits=self.num_splits)
+            num_splits=self.num_splits, live=mask, n_live=int(live.sum()))
         # dead slots keep their old pos (decode bumps everyone's)
-        mask = torch.from_numpy(live).to(self.device)
         self.state["pos"] = torch.where(mask, new_st["pos"], st["pos"])
         rows = np.where(live)[0]
         self._sample_and_append([reqs[i] for i in rows],

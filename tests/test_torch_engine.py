@@ -83,27 +83,32 @@ def test_sampler_masks_match_reference():
 
 def test_unported_features_raise():
     """What the port still refuses: the model families it has not ported
-    (``UnsupportedFeature`` from the engine), the layer codes 'M', 'S'
-    and 'C', and an engine request with per-request context (the JAX
-    engine's ``add_request(req, extra)`` for cross-attention models).
-    The engine's own surface (the baseline, fork, faults) is ported and
-    held against the JAX package in ``tests/test_torch_contiguous.py``,
-    ``test_torch_fork.py`` and ``test_torch_faults.py``.  Cancellation
-    releases a running request's pages."""
-    for name in ("granite-moe-1b-a400m", "llama-3.2-vision-11b",
-                 "whisper-medium", "xlstm-350m"):
+    (``UnsupportedFeature`` from the engine) and the layer codes 'M' and
+    'S'.  The MoE and cross-attention families are served (held against
+    the JAX package in ``tests/test_torch_moe.py`` and
+    ``test_torch_vlm.py``), and a request may carry per-request context
+    (``add_request(req, extra)``), which a model without cross-attention
+    layers ignores.  The engine's own surface (the baseline, fork, faults)
+    is ported and held against the JAX package in
+    ``tests/test_torch_contiguous.py``, ``test_torch_fork.py`` and
+    ``test_torch_faults.py``.  Cancellation releases a running request's
+    pages."""
+    for name in ("granite-moe-1b-a400m", "llama-3.2-vision-11b"):
+        Engine(tget_smoke(name), device="cpu")
+    for name in ("whisper-medium", "xlstm-350m"):
         with pytest.raises(UnsupportedFeature):
             Engine(tget_smoke(name), device="cpu")
     cfg = tget_smoke("llama2-7b")
-    for pattern in ("AM", "AS", "CA"):
+    Engine(cfg.replace(layer_pattern="CA", family="vlm"), device="cpu")
+    for pattern in ("AM", "AS"):
         with pytest.raises(UnsupportedFeature):
             Engine(cfg.replace(layer_pattern=pattern), device="cpu")
     eng = Engine(cfg, device="cpu", max_slots=2, max_seq_len=32)
     req = Request(prompt=[1, 2, 3], max_new_tokens=8)
     with pytest.raises(InvalidRequest):
         eng.add_request(Request(prompt=[1], temperature=-1.0))
-    with pytest.raises(TypeError):
-        eng.add_request(req, {"image": np.zeros((1, 4))})
+    eng.add_request(Request(prompt=[4], max_new_tokens=1),
+                    {"image": np.zeros((1, 4))})
     eng.add_request(req)
     eng.step()
     assert eng.cancel_request(req.rid)

@@ -22,11 +22,12 @@ from _torch_helpers import LOGIT_TOL, close, t
 def test_build_model_families():
     build_model(tget_smoke("llama2-7b"))
     build_model(tget_smoke("granite-8b"))  # dense GQA
-    with pytest.raises(UnsupportedFeature):
-        build_model(tget_smoke("olmoe-1b-7b"))
+    build_model(tget_smoke("olmoe-1b-7b"))  # moe
+    build_model(tget_smoke("llama-3.2-vision-11b"))  # vlm: 'C' and 'A'
     build_model(tget_smoke("recurrentgemma-9b"))  # rglru: 'R' and 'W'
-    with pytest.raises(UnsupportedFeature):
-        build_model(tget_smoke("xlstm-350m"))
+    for name in ("xlstm-350m", "whisper-medium"):
+        with pytest.raises(UnsupportedFeature):
+            build_model(tget_smoke(name))
     with pytest.raises(EngineConfigError):
         build_model(tget_smoke("llama2-7b").replace(family="nope"))
 
