@@ -198,6 +198,42 @@ Phases, each of which fails the script (exit code 1) when it fails:
    baseline's greedy tokens equal to the paged engine's.
    The kernel phase's real-heads tables include granite-moe-1b-a400m
    (16 / 8, D 64) and llama-3.2-vision-11b (32 / 8, D 128).
+15. whisper-medium at full width and depth in bf16 (24 encoder and 24
+   decoder layers, 16 heads over 16: G 1, D 64; 1500 audio frames; about
+   1.5 GB; ``embed/tok`` drawn at std 1.0, which keeps the greedy tokens
+   from following the sinusoidal positions alone), 8 slots, max_seq_len
+   448: 12 requests with their own random (1500, 1024) frames and
+   prompts of 4..224 tokens, 64 new tokens, monolithic (K4's full mask
+   once per encoder layer and pass, its causal & padding once per
+   decoder layer and prefill, K1, K2), a profiled prefill and decode step
+   with the encoder, its self-attention, the cross K/V projections and
+   the cross-attention in columns of their own, K4's full mask timed at
+   the encoder's shape, the dense cross-attention beside SDPA; chunked by
+   128 (K3, K1, K2, K4's full mask for first chunks only) with first
+   chunks and resumes in one step; a fork (the child's slot holds the
+   parent's cross K/V); ``prefix_cache=True`` refused; the logits of a
+   224-token prompt through the kernels in bf16 against the plain path
+   on the weights in f32 (``BF16_MODEL_TOL`` of their scale); and at 4 +
+   4 layers in f32 the logits within ``MODEL_TOL``, monolithic and
+   chunked, and the greedy tokens and sampled logits of
+   the contiguous baseline and of the chunked engine equal to the paged
+   monolithic engine's.  The kernel phase adds K4 at the encoder's shape
+   (B 2, 16 heads, Q = K = 1500 padded to 1536 keys, D 64, full mask) on
+   both tiles, in f32 also against f64 (the 36 padded keys kept out of
+   the softmax by ``kv_len`` alone), and whisper's heads (16 / 16, D 64)
+   to the real-heads tables;
+16. xlstm-350m at full width and depth in bf16 (24 blocks MMMMMMMS: 21
+   mLSTM, 3 sLSTM, 4 heads of 256, no FFN; ``embed/tok`` at std 1.0), 8
+   slots, max_seq_len 2048, no attention layer (the config's contiguous
+   state): 12 requests of 256..1536 tokens in mixed-length waves, 32 new
+   tokens each; no kernel may launch (the blocks are plain PyTorch, as
+   the JAX package's are plain jnp); a profiled prefill and decode step
+   with the mLSTM parallel form, its final states and the sLSTM scan in
+   columns of their own, and the three timed alone at 8 x 1536; at one
+   unit (8 blocks) in f32, each request of a mixed-length wave gets the
+   tokens and logits it gets alone, and prefill over 1000 tokens plus one
+   decode step gives the last logits of prefill over the 1001 tokens
+   within ``MODEL_TOL``.
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -770,6 +806,11 @@ def kernel_phase(torch, chk):
     d256 = torch.Generator(device=dev)
     d256.manual_seed(SEED + 18)
     rows.update(head_dim_256_phase(torch, chk, d256))
+    # whisper-medium's encoder (full mask over padded frames), from its own
+    # generator
+    enc = torch.Generator(device=dev)
+    enc.manual_seed(SEED + 19)
+    rows.update(encoder_flex_case(torch, chk, enc))
     return rows
 
 
@@ -864,6 +905,91 @@ def check_flex_variant(torch, chk, tag, q, k, v, mod, score, qb=128, kb=128,
               f"{bm.q_block}x{bm.kv_block})", got,
               want, F32_TOL if f32 else BF16_TOL)
     return got
+
+
+# K4 in bf16 at the encoder's shape against f64 over the real keys:
+# |err| <= tol * (1 + |f64|).  The output's bf16 rounding is half an ulp,
+# at most 2^-9 for |o| < 1, i.e. <= 1.3e-3 * (1 + |o|), and P's one bf16
+# rounding adds a few 1e-4 (measured on the H100: 9.9e-4 in this form);
+# the 36 padded keys taken into the softmax scale every output by ~1 -
+# 36/2500 (measured: 3.8e-3).
+ENC_BF16_F64_TOL = 2e-3
+
+
+def encoder_flex_case(torch, chk, gen):
+    """K4 at whisper-medium's encoder self-attention: B 2, 16 heads, Q = K
+    = 1500 frames, D 64, the full mask, 128 x 128 tiles, through the op
+    (which pads the frames to 1536 keys: only ``kv_len`` keeps the 36
+    zero keys out of the softmax) on both routes against the plain
+    version on the same padding with the kernel's own product arithmetic,
+    and against the evaluation in f64 over the 1500 real keys (f32:
+    ``F32_TOL``; bf16: ``ENC_BF16_F64_TOL``).  The plain version with the
+    padded keys live (the fault) must miss the f64 check's bound, or the
+    check could not see it.  Timed (device) beside its bound, its plain
+    version and SDPA with no mask (the same function).  Returns the timed
+    rows."""
+    import torch.nn.functional as F
+    from repro_torch.core import flex
+    from repro_torch.kernels.flex_attention import flex_attention as fa
+    from repro_torch.kernels.flex_attention.ops import flex_attention
+    dev = torch.device("cuda")
+    B, H, Q, D = 2, 16, 1500, 64
+    mod = flex.full_mask
+    bm = op_block_mask(torch, mod, Q, Q, 128, 128, B, 0)
+    pad = -Q % bm.kv_block
+    kw = dict(scale=D ** -0.5, mask_mod=mod, q_len=Q, kv_len=Q)
+    rows = {}
+    for dtype, tol, f64_tol in ((torch.bfloat16, BF16_TOL, ENC_BF16_F64_TOL),
+                                (torch.float32, F32_TOL, F32_TOL)):
+        name = str(dtype).replace("torch.", "")
+        key = "flex_prefill_" + fa.flex_route(dtype)
+        f32 = dtype == torch.float32
+        q, k, v = (torch.randn((B, H, Q, D), generator=gen, device=dev
+                               ).to(dtype) for _ in range(3))
+        qp, kp, vp = (F.pad(x, (0, 0, 0, pad)) for x in (q, k, v))
+        tag = f"whisper-medium encoder B{B} H{H} Q=K={Q} D{D} {name} full"
+        got = flex_attention(q, k, v, mask_mod=mod)
+        arith = dict(p_terms=None if f32 else 1,
+                     tf32_terms=3 if f32 else None)
+        want = fa._flex_attention_plain(qp, kp, vp, bm, **arith,
+                                        **kw)[:, :, :Q]
+        chk.close(key, f"{tag} (tiles {bm.q_block}x{bm.kv_block}, keys "
+                  f"padded to {Q + pad})", got, want, tol)
+        plain = fa._flex_attention_plain(qp, kp, vp, bm, **kw)[:, :, :Q]
+        live = torch.ones((B, 1, Q, Q), dtype=torch.bool, device=dev)
+        exact = flex_f64_mask(torch, q, k, v, live, D ** -0.5)
+        chk.versus_f64(key, tag, got, plain, exact, tol=f64_tol)
+        fault = fa._flex_attention_plain(
+            qp, kp, vp, bm, **arith, **dict(kw, kv_len=Q + pad))[:, :, :Q]
+        miss = float(((fault.double() - exact).abs()
+                      / (1 + exact.abs())).max())
+        log(f"  {key} {tag}: the plain version with the {pad} padded keys "
+            f"live misses f64 by {miss:.3e} (bound {f64_tol:g})")
+        if not miss > f64_tol:
+            fail(f"{key} {tag}: padded keys in the softmax stay within "
+                 f"{f64_tol:g} of f64: the check cannot see them")
+        del plain, live, exact, fault
+        dev_ms = device_ms(torch, lambda: flex_attention(q, k, v,
+                                                         mask_mod=mod),
+                           kernel_name(key), reps=3)
+        plain_ms = time_ms(torch, lambda: fa._flex_attention_plain(
+            qp, kp, vp, bm, **kw), reps=2, warmup=1)
+        lib = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v),
+                      reps=5)
+        ops_ = 4 * D * H * B * Q * Q
+        nbytes = 4 * q.numel() * q.element_size()
+        bound = 1e3 * max(nbytes / HBM_BPS, ops_ / PEAK_OPS[name])
+        extra = (f"; three TF32 products at 495 TFLOP/s: "
+                 f"{1e3 * 3 * ops_ / TF32_OPS:.4f} ms" if f32 else "")
+        log(f"  {key} {tag}: device {fmt(dev_ms)}, bound {bound:.4f} ms "
+            f"(operations{extra}), plain {plain_ms:.3f} ms, SDPA (no mask) "
+            f"{lib:.4f} ms")
+        rows[(f"{key} whisper-medium encoder", name)] = dict(
+            device_ms=dev_ms, bound_ms=bound, bound_by="operations",
+            plain_ms=plain_ms, library_ms=lib, G=1, D=D,
+            live_pairs=B * Q * Q)
+        del q, k, v, qp, kp, vp, got, want
+    return rows
 
 
 def flex_variant_phase(torch, chk, gen):
@@ -1646,14 +1772,16 @@ def prefill_permutation_case(torch, chk, gen):
 REAL_HEADS = (("nemotron-4-15b", 48, 8, 128), ("llama3-405b", 128, 8, 128),
               ("nemotron-4-340b", 96, 8, 192),
               ("granite-moe-1b-a400m", 16, 8, 64),
-              ("llama-3.2-vision-11b", 32, 8, 128))
+              ("llama-3.2-vision-11b", 32, 8, 128),
+              ("whisper-medium", 16, 16, 64))
 
 
 def gqa_head_phase(torch, chk, gen):
     """K1 at every GQA group and head dim, K3 and K4 at D = 192, and all
     three at the real heads of nemotron-4-15b, llama3-405b,
-    nemotron-4-340b, granite-moe-1b-a400m (G 2, D 64) and
-    llama-3.2-vision-11b (G 4, D 128) (timed).  Returns the timed rows."""
+    nemotron-4-340b, granite-moe-1b-a400m (G 2, D 64),
+    llama-3.2-vision-11b (G 4, D 128) and whisper-medium (G 1, D 64)
+    (timed).  Returns the timed rows."""
     gqa_decode_cases(torch, chk, gen)
     gqa_prefill_cases(torch, chk, gen)
     gqa_flex_cases(torch, chk, gen)
@@ -4160,17 +4288,19 @@ def moe_f32_check(torch, name):
     return stats
 
 
-def cross_attention_times(torch, cfg, eng):
+def cross_attention_times(torch, cfg, eng, prefill_q=1536):
     """The dense cross-attention (``core.attention.prefill_attention``,
     plain path) per layer, by events, beside SDPA (``enable_gqa``) over
-    the same tensors: a prefill of 8 x 1536 queries and a decode step of
-    8 queries over 1601 image keys of the engine's cross state, bf16."""
+    the same tensors: a prefill of 8 x ``prefill_q`` queries and a decode
+    step of 8 queries over the keys of the engine's cross state (1601
+    image tokens, 1500 audio frames), bf16."""
     import torch.nn.functional as F
     from repro_torch.core import attention as core_attn
     dev = torch.device("cuda")
     k, v = eng.state["cross_k"][0], eng.state["cross_v"][0]
     out = {}
-    for what, S in (("prefill 8 x 1536", 1536), ("decode 8 x 1", 1)):
+    for what, S in ((f"prefill 8 x {prefill_q}", prefill_q),
+                    ("decode 8 x 1", 1)):
         q = torch.randn((8, S, cfg.n_heads, cfg.resolved_head_dim),
                         device=dev).to(torch.bfloat16)
         dense = time_ms(torch, lambda: core_attn.prefill_attention(
@@ -4182,7 +4312,7 @@ def cross_attention_times(torch, cfg, eng):
         want = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
         err = float((got.float() - want.transpose(1, 2).float()).abs().max())
         out[what] = dict(dense_ms=dense, sdpa_ms=sdpa, max_abs_diff=err)
-        log(f"{cfg.name} cross-attention {what} over {k.shape[1]} image "
+        log(f"{cfg.name} cross-attention {what} over {k.shape[1]} "
             f"keys, per layer: dense plain path {dense:.4f} ms, SDPA "
             f"{sdpa:.4f} ms (max|diff| {err:.3e})")
     return out
@@ -4516,6 +4646,570 @@ def vlm_f32_check(torch):
                  f"{MODEL_TOL}")
         stats[key] = dict(tokens_equal=True, logits_max_err=err,
                           launches=got["launches"], chunk_steps=got["kinds"])
+    return stats
+
+
+# -- the encoder-decoder and xLSTM families -----------------------------------
+WHISPER_PARTS = ("encode", "attn_train", "cross_kv", "cross_attn")
+XLSTM_PARTS = ("_mlstm_parallel", "_mlstm_last_state", "_slstm_scan",
+               "mlstm_decode", "slstm_decode")
+
+
+def set_tok(torch, params, seed):
+    """Draw ``embed/tok`` at std 1.0 (the init's 0.02 beside whisper's
+    sinusoidal positions of magnitude 1 lets the position, not the input,
+    decide the tied unembedding)."""
+    tok = params["embed"]["tok"]
+    gen = torch.Generator(device=tok.device)
+    gen.manual_seed(seed)
+    tok.copy_(torch.randn(tok.shape, generator=gen, device=tok.device))
+
+
+def frames(torch, n, cfg, seed, dtype):
+    """``n`` random N(0, 1) (n_audio_frames, d_model) frame embeddings on
+    the card, from ``seed``: the per-request extras of whisper."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return [{"frames": torch.randn(
+        (cfg.n_audio_frames, cfg.d_model), generator=gen, device=dev
+    ).to(dtype)} for _ in range(n)]
+
+
+def whisper_step_bytes(params):
+    """Bytes of the weights a whisper decode step reads: every decoder
+    layer's but its cross-attention K/V projections (used at prefill
+    only), the final norm and the tied embedding as the unembedding."""
+    total = 0
+    for p in params["dec"]:
+        for k, v in p.items():
+            if k == "cross_attn":
+                v = {n: x for n, x in v.items() if n in ("wq", "wo")}
+            total += sum(x.numel() * x.element_size() for x in _leaves(v))
+    total += sum(x.numel() * x.element_size() for x in _leaves(params["ln_f"]))
+    tok = params["embed"]["tok"]
+    return total + tok.numel() * tok.element_size()
+
+
+def check_encoder_passes(name, counts, passes, cfg, route):
+    """K4 ran the full mask once per encoder layer and encoder pass, and
+    (monolithic) causal & padding once per decoder layer and prefill."""
+    got = counts.get(f"flex_prefill/{route}/full", 0)
+    if got != cfg.n_encoder_layers * passes:
+        fail(f"{name}: K4's full mask launched {got} times, not "
+             f"{cfg.n_encoder_layers} per encoder pass x {passes} "
+             f"({counts})")
+
+
+def whisper_engine_phase(torch):
+    """whisper-medium at full width and depth in bf16 (24 encoder and 24
+    decoder layers, d_model 1024, 16 heads over 16: G 1, D 64, d_ff 4096
+    ungated GELU, LayerNorm, sinusoidal positions, 1500 audio frames,
+    vocab 51865; random weights from the seed, ``embed/tok`` at std 1.0),
+    8 slots, max_seq_len 448 (its ``max_target_positions``), pages of 64:
+    12 greedy requests, each with its own N(0, 1) (1500, 1024) frames and
+    a prompt of 4..224 tokens, 64 new tokens each, monolithic (K4's full
+    mask once per encoder layer and pass, causal & padding per decoder
+    layer, both on the bf16 tile; K1, K2; K3 never); a profiled prefill
+    and decode step with the encoder, its self-attention, the cross K/V
+    projections and the cross-attention in columns of their own, K4's
+    full mask timed alone at the encoder's shape; the dense
+    cross-attention beside SDPA; then chunked by 128 (K3's bf16 tile, K4's
+    full mask for the first chunks' encoder passes only, K1, K2), with
+    steps that hold first chunks and resumes together; a request forked
+    (the child's slot gets the parent's cross K/V); ``prefix_cache=True``
+    refused; and a 224-token prompt's prefill and two decode steps'
+    logits through the kernels in bf16 against the plain path on the
+    weights in f32 (``BF16_MODEL_TOL`` of the logits' scale)."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import flex
+    from repro_torch.errors import EngineConfigError
+    from repro_torch.kernels.flex_attention.ops import flex_attention
+    from repro_torch.models import attention
+    from repro_torch.models.api import build_model
+    from repro_torch.models.encdec import EncDecModel
+    from repro_torch.serving import Engine, Request, Status
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("whisper-medium")
+    D, n_ctx = cfg.resolved_head_dim, cfg.max_target_positions
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=n_ctx, dtype=torch.bfloat16,
+                 seed=SEED)
+    set_tok(torch, eng.params, SEED + 23)
+    params = eng.params
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    step_b = whisper_step_bytes(params)
+    cross_b = sum(eng.state[k].numel() * eng.state[k].element_size()
+                  for k in ("cross_k", "cross_v"))
+    pool_b = eng.memory_report()["pool_bytes"]
+    log(f"whisper-medium phase: {cfg.n_encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} (G 1), D {D}, d_ff {cfg.d_ff} "
+        f"({cfg.activation}), {cfg.n_audio_frames} audio frames, vocab "
+        f"{cfg.vocab_size}, bf16 ({n_params / 1e9:.3f} B parameters, "
+        f"{2 * n_params / 1e9:.2f} GB), 8 slots, max_seq_len {n_ctx}, pool "
+        f"{eng.num_pages} pages of {cfg.page_size} ({pool_b / 1e9:.3f} GB), "
+        f"cross state {cross_b / 1e9:.3f} GB; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    new = 64
+    rng = torch.Generator().manual_seed(SEED + 23)
+    plens = torch.randint(4, n_ctx // 2 + 1, (12,), generator=rng).tolist()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    extras = frames(torch, 12, cfg, SEED + 23, torch.bfloat16)
+    kernels.reset_launch_counts()
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs, extras=extras)
+    counts = kernels.launch_counts()
+    check_path("whisper-medium (monolithic)", eng, reqs, new, counts,
+               must=("paged_decode", "combine", "flex_prefill",
+                     "flex_prefill/tc", "flex_prefill/tc/full",
+                     "flex_prefill/tc/causal&padding"),
+               never=("paged_prefill", "flex_prefill/tf32x3"))
+    check_encoder_passes("whisper-medium (monolithic)", counts,
+                         len(prefill_ms), cfg, "tc")
+    if counts["flex_prefill/tc/causal&padding"] != cfg.n_layers * len(
+            prefill_ms):
+        fail(f"whisper-medium (monolithic): K4's causal & padding launched "
+             f"{counts['flex_prefill/tc/causal&padding']} times, not once "
+             f"per decoder layer and prefill ({counts})")
+    stats = {"monolithic": serve_stats(torch, reqs, wall, prefill_ms,
+                                       decode_ms, counts)}
+    m = stats["monolithic"]
+    m["encoder_passes"] = len(prefill_ms)
+    m["decode_bytes"] = dict(
+        weights=step_b, cross_state=cross_b,
+        bound_ms=1e3 * (step_b + cross_b) / HBM_BPS,
+        weights_bound_ms=1e3 * step_b / HBM_BPS)
+    m["pool_bytes"], m["cross_state_bytes"] = pool_b, cross_b
+    log_serve("whisper-medium (monolithic)", m)
+    log(f"whisper-medium: a decode step of 8 full slots reads "
+        f"{step_b / 1e9:.3f} GB of decoder weights and {cross_b / 1e9:.3f} "
+        f"GB of cross K/V (>= {m['decode_bytes']['bound_ms']:.3f} ms at "
+        f"3.35 TB/s; the weights alone "
+        f"{m['decode_bytes']['weights_bound_ms']:.3f} ms); the pool of "
+        f"self-attention K/V is {pool_b / 1e9:.3f} GB beside "
+        f"{cross_b / 1e9:.3f} GB of cross K/V")
+
+    # where the time goes: the step that admits 8 fresh 224-token prompts
+    # with their frames (encoder, prefill, first decode), then a decode
+    # step; K4's full mask alone at the encoder's shape
+    wextra = frames(torch, 8, cfg, SEED + 24, torch.bfloat16)
+    for i in range(8):
+        eng.add_request(Request(prompt=torch.randint(
+            0, cfg.vocab_size, (n_ctx // 2,), generator=rng).tolist(),
+            max_new_tokens=4), wextra[i])
+    with annotated(torch, EncDecModel, "encode"), annotate_all(
+            torch, attention, WHISPER_PARTS[1:]):
+        stats["profile_prefill_step"] = profile_steps(
+            torch, eng, 1, annotation=WHISPER_PARTS)
+        stats["profile_decode_step"] = profile_steps(
+            torch, eng, 1, annotation=WHISPER_PARTS)
+    for name in ("prefill_step", "decode_step"):
+        log_profile(f"whisper-medium {name}", stats["profile_" + name])
+    check_attributed("whisper-medium prefill_step",
+                     stats["profile_prefill_step"], "K4 flex_prefill")
+    check_attributed("whisper-medium decode_step",
+                     stats["profile_decode_step"], "K1 paged_decode")
+    while eng.scheduler.running:
+        eng.step()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 23)
+    q, k, v = (torch.randn((8, cfg.n_heads, cfg.n_audio_frames, D),
+                           generator=gen, device=dev).to(torch.bfloat16)
+               for _ in range(3))
+    full = device_ms(torch, lambda: flex_attention(
+        q, k, v, mask_mod=flex.full_mask), kernel_name("flex_prefill_tc"),
+        reps=3)
+    del q, k, v
+    stats["k4_full_mask_ms_per_layer"] = full
+    log(f"whisper-medium: K4's full mask at the encoder's shape (8 x 16 "
+        f"heads x {cfg.n_audio_frames} frames, D {D}, bf16) device "
+        f"{fmt(full)} per layer, x {cfg.n_encoder_layers} layers per "
+        f"encoder pass")
+    stats["cross_attention"] = cross_attention_times(torch, cfg, eng,
+                                                     prefill_q=n_ctx // 2)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # chunked by 128: a step's budget holds one request's last chunk and
+    # the next one's first (the model's partial cross mode)
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(cfg, params, max_slots=8, max_seq_len=n_ctx,
+                 dtype=torch.bfloat16, seed=SEED, prefill_chunk=128)
+    mixed = chunk_kinds(eng)
+    creqs = [Request(prompt=list(r.prompt), max_new_tokens=new)
+             for r in reqs]
+    kernels.reset_launch_counts()
+    wall, chunk_ms, dms = drive(torch, eng, creqs, extras=extras)
+    counts = kernels.launch_counts()
+    check_path("whisper-medium (chunked 128)", eng, creqs, new, counts,
+               must=("paged_decode", "combine", "paged_prefill",
+                     "paged_prefill/tc", "flex_prefill/tc/full"),
+               never=("flex_prefill/tc/causal&padding",
+                      "flex_prefill/tf32x3", *k3_routes_except("tc")))
+    check_encoder_passes("whisper-medium (chunked 128)", counts,
+                         sum(1 for f, _ in mixed if f), cfg, "tc")
+    n_mixed = sum(1 for f, r in mixed if f and r)
+    if not n_mixed:
+        fail(f"whisper-medium (chunked): no chunk step held a first chunk "
+             f"beside a resume ({mixed})")
+    stats["chunked"] = serve_stats(torch, creqs, wall, chunk_ms, dms, counts)
+    stats["chunked"]["steps_first_and_resume"] = n_mixed
+    stats["chunked"]["agree_with_monolithic"] = sum(
+        a.output == b.output for a, b in zip(reqs, creqs))
+    log_serve("whisper-medium (chunked 128)", stats["chunked"])
+    log(f"whisper-medium (chunked): {n_mixed} of {len(mixed)} chunk steps "
+        f"held first chunks beside resumes; "
+        f"{stats['chunked']['agree_with_monolithic']} of 12 requests' "
+        f"greedy tokens equal to the monolithic run's (bf16, K3 against K4 "
+        f"and the closed-form positions against the table: not checked; "
+        f"the f32 check holds the chunked engine's tokens)")
+
+    # fork: the child's slot gets the parent's cross K/V
+    parent = Request(prompt=list(reqs[0].prompt), max_new_tokens=8)
+    eng.add_request(parent, extras[0])
+    while parent.status is not Status.RUNNING or not parent.output:
+        eng.step()
+    kernels.reset_launch_counts()
+    child = eng.fork_request(parent, max_new_tokens=8)
+    same = all(torch.equal(eng.state[k][:, child.slot],
+                           eng.state[k][:, parent.slot])
+               for k in ("cross_k", "cross_v"))
+    while not (parent.done and child.done):
+        eng.step()
+    fcounts = kernels.launch_counts()
+    if not same or child.status is not Status.FINISHED:
+        fail(f"whisper-medium fork: cross rows copied {same}, child "
+             f"{child.status}")
+    stats["fork"] = dict(cross_rows_equal=same, child=child.output,
+                         parent=parent.output, launches=fcounts)
+    log(f"whisper-medium fork: the child's cross K/V equal the parent's; "
+        f"child tokens {child.output}, parent {parent.output}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        Engine(cfg, params, max_slots=2, max_seq_len=n_ctx,
+               dtype=torch.bfloat16, prefix_cache=True)
+    except EngineConfigError as e:
+        log(f"whisper-medium: prefix_cache=True refused: {e}")
+    else:
+        fail("whisper-medium: prefix_cache=True was not refused")
+
+    # the logits at full depth: the kernels in bf16 against the plain path
+    # on the same weights in f32
+    n = n_ctx // 2
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    model = build_model(cfg)
+    pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
+            cfg.page_size, cfg.n_kv_heads, D)
+    fr = {"frames": extras[1]["frames"][None]}
+    p32 = _map(params, lambda x: x.float())
+    out, lcounts = logits_pair(torch, model, params, tokens, pool, extra=fr,
+                               ref_params=p32)
+    del p32, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["logits"] = check_logits(
+        "whisper-medium (bf16 kernels vs f32 plain, full depth)", out,
+        lcounts, ("flex_prefill/tc/full", "flex_prefill/tc/causal&padding",
+                  "paged_decode"), BF16_MODEL_TOL, rel=True)
+    return stats
+
+
+def engines_agree(name, runs, want_key, tol):
+    """Each engine run's greedy tokens equal ``runs[want_key]``'s, and the
+    logits of every token each request sampled within ``tol`` of that
+    run's."""
+    want = runs[want_key]
+    out = {}
+    for key, got in runs.items():
+        if key == want_key:
+            continue
+        if got["tokens"] != want["tokens"]:
+            fail(f"{name} {key}: greedy tokens {got['tokens']} != "
+                 f"{want_key} {want['tokens']}")
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(got["rows"], want["rows"]))
+        scale = max(float(b.abs().max()) for b in want["rows"])
+        log(f"{name} {key}: greedy tokens equal to the {want_key} run's "
+            f"({sum(len(x) for x in want['tokens'])} tokens); logits of "
+            f"every sampled token max|err| {err:.3e} (tol {tol:g}; "
+            f"max|logit| {scale:.3f}); launches {got['launches']}")
+        if err > tol:
+            fail(f"{name} {key}: logits beyond {tol}")
+        out[key] = dict(tokens_equal=True, logits_max_err=err,
+                        launches=got["launches"])
+    return out
+
+
+def whisper_f32_check(torch):
+    """whisper-medium at full width and 4 + 4 layers in f32
+    (``embed/tok`` at std 1.0): a 224-token prompt's prefill and two
+    decode steps' logits through the kernels against the plain path,
+    monolithic and chunked by 128 (``MODEL_TOL``); then 4 requests with their
+    frames on 4 slots through the paged engine, the contiguous baseline
+    (``paged=False``) and the paged engine chunked by 128: the greedy
+    tokens of both equal to the paged monolithic engine's, and the
+    logits of every token each request sampled within ``MODEL_TOL``."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-medium").replace(n_layers=4,
+                                               n_encoder_layers=4)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, torch.float32, dev)
+    set_tok(torch, params, SEED + 25)
+    n, P = cfg.max_target_positions // 2, cfg.page_size
+    tokens = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
+                           device=dev)
+    pool = (model.n_attn_layers, -(-(n + 2) // P), P, cfg.n_kv_heads,
+            cfg.resolved_head_dim)
+    extras = frames(torch, 4, cfg, SEED + 25, torch.float32)
+    fr = {"frames": extras[0]["frames"][None]}
+    stats = {}
+    for mode, chunk, must in (
+            ("monolithic", None, ("flex_prefill/tf32x3/full",
+                                  "flex_prefill/tf32x3/causal&padding",
+                                  "paged_decode")),
+            ("chunked 128", 128, ("flex_prefill/tf32x3/full",
+                                  "paged_prefill/tf32x3", "paged_decode"))):
+        out, counts = logits_pair(torch, model, params, tokens, pool, chunk,
+                                  extra=fr)
+        stats[mode] = check_logits(f"whisper-medium f32 4 + 4 layers "
+                                   f"({mode})", out, counts, must,
+                                   MODEL_TOL)
+    rng = torch.Generator().manual_seed(SEED + 5)
+    plens = torch.randint(4, n + 1, (4,), generator=rng).tolist()
+    toks = [torch.randint(0, cfg.vocab_size, (k,), generator=rng).tolist()
+            for k in plens]
+    runs = {}
+    for name, kw in (("paged", {}), ("contiguous", dict(paged=False)),
+                     ("chunked 128", dict(prefill_chunk=128))):
+        eng = Engine(cfg, params, max_slots=4,
+                     max_seq_len=cfg.max_target_positions, seed=SEED, **kw)
+        record_rows(eng)
+        kinds = chunk_kinds(eng) if "prefill_chunk" in kw else None
+        rs = [Request(prompt=list(p), max_new_tokens=8) for p in toks]
+        kernels.reset_launch_counts()
+        eng.generate(rs, extras)
+        runs[name] = dict(tokens=[r.output for r in rs],
+                          rows=[torch.stack(eng.by_request[id(r)])
+                                for r in rs],
+                          launches=kernels.launch_counts())
+        never = ("paged_decode", "paged_prefill") if kw.get(
+            "paged") is False else ()
+        check_path(f"whisper-medium f32 4 + 4 layers ({name} engine)", eng,
+                   rs, 8, runs[name]["launches"],
+                   must=(("flex_prefill/tf32x3/full",)
+                         + (() if never else ("paged_decode",))
+                         + (("paged_prefill/tf32x3",) if kinds is not None
+                            else ())),
+                   never=never)
+        del eng
+    stats["engines"] = engines_agree("whisper-medium f32 4 + 4 layers",
+                                     runs, "paged", MODEL_TOL)
+    stats["engine_launches"] = {k: r["launches"] for k, r in runs.items()}
+    return stats
+
+
+def xlstm_times(torch, cfg, params, B, S, dtype):
+    """Device ms of one mLSTM layer's parallel form, its final states and
+    one sLSTM layer's scan over (B, S) inputs of the model's dtype, by
+    events."""
+    from repro_torch.models import ssm
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    x = torch.randn((B, S, cfg.d_model), generator=gen, device=dev).to(dtype)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    codes = cfg.pattern()
+    pm = params["layers"][codes.index("M")]["rec"]
+    ps = params["layers"][codes.index("S")]["rec"]
+    parts = ssm._mlstm_parts(pm, x, cfg)
+    out = dict(
+        mlstm_parallel_ms=time_ms(torch, lambda: ssm._mlstm_parallel(
+            pm, x, *parts), reps=3),
+        mlstm_last_state_ms=time_ms(torch, lambda: ssm._mlstm_last_state(
+            parts[1], parts[2], parts[3], parts[4], lens), reps=3))
+    inputs = ssm._slstm_inputs(ps, x)
+    state = ssm.slstm_init_state(B, cfg, dtype, dev)
+    out["slstm_scan_ms"] = time_ms(torch, lambda: ssm._slstm_scan(
+        ps, state, inputs, lens), reps=2, warmup=1)
+    return out
+
+
+def xlstm_engine_phase(torch):
+    """xlstm-350m at full width and depth in bf16 (24 blocks of pattern
+    MMMMMMMS: 21 mLSTM and 3 sLSTM, d_model 1024, 4 heads of 256, no FFN,
+    vocab 50304; random weights from the seed, ``embed/tok`` at std 1.0),
+    8 slots, max_seq_len 2048, the config's contiguous state (no
+    attention layer: no pool): 12 greedy requests of 256..1536 tokens in
+    mixed-length waves, 32 new tokens each.  No kernel launches (the
+    blocks are plain PyTorch, as the JAX package's are plain jnp).  tok/s,
+    TTFT, peak memory, the recurrent state's bytes; a profiled prefill
+    step (8 prompts of 512 tokens) and decode step with the mLSTM parallel
+    form, its final states, the sLSTM scan and both blocks' decode in
+    columns of their own; and those three parts timed alone at 8 x
+    1536."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("xlstm-350m")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
+                 seed=SEED)
+    set_tok(torch, eng.params, SEED + 26)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(eng.params))
+    rec_b = rec_state_bytes(eng)
+    step_b = weight_bytes(eng.params)
+    log(f"xlstm-350m phase: {cfg.n_layers} blocks of pattern "
+        f"{cfg.layer_pattern} ({cfg.pattern().count('M')} mLSTM, "
+        f"{cfg.pattern().count('S')} sLSTM), d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, vocab "
+        f"{cfg.vocab_size}, bf16 ({n_params / 1e9:.3f} B parameters, "
+        f"{2 * n_params / 1e9:.2f} GB), 8 slots, max_seq_len 2048, paged "
+        f"{eng.paged}; recurrent state {rec_b / 1e6:.2f} MB; ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    new = 32
+    rng = torch.Generator().manual_seed(SEED + 26)
+    plens = torch.randint(256, 1537, (12,), generator=rng).tolist()
+    reqs = [Request(prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                         generator=rng).tolist(),
+                    max_new_tokens=new) for n in plens]
+    kernels.reset_launch_counts()
+    wall, prefill_ms, decode_ms = drive(torch, eng, reqs)
+    counts = kernels.launch_counts()
+    check_path("xlstm-350m", eng, reqs, new, counts, must=(),
+               never=("paged_decode", "combine", "paged_prefill",
+                      "flex_prefill"))
+    stats = {"monolithic": serve_stats(torch, reqs, wall, prefill_ms,
+                                       decode_ms, counts)}
+    m = stats["monolithic"]
+    m["rec_state_bytes"] = rec_b
+    m["decode_bytes"] = dict(weights=step_b, rec_state=rec_b,
+                             bound_ms=1e3 * (step_b + 2 * rec_b) / HBM_BPS)
+    log_serve("xlstm-350m", m)
+    log(f"xlstm-350m: a decode step reads {step_b / 1e9:.3f} GB of weights "
+        f"and reads and writes {rec_b / 1e6:.1f} MB of recurrent state (>= "
+        f"{m['decode_bytes']['bound_ms']:.3f} ms at 3.35 TB/s)")
+    for _ in range(8):
+        eng.add_request(Request(prompt=torch.randint(
+            0, cfg.vocab_size, (512,), generator=rng).tolist(),
+            max_new_tokens=4))
+    with annotate_all(torch, ssm, XLSTM_PARTS):
+        stats["profile_prefill_step"] = profile_steps(
+            torch, eng, 1, annotation=XLSTM_PARTS)
+        stats["profile_decode_step"] = profile_steps(
+            torch, eng, 1, annotation=XLSTM_PARTS)
+    for name in ("prefill_step", "decode_step"):
+        log_profile(f"xlstm-350m {name}", stats["profile_" + name])
+    while eng.scheduler.running:
+        eng.step()
+    stats["parts_8x1536"] = xlstm_times(torch, cfg, eng.params, 8, 1536,
+                                        torch.bfloat16)
+    t = stats["parts_8x1536"]
+    log(f"xlstm-350m at 8 x 1536 in bf16, per layer: mLSTM parallel form "
+        f"{t['mlstm_parallel_ms']:.3f} ms, its final states "
+        f"{t['mlstm_last_state_ms']:.3f} ms (x {cfg.pattern().count('M')} "
+        f"layers), sLSTM scan {t['slstm_scan_ms']:.3f} ms (x "
+        f"{cfg.pattern().count('S')})")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def xlstm_f32_check(torch):
+    """xlstm-350m at full width and one unit (8 blocks, MMMMMMMS) in f32
+    (``embed/tok`` at std 1.0): (a) a wave of 4 requests of 300, 800,
+    1300 and 1536 tokens on 4 slots, 8 greedy tokens: each request's
+    tokens and sampled logits equal those it gets served alone (its state
+    is taken at its own last token, not at the padded end); (b) the
+    logits of ``prefill`` over 1000 tokens followed by one decode step
+    equal the last logits of ``prefill`` over the same 1001 tokens
+    within ``MODEL_TOL`` (the closed-form mLSTM state and the sLSTM
+    state carried into the recurrence equal the parallel form)."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    from repro_torch.serving import Engine, Request
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg = get_config("xlstm-350m").replace(n_layers=8)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, torch.float32, dev)
+    set_tok(torch, params, SEED + 27)
+    rng = torch.Generator().manual_seed(SEED + 27)
+    toks = [torch.randint(0, cfg.vocab_size, (k,), generator=rng).tolist()
+            for k in (300, 800, 1300, 1536)]
+    kernels.reset_launch_counts()
+    runs = {}
+    for name, prompts in [("wave", toks)] + [(f"alone {i}", [p])
+                                             for i, p in enumerate(toks)]:
+        eng = Engine(cfg, params, max_slots=4, max_seq_len=2048, seed=SEED)
+        record_rows(eng)
+        rs = [Request(prompt=list(p), max_new_tokens=8) for p in prompts]
+        eng.generate(rs)
+        runs[name] = dict(tokens=[r.output for r in rs],
+                          rows=[torch.stack(eng.by_request[id(r)])
+                                for r in rs])
+        del eng
+    alone = dict(tokens=[runs[f"alone {i}"]["tokens"][0]
+                         for i in range(4)],
+                 rows=[runs[f"alone {i}"]["rows"][0] for i in range(4)])
+    counts = kernels.launch_counts()
+    stats = {"mixed_wave": engines_agree(
+        "xlstm-350m f32 one unit", {"alone": alone, "mixed wave": dict(
+            runs["wave"], launches=counts)}, "alone", MODEL_TOL)}
+    # (b) prefill(S) + one decode step against prefill(S + 1)
+    S = 1000
+    tokens = torch.randint(0, cfg.vocab_size, (1, S + 1), generator=gen,
+                           device=dev)
+    st = {"pos": torch.zeros((1,), dtype=torch.int32, device=dev)}
+    _, st1 = model.prefill(params, tokens[:, :S], dict(st))
+    step, _ = model.decode_step(params, tokens[:, S], st1)
+    whole, _ = model.prefill(params, tokens, dict(st))
+    err = float((step - whole).abs().max())
+    scale = float(whole.abs().max())
+    log(f"xlstm-350m f32 one unit: prefill({S}) + a decode step vs "
+        f"prefill({S + 1}), last logits: max|err| {err:.3e} (tol "
+        f"{MODEL_TOL:g}; max|logit| {scale:.3f}); argmax equal "
+        f"{bool(step.argmax() == whole.argmax())}")
+    if not bool(torch.isfinite(step).all()) or err > MODEL_TOL:
+        fail(f"xlstm-350m f32: prefill + decode logits max|err| {err} "
+             f"beyond {MODEL_TOL}")
+    stats["prefill_then_decode"] = dict(max_err=err, scale=scale)
     return stats
 
 
@@ -5392,6 +6086,14 @@ def main():
     done("llama-3.2-vision-11b phase")
     vlm_f32 = vlm_f32_check(torch)
     done("llama-3.2-vision-11b f32 check")
+    whisper = whisper_engine_phase(torch)
+    done("whisper-medium phase")
+    whisper_f32 = whisper_f32_check(torch)
+    done("whisper-medium f32 check")
+    xlstm = xlstm_engine_phase(torch)
+    done("xlstm-350m phase")
+    xlstm_f32 = xlstm_f32_check(torch)
+    done("xlstm-350m f32 check")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -5457,7 +6159,13 @@ def main():
                                                "logits", "logits_f32")]
               + [vlm["fork"]["launches"]]
               + [vlm_f32[mode]["launches"] for mode in modes]
-              + [vlm_f32["chunked_engine"]["launches"]])
+              + [vlm_f32["chunked_engine"]["launches"]]
+              + [whisper[k]["launches"] for k in ("monolithic", "chunked",
+                                                   "fork", "logits")]
+              + [whisper_f32[k]["launches"] for k in ("monolithic",
+                                                       "chunked 128")]
+              + list(whisper_f32["engine_launches"].values())
+              + [xlstm["monolithic"]["launches"]])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []
@@ -5482,7 +6190,9 @@ def main():
          "baseline": base, "fork": fork, "faults": faults,
          "page_state": page_state,
          "recurrentgemma_9b_f32": rg_f32, "moe": moe_runs,
-         "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32},
+         "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32,
+         "whisper_medium": whisper, "whisper_medium_f32": whisper_f32,
+         "xlstm_350m": xlstm, "xlstm_350m_f32": xlstm_f32},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -1,7 +1,8 @@
 """GQA attention layer: projections + RoPE around the core attention ops
-(port of ``repro.models.attention``: prefill, chunked prefill and decode,
-over the paged pools or the contiguous baseline's buffers; and
-cross-attention over per-request image K/V).
+(port of ``repro.models.attention``: attention over whole sequences
+without a cache, prefill, chunked prefill and decode, over the paged
+pools or the contiguous baseline's buffers; and cross-attention over
+per-request image or audio K/V).
 
 The KV caches are updated **in place**: ``attn_prefill``,
 ``attn_prefill_chunked`` and ``attn_decode`` scatter the new K/V into the
@@ -66,6 +67,20 @@ def kv_pool_dtype(cfg: ModelConfig, dtype):
 def _out(p: Dict, o: torch.Tensor) -> torch.Tensor:
     H, hd, d = p["wo"].shape
     return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+
+
+def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
+               lens: Optional[torch.Tensor] = None, causal: bool = True,
+               impl: str = "kernel") -> torch.Tensor:
+    """Attention over whole sequences with no cache.  x: (B, S, d) →
+    (B, S, d).  ``causal=False`` with no ``lens`` is the full mask (the
+    whisper encoder); K4 under ``impl="kernel"``."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    q, k, v = _qkv(p, x, pos, cfg.rope_theta)
+    o = core_attn.prefill_attention(q, k, v, lens=lens, causal=causal,
+                                    impl=impl)
+    return _out(p, o)
 
 
 def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -183,11 +198,77 @@ def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return _out(p, o)
 
 
+def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                      state: Dict, i: int, lens: torch.Tensor, *,
+                      window: int = 0, impl: str = "kernel") -> torch.Tensor:
+    """Prefill attention of attention layer ``i`` of ``state``: into the
+    contiguous baseline's buffers (``state["k_buf"]``, rows
+    ``state["slots"]``) when the state holds them, else into the paged
+    pools through ``state["tables"]``."""
+    if "k_buf" in state:
+        return attn_prefill_contiguous(
+            p, x, cfg, state["k_buf"][i], state["v_buf"][i], state["slots"],
+            lens, window=window, impl=impl)
+    return attn_prefill(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
+                        state["tables"], lens, window=window, impl=impl)
+
+
+def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                     state: Dict, i: int, *, window: int = 0,
+                     impl: str = "kernel",
+                     pages_per_block: Optional[int] = None,
+                     num_splits: Optional[int] = None) -> torch.Tensor:
+    """One decode step of attention layer ``i`` of ``state`` at
+    ``state["pos"]``: over the contiguous baseline's buffers when the
+    state holds them, else over the paged pools."""
+    pos = state["pos"]
+    if "k_buf" in state:
+        return attn_decode_contiguous(p, x, cfg, state["k_buf"][i],
+                                      state["v_buf"][i], pos, window=window)
+    return attn_decode(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
+                       state["tables"], pos, window=window, impl=impl,
+                       pages_per_block=pages_per_block,
+                       num_splits=num_splits)
+
+
 def cross_kv(p: Dict, ctx: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Cross-attention K/V from the (projected) image context (B, T, d):
-    (B, T, Hkv, hd) each, no positional rotation."""
+    """Cross-attention K/V from the (projected) image context or the
+    encoder's output (B, T, d): (B, T, Hkv, hd) each, no positional
+    rotation."""
     return _proj(ctx, p["wk"]), _proj(ctx, p["wv"])
+
+
+def chunk_cross_mode(q_start: torch.Tensor, state: Dict
+                     ) -> Tuple[str, Optional[torch.Tensor]]:
+    """How a chunk step gets its cross-attention K/V, decided on the host
+    from ``q_start == 0`` (as the JAX models decide it): ``"full"`` (every
+    row at its first chunk, or no ``cross_k`` in ``state``: project every
+    row), ``"partial"`` (project the first-chunk rows, returned, into the
+    state's) or ``"reuse"`` (the state's as they are)."""
+    firsts = torch.nonzero(q_start.cpu() == 0).flatten()
+    if "cross_k" not in state or len(firsts) == len(q_start):
+        return "full", None
+    if len(firsts):
+        return "partial", firsts.to(q_start.device)
+    return "reuse", None
+
+
+def chunk_cross_kv(p: Dict, ctx: Optional[torch.Tensor], state: Dict,
+                   i: int, mode: str, rows: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross layer ``i``'s K/V in a chunk step of ``chunk_cross_mode``
+    ``mode``: projected from ``ctx`` (every row's, or the ``partial``
+    rows' only, which replace those rows of ``state["cross_k"][i]``), or
+    the state's."""
+    if mode == "full":
+        return cross_kv(p, ctx)
+    k, v = state["cross_k"][i], state["cross_v"][i]
+    if mode == "partial":
+        k_new, v_new = cross_kv(p, ctx)
+        k = k.index_put((rows,), k_new.to(k.dtype))
+        v = v.index_put((rows,), v_new.to(v.dtype))
+    return k, v
 
 
 def cross_attn(p: Dict, x: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

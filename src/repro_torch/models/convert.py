@@ -6,9 +6,12 @@ port's params on ``device`` (the card unless the caller passes
 ``device="cpu"``, as for every entry point): the same layouts, with the
 scanned pattern groups (``groups/0A``, ``groups/1W`` stacked
 ``(n_groups, ...)``; a ``W`` layer carries the same parameters as an
-``A`` one, an ``R`` layer a ``rec`` dict in place of ``attn``) unstacked
-into one dict per layer under ``layers``, in the pattern's order.  The
-port needs no JAX for this: it reads plain nested dicts of arrays.
+``A`` one, an ``R``, ``M`` or ``S`` layer a ``rec`` dict in place of
+``attn``) unstacked into one dict per layer under ``layers``, in the
+pattern's order.  An encoder-decoder's tree (``embed``, ``enc`` and
+``dec`` stacked over their layers, ``ln_enc``, ``ln_f``) becomes lists of
+one dict per layer under ``enc`` and ``dec``.  The port needs no JAX for
+this: it reads plain nested dicts of arrays.
 """
 
 from __future__ import annotations
@@ -34,13 +37,21 @@ def _to_torch(tree, device, dtype, index=None):
 def params_from_numpy(tree: Dict[str, Any], device="cuda",
                       dtype=torch.float32) -> Dict[str, Any]:
     device = resolve_device(device)
+    if "enc" in tree:  # the encoder-decoder
+        out = {k: _to_torch(tree[k], device, dtype)
+               for k in ("embed", "ln_enc", "ln_f")}
+        for key in ("enc", "dec"):
+            n = np.asarray(tree[key]["ln1"]["scale"]).shape[0]
+            out[key] = [_to_torch(tree[key], device, dtype, index=i)
+                        for i in range(n)]
+        return out
     groups = tree.get("groups", {})
     rem = tree.get("rem", {})
     codes = {key[1:] for key in list(groups) + list(rem)}
-    if codes - {"A", "W", "R", "C"}:
+    if codes - set("AWRCMS"):
         raise UnsupportedFeature(f"layer codes {sorted(codes)}: the port "
-                                 "converts models of 'A', 'W', 'R' and "
-                                 "'C' layers only")
+                                 "converts models of 'A', 'W', 'R', 'C', "
+                                 "'M' and 'S' layers only")
     per_layer = []
     units = sorted(groups, key=lambda k: int(k[:-1]))
     n_groups = (np.asarray(groups[units[0]]["ln1"]["scale"]).shape[0]

@@ -2,8 +2,10 @@
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -34,7 +36,7 @@ def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# rotary positions
+# rotary / sinusoidal positions
 # ---------------------------------------------------------------------------
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
@@ -54,12 +56,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """The (n, d) sinusoidal table, computed in f64 with numpy and then
+    cast to f32, as in the JAX package (whisper's monolithic prefill and
+    encoder).  Built once per (n, d, device) and shared: read-only."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.tensor(out, dtype=torch.float32, device=device)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """The sinusoidal embedding at positions (...,) → (..., d) in the f32
+    closed form (no table: decode positions are unbounded).  It differs
+    from ``sinusoidal_positions`` by the f32 rounding of the angles, as
+    the JAX package's two functions do."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=positions.device)
+    # the f32 exponent; the power correctly rounded to f32, as XLA's (an
+    # f32 pow differs from it in the last bit, which the largest
+    # positions multiply by 1e3)
+    inv = torch.pow(10000.0, (-2.0 * dim / d).double()).float()
+    ang = positions[..., None].float() * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLP (dense)
 # ---------------------------------------------------------------------------
 # the activations of the ported configs: SwiGLU (llama, granite), GeGLU
-# (recurrentgemma) and squared ReLU (nemotron)
-ACTIVATIONS = ("silu", "gelu", "relu2")
+# (recurrentgemma), squared ReLU (nemotron) and ungated GELU (whisper)
+ACTIVATIONS = ("silu", "gelu", "relu2", "gelu_ungated")
 
 
 def mlp_spec(cfg: ModelConfig) -> Dict:
@@ -77,6 +105,8 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     elif cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
         h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
+    elif cfg.activation == "gelu_ungated":  # the tanh form, as above
+        h = F.gelu(x @ p["wu"], approximate="tanh")
     else:  # relu2, checked when the model is built
         h = torch.square(F.relu(x @ p["wu"]))
     return h @ p["wd"]

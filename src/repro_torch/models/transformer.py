@@ -1,27 +1,32 @@
 """Decoder-only transformer of global (``A``) and sliding-window (``W``)
-attention layers, RG-LRU recurrent (``R``) layers and cross-attention
-(``C``) layers, each followed by a dense or MoE FFN: families ``dense``,
-``moe``, ``vlm`` and ``rglru`` (port of the serving half of
+attention layers, recurrent layers (RG-LRU ``R``, mLSTM ``M``, sLSTM
+``S``) and cross-attention (``C``) layers, each followed by a dense or MoE
+FFN, or by none when ``d_ff == 0`` (xLSTM): families ``dense``, ``moe``,
+``vlm``, ``rglru`` and ``xlstm`` (port of the serving half of
 ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors with the JAX layouts, one dict per
 layer under ``params["layers"]`` (the JAX package stacks them per pattern
 group; ``models.convert`` unstacks): an attention layer carries ``attn``,
-a ``C`` layer ``attn`` and a scalar ``gate``, an ``R`` layer ``rec``; the
-FFN is ``mlp`` or ``moe`` (``models.moe``).  A ``vlm`` model also has
-``vision_proj`` (d_vision, d_model), which projects the per-request image
-embeddings (``extra["image_embeds"]``, (B, n_image_tokens, d_vision))
-into the cross-attention context.  Three entry points share them:
+a ``C`` layer ``attn`` and a scalar ``gate``, an ``R``, ``M`` or ``S``
+layer ``rec``; the FFN is ``mlp`` or ``moe`` (``models.moe``), or none.
+A ``vlm`` model also has ``vision_proj`` (d_vision, d_model), which
+projects the per-request image embeddings (``extra["image_embeds"]``,
+(B, n_image_tokens, d_vision)) into the cross-attention context.  Three
+entry points share them:
 
     prefill       — whole prompts, K/V scattered into the paged pools
     prefill_chunk — one prompt chunk per sequence, resuming from
-                    the cached prefix pages (no ``R`` layers)
+                    the cached prefix pages (no recurrent layers)
     decode_step   — one token per sequence against the paged pools
 
 The serving state is a dict: ``pos`` (B,), ``k_pages``/``v_pages``
 (n_attn_layers, num_pages, P, Hkv, D), indexed per attention layer, and
-``tables`` (B, 1, pages_per_seq); with ``R`` layers also ``rec["R"]``,
-``h`` (n_R, B, w) and ``conv`` (n_R, B, cw - 1, w); with ``C`` layers
+``tables`` (B, 1, pages_per_seq); with recurrent layers also ``rec``,
+one dict per code: ``rec["R"]`` with ``h`` (n_R, B, w) and ``conv`` (n_R,
+B, cw - 1, w), ``rec["M"]`` with ``C`` (n_M, B, H, dh, dh), ``n`` and
+``m``, ``rec["S"]`` with ``c``, ``n``, ``h`` and ``m`` (n_S, B, H, dh)
+(``models.ssm``); with ``C`` layers
 ``cross_k``/``cross_v`` (n_cross, B, n_image_tokens, Hkv, D), which
 ``prefill`` and ``prefill_chunk`` return for the rows they project and
 ``decode_step`` reads.  The pools and the recurrent state are updated in
@@ -31,7 +36,9 @@ baseline's state instead of the paged one: ``k_buf``/``v_buf``
 buffer row of each prompt, ``slots`` (B,).  Every layer runs through the
 same loop on either state; prefill attention is K4 either way, decode
 attention on the buffers the contiguous plain path.  Cross-attention runs
-the dense plain path everywhere, as in the JAX package.
+the dense plain path everywhere, as in the JAX package.  A recurrent
+layer's prefill returns each row's state after its own last token
+(``lens - 1``), not at the padded end as the JAX package does.
 
 A ``W`` layer attends over the last ``cfg.window`` positions.  On the
 paged state it keeps its K/V in a ring of ``ceil(window / P) + 1`` pages:
@@ -54,24 +61,40 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe, rglru
+from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models import spec as pspec
 from repro_torch.models.spec import ParamSpec
 
 ATTN_CODES = "AW"
-CODES = "AWRC"  # the layer codes the port runs
+REC_CODES = "RMS"
+CODES = "AWRCMS"  # the layer codes the port runs
+# each recurrent code's block: its parameters, its zero state, its
+# prefill (with the state at each row's last token) and one decode step;
+# the steps are looked up in their module at each call, so a wrapper set
+# there (a profiler range) takes effect
+REC_SPEC = {"R": rglru.rglru_spec, "M": ssm.mlstm_spec, "S": ssm.slstm_spec}
+REC_INIT = {"R": rglru.rglru_init_state, "M": ssm.mlstm_init_state,
+            "S": ssm.slstm_init_state}
+REC_PREFILL = {"R": lambda *a: rglru.rglru_prefill(*a),
+               "M": lambda *a: ssm.mlstm_prefill(*a),
+               "S": lambda *a: ssm.slstm_prefill(*a)}
+REC_DECODE = {"R": lambda *a: rglru.rglru_decode(*a),
+              "M": lambda *a: ssm.mlstm_decode(*a),
+              "S": lambda *a: ssm.slstm_decode(*a)}
 
 
 def _ffn_spec(cfg: ModelConfig) -> Dict:
     if cfg.is_moe:
         return {"ln2": layers.norm_spec(cfg), "moe": moe.moe_spec(cfg)}
-    return {"ln2": layers.norm_spec(cfg), "mlp": layers.mlp_spec(cfg)}
+    if cfg.d_ff > 0:
+        return {"ln2": layers.norm_spec(cfg), "mlp": layers.mlp_spec(cfg)}
+    return {}
 
 
 def layer_spec(code: str, cfg: ModelConfig) -> Dict:
     out = {"ln1": layers.norm_spec(cfg)}
-    if code == "R":
-        out["rec"] = rglru.rglru_spec(cfg)
+    if code in REC_CODES:
+        out["rec"] = REC_SPEC[code](cfg)
     else:
         out["attn"] = attn.attn_spec(cfg)
     if code == "C":
@@ -81,31 +104,40 @@ def layer_spec(code: str, cfg: ModelConfig) -> Dict:
 
 
 class TransformerModel:
-    """Global (``A``) or sliding-window (``W``) attention, RG-LRU (``R``)
-    or cross-attention (``C``) per layer, each followed by a gated or
-    plain MLP or an MoE FFN."""
+    """Global (``A``) or sliding-window (``W``) attention, RG-LRU (``R``),
+    mLSTM (``M``), sLSTM (``S``) or cross-attention (``C``) per layer,
+    each followed by a gated or plain MLP, an MoE FFN or no FFN.
+
+    What a request carries beside its prompt, for the engine: the key of
+    its per-request context (``extra_key``, None without ``C`` layers),
+    that context's shape (``extra_shape``) and the length of the
+    cross-attention K/V it projects to (``cross_len``)."""
 
     def __init__(self, cfg: ModelConfig):
         codes = cfg.pattern()
-        if (set(codes) - set(CODES)
-                or (not cfg.is_moe and cfg.d_ff <= 0)
-                or cfg.activation not in layers.ACTIVATIONS):
+        mlp = not cfg.is_moe and cfg.d_ff > 0
+        if set(codes) - set(CODES) or (
+                mlp and cfg.activation not in layers.ACTIVATIONS):
             raise UnsupportedFeature(
-                "the port runs 'A', 'W', 'R' and 'C' layers with a dense "
-                f"{'/'.join(layers.ACTIVATIONS)} MLP or an MoE FFN; pattern "
-                f"{cfg.layer_pattern!r} ('M' and 'S' layers) and activation "
-                f"{cfg.activation!r} are still to be ported",
+                f"the port runs the layer codes {CODES!r} with a dense "
+                f"{'/'.join(layers.ACTIVATIONS)} MLP, an MoE FFN or none; "
+                f"pattern {cfg.layer_pattern!r} and activation "
+                f"{cfg.activation!r} are not ported",
                 pattern=cfg.layer_pattern, activation=cfg.activation)
         self.cfg = cfg
         self.codes = codes
         self.n_attn_layers = sum(c in ATTN_CODES for c in codes)
-        self.n_rec_layers = codes.count("R")
+        self.n_rec_layers = sum(c in REC_CODES for c in codes)
         self.n_cross_layers = codes.count("C")
+        self.extra_key = "image_embeds" if self.n_cross_layers else None
+        self.extra_shape = (cfg.n_image_tokens, cfg.d_vision)
+        self.cross_len = cfg.n_image_tokens
         # windowed iff the pattern has 'W' layers (as the JAX model)
         self.window = cfg.window if "W" in codes else 0
-        # per layer: its index among the layers of its kind (attention,
-        # 'R' or 'C'), and its window (the JAX model's ai/ci counters)
-        self.slot = [codes[:li].count(c) if c in "RC"
+        # per layer: its index among the layers of its kind (attention, or
+        # its own code for 'R', 'M', 'S' and 'C'), and its window (the JAX
+        # model's ai/ci counters)
+        self.slot = [codes[:li].count(c) if c in "RMSC"
                      else sum(x in ATTN_CODES for x in codes[:li])
                      for li, c in enumerate(codes)]
         self.windows = [cfg.window if c == "W" else 0 for c in codes]
@@ -123,14 +155,18 @@ class TransformerModel:
 
     def init_rec_state(self, B: int, dtype=torch.float32, device=None
                        ) -> Optional[Dict]:
-        """The recurrent state of ``B`` sequences, zeros: ``{"R": {"h":
-        (n_R, B, w), "conv": (n_R, B, cw - 1, w)}}``, or None without
-        ``R`` layers."""
-        if not self.n_rec_layers:
-            return None
-        one = rglru.rglru_init_state(B, self.cfg, dtype, device)
-        return {"R": {k: v.unsqueeze(0).repeat(
-            (self.n_rec_layers,) + (1,) * v.dim()) for k, v in one.items()}}
+        """The recurrent state of ``B`` sequences, the blocks' zero states
+        stacked per code: ``{"R": {"h": (n_R, B, w), "conv": (n_R, B, cw
+        - 1, w)}, "M": {...}, "S": {...}}`` for the codes the pattern
+        has, or None without recurrent layers."""
+        out = {}
+        for code in REC_CODES:
+            n = self.codes.count(code)
+            if n:
+                one = REC_INIT[code](B, self.cfg, dtype, device)
+                out[code] = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
+                             for k, v in one.items()}
+        return out or None
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32,
                     device=None) -> Dict:
@@ -140,6 +176,8 @@ class TransformerModel:
     def _apply_ffn(self, p: Dict, x: torch.Tensor,
                    live: Optional[torch.Tensor] = None,
                    n_live: Optional[int] = None) -> torch.Tensor:
+        if "ln2" not in p:  # no FFN (d_ff == 0)
+            return x
         h = layers.apply_norm(p["ln2"], x)
         if "moe" in p:
             return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
@@ -187,9 +225,10 @@ class TransformerModel:
         must already map pages (the engine reserves before calling); the
         pools in ``state`` receive the prompts' K/V in place.  With the
         contiguous state (``k_buf``, ``v_buf``, ``slots``) the prompts'
-        K/V land by position in the buffer rows ``slots``.  With ``R``
+        K/V land by position in the buffer rows ``slots``.  With recurrent
         layers the returned state holds ``rec``: each row's recurrent
-        state after its own last token (``rglru.rglru_prefill``); with
+        state after its own last token (``rglru.rglru_prefill``,
+        ``ssm.mlstm_prefill``, ``ssm.slstm_prefill``); with
         ``C`` layers ``cross_k``/``cross_v`` of the rows' image context
         (``extra``).  ``n_live``: the live tokens, ``sum(lens)``."""
         cfg = self.cfg
@@ -200,27 +239,20 @@ class TransformerModel:
         live, n_live = self._live_tokens(lens, S, n_live)
         img = self.project_extra(params, extra)
         x = layers.embed_tokens(params["embed"], tokens)
-        rec, cross = [], []
+        rec, cross = {}, []
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
             code = self.codes[li]
-            if code == "R":
-                o, final = rglru.rglru_prefill(p["rec"], h, lens, cfg)
-                rec.append(final)
+            if code in REC_CODES:
+                o, final = REC_PREFILL[code](p["rec"], h, lens, cfg)
+                rec.setdefault(code, []).append(final)
             elif code == "C":
                 k, v = attn.cross_kv(p["attn"], img)
                 cross.append((k, v))
                 o = self._cross(p, h, k, v)
-            elif "k_buf" in state:
-                o = attn.attn_prefill_contiguous(
-                    p["attn"], h, cfg, state["k_buf"][self.slot[li]],
-                    state["v_buf"][self.slot[li]], state["slots"], lens,
-                    window=self.windows[li], impl=impl)
             else:
-                ai = self.slot[li]
-                o = attn.attn_prefill(
-                    p["attn"], h, cfg, state["k_pages"][ai],
-                    state["v_pages"][ai], state["tables"], lens,
+                o = attn.self_attn_prefill(
+                    p["attn"], h, cfg, state, self.slot[li], lens,
                     window=self.windows[li], impl=impl)
             x = self._apply_ffn(p, x + o, live, n_live)
         x = layers.apply_norm(params["ln_f"], x)
@@ -229,8 +261,9 @@ class TransformerModel:
         logits = layers.unembed(params["embed"], last, cfg)
         out = dict(state, pos=lens)
         if rec:
-            out["rec"] = {"R": {k: torch.stack([r[k] for r in rec])
-                                for k in rec[0]}}
+            out["rec"] = {code: {k: torch.stack([r[k] for r in finals])
+                                 for k in finals[0]}
+                          for code, finals in rec.items()}
         if cross:
             out["cross_k"] = torch.stack([k for k, _ in cross])
             out["cross_v"] = torch.stack([v for _, v in cross])
@@ -265,8 +298,9 @@ class TransformerModel:
         keep theirs) or none (``reuse``).  ``extra`` holds the image
         embeddings of every row of the batch.
 
-        Recurrent (``R``) layers are not chunkable, as in the JAX package:
-        their state would have to be carried across chunks.
+        Recurrent (``R``, ``M``, ``S``) layers are not chunkable, as in
+        the JAX package: their state would have to be carried across
+        chunks.
         """
         cfg = self.cfg
         if self.n_rec_layers:
@@ -276,16 +310,13 @@ class TransformerModel:
                 "state across chunks is an open ROADMAP item",
                 pattern=cfg.layer_pattern)
         B, C = tokens.shape
-        dev = tokens.device
         live, n_live = self._live_tokens(q_lens, C, n_live)
         mode, rows, img = "reuse", None, None
         if self.n_cross_layers:
-            firsts = torch.nonzero(q_start.cpu() == 0).flatten()
-            if "cross_k" not in state or len(firsts) == B:
-                mode = "full"
+            mode, rows = attn.chunk_cross_mode(q_start, state)
+            if mode == "full":
                 img = self.project_extra(params, extra)
-            elif len(firsts):
-                mode, rows = "partial", firsts.to(dev)
+            elif mode == "partial":
                 img = self.project_extra(params, {
                     "image_embeds": extra["image_embeds"][rows]})
         x = layers.embed_tokens(params["embed"], tokens)
@@ -293,15 +324,8 @@ class TransformerModel:
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
             if self.codes[li] == "C":
-                ci = self.slot[li]
-                if mode == "full":
-                    k, v = attn.cross_kv(p["attn"], img)
-                else:
-                    k, v = state["cross_k"][ci], state["cross_v"][ci]
-                    if mode == "partial":  # fresh K/V of the first rows
-                        k_new, v_new = attn.cross_kv(p["attn"], img)
-                        k = k.index_put((rows,), k_new.to(k.dtype))
-                        v = v.index_put((rows,), v_new.to(v.dtype))
+                k, v = attn.chunk_cross_kv(p["attn"], img, state,
+                                           self.slot[li], mode, rows)
                 cross.append((k, v))
                 x = x + self._cross(p, h, k, v)
             else:
@@ -333,7 +357,7 @@ class TransformerModel:
         attention layer appends its K/V to the pools in place and attends
         over the pages through the block table (with the contiguous state:
         stores its K/V at ``pos`` in ``k_buf``/``v_buf`` and attends over
-        the buffers); each ``R`` layer steps its recurrent state in
+        the buffers); each recurrent layer steps its state in
         ``state["rec"]``, in place; each ``C`` layer attends over
         ``state["cross_k"]``/``["cross_v"]``.  ``live`` (B,) bool marks
         the rows whose tokens the MoE FFN routes (None: every row), and
@@ -345,10 +369,10 @@ class TransformerModel:
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
             code = self.codes[li]
-            if code == "R":
+            if code in REC_CODES:
                 ri = self.slot[li]
-                rec = state["rec"]["R"]
-                o, new = rglru.rglru_decode(
+                rec = state["rec"][code]
+                o, new = REC_DECODE[code](
                     p["rec"], h, {k: v[ri] for k, v in rec.items()}, cfg)
                 for k, v in new.items():
                     rec[k][ri] = v
@@ -356,16 +380,9 @@ class TransformerModel:
                 ci = self.slot[li]
                 o = self._cross(p, h, state["cross_k"][ci],
                                 state["cross_v"][ci])
-            elif "k_buf" in state:
-                o = attn.attn_decode_contiguous(
-                    p["attn"], h, cfg, state["k_buf"][self.slot[li]],
-                    state["v_buf"][self.slot[li]], pos,
-                    window=self.windows[li])
             else:
-                ai = self.slot[li]
-                o = attn.attn_decode(
-                    p["attn"], h, cfg, state["k_pages"][ai],
-                    state["v_pages"][ai], state["tables"], pos,
+                o = attn.self_attn_decode(
+                    p["attn"], h, cfg, state, self.slot[li],
                     window=self.windows[li], impl=impl,
                     pages_per_block=pages_per_block, num_splits=num_splits)
             x = self._apply_ffn(p, x + o, live, n_live)

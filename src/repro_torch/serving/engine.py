@@ -23,22 +23,25 @@ with the decode of the RUNNING rows.  ``prefix_cache=True`` shares the
 full pages of a common prompt head across requests (``core.prefix_cache``):
 admission attaches to the longest cached prefix and prefill runs only the
 suffix; it refuses windowed models, as the JAX engine does (their ring
-pages are overwritten in place).  Recurrent (``R``) layers refuse
-``prefill_chunk`` and ``prefix_cache``, as in the JAX engine; their state
+pages are overwritten in place).  Recurrent (``R``, ``M``, ``S``) layers
+refuse ``prefill_chunk`` and ``prefix_cache``, as in the JAX engine; their
+state
 lives per slot (``state["rec"]``), is written for the admitted slots
 after each monolithic prefill and stepped by every decode.
 
-Cross-attention (``C``) layers read a per-request image context:
-``add_request(req, extra)`` takes ``extra["image_embeds"]`` of shape
-(n_image_tokens, d_vision) and refuses a cross model's request without
-it (``InvalidRequest``) before it holds anything.  The projected K/V live
-per slot (``state["cross_k"]``/``["cross_v"]``, (n_cross, max_slots,
-n_image_tokens, Hkv, D)), written for the admitted slots after a
+Cross-attention reads a per-request context, which the model names: its
+key ``model.extra_key`` and shape ``model.extra_shape`` — a VLM's
+``image_embeds`` (n_image_tokens, d_vision), an encoder-decoder's
+``frames`` (n_audio_frames, d_model).  ``add_request(req, extra)``
+refuses a cross model's request without it (``InvalidRequest``) before
+it holds anything.  The projected K/V live per slot
+(``state["cross_k"]``/``["cross_v"]``, (model.n_cross_layers, max_slots,
+model.cross_len, Hkv, D)), written for the admitted slots after a
 monolithic prefill and after each chunk that holds a request's first
 chunk, and copied to a fork's child.  Cross models refuse the prefix
 cache, as the JAX engine does: their self-attention K/V depend on the
-image, not on the tokens alone.  MoE FFNs route only the live tokens:
-the engine passes each step's live-token count from the host.
+image or audio, not on the tokens alone.  MoE FFNs route only the live
+tokens: the engine passes each step's live-token count from the host.
 
 Sliding-window (``W``) layers keep their K/V in a ring of ``ceil(window
 / P) + 1`` pages, the first columns of each table row.  When every
@@ -52,7 +55,8 @@ all the same.
 buffer per slot (``state["k_buf"]``/``state["v_buf"]``), written by
 position.  Prefill attention is K4 as in the paged engine, decode
 attention the plain contiguous path, and every layer (``A``, ``W``,
-``R``, ``C``) runs through the model's one loop.  The host page manager
+``R``, ``M``, ``S``, ``C``, an encoder-decoder's) runs through the
+model's one loop.  The host page manager
 still admits by pages, as in the JAX engine.  The baseline refuses
 ``prefill_chunk``, ``prefix_cache`` and ``kv_dtype="int8"``
 (``EngineConfigError``): the JAX baseline mixes int8 and unquantised K/V.
@@ -238,9 +242,9 @@ class Engine:
                                         self.device)
         if rec is not None:  # recurrent state slots
             st["rec"] = rec
-        if self.model.n_cross_layers:  # per-slot image K/V
+        if self.model.n_cross_layers:  # per-slot image or audio K/V
             ck = (self.model.n_cross_layers, self.max_slots,
-                  cfg.n_image_tokens, Hkv, hd)
+                  self.model.cross_len, Hkv, hd)
             st["cross_k"] = torch.zeros(ck, dtype=self.dtype,
                                         device=self.device)
             st["cross_v"] = torch.zeros(ck, dtype=self.dtype,
@@ -252,25 +256,25 @@ class Engine:
                     ) -> int:
         """Validate and enqueue ``req``, with its per-request context
         ``extra`` (a model with cross-attention layers needs
-        ``extra["image_embeds"]``, (n_image_tokens, d_vision); other
-        models ignore it).
+        ``extra[model.extra_key]`` of shape ``model.extra_shape``: image
+        embeddings or audio frames; other models ignore it).
 
         Raises structured errors before the request holds any resources:
         ``InvalidRequest`` (bad sampling params, a cross model's missing
-        or mis-shaped image embeddings), ``RequestTooLong`` (prompt +
+        or mis-shaped context), ``RequestTooLong`` (prompt +
         budget exceeds max_seq_len), or ``Backpressure`` (wait queue
         full, or the pool above the admission watermark; it carries a
         retry hint).
         """
         validate_sample_params(req)
-        if self.model.n_cross_layers:
-            want = (self.cfg.n_image_tokens, self.cfg.d_vision)
-            got = tuple(getattr((extra or {}).get("image_embeds"),
-                                "shape", ()))
+        key = self.model.extra_key
+        if key is not None:
+            want = tuple(self.model.extra_shape)
+            got = tuple(getattr((extra or {}).get(key), "shape", ()))
             if got != want:
                 raise InvalidRequest(
-                    "a cross-attention model needs extra['image_embeds'] "
-                    f"of shape {want}, got {got or None}", rid=req.rid)
+                    f"a cross-attention model needs extra[{key!r}] of "
+                    f"shape {want}, got {got or None}", rid=req.rid)
         if req.prompt_len + req.max_new_tokens > self.max_seq_len:
             raise RequestTooLong(
                 f"request exceeds engine max_seq_len: prompt_len "
@@ -468,7 +472,7 @@ class Engine:
         st["pos"][slot] = st["pos"][src.slot]
         if "_extra" in src.metrics:  # a re-prefill after preemption
             child.metrics["_extra"] = src.metrics["_extra"]
-        for key in ("cross_k", "cross_v"):  # the parent's image K/V
+        for key in ("cross_k", "cross_v"):  # the parent's cross K/V
             if key in st:
                 st[key][:, slot] = st[key][:, src.slot]
         if "rec" in st:  # the parent's recurrent state
@@ -542,7 +546,7 @@ class Engine:
             for code, tree in new_st["rec"].items():
                 for k, v in tree.items():
                     st["rec"][code][k][:, idx] = v
-        for key in ("cross_k", "cross_v"):  # their image K/V
+        for key in ("cross_k", "cross_v"):  # their cross K/V
             if key in new_st:
                 st[key][:, idx] = new_st[key]
         for i, r in enumerate(reqs):
@@ -575,7 +579,7 @@ class Engine:
                    q_lens: np.ndarray) -> torch.Tensor:
         """One ``prefill_chunk`` call over the rows of ``batch`` (rows past
         ``slots`` are dead padding, posing as resumes); the live slots'
-        positions advance to ``starts + q_lens``, and their image K/V are
+        positions advance to ``starts + q_lens``, and their cross K/V are
         written back.  Returns each row's last-live-token logits."""
         n, B = len(slots), batch.shape[0]
         tables = np.full((B, self.pages_per_seq), -1, np.int32)
@@ -584,7 +588,7 @@ class Engine:
         sub_state = {"k_pages": st["k_pages"], "v_pages": st["v_pages"],
                      "tables": torch.from_numpy(tables).to(self.device)}
         idx = torch.as_tensor(slots, device=self.device)
-        for key in ("cross_k", "cross_v"):  # the rows' cached image K/V
+        for key in ("cross_k", "cross_v"):  # the rows' cached cross K/V
             if key in st:
                 sub = st[key].new_zeros((st[key].shape[0], B)
                                         + st[key].shape[2:])
@@ -606,18 +610,18 @@ class Engine:
 
     def _collect_extra(self, reqs: List[Request],
                        pad_to: Optional[int] = None) -> Optional[Dict]:
-        """The batch's image embeddings (B, n_image_tokens, d_vision) on
-        the device, zeros for rows without them (padding rows), or None
-        for a model without cross-attention layers."""
-        if not self.model.n_cross_layers:
+        """The batch's per-request context ``{model.extra_key}`` of shape
+        (B, *model.extra_shape) on the device, zeros for rows without it
+        (padding rows), or None for a model without cross-attention."""
+        key = self.model.extra_key
+        if key is None:
             return None
-        img = torch.zeros((pad_to or len(reqs), self.cfg.n_image_tokens,
-                           self.cfg.d_vision), dtype=self.dtype,
-                          device=self.device)
+        ctx = torch.zeros((pad_to or len(reqs), *self.model.extra_shape),
+                          dtype=self.dtype, device=self.device)
         for i, r in enumerate(reqs):
             if "_extra" in r.metrics:
-                img[i] = torch.as_tensor(r.metrics["_extra"]["image_embeds"])
-        return {"image_embeds": img}
+                ctx[i] = torch.as_tensor(r.metrics["_extra"][key])
+        return {key: ctx}
 
     def _cache_insert_live(self, reqs: List[Request]) -> None:
         """Index each request's written full pages into the prefix cache

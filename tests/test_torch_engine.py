@@ -1,9 +1,9 @@
 """PyTorch port: one greedy ``serve_batch``-style wave through the port's
 engine gives the JAX ``Engine(impl="ref")``'s tokens, token for token,
 with the same preemptions (8 slots, an oversubscribed pool); the sampler's
-top-k / top-p masks equal the JAX ones on the same logits; what the port
-still refuses (unported model families and layer codes, per-request
-context) raises, and cancel releases a running request."""
+top-k / top-p masks equal the JAX ones on the same logits; every model
+family builds and an unknown layer code raises; a request may carry
+per-request context, and cancel releases a running request."""
 
 import jax
 import jax.numpy as jnp
@@ -82,27 +82,31 @@ def test_sampler_masks_match_reference():
 
 
 def test_unported_features_raise():
-    """What the port still refuses: the model families it has not ported
-    (``UnsupportedFeature`` from the engine) and the layer codes 'M' and
-    'S'.  The MoE and cross-attention families are served (held against
-    the JAX package in ``tests/test_torch_moe.py`` and
-    ``test_torch_vlm.py``), and a request may carry per-request context
-    (``add_request(req, extra)``), which a model without cross-attention
-    layers ignores.  The engine's own surface (the baseline, fork, faults)
-    is ported and held against the JAX package in
-    ``tests/test_torch_contiguous.py``, ``test_torch_fork.py`` and
-    ``test_torch_faults.py``.  Cancellation releases a running request's
-    pages."""
-    for name in ("granite-moe-1b-a400m", "llama-3.2-vision-11b"):
+    """Every family of the JAX package is built: the MoE, cross-attention,
+    encoder-decoder and xLSTM families are served (held against the JAX
+    package in ``tests/test_torch_moe.py``, ``test_torch_vlm.py``,
+    ``test_torch_encdec.py`` and ``test_torch_ssm.py``), and so are the
+    layer codes 'M' and 'S' beside attention layers; a layer code the
+    JAX package does not have is refused (``UnsupportedFeature``).  A
+    request may carry per-request context (``add_request(req, extra)``),
+    which a model without cross-attention layers ignores.  The engine's
+    own surface (the baseline, fork, faults) is ported and held against
+    the JAX package in ``tests/test_torch_contiguous.py``,
+    ``test_torch_fork.py`` and ``test_torch_faults.py``.  Cancellation
+    releases a running request's pages."""
+    for name in ("granite-moe-1b-a400m", "llama-3.2-vision-11b",
+                 "whisper-medium", "xlstm-350m"):
         Engine(tget_smoke(name), device="cpu")
-    for name in ("whisper-medium", "xlstm-350m"):
-        with pytest.raises(UnsupportedFeature):
-            Engine(tget_smoke(name), device="cpu")
     cfg = tget_smoke("llama2-7b")
     Engine(cfg.replace(layer_pattern="CA", family="vlm"), device="cpu")
     for pattern in ("AM", "AS"):
-        with pytest.raises(UnsupportedFeature):
-            Engine(cfg.replace(layer_pattern=pattern), device="cpu")
+        eng = Engine(cfg.replace(layer_pattern=pattern), device="cpu",
+                     max_slots=2, max_seq_len=32)
+        assert set(eng.state["rec"]) == {pattern[1]}
+        assert eng.generate([Request(prompt=[1, 2, 3], max_new_tokens=2)]
+                            )[0].status is Status.FINISHED
+    with pytest.raises(UnsupportedFeature):
+        Engine(cfg.replace(layer_pattern="AX"), device="cpu")
     eng = Engine(cfg, device="cpu", max_slots=2, max_seq_len=32)
     req = Request(prompt=[1, 2, 3], max_new_tokens=8)
     with pytest.raises(InvalidRequest):

@@ -25,9 +25,10 @@ def test_build_model_families():
     build_model(tget_smoke("olmoe-1b-7b"))  # moe
     build_model(tget_smoke("llama-3.2-vision-11b"))  # vlm: 'C' and 'A'
     build_model(tget_smoke("recurrentgemma-9b"))  # rglru: 'R' and 'W'
-    for name in ("xlstm-350m", "whisper-medium"):
-        with pytest.raises(UnsupportedFeature):
-            build_model(tget_smoke(name))
+    assert build_model(tget_smoke("xlstm-350m")).codes == "MS"  # xlstm
+    assert build_model(tget_smoke("whisper-medium")).extra_key == "frames"
+    with pytest.raises(UnsupportedFeature):  # whisper's MLP is ungated
+        build_model(tget_smoke("whisper-medium").replace(activation="silu"))
     with pytest.raises(EngineConfigError):
         build_model(tget_smoke("llama2-7b").replace(family="nope"))
 
