@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # from the root of a checkout
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
+    python3 chip_smoke.py --train-only    # build + training phase only
 
 Phases, each of which fails the script (exit code 1) when it fails:
 
@@ -234,6 +235,22 @@ Phases, each of which fails the script (exit code 1) when it fails:
    tokens and logits it gets alone, and prefill over 1000 tokens plus one
    decode step gives the last logits of prefill over the 1001 tokens
    within ``MODEL_TOL``.
+17. training (after 16), in f32: llama2-7b at full width and 4 layers
+   (1.07 B parameters), 30 AdamW steps of the launcher's path
+   (``launch.train.train``, the chunked attention) on
+   ``synthetic_batches(4, 512, 32000, seed=0)``: every loss finite, the
+   mean of the last 5 below the first 5's by ``TRAIN_MARGIN``, no kernel
+   launched; step ms by CUDA events, tok/s, peak memory, a profiled step
+   by kind; on the trained weights: ``"ref"`` against ``"chunked"`` at B
+   1 x S 2048 (loss 1e-5, grad norm 1e-4, relative), K4's forward
+   without grad (``tf32x3`` within ``MODEL_TOL``, the bf16 weights on
+   ``tc`` within ``BF16_MODEL_TOL``), and the paper's perplexity
+   equivalence: two held-out 256-token sequences scored teacher-forced
+   through K4, by paged decode through K1/K2 (pages of 64) and by the
+   plain forward, within ``NLL_TOL``; then granite-moe-1b-a400m at full
+   width and depth (capacity 1.25), 10 steps at B 4 x S 512: aux finite,
+   ce falling, step ms, peak memory and the share of dropped expert
+   choices.  ``--train-only`` runs the build and this phase alone.
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -285,10 +302,12 @@ and prints no result.
 
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -2812,6 +2831,7 @@ def int8_engine_phase(torch, params, bf16):
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_map
 
     cfg = get_config("llama2-7b").replace(kv_dtype="int8")
     torch.cuda.reset_peak_memory_stats()
@@ -2917,7 +2937,7 @@ def int8_engine_phase(torch, params, bf16):
     pool = (cfg.n_layers, -(-(n + 2) // cfg.page_size), cfg.page_size,
             cfg.n_kv_heads, cfg.resolved_head_dim)
     model = build_model(cfg)
-    p32 = _map(params, lambda x: x.float())
+    p32 = tree_map(lambda x: x.float(), params)
     tape = Int8Tape(torch)
     out, lcounts = logits_pair(torch, model, params, tokens, pool, 512,
                                pool_dtype=torch.int8, tape=tape,
@@ -3212,6 +3232,7 @@ def nemotron_engine_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import ops
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3222,7 +3243,7 @@ def nemotron_engine_phase(torch):
     eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
                  seed=SEED)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(eng.params))
+    n_params = sum(x.numel() for x in tree_leaves(eng.params))
     log(f"nemotron-4-15b phase: {cfg.n_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} (G {G}), "
         f"D {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
@@ -3317,27 +3338,6 @@ def nemotron_engine_phase(torch):
     return stats
 
 
-def _map(tree, fn):
-    """``tree`` (nested dicts and lists of tensors) with ``fn`` applied to
-    every tensor."""
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map(x, fn) for x in tree)
-    return fn(tree)
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (list, tuple)):
-        for x in tree:
-            yield from _leaves(x)
-    else:
-        yield tree
-
-
 def profile_steps_on(torch, eng, cfg, rng):
     """One profiled decode step of 8 fresh short requests, after a step
     that prefills them (the launch counts were read before)."""
@@ -3367,6 +3367,7 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
     int8 tape forces K/V.  Returns
     {impl: (3, V) logits} and the kernel path's launch counts."""
     from repro_torch import kernels
+    from repro_torch.utils.tree import tree_leaves
     dev = tokens.device
     n = tokens.shape[1]
     pps = pool[1]
@@ -3377,7 +3378,7 @@ def logits_pair(torch, model, params, tokens, pool, chunk=None,
     for impl in ("ref", "kernel"):
         w = ref_params if impl == "ref" and ref_params is not None else (
             params)
-        dtype = pool_dtype or next(_leaves(w)).dtype
+        dtype = pool_dtype or tree_leaves(w)[0].dtype
         st = {"pos": lens_t, "tables": tables,
               "k_pages": torch.zeros(pool, dtype=dtype, device=dev),
               "v_pages": torch.zeros(pool, dtype=dtype, device=dev)}
@@ -3427,13 +3428,14 @@ def layer_gaps(torch, model, params, tokens, pool, extra=None, forced=False,
     routing.  Returns (the distances per layer, the plain path's norm
     ``||b||`` per layer, the last token's logits' max|err| as a share of
     1 + max|logit|, None when ``forced``)."""
+    from repro_torch.utils.tree import tree_leaves
     dev = tokens.device
     n = tokens.shape[1]
     pps = pool[1]
     tables = torch.arange(pps, dtype=torch.int32, device=dev).reshape(1, 1,
                                                                        pps)
     lens_t = torch.tensor([n], dtype=torch.int32, device=dev)
-    dtype = next(_leaves(params)).dtype
+    dtype = tree_leaves(params)[0].dtype
     plain_ffn, seen, gaps, norms, logits = model._apply_ffn, [], [], [], {}
     for impl in ("ref", "kernel"):
         calls = iter(range(len(model.codes)))
@@ -3561,6 +3563,7 @@ def nemotron_340b_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3573,7 +3576,7 @@ def nemotron_340b_phase(torch):
     t0 = time.perf_counter()
     params = model.init_params(gen, torch.bfloat16, dev)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in tree_leaves(params))
     log(f"nemotron-4-340b phase: 2 layers at full width (d_model "
         f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, D "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}), bf16 "
@@ -3645,8 +3648,9 @@ def nemotron_340b_phase(torch):
 
 def rec_state_bytes(eng):
     """Bytes of the engine's recurrent state (``state["rec"]``)."""
+    from repro_torch.utils.tree import tree_leaves
     return sum(x.numel() * x.element_size()
-               for x in _leaves(eng.state.get("rec", {})))
+               for x in tree_leaves(eng.state.get("rec", {})))
 
 
 def rglru_scan_ms(torch, cfg, B, S, dtype):
@@ -3685,6 +3689,7 @@ def rglru_engine_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models.api import build_model
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3695,7 +3700,7 @@ def rglru_engine_phase(torch):
     eng = Engine(cfg, max_slots=8, max_seq_len=3072, pool_tokens=8 * 3072,
                  dtype=torch.bfloat16, seed=SEED)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(eng.params))
+    n_params = sum(x.numel() for x in tree_leaves(eng.params))
     ring = -(-cfg.window // cfg.page_size) + 1
     if eng.pages_per_seq != ring:
         fail(f"recurrentgemma-9b: tables of {eng.pages_per_seq} pages, not "
@@ -3784,7 +3789,7 @@ def rglru_engine_phase(torch):
                            device=dev)
     model = build_model(cfg)
     pool = (model.n_attn_layers, ring, cfg.page_size, cfg.n_kv_heads, D)
-    p32 = _map(params, lambda x: x.float())
+    p32 = tree_map(lambda x: x.float(), params)
     out, lcounts = logits_pair(torch, model, params, tokens, pool,
                                ref_params=p32)
     del p32
@@ -3980,14 +3985,15 @@ def weight_bytes(params, moe_only=False):
     """Bytes of the weights a decode step reads: every layer's (only the
     experts with ``moe_only``) and the unembedding; the embedding table
     gives only the batch's rows unless it is tied to the unembedding."""
+    from repro_torch.utils.tree import tree_leaves
     layers = params["layers"]
     if moe_only:
         return sum(x.numel() * x.element_size() for p in layers
                    if "moe" in p for k, x in p["moe"].items()
                    if k != "router")
-    total = sum(x.numel() * x.element_size() for x in _leaves(layers))
+    total = sum(x.numel() * x.element_size() for x in tree_leaves(layers))
     emb = params["embed"]
-    total += sum(x.numel() * x.element_size() for x in _leaves(params["ln_f"]))
+    total += sum(x.numel() * x.element_size() for x in tree_leaves(params["ln_f"]))
     head = emb.get("head", emb["tok"])
     return total + head.numel() * head.element_size()
 
@@ -4108,6 +4114,7 @@ def moe_engine_phase(torch, name):
     from repro_torch.models import moe
     from repro_torch.models.api import build_model
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4118,7 +4125,7 @@ def moe_engine_phase(torch, name):
     eng = Engine(cfg, max_slots=8, max_seq_len=2048, dtype=torch.bfloat16,
                  seed=SEED)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(eng.params))
+    n_params = sum(x.numel() for x in tree_leaves(eng.params))
     experts_b = weight_bytes(eng.params, moe_only=True)
     step_b = weight_bytes(eng.params)
     log(f"{name} phase: {cfg.n_layers} layers, d_model {cfg.d_model}, "
@@ -4227,7 +4234,7 @@ def moe_engine_phase(torch, name):
     model = build_model(cfg)
     pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
             cfg.page_size, cfg.n_kv_heads, D)
-    p32 = _map(params, lambda x: x.float())
+    p32 = tree_map(lambda x: x.float(), params)
     tape = RouteTape(torch)
     out, lcounts = logits_pair(torch, model, params, tokens, pool,
                                tape=tape, ref_params=p32)
@@ -4365,6 +4372,7 @@ def vlm_engine_phase(torch):
     from repro_torch.models import attention
     from repro_torch.models.api import build_model
     from repro_torch.serving import Engine, Request, Status
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4378,7 +4386,7 @@ def vlm_engine_phase(torch):
     set_gates(torch, eng.params, rng)
     params = eng.params
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in tree_leaves(params))
     step_b = weight_bytes(params)
     cross_b = sum(eng.state[k].numel() * eng.state[k].element_size()
                   for k in ("cross_k", "cross_v"))
@@ -4504,7 +4512,7 @@ def vlm_engine_phase(torch):
     pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
             cfg.page_size, cfg.n_kv_heads, D)
     img = {"image_embeds": extras[1]["image_embeds"][None]}
-    p32 = _map(params, lambda x: x.float())
+    p32 = tree_map(lambda x: x.float(), params)
     out32, c32 = logits_pair(torch, model, p32, tokens, pool, extra=img)
     out16, c16 = logits_pair(torch, model, params, tokens, pool, extra=img)
     # where the bf16 paths part: layer by layer, free and each layer from
@@ -4680,13 +4688,14 @@ def whisper_step_bytes(params):
     """Bytes of the weights a whisper decode step reads: every decoder
     layer's but its cross-attention K/V projections (used at prefill
     only), the final norm and the tied embedding as the unembedding."""
+    from repro_torch.utils.tree import tree_leaves
     total = 0
     for p in params["dec"]:
         for k, v in p.items():
             if k == "cross_attn":
                 v = {n: x for n, x in v.items() if n in ("wq", "wo")}
-            total += sum(x.numel() * x.element_size() for x in _leaves(v))
-    total += sum(x.numel() * x.element_size() for x in _leaves(params["ln_f"]))
+            total += sum(x.numel() * x.element_size() for x in tree_leaves(v))
+    total += sum(x.numel() * x.element_size() for x in tree_leaves(params["ln_f"]))
     tok = params["embed"]["tok"]
     return total + tok.numel() * tok.element_size()
 
@@ -4731,6 +4740,7 @@ def whisper_engine_phase(torch):
     from repro_torch.models.api import build_model
     from repro_torch.models.encdec import EncDecModel
     from repro_torch.serving import Engine, Request, Status
+    from repro_torch.utils.tree import tree_leaves, tree_map
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -4743,7 +4753,7 @@ def whisper_engine_phase(torch):
     set_tok(torch, eng.params, SEED + 23)
     params = eng.params
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(params))
+    n_params = sum(x.numel() for x in tree_leaves(params))
     step_b = whisper_step_bytes(params)
     cross_b = sum(eng.state[k].numel() * eng.state[k].element_size()
                   for k in ("cross_k", "cross_v"))
@@ -4914,7 +4924,7 @@ def whisper_engine_phase(torch):
     pool = (model.n_attn_layers, -(-(n + 2) // cfg.page_size),
             cfg.page_size, cfg.n_kv_heads, D)
     fr = {"frames": extras[1]["frames"][None]}
-    p32 = _map(params, lambda x: x.float())
+    p32 = tree_map(lambda x: x.float(), params)
     out, lcounts = logits_pair(torch, model, params, tokens, pool, extra=fr,
                                ref_params=p32)
     del p32, params
@@ -5075,6 +5085,7 @@ def xlstm_engine_phase(torch):
     from repro_torch.configs import get_config
     from repro_torch.models import ssm
     from repro_torch.serving import Engine, Request
+    from repro_torch.utils.tree import tree_leaves
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -5085,7 +5096,7 @@ def xlstm_engine_phase(torch):
                  seed=SEED)
     set_tok(torch, eng.params, SEED + 26)
     torch.cuda.synchronize()
-    n_params = sum(x.numel() for x in _leaves(eng.params))
+    n_params = sum(x.numel() for x in tree_leaves(eng.params))
     rec_b = rec_state_bytes(eng)
     step_b = weight_bytes(eng.params)
     log(f"xlstm-350m phase: {cfg.n_layers} blocks of pattern "
@@ -5211,6 +5222,413 @@ def xlstm_f32_check(torch):
              f"beyond {MODEL_TOL}")
     stats["prefill_then_decode"] = dict(max_err=err, scale=scale)
     return stats
+
+
+TRAIN_STEPS, TRAIN_WARM = 30, 2
+# the loss must fall by this much (nats) from the mean of the first 5
+# steps to the mean of the last 5 (fixed before the first run)
+TRAIN_MARGIN = 1.0
+NLL_TOL = 1e-4  # teacher-forced against paged-decode NLL, f32
+TRAIN_PARTS = ("_chunked_attention", "adamw_update", "clip_by_global_norm")
+
+
+class StepClock:
+    """``on_step`` hook of ``train_loop``: a CUDA event after every step
+    (step i takes the device time between the events of steps i - 1 and
+    i), and the step's metrics kept as device tensors (read after the
+    run, so the loop does not wait for the card)."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self.metrics = torch, [], []
+
+    def __call__(self, i, state, metrics):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+        self.metrics.append(metrics)
+
+    def step_ms(self, warm):
+        self.torch.cuda.synchronize()
+        return [self.events[i - 1].elapsed_time(self.events[i])
+                for i in range(max(warm, 1), len(self.events))]
+
+    def series(self, key):
+        return [float(m[key]) for m in self.metrics]
+
+
+def train_flops(cfg, B, S):
+    """Matmul operations of one training step (forward + backward = 3 x
+    the forward's 2 per multiply-add) of a dense model: every layer's
+    projections and MLP, the attention's two products over all S x S
+    pairs (the plain and chunked paths skip no tile), the unembedding."""
+    d, H, D, f = cfg.d_model, cfg.n_heads, cfg.resolved_head_dim, cfg.d_ff
+    Hkv = cfg.n_kv_heads
+    proj = d * (H + 2 * Hkv) * D + H * D * d + 3 * d * f
+    attn = 2 * H * S * D  # per token: q.K and p.V over S keys
+    fwd = 2 * B * S * (cfg.n_layers * (proj + attn) + d * cfg.vocab_size)
+    return 3 * fwd
+
+
+def grad_pass(torch, model, params, batch, impl):
+    """(loss, global grad norm) of one forward and backward."""
+    from repro_torch.training.optimizer import clip_by_global_norm
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    p = tree_map(lambda x: x.detach().requires_grad_(), params)
+    loss, _ = model.loss_fn(p, batch, impl=impl)
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad(loss, leaves)
+    _, gnorm = clip_by_global_norm(list(grads), 1.0)
+    return float(loss.detach()), float(gnorm)
+
+
+def attention_fwd_bwd_ms(torch, cfg, B, S):
+    """Device ms of one layer's chunked attention forward and backward at
+    the training shape, by events."""
+    from repro_torch.core import attention as core_attn
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = torch.randn((B, S, H, D), generator=gen, device=dev,
+                    requires_grad=True)
+    k = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
+                    requires_grad=True)
+    v = torch.randn((B, S, Hkv, D), generator=gen, device=dev,
+                    requires_grad=True)
+    g = torch.randn((B, S, H, D), generator=gen, device=dev)
+
+    def fwd_bwd():
+        o = core_attn.prefill_attention(q, k, v, impl="chunked")
+        torch.autograd.grad(o, (q, k, v), g)
+    return time_ms(torch, fwd_bwd, reps=5)
+
+
+def train_llama_phase(torch):
+    """llama2-7b at full width and 4 layers in f32 (1.07 B parameters,
+    17.2 GB of params, grads and AdamW moments): 30 steps of the launcher's
+    path (``launch.train.train``: ``synthetic_batches(4, 512, 32000,
+    seed=0)``, the chunked attention, lr 3e-4); every loss finite, the
+    mean of the last 5 below the mean of the first 5 by ``TRAIN_MARGIN``;
+    no kernel launched.  Step ms by CUDA events (median after 2 warm
+    steps), tok/s, peak memory, one profiled step by kind (the chunked
+    attention's forward, the optimizer and the clipping in columns of
+    their own) and one layer's attention forward + backward alone.
+    Returns (stats, the trained params, the model)."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import attention as core_attn
+    from repro_torch.data import synthetic_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.api import build_model
+    from repro_torch.training import loop
+    from repro_torch.training.loop import make_train_step, to_device
+    from repro_torch.utils.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama2-7b").replace(n_layers=4)
+    B, S, lr = 4, 512, 3e-4
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    clock = StepClock(torch)
+    t0 = time.perf_counter()
+    state, _ = launch_train.train(cfg, steps=TRAIN_STEPS, batch=B, seq=S,
+                                  lr=lr, impl="chunked",
+                                  log_every=TRAIN_STEPS, log_fn=log,
+                                  on_step=clock)
+    times = clock.step_ms(TRAIN_WARM)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    losses = clock.series("loss")
+    gnorms = clock.series("grad_norm")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    step_ms = statistics.median(times)
+    flops = train_flops(cfg, B, S)
+    stats = dict(
+        config=f"llama2-7b, 4 layers, f32, B {B} x S {S}, lr {lr}, chunked",
+        params=n_params, steps=TRAIN_STEPS, losses=losses, grad_norms=gnorms,
+        first5=first, last5=last, margin=TRAIN_MARGIN,
+        step_ms=step_ms, step_ms_all=times, tokens_per_s=B * S * 1e3 / step_ms,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall,
+        flops=flops, bound_ms=1e3 * flops / PEAK_OPS["float32"],
+        launches=counts)
+    log(f"train llama2-7b (4 layers, f32, {n_params / 1e9:.3f} B params): "
+        f"{TRAIN_STEPS} steps in {wall:.1f} s; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 5 {first:.4f}, last 5 {last:.4f}, margin "
+        f"{TRAIN_MARGIN}); step {step_ms:.2f} ms (median of "
+        f"{len(times)} after {TRAIN_WARM} warm; {min(times):.2f}-"
+        f"{max(times):.2f}), {stats['tokens_per_s']:.0f} tok/s, bound "
+        f"{stats['bound_ms']:.2f} ms ({flops / 1e12:.2f} TFLOP at 67 "
+        f"TFLOP/s), peak {stats['peak_gb']:.2f} GB; launches {counts}")
+    if not all(math.isfinite(x) for x in losses + gnorms):
+        fail(f"train llama2-7b: non-finite loss or grad norm {losses}")
+    if not first - last >= TRAIN_MARGIN:
+        fail(f"train llama2-7b: the loss fell by {first - last:.4f}, less "
+             f"than {TRAIN_MARGIN}")
+    if any(counts[k] for k in ("paged_decode", "combine", "paged_prefill",
+                               "flex_prefill")):
+        fail(f"train llama2-7b: a kernel launched while training: {counts}")
+    # one profiled step: the chunked attention's forward and the optimizer
+    # in columns of their own (the backward's kernels by name)
+    model = build_model(cfg)
+    step_fn = make_train_step(model, lr=lr, impl="chunked")
+    data = synthetic_batches(B, S, cfg.vocab_size, seed=SEED + 1)
+    box = {"state": state}
+
+    def one_step():
+        box["state"], _ = step_fn(box["state"], to_device(next(data),
+                                                          "cuda"))
+    one_step()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(annotated(torch, core_attn,
+                                      "_chunked_attention"))
+        stack.enter_context(annotated(torch, loop, "adamw_update"))
+        stack.enter_context(annotated(torch, loop, "clip_by_global_norm"))
+        stats["profile_step"] = profile_steps(
+            torch, types.SimpleNamespace(step=one_step), 1,
+            annotation=TRAIN_PARTS)
+    log_profile("train llama2-7b step", stats["profile_step"])
+    by = stats["profile_step"]["by_kind"]
+    busy = stats["profile_step"]["device_ms"] or 0.0
+    stats["split_ms"] = dict(
+        matmul=by["matmul"], attention_forward=by["_chunked_attention"],
+        optimizer=by["adamw_update"] + by["clip_by_global_norm"],
+        other=busy - by["matmul"] - by["_chunked_attention"]
+        - by["adamw_update"] - by["clip_by_global_norm"])
+    stats["busy_share"] = busy / step_ms
+    log(f"train llama2-7b step by kind (device ms): "
+        f"{ {k: round(v, 2) for k, v in stats['split_ms'].items()} }, busy "
+        f"{busy:.2f} ms = {stats['busy_share']:.3f} of the {step_ms:.2f} ms "
+        f"step (events; the profiler stretches its own wall); the "
+        f"backward's kernels are filed by name (matmul or other)")
+    stats["attention_fwd_bwd_ms_per_layer"] = attention_fwd_bwd_ms(
+        torch, cfg, B, S)
+    log(f"train llama2-7b: one layer's chunked attention forward + "
+        f"backward at B {B} x S {S}: "
+        f"{stats['attention_fwd_bwd_ms_per_layer']:.3f} ms (x "
+        f"{cfg.n_layers} layers)")
+    params = box["state"].params
+    del state, box
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, params, model
+
+
+@contextlib.contextmanager
+def dropped_first_page(torch):
+    """A planted fault in paged decode: once a row has passed its first
+    page, the decode attention (K1/K2) skips that page, as a kernel that
+    lost one page of keys would (its table rolled by one page, its length
+    less one page)."""
+    from repro_torch.core import attention as core_attn
+    real = core_attn.decode_attention
+
+    def faulty(q, k_pages, v_pages, tables, lens, **kw):
+        P = k_pages.shape[1]
+        past = lens > P
+        tables = torch.where(past[:, None], tables.roll(-1, dims=1), tables)
+        lens = torch.where(past, lens - P, lens)
+        return real(q, k_pages, v_pages, tables, lens, **kw)
+
+    core_attn.decode_attention = faulty
+    try:
+        yield
+    finally:
+        core_attn.decode_attention = real
+
+
+def train_eval_phase(torch, model, params):
+    """On the trained llama2-7b weights (f32): (a) ``"ref"`` against
+    ``"chunked"`` on one B 1 x S 2048 batch (4 q tiles x 2 kv tiles):
+    loss within 1e-5 and the global grad norm within 1e-4, relative; (b)
+    K4 without grad: ``forward(impl="kernel")`` logits (the f32 route
+    ``flex_prefill/tf32x3``) against ``impl="ref"`` within ``MODEL_TOL``
+    on a B 4 x S 512 batch, then the weights cast to bf16 (route ``tc``)
+    against the f32 plain forward within ``BF16_MODEL_TOL`` of the
+    logits' scale; (c) the paper's §IV-B3 check: two held-out 256-token
+    sequences (``synthetic_batches``, seed 9) scored teacher-forced
+    through K4, by prefill of the first token and paged decode steps
+    through K1/K2 (pages of 64), and by the plain forward: the mean NLLs
+    within ``NLL_TOL``; then a planted fault (``dropped_first_page``) must
+    move the paged-decode NLL by more than ``NLL_TOL``."""
+    from repro_torch import kernels
+    from repro_torch.data import synthetic_batches
+    from repro_torch.training.evaluate import (paged_decode_nll,
+                                               teacher_forced_nll)
+    from repro_torch.training.loop import to_device
+    from repro_torch.utils.tree import tree_map
+
+    cfg = model.cfg
+    stats = {}
+    batch = to_device(next(synthetic_batches(1, 2048, cfg.vocab_size,
+                                             seed=SEED + 2)), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    got = {impl: grad_pass(torch, model, params, batch, impl)
+           for impl in ("ref", "chunked")}
+    (lr_, gr), (lc, gc_) = got["ref"], got["chunked"]
+    stats["ref_vs_chunked"] = dict(
+        ref=got["ref"], chunked=got["chunked"],
+        loss_rel=abs(lc - lr_) / abs(lr_), gnorm_rel=abs(gc_ - gr) / abs(gr),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        launches=kernels.launch_counts())
+    r = stats["ref_vs_chunked"]
+    log(f"train eval: B 1 x S 2048, ref loss {lr_:.6f} gnorm {gr:.6f}, "
+        f"chunked loss {lc:.6f} gnorm {gc_:.6f}: rel {r['loss_rel']:.3e} "
+        f"(tol 1e-5), {r['gnorm_rel']:.3e} (tol 1e-4); peak "
+        f"{r['peak_gb']:.2f} GB")
+    if not r["loss_rel"] <= 1e-5 or not r["gnorm_rel"] <= 1e-4:
+        fail("train eval: ref and chunked disagree")
+    if any(r["launches"][k] for k in ("paged_decode", "combine",
+                                      "paged_prefill", "flex_prefill")):
+        fail(f"train eval: a kernel launched under autograd: "
+             f"{r['launches']}")
+    # (b) K4 forward without grad
+    tokens = torch.as_tensor(next(synthetic_batches(
+        4, 512, cfg.vocab_size, seed=SEED + 3))["inputs"], device="cuda")
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        want, _ = model.forward(params, tokens, impl="ref")
+        f32, _ = model.forward(params, tokens, impl="kernel")
+        c_f32 = kernels.launch_counts()
+        bf = tree_map(lambda x: x.to(torch.bfloat16), params)
+        kernels.reset_launch_counts()
+        b16, _ = model.forward(bf, tokens, impl="kernel")
+        c_b16 = kernels.launch_counts()
+        del bf
+    scale = float(want.abs().max())
+    e32 = float((f32 - want).abs().max())
+    e16 = float((b16.float() - want).abs().max())
+    stats["k4_forward"] = dict(f32_err=e32, bf16_err=e16, scale=scale,
+                               bf16_bound=BF16_MODEL_TOL * (1 + scale),
+                               launches_f32=c_f32, launches_bf16=c_b16)
+    log(f"train eval: forward B 4 x S 512, K4 (tf32x3) vs plain f32 logits "
+        f"max|err| {e32:.3e} (tol {MODEL_TOL:g}; max|logit| {scale:.3f}); "
+        f"bf16 weights on K4 (tc) vs f32 plain {e16:.3e} (bound "
+        f"{BF16_MODEL_TOL * (1 + scale):.3e}); launches f32 "
+        f"{c_f32['flex_prefill/tf32x3']}, bf16 {c_b16['flex_prefill/tc']}")
+    if not (bool(torch.isfinite(f32).all()) and bool(
+            torch.isfinite(b16).all())):
+        fail("train eval: non-finite K4 logits")
+    if e32 > MODEL_TOL or e16 > BF16_MODEL_TOL * (1 + scale):
+        fail("train eval: K4 forward logits beyond tolerance")
+    if (c_f32["flex_prefill/tf32x3"] != cfg.n_layers
+            or c_b16["flex_prefill/tc"] != cfg.n_layers):
+        fail(f"train eval: K4 launches {c_f32}, {c_b16}")
+    del want, f32, b16
+    # (c) perplexity equivalence
+    toks = torch.as_tensor(next(synthetic_batches(
+        2, 256, cfg.vocab_size, seed=9))["inputs"], device="cuda").long()
+    kernels.reset_launch_counts()
+    nll = dict(teacher_forced_k4=float(teacher_forced_nll(
+                   model, params, toks, impl="kernel")),
+               paged_decode_k1_k2=float(paged_decode_nll(
+                   model, params, toks, page_size=64, impl="kernel")))
+    counts = kernels.launch_counts()
+    nll["plain_forward"] = float(teacher_forced_nll(model, params, toks,
+                                                    impl="ref"))
+    spread = max(nll.values()) - min(nll.values())
+    stats["perplexity"] = dict(nll, spread=spread, tol=NLL_TOL,
+                               launches=counts)
+    log(f"train eval: held-out NLL (2 x 256, seed 9): teacher-forced K4 "
+        f"{nll['teacher_forced_k4']:.6f}, paged decode K1/K2 "
+        f"{nll['paged_decode_k1_k2']:.6f}, plain "
+        f"{nll['plain_forward']:.6f}; spread {spread:.3e} (tol "
+        f"{NLL_TOL:g}); launches {counts}")
+    if not all(math.isfinite(x) for x in nll.values()) or spread > NLL_TOL:
+        fail("train eval: the three NLLs disagree")
+    must = ("paged_decode", "combine/decode", "flex_prefill/tf32x3")
+    if any(counts[k] <= 0 for k in must) or counts["paged_prefill"]:
+        fail(f"train eval: launches {counts}")
+    # the check can fail: a paged decode that loses one page of keys
+    with dropped_first_page(torch):
+        faulty = float(paged_decode_nll(model, params, toks, page_size=64,
+                                        impl="kernel"))
+    moved = abs(faulty - nll["paged_decode_k1_k2"])
+    stats["perplexity"].update(dropped_page=faulty, dropped_page_moved=moved)
+    log(f"train eval: planted fault (K1/K2 skip each row's first page once "
+        f"past it): paged-decode NLL {faulty:.6f}, moved {moved:.3e} "
+        f"({moved / NLL_TOL:.1f} x NLL_TOL)")
+    if not moved > NLL_TOL:
+        fail("train eval: the NLL check does not see a dropped page")
+    stats["launches"] = [c_f32, c_b16, counts]
+    return stats
+
+
+def train_moe_phase(torch):
+    """granite-moe-1b-a400m at full width and depth in f32 (24 layers, 32
+    experts top-8 at capacity 1.25; 1.3 B parameters), B 4 x S 512, 10
+    steps of the launcher's path: the aux finite, ce falling (the mean of
+    the last 3 below the first 3's); step ms (median after 2 warm),
+    peak memory and the share of dropped expert choices."""
+    import gc
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.utils.tree import tree_leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("granite-moe-1b-a400m")
+    B, S, steps = 4, 512, 10
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    clock = StepClock(torch)
+    drops = DropCount(torch, slots=0)
+    t0 = time.perf_counter()
+    with drops.on():
+        state, _ = launch_train.train(cfg, steps=steps, batch=B, seq=S,
+                                      lr=3e-4, impl="chunked",
+                                      log_every=steps, log_fn=log,
+                                      on_step=clock)
+    times = clock.step_ms(TRAIN_WARM)
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    ce, aux = clock.series("ce"), clock.series("aux")
+    dropped, kept, live = drops.shares()["prefill"]
+    n_params = sum(x.numel() for x in tree_leaves(state.params))
+    step_ms = statistics.median(times)
+    stats = dict(params=n_params, ce=ce, aux=aux, step_ms=step_ms,
+                 step_ms_all=times, tokens_per_s=B * S * 1e3 / step_ms,
+                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                 dropped_share=dropped, kept=kept, live=live, wall_s=wall,
+                 launches=counts)
+    log(f"train granite-moe-1b-a400m (full depth, f32, {n_params / 1e9:.3f} "
+        f"B params, capacity {cfg.moe_capacity}): {steps} steps in "
+        f"{wall:.1f} s; ce {ce[0]:.4f} -> {ce[-1]:.4f}, aux {aux[0]:.4f} -> "
+        f"{aux[-1]:.4f}; step {step_ms:.2f} ms ({min(times):.2f}-"
+        f"{max(times):.2f}), {stats['tokens_per_s']:.0f} tok/s, peak "
+        f"{stats['peak_gb']:.2f} GB; dropped expert choices {dropped:.4f} "
+        f"({live - kept} of {live})")
+    if not all(math.isfinite(x) for x in ce + aux):
+        fail("train granite-moe: non-finite ce or aux")
+    if not statistics.mean(ce[-3:]) < statistics.mean(ce[:3]):
+        fail(f"train granite-moe: ce did not fall: {ce}")
+    if any(counts[k] for k in ("paged_decode", "combine", "paged_prefill",
+                               "flex_prefill")):
+        fail(f"train granite-moe: a kernel launched: {counts}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def train_phase(torch):
+    """The training phase (after the xLSTM checks): llama2-7b at full width
+    and 4 layers, its evaluation (ref against chunked, K4's forward, the
+    perplexity equivalence through K4, K1 and K2), and granite-moe-1b-a400m
+    at full width and depth."""
+    t0 = time.perf_counter()
+    llama, params, model = train_llama_phase(torch)
+    evals = train_eval_phase(torch, model, params)
+    del params
+    moe = train_moe_phase(torch)
+    out = dict(llama2_7b=llama, eval=evals, granite_moe=moe,
+               seconds=time.perf_counter() - t0)
+    log(f"training phase: {out['seconds']:.1f} s")
+    return out
 
 
 def headroom_pool(cfg, reqs, slots):
@@ -5979,6 +6397,9 @@ def main():
     ap.add_argument("--time-main", action="store_true",
                     help="build and time K1, K3 and K4 at the main path's "
                     "shapes only (an A/B probe); prints no result line")
+    ap.add_argument("--train-only", action="store_true",
+                    help="build and run the training phase only; prints "
+                    "no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run "
                     "(default: this checkout's; another tree's for an A/B "
@@ -6025,6 +6446,10 @@ def main():
         return
     if args.time_main:
         time_main(torch)
+        return
+    if args.train_only:
+        log(json.dumps(train_phase(torch)["llama2_7b"]["profile_step"]))
+        (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         return
     chk = Checker(torch)
     rows = kernel_phase(torch, chk)
@@ -6094,6 +6519,8 @@ def main():
     done("xlstm-350m phase")
     xlstm_f32 = xlstm_f32_check(torch)
     done("xlstm-350m f32 check")
+    train = train_phase(torch)
+    done("training phase")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -6165,7 +6592,8 @@ def main():
               + [whisper_f32[k]["launches"] for k in ("monolithic",
                                                        "chunked 128")]
               + list(whisper_f32["engine_launches"].values())
-              + [xlstm["monolithic"]["launches"]])
+              + [xlstm["monolithic"]["launches"]]
+              + train["eval"]["launches"])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []
@@ -6192,7 +6620,8 @@ def main():
          "recurrentgemma_9b_f32": rg_f32, "moe": moe_runs,
          "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32,
          "whisper_medium": whisper, "whisper_medium_f32": whisper_f32,
-         "xlstm_350m": xlstm, "xlstm_350m_f32": xlstm_f32},
+         "xlstm_350m": xlstm, "xlstm_350m_f32": xlstm_f32,
+         "train": train},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

@@ -1,9 +1,11 @@
 """Attention dispatch, one entry point per phase (port of
 ``repro.core.attention``, single-device paths).
 
-  * ``prefill_attention`` — full-sequence causal attention for prompt
-    prefill: the flex kernel K4 (``impl="kernel"``) or a dense plain path
-    (``impl="ref"``, the JAX ``"jnp"`` path);
+  * ``prefill_attention`` — full-sequence causal attention for training
+    and prompt prefill: the flex kernel K4 (``impl="kernel"``, forward
+    only), a dense plain path (``impl="ref"``, the JAX ``"jnp"`` path) or
+    the online softmax over tiles in plain ops (``impl="chunked"``, the
+    JAX ``"chunked"`` path, for training);
   * ``prefill_attention_paged`` — one prompt chunk per sequence against
     the paged KV pools (its K/V already written) through K3 and the
     combine (``impl="kernel"``) or the prefill oracle (``impl="ref"``);
@@ -18,7 +20,8 @@
     package (no kernel: the baseline is what the paged kernels beat).
 
 All functions are GQA-aware.  ``impl`` is "kernel" (the default) or
-"ref"; anything else raises ``EngineConfigError``.
+"ref" (``prefill_attention`` also takes "chunked"); anything else raises
+``EngineConfigError``.
 """
 
 from __future__ import annotations
@@ -29,12 +32,17 @@ from typing import Optional
 import torch
 
 from repro_torch.core import flex
-from repro_torch.kernels import check_impl
+from repro_torch.errors import UnsupportedFeature
+from repro_torch.kernels import IMPLS, check_impl
 from repro_torch.kernels.flex_attention.ops import flex_attention
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill)
 from repro_torch.kernels.paged_attention.paged_attention import (
     ring_slot_positions)
+
+# the training entry points (forward, loss_fn, the train step) also take
+# the chunked online-softmax attention in plain ops
+TRAIN_IMPLS = IMPLS + ("chunked",)
 
 
 def prefill_attention(
@@ -48,14 +56,24 @@ def prefill_attention(
     causal: bool = True,
     impl: str = "kernel",
 ) -> torch.Tensor:
-    """Full-sequence attention for prefill.  Returns (B, S, H, D).
+    """Full-sequence attention for training and prefill.  Returns (B, S,
+    H, D).
 
     ``impl="kernel"`` runs the flex kernel over the mask ``causal ∧
     padding(lens)`` (``window ∧ padding(lens)`` for ``window > 0``, with
     the analytic windowed block mask); ``impl="ref"`` the dense plain
-    path.
+    path; ``impl="chunked"`` the tiled online softmax in plain ops.  The
+    kernel has no backward (nor has the JAX package's): under autograd
+    with inputs that require grad, ``impl="kernel"`` raises
+    ``UnsupportedFeature`` instead of running another path.
     """
-    check_impl(impl)
+    check_impl(impl, TRAIN_IMPLS, "prefill_attention")
+    if impl == "kernel" and torch.is_grad_enabled() and (
+            q.requires_grad or k.requires_grad or v.requires_grad):
+        raise UnsupportedFeature(
+            "the flex kernel (K4) has no backward: train with impl='ref' "
+            "or 'chunked', or run impl='kernel' under torch.no_grad()",
+            impl=impl)
     mods = []
     if causal:
         mods.append(flex.sliding_window_mask(window) if window > 0
@@ -73,6 +91,8 @@ def prefill_attention(
     if impl == "kernel":
         out = flex_attention(qt, kt, vt, mask_mod=mask_mod,
                              score_mod=score_mod, window=window)
+    elif impl == "chunked":
+        out = _chunked_attention(qt, kt, vt, mask_mod, score_mod)
     else:
         out = _dense_attention(qt, kt, vt, mask_mod, score_mod)
     return out.transpose(1, 2)
@@ -97,6 +117,66 @@ def _dense_attention(q, k, v, mask_mod, score_mod):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bhkd->bhgqd", w.to(v.dtype), v)
     return out.reshape(B, H, Q, D)
+
+
+def _chunked_attention(q, k, v, mask_mod, score_mod,
+                       q_chunk: int = 512, kv_chunk: int = 1024):
+    """(B,H,Q,D)x(B,Hkv,K,D) online-softmax attention in (qc × kc) tiles.
+
+    The JAX package's flash in plain ops: an outer loop over q-chunks and
+    an inner one over kv-chunks keep live score buffers at
+    (B,Hkv,G,qc,kc) whatever the sequence length (under autograd each
+    tile's residuals are kept, as JAX's ``scan`` keeps them).  Mask and
+    score mods are evaluated per tile on index tensors, so any composed
+    mod works unchanged.  Rectangular iteration: no tile is skipped.  A
+    query row with no live key gets zeros.
+    """
+    B, H, Q, D = q.shape
+    Hkv, K = k.shape[1], k.shape[2]
+    G = H // Hkv
+    dev = q.device
+    qc = min(q_chunk, Q)
+    kc = min(kv_chunk, K)
+    nq = -(-Q // qc)
+    nk = -(-K // kc)
+    qpad = torch.nn.functional.pad(q, (0, 0, 0, nq * qc - Q))
+    kpad = torch.nn.functional.pad(k, (0, 0, 0, nk * kc - K))
+    vpad = torch.nn.functional.pad(v, (0, 0, 0, nk * kc - K))
+    qs = (qpad * (1.0 / math.sqrt(D))).to(q.dtype).reshape(
+        B, Hkv, G, nq * qc, D).float()
+    ks = kpad.float()
+    bi = torch.arange(B, device=dev)[:, None, None, None, None]
+    hi = torch.arange(H, device=dev).reshape(Hkv, G)[None, :, :, None, None]
+    outs = []
+    for i in range(nq):
+        qb = qs[:, :, :, i * qc:(i + 1) * qc]  # (B, Hkv, G, qc, D)
+        q_idx = (i * qc + torch.arange(qc, device=dev))[
+            None, None, None, :, None]
+        m = torch.full((B, Hkv, G, qc), float("-inf"), device=dev)
+        l = torch.zeros((B, Hkv, G, qc), device=dev)
+        acc = torch.zeros((B, Hkv, G, qc, D), device=dev)
+        for j in range(nk):
+            kb = ks[:, :, None, j * kc:(j + 1) * kc]  # (B, Hkv, 1, kc, D)
+            vb = vpad[:, :, None, j * kc:(j + 1) * kc]
+            k_idx = (j * kc + torch.arange(kc, device=dev))[
+                None, None, None, None, :]
+            s = qb @ kb.transpose(-1, -2)  # (B, Hkv, G, qc, kc) f32
+            if score_mod is not None:
+                s = score_mod(s, bi, hi, q_idx, k_idx)
+            live = mask_mod(bi, hi, q_idx, k_idx) & (k_idx < K)
+            s = s.masked_fill(~live, float("-inf"))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p = torch.where(live, torch.exp(s - m_safe[..., None]), 0.0)
+            alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe),
+                                0.0)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + p.to(v.dtype).float() @ (
+                vb.float())
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3).reshape(B, H, nq * qc, D)
+    return out[:, :, :Q].to(q.dtype)
 
 
 def prefill_attention_paged(

@@ -21,7 +21,7 @@ import torch
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
 
 
-IMPLS = ("kernel", "ref")
+IMPLS = ("kernel", "ref")  # the serving entry points
 # head dims of every route of K1, K3 and K4 (csrc/flash_tc.cuh: head_dim_ok)
 HEAD_DIMS = (64, 128, 192, 256)
 SMEM_LIMIT = 232_448  # dynamic shared memory of one H100 block, bytes
@@ -85,12 +85,14 @@ def tile_smem_bytes(route: str, D: int) -> int:
     return 1024 + fixed + 2 * stages * work + 16 * stages
 
 
-def check_impl(impl: str) -> None:
-    """Raise ``EngineConfigError`` unless ``impl`` is "kernel" (the hand
-    written kernels; the default) or "ref" (the plain oracles)."""
-    if impl not in IMPLS:
-        raise EngineConfigError(f"impl must be one of {IMPLS}, got "
-                                f"{impl!r}", impl=impl)
+def check_impl(impl: str, allowed=IMPLS, entry: str = "serving") -> None:
+    """Raise ``EngineConfigError`` unless ``impl`` is one of ``allowed``
+    for the ``entry`` point: "kernel" (the hand written kernels) or "ref"
+    (the plain oracles) everywhere, and "chunked" on the training path
+    (``core.attention.TRAIN_IMPLS``)."""
+    if impl not in allowed:
+        raise EngineConfigError(f"{entry}: impl must be one of {allowed}, "
+                                f"got {impl!r}", impl=impl)
 
 
 def use_kernel(name: str, *tensors: torch.Tensor) -> bool:

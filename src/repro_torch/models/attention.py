@@ -70,16 +70,18 @@ def _out(p: Dict, o: torch.Tensor) -> torch.Tensor:
 
 
 def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
-               lens: Optional[torch.Tensor] = None, causal: bool = True,
-               impl: str = "kernel") -> torch.Tensor:
-    """Attention over whole sequences with no cache.  x: (B, S, d) →
-    (B, S, d).  ``causal=False`` with no ``lens`` is the full mask (the
-    whisper encoder); K4 under ``impl="kernel"``."""
+               window: int = 0, lens: Optional[torch.Tensor] = None,
+               causal: bool = True, impl: str = "kernel") -> torch.Tensor:
+    """Attention over whole sequences with no cache (the training forward
+    and the whisper encoder).  x: (B, S, d) → (B, S, d).  ``window > 0``:
+    a ``W`` layer's sliding window; ``causal=False`` with no ``lens`` is
+    the full mask (the encoder); K4 under ``impl="kernel"``, the chunked
+    online softmax under ``impl="chunked"``."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
-    o = core_attn.prefill_attention(q, k, v, lens=lens, causal=causal,
-                                    impl=impl)
+    o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
+                                    causal=causal, impl=impl)
     return _out(p, o)
 
 

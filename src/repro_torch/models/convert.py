@@ -12,6 +12,13 @@ pattern's order.  An encoder-decoder's tree (``embed``, ``enc`` and
 ``dec`` stacked over their layers, ``ln_enc``, ``ln_f``) becomes lists of
 one dict per layer under ``enc`` and ``dec``.  The port needs no JAX for
 this: it reads plain nested dicts of arrays.
+
+The way back: ``params_to_numpy(params, cfg)`` re-stacks the per-layer
+lists into the JAX trees (``groups``/``rem``, or ``enc``/``dec``) as
+numpy arrays, so the JAX package can load what the port trained; and
+``train_state_from_numpy`` carries a whole JAX ``TrainState`` (params, the
+AdamW moments ``mu``/``nu``, ``count`` and ``step``) into the port's
+``training.TrainState``.
 """
 
 from __future__ import annotations
@@ -21,8 +28,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.errors import UnsupportedFeature
+from repro_torch.utils.tree import to_numpy, tree_map
 
 
 def _to_torch(tree, device, dtype, index=None):
@@ -67,3 +76,55 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda",
     if "vision_proj" in tree:
         out["vision_proj"] = _to_torch(tree["vision_proj"], device, dtype)
     return out
+
+
+def _stack(layers):
+    """One tree of arrays stacked along a new leading axis, from a list of
+    trees of tensors."""
+    return tree_map(lambda *xs: np.stack([to_numpy(x) for x in xs]),
+                    *layers)
+
+
+def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig
+                    ) -> Dict[str, Any]:
+    """The port's params → the JAX package's tree of numpy arrays (bf16 as
+    f32): the inverse of ``params_from_numpy``.  Layer ``g·U + j`` of a
+    pattern unit of ``U`` codes goes to ``groups/{j}{code}[g]`` for the
+    ``n_layers // U`` whole units, the rest to ``rem/{j}{code}``."""
+    if "enc" in params:
+        out = {k: tree_map(to_numpy, params[k])
+               for k in ("embed", "ln_enc", "ln_f")}
+        for key in ("enc", "dec"):
+            out[key] = _stack(params[key])
+        return out
+    U = len(cfg.layer_pattern)
+    per_layer = params["layers"]
+    n = len(per_layer) // U * U  # the layers of whole units
+    out = {k: tree_map(to_numpy, v) for k, v in params.items()
+           if k != "layers"}
+    out["groups"] = {f"{j}{c}": _stack(per_layer[j:n:U])
+                     for j, c in enumerate(cfg.layer_pattern)} if n else {}
+    out["rem"] = {f"{j}{c}": tree_map(to_numpy, per_layer[n + j])
+                  for j, c in enumerate(cfg.pattern()[n:])}
+    return out
+
+
+def train_state_from_numpy(state, device="cuda", dtype=torch.float32):
+    """A JAX ``TrainState`` as numpy (``jax.tree_util.tree_map(np.asarray,
+    state)``: ``params``, ``opt.mu``, ``opt.nu``, ``opt.count``, ``step``)
+    → the port's ``training.TrainState`` on ``device``: params and the
+    moments through ``params_from_numpy``, ``count`` and ``step`` as int32
+    scalars."""
+    from repro_torch.training.optimizer import AdamWState
+    from repro_torch.training.state import TrainState
+    device = resolve_device(device)
+
+    def scalar(x):
+        return torch.tensor(np.asarray(x), dtype=torch.int32, device=device)
+
+    return TrainState(
+        params=params_from_numpy(state.params, device, dtype),
+        opt=AdamWState(mu=params_from_numpy(state.opt.mu, device, dtype),
+                       nu=params_from_numpy(state.opt.nu, device, dtype),
+                       count=scalar(state.opt.count)),
+        step=scalar(state.step))

@@ -16,7 +16,9 @@ Parameters are the JAX tree with its stacks unstacked: ``embed``, ``enc``
 ``mlp``), ``dec`` (a list of ``n_layers`` dicts: ``ln1``, ``self_attn``,
 ``lnx``, ``cross_attn``, ``ln2``, ``mlp``), ``ln_enc`` and ``ln_f``.
 
-The entry points are ``TransformerModel``'s, over the same states:
+The entry points are ``TransformerModel``'s: ``forward`` and
+``loss_fn`` for training (teacher-forced over ``encode(frames)``), and
+for serving, over the same states:
 ``prefill`` and ``decode_step`` take the paged state or the contiguous
 baseline's (``k_buf``/``v_buf``, and ``slots`` for ``prefill``), through
 one loop; ``prefill_chunk`` the paged one.  As in the JAX package,
@@ -34,7 +36,9 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
+from repro_torch.kernels import check_impl
 from repro_torch.models import attention as attn
 from repro_torch.models import layers
 from repro_torch.models import spec as pspec
@@ -124,6 +128,37 @@ class EncDecModel:
         return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["ln2"], x),
                                     cfg)
 
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                extra: Optional[Dict] = None, impl: str = "ref"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced decoder over (B, S) tokens and the encoding of
+        ``extra["frames"]`` (B, F, d), the training path: (logits (B, S,
+        V), a zero aux loss).  ``impl`` as ``TransformerModel.forward``
+        takes it, for the encoder's and the decoder's self-attention."""
+        check_impl(impl, TRAIN_IMPLS, "forward")
+        cfg = self.cfg
+        S = tokens.shape[1]
+        enc = self.encode(params, self._frames(extra), impl)
+        x = layers.embed_tokens(params["embed"], tokens)
+        x = x + layers.sinusoidal_positions(S, cfg.d_model,
+                                            x.device)[None].to(x.dtype)
+        for p in params["dec"]:
+            h = layers.apply_norm(p["ln1"], x)
+            x = x + attn.attn_train(p["self_attn"], h, cfg, impl=impl)
+            x = self._cross_mlp(p, x, *attn.cross_kv(p["cross_attn"], enc))
+        x = layers.apply_norm(params["ln_f"], x)
+        return (layers.unembed(params["embed"], x, cfg),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref"
+                ) -> Tuple[torch.Tensor, Dict]:
+        """batch: {"inputs", "targets", "frames", "mask"?} → (ce, {"ce",
+        "aux"})."""
+        logits, aux = self.forward(params, batch["inputs"],
+                                   {"frames": batch["frames"]}, impl)
+        ce = layers.xent(logits, batch["targets"], batch.get("mask"))
+        return ce, {"ce": ce, "aux": aux}
+
     @staticmethod
     def _last(params: Dict, x: torch.Tensor, lens: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
@@ -143,6 +178,7 @@ class EncDecModel:
         contiguous buffer rows ``state["slots"]``, in place) and returns
         (last-token logits (B, V), the state with ``pos = lens`` and the
         rows' ``cross_k``/``cross_v``).  ``n_live`` is unused (no MoE)."""
+        check_impl(impl, entry="prefill")
         cfg = self.cfg
         B, S = tokens.shape
         if lens is None:

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -133,3 +133,18 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
+
+
+def xent(logits: torch.Tensor, targets: torch.Tensor,
+         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token cross entropy in f32 over (B, S, V) logits and
+    (B, S) targets; with a (B, S) ``mask`` the mean over its weight (at
+    least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.float()
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

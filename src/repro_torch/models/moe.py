@@ -13,7 +13,9 @@ products are batched matmuls (``einsum`` in the JAX package, outside any
 Pallas kernel).  The combine gathers each token's ``k`` choices and sums
 them over ``k``, so a token's output does not depend on atomics.  The
 JAX function's second output, the load-balance loss ``E·Σ me·ce`` over
-the top-1 choices, is ``aux_loss``: serving does not use it.
+the top-1 choices, is ``aux_loss``: ``apply_moe_train`` returns it
+beside the output, from the same router call, for the training loss;
+serving does not use it.
 
 ``live`` (a bool per token) is the port's addition: a token that is not
 live (prefill padding, a chunk's dead tail, a dead decode slot) takes no
@@ -142,6 +144,17 @@ def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     return torch.where(ok.reshape(T, k, 1), c, 0.0).sum(1)
 
 
+def _moe(p: Dict, xf: torch.Tensor, cfg: ModelConfig,
+         live: Optional[torch.Tensor], n: int
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The FFN over ``xf`` (T, d) at the capacity of ``n`` live tokens:
+    (its f32 output (T, d), the router's probabilities and experts)."""
+    probs, gates, idx = router(p, xf, cfg.top_k)
+    slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
+    out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
+    return out, probs, idx
+
+
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
               live: Optional[torch.Tensor] = None,
               n_live: Optional[int] = None) -> torch.Tensor:
@@ -150,12 +163,20 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     host when None).  Returns the FFN's output, of x's shape and dtype."""
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
-    T = xf.shape[0]
-    _, gates, idx = router(p, xf, cfg.top_k)
-    n = T
+    n = xf.shape[0]
     if live is not None:
-        live = live.reshape(T)
+        live = live.reshape(n)
         n = int(live.sum()) if n_live is None else n_live
-    slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
-    out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
+    out, _, _ = _moe(p, xf, cfg, live, n)
     return out.to(x.dtype).reshape(shape)
+
+
+def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training FFN, the JAX ``apply_moe``: every token of x (B, S, d)
+    routed at the config's capacity.  Returns (the output, of x's shape
+    and dtype; ``aux_loss`` over every token), both from one router
+    call."""
+    xf = x.reshape(-1, x.shape[-1])
+    out, probs, idx = _moe(p, xf, cfg, None, xf.shape[0])
+    return out.to(x.dtype).reshape(x.shape), aux_loss(probs, idx)

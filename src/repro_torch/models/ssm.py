@@ -98,13 +98,22 @@ def _mlstm_parallel(p: Dict, x: torch.Tensor, q, k, v, logi, Fc
     logD = Fc[..., :, None] - Fc[..., None, :] + logi[..., None, :]
     future = torch.ones((S, S), dtype=torch.bool,
                         device=x.device).triu_(1)
-    logD.masked_fill_(future, float("-inf"))
+    # serving runs in place (two (B, H, S, S) f32 buffers at most); under
+    # autograd (training) the same ops run out of place, so that every
+    # input a backward saved stays as it was
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, logi, Fc))
+
+    def op(t, name, *args):
+        return getattr(t, name if grad else name + "_")(*args)
+
+    logD = op(logD, "masked_fill", future, float("-inf"))
     m = torch.clamp(logD.amax(dim=-1, keepdim=True), min=0.0)
-    D = logD.sub_(m).exp_()  # (B, H, S, S), in place of logD
-    s = (q @ k.transpose(-1, -2)).float().mul_(D)
-    del D
+    D = op(op(logD, "sub", m), "exp")  # (B, H, S, S)
+    s = op((q @ k.transpose(-1, -2)).float(), "mul", D)
+    del logD, D
     n = torch.maximum(s.sum(dim=-1, keepdim=True).abs(), torch.exp(-m))
-    w = s.div_(n).to(x.dtype)
+    w = op(s, "div", n).to(x.dtype)
     del s
     y = w @ v  # (B, H, S, dh)
     o = F.silu(_proj(x, p["ogate"]))  # (B, S, H, dh)

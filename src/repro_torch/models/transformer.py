@@ -2,7 +2,7 @@
 attention layers, recurrent layers (RG-LRU ``R``, mLSTM ``M``, sLSTM
 ``S``) and cross-attention (``C``) layers, each followed by a dense or MoE
 FFN, or by none when ``d_ff == 0`` (xLSTM): families ``dense``, ``moe``,
-``vlm``, ``rglru`` and ``xlstm`` (port of the serving half of
+``vlm``, ``rglru`` and ``xlstm`` (port of
 ``repro.models.transformer``).
 
 Parameters are plain dicts of tensors with the JAX layouts, one dict per
@@ -12,9 +12,12 @@ a ``C`` layer ``attn`` and a scalar ``gate``, an ``R``, ``M`` or ``S``
 layer ``rec``; the FFN is ``mlp`` or ``moe`` (``models.moe``), or none.
 A ``vlm`` model also has ``vision_proj`` (d_vision, d_model), which
 projects the per-request image embeddings (``extra["image_embeds"]``,
-(B, n_image_tokens, d_vision)) into the cross-attention context.  Three
+(B, n_image_tokens, d_vision)) into the cross-attention context.  Five
 entry points share them:
 
+    forward       — teacher-forced whole sequences (training), with the
+                    MoE aux loss returned beside the logits
+    loss_fn       — cross entropy + router_aux_coef · aux over a batch
     prefill       — whole prompts, K/V scattered into the paged pools
     prefill_chunk — one prompt chunk per sequence, resuming from
                     the cached prefix pages (no recurrent layers)
@@ -57,9 +60,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
+from repro_torch.kernels import check_impl
 from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models import spec as pspec
@@ -81,6 +87,9 @@ REC_PREFILL = {"R": lambda *a: rglru.rglru_prefill(*a),
 REC_DECODE = {"R": lambda *a: rglru.rglru_decode(*a),
               "M": lambda *a: ssm.mlstm_decode(*a),
               "S": lambda *a: ssm.slstm_decode(*a)}
+REC_TRAIN = {"R": lambda *a: rglru.rglru_train(*a),
+             "M": lambda *a: ssm.mlstm_train(*a),
+             "S": lambda *a: ssm.slstm_train(*a)}
 
 
 def _ffn_spec(cfg: ModelConfig) -> Dict:
@@ -214,6 +223,79 @@ class TransformerModel:
         return torch.tanh(p["gate"]) * attn.cross_attn(p["attn"], h, k, v,
                                                        self.cfg)
 
+    # -- forward (training) -------------------------------------------------
+    def _train_layer(self, li: int, p: Dict, x: torch.Tensor,
+                     img: Optional[torch.Tensor], impl: str
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """One layer over whole sequences: (x', the MoE aux loss or
+        None)."""
+        cfg = self.cfg
+        code = self.codes[li]
+        h = layers.apply_norm(p["ln1"], x)
+        if code in ATTN_CODES:
+            x = x + attn.attn_train(p["attn"], h, cfg,
+                                    window=self.windows[li], impl=impl)
+        elif code == "C":
+            x = x + self._cross(p, h, *attn.cross_kv(p["attn"], img))
+        else:
+            x = x + REC_TRAIN[code](p["rec"], h, cfg)
+        if "moe" in p:
+            o, aux = moe.apply_moe_train(
+                p["moe"], layers.apply_norm(p["ln2"], x), cfg)
+            return x + o, aux
+        return self._apply_ffn(p, x), None
+
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                extra: Optional[Dict] = None, impl: str = "ref"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced forward over whole sequences, the training path.
+        tokens: (B, S) → (logits (B, S, V), the MoE load-balance loss summed
+        over the layers, an f32 scalar: 0 without MoE layers).
+
+        ``impl``: "ref" (dense attention in plain ops), "chunked" (the
+        tiled online softmax) or "kernel" (K4, forward only: under
+        autograd it raises ``UnsupportedFeature``).  The layers run in
+        pattern units, as the JAX package scans them; with ``cfg.remat !=
+        "none"`` each whole unit is recomputed in the backward
+        (``torch.utils.checkpoint``), as JAX checkpoints its unit body,
+        and the trailing layers past the last whole unit are not."""
+        check_impl(impl, TRAIN_IMPLS, "forward")
+        cfg = self.cfg
+        img = self.project_extra(params, extra)
+        x = layers.embed_tokens(params["embed"], tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+        def run(lo, hi, x, aux):
+            for li in range(lo, hi):
+                x, a = self._train_layer(li, params["layers"][li], x, img,
+                                         impl)
+                if a is not None:
+                    aux = aux + a
+            return x, aux
+
+        unit = len(cfg.layer_pattern)
+        n_grouped = len(self.codes) // unit * unit
+        for lo in range(0, n_grouped, unit):
+            if cfg.remat != "none":
+                x, aux = torch.utils.checkpoint.checkpoint(
+                    run, lo, lo + unit, x, aux, use_reentrant=False)
+            else:
+                x, aux = run(lo, lo + unit, x, aux)
+        x, aux = run(n_grouped, len(self.codes), x, aux)
+        x = layers.apply_norm(params["ln_f"], x)
+        return layers.unembed(params["embed"], x, cfg), aux
+
+    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref"
+                ) -> Tuple[torch.Tensor, Dict]:
+        """batch: {"inputs": (B, S), "targets": (B, S), "mask"?, extras
+        ("image_embeds")} → (ce + router_aux_coef · aux, {"ce", "aux"})."""
+        extra = {k: v for k, v in batch.items()
+                 if k not in ("inputs", "targets", "mask")}
+        logits, aux = self.forward(params, batch["inputs"], extra or None,
+                                   impl)
+        ce = layers.xent(logits, batch["targets"], batch.get("mask"))
+        return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
+
     # -- prefill / decode -----------------------------------------------------
     def prefill(self, params: Dict, tokens: torch.Tensor, state: Dict,
                 lens: Optional[torch.Tensor] = None,
@@ -231,6 +313,7 @@ class TransformerModel:
         ``ssm.mlstm_prefill``, ``ssm.slstm_prefill``); with
         ``C`` layers ``cross_k``/``cross_v`` of the rows' image context
         (``extra``).  ``n_live``: the live tokens, ``sum(lens)``."""
+        check_impl(impl, entry="prefill")
         cfg = self.cfg
         B, S = tokens.shape
         if lens is None:

@@ -1,0 +1,119 @@
+"""Training loop: the step factory and the host-side loop (port of
+``repro.training.loop``, one device, no mesh).
+
+``make_train_step`` builds ``step(state, batch) -> (state', metrics)``:
+the loss and its gradients by autograd, global-norm clipping, then AdamW
+— the JAX package's step, with ``torch.autograd.grad`` in place of
+``jax.value_and_grad``.  The attention runs the dense plain path
+(``impl="ref"``, JAX's ``"jnp"``) or the chunked online softmax
+(``"chunked"``); the flex kernel K4 has no backward, so ``"kernel"``
+raises ``UnsupportedFeature`` here.  Sharded train states
+(``state_shardings``) wait for the port's ``distributed/``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.attention import TRAIN_IMPLS
+from repro_torch.device import resolve_device
+from repro_torch.kernels import check_impl
+from repro_torch.training.optimizer import adamw_update, clip_by_global_norm
+from repro_torch.training.state import TrainState
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+
+def make_train_step(
+    model,
+    *,
+    lr=3e-4,
+    weight_decay: float = 0.1,
+    max_grad_norm: float = 1.0,
+    impl: str = "ref",
+) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
+    """Returns ``step(state, batch) -> (state', metrics)``; ``batch`` holds
+    tensors on the params' device.  ``metrics``: ``loss``, ``grad_norm``
+    (before clipping), ``ce`` and ``aux``, as device scalars (nothing here
+    waits for the device)."""
+    check_impl(impl, TRAIN_IMPLS, "make_train_step")
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+        loss, parts = model.loss_fn(params, batch, impl=impl)
+        leaves = tree_leaves(params)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a parameter the loss does not reach gets a zero gradient, as
+        # under jax.value_and_grad
+        grads = tree_unflatten(params, [
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)])
+        del params, leaves
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        new_params, new_opt = adamw_update(
+            grads, state.opt, state.params, lr=lr, weight_decay=weight_decay)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
+                   **{k: v.detach() for k, v in parts.items()}}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return step
+
+
+def to_device(batch: Dict, device) -> Dict:
+    """A batch of numpy arrays (``data``) as tensors on ``device``."""
+    return {k: torch.as_tensor(np.asarray(v), device=device)
+            for k, v in batch.items()}
+
+
+def train_loop(
+    model,
+    data: Iterable[Dict],
+    *,
+    steps: int,
+    lr=3e-4,
+    weight_decay: float = 0.1,
+    max_grad_norm: float = 1.0,
+    seed: int = 0,
+    state: Optional[TrainState] = None,
+    log_every: int = 10,
+    log_fn: Callable[[str], None] = print,
+    impl: str = "ref",
+    device="cuda",
+    on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
+) -> Tuple[TrainState, list]:
+    """Host loop: init, iterate.  Returns (final state, metric log).
+
+    Without ``state`` the params are drawn in f32 on ``device`` (the
+    card unless the caller asks for the CPU) from a ``torch.Generator``
+    seeded with ``seed``; a given ``state`` trains where it lies.  Each
+    batch of ``data`` (numpy arrays) moves to that device.  The metrics
+    are read on the host only at the logged steps (every ``log_every``-th
+    and the last).  ``on_step(i, state, metrics)``, when given, runs after
+    every step (a timer's hook)."""
+    if state is None:
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        state = TrainState.create(model.init_params(gen, torch.float32, device))
+    device = state.step.device
+    step_fn = make_train_step(model, lr=lr, weight_decay=weight_decay,
+                              max_grad_norm=max_grad_norm, impl=impl)
+    history = []
+    t0 = time.perf_counter()
+    it = iter(data)
+    for i in range(steps):
+        batch = to_device(next(it), device)
+        state, metrics = step_fn(state, batch)
+        if on_step is not None:
+            on_step(i, state, metrics)
+        if (i + 1) % log_every == 0 or i == steps - 1:
+            m = {k: float(v) for k, v in metrics.items()}
+            m["step"] = int(state.step)
+            m["wall_s"] = time.perf_counter() - t0
+            history.append(m)
+            log_fn(f"step {m['step']:5d}  loss {m['loss']:.4f}  "
+                   f"gnorm {m['grad_norm']:.3f}  {m['wall_s']:.1f}s")
+    return state, history
