@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # from the root of a checkout
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --train-only    # build + training phase only
+    python3 chip_smoke.py --dist-only     # build + distributed phase only
 
 Phases, each of which fails the script (exit code 1) when it fails:
 
@@ -251,6 +252,34 @@ Phases, each of which fails the script (exit code 1) when it fails:
    width and depth (capacity 1.25), 10 steps at B 4 x S 512: aux finite,
    ce falling, step ms, peak memory and the share of dropped expert
    choices.  ``--train-only`` runs the build and this phase alone.
+18. distributed (after 17): the decode step across 2 ranks, processes
+   that share this card in one ``gloo`` group (NCCL refuses two ranks on
+   one device).  Every case runs first on one device (references saved
+   in the ignored build dir, the memory freed), then on both ranks under
+   ``launch.steps.plan_for`` with the same weights (``init_params(plan=)``,
+   seed 0) and the one-device greedy tokens teacher-forced: llama2-7b at
+   full depth in bf16 under tp (8 prompts of 256..1536, K4 over 16 heads
+   a rank, then 32 steps of K1 + K2), and at 4 layers in f32; under kvp
+   (``shard_decode_state`` stripes the pages: K1 over each rank's stripe
+   with ``local_lens``, K2 over both ranks' splits) 1 x 8192 and a batch
+   of 8 with rows that leave the second stripe empty, at full depth in
+   bf16 and at 4 layers in f32; the f32 1 x 8192 case once more, for 4
+   steps, with the second rank's stripe dropped from every merge (a
+   planted fault the check must see: the run fails unless its logits
+   leave ``MODEL_TOL``); granite-moe at full
+   depth in f32 with ``moe_ep`` (16 experts a rank, dropless); logits
+   within ``MODEL_TOL`` (f32) or ``BF16_MODEL_TOL`` of their scale
+   (bf16), greedy agreement and the first diverging step reported.  Also
+   dp attention at nemotron-4-15b's heads (G 6: 3 a rank) against one
+   device's K1 + K2, and ring attention at llama2-7b's heads, S 8192,
+   causal and window 4096, against the chunked plain path (f32).  The
+   ranks report launches (summed into the ``kernels`` line), step ms by
+   events, kernels' device ms, collective calls, bytes and seconds, and
+   which collectives gloo took only through host memory; any rank's
+   failure fails the run.  K2's "dist" route is checked and timed at the
+   kvp merge's layout.  Collective times here are gloo between processes
+   on one card, not NVLink.  ``--dist-only`` runs the build and this
+   phase alone.
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -300,6 +329,7 @@ the repository's ``src/repro_torch`` beside this file, it exits non-zero
 and prints no result.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -1383,7 +1413,7 @@ def decode_split_cases(torch, chk, gen):
             pa.paged_attention_kernel(*args, **kw)
             after = pa.combine_partials_kernel.launches_by_route
             moved = {k: after[k] - before[k] for k in after}
-            if moved != {"decode": 1, "prefill": 0}:
+            if moved != {"decode": 1, "prefill": 0, "dist": 0}:
                 fail(f"decode op at S {S}: K2 launches {moved}")
 
 
@@ -3440,8 +3470,8 @@ def layer_gaps(torch, model, params, tokens, pool, extra=None, forced=False,
     for impl in ("ref", "kernel"):
         calls = iter(range(len(model.codes)))
 
-        def ffn(p, x, live=None, n_live=None):
-            y = plain_ffn(p, x, live, n_live)
+        def ffn(p, x, *rest):
+            y = plain_ffn(p, x, *rest)
             if impl == "ref":
                 seen.append(y)
                 return y
@@ -6384,6 +6414,511 @@ def count_mma(lib):
     return hgmma, tf32_hgmma, tf32_hmma
 
 
+# ---------------------------------------------------------------------------
+# distributed: the decode step across 2 ranks on one card (gloo)
+# ---------------------------------------------------------------------------
+DIST_RANKS = 2
+DIST_STEPS = 32
+DIST_TP_LENS = [256, 439, 622, 805, 988, 1171, 1354, 1536]
+DIST_KVP_LONG = 8192
+# batch 8 under kvp: rows of 1 and 64 tokens hold one page, so the second
+# rank's stripe of them is empty; 65 and 129 end a page into a stripe
+DIST_KVP_LENS = [1, 64, 65, 129, 300, 511, 700, 1024]
+DIST_EP_LENS = [16, 32, 45, 64, 77, 96, 110, 128]
+DIST_EP_STEPS = 8
+DIST_RING_S = 8192
+DIST_RING_WINDOWS = (0, 4096)
+# the kernels the ranks' main paths launch, by launch-count key
+DIST_KEYS = ("paged_decode", "combine/decode", "combine/dist",
+             "flex_prefill/tc", "flex_prefill/tf32x3", "paged_prefill")
+
+
+def dist_cases():
+    """(name, config, dtype, n_layers or None, scheme, lens, steps)."""
+    return [
+        ("tp bf16", "llama2-7b", "bfloat16", None, None, DIST_TP_LENS,
+         DIST_STEPS),
+        ("tp f32", "llama2-7b", "float32", 4, None, DIST_TP_LENS,
+         DIST_STEPS),
+        ("kvp bf16 8192", "llama2-7b", "bfloat16", None, "kvp",
+         [DIST_KVP_LONG], DIST_STEPS),
+        ("kvp bf16 batch 8", "llama2-7b", "bfloat16", None, "kvp",
+         DIST_KVP_LENS, DIST_STEPS),
+        # f32: a bf16 rounding apart flips near-tied top-k choices
+        ("ep f32", "granite-moe-1b-a400m", "float32", None, None,
+         DIST_EP_LENS, DIST_EP_STEPS),
+        # kvp held at MODEL_TOL, as tp f32 is: the bf16 bound is loose
+        ("kvp f32 8192", "llama2-7b", "float32", 4, "kvp",
+         [DIST_KVP_LONG], DIST_STEPS),
+        ("kvp f32 batch 8", "llama2-7b", "float32", 4, "kvp",
+         DIST_KVP_LENS, DIST_STEPS),
+    ]
+
+
+# the planted fault: the case whose kvp merge loses the second rank's
+# stripe, and the decode steps it runs
+DIST_FAULT_CASE = "kvp f32 8192"
+DIST_FAULT_STEPS = 4
+
+
+def dropped_stripe(coll, rank):
+    """A ``merge_flash_partials`` that treats this rank's partials as dead
+    on rank 1 (the planted fault of the kvp check): its stripe's keys
+    drop out of every merge."""
+    real = coll.merge_flash_partials
+
+    def merge(m, l, acc, axes, **kw):
+        if rank == 1:
+            m, l, acc = m.new_full(m.shape, -1e30), l * 0, acc * 0
+        return real(m, l, acc, axes, **kw)
+    return merge
+
+
+def dist_model(torch, name, dtype, n_layers, cfg_kw=None):
+    from repro_torch.configs import get_config
+    from repro_torch.models.api import build_model
+    cfg = get_config(name)
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
+    if name == "granite-moe-1b-a400m":  # EP, dropless
+        cfg = cfg.replace(moe_ep=True, moe_capacity=0.0)
+    return build_model(cfg.replace(**(cfg_kw or {})))
+
+
+def dist_tokens(torch, cfg, lens, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    B, S = len(lens), max(lens)
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                           device="cuda")
+    return tokens, torch.tensor(lens, dtype=torch.int32, device="cuda")
+
+
+def kernel_device_ms(prof, n):
+    """Device ms per call of the CUDA kernels a profile recorded over
+    ``n`` calls (None when it recorded none)."""
+    total = 0.0
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            total += getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+    return total / 1e3 / n if total > 0 else None
+
+
+def dist_serve(torch, model, params, tokens, lens, steps, plan=None,
+               forced=None):
+    """Prefill ``tokens`` and decode ``steps`` tokens, under ``plan`` (this
+    rank's params; the state resharded by ``shard_decode_state``) or on
+    one device.  ``forced`` (steps + 1, B) tokens teacher-force the decode
+    (the single-device run's greedy tokens), so every step's logits are
+    comparable.  Returns (logits (steps + 1, B, V) f32 on the host, greedy
+    tokens, step ms by CUDA events, device ms per step by the profiler
+    over steps 2 and 3, the prefill's and the decode's seconds)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.steps import build_serve_step
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    B, S = tokens.shape
+    dtype = next(iter(params["ln_f"].values())).dtype
+    run = RunConfig(model=cfg, seq_len=S + steps, global_batch=B,
+                    kind="decode")
+    state = model.init_decode_state(run, dtype, device="cuda", plan=plan)
+    pps = state["tables"].shape[2]
+    state["tables"] = torch.arange(B * pps, dtype=torch.int32,
+                                   device="cuda").reshape(B, 1, pps)
+    if plan is None:
+        ctx, step = contextlib.nullcontext(), (
+            lambda p, t, s: model.decode_step(p, t, s))
+    else:
+        ctx, step = use_mesh(plan.mesh, plan.rules), build_serve_step(
+            run, plan)[0]
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        with ctx:
+            logits, state = model.prefill(params, tokens, state, lens,
+                                          attn_ctx=plan and plan.attn_ctx)
+        if plan is not None:
+            state = shard_decode_state(state, plan)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t_start
+        outs, greedy = [logits.float().cpu()], [logits.argmax(-1).cpu()]
+        tok = (forced[0].cuda() if forced is not None
+               else logits.argmax(-1)).int()
+        times = []
+        # the profiler over 2 steps only: it stretches every step it sees
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        for i in range(steps):
+            if i == 1:
+                prof.start()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            logits, state = step(params, tok, state)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+            if i == 2:
+                prof.stop()
+            outs.append(logits.float().cpu())
+            greedy.append(logits.argmax(-1).cpu())
+            tok = (forced[i + 1].cuda() if forced is not None
+                   else logits.argmax(-1)).int()
+    return (torch.stack(outs), torch.stack(greedy), times,
+            kernel_device_ms(prof, 2), dict(
+                prefill_s=prefill_s,
+                decode_s=time.perf_counter() - t_start - prefill_s))
+
+
+def dist_ring_inputs(torch, seed):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    shape = (1, DIST_RING_S, 32, 128)  # llama2-7b's heads
+    return [torch.randn(shape, generator=gen, device="cuda")
+            for _ in range(3)]
+
+
+def dist_dp_inputs(torch, dtype, seed):
+    """nemotron-4-15b's heads (48 over 8: G 6), batch 8, page 64."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    lens = [1, 63, 64, 200, 513, 1024, 1800, 2048]
+    return paged_inputs(torch, gen, 8, 8, 6, 128, 64, 32, lens, dtype,
+                        torch.device("cuda"))
+
+
+def dist_references(torch, work):
+    """The single-device runs of every case, saved under ``work`` for the
+    ranks: logits and greedy tokens of each served case, the plain
+    chunked attention of the ring cases, and K1 + K2's output at the dp
+    case's shapes."""
+    from repro_torch.core.attention import prefill_attention
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    refs = {}
+    for i, (name, cfg_name, dt, nl, _, lens, steps) in enumerate(
+            dist_cases()):
+        t0 = time.perf_counter()
+        model = dist_model(torch, cfg_name, dt, nl)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params = model.init_params(gen, getattr(torch, dt), "cuda")
+        tokens, lens_t = dist_tokens(torch, model.cfg, lens, SEED + 1 + i)
+        t_init = time.perf_counter() - t0
+        logits, greedy, times, dev, secs = dist_serve(
+            torch, model, params, tokens, lens_t, steps)
+        torch.save({"logits": logits, "tokens": greedy},
+                   work / f"ref_{i}.pt")
+        refs[name] = dict(step_ms=statistics.median(times), device_ms=dev,
+                          init_s=t_init, **secs,
+                          seconds=time.perf_counter() - t0)
+        log(f"dist reference {name}: {model.cfg.name}, {model.cfg.n_layers} "
+            f"layers, B {len(lens)}, step {refs[name]['step_ms']:.3f} ms, "
+            f"device {fmt(dev)}; seconds: weights {t_init:.1f}, prefill "
+            f"{secs['prefill_s']:.1f}, {steps} steps {secs['decode_s']:.1f}")
+        del params, model
+        torch.cuda.empty_cache()
+    q, k, v = dist_ring_inputs(torch, SEED + 20)
+    for w in DIST_RING_WINDOWS:
+        with torch.no_grad():
+            out = prefill_attention(q, k, v, window=w, impl="chunked")
+        torch.save(out.cpu(), work / f"ring_{w}.pt")
+    del q, k, v, out
+    for dt in ("float32", "bfloat16"):
+        qg, kp, vp, tables, lens = dist_dp_inputs(
+            torch, getattr(torch, dt), SEED + 30)
+        B, Hkv, G, D = qg.shape
+        out = paged_attention(qg.reshape(B, Hkv * G, D), kp, vp, tables,
+                              lens).reshape(B, Hkv, G, D)
+        torch.save(out.cpu(), work / f"dp_{dt}.pt")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def logits_gap(got, want, forced, dtype):
+    """max|err| of the rank's logits against the single device's, the
+    bound (f32: MODEL_TOL; bf16: BF16_MODEL_TOL of the scale), the greedy
+    agreement and the first step at which the rank's greedy token leaves
+    the single device's (None: never)."""
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    bound = MODEL_TOL if dtype == "float32" else BF16_MODEL_TOL * (1 + scale)
+    mine = got.argmax(-1)
+    same = (mine == forced).all(dim=1)
+    div = None if bool(same.all()) else int((~same).nonzero()[0, 0])
+    return dict(max_err=err, bound=bound, scale=scale,
+                argmax_agreement=float((mine == forced).float().mean()),
+                divergence_step=div, finite=bool(got.isfinite().all()))
+
+
+def dist_rank(rank, world, work, src):
+    """One rank of the distributed phase: join the gloo group, run every
+    case under its plan on ``cuda:0`` and write its metrics to
+    ``work/rank{rank}.json`` (a traceback on failure)."""
+    work = Path(work)
+    out = {"rank": rank}
+    try:
+        set_src(Path(src))
+        sys.path.insert(0, src)
+        import torch
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(str(work / "store"), world),
+            rank=rank, world_size=world)
+        from repro_torch import kernels
+        from repro_torch.configs.base import RunConfig
+        from repro_torch.core.attention import prefill_attention
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+        from repro_torch.kernels import build
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import plan_for
+        build.get_lib()  # built by the parent: loaded, not rebuilt
+        real_merge = coll.merge_flash_partials
+        mesh = make_mesh((1, world))
+        out["cases"] = {}
+        for i, (name, cfg_name, dt, nl, scheme, lens, steps) in enumerate(
+                dist_cases()):
+            t0 = time.perf_counter()
+            model = dist_model(torch, cfg_name, dt, nl)
+            ref = torch.load(work / f"ref_{i}.pt")
+            tokens, lens_t = dist_tokens(torch, model.cfg, lens, SEED + 1 + i)
+            run = RunConfig(model=model.cfg, seq_len=max(lens) + steps,
+                            global_batch=len(lens), kind="decode")
+            plan = plan_for(run, mesh, scheme=scheme)
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(SEED)
+            params = model.init_params(gen, getattr(torch, dt), "cuda",
+                                       plan=plan)
+            t_init = time.perf_counter() - t0
+            kernels.reset_launch_counts()
+            stats0 = {k: dict(v) for k, v in mesh.stats.items()}
+            logits, _, times, dev, secs = dist_serve(
+                torch, model, params, tokens, lens_t, steps, plan,
+                forced=ref["tokens"])
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            res = logits_gap(logits, ref["logits"], ref["tokens"], dt)
+            res.update(scheme=plan.scheme, step_ms=statistics.median(times),
+                       device_ms=dev, seconds=time.perf_counter() - t0,
+                       init_s=t_init, **secs,
+                       launches={k: counts.get(k, 0) for k in DIST_KEYS},
+                       weight_gb=weight_bytes(params) / 1e9,
+                       collectives={op: dict(
+                           calls=mesh.stats["calls"][op]
+                           - stats0["calls"].get(op, 0),
+                           gb=(mesh.stats["bytes"][op]
+                               - stats0["bytes"].get(op, 0)) / 1e9,
+                           s=mesh.stats["seconds"][op]
+                           - stats0["seconds"].get(op, 0))
+                           for op in mesh.stats["calls"]})
+            out["cases"][name] = res
+            if name == DIST_FAULT_CASE:
+                # the planted fault: the same case with rank 1's stripe
+                # dropped from every merge must leave the bound (its
+                # launches are not the main path's: counted nowhere)
+                coll.merge_flash_partials = dropped_stripe(coll, rank)
+                try:
+                    bad = dist_serve(torch, model, params, tokens, lens_t,
+                                     DIST_FAULT_STEPS, plan,
+                                     forced=ref["tokens"])[0]
+                finally:
+                    coll.merge_flash_partials = real_merge
+                out["fault"] = logits_gap(
+                    bad, ref["logits"][:DIST_FAULT_STEPS + 1],
+                    ref["tokens"][:DIST_FAULT_STEPS + 1], dt)
+                del bad
+            del params, model, logits
+            torch.cuda.empty_cache()
+        # (c) dp attention at nemotron-4-15b's heads: q-head groups (6)
+        # over the 2 ranks, pools replicated
+        m, r = mesh.size("model"), mesh.index("model")
+        kernels.reset_launch_counts()
+        for dt in ("float32", "bfloat16"):
+            qg, kp, vp, tables, lens = dist_dp_inputs(
+                torch, getattr(torch, dt), SEED + 30)
+            G = qg.shape[2]
+            gs = slice(r * G // m, (r + 1) * G // m)
+            with use_mesh(mesh):
+                o = coll.decode_attention_sharded(
+                    qg[:, :, gs].contiguous(), kp, vp, tables[:, None], lens,
+                    scheme="dp")
+            want = torch.load(work / f"dp_{dt}.pt")[:, :, gs].cuda()
+            err = float((o.float() - want.float()).abs().max())
+            out.setdefault("dp", {})[dt] = dict(
+                max_err=err, finite=bool(o.isfinite().all()),
+                tol=F32_TOL if dt == "float32" else BF16_TOL)
+        out["dp_launches"] = {k: kernels.launch_counts().get(k, 0)
+                              for k in DIST_KEYS}
+        # (e) ring attention, f32, S 8192 over the 2 ranks' halves
+        q, k, v = dist_ring_inputs(torch, SEED + 20)
+        S_l = DIST_RING_S // m
+        sl = slice(r * S_l, (r + 1) * S_l)
+        rules = DEFAULT_RULES.extend(batch=None, seq=("model",))
+        for w in DIST_RING_WINDOWS:
+            t0 = time.perf_counter()
+            with use_mesh(mesh, rules), torch.no_grad():
+                o = prefill_attention(q[:, sl], k[:, sl], v[:, sl], window=w,
+                                      impl="ring")
+            torch.cuda.synchronize()
+            want = torch.load(work / f"ring_{w}.pt")[:, sl].cuda()
+            out.setdefault("ring", {})[str(w)] = dict(
+                max_err=float((o - want).abs().max()),
+                finite=bool(o.isfinite().all()),
+                seconds=time.perf_counter() - t0)
+        out["host_ops"] = sorted(mesh.host_ops or ())
+        out["host_copies"] = dict(mesh.host_copies)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — written for the parent
+        import traceback
+        out["error"] = traceback.format_exc()
+    (work / f"rank{rank}.json").write_text(json.dumps(out, default=str))
+    if "error" in out:
+        sys.exit(1)
+
+
+def k2_dist_row(torch, chk):
+    """K2 at the kvp merge's layout (route "dist"): batch 1, 32 kv heads
+    of G 1 and D 128, the 2 ranks' 8 splits each (the local K1 partition
+    of 4096 keys), bf16 output; against its plain version, timed."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        _combine_partials_plain, combine_partials_kernel)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 40)
+    B, Hkv, S, G, D = 1, 32, DIST_RANKS * 8, 1, 128
+    m = torch.randn((B, Hkv, S, G), generator=gen, device="cuda") * 4
+    m[:, :, -3:] = -1e30  # dead splits (a rank's stripe past the row)
+    l = torch.rand((B, Hkv, S, G), generator=gen, device="cuda") * 100
+    l[:, :, -3:] = 0
+    acc = torch.randn((B, Hkv, S, G, D), generator=gen, device="cuda")
+    acc[:, :, -3:] = 0
+    got = combine_partials_kernel(m, l, acc, torch.bfloat16, route="dist")
+    want = _combine_partials_plain(m, l, acc, torch.bfloat16)
+    chk.close("combine/dist", "kvp merge, 2 ranks x 8 splits, bf16",
+              got.float(), want.float(), BF16_TOL)
+    nbytes = (2 * m.numel() + acc.numel()) * 4 + got.numel() * 2
+    return dict(
+        ms=time_ms(torch, lambda: combine_partials_kernel(
+            m, l, acc, torch.bfloat16, route="dist")),
+        device_ms=device_ms(torch, lambda: combine_partials_kernel(
+            m, l, acc, torch.bfloat16, route="dist"), "combine"),
+        plain_ms=time_ms(torch, lambda: _combine_partials_plain(
+            m, l, acc, torch.bfloat16)),
+        bound_ms=1e3 * nbytes / HBM_BPS, bound_by="bytes", library_ms=None)
+
+
+def dist_phase(torch, chk):
+    """The decode step across 2 ranks on this one card: references on one
+    device first (saved, then freed), then 2 processes in one gloo group
+    on cuda:0 run every case under its plan; a rank that fails fails the
+    run.  Returns the results, the ranks' launches summed per kernel key
+    and K2's "dist" row."""
+    import shutil
+    from repro_torch.kernels import build
+    t_phase = time.perf_counter()
+    # references and results: hundreds of MB, in the ignored build dir
+    work = build.BUILD_DIR / "dist_work"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        return _dist_phase(torch, chk, work, t_phase)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _dist_phase(torch, chk, work, t_phase):
+    import multiprocessing as mp
+    refs = dist_references(torch, work)
+    log(f"-- dist references done in {time.perf_counter() - t_phase:.1f} s")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dist_rank, args=(r, DIST_RANKS, str(work),
+                                                 str(SRC)))
+             for r in range(DIST_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(max(1.0, 420 - (time.perf_counter() - t0)))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    ranks = []
+    for r, p in enumerate(procs):
+        path = work / f"rank{r}.json"
+        if not path.exists():
+            fail(f"dist rank {r}: no result (exit code {p.exitcode})")
+        res = json.loads(path.read_text())
+        if "error" in res or p.exitcode != 0:
+            fail(f"dist rank {r} failed (exit code {p.exitcode}):\n"
+                 f"{res.get('error', '')}")
+        ranks.append(res)
+    ranks_s = time.perf_counter() - t0
+    launches = dict.fromkeys(DIST_KEYS, 0)
+    for res in ranks:
+        log(f"dist rank {res['rank']}: gloo host copies {res['host_copies']}"
+            f" (ops gloo refused on CUDA tensors: {res['host_ops']})")
+        for name, c in res["cases"].items():
+            log(f"dist rank {res['rank']} {name} ({c['scheme']}): logits vs "
+                f"one device max|err| {c['max_err']:.3e} (bound "
+                f"{c['bound']:.3e}, scale {c['scale']:.3f}), greedy "
+                f"agreement {c['argmax_agreement']:.3f}, divergence step "
+                f"{c['divergence_step']}; step {c['step_ms']:.3f} ms "
+                f"(events), device {fmt(c['device_ms'])}; weights "
+                f"{c['weight_gb']:.2f} GB; launches {c['launches']}; "
+                f"seconds: weights {c['init_s']:.1f}, prefill "
+                f"{c['prefill_s']:.1f}, decode {c['decode_s']:.1f}; "
+                f"collectives {c['collectives']}")
+            if not c["finite"] or c["max_err"] > c["bound"]:
+                fail(f"dist {name} rank {res['rank']}: logits max|err| "
+                     f"{c['max_err']} beyond {c['bound']}")
+            # K1, then K2: after K1 in the decode op, or across the ranks
+            must = ["paged_decode", "combine/dist" if c["scheme"] == "kvp"
+                    else "combine/decode"]
+            if any(c["launches"][k] <= 0 for k in must):
+                fail(f"dist {name} rank {res['rank']}: kernels {must} not "
+                     f"all launched ({c['launches']})")
+            for k in DIST_KEYS:
+                launches[k] += c["launches"][k]
+        c = res["fault"]
+        log(f"dist rank {res['rank']} planted fault ({DIST_FAULT_CASE}, "
+            f"rank 1's stripe dropped from the merge, {DIST_FAULT_STEPS} "
+            f"steps): logits max|err| {c['max_err']:.3e} = "
+            f"{c['max_err'] / c['bound']:.1f} x the bound {c['bound']:.3e}")
+        if not c["max_err"] > c["bound"]:
+            fail(f"dist rank {res['rank']}: the kvp check does not see a "
+                 f"dropped stripe ({c['max_err']} within {c['bound']})")
+        for dt, c in res["dp"].items():
+            log(f"dist rank {res['rank']} dp attention (nemotron-4-15b "
+                f"heads, G 6 over 2 ranks) {dt}: max|err| {c['max_err']:.3e}"
+                f" vs one device's K1 + K2 (tol {c['tol']:g})")
+            if not c["finite"] or c["max_err"] > c["tol"]:
+                fail(f"dist dp {dt} rank {res['rank']}: {c['max_err']}")
+        for w, c in res["ring"].items():
+            log(f"dist rank {res['rank']} ring attention S {DIST_RING_S}, "
+                f"window {w}: max|err| {c['max_err']:.3e} vs the chunked "
+                f"path (tol {F32_TOL:g}), {c['seconds']:.2f} s")
+            if not c["finite"] or c["max_err"] > F32_TOL:
+                fail(f"dist ring window {w} rank {res['rank']}: "
+                     f"{c['max_err']}")
+    row = k2_dist_row(torch, chk)
+    log(f"K2 across ranks (combine/dist): {fmt(row['ms'])}, device "
+        f"{fmt(row['device_ms'])}, plain {fmt(row['plain_ms'])}, bound "
+        f"{row['bound_ms']:.4f} ms (bytes); launches in the ranks "
+        f"{launches['combine/dist']}")
+    seconds = time.perf_counter() - t_phase
+    log(f"dist phase: {seconds:.1f} s (ranks {ranks_s:.1f} s); collective "
+        "times are gloo between processes on one card, not NVLink")
+    return dict(references=refs, ranks=ranks, launches=launches, k2=row,
+                seconds=seconds, ranks_seconds=ranks_s)
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -6400,6 +6935,10 @@ def main():
     ap.add_argument("--train-only", action="store_true",
                     help="build and run the training phase only; prints "
                     "no result line")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build and run the distributed phase only (2 "
+                    "ranks in one gloo group on this card); prints no "
+                    "result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run "
                     "(default: this checkout's; another tree's for an A/B "
@@ -6452,6 +6991,13 @@ def main():
         (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         return
     chk = Checker(torch)
+    if args.dist_only:
+        dist = dist_phase(torch, chk)
+        log(json.dumps({"launches": dist["launches"], "k2": dist["k2"]}))
+        (OUT / "chip_smoke.log").write_text("\n".join(LOG))
+        (OUT / "chip_smoke_dist.json").write_text(json.dumps(
+            dist, indent=1, default=str))
+        return
     rows = kernel_phase(torch, chk)
     if only_kernels:
         log(json.dumps({f"{k}/{d}": v for (k, d), v in rows.items()}))
@@ -6521,6 +7067,9 @@ def main():
     done("xlstm-350m f32 check")
     train = train_phase(torch)
     done("training phase")
+    torch.cuda.empty_cache()
+    dist = dist_phase(torch, chk)
+    done("distributed phase")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -6593,7 +7142,9 @@ def main():
                                                        "chunked 128")]
               + list(whisper_f32["engine_launches"].values())
               + [xlstm["monolithic"]["launches"]]
-              + train["eval"]["launches"])
+              + train["eval"]["launches"]
+              # the ranks' main paths (counted in the rank processes)
+              + [collections.Counter(dist["launches"])])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []
@@ -6606,6 +7157,14 @@ def main():
             max_abs_err=chk.max_err[name], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=r["library_ms"]))
+    k2 = dist["k2"]  # K2 merging every rank's partials (kvp)
+    kernels_line.append(dict(
+        name="combine/dist", route="cuda", source=src + "combine.cu",
+        replaces="src/repro/kernels/paged_attention/paged_attention.py:161",
+        launches=dist["launches"]["combine/dist"],
+        max_abs_err=chk.max_err["combine/dist"], ms=k2["ms"],
+        plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+        bound_by=k2["bound_by"], library_ms=k2["library_ms"]))
     (OUT / "chip_smoke.log").write_text("\n".join(LOG))
     (OUT / "chip_smoke_last.json").write_text(json.dumps(
         {"nvidia_smi": smi, "kernels": kernels_line,
@@ -6621,7 +7180,7 @@ def main():
          "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32,
          "whisper_medium": whisper, "whisper_medium_f32": whisper_f32,
          "xlstm_350m": xlstm, "xlstm_350m_f32": xlstm_f32,
-         "train": train},
+         "train": train, "dist": dist},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

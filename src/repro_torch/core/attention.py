@@ -27,7 +27,7 @@ All functions are GQA-aware.  ``impl`` is "kernel" (the default) or
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -35,14 +35,17 @@ from repro_torch.core import flex
 from repro_torch.errors import UnsupportedFeature
 from repro_torch.kernels import IMPLS, check_impl
 from repro_torch.kernels.flex_attention.ops import flex_attention
-from repro_torch.kernels.paged_attention.ops import (paged_attention,
+from repro_torch.kernels.paged_attention.ops import (choose_decode_params,
+                                                     paged_attention,
                                                      paged_prefill)
 from repro_torch.kernels.paged_attention.paged_attention import (
-    ring_slot_positions)
+    paged_attention_partials, ring_slot_positions)
 
 # the training entry points (forward, loss_fn, the train step) also take
 # the chunked online-softmax attention in plain ops
 TRAIN_IMPLS = IMPLS + ("chunked",)
+# and ``prefill_attention`` also ring attention over the ranks
+PREFILL_IMPLS = TRAIN_IMPLS + ("ring",)
 
 
 def prefill_attention(
@@ -59,6 +62,13 @@ def prefill_attention(
     """Full-sequence attention for training and prefill.  Returns (B, S,
     H, D).
 
+    ``impl="ring"``: q, k and v are this rank's slice of the sequence
+    (slice r of the mesh's "model" axis) and ``lens`` the global lengths:
+    ring attention (``distributed.ring``) over a "model" axis of more
+    than one rank, which the rules must map ``seq`` to (else
+    ``EngineConfigError``: the slices would attend only within
+    themselves); with no mesh or one rank on "model" the slice is the
+    whole sequence, and the chunked path runs on it.
     ``impl="kernel"`` runs the flex kernel over the mask ``causal ∧
     padding(lens)`` (``window ∧ padding(lens)`` for ``window > 0``, with
     the analytic windowed block mask); ``impl="ref"`` the dense plain
@@ -67,7 +77,15 @@ def prefill_attention(
     with inputs that require grad, ``impl="kernel"`` raises
     ``UnsupportedFeature`` instead of running another path.
     """
-    check_impl(impl, TRAIN_IMPLS, "prefill_attention")
+    check_impl(impl, PREFILL_IMPLS, "prefill_attention")
+    if impl == "ring":
+        # context parallelism: q, k, v are this rank's sequence slice, and
+        # K/V rotate over the mesh's "model" axis (distributed.ring)
+        from repro_torch.distributed.ring import ring_attention, ring_ranks
+        if ring_ranks() > 1:
+            return ring_attention(q, k, v, lens=lens, causal=causal,
+                                  window=window, softcap=softcap)
+        impl = "chunked"  # one rank holds the whole sequence
     if impl == "kernel" and torch.is_grad_enabled() and (
             q.requires_grad or k.requires_grad or v.requires_grad):
         raise UnsupportedFeature(
@@ -286,18 +304,97 @@ def decode_attention(
     kv_scale: float = 0.0,
     pages_per_block: Optional[int] = None,
     num_splits: Optional[int] = None,
+    kv_axes: Tuple[str, ...] = (),
+    page_stride: int = 1,
+    page_offset: int = 0,
+    combine_mode: Optional[str] = None,
 ) -> torch.Tensor:
-    """Paged decode attention, single device (the JAX local path).
+    """Paged decode attention; with ``kv_axes`` flash-decoding over the
+    ranks of those mesh axes.
 
+    Without ``kv_axes`` this is the single-device op (the JAX local path):
     ``pages_per_block`` / ``num_splits`` are K1's KV-block width and
     split-K factor (None → auto-tuned, see
     `kernels.paged_attention.ops.choose_decode_params`).
+
+    With ``kv_axes`` the pools and ``block_tables`` hold this rank's page
+    stripe: local slot j holds logical page ``j·page_stride +
+    page_offset``, and ``lens`` are the rows' global lengths.  Each rank
+    computes online-softmax partials over its stripe — K1 on the local
+    table with ``collectives.local_lens`` (``impl="kernel"``), or the
+    plain ``_partial_decode`` (``impl="ref"``) — and
+    ``collectives.merge_flash_partials`` merges them across the ranks
+    (``combine_mode``: "kernel" = K2 over every rank's splits, "plain" =
+    all-reduce max and sum; None → "kernel" over more than one rank).
     """
-    return paged_attention(q, k_pages, v_pages, block_tables, lens,
-                           window=window, softcap=softcap, impl=impl,
-                           kv_scale=kv_scale,
-                           pages_per_block=pages_per_block,
-                           num_splits=num_splits)
+    if not kv_axes:
+        return paged_attention(q, k_pages, v_pages, block_tables, lens,
+                               window=window, softcap=softcap, impl=impl,
+                               kv_scale=kv_scale,
+                               pages_per_block=pages_per_block,
+                               num_splits=num_splits)
+    from repro_torch.distributed import collectives
+    if window > 0:
+        raise UnsupportedFeature("windowed caches are never page-striped "
+                                 "(windowed layers decode under dp)")
+    check_impl(impl)
+    B, H, D = q.shape
+    Hkv = k_pages.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    if impl == "kernel":
+        ppb, ns = choose_decode_params(block_tables.shape[1],
+                                       k_pages.shape[1], D, pages_per_block,
+                                       num_splits)
+        m, l, acc = paged_attention_partials(
+            q.reshape(B, Hkv, H // Hkv, D).contiguous(), k_pages, v_pages,
+            block_tables.contiguous(), collectives.local_lens(
+                lens, k_pages.shape[1], page_stride, page_offset),
+            scale=scale, softcap=softcap, kv_scale=kv_scale,
+            pages_per_block=ppb, num_splits=ns)
+    else:
+        m, l, acc = _partial_decode(q, k_pages, v_pages, block_tables, lens,
+                                    softcap=softcap, page_stride=page_stride,
+                                    page_offset=page_offset,
+                                    kv_scale=kv_scale)
+    out = collectives.merge_flash_partials(m, l, acc, kv_axes,
+                                           combine_mode=combine_mode,
+                                           out_dtype=q.dtype)
+    return out.reshape(B, H, D)
+
+
+def _partial_decode(q, k_pages, v_pages, block_tables, lens, *, softcap=0.0,
+                    page_stride=1, page_offset=0, kv_scale=0.0):
+    """Plain online-softmax partials over a rank's page stripe (the JAX
+    ``_partial_decode`` on a dense cache): local slot ``s`` is position
+    ``(s // P · page_stride + page_offset) · P + s % P``, live below
+    ``lens`` (global) and where the table holds a page.  Returns m, l
+    (B, Hkv, 1, G) and acc (B, Hkv, 1, G, D), f32, the layout of K1's
+    partials with one split; a dead row's m is -1e30."""
+    B, H, D = q.shape
+    num_pages, P, Hkv, _ = k_pages.shape
+    G = H // Hkv
+    S = block_tables.shape[1] * P
+    safe = block_tables.clamp(0, num_pages - 1).long()
+    k = k_pages[safe].reshape(B, S, Hkv, D).float()
+    v = v_pages[safe].reshape(B, S, Hkv, D).float()
+    if kv_scale > 0:  # int8 pools: dequantised working set
+        k, v = k * kv_scale, v * kv_scale
+    slot = torch.arange(S, device=q.device)
+    pos = (slot // P * page_stride + page_offset) * P + slot % P
+    live = pos[None, :] < lens.long()[:, None]
+    live &= (block_tables >= 0)[:, :, None].expand(B, -1, P).reshape(B, S)
+    qg = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    s = s.masked_fill(~live[:, None, None, :], float("-inf"))
+    m = s.amax(dim=-1)
+    m_safe = torch.where(torch.isfinite(m), m, torch.tensor(
+        -1e30, device=q.device))
+    p = torch.where(live[:, None, None, :], torch.exp(s - m_safe[..., None]),
+                    torch.tensor(0.0, device=q.device))
+    acc = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return m_safe[:, :, None], p.sum(-1)[:, :, None], acc[:, :, None]
 
 
 def decode_attention_contiguous(

@@ -1,0 +1,75 @@
+"""Expert-parallel MoE dispatch over ``all_to_all_single`` (port of
+``repro.distributed.ep``).
+
+Each rank holds ``E / m`` experts of the "model" axis and its own batch
+rows:
+
+    route the rank's tokens → capacity C_l = T_l·k/E·cf → dispatch
+    buffer (E, C_l, d); all_to_all over "model": (E, C_l, d) →
+    (E/m, m·C_l, d); the local experts' FFN; all_to_all back →
+    (E, C_l, d); the local weighted combine.
+
+Capacity is per rank (``T_l`` its live tokens), as in the JAX function,
+so with a finite factor the drops may differ from the single-device
+``apply_moe`` over the whole batch; dropless (capacity 0) both are exact.
+As in ``models.moe``, only ``live`` tokens are routed (the port's rule:
+padding takes no expert slot and counts in no capacity).  The expert
+products are batched matmuls, as the JAX ``einsum``s run outside any
+Pallas kernel.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import all_reduce, all_to_all
+from repro_torch.distributed.sharding import current_mesh, current_rules
+from repro_torch.models import moe as moe_mod
+
+
+def _batch_axes(mesh) -> Tuple[str, ...]:
+    phys = current_rules().physical("batch") or ()
+    return tuple(a for a in phys if a in mesh.axis_names)
+
+
+def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 live: Optional[torch.Tensor] = None,
+                 n_live: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MoE FFN of this rank's tokens ``x`` (B_l, S, d) or (B_l, d)
+    with its ``E / m`` experts (``p["wg"]`` etc. (E/m, ...)); ``router``
+    whole.  ``live`` of x's leading shape marks the tokens routed (None:
+    every token), ``n_live`` counts them (read on the host when None).
+    Returns (the output, of x's shape and dtype; the load-balance loss
+    over the live tokens, averaged over the batch axes' ranks)."""
+    mesh = current_mesh()
+    m = mesh.size("model")
+    shape = x.shape
+    d = shape[-1]
+    xf = x.reshape(-1, d)
+    T_l = xf.shape[0]
+    E, k = cfg.n_experts, cfg.top_k
+    if live is not None:
+        live = live.reshape(T_l)
+        T_l = int(live.sum()) if n_live is None else n_live
+    probs, gates, idx = moe_mod.router(p, xf, k)
+    aux = moe_mod.aux_loss(probs, idx, live)
+    ba = _batch_axes(mesh)
+    if ba:
+        aux = all_reduce(aux, ba) / mesh.prod(ba)
+    slot, ok, disp = moe_mod.dispatch(idx, moe_mod.capacity(T_l, cfg), E,
+                                      live)
+    C = disp.shape[1]
+    xe = xf[torch.clamp(disp, max=xf.shape[0] - 1)]  # (E, C, d)
+    # experts to their owning rank: (m, E/m, C, d) -> (E/m, m·C, d)
+    xe = all_to_all(xe, ("model",)).reshape(m, E // m, C, d)
+    xe = xe.transpose(0, 1).reshape(E // m, m * C, d)
+    ye = moe_mod.expert_ffn(p, xe, cfg)
+    # back to the tokens' rank: (E/m, m, C, d) -> (m, E/m, C, d) -> (E, C, d)
+    ye = ye.reshape(E // m, m, C, d).transpose(0, 1).contiguous()
+    ye = all_to_all(ye, ("model",)).reshape(E, C, d)
+    out = moe_mod.combine(ye, gates, idx, slot, ok)
+    return out.to(x.dtype).reshape(shape), aux

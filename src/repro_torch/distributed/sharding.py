@@ -1,0 +1,273 @@
+"""Logical-axis sharding rules (port of ``repro.distributed.sharding``).
+
+Model code names tensor dims with *logical* axes ("batch", "heads",
+"embed", ...).  A rule table maps each logical axis to zero or more
+physical mesh axes, and ``logical_spec`` resolves a tuple of logical axes
+to a ``PartitionSpec`` exactly as the JAX package does: mesh axes the
+mesh lacks are dropped, a mesh axis shards at most one dim (the first
+logical axis wins), and a dim the mesh axes do not divide is replicated.
+
+The port runs eagerly, one process per rank: a tensor a rank holds is
+already its shard.  ``shard_params`` cuts a full parameter tree to this
+rank's pieces by each ``ParamSpec.axes``; ``logical_shard`` (a sharding
+constraint under ``jit`` in the JAX package) is the identity here.  The
+mesh is ``launch.mesh.Mesh``: axis names, shape, this rank's coordinates
+and one process group per set of axes.
+
+Example
+-------
+    rules = AxisRules({"batch": ("pod", "data"), "heads": "model"})
+    with use_mesh(mesh, rules):
+        spec = logical_spec(("batch", None, "heads"), shape=x.shape)
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import threading
+from dataclasses import dataclass, field
+from typing import Mapping, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.errors import DistributedSetupError
+
+PhysAxes = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """A resolved spec: per dim None, one mesh axis name or a tuple of
+    them, trailing Nones dropped (``jax.sharding.PartitionSpec``'s
+    entries)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self):
+        return f"PartitionSpec{tuple(self)!r}"
+
+
+P = PartitionSpec
+
+
+def _norm(v: PhysAxes) -> Optional[Tuple[str, ...]]:
+    if v is None:
+        return None
+    if isinstance(v, str):
+        return (v,)
+    return tuple(v)
+
+
+@dataclass(frozen=True)
+class AxisRules:
+    """Mapping from logical axis name to physical mesh axes."""
+
+    table: Mapping[str, PhysAxes] = field(default_factory=dict)
+
+    def physical(self, logical: Optional[str]) -> Optional[Tuple[str, ...]]:
+        if logical is None:
+            return None
+        return _norm(self.table.get(logical))
+
+    def extend(self, **overrides: PhysAxes) -> "AxisRules":
+        t = dict(self.table)
+        t.update(overrides)
+        return AxisRules(t)
+
+
+# Rules for the production (pod, data, model) mesh.  Configs may override.
+DEFAULT_RULES = AxisRules(
+    {
+        "batch": ("pod", "data"),
+        "embed": None,        # ("data",) for FSDP on big models (configs)
+        "heads": ("model",),
+        "kv_heads": None,     # ("model",) when kv_heads % model == 0
+        "mlp": ("model",),
+        "experts": ("model",),
+        "vocab": ("model",),
+        "kv_pages": ("pod", "data"),
+        "seq": None,        # ("model",) under the sequence-parallel plans
+        "attn_seq": None,   # q/k/v seq dim; ("model",) under the ring plan
+        "act_embed": None,  # activations' model dim (not the weight "embed")
+        "layers": None,
+        "state": ("model",),  # recurrent state heads (SSM/RG-LRU)
+        "frames": None,
+    }
+)
+
+
+class _Ctx(threading.local):
+    def __init__(self):
+        self.mesh = None
+        self.rules: AxisRules = DEFAULT_RULES
+
+
+_CTX = _Ctx()
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, rules: Optional[AxisRules] = None):
+    """Activate a mesh (``launch.mesh.Mesh``) and a rule table for the
+    distributed paths of this thread."""
+    prev = (_CTX.mesh, _CTX.rules)
+    _CTX.mesh = mesh
+    if rules is not None:
+        _CTX.rules = rules
+    try:
+        yield
+    finally:
+        _CTX.mesh, _CTX.rules = prev
+
+
+def current_mesh():
+    return _CTX.mesh
+
+
+def current_rules() -> AxisRules:
+    return _CTX.rules
+
+
+def _mesh_axis_sizes(mesh) -> Mapping[str, int]:
+    return dict(zip(mesh.axis_names, mesh.shape))
+
+
+def axis_size(name: str) -> int:
+    """Size of a named axis of the active mesh."""
+    mesh = current_mesh()
+    if mesh is None or name not in mesh.axis_names:
+        raise DistributedSetupError(
+            f"axis_size({name!r}): no active mesh defines it", axis=name)
+    return _mesh_axis_sizes(mesh)[name]
+
+
+def axis_index(name: str) -> int:
+    """This rank's coordinate along a named axis of the active mesh."""
+    axis_size(name)  # raises without a mesh that defines it
+    return current_mesh().index(name)
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """Which weights a rank holds only a piece of over the mesh's "model"
+    axis (Megatron style), decided once per plan (``launch.steps.
+    plan_for``).  ``TransformerModel.shard_params`` cuts by it and the
+    model's layers reduce or gather exactly where it says; nothing infers
+    a cut from a weight's shape.  The default is one rank: nothing cut.
+
+      * ``vocab``: ``embed["tok"]`` rows and ``embed["head"]`` columns —
+        a masked lookup summed over "model", the logits gathered;
+      * ``mlp``: ``wg``/``wu`` columns and ``wd`` rows of ``d_ff`` —
+        ``wd``'s partial sums reduced in f32;
+      * ``experts``: the MoE experts (expert parallelism, ``ep``);
+      * ``attn``, per layer: ``"heads"`` (tp: ``wq``/``wk``/``wv``/``wo``
+        and the pools by kv heads), ``"groups"`` (dp: ``wq``/``wo`` by
+        G/m heads of every kv group) or ``"whole"``; ``wo``'s partial
+        sums are reduced unless whole;
+      * ``kv_heads``: the kv heads of a rank's decode pools (0: every
+        head of the model)."""
+
+    vocab: bool = False
+    mlp: bool = False
+    experts: bool = False
+    attn: Tuple[str, ...] = ()
+    kv_heads: int = 0
+
+    def row_parallel(self, layer: int) -> bool:
+        """Whether layer ``layer``'s ``wo`` holds only this rank's heads."""
+        return bool(self.attn) and self.attn[layer] != "whole"
+
+    def rules(self) -> AxisRules:
+        """The rule table that cuts the non-attention weights as this
+        layout says (every other logical axis whole)."""
+        on = {True: ("model",), False: None}
+        return AxisRules({"vocab": on[self.vocab], "mlp": on[self.mlp],
+                          "experts": on[self.experts]})
+
+
+def logical_spec(
+    logical_axes: Sequence[Optional[str]],
+    rules: Optional[AxisRules] = None,
+    mesh=None,
+    shape: Optional[Sequence[int]] = None,
+) -> PartitionSpec:
+    """Resolve logical axes to a PartitionSpec.
+
+    If ``shape`` is given, any mapping whose mesh-axis product does not
+    divide the dimension is dropped (replicated): small smoke configs stay
+    valid under the production rules.
+    """
+    rules = rules or current_rules()
+    mesh = mesh or current_mesh()
+    sizes = _mesh_axis_sizes(mesh) if mesh is not None else {}
+    out = []
+    used: set = set()
+    for i, ax in enumerate(logical_axes):
+        phys = rules.physical(ax)
+        if phys is not None and mesh is not None:
+            # drop mesh axes this mesh lacks ("pod" on one pod), so one
+            # rule table serves every mesh
+            phys = tuple(p for p in phys if p in sizes) or None
+        if phys is not None and used.intersection(phys):
+            # a mesh axis shards at most one dim; the first wins
+            phys = None
+        if phys is not None and shape is not None and mesh is not None:
+            if shape[i] % math.prod(sizes.get(p, 1) for p in phys) != 0:
+                phys = None
+        if phys is None:
+            out.append(None)
+        elif len(phys) == 1:
+            used.update(phys)
+            out.append(phys[0])
+        else:
+            used.update(phys)
+            out.append(tuple(phys))
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def logical_shard(x: torch.Tensor, *logical_axes: Optional[str]
+                  ) -> torch.Tensor:
+    """The identity.  Under ``jit`` the JAX function constrains a global
+    array's layout for GSPMD; here every rank runs eagerly on the tensors
+    it holds, which are already its shards, so there is nothing to
+    constrain."""
+    return x
+
+
+def shard_tensor(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
+    """This rank's piece of a full tensor ``x`` under ``spec`` (a resolved
+    PartitionSpec): each sharded dim is cut into the product of its mesh
+    axes' sizes, and the piece at the rank's flat (row-major) index over
+    those axes is kept, contiguous.  Unsharded tensors come back as
+    they are."""
+    out = x
+    for dim, entry in enumerate(spec):
+        axes = _norm(entry)
+        if not axes:
+            continue
+        n = math.prod(mesh.size(a) for a in axes)
+        if n == 1:
+            continue
+        idx = mesh.flat_index(axes)
+        w = x.shape[dim] // n
+        out = out.narrow(dim, idx * w, w)
+    return out.contiguous() if out is not x else x
+
+
+def shard_params(params, spec_tree, mesh, rules: AxisRules):
+    """Cut a full parameter tree (dicts and lists of tensors, the shape of
+    ``spec_tree``, a tree of ``ParamSpec``) to this rank's local pieces
+    by each leaf's logical axes under ``rules`` (the port's counterpart
+    of ``make_param_shardings``: the JAX package hands the specs to
+    ``jit``; the port holds only its pieces)."""
+    from repro_torch.models.spec import ParamSpec
+    if isinstance(spec_tree, ParamSpec):
+        return shard_tensor(params, logical_spec(
+            spec_tree.axes, rules, mesh, tuple(params.shape)), mesh)
+    if isinstance(spec_tree, dict):
+        return {k: shard_params(params[k], spec_tree[k], mesh, rules)
+                for k in params}
+    return [shard_params(p, s, mesh, rules)
+            for p, s in zip(params, spec_tree)]

@@ -173,12 +173,12 @@ def launch_wrappers():
 def launch_counts() -> Dict[str, int]:
     """Kernel launches per wrapper since the last reset, per route of the
     wrappers that have several (K2's layouts: "combine/decode",
-    "combine/prefill"; "flex_prefill/tc", "flex_prefill/tf32x3";
-    K3's tiles by input: "paged_prefill/tc", "paged_prefill/tc/int8",
-    "paged_prefill/tc/odd", "paged_prefill/tc/int8/odd" and the same of
-    "tf32x3"), and per route and mask variant of K4
-    ("flex_prefill/tc/window&padding": only the variants launched since the
-    reset)."""
+    "combine/prefill", "combine/dist" across ranks; "flex_prefill/tc",
+    "flex_prefill/tf32x3"; K3's tiles by input: "paged_prefill/tc",
+    "paged_prefill/tc/int8", "paged_prefill/tc/odd",
+    "paged_prefill/tc/int8/odd" and the same of "tf32x3"), and per route
+    and mask variant of K4 ("flex_prefill/tc/window&padding": only the
+    variants launched since the reset)."""
     counts = {}
     for k, fn in launch_wrappers().items():
         counts[k] = fn.launches

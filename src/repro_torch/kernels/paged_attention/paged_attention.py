@@ -19,7 +19,8 @@ its partials in one buffer.  ``combine_prefill_partials`` runs K2 on K3's
 partials where they lie, writing (B, C, H, D) directly.  K2 takes its
 partials and its output by strides, so the decode layout is K3's with one
 Q-block of one token.  ``combine_partials_kernel`` counts its launches per
-layout (``launches_by_route``: "decode", "prefill").
+layout (``launches_by_route``: "decode", "prefill", and "dist" for the
+merge across ranks).
 
 K3 (``paged_prefill_partials``, ``csrc/paged_prefill.cu``) replaces
 ``_prefill_kernel``: chunked paged prefill, the same partials over Q-blocks
@@ -163,10 +164,12 @@ def _launch_combine(m, l, acc, out, dims, strides, route):
 
 
 def combine_partials_kernel(m: torch.Tensor, l: torch.Tensor,
-                            acc: torch.Tensor,
-                            dtype=torch.float32) -> torch.Tensor:
+                            acc: torch.Tensor, dtype=torch.float32,
+                            route: str = "decode") -> torch.Tensor:
     """K2 at the decode layout: m, l (B, Hkv, S, G) f32; acc (B, Hkv, S, G,
-    D) f32.  Returns (B, Hkv, G, D) in ``dtype`` (f32 or bf16)."""
+    D) f32.  Returns (B, Hkv, G, D) in ``dtype`` (f32 or bf16).  ``route``
+    names the launch in ``launches_by_route``: "decode", or "dist" for the
+    merge of every rank's partials (``distributed.collectives``)."""
     if not use_kernel("combine_partials", m, l, acc):
         return _combine_partials_plain(m, l, acc, dtype)
     _check_partials(m, l, acc)
@@ -181,13 +184,13 @@ def combine_partials_kernel(m: torch.Tensor, l: torch.Tensor,
     ab, ah, as_, ag = acc.stride()[:4]
     _launch_combine(m, l, acc, out, (B, Hkv, 1, S, G, D, G, 1, 1),
                     (mb, mh, 0, ms, mg, ab, ah, 0, as_, ag,
-                     Hkv * G * D, 0, D), "decode")
+                     Hkv * G * D, 0, D), route)
     return out
 
 
 combine_partials_kernel.launches = 0
 combine_partials_kernel.launches_by_route = dict.fromkeys(
-    ("decode", "prefill"), 0)
+    ("decode", "prefill", "dist"), 0)
 
 
 def _blocked_tables(block_tables: torch.Tensor, lens: torch.Tensor, *,

@@ -1,0 +1,138 @@
+"""Meshes over ``torch.distributed`` (port of ``repro.launch.mesh``).
+
+A ``Mesh`` names the axes of a grid of ranks, ("data", "model") by
+default, and knows this rank's coordinates and one process group per set
+of axes (the ranks that differ only along those axes).  Ranks are laid
+out row-major: the last axis varies fastest.  An axis, or set of axes, of
+size 1 has no group and every collective over it is the identity, so a
+1 x 1 mesh (``make_local_mesh``) needs no process group at all.
+
+The caller starts the process group (``torch.distributed.
+init_process_group`` with its own address, world size and rank: nothing
+on the machine describes a cluster); ``make_mesh`` then builds the mesh
+over it.  Every rank must build the same meshes in the same order
+(``new_group`` is collective).
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
+
+from repro_torch.errors import DistributedSetupError
+
+
+class Mesh:
+    """A named grid of ranks: ``axis_names``, ``shape``, this rank's
+    ``coords``, process groups by axis set (``group``) and the record of
+    the collectives run over them."""
+
+    def __init__(self, shape: Sequence[int],
+                 axis_names: Sequence[str] = ("data", "model"),
+                 rank: int = 0, groups: Optional[Dict] = None):
+        if len(shape) != len(axis_names):
+            raise DistributedSetupError(
+                f"mesh shape {tuple(shape)} does not match axes "
+                f"{tuple(axis_names)}")
+        self.shape = tuple(int(s) for s in shape)
+        self.axis_names = tuple(axis_names)
+        self.rank = rank
+        self.coords = _unravel(rank, self.shape)
+        self._groups = groups or {}
+        # the collectives' record (``distributed.collectives``): the ops a
+        # gloo group refused on CUDA tensors (None until probed), the
+        # calls copied through host memory, and per op the calls, bytes
+        # sent and host seconds
+        self.host_ops: Optional[set] = None
+        self.host_copies: Counter = Counter()
+        self.stats = {"calls": Counter(), "bytes": Counter(),
+                      "seconds": Counter()}
+
+    def size(self, name: str) -> int:
+        if name not in self.axis_names:
+            raise DistributedSetupError(f"mesh has no axis {name!r}",
+                                        axis=name)
+        return self.shape[self.axis_names.index(name)]
+
+    def index(self, name: str) -> int:
+        """This rank's coordinate along axis ``name``."""
+        return self.coords[self.axis_names.index(name)] if (
+            name in self.axis_names) else 0
+
+    def flat_index(self, axes: Sequence[str]) -> int:
+        """This rank's row-major index over ``axes`` (mixed radix)."""
+        idx = 0
+        for a in axes:
+            idx = idx * self.size(a) + self.index(a)
+        return idx
+
+    def prod(self, axes: Sequence[str]) -> int:
+        return math.prod(self.size(a) for a in axes)
+
+    def group(self, axes: Sequence[str]):
+        """The process group over ``axes`` (None when their product is
+        1: nothing to communicate)."""
+        key = tuple(a for a in self.axis_names if a in tuple(axes))
+        if self.prod(key) == 1:
+            return None
+        if key not in self._groups:
+            raise DistributedSetupError(
+                f"mesh has no process group over {key}", axes=key)
+        return self._groups[key]
+
+    def __repr__(self):
+        return (f"Mesh({dict(zip(self.axis_names, self.shape))}, "
+                f"rank={self.rank}, coords={self.coords})")
+
+
+def _unravel(rank: int, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    out = []
+    for s in reversed(shape):
+        out.append(rank % s)
+        rank //= s
+    return tuple(reversed(out))
+
+
+def make_mesh(shape: Sequence[int],
+              axis_names: Sequence[str] = ("data", "model")) -> Mesh:
+    """A mesh of ``shape`` over the default process group, whose size
+    must be ``prod(shape)``.  Creates one group per set of axes with more
+    than one rank (collective: every rank calls this in the same order)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        raise DistributedSetupError(
+            "make_mesh needs torch.distributed.init_process_group first")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    shape = tuple(int(s) for s in shape)
+    if math.prod(shape) != world:
+        raise DistributedSetupError(
+            f"mesh {shape} needs {math.prod(shape)} ranks, the group has "
+            f"{world}", world=world)
+    names = tuple(axis_names)
+    coords = [_unravel(r, shape) for r in range(world)]
+    groups = {}
+    for n in range(1, len(names) + 1):
+        for key in itertools.combinations(range(len(names)), n):
+            if math.prod(shape[i] for i in key) == 1:
+                continue
+            if len(key) == len(names):
+                groups[names] = dist.group.WORLD
+                continue
+            # ranks that share the coordinates off ``key``
+            buckets: Dict[Tuple, list] = {}
+            for r, c in enumerate(coords):
+                rest = tuple(c[i] for i in range(len(names)) if i not in key)
+                buckets.setdefault(rest, []).append(r)
+            for members in buckets.values():
+                g = dist.new_group(members)
+                if rank in members:
+                    groups[tuple(names[i] for i in key)] = g
+    return Mesh(shape, names, rank, groups)
+
+
+def make_local_mesh() -> Mesh:
+    """The 1 x 1 mesh with the production axis names (one rank, no
+    process group)."""
+    return Mesh((1, 1), ("data", "model"))

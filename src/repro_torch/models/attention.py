@@ -20,6 +20,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cache as kvcache
+from repro_torch.models import layers
 from repro_torch.models.layers import apply_rope
 from repro_torch.models.spec import ParamSpec
 
@@ -64,9 +65,15 @@ def kv_pool_dtype(cfg: ModelConfig, dtype):
     return torch.int8 if cfg.kv_dtype == "int8" else dtype
 
 
-def _out(p: Dict, o: torch.Tensor) -> torch.Tensor:
+def _out(p: Dict, o: torch.Tensor, row_parallel: bool = False
+         ) -> torch.Tensor:
+    """The output projection of the heads ``o`` (..., H, hd).
+    ``row_parallel``: ``wo`` holds only this rank's heads
+    (``TPLayout.row_parallel``), and their partial sums are reduced over
+    "model" in f32 (``layers.row_parallel_matmul``)."""
     H, hd, d = p["wo"].shape
-    return o.reshape(*o.shape[:-2], H * hd) @ p["wo"].reshape(H * hd, d)
+    o, wo = o.reshape(*o.shape[:-2], H * hd), p["wo"].reshape(H * hd, d)
+    return layers.row_parallel_matmul(o, wo) if row_parallel else o @ wo
 
 
 def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -88,9 +95,11 @@ def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
 def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                  tables: torch.Tensor, lens: torch.Tensor, *,
-                 window: int = 0, impl: str = "kernel") -> torch.Tensor:
+                 window: int = 0, impl: str = "kernel",
+                 row_parallel: bool = False) -> torch.Tensor:
     """Prefill: attend over the prompt AND write K/V into the paged pools
-    (in place).  ``tables``: (B, n_kv_shards, pages_per_shard)."""
+    (in place).  ``tables``: (B, n_kv_shards, pages_per_shard).
+    ``row_parallel``: the weights hold this rank's heads (``_out``)."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
@@ -99,7 +108,7 @@ def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                                 window=window)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     impl=impl)
-    return _out(p, o)
+    return _out(p, o, row_parallel)
 
 
 def attn_prefill_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -167,22 +176,38 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 tables: torch.Tensor, positions: torch.Tensor, *,
                 window: int = 0, impl: str = "kernel",
                 pages_per_block: Optional[int] = None,
-                num_splits: Optional[int] = None) -> torch.Tensor:
+                num_splits: Optional[int] = None,
+                attn_ctx: Optional[Dict] = None,
+                row_parallel: bool = False) -> torch.Tensor:
     """Decode one token.  x: (B, d); positions: (B,) 0-based position of
     the incoming token; tables: (B, n_kv_shards, pages_per_shard).
     Appends K/V to the pools (in place), then attends over
-    lens = positions + 1 tokens."""
+    lens = positions + 1 tokens.
+
+    ``attn_ctx`` = {"scheme": local|tp|dp|kvp, "batch_axes": (...)}
+    selects the distribution scheme under the active mesh
+    (``distributed.collectives``); windowed layers decode kvp as dp (ring
+    pools are never striped).  The rank's q heads (its slice of ``wq``)
+    are grouped over the kv heads its pools hold.  ``row_parallel``: the
+    weights hold this rank's heads (``_out``)."""
+    from repro_torch.distributed.collectives import (
+        decode_attention_sharded, layer_scheme, write_decode_sharded)
+    ctx = attn_ctx or {}
+    scheme = layer_scheme(ctx.get("scheme", "local"), window)
+    batch_axes = tuple(ctx.get("batch_axes", ()))
     B = x.shape[0]
     q, k, v = _qkv(p, x, positions, cfg.rope_theta)  # (B, H/Hkv, hd)
-    kvcache.write_layer_decode(k_pages, v_pages, tables, positions,
-                               kv_quant(cfg, k), kv_quant(cfg, v),
-                               window=window)
-    o = core_attn.decode_attention(
-        q, k_pages, v_pages, tables.reshape(B, -1),
-        (positions + 1).to(torch.int32), window=window, impl=impl,
+    write_decode_sharded(k_pages, v_pages, tables, positions,
+                         kv_quant(cfg, k), kv_quant(cfg, v), window=window,
+                         scheme=scheme, batch_axes=batch_axes)
+    n_kv = k_pages.shape[2]
+    o = decode_attention_sharded(
+        q.reshape(B, n_kv, q.shape[1] // n_kv, q.shape[2]), k_pages,
+        v_pages, tables, (positions + 1).to(torch.int32), window=window,
+        scheme=scheme, batch_axes=batch_axes, impl=impl,
         kv_scale=cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0,
         pages_per_block=pages_per_block, num_splits=num_splits)
-    return _out(p, o)
+    return _out(p, o.reshape(q.shape), row_parallel)
 
 
 def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -202,7 +227,8 @@ def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 
 def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                       state: Dict, i: int, lens: torch.Tensor, *,
-                      window: int = 0, impl: str = "kernel") -> torch.Tensor:
+                      window: int = 0, impl: str = "kernel",
+                      row_parallel: bool = False) -> torch.Tensor:
     """Prefill attention of attention layer ``i`` of ``state``: into the
     contiguous baseline's buffers (``state["k_buf"]``, rows
     ``state["slots"]``) when the state holds them, else into the paged
@@ -212,14 +238,17 @@ def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
             p, x, cfg, state["k_buf"][i], state["v_buf"][i], state["slots"],
             lens, window=window, impl=impl)
     return attn_prefill(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
-                        state["tables"], lens, window=window, impl=impl)
+                        state["tables"], lens, window=window, impl=impl,
+                        row_parallel=row_parallel)
 
 
 def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                      state: Dict, i: int, *, window: int = 0,
                      impl: str = "kernel",
                      pages_per_block: Optional[int] = None,
-                     num_splits: Optional[int] = None) -> torch.Tensor:
+                     num_splits: Optional[int] = None,
+                     attn_ctx: Optional[Dict] = None,
+                     row_parallel: bool = False) -> torch.Tensor:
     """One decode step of attention layer ``i`` of ``state`` at
     ``state["pos"]``: over the contiguous baseline's buffers when the
     state holds them, else over the paged pools."""
@@ -230,7 +259,8 @@ def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return attn_decode(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
                        state["tables"], pos, window=window, impl=impl,
                        pages_per_block=pages_per_block,
-                       num_splits=num_splits)
+                       num_splits=num_splits, attn_ctx=attn_ctx,
+                       row_parallel=row_parallel)
 
 
 def cross_kv(p: Dict, ctx: torch.Tensor

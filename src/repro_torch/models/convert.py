@@ -128,3 +128,12 @@ def train_state_from_numpy(state, device="cuda", dtype=torch.float32):
                        nu=params_from_numpy(state.opt.nu, device, dtype),
                        count=scalar(state.opt.count)),
         step=scalar(state.step))
+
+
+def sharded_params_from_numpy(tree: Dict[str, Any], model, plan,
+                              device="cuda", dtype=torch.float32
+                              ) -> Dict[str, Any]:
+    """This rank's pieces, under ``plan`` (``launch.steps.Plan``), of the
+    JAX params as numpy (``model.shard_params`` of ``params_from_numpy``):
+    every rank converts the same tree and keeps its own cut."""
+    return model.shard_params(params_from_numpy(tree, device, dtype), plan)

@@ -100,7 +100,35 @@ def mlp_spec(cfg: ModelConfig) -> Dict:
             "wd": ParamSpec((f, d), ("mlp", "embed"))}
 
 
-def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def reduce_model(y: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Sum partial sums over the mesh's "model" axis in f32 (Megatron's
+    all-reduce after ``wo`` and ``wd``, and the vocab-sharded lookup);
+    the result in ``dtype`` (default: ``y``'s)."""
+    from repro_torch.distributed.collectives import all_reduce
+    return all_reduce(y.float(), ("model",)).to(dtype or y.dtype)
+
+
+def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a ``w`` that holds this rank's rows of the contraction
+    (row-parallel), summed over "model", in ``x``'s dtype.  The rank's
+    partial product stays in f32 until the sum: bf16 inputs on the card
+    take cuBLAS's f32 accumulator as it is (``mm``'s ``out_dtype``), so
+    the only rounding to bf16 is the one a single device makes."""
+    if x.dtype == torch.bfloat16 and x.is_cuda:
+        part = torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(
+                            *x.shape[:-1], w.shape[-1])
+    else:
+        part = (x @ w).float()
+    return reduce_model(part, x.dtype)
+
+
+def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+              row_parallel: bool = False) -> torch.Tensor:
+    """The dense MLP.  ``row_parallel``: ``wg``/``wu`` hold this rank's
+    column slice of ``d_ff`` and ``wd`` the matching rows (Megatron,
+    ``TPLayout.mlp``), and the partial sums are reduced over "model" in
+    f32 (``row_parallel_matmul``)."""
     if cfg.activation == "silu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     elif cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
@@ -109,6 +137,8 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         h = F.gelu(x @ p["wu"], approximate="tanh")
     else:  # relu2, checked when the model is built
         h = torch.square(F.relu(x @ p["wu"]))
+    if row_parallel:
+        return row_parallel_matmul(h, p["wd"])
     return h @ p["wd"]
 
 
@@ -123,13 +153,33 @@ def embed_spec(cfg: ModelConfig) -> Dict:
     return out
 
 
-def embed_tokens(p: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return p["tok"][tokens.long()]
+def embed_tokens(p: Dict, tokens: torch.Tensor,
+                 vocab_sharded: bool = False) -> torch.Tensor:
+    """The tokens' rows of ``p["tok"]``.  ``vocab_sharded``: the table is
+    this rank's slice of the vocab over the active mesh's "model" axis
+    (``TPLayout.vocab``): rows outside it read zeros, and the sum over the
+    axis gives every token its row."""
+    tok = p["tok"]
+    if not vocab_sharded:
+        return tok[tokens.long()]
+    from repro_torch.distributed.sharding import axis_index
+    local = tokens.long() - axis_index("model") * tok.shape[0]
+    mine = (local >= 0) & (local < tok.shape[0])
+    x = tok[torch.where(mine, local, 0)] * mine[..., None].to(tok.dtype)
+    return reduce_model(x)
 
 
-def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            vocab_sharded: bool = False) -> torch.Tensor:
+    """Logits (..., V).  ``vocab_sharded``: the table is this rank's
+    vocab slice (``TPLayout.vocab``), and its logits are gathered over
+    "model" along the vocab."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     logits = x @ w
+    if vocab_sharded:
+        from repro_torch.distributed.collectives import all_gather
+        parts = all_gather(logits, ("model",))
+        logits = torch.cat(list(parts), dim=-1)
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

@@ -122,7 +122,12 @@ def experts(p: Dict, x: torch.Tensor, disp: torch.Tensor,
     """The gated expert MLPs over the dispatched rows of ``x`` (T, d):
     (E, C, d).  Empty slots (sentinel T) read an arbitrary row; their
     outputs are never combined."""
-    xe = x[torch.clamp(disp, max=x.shape[0] - 1)]  # (E, C, d)
+    return expert_ffn(p, x[torch.clamp(disp, max=x.shape[0] - 1)], cfg)
+
+
+def expert_ffn(p: Dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated expert MLPs of the dispatched rows ``xe`` (E, C, d), one
+    batched matmul per weight: (E, C, d)."""
     g = torch.bmm(xe, p["wg"])
     if cfg.activation == "silu":
         h = F.silu(g) * torch.bmm(xe, p["wu"])

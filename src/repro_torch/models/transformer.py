@@ -64,6 +64,9 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import TRAIN_IMPLS
+from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (P, TPLayout, shard_params,
+                                              shard_tensor)
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
 from repro_torch.kernels import check_impl
 from repro_torch.models import attention as attn
@@ -178,20 +181,130 @@ class TransformerModel:
         return out or None
 
     def init_params(self, gen: torch.Generator, dtype=torch.float32,
-                    device=None) -> Dict:
-        return pspec.materialize(self.param_spec(), gen, dtype, device)
+                    device=None, plan=None) -> Dict:
+        """Draw the parameters from ``gen``.  With a ``plan``
+        (``launch.steps.Plan``) keep only this rank's pieces
+        (``shard_params``): each top-level entry and each layer is drawn
+        whole, in the order of the unsharded draw, and cut at once, so
+        every rank draws the same weights and holds one full layer at a
+        time."""
+        spec = self.param_spec()
+        if plan is None:
+            return pspec.materialize(spec, gen, dtype, device)
+        self._check_distributable()
+        out = {}
+        for key in sorted(spec):
+            if key == "layers":
+                out[key] = [self._shard_layer(
+                    li, pspec.materialize(ls, gen, dtype, device), plan)
+                    for li, ls in enumerate(spec[key])]
+            else:
+                out[key] = shard_params(
+                    pspec.materialize(spec[key], gen, dtype, device),
+                    spec[key], plan.mesh, plan.layout.rules())
+        return out
+
+    # -- tensor parallelism -------------------------------------------------
+    def shard_params(self, params: Dict, plan) -> Dict:
+        """This rank's pieces of full ``params`` for serving under ``plan``
+        (Megatron style; the JAX package leaves the layout to GSPMD), cut
+        as ``plan.layout`` (``distributed.sharding.TPLayout``) says:
+
+          * ``embed``: the vocab over "model" when it divides, else whole;
+          * attention, per layer: ``"heads"`` — ``wq``/``wk``/``wv`` by
+            heads (q and kv), ``wo`` by the same heads; ``"groups"`` — the
+            kv projections whole, ``wq``/``wo`` by G/m heads of every
+            group; ``"whole"``;
+          * MLP: ``wg``/``wu`` by columns of ``d_ff``, ``wd`` by rows;
+          * MoE: the experts over "model" (expert parallelism), the
+            router whole;
+          * norms whole.  "embed" (FSDP over "data") is not sharded: the
+            JAX configs' override is a GSPMD layout the port does not
+            run."""
+        self._check_distributable()
+        spec = self.param_spec()
+        return {k: [self._shard_layer(li, p, plan)
+                    for li, p in enumerate(v)] if k == "layers"
+                else shard_params(v, spec[k], plan.mesh, plan.layout.rules())
+                for k, v in params.items()}
+
+    def _check_distributable(self):
+        if set(self.codes) - set(ATTN_CODES):
+            raise UnsupportedFeature(
+                "the distributed decode takes models of 'A' and 'W' "
+                f"layers; pattern {self.cfg.layer_pattern!r}",
+                pattern=self.cfg.layer_pattern)
+
+    def _shard_layer(self, li: int, p: Dict, plan) -> Dict:
+        mesh, lay = plan.mesh, plan.layout
+        rest = {k: v for k, v in p.items() if k != "attn"}
+        out = shard_params(rest, {k: v for k, v in layer_spec(
+            self.codes[li], self.cfg).items() if k != "attn"}, mesh,
+            lay.rules())
+        a = p["attn"]
+        if lay.attn[li] == "heads":
+            heads = P(None, "model")
+            out["attn"] = {"wq": shard_tensor(a["wq"], heads, mesh),
+                           "wk": shard_tensor(a["wk"], heads, mesh),
+                           "wv": shard_tensor(a["wv"], heads, mesh),
+                           "wo": shard_tensor(a["wo"], P("model"), mesh)}
+        elif lay.attn[li] == "groups":
+            d, H, hd = a["wq"].shape
+            Hkv = self.cfg.n_kv_heads
+            G, m = H // Hkv, mesh.size("model")
+            wq = shard_tensor(a["wq"].reshape(d, Hkv, G, hd),
+                              P(None, None, "model"), mesh)
+            wo = shard_tensor(a["wo"].reshape(Hkv, G, hd, d),
+                              P(None, "model"), mesh)
+            out["attn"] = {"wq": wq.reshape(d, H // m, hd), "wk": a["wk"],
+                           "wv": a["wv"], "wo": wo.reshape(H // m, hd, d)}
+        else:
+            out["attn"] = dict(a)
+        return out
+
+    def init_decode_state(self, run, dtype=torch.float32, device="cuda",
+                          plan=None) -> Dict:
+        """The serving state of ``run`` (the JAX ``init_decode_state`` on
+        one stripe), zeros: ``pos`` (B,), pools (n_attn_layers,
+        B·pages_per_seq, P, Hkv, D) and ``tables`` (B, 1, pages_per_seq),
+        ``pages_per_seq`` the ring under ``W`` layers.  With a ``plan``
+        the pools hold the rank's kv heads (``plan.layout.kv_heads``), as
+        its prefill under the plan writes them; kvp's striped tables come
+        from ``distributed.collectives.shard_decode_state`` after the
+        prefill.  Models of ``A`` and ``W`` layers only."""
+        cfg = self.cfg
+        self._check_distributable()
+        device = resolve_device(device)
+        B, ps = run.global_batch, cfg.page_size
+        pps = (-(-self.window // ps) + 1 if self.window > 0
+               else run.pages_per_seq)
+        Hkv = plan.layout.kv_heads if plan is not None else cfg.n_kv_heads
+        pool = (self.n_attn_layers, B * pps, ps, Hkv, cfg.resolved_head_dim)
+        pool_dt = attn.kv_pool_dtype(cfg, dtype)
+        return {"pos": torch.zeros((B,), dtype=torch.int32, device=device),
+                "k_pages": torch.zeros(pool, dtype=pool_dt, device=device),
+                "v_pages": torch.zeros(pool, dtype=pool_dt, device=device),
+                "tables": torch.zeros((B, 1, pps), dtype=torch.int32,
+                                      device=device)}
 
     # -- layer application --------------------------------------------------
     def _apply_ffn(self, p: Dict, x: torch.Tensor,
                    live: Optional[torch.Tensor] = None,
-                   n_live: Optional[int] = None) -> torch.Tensor:
+                   n_live: Optional[int] = None,
+                   layout: TPLayout = TPLayout()) -> torch.Tensor:
+        """The layer's FFN; ``layout``: the rank's cut of its weights
+        (experts over "model": ``ep.apply_moe_ep``)."""
         if "ln2" not in p:  # no FFN (d_ff == 0)
             return x
         h = layers.apply_norm(p["ln2"], x)
         if "moe" in p:
+            if layout.experts:
+                from repro_torch.distributed import ep
+                return x + ep.apply_moe_ep(p["moe"], h, self.cfg, live=live,
+                                           n_live=n_live)[0]
             return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
                                      n_live=n_live)
-        return x + layers.apply_mlp(p["mlp"], h, self.cfg)
+        return x + layers.apply_mlp(p["mlp"], h, self.cfg, layout.mlp)
 
     def _live_tokens(self, lens: torch.Tensor, width: int,
                      n_live: Optional[int]
@@ -300,7 +413,8 @@ class TransformerModel:
     def prefill(self, params: Dict, tokens: torch.Tensor, state: Dict,
                 lens: Optional[torch.Tensor] = None,
                 extra: Optional[Dict] = None, impl: str = "kernel",
-                n_live: Optional[int] = None
+                n_live: Optional[int] = None,
+                attn_ctx: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B, S) prompts (right-padded).  Returns (last-token
         logits (B, V), state with ``pos = lens``).  ``state["tables"]``
@@ -312,7 +426,12 @@ class TransformerModel:
         state after its own last token (``rglru.rglru_prefill``,
         ``ssm.mlstm_prefill``, ``ssm.slstm_prefill``); with
         ``C`` layers ``cross_k``/``cross_v`` of the rows' image context
-        (``extra``).  ``n_live``: the live tokens, ``sum(lens)``."""
+        (``extra``).  ``n_live``: the live tokens, ``sum(lens)``.
+        ``attn_ctx``: the plan's (``launch.steps.Plan.attn_ctx``); its
+        ``layout`` says which weights are this rank's pieces, and each
+        rank prefills with the heads it holds into its own pools (every
+        kv head under dp and kvp, whose decode layout
+        ``shard_decode_state`` then cuts)."""
         check_impl(impl, entry="prefill")
         cfg = self.cfg
         B, S = tokens.shape
@@ -321,7 +440,8 @@ class TransformerModel:
                               device=tokens.device)
         live, n_live = self._live_tokens(lens, S, n_live)
         img = self.project_extra(params, extra)
-        x = layers.embed_tokens(params["embed"], tokens)
+        lay = (attn_ctx or {}).get("layout", TPLayout())
+        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
         rec, cross = {}, []
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
@@ -336,12 +456,13 @@ class TransformerModel:
             else:
                 o = attn.self_attn_prefill(
                     p["attn"], h, cfg, state, self.slot[li], lens,
-                    window=self.windows[li], impl=impl)
-            x = self._apply_ffn(p, x + o, live, n_live)
+                    window=self.windows[li], impl=impl,
+                    row_parallel=lay.row_parallel(li))
+            x = self._apply_ffn(p, x + o, live, n_live, lay)
         x = layers.apply_norm(params["ln_f"], x)
         last_idx = torch.clamp(lens.long() - 1, min=0)
         last = x[torch.arange(B, device=x.device), last_idx]
-        logits = layers.unembed(params["embed"], last, cfg)
+        logits = layers.unembed(params["embed"], last, cfg, lay.vocab)
         out = dict(state, pos=lens)
         if rec:
             out["rec"] = {code: {k: torch.stack([r[k] for r in finals])
@@ -434,7 +555,8 @@ class TransformerModel:
                     pages_per_block: Optional[int] = None,
                     num_splits: Optional[int] = None,
                     live: Optional[torch.Tensor] = None,
-                    n_live: Optional[int] = None
+                    n_live: Optional[int] = None,
+                    attn_ctx: Optional[Dict] = None
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens: (B,) → (logits (B, V), state with ``pos + 1``).  Each
         attention layer appends its K/V to the pools in place and attends
@@ -445,10 +567,16 @@ class TransformerModel:
         ``state["cross_k"]``/``["cross_v"]``.  ``live`` (B,) bool marks
         the rows whose tokens the MoE FFN routes (None: every row), and
         ``n_live`` counts them (read from ``live`` on the host when
-        None)."""
+        None).  ``attn_ctx``: the plan's (``launch.steps.Plan.attn_ctx``):
+        the decode scheme under the active mesh
+        (``attention.attn_decode``) and the ``layout`` of the rank's
+        params; the params and state are then this rank's
+        (``shard_params``, ``distributed.collectives.
+        shard_decode_state``)."""
         cfg = self.cfg
         pos = state["pos"]
-        x = layers.embed_tokens(params["embed"], tokens)
+        lay = (attn_ctx or {}).get("layout", TPLayout())
+        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
         for li, p in enumerate(params["layers"]):
             h = layers.apply_norm(p["ln1"], x)
             code = self.codes[li]
@@ -467,8 +595,9 @@ class TransformerModel:
                 o = attn.self_attn_decode(
                     p["attn"], h, cfg, state, self.slot[li],
                     window=self.windows[li], impl=impl,
-                    pages_per_block=pages_per_block, num_splits=num_splits)
-            x = self._apply_ffn(p, x + o, live, n_live)
+                    pages_per_block=pages_per_block, num_splits=num_splits,
+                    attn_ctx=attn_ctx, row_parallel=lay.row_parallel(li))
+            x = self._apply_ffn(p, x + o, live, n_live, lay)
         x = layers.apply_norm(params["ln_f"], x)
-        logits = layers.unembed(params["embed"], x, cfg)
+        logits = layers.unembed(params["embed"], x, cfg, lay.vocab)
         return logits, dict(state, pos=pos + 1)

@@ -1,0 +1,323 @@
+"""Rank processes for the port's distributed tests (tests/test_torch_dist*,
+tests/test_torch_ring_ep.py).
+
+``run_ranks`` starts ``world`` processes (``multiprocessing`` "spawn"
+context) that join one ``gloo`` group through a ``FileStore`` in a
+temporary directory (no TCP port), build a mesh of ``mesh_shape`` and
+run ``fn(mesh, inputs)`` — a function of this module, which imports no
+JAX — with one torch thread each.  Each rank's result, a dict of numpy
+arrays, comes back through a file; a rank that raises or dies fails the
+call with its traceback.  One call runs every case of a test file, so
+the files pay the processes' start once.
+"""
+
+import os
+import pickle
+import sys
+import traceback
+
+import numpy as np
+
+SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "src")
+
+
+def _rank_main(rank, world, tmp, mesh_shape, fn_name, in_path):
+    out = os.path.join(tmp, f"rank{rank}.pkl")
+    try:
+        sys.path.insert(0, SRC)
+        import torch
+        import torch.distributed as dist
+        torch.set_num_threads(1)
+        store = dist.FileStore(os.path.join(tmp, "store"), world)
+        dist.init_process_group("gloo", store=store, rank=rank,
+                                world_size=world)
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh(mesh_shape)
+        with open(in_path, "rb") as f:
+            inputs = pickle.load(f)
+        res = globals()[fn_name](mesh, inputs)
+        dist.barrier()
+        dist.destroy_process_group()
+        with open(out, "wb") as f:
+            pickle.dump({"ok": res}, f)
+    except BaseException:  # noqa: BLE001 — reported to the parent
+        with open(out, "wb") as f:
+            pickle.dump({"error": traceback.format_exc()}, f)
+        raise
+
+
+def run_ranks(tmp, fn_name, inputs, mesh_shape, timeout=240):
+    """Run ``fn_name(mesh, inputs)`` on ``prod(mesh_shape)`` gloo ranks;
+    returns the list of the ranks' results (rank order)."""
+    import multiprocessing as mp
+    world = int(np.prod(mesh_shape))
+    tmp = str(tmp)
+    in_path = os.path.join(tmp, "inputs.pkl")
+    with open(in_path, "wb") as f:
+        pickle.dump(inputs, f)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, tmp, tuple(mesh_shape), fn_name, in_path))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    out, errors = [], []
+    for r in range(world):
+        path = os.path.join(tmp, f"rank{r}.pkl")
+        if not os.path.exists(path):
+            errors.append(f"rank {r}: no result (exit {procs[r].exitcode})")
+            continue
+        with open(path, "rb") as f:
+            got = pickle.load(f)
+        if "error" in got:
+            errors.append(f"rank {r}:\n{got['error']}")
+        else:
+            out.append(got["ok"])
+    if errors:
+        raise AssertionError("\n".join(errors))
+    return out
+
+
+def _np(x):
+    return x.detach().cpu().float().numpy()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for t in tree for x in _leaves(t)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# rank bodies
+# ---------------------------------------------------------------------------
+def kvp_cases(mesh, inputs):
+    """kvp decode attention over this rank's stripe of each case's pools:
+    the rank keeps logical pages j·n + s of each row (local pool of its
+    pages in row-major order), runs ``decode_attention_sharded`` with
+    both merges, through K1's plain version (``impl="kernel"``) and the
+    plain partials (``impl="ref"``)."""
+    import torch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    out = {}
+    batch_axes = tuple(inputs["batch_axes"])
+    for name, c in inputs["cases"].items():
+        q4, kp, vp, lens = (torch.from_numpy(c[k]) for k in
+                            ("q4", "kp", "vp", "lens"))
+        B, pps = c["logical"].shape
+        with use_mesh(mesh, DEFAULT_RULES.extend(batch=batch_axes or None)):
+            kv_axes = coll.kv_axes_of(mesh, batch_axes)
+            n, s = mesh.prod(kv_axes), mesh.flat_index(kv_axes)
+            nb = mesh.prod(batch_axes) if batch_axes else 1
+            bi = mesh.flat_index(batch_axes) if batch_axes else 0
+            rows = range(bi * B // nb, (bi + 1) * B // nb)
+            pages, tables = [], []
+            for b in rows:
+                cols = list(range(s, pps, n))
+                tables.append([len(pages) + i for i in range(len(cols))])
+                pages += [int(c["logical"][b, j]) for j in cols]
+            idx = torch.tensor(pages, dtype=torch.long)
+            t = torch.tensor(tables, dtype=torch.int32)[:, None, :]
+            r = list(rows)
+            for impl in ("kernel", "ref"):
+                for mode in ("kernel", "plain"):
+                    o = coll.decode_attention_sharded(
+                        q4[r], kp[idx].contiguous(), vp[idx].contiguous(),
+                        t, lens[r], scheme="kvp", batch_axes=batch_axes,
+                        impl=impl, combine_mode=mode)
+                    out[f"{name}/{impl}/{mode}"] = _np(o)
+            out[f"{name}/rows"] = np.asarray(r)
+    return out
+
+
+def tp_dp_cases(mesh, inputs):
+    """tp and dp decode attention and the writes of every scheme on this
+    rank's part of each case (heads under tp, q-head groups under dp —
+    every head when the mesh does not divide G —, page stripes under kvp
+    for the decode write)."""
+    out = {}
+    for name, c in inputs["cases"].items():
+        for k, v in _tp_dp_case(mesh, c).items():
+            out[f"{name}/{k}"] = v
+    return out
+
+
+def _tp_dp_case(mesh, c):
+    import torch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import use_mesh
+    out = {}
+    m = mesh.size("model")
+    r = mesh.index("model")
+    c = {k: torch.from_numpy(v) for k, v in c.items()}
+    q4, kp, vp, t, lens = c["q4"], c["kp"], c["vp"], c["tables"], c["lens"]
+    B, Hkv, G, D = q4.shape
+    with use_mesh(mesh):
+        w = Hkv // m
+        h = slice(r * w, (r + 1) * w)
+        o = coll.decode_attention_sharded(
+            q4[:, h].contiguous(), kp[:, :, h].contiguous(),
+            vp[:, :, h].contiguous(), t[:, None], lens, scheme="tp")
+        out["tp"] = _np(o)
+        g = G // m if G % m == 0 else G
+        gs = slice(r * g, (r + 1) * g) if G % m == 0 else slice(0, G)
+        o = coll.decode_attention_sharded(
+            q4[:, :, gs].contiguous(), kp, vp, t[:, None], lens, scheme="dp")
+        out["dp"] = _np(o)
+        pos, kn, vn = c["pos"], c["k_new"], c["v_new"]
+        for scheme in ("tp", "dp"):
+            heads = h if scheme == "tp" else slice(0, Hkv)
+            kl = kp[:, :, heads].clone()
+            vl = vp[:, :, heads].clone()
+            coll.write_decode_sharded(kl, vl, t[:, None], pos,
+                                      kn[:, heads].contiguous(),
+                                      vn[:, heads].contiguous(),
+                                      scheme=scheme)
+            out[f"write_decode/{scheme}"] = np.stack([_np(kl), _np(vl)])
+        # kvp: the rank's stripe of every row, local ids row-major
+        pps = t.shape[1]
+        pages, tables = [], []
+        for b in range(B):
+            cols = list(range(r, pps, m))
+            tables.append([len(pages) + i for i in range(len(cols))])
+            pages += [int(t[b, j]) for j in cols]
+        idx = torch.tensor(pages, dtype=torch.long)
+        kl, vl = kp[idx].contiguous(), vp[idx].contiguous()
+        coll.write_decode_sharded(
+            kl, vl, torch.tensor(tables, dtype=torch.int32)[:, None], pos,
+            kn, vn, scheme="kvp", batch_axes=())
+        out["write_decode/kvp"] = np.stack([_np(kl), _np(vl)])
+        out["kvp_pages"] = idx.numpy()
+        k, v, plens = c["k"], c["v"], c["plens"]
+        for scheme in ("tp", "dp", "kvp"):
+            heads = h if scheme == "tp" else slice(0, Hkv)
+            kl = torch.zeros_like(kp[:, :, heads]).contiguous()
+            vl = torch.zeros_like(kl)
+            coll.write_prefill_sharded(kl, vl, t[:, None],
+                                       k[:, :, heads], v[:, :, heads], plens)
+            out[f"write_prefill/{scheme}"] = np.stack([_np(kl), _np(vl)])
+    return out
+
+
+def model_cases(mesh, inputs):
+    """Each case's smoke model served under its plan on this mesh: the
+    JAX weights cut to the rank (``sharded_params_from_numpy``), prefill
+    under the plan (tp: into pools of the rank's kv heads; dp and kvp:
+    every head), ``shard_decode_state`` to the decode layout, then
+    ``steps`` greedy tokens through ``build_serve_step``.  Returns the
+    prefill logits, every step's logits and the tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.distributed.sharding import use_mesh
+    from repro_torch.launch.steps import build_serve_step, plan_for
+    from repro_torch.models.convert import sharded_params_from_numpy
+    out = {}
+    for name, c in inputs["cases"].items():
+        cfg = get_config(c["config"]).smoke().replace(**c["replace"])
+        tokens = torch.from_numpy(c["tokens"])
+        lens = torch.from_numpy(c["lens"])
+        B, S = tokens.shape
+        run = RunConfig(model=cfg, seq_len=S + c["steps"], global_batch=B,
+                        kind="decode")
+        plan = plan_for(run, mesh, scheme=c["scheme"])
+        step, model = build_serve_step(run, plan)
+        params = sharded_params_from_numpy(c["params"], model, plan,
+                                           device="cpu")
+        state = model.init_decode_state(run, device="cpu", plan=plan)
+        pps = state["tables"].shape[2]
+        state["tables"] = torch.arange(B * pps, dtype=torch.int32).reshape(
+            B, 1, pps)
+        with use_mesh(plan.mesh, plan.rules):
+            logits, state = model.prefill(params, tokens, state, lens,
+                                          attn_ctx=plan.attn_ctx)
+        out[f"{name}/prefill"] = _np(logits)
+        state = shard_decode_state(state, plan)
+        tok = logits.argmax(-1).to(torch.int32)
+        steps, toks = [], [tok]
+        for _ in range(c["steps"]):
+            logits, state = step(params, tok, state)
+            steps.append(_np(logits))
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+        out[f"{name}/steps"] = np.stack(steps)
+        out[f"{name}/tokens"] = torch.stack(toks).numpy()
+        out[f"{name}/scheme"] = plan.scheme
+        out[f"{name}/pool_heads"] = state["k_pages"].shape[3]
+        # drawing under the plan = drawing whole, then cutting
+        gen = torch.Generator().manual_seed(7)
+        drawn = model.init_params(gen, plan=plan)
+        gen = torch.Generator().manual_seed(7)
+        cut = model.shard_params(model.init_params(gen), plan)
+        out[f"{name}/init_equal"] = all(
+            torch.equal(a, b) for a, b in zip(_leaves(drawn), _leaves(cut)))
+        out[f"{name}/init_shapes"] = [tuple(a.shape) for a in _leaves(drawn)]
+    return out
+
+
+def ring_cases(mesh, inputs):
+    """``prefill_attention(impl="ring")`` on this rank's sequence slice
+    (slice r of "model") of its batch rows (over "data" when the mesh has
+    more than one data rank)."""
+    import torch
+    from repro_torch.core.attention import prefill_attention
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    out = {}
+    nd, m = mesh.size("data"), mesh.size("model")
+    d, r = mesh.index("data"), mesh.index("model")
+    ba = ("data",) if nd > 1 else None
+    rules = DEFAULT_RULES.extend(batch=ba, seq=("model",))
+    for name, c in inputs["cases"].items():
+        q, k, v = (torch.from_numpy(c[x]) for x in ("q", "k", "v"))
+        B, S = q.shape[:2]
+        rows = slice(d * B // nd, (d + 1) * B // nd)
+        sl = slice(r * S // m, (r + 1) * S // m)
+        lens = None if c["lens"] is None else torch.from_numpy(c["lens"])
+        with use_mesh(mesh, rules):
+            o = prefill_attention(
+                q[rows, sl], k[rows, sl], v[rows, sl], window=c["window"],
+                lens=None if lens is None else lens[rows], impl="ring")
+        out[name] = _np(o)
+        out[f"{name}/where"] = np.asarray([rows.start, rows.stop, sl.start,
+                                           sl.stop])
+    return out
+
+
+def ep_cases(mesh, inputs):
+    """``apply_moe_ep`` on this rank's batch rows (over "data") with its
+    experts (over "model")."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.ep import apply_moe_ep
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    out = {}
+    nd, m = mesh.size("data"), mesh.size("model")
+    d, r = mesh.index("data"), mesh.index("model")
+    rules = DEFAULT_RULES.extend(batch=("data",) if nd > 1 else None)
+    for name, c in inputs["cases"].items():
+        cfg = get_config("granite-moe-1b-a400m").smoke().replace(
+            moe_capacity=c["capacity"], moe_ep=True)
+        E = cfg.n_experts
+        ex = slice(r * E // m, (r + 1) * E // m)
+        p = {k: torch.from_numpy(v) if k == "router"
+             else torch.from_numpy(v)[ex].contiguous()
+             for k, v in c["p"].items()}
+        x = torch.from_numpy(c["x"])
+        rows = slice(d * x.shape[0] // nd, (d + 1) * x.shape[0] // nd)
+        live = c.get("live")
+        with use_mesh(mesh, rules):
+            o, aux = apply_moe_ep(p, x[rows], cfg, live=None if live is None
+                                  else torch.from_numpy(live)[rows])
+        out[name] = _np(o)
+        out[f"{name}/aux"] = float(aux)
+        out[f"{name}/rows"] = np.asarray([rows.start, rows.stop])
+    return out

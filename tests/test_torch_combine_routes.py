@@ -96,7 +96,7 @@ def test_one_split_is_the_plain_normalise_bit_for_bit():
 def test_combine_route_counts_in_launch_counts_and_reset():
     counts = kernels.launch_counts()
     assert {k for k in counts if k.startswith("combine/")} == {
-        "combine/decode", "combine/prefill"}
+        "combine/decode", "combine/prefill", "combine/dist"}
     tpa.combine_partials_kernel.launches_by_route["prefill"] += 2
     assert kernels.launch_counts()["combine/prefill"] >= 2
     kernels.reset_launch_counts()
