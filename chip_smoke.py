@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernels-only  # build + kernel phase only
     python3 chip_smoke.py --train-only    # build + training phase only
     python3 chip_smoke.py --dist-only     # build + distributed phase only
+    python3 chip_smoke.py --launch-only   # build + launch phase only
 
 Phases, each of which fails the script (exit code 1) when it fails:
 
@@ -280,6 +281,28 @@ Phases, each of which fails the script (exit code 1) when it fails:
    kvp merge's layout.  Collective times here are gloo between processes
    on one card, not NVLink.  ``--dist-only`` runs the build and this
    phase alone.
+19. launch (with 18: the same 2 rank processes, after its cases): the
+   plans' step builders (``launch.steps``) against one device's runs of
+   the same weights.  Prefill: llama2-7b at full depth in bf16 and at 4
+   layers in f32, 8 prompts of 256..1536, under the (2, 1) plan (each
+   rank prefills its 4 rows with every head: ``build_prefill_step``) and
+   the (1, 2) plan (every row, 16 heads a rank), K4 on each rank, then
+   ``shard_decode_state`` and 4 decode steps (K1, K2) teacher-forced by
+   one device's greedy tokens: logits within ``BF16_MODEL_TOL`` of their
+   scale (bf16) or ``MODEL_TOL`` (f32).  Train: llama2-7b at full width,
+   4 layers, f32, B 4 x S 512 (PR 24's shape): the local plan must take
+   2 microbatches (f32 logits of 262 MB over the 256 MB budget), and 2
+   microbatched steps land within ``LAUNCH_STEP_TOL`` of 2 plain ones;
+   under (2, 1) (data parallel: the gradients summed over the ranks) and
+   (1, 2) (tensor parallel: heads, ``d_ff`` and the vocab cut) the
+   rank's gradients within ``LAUNCH_GRAD_TOL`` · (1 + |g|) of one
+   device's, its params after 2 steps within ``LAUNCH_STEP_TOL``, the
+   losses within ``LAUNCH_LOSS_TOL``; step ms by events, peak memory per
+   rank.  Then ``launch.serve`` at full width (llama2-7b, f32, 8
+   requests at the CLI's defaults), paged (K4, K1, K2 must launch) and
+   ``--no-paged`` (K4; K1 must not launch): every request its
+   ``--max-new`` tokens, the CLI's report logged.  ``--launch-only`` runs
+   the build and this phase alone.
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -6653,10 +6676,56 @@ def logits_gap(got, want, forced, dtype):
                 divergence_step=div, finite=bool(got.isfinite().all()))
 
 
-def dist_rank(rank, world, work, src):
-    """One rank of the distributed phase: join the gloo group, run every
-    case under its plan on ``cuda:0`` and write its metrics to
-    ``work/rank{rank}.json`` (a traceback on failure)."""
+def dist_rank_kernels(torch, work, mesh, out):
+    """The distributed phase's attention cases on this rank: dp attention
+    at nemotron-4-15b's heads and ring attention (results into ``out``)."""
+    from repro_torch import kernels
+    from repro_torch.core.attention import prefill_attention
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    # (c) dp attention at nemotron-4-15b's heads: q-head groups (6)
+    # over the 2 ranks, pools replicated
+    m, r = mesh.size("model"), mesh.index("model")
+    kernels.reset_launch_counts()
+    for dt in ("float32", "bfloat16"):
+        qg, kp, vp, tables, lens = dist_dp_inputs(
+            torch, getattr(torch, dt), SEED + 30)
+        G = qg.shape[2]
+        gs = slice(r * G // m, (r + 1) * G // m)
+        with use_mesh(mesh):
+            o = coll.decode_attention_sharded(
+                qg[:, :, gs].contiguous(), kp, vp, tables[:, None], lens,
+                scheme="dp")
+        want = torch.load(work / f"dp_{dt}.pt")[:, :, gs].cuda()
+        err = float((o.float() - want.float()).abs().max())
+        out.setdefault("dp", {})[dt] = dict(
+            max_err=err, finite=bool(o.isfinite().all()),
+            tol=F32_TOL if dt == "float32" else BF16_TOL)
+    out["dp_launches"] = {k: kernels.launch_counts().get(k, 0)
+                          for k in DIST_KEYS}
+    # (e) ring attention, f32, S 8192 over the 2 ranks' halves
+    q, k, v = dist_ring_inputs(torch, SEED + 20)
+    S_l = DIST_RING_S // m
+    sl = slice(r * S_l, (r + 1) * S_l)
+    rules = DEFAULT_RULES.extend(batch=None, seq=("model",))
+    for w in DIST_RING_WINDOWS:
+        t0 = time.perf_counter()
+        with use_mesh(mesh, rules), torch.no_grad():
+            o = prefill_attention(q[:, sl], k[:, sl], v[:, sl], window=w,
+                                  impl="ring")
+        torch.cuda.synchronize()
+        want = torch.load(work / f"ring_{w}.pt")[:, sl].cuda()
+        out.setdefault("ring", {})[str(w)] = dict(
+            max_err=float((o - want).abs().max()),
+            finite=bool(o.isfinite().all()),
+            seconds=time.perf_counter() - t0)
+
+
+def dist_rank(rank, world, work, src, parts=("dist", "launch")):
+    """One rank of the distributed and launch phases: join the gloo
+    group, run every case of ``parts`` under its plan on ``cuda:0`` and
+    write its metrics to ``work/rank{rank}.json`` (a traceback on
+    failure)."""
     work = Path(work)
     out = {"rank": rank}
     try:
@@ -6672,9 +6741,7 @@ def dist_rank(rank, world, work, src):
             rank=rank, world_size=world)
         from repro_torch import kernels
         from repro_torch.configs.base import RunConfig
-        from repro_torch.core.attention import prefill_attention
         from repro_torch.distributed import collectives as coll
-        from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
         from repro_torch.kernels import build
         from repro_torch.launch.mesh import make_mesh
         from repro_torch.launch.steps import plan_for
@@ -6683,7 +6750,7 @@ def dist_rank(rank, world, work, src):
         mesh = make_mesh((1, world))
         out["cases"] = {}
         for i, (name, cfg_name, dt, nl, scheme, lens, steps) in enumerate(
-                dist_cases()):
+                dist_cases() if "dist" in parts else ()):
             t0 = time.perf_counter()
             model = dist_model(torch, cfg_name, dt, nl)
             ref = torch.load(work / f"ref_{i}.pt")
@@ -6735,42 +6802,10 @@ def dist_rank(rank, world, work, src):
                 del bad
             del params, model, logits
             torch.cuda.empty_cache()
-        # (c) dp attention at nemotron-4-15b's heads: q-head groups (6)
-        # over the 2 ranks, pools replicated
-        m, r = mesh.size("model"), mesh.index("model")
-        kernels.reset_launch_counts()
-        for dt in ("float32", "bfloat16"):
-            qg, kp, vp, tables, lens = dist_dp_inputs(
-                torch, getattr(torch, dt), SEED + 30)
-            G = qg.shape[2]
-            gs = slice(r * G // m, (r + 1) * G // m)
-            with use_mesh(mesh):
-                o = coll.decode_attention_sharded(
-                    qg[:, :, gs].contiguous(), kp, vp, tables[:, None], lens,
-                    scheme="dp")
-            want = torch.load(work / f"dp_{dt}.pt")[:, :, gs].cuda()
-            err = float((o.float() - want.float()).abs().max())
-            out.setdefault("dp", {})[dt] = dict(
-                max_err=err, finite=bool(o.isfinite().all()),
-                tol=F32_TOL if dt == "float32" else BF16_TOL)
-        out["dp_launches"] = {k: kernels.launch_counts().get(k, 0)
-                              for k in DIST_KEYS}
-        # (e) ring attention, f32, S 8192 over the 2 ranks' halves
-        q, k, v = dist_ring_inputs(torch, SEED + 20)
-        S_l = DIST_RING_S // m
-        sl = slice(r * S_l, (r + 1) * S_l)
-        rules = DEFAULT_RULES.extend(batch=None, seq=("model",))
-        for w in DIST_RING_WINDOWS:
-            t0 = time.perf_counter()
-            with use_mesh(mesh, rules), torch.no_grad():
-                o = prefill_attention(q[:, sl], k[:, sl], v[:, sl], window=w,
-                                      impl="ring")
-            torch.cuda.synchronize()
-            want = torch.load(work / f"ring_{w}.pt")[:, sl].cuda()
-            out.setdefault("ring", {})[str(w)] = dict(
-                max_err=float((o - want).abs().max()),
-                finite=bool(o.isfinite().all()),
-                seconds=time.perf_counter() - t0)
+        if "dist" in parts:
+            dist_rank_kernels(torch, work, mesh, out)
+        if "launch" in parts:
+            out["launch"] = launch_rank(torch, work)
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -6813,12 +6848,403 @@ def k2_dist_row(torch, chk):
         bound_ms=1e3 * nbytes / HBM_BPS, bound_by="bytes", library_ms=None)
 
 
-def dist_phase(torch, chk):
-    """The decode step across 2 ranks on this one card: references on one
-    device first (saved, then freed), then 2 processes in one gloo group
-    on cuda:0 run every case under its plan; a rank that fails fails the
-    run.  Returns the results, the ranks' launches summed per kernel key
-    and K2's "dist" row."""
+# the launch phase: the plans' prefill, train and serve entry points on 2
+# ranks (the distributed phase's processes) and on one device
+LAUNCH_MESHES = ((2, 1), (1, 2))
+LAUNCH_DECODE_STEPS = 4
+LAUNCH_TRAIN_B, LAUNCH_TRAIN_S, LAUNCH_TRAIN_STEPS = 4, 512, 2
+LAUNCH_GRAD_TOL = 1e-4  # |g - g_one| <= tol * (1 + |g_one|), f32
+LAUNCH_STEP_TOL = 2e-4  # params after the steps against one device's
+LAUNCH_LOSS_TOL = 1e-5  # relative
+LAUNCH_SERVE_REQUESTS = 8
+LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
+               "combine/decode")
+
+
+def launch_prefill_cases():
+    """(name, dtype, n_layers or None) of llama2-7b's prefill cases."""
+    return [("bf16", "bfloat16", None), ("f32", "float32", 4)]
+
+
+def launch_references(torch, work):
+    """One device's prefill of 8 rows of ``DIST_TP_LENS`` and
+    ``LAUNCH_DECODE_STEPS`` greedy decode steps, per prefill case, saved
+    under ``work`` for the ranks."""
+    refs = {}
+    for i, (name, dt, nl) in enumerate(launch_prefill_cases()):
+        t0 = time.perf_counter()
+        model = dist_model(torch, "llama2-7b", dt, nl)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params = model.init_params(gen, getattr(torch, dt), "cuda")
+        tokens, lens = dist_tokens(torch, model.cfg, DIST_TP_LENS,
+                                   SEED + 60 + i)
+        logits, greedy, times, _, secs = dist_serve(
+            torch, model, params, tokens, lens, LAUNCH_DECODE_STEPS)
+        torch.save({"logits": logits, "tokens": greedy},
+                   work / f"launch_{name}.pt")
+        refs[name] = dict(step_ms=statistics.median(times),
+                          seconds=time.perf_counter() - t0, **secs)
+        del params, model
+        torch.cuda.empty_cache()
+    return refs
+
+
+def launch_train_batches(torch, cfg):
+    from repro_torch.data import synthetic_batches
+    from repro_torch.training.loop import to_device
+    data = synthetic_batches(LAUNCH_TRAIN_B, LAUNCH_TRAIN_S, cfg.vocab_size,
+                             cfg=cfg)
+    return [to_device(next(data), "cuda") for _ in range(LAUNCH_TRAIN_STEPS)]
+
+
+def launch_train_run():
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    cfg = get_config("llama2-7b").replace(n_layers=4)
+    return RunConfig(model=cfg, seq_len=LAUNCH_TRAIN_S,
+                     global_batch=LAUNCH_TRAIN_B, kind="train")
+
+
+def leaves_gap(got, want, rel):
+    """max over two lists of tensors (``want`` on the host) of |got -
+    want|, over (1 + |want|) when ``rel``."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        w = w.to(g.device)
+        d = (g.float() - w.float()).abs()
+        if rel:
+            d = d / (1 + w.float().abs())
+        worst = max(worst, float(d.max()))
+    return worst
+
+
+def launch_train_local(torch):
+    """The local plan of PR 24's training shape (llama2-7b, 4 layers, f32,
+    B 4 x S 512): its f32 logits (262 MB) pass the 256 MB budget, so the
+    plan takes 2 microbatches; two microbatched steps against two plain
+    ones from the same weights (params at ``LAUNCH_STEP_TOL``, losses at
+    ``LAUNCH_LOSS_TOL``).  Step ms by CUDA events and peak memory."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import build_train_step, plan_for
+    from repro_torch.training import TrainState
+    from repro_torch.utils.tree import tree_leaves
+    run = launch_train_run()
+    plan = plan_for(run, make_local_mesh())
+    log(f"launch train: the local plan of llama2-7b (4 layers) at B "
+        f"{LAUNCH_TRAIN_B} x S {LAUNCH_TRAIN_S} takes "
+        f"{plan.microbatches} microbatches (attention {plan.attn_impl})")
+    if plan.microbatches != 2:
+        fail(f"launch train: the local plan takes {plan.microbatches} "
+             "microbatches, not 2")
+    plain = plan_for(run, make_local_mesh(), microbatches=1)
+    batches = launch_train_batches(torch, run.model)
+    out, finals = {"microbatches": plan.microbatches}, {}
+    for name, p in (("microbatched", plan), ("plain", plain)):
+        step, _, _, model = build_train_step(run, p, torch.float32)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        st = TrainState.create(model.init_params(gen, torch.float32, "cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+        for b in batches:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            st, m = step(st, b)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+            losses.append(float(m["loss"]))
+        out[name] = dict(step_ms=times, losses=losses,
+                         peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        finals[name] = tree_leaves(st.params)
+        del st
+        torch.cuda.empty_cache()
+    out["param_err"] = leaves_gap(finals["microbatched"],
+                                  finals["plain"], rel=False)
+    out["loss_err"] = max(abs(a - b) / abs(b) for a, b in zip(
+        out["microbatched"]["losses"], out["plain"]["losses"]))
+    del finals
+    torch.cuda.empty_cache()
+    log(f"launch train, one device: microbatched vs plain after "
+        f"{LAUNCH_TRAIN_STEPS} steps: params max|err| "
+        f"{out['param_err']:.3e} (tol {LAUNCH_STEP_TOL:g}), losses "
+        f"{out['microbatched']['losses']} vs {out['plain']['losses']} "
+        f"(rel {out['loss_err']:.2e}); step ms (events) microbatched "
+        f"{out['microbatched']['step_ms']}, plain {out['plain']['step_ms']};"
+        f" peak {out['microbatched']['peak_gb']:.2f} / "
+        f"{out['plain']['peak_gb']:.2f} GB")
+    if not out["param_err"] <= LAUNCH_STEP_TOL or not (
+            out["loss_err"] <= LAUNCH_LOSS_TOL):
+        fail(f"launch train: the microbatched step leaves the plain one "
+             f"(params {out['param_err']}, losses {out['loss_err']})")
+    return out
+
+
+def launch_rank_prefill(torch, mesh, work, i, name, dt, nl):
+    """On this rank: llama2-7b's prefill case ``name`` under the prefill
+    plan of ``mesh`` (the rank's rows, with its heads, into pools of its
+    decode layout), ``shard_decode_state``, then the decode steps
+    teacher-forced by one device's greedy tokens; logits against one
+    device's rows."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, local_run,
+                                          plan_for, shard_batch)
+    t_case = time.perf_counter()
+    dtype = getattr(torch, dt)
+    model = dist_model(torch, "llama2-7b", dt, nl)
+    cfg = model.cfg
+    ref = torch.load(work / f"launch_{name}.pt")
+    tokens, lens = dist_tokens(torch, cfg, DIST_TP_LENS, SEED + 60 + i)
+    B, S = tokens.shape
+    prun = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="prefill")
+    drun = RunConfig(model=cfg, seq_len=S + LAUNCH_DECODE_STEPS,
+                     global_batch=B, kind="decode")
+    pplan, dplan = plan_for(prun, mesh), plan_for(drun, mesh)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, dtype, "cuda", plan=pplan)
+    pstep = build_prefill_step(prun, pplan, dtype)[0]
+    sstep = build_serve_step(drun, dplan, dtype)[0]
+    mine = shard_batch({"tokens": tokens, "lens": lens,
+                        "forced": ref["tokens"].T.contiguous().cuda()},
+                       pplan)
+    b = mine["tokens"].shape[0]
+    r0 = (mesh.flat_index(pplan.batch_axes) if pplan.batch_axes else 0) * b
+    state = model.init_decode_state(local_run(drun, pplan), dtype, "cuda",
+                                    plan=pplan)
+    pps = state["tables"].shape[2]
+    state["tables"] = torch.arange(b * pps, dtype=torch.int32,
+                                   device="cuda").reshape(b, 1, pps)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        t0.record()
+        logits, state = pstep(params, mine["tokens"], mine["lens"], state)
+        t1.record()
+        t1.synchronize()
+        k4 = {k: v for k, v in kernels.launch_counts().items()
+              if k.startswith("flex_prefill")}
+        state = shard_decode_state(state, dplan)
+        outs = [logits.float().cpu()]
+        for s in range(LAUNCH_DECODE_STEPS):
+            logits, state = sstep(params, mine["forced"][:, s].int(), state)
+            outs.append(logits.float().cpu())
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    rows = slice(r0, r0 + b)
+    res = logits_gap(torch.stack(outs), ref["logits"][:, rows],
+                     ref["tokens"][:, rows], dt)
+    res.update(rows=[r0, r0 + b], attn=sorted(set(pplan.layout.attn)),
+               scheme=dplan.scheme, pool_heads=int(state["k_pages"].shape[3]),
+               prefill_ms=t0.elapsed_time(t1), k4_prefill=k4,
+               launches={k: counts.get(k, 0) for k in LAUNCH_KEYS},
+               seconds=time.perf_counter() - t_case)
+    del params, state, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_rank_train(torch, mesh):
+    """On this rank: llama2-7b (4 layers, f32) trained under the train
+    plan of ``mesh``: one device's gradients of the first batch and its
+    params after ``LAUNCH_TRAIN_STEPS`` plain steps (computed here from the
+    same weights, the rank's cut kept on the host), then the rank's
+    gradients (``train_grads``) and steps, against them."""
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (build_train_step, plan_for,
+                                          shard_batch, train_grads)
+    from repro_torch.training import TrainState
+    from repro_torch.utils.tree import tree_leaves
+    t_case = time.perf_counter()
+    run = launch_train_run()
+    plan = plan_for(run, mesh)
+    one = plan_for(run, make_local_mesh(), microbatches=1)
+    step, _, _, model = build_train_step(run, plan, torch.float32)
+    batches = launch_train_batches(torch, run.model)
+
+    def weights(p):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        return model.init_params(gen, torch.float32, "cuda", plan=p)
+
+    full = weights(None)
+    _, _, g = train_grads(model, one)(full, batches[0])
+    ref_grads = [x.cpu() for x in tree_leaves(model.shard_params(g, plan))]
+    del g
+    one_step = build_train_step(run, one, torch.float32)[0]
+    st = TrainState.create(full)
+    ref_loss, ref_gnorm = [], []
+    for b in batches:
+        st, m = one_step(st, b)
+        ref_loss.append(float(m["loss"]))
+        ref_gnorm.append(float(m["grad_norm"]))
+    ref_params = [x.cpu() for x in tree_leaves(
+        model.shard_params(st.params, plan))]
+    del st, full
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = weights(plan)
+    mine = [shard_batch(b, plan) for b in batches]
+    _, _, g = train_grads(model, plan)(params, mine[0])
+    grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
+    del g, ref_grads
+    st = TrainState.create(params)
+    times, losses, gnorms = [], [], []
+    for b in mine:
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        st, m = step(st, b)
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    param_err = leaves_gap(tree_leaves(st.params), ref_params,
+                           rel=False)
+    res = dict(grad_err=grad_err, param_err=param_err, losses=losses,
+               ref_losses=ref_loss, gnorms=gnorms, ref_gnorms=ref_gnorm,
+               loss_err=max(abs(a - b) / abs(b)
+                            for a, b in zip(losses, ref_loss)),
+               microbatches=plan.microbatches,
+               attn=sorted(set(plan.layout.attn)), vocab=plan.layout.vocab,
+               step_ms=times, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               seconds=time.perf_counter() - t_case)
+    del st, params, ref_params
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_rank(torch, work):
+    """The launch phase's cases on this rank: the (2, 1) and (1, 2) meshes
+    over the 2 ranks (made in one order on both), each prefill case, then
+    each train case."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
+    out = {"prefill": {}, "train": {}}
+    for shape, mesh in meshes.items():
+        for i, (name, dt, nl) in enumerate(launch_prefill_cases()):
+            out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
+                torch, mesh, work, i, name, dt, nl)
+    for shape, mesh in meshes.items():
+        out["train"][str(shape)] = launch_rank_train(torch, mesh)
+    out["host_copies"] = {str(s): dict(m.host_copies)
+                          for s, m in meshes.items()}
+    return out
+
+
+def launch_serve(torch):
+    """``launch.serve`` at full width: llama2-7b in f32 (the engine's
+    default dtype, as the JAX launcher serves), weights from seed 0,
+    ``LAUNCH_SERVE_REQUESTS`` requests at the CLI's defaults, paged (K4,
+    K1, K2) and ``--no-paged`` (K4, decode attention in plain ops)."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.api import build_model
+    args = serve.parse_args(["--arch", "llama2-7b", "--requests",
+                             str(LAUNCH_SERVE_REQUESTS)])
+    cfg = get_config(args.arch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = build_model(cfg).init_params(gen, torch.float32, "cuda")
+    out = {}
+    for name, paged in (("paged", True), ("baseline", False)):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        _, reqs, report = serve.serve(
+            cfg, params, requests=args.requests, max_new=args.max_new,
+            max_slots=args.max_slots, max_seq_len=args.max_seq_len,
+            pool_tokens=args.pool_tokens, paged=paged,
+            temperature=args.temperature, log_fn=log)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        report["launches"] = {k: counts.get(k, 0) for k in LAUNCH_KEYS}
+        report["new_tokens"] = [len(r.output) for r in reqs]
+        out[name] = report
+        log(f"launch serve {name}: {report['tokens']} tokens, "
+            f"{report['tok_s']:.1f} tok/s, {report['steps']} steps, "
+            f"{report['preemptions']} preemptions, pool "
+            f"{report['pool_mib']:.1f} MiB, overhead "
+            f"{report['overhead_frac'] * 100:.1f} %, TTFT "
+            f"{[round(t, 3) for t in report['ttft_s']]} s; launches "
+            f"{report['launches']}")
+        if report["new_tokens"] != [args.max_new] * args.requests:
+            fail(f"launch serve {name}: new tokens {report['new_tokens']}")
+        must = (("flex_prefill/tf32x3", "paged_decode", "combine/decode")
+                if paged else ("flex_prefill/tf32x3",))
+        if any(report["launches"][k] <= 0 for k in must):
+            fail(f"launch serve {name}: kernels {must} not all launched "
+                 f"({report['launches']})")
+        if not paged and report["launches"]["paged_decode"]:
+            fail("launch serve baseline: K1 launched")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def launch_check(ranks):
+    """The launch cases of the ranks' results: log each and fail on any
+    bound; returns the ranks' launches summed per kernel key."""
+    launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    for res in ranks:
+        r = res["rank"]
+        for name, c in res["launch"]["prefill"].items():
+            log(f"launch rank {r} prefill {name} (rows {c['rows']}, attn "
+                f"{c['attn']}, pools of {c['pool_heads']} kv heads, decode "
+                f"{c['scheme']}): logits vs one device max|err| "
+                f"{c['max_err']:.3e} (bound {c['bound']:.3e}, scale "
+                f"{c['scale']:.3f}), agreement {c['argmax_agreement']:.3f};"
+                f" prefill {c['prefill_ms']:.1f} ms (events); K4 in the "
+                f"prefill {c['k4_prefill']}; launches {c['launches']}; "
+                f"{c['seconds']:.1f} s")
+            if not c["finite"] or c["max_err"] > c["bound"]:
+                fail(f"launch prefill {name} rank {r}: logits max|err| "
+                     f"{c['max_err']} beyond {c['bound']}")
+            if sum(c["k4_prefill"].values()) <= 0 or any(
+                    c["launches"][k] <= 0
+                    for k in ("paged_decode", "combine/decode")):
+                fail(f"launch prefill {name} rank {r}: K4, K1 or K2 not "
+                     f"launched ({c['k4_prefill']}, {c['launches']})")
+            for k in LAUNCH_KEYS:
+                launches[k] += c["launches"][k]
+        for name, c in res["launch"]["train"].items():
+            log(f"launch rank {r} train {name} (attn {c['attn']}, vocab cut "
+                f"{c['vocab']}, {c['microbatches']} microbatch(es)): grads "
+                f"vs one device {c['grad_err']:.3e} (tol "
+                f"{LAUNCH_GRAD_TOL:g}, relative to 1 + |g|), params after "
+                f"{LAUNCH_TRAIN_STEPS} steps {c['param_err']:.3e} (tol "
+                f"{LAUNCH_STEP_TOL:g}), losses {c['losses']} vs "
+                f"{c['ref_losses']} (rel {c['loss_err']:.2e}), grad norms "
+                f"{c['gnorms']} vs {c['ref_gnorms']}; step ms (events) "
+                f"{[round(t, 2) for t in c['step_ms']]}, peak "
+                f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s")
+            if not (c["grad_err"] <= LAUNCH_GRAD_TOL
+                    and c["param_err"] <= LAUNCH_STEP_TOL
+                    and c["loss_err"] <= LAUNCH_LOSS_TOL):
+                fail(f"launch train {name} rank {r}: grads {c['grad_err']}, "
+                     f"params {c['param_err']}, losses {c['loss_err']}")
+        log(f"launch rank {r}: gloo host copies "
+            f"{res['launch']['host_copies']}")
+    return launches
+
+
+def dist_phase(torch, chk, parts=("dist", "launch")):
+    """The decode step across 2 ranks on this one card (``"dist"``) and
+    the launch entry points (``"launch"``): references on one device
+    first (saved, then freed), then 2 processes in one gloo group on
+    cuda:0 run every case of ``parts`` under its plan; a rank that fails
+    fails the run; then ``launch.serve`` on one device.  Returns the
+    results, the ranks' launches summed per kernel key and K2's "dist"
+    row."""
     import shutil
     from repro_torch.kernels import build
     t_phase = time.perf_counter()
@@ -6827,24 +7253,33 @@ def dist_phase(torch, chk):
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     try:
-        return _dist_phase(torch, chk, work, t_phase)
+        return _dist_phase(torch, chk, work, t_phase, parts)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def _dist_phase(torch, chk, work, t_phase):
+def _dist_phase(torch, chk, work, t_phase, parts):
     import multiprocessing as mp
-    refs = dist_references(torch, work)
-    log(f"-- dist references done in {time.perf_counter() - t_phase:.1f} s")
+    out = {}
+    if "dist" in parts:
+        out["references"] = dist_references(torch, work)
+        log(f"-- dist references done in "
+            f"{time.perf_counter() - t_phase:.1f} s")
+    if "launch" in parts:
+        t0 = time.perf_counter()
+        out["launch"] = {"references": launch_references(torch, work),
+                         "train_local": launch_train_local(torch)}
+        log(f"-- launch references and the local train plan done in "
+            f"{time.perf_counter() - t0:.1f} s")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=dist_rank, args=(r, DIST_RANKS, str(work),
-                                                 str(SRC)))
+                                                 str(SRC), parts))
              for r in range(DIST_RANKS)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     for p in procs:
-        p.join(max(1.0, 420 - (time.perf_counter() - t0)))
+        p.join(max(1.0, 560 - (time.perf_counter() - t0)))
     for p in procs:
         if p.is_alive():
             p.kill()
@@ -6860,6 +7295,30 @@ def _dist_phase(torch, chk, work, t_phase):
                  f"{res.get('error', '')}")
         ranks.append(res)
     ranks_s = time.perf_counter() - t0
+    out.update(ranks=ranks, ranks_seconds=ranks_s)
+    if "launch" in parts:
+        t0 = time.perf_counter()
+        out["launch"]["launches"] = launch_check(ranks)
+        out["launch"]["serve"] = launch_serve(torch)
+        for report in out["launch"]["serve"].values():
+            for k, n in report["launches"].items():
+                out["launch"]["launches"][k] += n
+        out["launch"]["serve_seconds"] = time.perf_counter() - t0
+        log(f"launch phase: serve {out['launch']['serve_seconds']:.1f} s; "
+            f"launches (ranks and serve) {out['launch']['launches']}")
+    if "dist" in parts:
+        out.update(_dist_check(torch, chk, ranks))
+    seconds = time.perf_counter() - t_phase
+    log(f"dist phase ({'+'.join(parts)}): {seconds:.1f} s (ranks "
+        f"{ranks_s:.1f} s); collective times are gloo between processes on "
+        "one card, not NVLink")
+    out["seconds"] = seconds
+    return out
+
+
+def _dist_check(torch, chk, ranks):
+    """The distributed cases of the ranks' results: log each, fail on any
+    bound; K2's "dist" row.  Returns the ranks' launches and the row."""
     launches = dict.fromkeys(DIST_KEYS, 0)
     for res in ranks:
         log(f"dist rank {res['rank']}: gloo host copies {res['host_copies']}"
@@ -6912,11 +7371,7 @@ def _dist_phase(torch, chk, work, t_phase):
         f"{fmt(row['device_ms'])}, plain {fmt(row['plain_ms'])}, bound "
         f"{row['bound_ms']:.4f} ms (bytes); launches in the ranks "
         f"{launches['combine/dist']}")
-    seconds = time.perf_counter() - t_phase
-    log(f"dist phase: {seconds:.1f} s (ranks {ranks_s:.1f} s); collective "
-        "times are gloo between processes on one card, not NVLink")
-    return dict(references=refs, ranks=ranks, launches=launches, k2=row,
-                seconds=seconds, ranks_seconds=ranks_s)
+    return dict(launches=launches, k2=row)
 
 
 def main():
@@ -6939,6 +7394,10 @@ def main():
                     help="build and run the distributed phase only (2 "
                     "ranks in one gloo group on this card); prints no "
                     "result line")
+    ap.add_argument("--launch-only", action="store_true",
+                    help="build and run the launch phase only (the plans' "
+                    "prefill and train steps on 2 ranks in one gloo group "
+                    "on this card, launch.serve); prints no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run "
                     "(default: this checkout's; another tree's for an A/B "
@@ -6991,9 +7450,11 @@ def main():
         (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         return
     chk = Checker(torch)
-    if args.dist_only:
-        dist = dist_phase(torch, chk)
-        log(json.dumps({"launches": dist["launches"], "k2": dist["k2"]}))
+    if args.dist_only or args.launch_only:
+        dist = dist_phase(torch, chk,
+                          ("dist",) if args.dist_only else ("launch",))
+        log(json.dumps({k: dist[k] for k in ("launches", "k2")
+                        if k in dist}))
         (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         (OUT / "chip_smoke_dist.json").write_text(json.dumps(
             dist, indent=1, default=str))
@@ -7069,7 +7530,7 @@ def main():
     done("training phase")
     torch.cuda.empty_cache()
     dist = dist_phase(torch, chk)
-    done("distributed phase")
+    done("distributed and launch phases")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -7143,8 +7604,10 @@ def main():
               + list(whisper_f32["engine_launches"].values())
               + [xlstm["monolithic"]["launches"]]
               + train["eval"]["launches"]
-              # the ranks' main paths (counted in the rank processes)
-              + [collections.Counter(dist["launches"])])
+              # the ranks' main paths (counted in the rank processes),
+              # and the launch phase's (its ranks and launch.serve)
+              + [collections.Counter(dist["launches"]),
+                 collections.Counter(dist["launch"]["launches"])])
     rg_phases = [rg["launches"], rg["logits"]["launches"],
                  rg_f32["launches"]]
     kernels_line = []

@@ -214,6 +214,80 @@ def ring_shift(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     return recv.to(x.device) if host else recv
 
 
+def spans(axes: Sequence[str]) -> bool:
+    """Whether more than one rank of the active mesh shares ``axes``."""
+    return bool(axes) and _group(axes) is not None
+
+
+# ---------------------------------------------------------------------------
+# the collectives under autograd (Megatron's f and g, and the vocab gather)
+# ---------------------------------------------------------------------------
+# A Function whose backward makes a collective keeps the mesh its forward
+# ran under: the autograd engine runs a CUDA backward on a thread of its
+# own, where no mesh is active.  Under ``no_grad`` each one is its
+# forward, the plain collective above.
+class _ReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes):
+        return all_reduce(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        with use_mesh(ctx.mesh):
+            return all_reduce(g.contiguous(), ctx.axes), None, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.lo, ctx.w = mesh.flat_index(axes) * x.shape[-1], x.shape[-1]
+        return torch.cat(list(all_gather(x, axes)), dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(-1, ctx.lo, ctx.w).contiguous(), None, None
+
+
+def reduce_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` summed over the mesh ``axes``; under autograd its gradient
+    passes through as it is (Megatron's g: after a row-parallel product,
+    the vocab-sharded lookup, and the per-rank statistics of a loss that
+    every rank then computes whole)."""
+    if _group(axes) is None:
+        return x
+    return _ReduceSum.apply(x, tuple(axes))
+
+
+def copy_in(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``x`` as it is; under autograd its gradient is summed over the mesh
+    ``axes`` (Megatron's f: the input of a column-parallel product, and a
+    replicated weight that feeds only this rank's part)."""
+    if _group(axes) is None or not torch.is_grad_enabled():
+        return x
+    return _CopyIn.apply(x, tuple(axes), current_mesh())
+
+
+def gather_last(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Every rank's ``x`` over the mesh ``axes`` joined along the last dim
+    (the vocab gather of the logits); under autograd the gradient of the
+    whole is cut back to this rank's columns."""
+    if _group(axes) is None:
+        return x
+    return _GatherLast.apply(x, tuple(axes), current_mesh())
+
+
 # ---------------------------------------------------------------------------
 # flash-decoding merge
 # ---------------------------------------------------------------------------
@@ -427,20 +501,22 @@ def write_decode_sharded(
 
 def shard_decode_state(state: Dict, plan) -> Dict:
     """The phase boundary of the decode schemes (the port's counterpart of
-    ``decode_state_shardings`` applied to a filled state): map a state
-    this rank filled under ``plan`` — ``pos`` (B,), pools (L, N, P, Hkv,
-    D) and tables (B, 1, pps), the pools of the rank's kv heads
-    (``plan.layout.kv_heads``: its share under ``tp``, whose prefill
-    wrote only those) — to its decode layout:
+    ``decode_state_shardings`` applied to a filled state): map the state
+    this rank filled under ``plan``'s layout — its batch rows
+    (``launch.steps.build_prefill_step``, or every row when the plan has
+    no batch axes): ``pos`` (B_l,), pools (L, N, P, Hkv, D) and tables
+    (B_l, 1, pps), the pools of the rank's kv heads
+    (``plan.layout.kv_heads``: its share under ``tp``, whose prefill wrote
+    only those) — to its decode layout:
 
-      * rows: the rank's slice of the batch over ``plan.batch_axes``;
       * ``kvp``: the pages of the rank's stripe, logical page ``j·n + s``
-        at local slot j, gathered into a new pool with tables (B_local, 1,
+        at local slot j, gathered into a new pool with tables (B_l, 1,
         ceil(pps / n)) of local ids (-1 stays -1);
       * ``tp``/``dp``: the rows' pages as they are.
 
-    Pools of another head count raise ``EngineConfigError``; other state
-    entries (``rec``, ``cross_k``) are not distributed yet and raise
+    A state of another batch than the rank's rows, or pools of another
+    head count, raise ``EngineConfigError``; other state entries
+    (``rec``, ``cross_k``) are not distributed yet and raise
     ``UnsupportedFeature``."""
     mesh = plan.mesh
     extra = set(state) - {"pos", "k_pages", "v_pages", "tables"}
@@ -455,11 +531,14 @@ def shard_decode_state(state: Dict, plan) -> Dict:
             "from init_decode_state(run, plan=plan))",
             kv_heads=kp.shape[3])
     pos, tables = state["pos"], state["tables"]
-    B = pos.shape[0]
     nb = mesh.prod(plan.batch_axes) if plan.batch_axes else 1
-    bi = mesh.flat_index(plan.batch_axes) if plan.batch_axes else 0
-    rows = slice(bi * B // nb, (bi + 1) * B // nb)
-    t = tables[rows].reshape(B // nb, -1).long()
+    if pos.shape[0] * nb != plan.run.global_batch:
+        raise EngineConfigError(
+            f"shard_decode_state: the state holds {pos.shape[0]} rows, the "
+            f"rank's share of the plan's batch is "
+            f"{plan.run.global_batch // nb} (prefill each rank's rows: "
+            "launch.steps.build_prefill_step)", rows=pos.shape[0])
+    t = tables.reshape(pos.shape[0], -1).long()
     n, s = 1, 0
     if plan.scheme == "kvp":
         n, s = mesh.prod(plan.kv_axes), mesh.flat_index(plan.kv_axes)
@@ -472,7 +551,7 @@ def shard_decode_state(state: Dict, plan) -> Dict:
     phys = keep[live]  # the pages this rank keeps, row-major
     new = torch.full_like(keep, -1)
     new[live] = torch.arange(len(phys), device=t.device)
-    return {"pos": pos[rows].clone(),
+    return {"pos": pos.clone(),
             "k_pages": kp[:, phys].contiguous(),
             "v_pages": vp[:, phys].contiguous(),
             "tables": new.to(torch.int32)[:, None, :].contiguous()}

@@ -256,6 +256,19 @@ def shard_tensor(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     return out.contiguous() if out is not x else x
 
 
+def resolve_specs(spec_tree, rules: AxisRules, mesh):
+    """The PartitionSpec of every ``ParamSpec`` leaf of ``spec_tree`` under
+    ``rules`` on ``mesh`` (the tree ``shard_params`` cuts by; the JAX
+    ``make_param_shardings`` without the devices)."""
+    from repro_torch.models.spec import ParamSpec
+    if isinstance(spec_tree, ParamSpec):
+        return logical_spec(spec_tree.axes, rules, mesh, spec_tree.shape)
+    if isinstance(spec_tree, dict):
+        return {k: resolve_specs(v, rules, mesh)
+                for k, v in spec_tree.items()}
+    return [resolve_specs(s, rules, mesh) for s in spec_tree]
+
+
 def shard_params(params, spec_tree, mesh, rules: AxisRules):
     """Cut a full parameter tree (dicts and lists of tensors, the shape of
     ``spec_tree``, a tree of ``ParamSpec``) to this rank's local pieces

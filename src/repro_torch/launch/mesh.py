@@ -12,6 +12,12 @@ init_process_group`` with its own address, world size and rank: nothing
 on the machine describes a cluster); ``make_mesh`` then builds the mesh
 over it.  Every rank must build the same meshes in the same order
 (``new_group`` is collective).
+
+``make_production_mesh`` is the JAX package's production mesh over
+``torch.distributed``: (16, 16) over ("data", "model"), or (2, 16, 16)
+over ("pod", "data", "model"), so that plans match the JAX ones at
+production size.  The constants below are the H100's (the JAX ones are a
+TPU v5e's); the roofline bounds and ``PERF.md`` use them.
 """
 
 from __future__ import annotations
@@ -22,6 +28,14 @@ from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.errors import DistributedSetupError
+
+# NVIDIA H100 SXM5 80GB ("NVIDIA H100 80GB HBM3, 700.00 W"), per GPU, from
+# NVIDIA's H100 Tensor Core GPU datasheet (SXM5 column)
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, dense bf16 tensor cores
+HBM_BW = 3.35e12  # bytes/s, HBM3
+# NVLink 4: 18 links of 50 GB/s, both directions together (the
+# datasheet's 900 GB/s); the counterpart of the JAX package's ICI_BW
+NVLINK_BW = 900e9  # bytes/s per GPU
 
 
 class Mesh:
@@ -130,6 +144,16 @@ def make_mesh(shape: Sequence[int],
                 if rank in members:
                     groups[tuple(names[i] for i in key)] = g
     return Mesh(shape, names, rank, groups)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The production mesh over the default process group: (16, 16) over
+    ("data", "model"), or (2, 16, 16) over ("pod", "data", "model") with
+    ``multi_pod`` (the "pod" axis carries pure data parallelism).  A group
+    of another size raises ``DistributedSetupError``."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes)
 
 
 def make_local_mesh() -> Mesh:

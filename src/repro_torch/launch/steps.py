@@ -1,10 +1,15 @@
-"""Sharding plans and the serve step (port of the serve half of
-``repro.launch.steps``).
+"""Sharding plans and step builders for every (run × mesh) combination
+(port of ``repro.launch.steps``).
 
-``plan_for`` picks, for a decode ``RunConfig`` and a mesh, the batch
-axes, the rule table and the decode scheme, as the JAX function does:
+``plan_for`` picks, for a ``RunConfig`` and a mesh, the batch axes, the
+rule table, the decode scheme and the microbatches, as the JAX function
+does, line for line:
 
   * batch axes: as much of ("pod", "data") as the global batch divides;
+  * train: ``seq`` over "model" when it divides the sequence (the JAX
+    plan's sequence-parallel rule, recorded in the table), and the
+    microbatch count that keeps each rank's f32 logits under 256 MB;
+  * prefill: the same ``seq`` rule, scheme ``"prefill_local"``;
   * decode: ``tp`` when the model axis divides the kv heads, else ``dp``
     for windowed models, else ``kvp`` (a config's ``decode_scheme`` or
     ``scheme=`` asks for one); ``tp`` without that divisibility becomes
@@ -13,26 +18,64 @@ axes, the rule table and the decode scheme, as the JAX function does:
 
 It also fixes the plan's ``layout`` (``distributed.sharding.TPLayout``):
 which weights each rank holds a piece of, which the model cuts and reads.
+The train plan's is the tensor-parallel cut (heads over "model" when it
+divides the kv heads, else q-head groups; ``d_ff`` and the vocab where
+the rules put them on "model").  The prefill plan's is the one the decode
+plan of the same config on the same mesh has, so that the state a rank
+prefills is the state ``shard_decode_state`` takes: the JAX prefill plan
+shards the pools' head_dim over "model" instead (a reshard at the phase
+boundary that the port does not make).
 
-``build_serve_step`` returns the decode step of one token per sequence
-under the plan, on this rank's params (``model.init_params(..., plan=)``
-or ``shard_params``) and state (``distributed.collectives.
-shard_decode_state`` of a state prefilled under the plan).  The train and
-prefill plans and step builders, the microbatched step, ``dryrun`` and
-``hlo_analysis`` are not ported yet.
+Every builder returns JAX's 4-tuple ``(step, args, specs, model)``:
+``args`` are stand-ins of the global inputs on the ``meta`` device and
+``specs`` the ``PartitionSpec`` trees of what each rank holds of them.
+A step takes what its rank holds: its params (``model.init_params(...,
+plan=)`` or ``shard_params``), its rows of the batch (``shard_batch``)
+and its state.
+
+  * ``build_train_step`` — loss, gradients, global-norm clipping and
+    AdamW, plain or over ``plan.microbatches`` with f32 accumulation;
+    data-parallel over the batch axes (the loss is each rank's part of
+    the global mean, the gradients summed), tensor-parallel over "model"
+    (Megatron's f and g through ``distributed.collectives``), the
+    activations whole between blocks;
+  * ``build_prefill_step`` — each rank prefills its rows with its heads
+    into ``model.init_decode_state(local_run(run, plan), plan=plan)``;
+  * ``build_serve_step`` — one decode token per sequence.
+
+The spec trees depart from the JAX ones where the port holds something
+else than GSPMD would: ``embed`` is never cut over "data" (the FSDP
+override of the big configs is a GSPMD layout; ``shard_params`` keeps it
+whole), the kv projections are cut with the q heads under the ``"heads"``
+cut, the experts stay whole (expert parallelism is a decode layout), and
+the prefill pools follow the decode layout (above).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.distributed.sharding import (P, AxisRules, DEFAULT_RULES,
                                               TPLayout, logical_spec,
+                                              resolve_specs, shard_tensor,
                                               use_mesh)
 from repro_torch.errors import UnsupportedFeature
+from repro_torch.kernels import check_impl
+from repro_torch.models import spec as pspec
+from repro_torch.models.api import build_model
+from repro_torch.training.optimizer import AdamWState
+from repro_torch.training.state import TrainState
+from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
+
+# the per-rank f32 logits the microbatch search stays under (bytes)
+LOGITS_BUDGET = 256e6
 
 
 @dataclass
@@ -41,8 +84,10 @@ class Plan:
     mesh: Any  # launch.mesh.Mesh
     rules: AxisRules
     batch_axes: Tuple[str, ...]
-    scheme: str  # decode distribution scheme: tp | dp | kvp
+    scheme: str  # tp | dp | kvp (decode), prefill_local, n/a (train)
     kv_axes: Tuple[str, ...]
+    microbatches: int
+    attn_impl: str  # the train step's attention: ref | chunked
     layout: TPLayout
 
     @property
@@ -52,7 +97,7 @@ class Plan:
 
     @property
     def attn_ctx(self) -> Dict[str, Any]:
-        """What the model's ``prefill``/``decode_step`` read of the plan."""
+        """What the model's entry points read of the plan."""
         return {"scheme": self.scheme, "batch_axes": self.batch_axes,
                 "layout": self.layout}
 
@@ -62,14 +107,14 @@ def _mesh_prod(mesh, axes: Tuple[str, ...]) -> int:
     return math.prod(sizes[a] for a in axes) if axes else 1
 
 
-def plan_for(run: RunConfig, mesh, *, scheme: Optional[str] = None
+def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
+             attn_impl: str = "chunked", scheme: Optional[str] = None
              ) -> Plan:
-    """The decode plan of ``run`` on ``mesh`` (the decode branch of the
-    JAX ``plan_for``, line for line, plus the port's ``layout``)."""
-    if run.kind != "decode":
-        raise UnsupportedFeature(
-            f"plan_for plans the decode step; the {run.kind!r} plans are "
-            "not ported", kind=run.kind)
+    """The plan of ``run`` on ``mesh`` (the JAX ``plan_for``, line for
+    line, plus the port's ``layout``).  ``attn_impl`` names the port's
+    training attention ("ref" is the JAX "jnp"); ``scheme`` asks for a
+    decode scheme, and under a prefill plan for the layout of that
+    decode scheme."""
     cfg = run.model
     rules = DEFAULT_RULES.extend(**cfg.axis_overrides)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
@@ -84,6 +129,41 @@ def plan_for(run: RunConfig, mesh, *, scheme: Optional[str] = None
             prod *= sizes[a]
     rules = rules.extend(batch=batch_axes or None)
 
+    if run.kind in ("train", "prefill") and run.seq_len % model_size == 0:
+        # sequence parallelism between blocks (the JAX rule; the port's
+        # steps keep the activations whole and read only ``layout``)
+        rules = rules.extend(seq=("model",))
+    if run.kind == "train":
+        if microbatches is None:
+            # keep per-device f32 logits under ~256 MB
+            vocab_shards = (model_size if cfg.vocab_size % model_size == 0
+                            else 1)
+            per_dev = (run.global_batch * run.seq_len // max(prod, 1)
+                       * cfg.vocab_size // vocab_shards * 4)
+            microbatches = 1
+            while per_dev / microbatches > LOGITS_BUDGET and \
+                    run.global_batch % (microbatches * 2 * prod) == 0:
+                microbatches *= 2
+        tp = "tp" if cfg.n_kv_heads % model_size == 0 else "dp"
+        return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
+                    scheme="n/a", kv_axes=(), microbatches=microbatches,
+                    attn_impl=attn_impl,
+                    layout=_layout(cfg, mesh, rules, tp, model_size))
+    sch = _decode_scheme(cfg, model_size, scheme)
+    lay = _layout(cfg, mesh, rules, sch, model_size)
+    if run.kind == "prefill":
+        return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
+                    scheme="prefill_local", kv_axes=(), microbatches=1,
+                    attn_impl=attn_impl, layout=lay)
+    kv_axes = (tuple(a for a in mesh.axis_names if a not in batch_axes)
+               if sch == "kvp" else ())
+    return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
+                scheme=sch, kv_axes=kv_axes, microbatches=1,
+                attn_impl=attn_impl, layout=lay)
+
+
+def _decode_scheme(cfg: ModelConfig, model_size: int,
+                   scheme: Optional[str]) -> str:
     window = cfg.window if "W" in cfg.pattern() else 0
     sch = scheme or cfg.decode_scheme
     if sch in ("auto", "n/a"):
@@ -97,11 +177,7 @@ def plan_for(run: RunConfig, mesh, *, scheme: Optional[str] = None
         sch = "kvp"
     if sch == "kvp" and window > 0:
         sch = "dp"
-    kv_axes = (tuple(a for a in mesh.axis_names if a not in batch_axes)
-               if sch == "kvp" else ())
-    return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
-                scheme=sch, kv_axes=kv_axes,
-                layout=_layout(cfg, mesh, rules, sch, model_size))
+    return sch
 
 
 def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
@@ -135,16 +211,302 @@ def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
         kv_heads=cfg.n_kv_heads // m if scheme == "tp" else cfg.n_kv_heads)
 
 
-def build_serve_step(run: RunConfig, plan: Plan, impl: str = "kernel"
-                     ) -> Tuple[Callable, Any]:
+# ---------------------------------------------------------------------------
+# spec trees: what each rank holds
+# ---------------------------------------------------------------------------
+def _entry(axes: Tuple[str, ...]):
+    """A PartitionSpec entry of ``axes`` (None, one name or a tuple)."""
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _spec(*entries) -> P:
+    out = list(entries)
+    while out and out[-1] is None:
+        out.pop()
+    return P(*out)
+
+
+def _cuts(spec: P, axis: str) -> bool:
+    """Whether ``spec`` cuts a dim over mesh axis ``axis``."""
+    return any(e == axis or (isinstance(e, tuple) and axis in e)
+               for e in spec)
+
+
+def spec_leaves(tree) -> list:
+    """The ``PartitionSpec`` leaves of a spec tree, in ``tree_leaves``
+    order (a spec is a tuple, which the tree utilities would enter)."""
+    if isinstance(tree, P):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in spec_leaves(tree[k])]
+    if hasattr(tree, "_fields"):
+        return [x for f in tree._fields for x in spec_leaves(getattr(tree, f))]
+    return [x for t in tree for x in spec_leaves(t)]
+
+
+def param_specs(model, plan: Plan):
+    """The spec tree of the pieces ``model.shard_params(params, plan)``
+    keeps (Megatron style, by ``plan.layout``): the vocab, ``d_ff`` and
+    (under ``moe_ep``) the experts over "model" as the layout says;
+    attention by layer — ``"heads"``: ``wq``/``wk``/``wv`` by heads and
+    ``wo`` by its head rows, ``"groups"``: ``wq``/``wo`` by G/m heads of
+    every kv group (the spec says that the head dim is cut, not which
+    heads), ``"whole"``; every other weight whole."""
+    spec = model.param_spec()
+    rules = plan.layout.rules()
+    out = {k: resolve_specs(v, rules, plan.mesh)
+           for k, v in spec.items() if k != "layers"}
+    if "layers" not in spec:
+        return out
+    out["layers"] = []
+    for li, ls in enumerate(spec["layers"]):
+        d = {k: resolve_specs(v, rules, plan.mesh)
+             for k, v in ls.items() if k != "attn"}
+        if "attn" in ls:
+            cut = plan.layout.attn[li] if plan.layout.attn else "whole"
+            heads = P(None, "model") if cut != "whole" else P()
+            kv = heads if cut == "heads" else P()
+            d["attn"] = {"wq": heads, "wk": kv, "wv": kv,
+                         "wo": P("model") if cut != "whole" else P()}
+        out["layers"].append(d)
+    return out
+
+
+def train_state_shardings(model, plan: Plan) -> TrainState:
+    """Specs of the train state each rank holds: its params' pieces
+    (``param_specs``), the AdamW moments alike, the counters whole."""
+    p = param_specs(model, plan)
+    return TrainState(params=p, opt=AdamWState(mu=p, nu=p, count=P()),
+                      step=P())
+
+
+def batch_shardings(run: RunConfig, plan: Plan) -> Dict[str, P]:
+    ba = _entry(plan.batch_axes)
+    out = {"inputs": _spec(ba, None), "targets": _spec(ba, None)}
+    cfg = run.model
+    if cfg.family == "vlm":
+        out["image_embeds"] = _spec(ba, None, None)
+    if cfg.family == "encdec":
+        out["frames"] = _spec(ba, None, None)
+    return out
+
+
+def decode_state_shardings(model, plan: Plan, state: Dict) -> Dict:
+    """Specs of the decode/prefill state each rank holds, keyed like the
+    state: rows over the batch axes; the pools' pages over the batch axes
+    (and under kvp the kv axes too), their kv heads over "model" where
+    the layout cuts them (tp, and a prefill under a tp layout); kvp's
+    tables by stripe."""
+    ba = _entry(plan.batch_axes)
+    pages = tuple(plan.batch_axes) + (
+        tuple(plan.kv_axes) if plan.scheme == "kvp" else ())
+    kv = _entry(plan.kv_axes)
+    kvh = ("model" if plan.layout.kv_heads
+           and plan.layout.kv_heads != model.cfg.n_kv_heads else None)
+    out: Dict[str, Any] = {}
+    for key, val in state.items():
+        if key == "pos":
+            out[key] = _spec(ba)
+        elif key in ("k_pages", "v_pages"):
+            out[key] = _spec(None, _entry(pages), None, kvh, None)
+        elif key == "tables":
+            out[key] = _spec(ba, kv if plan.scheme == "kvp" else None, None)
+        elif key in ("cross_k", "cross_v", "k_buf", "v_buf"):
+            out[key] = _spec(None, ba)
+        elif key == "rec":
+            out[key] = tree_map(lambda a: _spec(None, ba), val)
+        else:
+            out[key] = P()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# stand-ins and the rank's share of the inputs
+# ---------------------------------------------------------------------------
+def abstract_batch(run: RunConfig, dtype=torch.bfloat16
+                   ) -> Dict[str, torch.Tensor]:
+    """Stand-ins of a train batch of ``run``'s shape on ``meta``."""
+    from repro_torch.models.api import input_specs
+    return input_specs(dataclasses.replace(run, kind="train"), dtype)
+
+
+def abstract_train_state(model, dtype=torch.bfloat16,
+                         moment_dtype=None) -> TrainState:
+    p = pspec.abstract(model.param_spec(), dtype)
+    mom = pspec.abstract(model.param_spec(), moment_dtype or dtype)
+    scalar = torch.empty((), dtype=torch.int32, device="meta")
+    return TrainState(params=p, opt=AdamWState(mu=mom, nu=mom, count=scalar),
+                      step=scalar)
+
+
+def _abstract_state(model, run: RunConfig, plan: Plan, dtype) -> Dict:
+    """The global decode state on ``meta``: every kv head, and under kvp
+    the JAX layout (pages per sequence rounded up to the stripes, tables
+    (B, n, pages / n))."""
+    st = model.init_decode_state(run, dtype, device="meta")
+    n = plan.n_kv_shards
+    if n > 1:
+        B, _, pps = st["tables"].shape
+        pps = -(-pps // n) * n
+        L, _, ps, H, D = st["k_pages"].shape
+        for k in ("k_pages", "v_pages"):
+            st[k] = torch.empty((L, B * pps, ps, H, D), dtype=st[k].dtype,
+                                device="meta")
+        st["tables"] = torch.empty((B, n, pps // n), dtype=torch.int32,
+                                   device="meta")
+    return st
+
+
+def local_run(run: RunConfig, plan: Plan) -> RunConfig:
+    """``run`` with this rank's rows: the global batch over the plan's
+    batch axes."""
+    nb = _mesh_prod(plan.mesh, plan.batch_axes)
+    return dataclasses.replace(run, global_batch=run.global_batch // nb)
+
+
+def shard_batch(batch: Dict[str, torch.Tensor], plan: Plan
+                ) -> Dict[str, torch.Tensor]:
+    """This rank's rows of each tensor of a global batch (its piece under
+    ``P(batch_axes)``: the rows of its row-major index over the axes)."""
+    rows = _spec(_entry(plan.batch_axes))
+    return {k: shard_tensor(v, rows, plan.mesh) for k, v in batch.items()}
+
+
+def _n_ranks(mesh) -> int:
+    return math.prod(mesh.shape)
+
+
+# ---------------------------------------------------------------------------
+# step builders (return step, stand-ins of the global inputs, their specs,
+# model)
+# ---------------------------------------------------------------------------
+def train_grads(model, plan: Plan) -> Callable:
+    """``grads(params, batch) -> (loss, parts, grads)``: the train step of
+    ``plan`` up to the clipping, on this rank's params and rows.  With
+    ``plan.microbatches`` = mb > 1 the rows are cut into mb consecutive
+    parts whose gradients are accumulated in f32 and divided by mb (the
+    JAX body).  Over the batch axes each rank's loss is its part of the
+    global mean (``layers.xent``; the MoE aux loss is the whole batch's)
+    and the gradients are summed over them; over "model" each rank
+    computes its heads, ``d_ff`` columns and vocab slice.  ``loss`` and
+    ``parts`` (``ce``, ``aux``) are the global batch's."""
+    from repro_torch.distributed.collectives import all_reduce, spans
+    from repro_torch.training.loop import loss_and_grads
+    ctx = plan.attn_ctx if _n_ranks(plan.mesh) > 1 else None
+    mb, ba = plan.microbatches, tuple(plan.batch_axes)
+    coef = plan.run.model.router_aux_coef
+
+    def grads_of(params, batch):
+        with use_mesh(plan.mesh, plan.rules):
+            if mb == 1:
+                loss, parts, grads = loss_and_grads(
+                    model, params, batch, plan.attn_impl, ctx)
+            else:
+                b = next(iter(batch.values())).shape[0] // mb
+                acc, loss, parts = None, 0.0, {}
+                for i in range(mb):
+                    sub = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                    l_i, p_i, g_i = loss_and_grads(
+                        model, params, sub, plan.attn_impl, ctx)
+                    g_i = tree_leaves(g_i)
+                    acc = ([g.float() for g in g_i] if acc is None
+                           else [a + g.float() for a, g in zip(acc, g_i)])
+                    loss = loss + l_i
+                    parts = {k: parts.get(k, 0.0) + v
+                             for k, v in p_i.items()}
+                grads = tree_unflatten(params, [a / mb for a in acc])
+                loss = loss / mb
+                parts = {k: v / mb for k, v in parts.items()}
+            if spans(ba):
+                grads = tree_map(lambda g: all_reduce(g, ba), grads)
+                parts["ce"] = all_reduce(parts["ce"], ba)
+                loss = parts["ce"] + coef * parts["aux"]
+        return loss, parts, grads
+
+    return grads_of
+
+
+def build_train_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
+                     lr=3e-4, moment_dtype=None):
+    """``step(state, batch) -> (state', metrics)`` on this rank's train
+    state and rows (``shard_batch``), at learning rate ``lr`` (the rate
+    the JAX builder fixes, by default): ``train_grads``, then global-norm
+    clipping at 1.0 (each sharded leaf's pieces summed over "model") and
+    AdamW.  ``metrics``: ``loss``, ``grad_norm``, ``ce`` and ``aux``, the
+    global batch's."""
+    from repro_torch.training.optimizer import (adamw_update,
+                                                clip_by_global_norm)
+    model = build_model(run.model)
+    check_impl(plan.attn_impl, TRAIN_IMPLS, "build_train_step")
+    specs = {"state": train_state_shardings(model, plan),
+             "batch": batch_shardings(run, plan)}
+    sharded = [_cuts(s, "model") for s in spec_leaves(specs["state"].params)]
+    grads_of = train_grads(model, plan)
+
+    def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        loss, parts, grads = grads_of(state.params, batch)
+        with use_mesh(plan.mesh, plan.rules):
+            grads, gnorm = clip_by_global_norm(grads, 1.0, sharded)
+        new_p, new_opt = adamw_update(grads, state.opt, state.params, lr=lr)
+        metrics = {"loss": loss, "grad_norm": gnorm, **parts}
+        return TrainState(new_p, new_opt, state.step + 1), metrics
+
+    args = {"state": abstract_train_state(model, dtype, moment_dtype),
+            "batch": abstract_batch(run, dtype)}
+    return step, args, specs, model
+
+
+def _inference_model(run: RunConfig):
+    model = build_model(run.model)
+    if not hasattr(model, "init_decode_state"):
+        raise UnsupportedFeature(
+            f"the prefill and serve steps take models of 'A' and 'W' "
+            f"layers; family {run.model.family!r}", family=run.model.family)
+    return model
+
+
+def build_prefill_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
+                       impl: str = "kernel"):
+    """``step(params, tokens, lens, state) -> (last-token logits, state)``
+    on this rank's params, rows (``shard_batch`` of ``tokens``/``lens``)
+    and state, ``model.init_decode_state(local_run(run, plan),
+    plan=plan)`` with its tables mapped: the rank prefills its rows with
+    its heads (K4 unless ``impl="ref"``) into pools of the kv heads its
+    decode layout holds, which ``shard_decode_state`` then takes as they
+    are.  Models of ``A`` and ``W`` layers (a recurrent or cross-attention
+    state is not distributed: ``UnsupportedFeature``)."""
+    model = _inference_model(run)
+    B, S = run.global_batch, run.seq_len
+    state = _abstract_state(model, run, plan, dtype)
+    ba = _entry(plan.batch_axes)
+    ctx = plan.attn_ctx
+
+    def step(params, tokens, lens, state):
+        with use_mesh(plan.mesh, plan.rules), torch.no_grad():
+            return model.prefill(params, tokens, state, lens, impl=impl,
+                                 attn_ctx=ctx)
+
+    args = {"params": pspec.abstract(model.param_spec(), dtype),
+            "tokens": torch.empty((B, S), dtype=torch.int32, device="meta"),
+            "lens": torch.empty((B,), dtype=torch.int32, device="meta"),
+            "state": state}
+    specs = {"params": param_specs(model, plan), "tokens": _spec(ba, None),
+             "lens": _spec(ba),
+             "state": decode_state_shardings(model, plan, state)}
+    return step, args, specs, model
+
+
+def build_serve_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
+                     impl: str = "kernel"):
     """Decode: one new token per sequence against the rank's KV cache
     under ``plan`` (the JAX ``build_serve_step``; the JAX one runs the
-    oracle under ``jit``, the port K1/K2 unless ``impl="ref"``).  Returns
-    ``(step, model)``: ``step(params, tokens, state) -> (logits (B_l, V),
-    state)`` on this rank's params, tokens (its batch rows) and state,
-    run under the plan's mesh and rules."""
-    from repro_torch.models.api import build_model
-    model = build_model(run.model)
+    oracle under ``jit``, the port K1/K2 unless ``impl="ref"``).
+    ``step(params, tokens, state) -> (logits (B_l, V), state)`` on this
+    rank's params, tokens (its batch rows) and state
+    (``shard_decode_state`` of a state prefilled under the plan's
+    layout), run under the plan's mesh and rules."""
+    model = _inference_model(run)
+    state = _abstract_state(model, run, plan, dtype)
     ctx = plan.attn_ctx
 
     def step(params, tokens, state):
@@ -152,4 +514,21 @@ def build_serve_step(run: RunConfig, plan: Plan, impl: str = "kernel"
             return model.decode_step(params, tokens, state, impl=impl,
                                      attn_ctx=ctx)
 
-    return step, model
+    args = {"params": pspec.abstract(model.param_spec(), dtype),
+            "tokens": torch.empty((run.global_batch,), dtype=torch.int32,
+                                  device="meta"),
+            "state": state}
+    specs = {"params": param_specs(model, plan),
+             "tokens": _spec(_entry(plan.batch_axes)),
+             "state": decode_state_shardings(model, plan, state)}
+    return step, args, specs, model
+
+
+def build_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16, **kw):
+    """The builder of ``run.kind``; ``kw`` goes to it (``lr=`` to the train
+    step, ``impl=`` to the prefill and serve steps)."""
+    if run.kind == "train":
+        return build_train_step(run, plan, dtype, **kw)
+    if run.kind == "prefill":
+        return build_prefill_step(run, plan, dtype, **kw)
+    return build_serve_step(run, plan, dtype, **kw)

@@ -78,18 +78,31 @@ def _out(p: Dict, o: torch.Tensor, row_parallel: bool = False
 
 def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                window: int = 0, lens: Optional[torch.Tensor] = None,
-               causal: bool = True, impl: str = "kernel") -> torch.Tensor:
+               causal: bool = True, impl: str = "kernel",
+               cut: str = "whole") -> torch.Tensor:
     """Attention over whole sequences with no cache (the training forward
     and the whisper encoder).  x: (B, S, d) → (B, S, d).  ``window > 0``:
     a ``W`` layer's sliding window; ``causal=False`` with no ``lens`` is
     the full mask (the encoder); K4 under ``impl="kernel"``, the chunked
-    online softmax under ``impl="chunked"``."""
+    online softmax under ``impl="chunked"``.
+
+    ``cut``: the layer's entry of ``TPLayout.attn``.  Under ``"heads"``
+    and ``"groups"`` the weights hold this rank's heads, ``wo``'s partial
+    sums are reduced over "model", and under autograd the gradient of
+    ``x`` is summed over "model" (Megatron's f); under ``"groups"`` so is
+    the gradient of the replicated ``wk``/``wv``, which feed only this
+    rank's heads."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
+    if cut != "whole":
+        x = layers.copy_model(x)
+    if cut == "groups":
+        p = dict(p, wk=layers.copy_model(p["wk"]),
+                 wv=layers.copy_model(p["wv"]))
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     causal=causal, impl=impl)
-    return _out(p, o)
+    return _out(p, o, row_parallel=cut != "whole")
 
 
 def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -103,9 +103,17 @@ def mlp_spec(cfg: ModelConfig) -> Dict:
 def reduce_model(y: torch.Tensor, dtype=None) -> torch.Tensor:
     """Sum partial sums over the mesh's "model" axis in f32 (Megatron's
     all-reduce after ``wo`` and ``wd``, and the vocab-sharded lookup);
-    the result in ``dtype`` (default: ``y``'s)."""
-    from repro_torch.distributed.collectives import all_reduce
-    return all_reduce(y.float(), ("model",)).to(dtype or y.dtype)
+    the result in ``dtype`` (default: ``y``'s).  Under autograd the
+    gradient passes through (``collectives.reduce_sum``)."""
+    from repro_torch.distributed.collectives import reduce_sum
+    return reduce_sum(y.float(), ("model",)).to(dtype or y.dtype)
+
+
+def copy_model(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as it is, its gradient summed over "model" under autograd
+    (``collectives.copy_in``): the input of a column-parallel product."""
+    from repro_torch.distributed.collectives import copy_in
+    return copy_in(x, ("model",))
 
 
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -113,8 +121,10 @@ def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (row-parallel), summed over "model", in ``x``'s dtype.  The rank's
     partial product stays in f32 until the sum: bf16 inputs on the card
     take cuBLAS's f32 accumulator as it is (``mm``'s ``out_dtype``), so
-    the only rounding to bf16 is the one a single device makes."""
-    if x.dtype == torch.bfloat16 and x.is_cuda:
+    the only rounding to bf16 is the one a single device makes (not
+    under autograd, which ``mm`` with ``out_dtype`` does not take)."""
+    if x.dtype == torch.bfloat16 and x.is_cuda and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         part = torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(
                             *x.shape[:-1], w.shape[-1])
@@ -128,7 +138,10 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """The dense MLP.  ``row_parallel``: ``wg``/``wu`` hold this rank's
     column slice of ``d_ff`` and ``wd`` the matching rows (Megatron,
     ``TPLayout.mlp``), and the partial sums are reduced over "model" in
-    f32 (``row_parallel_matmul``)."""
+    f32 (``row_parallel_matmul``); under autograd the gradient of ``x``
+    is summed over "model" (``copy_model``)."""
+    if row_parallel:
+        x = copy_model(x)
     if cfg.activation == "silu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
     elif cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
@@ -173,27 +186,38 @@ def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig,
             vocab_sharded: bool = False) -> torch.Tensor:
     """Logits (..., V).  ``vocab_sharded``: the table is this rank's
     vocab slice (``TPLayout.vocab``), and its logits are gathered over
-    "model" along the vocab."""
+    "model" along the vocab (``collectives.gather_last``: under autograd
+    the rank's columns of the gradient come back, and ``x``'s gradient is
+    summed over "model")."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
-    logits = x @ w
     if vocab_sharded:
-        from repro_torch.distributed.collectives import all_gather
-        parts = all_gather(logits, ("model",))
-        logits = torch.cat(list(parts), dim=-1)
+        from repro_torch.distributed.collectives import gather_last
+        logits = gather_last(copy_model(x) @ w, ("model",))
+    else:
+        logits = x @ w
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits
 
 
 def xent(logits: torch.Tensor, targets: torch.Tensor,
-         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+         mask: Optional[torch.Tensor] = None,
+         batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """Mean next-token cross entropy in f32 over (B, S, V) logits and
     (B, S) targets; with a (B, S) ``mask`` the mean over its weight (at
-    least 1)."""
+    least 1).  ``batch_axes``: the rows are this rank's share of a batch
+    over those mesh axes, and the result is this rank's part of the
+    global mean — its sum over the weight (or token count) of every
+    rank's rows — so that the parts add up over the ranks."""
+    from repro_torch.distributed.collectives import all_reduce, spans
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     nll = logz - gold
+    if spans(batch_axes):
+        w = (torch.ones_like(nll) if mask is None else mask.float())
+        count = all_reduce(w.sum().detach(), batch_axes)
+        return torch.sum(nll * w) / torch.clamp(count, min=1.0)
     if mask is not None:
         mask = mask.float()
         return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -75,15 +75,28 @@ def router(p: Dict, x: torch.Tensor, k: int
 
 
 def aux_loss(probs: torch.Tensor, idx: torch.Tensor,
-             live: Optional[torch.Tensor] = None) -> torch.Tensor:
+             live: Optional[torch.Tensor] = None,
+             batch_axes: Tuple[str, ...] = ()) -> torch.Tensor:
     """The load-balance loss (Switch/OLMoE style) of the router's
     ``probs`` (T, E) and experts ``idx`` (T, k): ``E·Σ me·ce``, the mean
     probability times the top-1 share of each expert over the ``live``
-    tokens (every token when None)."""
+    tokens (every token when None).  ``batch_axes``: the tokens are this
+    rank's share of a batch over those mesh axes; the loss is not linear
+    in the tokens, so each expert's probability sum, top-1 count and the
+    token count are summed over the ranks first (the probabilities' sum
+    through ``collectives.reduce_sum``: every rank then holds the global
+    loss, and its gradient reaches each rank's own tokens)."""
+    from repro_torch.distributed.collectives import reduce_sum, spans
     T, E = probs.shape
     top1 = (idx[:, :1] == torch.arange(E, device=probs.device)).float()
     w = (torch.ones(T, device=probs.device) if live is None
          else live.reshape(T).float())
+    if spans(batch_axes):
+        stats = reduce_sum(torch.cat([(probs * w[:, None]).sum(0),
+                                      (top1 * w[:, None]).sum(0),
+                                      w.sum()[None]]), batch_axes)
+        n = torch.clamp(stats[-1], min=1)
+        return E * torch.sum((stats[:E] / n) * (stats[E:2 * E] / n))
     w = w[:, None] / torch.clamp(w.sum(), min=1)
     return E * torch.sum((probs * w).sum(0) * (top1 * w).sum(0))
 
@@ -176,12 +189,17 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return out.to(x.dtype).reshape(shape)
 
 
-def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig
+def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                    batch_axes: Tuple[str, ...] = ()
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training FFN, the JAX ``apply_moe``: every token of x (B, S, d)
     routed at the config's capacity.  Returns (the output, of x's shape
     and dtype; ``aux_loss`` over every token), both from one router
-    call."""
+    call.  ``batch_axes``: x holds this rank's rows of a batch over those
+    mesh axes; the aux loss is the whole batch's, and the capacity is
+    this rank's (its tokens' share; dropless, ``moe_capacity=0``, routes
+    exactly as one device does)."""
     xf = x.reshape(-1, x.shape[-1])
     out, probs, idx = _moe(p, xf, cfg, None, xf.shape[0])
-    return out.to(x.dtype).reshape(x.shape), aux_loss(probs, idx)
+    return (out.to(x.dtype).reshape(x.shape),
+            aux_loss(probs, idx, batch_axes=batch_axes))

@@ -6,7 +6,8 @@ scheme — N(0, 0.02²) by default, ones/zeros for norms, ``small_normal``
 scaled by 1/sqrt(fan-in), ``a_log`` the RG-LRU's Λ — from an explicit
 ``torch.Generator`` on the target device.  The draws differ from JAX's
 (different generators); the parity tests convert the JAX weights instead
-(``models.convert``).
+(``models.convert``).  ``abstract`` gives the same tree as tensors on the
+``meta`` device: shapes and dtypes, no memory.
 """
 
 from __future__ import annotations
@@ -52,3 +53,13 @@ def materialize(spec_tree, gen: torch.Generator, dtype=torch.float32,
         return {k: materialize(spec_tree[k], gen, dtype, device)
                 for k in sorted(spec_tree)}
     return [materialize(s, gen, dtype, device) for s in spec_tree]
+
+
+def abstract(spec_tree, dtype=torch.float32):
+    """Every ``ParamSpec`` leaf as an empty tensor of its shape on the
+    ``meta`` device (the JAX ``abstract``: stand-ins, nothing allocated)."""
+    if isinstance(spec_tree, ParamSpec):
+        return torch.empty(spec_tree.shape, dtype=dtype, device="meta")
+    if isinstance(spec_tree, dict):
+        return {k: abstract(v, dtype) for k, v in spec_tree.items()}
+    return [abstract(s, dtype) for s in spec_tree]

@@ -57,6 +57,7 @@ from the device when it is not given).
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -65,8 +66,8 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import (P, TPLayout, shard_params,
-                                              shard_tensor)
+from repro_torch.distributed.sharding import (P, TPLayout, current_mesh,
+                                              shard_params, shard_tensor)
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
 from repro_torch.kernels import check_impl
 from repro_torch.models import attention as attn
@@ -231,7 +232,7 @@ class TransformerModel:
     def _check_distributable(self):
         if set(self.codes) - set(ATTN_CODES):
             raise UnsupportedFeature(
-                "the distributed decode takes models of 'A' and 'W' "
+                "the distributed steps take models of 'A' and 'W' "
                 f"layers; pattern {self.cfg.layer_pattern!r}",
                 pattern=self.cfg.layer_pattern)
 
@@ -338,28 +339,52 @@ class TransformerModel:
 
     # -- forward (training) -------------------------------------------------
     def _train_layer(self, li: int, p: Dict, x: torch.Tensor,
-                     img: Optional[torch.Tensor], impl: str
+                     img: Optional[torch.Tensor], impl: str,
+                     lay: TPLayout = TPLayout(),
+                     batch_axes: Tuple[str, ...] = ()
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One layer over whole sequences: (x', the MoE aux loss or
-        None)."""
+        None).  ``lay``: the rank's cut of the weights; ``batch_axes``:
+        the mesh axes the rows are spread over (the aux loss is the whole
+        batch's)."""
         cfg = self.cfg
         code = self.codes[li]
         h = layers.apply_norm(p["ln1"], x)
         if code in ATTN_CODES:
             x = x + attn.attn_train(p["attn"], h, cfg,
-                                    window=self.windows[li], impl=impl)
+                                    window=self.windows[li], impl=impl,
+                                    cut=lay.attn[li] if lay.attn else "whole")
         elif code == "C":
             x = x + self._cross(p, h, *attn.cross_kv(p["attn"], img))
         else:
             x = x + REC_TRAIN[code](p["rec"], h, cfg)
         if "moe" in p:
             o, aux = moe.apply_moe_train(
-                p["moe"], layers.apply_norm(p["ln2"], x), cfg)
+                p["moe"], layers.apply_norm(p["ln2"], x), cfg, batch_axes)
             return x + o, aux
-        return self._apply_ffn(p, x), None
+        return self._apply_ffn(p, x, layout=lay), None
+
+    def _train_ctx(self, attn_ctx: Optional[Dict]
+                   ) -> Tuple[TPLayout, Tuple[str, ...]]:
+        """The layout and batch axes of a train plan's ``attn_ctx``
+        (``launch.steps.Plan.attn_ctx``); refuses what the port does not
+        train across ranks: layers other than ``A``/``W``, and experts
+        over "model"."""
+        if not attn_ctx:
+            return TPLayout(), ()
+        mesh = current_mesh()
+        if mesh is not None and math.prod(mesh.shape) > 1:
+            self._check_distributable()
+        lay = attn_ctx.get("layout", TPLayout())
+        if lay.experts:
+            raise UnsupportedFeature(
+                "training under expert parallelism is not ported (the "
+                "experts' gradients would cross the all-to-all)")
+        return lay, tuple(attn_ctx.get("batch_axes", ()))
 
     def forward(self, params: Dict, tokens: torch.Tensor,
-                extra: Optional[Dict] = None, impl: str = "ref"
+                extra: Optional[Dict] = None, impl: str = "ref",
+                attn_ctx: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced forward over whole sequences, the training path.
         tokens: (B, S) → (logits (B, S, V), the MoE load-balance loss summed
@@ -371,17 +396,24 @@ class TransformerModel:
         pattern units, as the JAX package scans them; with ``cfg.remat !=
         "none"`` each whole unit is recomputed in the backward
         (``torch.utils.checkpoint``), as JAX checkpoints its unit body,
-        and the trailing layers past the last whole unit are not."""
+        and the trailing layers past the last whole unit are not.
+
+        ``attn_ctx``: a train plan's (``launch.steps.Plan.attn_ctx``) under
+        its mesh: ``params`` are this rank's pieces (``layout``: heads,
+        ``d_ff`` columns and the vocab over "model", Megatron style, the
+        activations whole between blocks) and ``tokens`` its rows of a
+        batch over ``batch_axes``.  Models of ``A`` and ``W`` layers."""
         check_impl(impl, TRAIN_IMPLS, "forward")
         cfg = self.cfg
+        lay, batch_axes = self._train_ctx(attn_ctx)
         img = self.project_extra(params, extra)
-        x = layers.embed_tokens(params["embed"], tokens)
+        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
         def run(lo, hi, x, aux):
             for li in range(lo, hi):
                 x, a = self._train_layer(li, params["layers"][li], x, img,
-                                         impl)
+                                         impl, lay, batch_axes)
                 if a is not None:
                     aux = aux + a
             return x, aux
@@ -396,17 +428,22 @@ class TransformerModel:
                 x, aux = run(lo, lo + unit, x, aux)
         x, aux = run(n_grouped, len(self.codes), x, aux)
         x = layers.apply_norm(params["ln_f"], x)
-        return layers.unembed(params["embed"], x, cfg), aux
+        return layers.unembed(params["embed"], x, cfg, lay.vocab), aux
 
-    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref"
+    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref",
+                attn_ctx: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """batch: {"inputs": (B, S), "targets": (B, S), "mask"?, extras
-        ("image_embeds")} → (ce + router_aux_coef · aux, {"ce", "aux"})."""
+        ("image_embeds")} → (ce + router_aux_coef · aux, {"ce", "aux"}).
+        ``attn_ctx``: a train plan's (``forward``); over its batch axes
+        ``ce`` is this rank's part of the global mean (``layers.xent``:
+        the parts add up over the ranks) and ``aux`` the whole batch's."""
         extra = {k: v for k, v in batch.items()
                  if k not in ("inputs", "targets", "mask")}
         logits, aux = self.forward(params, batch["inputs"], extra or None,
-                                   impl)
-        ce = layers.xent(logits, batch["targets"], batch.get("mask"))
+                                   impl, attn_ctx)
+        ce = layers.xent(logits, batch["targets"], batch.get("mask"),
+                         tuple((attn_ctx or {}).get("batch_axes", ())))
         return ce + self.cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
 
     # -- prefill / decode -----------------------------------------------------

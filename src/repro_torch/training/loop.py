@@ -7,8 +7,9 @@ the loss and its gradients by autograd, global-norm clipping, then AdamW
 ``jax.value_and_grad``.  The attention runs the dense plain path
 (``impl="ref"``, JAX's ``"jnp"``) or the chunked online softmax
 (``"chunked"``); the flex kernel K4 has no backward, so ``"kernel"``
-raises ``UnsupportedFeature`` here.  Sharded train states
-(``state_shardings``) wait for the port's ``distributed/``.
+raises ``UnsupportedFeature`` here.  ``state_shardings`` gives the specs
+of the train state ``shard_params`` cuts under a rule table; the steps
+across ranks are ``launch.steps.build_train_step``.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ import torch
 
 from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import AxisRules, P, resolve_specs
 from repro_torch.kernels import check_impl
-from repro_torch.training.optimizer import adamw_update, clip_by_global_norm
+from repro_torch.training.optimizer import (AdamWState, adamw_update,
+                                            clip_by_global_norm)
 from repro_torch.training.state import TrainState
 from repro_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
@@ -42,24 +45,43 @@ def make_train_step(
     check_impl(impl, TRAIN_IMPLS, "make_train_step")
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        params = tree_map(lambda p: p.detach().requires_grad_(), state.params)
-        loss, parts = model.loss_fn(params, batch, impl=impl)
-        leaves = tree_leaves(params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        # a parameter the loss does not reach gets a zero gradient, as
-        # under jax.value_and_grad
-        grads = tree_unflatten(params, [
-            torch.zeros_like(p) if g is None else g
-            for p, g in zip(leaves, grads)])
-        del params, leaves
+        loss, parts, grads = loss_and_grads(model, state.params, batch, impl)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         new_params, new_opt = adamw_update(
             grads, state.opt, state.params, lr=lr, weight_decay=weight_decay)
-        metrics = {"loss": loss.detach(), "grad_norm": gnorm,
-                   **{k: v.detach() for k, v in parts.items()}}
+        metrics = {"loss": loss, "grad_norm": gnorm, **parts}
         return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return step
+
+
+def loss_and_grads(model, params, batch: Dict, impl: str,
+                   attn_ctx: Optional[Dict] = None):
+    """(loss, its parts, the gradients of ``params``) of ``model.loss_fn``
+    on ``batch``, detached; ``attn_ctx``: a train plan's, for a model
+    whose params are a rank's pieces (``launch.steps``)."""
+    params = tree_map(lambda p: p.detach().requires_grad_(), params)
+    kw = {"attn_ctx": attn_ctx} if attn_ctx else {}
+    loss, parts = model.loss_fn(params, batch, impl=impl, **kw)
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a parameter the loss does not reach gets a zero gradient, as under
+    # jax.value_and_grad
+    grads = tree_unflatten(params, [
+        torch.zeros_like(p) if g is None else g
+        for p, g in zip(leaves, grads)])
+    return (loss.detach(), {k: v.detach() for k, v in parts.items()},
+            grads)
+
+
+def state_shardings(model, mesh, rules: AxisRules) -> TrainState:
+    """The specs of a train state cut by ``rules`` on ``mesh`` (the JAX
+    ``state_shardings``; ``distributed.sharding.shard_params`` cuts the
+    params to them): each parameter by its logical axes, the moments
+    alike, the counters whole."""
+    p = resolve_specs(model.param_spec(), rules, mesh)
+    return TrainState(params=p, opt=AdamWState(mu=p, nu=p, count=P()),
+                      step=P())
 
 
 def to_device(batch: Dict, device) -> Dict:
@@ -83,6 +105,8 @@ def train_loop(
     impl: str = "ref",
     device="cuda",
     on_step: Optional[Callable[[int, TrainState, Dict], None]] = None,
+    step_fn: Optional[Callable[[TrainState, Dict],
+                               Tuple[TrainState, Dict]]] = None,
 ) -> Tuple[TrainState, list]:
     """Host loop: init, iterate.  Returns (final state, metric log).
 
@@ -92,15 +116,17 @@ def train_loop(
     batch of ``data`` (numpy arrays) moves to that device.  The metrics
     are read on the host only at the logged steps (every ``log_every``-th
     and the last).  ``on_step(i, state, metrics)``, when given, runs after
-    every step (a timer's hook)."""
+    every step (a timer's hook).  ``step_fn``: the step to run (a plan's,
+    ``launch.steps.build_train_step``; default ``make_train_step``'s)."""
     if state is None:
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         state = TrainState.create(model.init_params(gen, torch.float32, device))
     device = state.step.device
-    step_fn = make_train_step(model, lr=lr, weight_decay=weight_decay,
-                              max_grad_norm=max_grad_norm, impl=impl)
+    step_fn = step_fn or make_train_step(
+        model, lr=lr, weight_decay=weight_decay,
+        max_grad_norm=max_grad_norm, impl=impl)
     history = []
     t0 = time.perf_counter()
     it = iter(data)

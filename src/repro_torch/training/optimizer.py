@@ -15,7 +15,7 @@ not carry across.  Everything runs under ``torch.no_grad()``.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -41,11 +41,25 @@ def adamw_init(params) -> AdamWState:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float,
+                        sharded: Optional[Sequence[bool]] = None):
     """(grads scaled by ``min(1, max_norm / norm)``, the global norm
-    before clipping); the squares summed leaf by leaf in f32."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in tree_leaves(grads)))
+    before clipping); the squares summed leaf by leaf in f32.
+
+    ``sharded`` (one flag per leaf, in ``tree_leaves`` order): the leaves
+    that hold only this rank's piece over the active mesh's "model" axis.
+    Their squares are summed over "model", and each replicated leaf
+    counts once, so every rank gets the norm of the whole tree."""
+    leaves = tree_leaves(grads)
+    sq = [torch.sum(torch.square(g.float())) for g in leaves]
+    if sharded is not None and any(sharded):
+        from repro_torch.distributed.collectives import all_reduce
+        part = all_reduce(sum(s for s, c in zip(sq, sharded) if c),
+                          ("model",))
+        gnorm = torch.sqrt(part + sum(s for s, c in zip(sq, sharded)
+                                      if not c))
+    else:
+        gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), gnorm
 

@@ -230,7 +230,7 @@ def model_cases(mesh, inputs):
         run = RunConfig(model=cfg, seq_len=S + c["steps"], global_batch=B,
                         kind="decode")
         plan = plan_for(run, mesh, scheme=c["scheme"])
-        step, model = build_serve_step(run, plan)
+        step, _, _, model = build_serve_step(run, plan)
         params = sharded_params_from_numpy(c["params"], model, plan,
                                            device="cpu")
         state = model.init_decode_state(run, device="cpu", plan=plan)
@@ -320,4 +320,168 @@ def ep_cases(mesh, inputs):
         out[name] = _np(o)
         out[f"{name}/aux"] = float(aux)
         out[f"{name}/rows"] = np.asarray([rows.start, rows.stop])
+    return out
+
+
+def _launch_meshes(mesh):
+    """The meshes of the launch cases on a 4-rank world: the (2, 2) mesh
+    itself, and a (1, 2) and a (2, 1) mesh on each pair of ranks {0, 1}
+    and {2, 3} (two replicas of each; every rank makes every group, in
+    one order)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import Mesh
+    names = ("data", "model")
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    g = pairs[mesh.rank // 2]
+    out = {(2, 2): mesh}
+    for shape, axis in (((1, 2), "model"), ((2, 1), "data")):
+        out[shape] = Mesh(shape, names, rank=mesh.rank % 2,
+                          groups={(axis,): g, names: g})
+    return out
+
+
+def _max_rel(got, want):
+    """max |got - want| / (1 + |want|) over two trees of tensors."""
+    return max(float(((g.double() - w.double()).abs()
+                      / (1 + w.double().abs())).max())
+               for g, w in zip(_leaves(got), _leaves(want)))
+
+
+def _max_abs(got, want):
+    return max(float((g.double() - w.double()).abs().max())
+               for g, w in zip(_leaves(got), _leaves(want)))
+
+
+def _train_case(mesh, c):
+    """One train case under its plan on ``mesh``: the rank's gradients
+    (``train_grads``) against the JAX gradients of the whole batch cut to
+    the rank, then ``c["steps"]`` steps of ``build_train_step`` against
+    one device's plain step on the whole batch, cut to the rank."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (build_train_step, plan_for,
+                                          shard_batch, train_grads)
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training import TrainState
+    cfg = get_config(c["config"]).smoke().replace(**c["replace"])
+    batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
+    B, S = batch["inputs"].shape
+    run = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="train")
+    plan = plan_for(run, mesh, attn_impl="ref",
+                    microbatches=c["microbatches"])
+    step, _, _, model = build_train_step(run, plan, torch.float32)
+    full = params_from_numpy(c["params"], "cpu")
+    params = model.shard_params(full, plan)
+    mine = shard_batch(batch, plan)
+    loss, parts, grads = train_grads(model, plan)(params, mine)
+    want = model.shard_params(params_from_numpy(c["grads"], "cpu"), plan)
+    out = {"loss": float(loss), "ce": float(parts["ce"]),
+           "aux": float(parts["aux"]), "grad_err": _max_rel(grads, want),
+           "microbatches": plan.microbatches, "attn": plan.layout.attn,
+           "vocab": plan.layout.vocab}
+    one_plan = plan_for(run, make_local_mesh(), attn_impl="ref",
+                        microbatches=1)
+    one_step = build_train_step(run, one_plan, torch.float32)[0]
+    st, one = TrainState.create(params), TrainState.create(full)
+    out["param_err"], out["gnorm"], out["one_gnorm"] = [], [], []
+    for _ in range(c["steps"]):
+        st, m = step(st, mine)
+        one, m1 = one_step(one, batch)
+        out["param_err"].append(_max_abs(
+            st.params, model.shard_params(one.params, plan)))
+        out["gnorm"].append(float(m["grad_norm"]))
+        out["one_gnorm"].append(float(m1["grad_norm"]))
+    return out
+
+
+def _prefill_case(mesh, c):
+    """One prefill case: the rank's rows prefilled under the prefill
+    plan (``build_prefill_step``) into a state of its rows and kv heads,
+    ``shard_decode_state`` to the decode plan, then ``c["steps"]`` decode
+    steps teacher-forced by the reference's greedy tokens."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, local_run,
+                                          plan_for, shard_batch)
+    from repro_torch.models.convert import sharded_params_from_numpy
+    cfg = get_config(c["config"]).smoke().replace(**c["replace"])
+    tokens, lens = torch.from_numpy(c["tokens"]), torch.from_numpy(c["lens"])
+    B, S = tokens.shape
+    prun = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="prefill")
+    drun = RunConfig(model=cfg, seq_len=S + c["steps"], global_batch=B,
+                     kind="decode")
+    pplan = plan_for(prun, mesh, scheme=c["scheme"])
+    dplan = plan_for(drun, mesh, scheme=c["scheme"])
+    pstep, _, specs, model = build_prefill_step(prun, pplan)
+    sstep = build_serve_step(drun, dplan)[0]
+    params = sharded_params_from_numpy(c["params"], model, pplan,
+                                       device="cpu")
+    mine = shard_batch({"tokens": tokens, "lens": lens,
+                        "forced": torch.from_numpy(c["forced"]).T}, pplan)
+    state = model.init_decode_state(local_run(drun, pplan), device="cpu",
+                                    plan=pplan)
+    b, pps = state["tables"].shape[0], state["tables"].shape[2]
+    state["tables"] = torch.arange(b * pps, dtype=torch.int32).reshape(
+        b, 1, pps)
+    logits, state = pstep(params, mine["tokens"], mine["lens"], state)
+    out = {"prefill": _np(logits), "scheme": dplan.scheme,
+           "pool_heads": state["k_pages"].shape[3], "rows": b,
+           "row0": pplan.mesh.flat_index(pplan.batch_axes)
+           if pplan.batch_axes else 0}
+    state = shard_decode_state(state, dplan)
+    steps = []
+    for i in range(c["steps"]):
+        logits, state = sstep(params, mine["forced"][:, i].int(), state)
+        steps.append(_np(logits))
+    out["steps"] = np.stack(steps)
+    return out
+
+
+def _autograd_collectives(mesh):
+    """The collectives under autograd on a (1, 2) mesh: under no_grad
+    each equals the plain collective bit for bit; with grad, f's backward
+    sums over "model", g's and the gather's pass the rank's share."""
+    import torch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import use_mesh
+    r = mesh.index("model")
+    gen = torch.Generator().manual_seed(11 + r)
+    x = torch.randn(3, 5, generator=gen)
+    out = {}
+    with use_mesh(mesh):
+        with torch.no_grad():
+            out["nograd_equal"] = (
+                torch.equal(coll.reduce_sum(x, ("model",)),
+                            coll.all_reduce(x, ("model",)))
+                and torch.equal(coll.gather_last(x, ("model",)), torch.cat(
+                    list(coll.all_gather(x, ("model",))), dim=-1))
+                and coll.copy_in(x, ("model",)) is x)
+        xs = x.clone().requires_grad_()
+        y = coll.gather_last(coll.copy_in(xs, ("model",)) * (r + 1),
+                             ("model",))
+        w = torch.arange(y.numel(), dtype=torch.float32).reshape(y.shape)
+        (gx,) = torch.autograd.grad((y * w).sum(), xs)
+        xr = x.clone().requires_grad_()
+        (gr,) = torch.autograd.grad((coll.reduce_sum(xr, ("model",))
+                                     * w[:, :5]).sum(), xr)
+    out["copy_gather_grad"] = _np(gx)
+    out["reduce_grad"] = _np(gr)
+    return out
+
+
+def launch_cases(mesh, inputs):
+    """Every case of tests/test_torch_launch_ranks.py on a 4-rank world,
+    each on its mesh (``_launch_meshes``: every rank is in one replica of
+    each)."""
+    meshes = _launch_meshes(mesh)
+    out = {"coll": _autograd_collectives(meshes[(1, 2)])}
+    for name, c in inputs["train"].items():
+        out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
+    for name, c in inputs["prefill"].items():
+        out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
     return out

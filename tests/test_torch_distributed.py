@@ -31,7 +31,6 @@ from _torch_helpers import ATTN_TOL, close
 from repro_torch.configs import get_config as get_config_t
 from repro_torch.configs.base import RunConfig as RunConfigT
 from repro_torch.distributed import collectives as coll
-from repro_torch.errors import UnsupportedFeature
 from repro_torch.distributed.sharding import (P, AxisRules, DEFAULT_RULES,
                                               current_mesh, logical_spec,
                                               use_mesh)
@@ -141,12 +140,19 @@ def test_plan_for_matches_jax(name, mshape, scheme):
             want.scheme, want.batch_axes, want.kv_axes), (B, S)
         assert dict(got.rules.table) == dict(want.rules.table)
         assert got.n_kv_shards == want.n_kv_shards
-    # the prefill and train plans are not ported: refused, not guessed
+    # the prefill and train plans: JAX's too (the train plan takes no
+    # scheme; tests/test_torch_launch.py covers them on more meshes)
     for kind in ("prefill", "train"):
-        with pytest.raises(UnsupportedFeature):
-            plan_for(RunConfigT(model=get_config_t(name), seq_len=2048,
-                                global_batch=4, kind=kind),
-                     Mesh(mshape, names), scheme=scheme)
+        got = plan_for(RunConfigT(model=get_config_t(name), seq_len=2048,
+                                  global_batch=4, kind=kind),
+                       Mesh(mshape, names), scheme=scheme)
+        want = jplan(JRun(model=jget(name), seq_len=2048, global_batch=4,
+                          kind=kind), _jax_mesh(mshape, names),
+                     scheme=scheme)
+        assert (got.scheme, got.batch_axes, got.kv_axes,
+                got.microbatches) == (want.scheme, want.batch_axes,
+                                      want.kv_axes, want.microbatches)
+        assert dict(got.rules.table) == dict(want.rules.table)
 
 
 LAYOUT_CASES = [
