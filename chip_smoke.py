@@ -6,6 +6,7 @@
     python3 chip_smoke.py --train-only    # build + training phase only
     python3 chip_smoke.py --dist-only     # build + distributed phase only
     python3 chip_smoke.py --launch-only   # build + launch phase only
+    python3 chip_smoke.py --dry-only      # build + dry-run phase only
 
 Phases, each of which fails the script (exit code 1) when it fails:
 
@@ -303,6 +304,21 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ``--no-paged`` (K4; K1 must not launch): every request its
    ``--max-new`` tokens, the CLI's report logged.  ``--launch-only`` runs
    the build and this phase alone.
+20. dry run (after 19): ``launch.steps.dry_step`` (fake tensors on the
+   CPU, the kernels by their stand-ins) against the card, each case
+   failing the run on a miss: the predicted peak within
+   ``DRY_PEAK_TOL`` of ``max_memory_allocated`` after
+   ``reset_peak_memory_stats`` (less what the process held beyond the
+   step's arguments), the aten ops' FLOPs equal to ``FlopCounterMode``
+   over the real step, the stand-ins' launches by route equal to the
+   ``launch_counts()`` deltas, and the collectives' calls and bytes equal
+   to the mesh's ``stats``; the roofline terms printed beside the
+   measured step ms (no bound).  One device: llama2-7b at 4 layers in f32
+   (B 4 x S 512, 2 microbatches), then at full depth in bf16 the prefill
+   of the 8 launch prompts (K4) and one decode step (K1 + K2).  Two
+   ranks, in the launch cases' train steps: the (2, 1) and (1, 2) ranks.
+   ``--dry-only`` runs the build and this phase alone (the rank cases in
+   2 rank processes of their own).
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
    ``swa`` variant, every layer 'W' with window 4096, served from ring
    pages (4 slots, max_seq_len 5120, a pool of 4 x 5120 tokens): 4
@@ -633,16 +649,15 @@ def kernel_phase(torch, chk):
         qs = q.reshape(B, H, 1, D)
         lib = time_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kc, vc, attn_mask=keep))
+        # the bound formulas beside the wrappers (the dry run's too)
         item = q.element_size()
-        live = sum(lens)
-        k1_bytes = (2 * live * H * D * item + q.numel() * item
-                    + tables.numel() * 4 + B * 4
-                    + sum(t.numel() * 4 for t in got))
-        k1_ops = 4 * live * H * D
+        k1_ops, k1_bytes = pa.decode_cost(q.shape, got[0].shape[2],
+                                          tables.shape[1], sum(lens), item,
+                                          item)
         k1_bound = 1e3 * max(k1_bytes / HBM_BPS, k1_ops / PEAK_OPS[name])
-        k2_bytes = sum(t.numel() * 4 for t in got) + out_k.numel() * item
-        k2_bound = 1e3 * max(k2_bytes / HBM_BPS,
-                             4 * got[2].numel() / PEAK_OPS[name])
+        k2_ops, k2_bytes = pa.combine_cost(out_k.numel() // D,
+                                           got[0].shape[2], D, item)
+        k2_bound = 1e3 * max(k2_bytes / HBM_BPS, k2_ops / PEAK_OPS[name])
         k1_dev = device_ms(torch, lambda: pa.paged_attention_partials(
             q, kp, vp, tables, lens_t, **kw), "paged_decode_kernel")
         k2_dev = device_ms(torch, lambda: pa.combine_partials_kernel(
@@ -773,8 +788,8 @@ def kernel_phase(torch, chk):
         lib_causal = time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True), reps=5)
         pairs = sum(min(qq + 1, L) for L in plens for qq in range(Q))
-        ops = 4 * D * Hf * pairs
-        nbytes = 4 * q.numel() * q.element_size()
+        ops, nbytes = fa.flex_cost(q.shape, k.shape, q.element_size(),
+                                   pairs)
         k4_bound = 1e3 * max(nbytes / HBM_BPS, ops / PEAK_OPS[name])
         k4_dev = device_ms(torch, lambda: fa.flex_attention_kernel(
             q, k, v, bm, **kw), kernel_name(key), reps=3)
@@ -1605,12 +1620,13 @@ def k3_bound(torch, q, kp, tables, kv_lens, got, q_start, q_lens, H, D):
     at the peak of q's type (bf16 989, f32 67 TFLOP/s), whichever bounds
     it, and the operations as the split-TF32 tile does them (three TF32
     products, two on int8 pools) at 495 TFLOP/s (f32 q; else None)."""
+    from repro_torch.kernels.paged_attention.paged_attention import (
+        prefill_cost)
     keys = sum(s + t + 1 for s, n in zip(q_start, q_lens) for t in range(n))
-    ops = 4 * D * H * keys
-    Hkv = kp.shape[2]
-    nbytes = (q.numel() * q.element_size() + 2 * sum(kv_lens.tolist()) * Hkv
-              * D * kp.element_size() + tables.numel() * 4
-              + 2 * q.shape[0] * 4 + sum(t.numel() * 4 for t in got))
+    ops, nbytes = prefill_cost(
+        q.shape, kp.shape[2], keys, sum(kv_lens.tolist()), tables.shape[1],
+        sum(t.numel() * 4 for t in got), q.element_size(),
+        kp.element_size())
     f32 = q.dtype == torch.float32
     peak = PEAK_OPS["float32" if f32 else "bfloat16"]
     bound = 1e3 * max(nbytes / HBM_BPS, ops / peak)
@@ -6806,6 +6822,10 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             dist_rank_kernels(torch, work, mesh, out)
         if "launch" in parts:
             out["launch"] = launch_rank(torch, work)
+        elif "dry" in parts:
+            from repro_torch.launch.mesh import make_mesh
+            out["dry"] = [dry_rank_train(torch, make_mesh(shape))
+                          for shape in LAUNCH_MESHES]
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -7058,7 +7078,7 @@ def launch_rank_train(torch, mesh):
     params after ``LAUNCH_TRAIN_STEPS`` plain steps (computed here from the
     same weights, the rank's cut kept on the host), then the rank's
     gradients (``train_grads``) and steps, against them."""
-    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
     from repro_torch.launch.steps import (build_train_step, plan_for,
                                           shard_batch, train_grads)
     from repro_torch.training import TrainState
@@ -7066,6 +7086,8 @@ def launch_rank_train(torch, mesh):
     t_case = time.perf_counter()
     run = launch_train_run()
     plan = plan_for(run, mesh)
+    dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
+                                           mesh.rank))
     one = plan_for(run, make_local_mesh(), microbatches=1)
     step, _, _, model = build_train_step(run, plan, torch.float32)
     batches = launch_train_batches(torch, run.model)
@@ -7108,17 +7130,23 @@ def launch_rank_train(torch, mesh):
         times.append(t0.elapsed_time(t1))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     param_err = leaves_gap(tree_leaves(st.params), ref_params,
                            rel=False)
+    del ref_params
+    torch.cuda.empty_cache()
+    dry = dry_compare(torch, f"train llama2-7b 4 layers f32 {mesh.shape} "
+                      f"rank {mesh.rank}", run, plan, dry_plan,
+                      torch.float32, step, [st, mine[0]], mesh)
     res = dict(grad_err=grad_err, param_err=param_err, losses=losses,
                ref_losses=ref_loss, gnorms=gnorms, ref_gnorms=ref_gnorm,
                loss_err=max(abs(a - b) / abs(b)
                             for a, b in zip(losses, ref_loss)),
                microbatches=plan.microbatches,
                attn=sorted(set(plan.layout.attn)), vocab=plan.layout.vocab,
-               step_ms=times, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               step_ms=times, peak_gb=peak_gb, dry=dry,
                seconds=time.perf_counter() - t_case)
-    del st, params, ref_params
+    del st, params
     torch.cuda.empty_cache()
     return res
 
@@ -7237,6 +7265,205 @@ def launch_check(ranks):
     return launches
 
 
+DRY_PEAK_TOL = 0.10  # the dry run's predicted peak against the card's
+DRY_PREFILL_DECODE_STEPS = 4
+
+
+def storage_bytes(torch, tree):
+    """Bytes of the distinct storages of a tree's tensors."""
+    from repro_torch.utils.tree import tree_leaves
+    seen = {}
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dry_compare(torch, name, run, plan, dry_plan, dtype, step, args,
+                mesh=None, **kw):
+    """The dry run of ``run`` under ``dry_plan`` (``launch.steps.
+    dry_step``, fake tensors on the CPU) against ``step(*args)`` on the
+    card: the predicted peak against ``max_memory_allocated`` after
+    ``reset_peak_memory_stats`` (less what was allocated before the step
+    beyond its arguments), the FLOPs of the aten ops against
+    ``FlopCounterMode`` over the real step, the stand-ins' launches by
+    route against the ``launch_counts()`` deltas, the collectives' calls
+    and bytes against the mesh's ``stats``; the roofline terms beside the
+    measured step ms.  Two real steps: one measured, one counted."""
+    from repro_torch import kernels
+    from repro_torch.launch import cost_analysis as ca
+    from repro_torch.launch.steps import dry_step
+    from torch.utils.flop_counter import FlopCounterMode
+    t_case = time.perf_counter()
+    rec = dry_step(run, dry_plan, dtype, **kw)
+    trace_s = time.perf_counter() - t_case
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    arg_bytes = storage_bytes(torch, args)
+    other = torch.cuda.memory_allocated() - arg_bytes
+    stats0 = ({k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
+              if mesh is not None else None)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = step(*args)
+    t1.record()
+    t1.synchronize()
+    step_ms = t0.elapsed_time(t1)
+    peak = torch.cuda.max_memory_allocated() - other
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    coll = ({k: {op: n - stats0[k].get(op, 0)
+                 for op, n in mesh.stats[k].items()
+                 if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
+            if mesh is not None else {"calls": {}, "bytes": {}})
+    del out
+    with FlopCounterMode(display=False) as fc:
+        out = step(*args)
+    torch.cuda.synchronize()
+    del out
+    torch.cuda.empty_cache()
+    cost = ca.extract_cost(rec)
+    dry_coll = {k: dict(rec.stats[k]) for k in ("calls", "bytes")}
+    terms = ca.roofline_terms(cost["flops"], cost["bytes"],
+                              ca.collective_bytes(rec.stats))
+    res = dict(
+        name=name, predicted_peak_gb=rec.peak_bytes / 1e9,
+        measured_peak_gb=peak / 1e9, other_gb=other / 1e9,
+        argument_gb=arg_bytes / 1e9,
+        predicted_argument_gb=rec.argument_bytes / 1e9,
+        peak_err=rec.peak_bytes / peak - 1,
+        flops=rec.flops, measured_flops=float(fc.get_total_flops()),
+        kernel_flops=cost["kernel_flops"], bytes=cost["bytes"],
+        launches=dict(rec.kernels.launches), measured_launches=launches,
+        collectives=dry_coll, measured_collectives=coll,
+        roofline_ms={k: 1e3 * v for k, v in terms.items()
+                     if k.endswith("_s")},
+        bottleneck=terms["bottleneck"], step_ms=step_ms, trace_s=trace_s,
+        seconds=time.perf_counter() - t_case)
+    res["ok"] = (abs(res["peak_err"]) <= DRY_PEAK_TOL
+                 and res["flops"] == res["measured_flops"]
+                 and res["launches"] == launches and dry_coll == coll)
+    return res
+
+
+def dry_local_cases(torch):
+    """The dry run against the card on one device: llama2-7b at 4 layers
+    in f32, the launch phase's train shape (B 4 x S 512, 2 microbatches
+    under the local plan); then at full depth in bf16 the prefill of the
+    launch phase's 8 prompts (``DIST_TP_LENS``, K4) and one decode step
+    after them (K1 + K2)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.steps import (build_prefill_step,
+                                          build_serve_step, build_train_step,
+                                          plan_for)
+    from repro_torch.training import TrainState
+    out = []
+    run = launch_train_run()
+    plan = plan_for(run, make_local_mesh())
+    step, _, _, model = build_train_step(run, plan, torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    st = TrainState.create(model.init_params(gen, torch.float32, "cuda"))
+    batch = launch_train_batches(torch, run.model)[0]
+    out.append(dry_compare(torch, "train llama2-7b 4 layers f32 (1, 1)",
+                           run, plan, plan, torch.float32, step,
+                           [st, batch]))
+    del st, batch, step, model
+    torch.cuda.empty_cache()
+
+    model = dist_model(torch, "llama2-7b", "bfloat16", None)
+    cfg = model.cfg
+    tokens, lens = dist_tokens(torch, cfg, DIST_TP_LENS, SEED + 60)
+    B, S = tokens.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    params = model.init_params(gen, torch.bfloat16, "cuda")
+    for kind in ("prefill", "decode"):
+        seq = S if kind == "prefill" else S + DRY_PREFILL_DECODE_STEPS
+        run = RunConfig(model=cfg, seq_len=seq, global_batch=B, kind=kind)
+        plan = plan_for(run, make_local_mesh())
+        state = model.init_decode_state(run, torch.bfloat16, "cuda")
+        pps = state["tables"].shape[2]
+        state["tables"] = torch.arange(B * pps, dtype=torch.int32,
+                                       device="cuda").reshape(B, 1, pps)
+        if kind == "prefill":
+            step = build_prefill_step(run, plan, torch.bfloat16)[0]
+            args = [params, tokens.int(), lens, state]
+        else:
+            state["pos"] = lens.clone()
+            step = build_serve_step(run, plan, torch.bfloat16)[0]
+            args = [params, tokens[:, 0].int().contiguous(), state]
+        out.append(dry_compare(torch, f"{kind} llama2-7b full depth bf16 "
+                               f"B {B} x S {S} (1, 1)", run, plan, plan,
+                               torch.bfloat16, step, args))
+        del state, args, step
+        torch.cuda.empty_cache()
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def dry_rank_train(torch, mesh):
+    """On this rank: the dry run of the launch phase's train case under
+    the train plan of ``mesh`` (a dry mesh of its shape, seen from this
+    rank) against one step of the rank on the card."""
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.steps import build_train_step, plan_for, shard_batch
+    from repro_torch.training import TrainState
+    run = launch_train_run()
+    plan = plan_for(run, mesh)
+    dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
+                                           mesh.rank))
+    step, _, _, model = build_train_step(run, plan, torch.float32)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED)
+    st = TrainState.create(model.init_params(gen, torch.float32, "cuda",
+                                             plan=plan))
+    batch = shard_batch(launch_train_batches(torch, run.model)[0], plan)
+    res = dry_compare(torch, f"train llama2-7b 4 layers f32 {mesh.shape} "
+                      f"rank {mesh.rank}", run, plan, dry_plan,
+                      torch.float32, step, [st, batch], mesh)
+    del st, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def dry_check(cases):
+    """Log each dry-run case and fail on a miss: a peak beyond
+    ``DRY_PEAK_TOL``, FLOPs, launches or collectives that differ."""
+    for c in cases:
+        log(f"dry run {c['name']}: peak predicted "
+            f"{c['predicted_peak_gb']:.3f} GB, measured "
+            f"{c['measured_peak_gb']:.3f} GB ({c['peak_err'] * 100:+.2f} %,"
+            f" bound {DRY_PEAK_TOL * 100:.0f} %; arguments "
+            f"{c['predicted_argument_gb']:.3f} / {c['argument_gb']:.3f} GB, "
+            f"{c['other_gb']:.3f} GB held outside the step); FLOPs "
+            f"{c['flops']:.6e} vs {c['measured_flops']:.6e} (+ kernels "
+            f"{c['kernel_flops']:.4e}); launches {c['launches']} vs "
+            f"{c['measured_launches']}; collectives {c['collectives']} vs "
+            f"{c['measured_collectives']}; roofline ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in c["roofline_ms"].items())
+            + f" ({c['bottleneck']}) beside the measured step "
+            f"{c['step_ms']:.3f} ms (events); trace {c['trace_s']:.1f} s, "
+            f"case {c['seconds']:.1f} s")
+        if not c["ok"]:
+            fail(f"dry run {c['name']}: the prediction misses the card")
+
+
+def dry_phase(torch, ranks_dry=()):
+    """The dry run against the card: the one-device cases here, and the
+    rank cases the 2-rank harness ran (``ranks_dry``); fails on a miss."""
+    t0 = time.perf_counter()
+    cases = dry_local_cases(torch) + list(ranks_dry)
+    dry_check(cases)
+    log(f"dry phase: {time.perf_counter() - t0:.1f} s here")
+    return cases
+
+
 def dist_phase(torch, chk, parts=("dist", "launch")):
     """The decode step across 2 ranks on this one card (``"dist"``) and
     the launch entry points (``"launch"``): references on one device
@@ -7296,6 +7523,9 @@ def _dist_phase(torch, chk, work, t_phase, parts):
         ranks.append(res)
     ranks_s = time.perf_counter() - t0
     out.update(ranks=ranks, ranks_seconds=ranks_s)
+    # the dry run's rank cases: in the launch cases' train steps, or alone
+    out["dry_ranks"] = [c for res in ranks for c in res.get("dry", [
+        t["dry"] for t in res.get("launch", {}).get("train", {}).values()])]
     if "launch" in parts:
         t0 = time.perf_counter()
         out["launch"]["launches"] = launch_check(ranks)
@@ -7398,6 +7628,10 @@ def main():
                     help="build and run the launch phase only (the plans' "
                     "prefill and train steps on 2 ranks in one gloo group "
                     "on this card, launch.serve); prints no result line")
+    ap.add_argument("--dry-only", action="store_true",
+                    help="build and run the dry phase only (the dry run's "
+                    "predictions against one device's steps and the "
+                    "2-rank train steps); prints no result line")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to run "
                     "(default: this checkout's; another tree's for an A/B "
@@ -7450,6 +7684,13 @@ def main():
         (OUT / "chip_smoke.log").write_text("\n".join(LOG))
         return
     chk = Checker(torch)
+    if args.dry_only:
+        dist = dist_phase(torch, chk, ("dry",))
+        dry = dry_phase(torch, dist["dry_ranks"])
+        (OUT / "chip_smoke.log").write_text("\n".join(LOG))
+        (OUT / "chip_smoke_dry.json").write_text(json.dumps(
+            dry, indent=1, default=str))
+        return
     if args.dist_only or args.launch_only:
         dist = dist_phase(torch, chk,
                           ("dist",) if args.dist_only else ("launch",))
@@ -7531,6 +7772,8 @@ def main():
     torch.cuda.empty_cache()
     dist = dist_phase(torch, chk)
     done("distributed and launch phases")
+    dry = dry_phase(torch, dist["dry_ranks"])
+    done("dry phase")
 
     src = "src/repro_torch/csrc/"
     k3 = ("paged_prefill.cu", "src/repro/kernels/paged_attention/"
@@ -7643,7 +7886,7 @@ def main():
          "llama_3_2_vision_11b": vlm, "llama_3_2_vision_11b_f32": vlm_f32,
          "whisper_medium": whisper, "whisper_medium_f32": whisper_f32,
          "xlstm_350m": xlstm, "xlstm_350m_f32": xlstm_f32,
-         "train": train, "dist": dist},
+         "train": train, "dist": dist, "dry": dry},
         indent=1, default=str))
     log(nvidia_smi())
     print(json.dumps({"kernels": kernels_line}), flush=True)

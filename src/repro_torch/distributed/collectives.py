@@ -35,6 +35,12 @@ op, is copied through host memory explicitly, in the gloo branch only,
 and counted in the mesh's ``host_copies`` (the compute never leaves the
 card).  NCCL groups take CUDA tensors as they are.  The mesh's ``stats``
 count each op's calls, bytes and host seconds.
+
+On a dry mesh (``launch.mesh.make_dry_mesh``) the group is a
+``sharding.DryGroup``: each helper allocates what the real call
+allocates and returns a tensor of the real result's shape and dtype,
+sends nothing, and records the op, its bytes and the group in the mesh's
+``stats`` (the dry run's collective accounting, ``launch.cost_analysis``).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import torch
 
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cache as kvcache
-from repro_torch.distributed.sharding import current_mesh
+from repro_torch.distributed.sharding import DryGroup, current_mesh
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
 
 COMBINE_MODES = ("kernel", "plain")
@@ -123,6 +129,25 @@ def _count(op: str, t: torch.Tensor, t0: float) -> None:
     stats["seconds"][op] += time.perf_counter() - t0
 
 
+def _dry(op: str, x: torch.Tensor, group: DryGroup) -> torch.Tensor:
+    """The result of ``op`` on ``x`` over a dry ``group``, unsent: new
+    tensors as the real call allocates them (``all_reduce``: a clone;
+    ``all_gather``: n tensors like ``x``, stacked; ``all_to_all`` and
+    ``send_recv``: one like ``x``), recorded in the mesh's ``stats``."""
+    if op == "all_reduce":
+        out = x.clone()
+    elif op == "all_gather":
+        out = torch.stack([torch.empty_like(x) for _ in range(group.size)])
+    else:
+        out = torch.empty_like(x)
+    stats = current_mesh().stats
+    nbytes = x.numel() * x.element_size()
+    stats["calls"][op] += 1
+    stats["bytes"][op] += nbytes
+    stats["ops"].append((op, nbytes, group.size, group.ranks))
+    return out
+
+
 def _gather_list(x, group):
     import torch.distributed as dist
     out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
@@ -144,6 +169,8 @@ def all_reduce(x: torch.Tensor, axes: Sequence[str], op: str = "sum"
     group = _group(axes)
     if group is None:
         return x
+    if isinstance(group, DryGroup):
+        return _dry("all_reduce", x, group)
     import torch.distributed as dist
     t0 = time.perf_counter()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
@@ -164,6 +191,8 @@ def all_gather(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     group = _group(axes)
     if group is None:
         return x[None]
+    if isinstance(group, DryGroup):
+        return _dry("all_gather", x, group)
     t0 = time.perf_counter()
     if _host("all_gather", x, group):
         out = torch.stack(_gather_list(x.cpu(), group)).to(x.device)
@@ -180,6 +209,8 @@ def all_to_all(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     group = _group(axes)
     if group is None:
         return x
+    if isinstance(group, DryGroup):
+        return _dry("all_to_all", x, group)
     t0 = time.perf_counter()
     if _host("all_to_all", x, group):
         out = _a2a(x.cpu(), group).to(x.device)
@@ -196,6 +227,8 @@ def ring_shift(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     group = _group(axes)
     if group is None:
         return x
+    if isinstance(group, DryGroup):
+        return _dry("send_recv", x, group)
     import torch.distributed as dist
     t0 = time.perf_counter()
     n, r = dist.get_world_size(group), dist.get_rank(group)

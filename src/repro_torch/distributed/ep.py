@@ -28,6 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import all_reduce, all_to_all
 from repro_torch.distributed.sharding import current_mesh, current_rules
 from repro_torch.models import moe as moe_mod
+from repro_torch.utils.fake import count_true
 
 
 def _batch_axes(mesh) -> Tuple[str, ...]:
@@ -54,7 +55,7 @@ def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     E, k = cfg.n_experts, cfg.top_k
     if live is not None:
         live = live.reshape(T_l)
-        T_l = int(live.sum()) if n_live is None else n_live
+        T_l = count_true(live) if n_live is None else n_live
     probs, gates, idx = moe_mod.router(p, xf, k)
     aux = moe_mod.aux_loss(probs, idx, live)
     ba = _batch_axes(mesh)

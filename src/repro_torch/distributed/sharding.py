@@ -124,6 +124,17 @@ def current_mesh():
     return _CTX.mesh
 
 
+@dataclass(frozen=True)
+class DryGroup:
+    """The stand-in of a process group on a dry mesh (``launch.mesh.
+    make_dry_mesh``, a mesh with no process group): its size and its
+    members' global ranks (row-major over the mesh).  Over it the
+    collectives of ``distributed.collectives`` send nothing and record
+    what they would send."""
+    size: int
+    ranks: Tuple[int, ...]
+
+
 def current_rules() -> AxisRules:
     return _CTX.rules
 
@@ -240,8 +251,9 @@ def shard_tensor(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
     """This rank's piece of a full tensor ``x`` under ``spec`` (a resolved
     PartitionSpec): each sharded dim is cut into the product of its mesh
     axes' sizes, and the piece at the rank's flat (row-major) index over
-    those axes is kept, contiguous.  Unsharded tensors come back as
-    they are."""
+    those axes is kept, contiguous, in a storage of its own (a narrowed
+    view would keep the whole tensor's storage alive).  Unsharded tensors
+    come back as they are."""
     out = x
     for dim, entry in enumerate(spec):
         axes = _norm(entry)
@@ -253,7 +265,8 @@ def shard_tensor(x: torch.Tensor, spec: Sequence, mesh) -> torch.Tensor:
         idx = mesh.flat_index(axes)
         w = x.shape[dim] // n
         out = out.narrow(dim, idx * w, w)
-    return out.contiguous() if out is not x else x
+    return out.clone(memory_format=torch.contiguous_format) if (
+        out is not x) else x
 
 
 def resolve_specs(spec_tree, rules: AxisRules, mesh):

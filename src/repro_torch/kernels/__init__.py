@@ -10,15 +10,28 @@ wrapper takes the plain version only for CPU tensors (the CPU tests); on
 CUDA tensors it launches the kernel or raises — it never falls back.
 The kernels are CUDA C++ for ``sm_90a`` under ``repro_torch/csrc``, built
 on first use by ``kernels.build``.
+
+Dry mode (``dry_mode``, entered only by the dry run, ``launch.steps.
+dry_step``): on fake tensors (``utils.fake``) every wrapper takes its
+kernel's route, with its checks and its allocations, and stops just
+before the launch: it builds and launches nothing, and adds the kernel's
+operations, bytes (its bound formula, beside the wrapper) and one launch
+under its ``launch_counts()`` keys to a ``KernelTally``.  A pair the card
+refuses is refused there too.  A real tensor never takes that route.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+import threading
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Dict, Optional, Sequence
 
 import torch
 
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
+from repro_torch.utils.fake import is_fake
 
 
 IMPLS = ("kernel", "ref")  # the serving entry points
@@ -95,10 +108,54 @@ def check_impl(impl: str, allowed=IMPLS, entry: str = "serving") -> None:
                                 f"got {impl!r}", impl=impl)
 
 
+@dataclass
+class KernelTally:
+    """What the kernels' stand-ins did in dry mode: launches under the
+    ``launch_counts()`` keys, and the operations and bytes of their bound
+    formulas (each launch's data-dependent work at its upper bound)."""
+    launches: Counter = field(default_factory=Counter)
+    flops: float = 0.0
+    bytes: float = 0.0
+
+    def add(self, keys: Sequence[str], flops: float, nbytes: float) -> None:
+        for k in keys:
+            self.launches[k] += 1
+        self.flops += float(flops)
+        self.bytes += float(nbytes)
+
+
+class _Dry(threading.local):
+    tally: Optional[KernelTally] = None
+
+
+_DRY = _Dry()
+
+
+@contextlib.contextmanager
+def dry_mode(tally: KernelTally):
+    """Within the block, wrappers given fake tensors stand in for their
+    kernels and record into ``tally`` (see the module docstring)."""
+    prev, _DRY.tally = _DRY.tally, tally
+    try:
+        yield tally
+    finally:
+        _DRY.tally = prev
+
+
+def dry_tally(*tensors: torch.Tensor) -> Optional[KernelTally]:
+    """The active tally when in dry mode and every tensor is fake, else
+    None."""
+    if _DRY.tally is not None and all(map(is_fake, tensors)):
+        return _DRY.tally
+    return None
+
+
 def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
     """True when ``tensors`` live on one CUDA device (launch the kernel),
     False when they all live on the CPU (run the plain version).  Anything
-    else — mixed devices, another device type — raises."""
+    else — mixed devices, another device type — raises.  In dry mode,
+    fake tensors (on the CPU) take the kernel's route too: its wrapper
+    then stands in for it (``dry_tally``)."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise EngineConfigError(f"{name}: tensors on several devices "
@@ -107,7 +164,7 @@ def use_kernel(name: str, *tensors: torch.Tensor) -> bool:
     if dev.type == "cuda":
         return True
     if dev.type == "cpu":
-        return False
+        return dry_tally(*tensors) is not None
     raise EngineConfigError(f"{name}: unsupported device {dev}",
                             kernel=name, device=str(dev))
 

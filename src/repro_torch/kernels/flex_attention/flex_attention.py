@@ -33,16 +33,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 import struct
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import flex
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import (check_head_dim, tensor_core_p, tf32_product,
-                                  use_kernel)
+from repro_torch.kernels import (check_head_dim, dry_tally, tensor_core_p,
+                                  tf32_product, use_kernel)
 from repro_torch.kernels.build import check, get_lib
 
 NEG_INF = -1e30
@@ -337,6 +339,32 @@ def _flex_attention_plain(q, k, v, block_mask, *, scale, mask_mod, q_len,
     return out
 
 
+def mask_pairs(low: Lowered, q_len: int, kv_len: int) -> int:
+    """Upper bound of the live (query, key) pairs of one batch row and
+    head under the lowered mask: a term's column range ``[lo, hi)`` per
+    query row (causal, window, prefix-LM), padding and element predicates
+    taken as all live (they depend on the data); a mask of several terms
+    at ``q_len · kv_len``."""
+    if len(low.terms) != 1:
+        return q_len * kv_len
+    t = low.terms[0]
+    q = np.arange(q_len)
+    hi = (np.full(q_len, kv_len) if t.prefix is None
+          else np.minimum(np.maximum(q + 1, t.prefix), kv_len))
+    lo = np.maximum(q - t.window + 1, 0) if t.window is not None else 0
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def flex_cost(q_shape, kv_shape, item: int, pairs: int):
+    """K4's (operations, bytes): 4·D operations per live (query, key)
+    pair and head, ``pairs`` summed over the batch rows; q, k and v (of
+    ``q_shape`` (B, H, Q, D) and ``kv_shape`` (B, Hkv, K, D)) read once and
+    the output written once, ``item`` bytes per element."""
+    B, H, Q, D = q_shape
+    kv = math.prod(kv_shape)
+    return 4 * D * H * pairs, (2 * B * H * Q * D + 2 * kv) * item
+
+
 def flex_attention_kernel(
     q: torch.Tensor,  # (B, H, Q, D)
     k: torch.Tensor,  # (B, Hkv, K, D)
@@ -372,11 +400,9 @@ def flex_attention_kernel(
         raise UnsupportedFeature(f"flex kernel: q tile {q_blk} (max "
                                  f"{MAX_Q_BLOCK}), heads {H}/{Hkv}")
     if (k.shape != (B, Hkv, K, D) or v.shape != k.shape
-            or not all(t.is_contiguous() and t.data_ptr() % 16 == 0
-                       for t in (q, k, v))):
+            or not all(t.is_contiguous() for t in (q, k, v))):
         raise EngineConfigError("flex kernel: q (B,H,Q,D) and k, v "
-                                "(B,Hkv,K,D) must be contiguous and "
-                                "16-byte aligned")
+                                "(B,Hkv,K,D) must be contiguous")
     nq = Q // q_blk
     batched = block_mask.batched
     lead = (B, nq) if batched else (nq,)
@@ -388,9 +414,19 @@ def flex_attention_kernel(
             or full.shape != idx.shape):
         raise EngineConfigError("flex kernel: block mask shapes do not "
                                 "match the q tiles", q_tiles=nq)
-    desc, keep = _descriptor(low, B, q.device)
     route = flex_route(q.dtype)
     o = torch.empty_like(q)
+    tally = dry_tally(q)
+    if tally is not None:  # dry mode: K4 stands in (``kernels``)
+        tally.add(("flex_prefill", f"flex_prefill/{route}",
+                   f"flex_prefill/{route}/{low.name}"),
+                  *flex_cost(q.shape, k.shape, q.element_size(),
+                             B * mask_pairs(low, q_len, kv_len)))
+        return o
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise EngineConfigError("flex kernel: q, k and v must be 16-byte "
+                                "aligned")
+    desc, keep = _descriptor(low, B, q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             nb.data_ptr(), idx.data_ptr(), full.data_ptr(), desc, len(desc),
             B, H, Hkv, Q, K, D, nq, max_kv, int(batched), q_blk, kv_blk,

@@ -61,8 +61,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
-from repro_torch.kernels import (HEAD_DIMS, check_head_dim, tensor_core_p,
-                                  tf32_product, use_kernel)
+from repro_torch.kernels import (HEAD_DIMS, check_head_dim, dry_tally,
+                                  tensor_core_p, tf32_product, use_kernel)
 from repro_torch.kernels.build import check, get_lib
 from repro_torch.kernels.paged_attention.contracts import decode_partition
 
@@ -144,11 +144,28 @@ def _check_partials(m, l, acc):
             f"{acc.dtype})")
 
 
+def combine_cost(rows: int, S: int, D: int, out_item: int):
+    """K2's (operations, bytes) for ``rows`` output rows of head dim ``D``
+    merged over ``S`` splits: 4 operations per partial ``acc`` element;
+    the partials (m, l, acc: S·(D + 2) f32 per row) read once and the
+    output (``out_item`` bytes per element) written once."""
+    return 4 * rows * S * D, rows * S * (D + 2) * 4 + rows * D * out_item
+
+
 def _launch_combine(m, l, acc, out, dims, strides, route):
     """K2 on CUDA tensors into ``out`` (f32 or bf16): ``dims`` (B, Hkv, NQ,
     S, R, D, G, q_block, C) and ``strides``, the element strides of m and l
     (b, h, nq, s, r), of acc (the same; d is 1) and of the output (b,
-    token, head; d is 1).  Counts one launch of ``route``."""
+    token, head; d is 1).  Counts one launch of ``route``.  In dry mode
+    (fake tensors) K2 stands in here, after the wrapper's checks and
+    allocations: its operations and bytes go to the tally instead."""
+    tally = dry_tally(m)
+    if tally is not None:
+        B, Hkv, NQ, S, R, D = dims[:6]
+        ops, nbytes = combine_cost(B * Hkv * NQ * R, S, D, 0)
+        tally.add(("combine", f"combine/{route}"), ops,
+                  nbytes + out.numel() * out.element_size())
+        return out
     dev = m.device
     guard = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
              else contextlib.nullcontext())
@@ -306,7 +323,11 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
     the partition, one buffer for (m, l, acc) addressed by offsets, the
     output when K2 runs (``combine``), and the C entry's name and arguments
     but the stream.  Returns ``(name, args, buf, S, out)``; see
-    `_scratch_views` for ``buf``."""
+    `_scratch_views` for ``buf``.  In dry mode (fake tensors) K1, and K2
+    when ``combine``, stand in here, after the checks and allocations:
+    their operations and bytes go to the tally, each row's live tokens at
+    their upper bound (the table's capacity, or the window), and ``name``
+    is None."""
     B, n_kv, G, D = q.shape
     num_pages, page_size = k_pages.shape[:2]
     max_pages = block_tables.shape[1]
@@ -315,6 +336,20 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
     dev = q.device
     n = B * n_kv * S * G
     buf = torch.empty(n * (D + 2), dtype=torch.float32, device=dev)
+    out = (torch.empty((B, n_kv, G, D), dtype=q.dtype, device=dev)
+           if combine else None)
+    tally = dry_tally(q)
+    if tally is not None:
+        cap = max_pages * page_size
+        per_row = min(cap, window) if window > 0 else cap
+        tally.add(("paged_decode",), *decode_cost(
+            q.shape, S, max_pages, B * per_row, q.element_size(),
+            k_pages.element_size()))
+        if combine:
+            tally.add(("combine", "combine/decode"),
+                      *combine_cost(B * n_kv * G, S, D, q.element_size()))
+        return None, (), buf, S, out
+    _check_aligned("decode kernel", q, k_pages, v_pages)
     base = buf.data_ptr()
     head = (_Q_CODES[q.dtype], _KV_CODES[k_pages.dtype], q.data_ptr(),
             k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
@@ -322,10 +357,23 @@ def _decode_call(q, k_pages, v_pages, block_tables, lens, *, scale, window,
     tail = (B, n_kv, G, D, num_pages, page_size, max_pages, ppb, S, bps,
             float(scale), int(window), float(softcap), float(kv_scale))
     if combine:
-        out = torch.empty((B, n_kv, G, D), dtype=q.dtype, device=dev)
         return ("paged_decode_attention", (*head, out.data_ptr(), *tail), buf,
                 S, out)
     return "paged_decode_partials", (*head, *tail), buf, S, None
+
+
+def decode_cost(q_shape, S: int, max_pages: int, live: int, q_item: int,
+                kv_item: int):
+    """K1's (operations, bytes) for q of ``q_shape`` (B, n_kv, G, D) over
+    ``live`` live tokens in all (the rows' lengths summed, or their upper
+    bound) in ``S`` splits: 4·D operations per live token and query head;
+    the live K and V rows, q, the tables ((B, ``max_pages``) int32) and
+    lens read once, the partials (B·n_kv·S·G·(D + 2) f32) written once."""
+    B, n_kv, G, D = q_shape
+    ops = 4 * live * n_kv * G * D
+    nbytes = (2 * live * n_kv * D * kv_item + B * n_kv * G * D * q_item
+              + B * max_pages * 4 + B * 4 + B * n_kv * S * G * (D + 2) * 4)
+    return ops, nbytes
 
 
 def _launch_decode(q, k_pages, v_pages, block_tables, lens, **kw):
@@ -333,9 +381,11 @@ def _launch_decode(q, k_pages, v_pages, block_tables, lens, **kw):
     (``paged_decode_attention``; K1 alone is ``paged_decode_partials``) on
     the raw current stream.  The decode step calls it once per layer, so
     the host's work is kept to `_decode_call`.  Returns ``(buf, S, out)``;
-    ``out`` is None unless K2 ran."""
+    ``out`` is None unless K2 ran (or, in dry mode, stood in)."""
     name, args, buf, S, out = _decode_call(q, k_pages, v_pages, block_tables,
                                            lens, **kw)
+    if name is None:
+        return buf, S, out
     dev = q.device
     lib = get_lib()
     guard = (torch.cuda.device(dev) if dev.index != torch.cuda.current_device()
@@ -389,8 +439,8 @@ paged_attention_partials.launches = 0
 def _check_paged_inputs(kernel, q, n_kv, D, k_pages, v_pages, block_tables,
                         vectors, kv_scale):
     """Checks K1 and K3 share: q dtype, pools against (n_kv, D), pool
-    dtype and ``kv_scale``, int32 tables and (B,) int32 ``vectors``,
-    contiguity, and the 16-byte alignment of the vector loads."""
+    dtype and ``kv_scale``, int32 tables and (B,) int32 ``vectors``, and
+    contiguity: every check but the pointers' (`_check_aligned`)."""
     B = q.shape[0]
     if q.dtype not in _Q_CODES:
         raise UnsupportedFeature(f"{kernel}: q dtype {q.dtype}",
@@ -419,6 +469,12 @@ def _check_paged_inputs(kernel, q, n_kv, D, k_pages, v_pages, block_tables,
                     ("block_tables", block_tables), *vectors.items()):
         if not t.is_contiguous():
             raise EngineConfigError(f"{kernel}: {name} must be contiguous")
+
+
+def _check_aligned(kernel, q, k_pages, v_pages):
+    """The 16-byte alignment of q and the pools that K1's and K3's vector
+    loads and TMA need: a check of pointers, made just before the launch
+    (a fake tensor in dry mode has none)."""
     if q.data_ptr() % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
         raise EngineConfigError(f"{kernel}: q and the pools must be 16-byte "
                                 "aligned (16-byte vector loads and TMA)")
@@ -623,6 +679,21 @@ def _paged_prefill_partials_plain(q, k_pages, v_pages, block_tables, kv_lens,
     return m, p.sum(dim=-1), acc
 
 
+def prefill_cost(q_shape, n_kv: int, keys: int, kv_tokens: int,
+                 max_pages: int, partial_bytes: int, q_item: int,
+                 kv_item: int):
+    """K3's (operations, bytes) for chunk queries of ``q_shape`` (B, C, H,
+    D): 4·D operations per (query row, live key) pair and head, ``keys``
+    pairs in all; q, the ``kv_tokens`` live K/V rows of ``n_kv`` heads,
+    the tables ((B, ``max_pages``) int32), kv_lens and q_start read once,
+    the partials (``partial_bytes``) written once."""
+    B, C, H, D = q_shape
+    ops = 4 * D * H * keys
+    nbytes = (B * C * H * D * q_item + 2 * kv_tokens * n_kv * D * kv_item
+              + B * max_pages * 4 + 2 * B * 4 + partial_bytes)
+    return ops, nbytes
+
+
 def paged_prefill_partials(
     q: torch.Tensor,  # (B, C, n_heads, D) — one prompt chunk per sequence
     k_pages: torch.Tensor,  # (num_pages, P, n_kv, D)
@@ -683,6 +754,16 @@ def paged_prefill_partials(
     l = torch.empty((B, n_kv, NQ, S, R), dtype=torch.float32, device=dev)
     acc = torch.empty((B, n_kv, NQ, S, R, D), dtype=torch.float32,
                       device=dev)
+    tally = dry_tally(q)
+    if tally is not None:  # dry mode: every row's keys at the capacity
+        max_pages = block_tables.shape[1]
+        cap = max_pages * page_size
+        tally.add(("paged_prefill", f"paged_prefill/{route}"), *prefill_cost(
+            q.shape, n_kv, B * C * cap, B * cap, max_pages,
+            4 * (m.numel() + l.numel() + acc.numel()), q.element_size(),
+            k_pages.element_size()))
+        return m, l, acc
+    _check_aligned("prefill kernel", q, k_pages, v_pages)
     name = "paged_prefill_partials_" + ("tc" if route.startswith("tc")
                                         else "tf32")
     with torch.cuda.device(dev):

@@ -17,7 +17,15 @@ over it.  Every rank must build the same meshes in the same order
 ``torch.distributed``: (16, 16) over ("data", "model"), or (2, 16, 16)
 over ("pod", "data", "model"), so that plans match the JAX ones at
 production size.  The constants below are the H100's (the JAX ones are a
-TPU v5e's); the roofline bounds and ``PERF.md`` use them.
+TPU v5e's); the roofline bounds, the dry run's fits-proof and ``PERF.md``
+use them.
+
+A dry mesh (``make_dry_mesh``, ``make_production_mesh(dry=True)``) has
+the same axes and one rank's coordinates but no process group: its
+``group`` gives a ``distributed.sharding.DryGroup`` (the member ranks),
+over which the collectives of ``distributed.collectives`` return tensors
+of the real result's shape without communicating and record what they
+would send (``launch.dryrun``).
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ import math
 from collections import Counter
 from typing import Dict, Optional, Sequence, Tuple
 
+from repro_torch.distributed.sharding import DryGroup
 from repro_torch.errors import DistributedSetupError
 
 # NVIDIA H100 SXM5 80GB ("NVIDIA H100 80GB HBM3, 700.00 W"), per GPU, from
@@ -36,6 +45,12 @@ HBM_BW = 3.35e12  # bytes/s, HBM3
 # NVLink 4: 18 links of 50 GB/s, both directions together (the
 # datasheet's 900 GB/s); the counterpart of the JAX package's ICI_BW
 NVLINK_BW = 900e9  # bytes/s per GPU
+HBM_BYTES = 80e9  # device memory per GPU (the datasheet's 80 GB)
+# an HGX/DGX H100 node: 8 GPUs on one NVLink switch (NVIDIA DGX H100
+# datasheet); beyond the node each GPU has one 400 Gb/s ConnectX-7 NIC,
+# 50e9 bytes/s each way (the same datasheet's networking row)
+NODE_GPUS = 8
+NET_BW = 50e9  # bytes/s per GPU, each direction
 
 
 class Mesh:
@@ -125,34 +140,67 @@ def make_mesh(shape: Sequence[int],
             f"mesh {shape} needs {math.prod(shape)} ranks, the group has "
             f"{world}", world=world)
     names = tuple(axis_names)
-    coords = [_unravel(r, shape) for r in range(world)]
     groups = {}
-    for n in range(1, len(names) + 1):
-        for key in itertools.combinations(range(len(names)), n):
-            if math.prod(shape[i] for i in key) == 1:
-                continue
-            if len(key) == len(names):
-                groups[names] = dist.group.WORLD
-                continue
-            # ranks that share the coordinates off ``key``
-            buckets: Dict[Tuple, list] = {}
-            for r, c in enumerate(coords):
-                rest = tuple(c[i] for i in range(len(names)) if i not in key)
-                buckets.setdefault(rest, []).append(r)
-            for members in buckets.values():
-                g = dist.new_group(members)
-                if rank in members:
-                    groups[tuple(names[i] for i in key)] = g
+    for key, members in _axis_groups(shape):
+        if len(key) == len(names):
+            groups[names] = dist.group.WORLD
+            continue
+        g = dist.new_group(members)
+        if rank in members:
+            groups[tuple(names[i] for i in key)] = g
     return Mesh(shape, names, rank, groups)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def _axis_groups(shape: Tuple[int, ...]):
+    """(axis indices, member ranks) of every group of ranks that share the
+    coordinates off a set of axes of more than one rank, in the order
+    ``make_mesh`` creates them."""
+    coords = [_unravel(r, shape) for r in range(math.prod(shape))]
+    for n in range(1, len(shape) + 1):
+        for key in itertools.combinations(range(len(shape)), n):
+            if math.prod(shape[i] for i in key) == 1:
+                continue
+            buckets: Dict[Tuple, list] = {}
+            for r, c in enumerate(coords):
+                rest = tuple(c[i] for i in range(len(shape)) if i not in key)
+                buckets.setdefault(rest, []).append(r)
+            for members in buckets.values():
+                yield key, members
+
+
+def make_dry_mesh(shape: Sequence[int],
+                  axis_names: Sequence[str] = ("data", "model"),
+                  rank: int = 0) -> Mesh:
+    """A mesh of ``shape`` seen from ``rank``, with no process group: every
+    set of axes of more than one rank has a ``DryGroup`` of the ranks
+    that share this rank's other coordinates.  Its ``stats`` also hold
+    ``"ops"``: per collective, (op, bytes sent, group size, member
+    ranks)."""
+    shape = tuple(int(s) for s in shape)
+    names = tuple(axis_names)
+    if not 0 <= rank < math.prod(shape):
+        raise DistributedSetupError(f"rank {rank} is not on mesh {shape}",
+                                    rank=rank)
+    groups = {tuple(names[i] for i in key): DryGroup(len(members),
+                                                     tuple(members))
+              for key, members in _axis_groups(shape) if rank in members}
+    mesh = Mesh(shape, names, rank, groups)
+    mesh.stats["ops"] = []
+    return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False,
+                         rank: int = 0) -> Mesh:
     """The production mesh over the default process group: (16, 16) over
     ("data", "model"), or (2, 16, 16) over ("pod", "data", "model") with
     ``multi_pod`` (the "pod" axis carries pure data parallelism).  A group
-    of another size raises ``DistributedSetupError``."""
+    of another size raises ``DistributedSetupError``.  With ``dry`` the
+    same mesh seen from ``rank`` without any process group
+    (``make_dry_mesh``)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dry:
+        return make_dry_mesh(shape, axes, rank)
     return make_mesh(shape, axes)
 
 

@@ -89,6 +89,7 @@ class Plan:
     microbatches: int
     attn_impl: str  # the train step's attention: ref | chunked
     layout: TPLayout
+    zero_pod: bool = False  # ZeRO-1: AdamW's moments cut over "pod" too
 
     @property
     def n_kv_shards(self) -> int:
@@ -108,13 +109,15 @@ def _mesh_prod(mesh, axes: Tuple[str, ...]) -> int:
 
 
 def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
-             attn_impl: str = "chunked", scheme: Optional[str] = None
-             ) -> Plan:
+             attn_impl: str = "chunked", scheme: Optional[str] = None,
+             zero_pod: bool = False) -> Plan:
     """The plan of ``run`` on ``mesh`` (the JAX ``plan_for``, line for
     line, plus the port's ``layout``).  ``attn_impl`` names the port's
     training attention ("ref" is the JAX "jnp"); ``scheme`` asks for a
     decode scheme, and under a prefill plan for the layout of that
-    decode scheme."""
+    decode scheme; ``zero_pod`` cuts the train state's AdamW moments over "pod" too
+    (``train_state_shardings``; the plan keeps it under train and decode,
+    not prefill, as the JAX one does)."""
     cfg = run.model
     rules = DEFAULT_RULES.extend(**cfg.axis_overrides)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
@@ -148,7 +151,8 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
         return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
                     scheme="n/a", kv_axes=(), microbatches=microbatches,
                     attn_impl=attn_impl,
-                    layout=_layout(cfg, mesh, rules, tp, model_size))
+                    layout=_layout(cfg, mesh, rules, tp, model_size),
+                    zero_pod=zero_pod)
     sch = _decode_scheme(cfg, model_size, scheme)
     lay = _layout(cfg, mesh, rules, sch, model_size)
     if run.kind == "prefill":
@@ -159,7 +163,7 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
                if sch == "kvp" else ())
     return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
                 scheme=sch, kv_axes=kv_axes, microbatches=1,
-                attn_impl=attn_impl, layout=lay)
+                attn_impl=attn_impl, layout=lay, zero_pod=zero_pod)
 
 
 def _decode_scheme(cfg: ModelConfig, model_size: int,
@@ -274,10 +278,39 @@ def param_specs(model, plan: Plan):
 
 def train_state_shardings(model, plan: Plan) -> TrainState:
     """Specs of the train state each rank holds: its params' pieces
-    (``param_specs``), the AdamW moments alike, the counters whole."""
+    (``param_specs``), the AdamW moments alike, the counters whole.
+    Under ``plan.zero_pod`` on a mesh with "pod" (ZeRO-1 over pods, the
+    JAX rule) each moment's ``embed`` dim is cut over "pod" as well,
+    where "pod" divides it and cuts no other dim of the leaf; the params
+    stay whole over "pod"."""
     p = param_specs(model, plan)
-    return TrainState(params=p, opt=AdamWState(mu=p, nu=p, count=P()),
+    mom = p
+    if plan.zero_pod and "pod" in plan.mesh.axis_names:
+        mom = _pod_cut(model.param_spec(), p, plan.mesh)
+    return TrainState(params=p, opt=AdamWState(mu=mom, nu=mom, count=P()),
                       step=P())
+
+
+def _pod_cut(spec_tree, specs, mesh):
+    """``specs`` with "pod" added after the axes of each leaf's first
+    ``embed`` dim: the rank's piece of its params' piece along that dim,
+    where "pod" divides it."""
+    from repro_torch.models.spec import ParamSpec
+    if isinstance(spec_tree, ParamSpec):
+        if "embed" not in spec_tree.axes or _cuts(specs, "pod"):
+            return specs
+        d = spec_tree.axes.index("embed")
+        entries = list(specs) + [None] * (len(spec_tree.shape) - len(specs))
+        have = (entries[d] if isinstance(entries[d], tuple)
+                else (entries[d],) if entries[d] else ())
+        piece = spec_tree.shape[d] // math.prod(mesh.size(a) for a in have)
+        if piece % mesh.size("pod"):
+            return specs
+        entries[d] = _entry(have + ("pod",))
+        return _spec(*entries)
+    if isinstance(spec_tree, dict):
+        return {k: _pod_cut(spec_tree[k], specs[k], mesh) for k in specs}
+    return [_pod_cut(a, b, mesh) for a, b in zip(spec_tree, specs)]
 
 
 def batch_shardings(run: RunConfig, plan: Plan) -> Dict[str, P]:
@@ -432,8 +465,11 @@ def build_train_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
     state and rows (``shard_batch``), at learning rate ``lr`` (the rate
     the JAX builder fixes, by default): ``train_grads``, then global-norm
     clipping at 1.0 (each sharded leaf's pieces summed over "model") and
-    AdamW.  ``metrics``: ``loss``, ``grad_norm``, ``ce`` and ``aux``, the
-    global batch's."""
+    AdamW.  Under ``plan.zero_pod`` (ZeRO-1 over pods) each pod rank
+    updates the ``embed`` slice of every leaf whose moments it holds cut
+    (``train_state_shardings``) and an ``all_gather`` over "pod" rebuilds
+    the params: the numbers of the plain step.  ``metrics``: ``loss``,
+    ``grad_norm``, ``ce`` and ``aux``, the global batch's."""
     from repro_torch.training.optimizer import (adamw_update,
                                                 clip_by_global_norm)
     model = build_model(run.model)
@@ -441,13 +477,36 @@ def build_train_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
     specs = {"state": train_state_shardings(model, plan),
              "batch": batch_shardings(run, plan)}
     sharded = [_cuts(s, "model") for s in spec_leaves(specs["state"].params)]
+    # per leaf, the dim its moments are cut along over "pod" (None: whole)
+    pod_dims = [next((d for d, e in enumerate(m) if _cuts(P(e), "pod")),
+                     None) for m in spec_leaves(specs["state"].opt.mu)]
     grads_of = train_grads(model, plan)
+
+    def update(grads, state: TrainState):
+        if not any(d is not None for d in pod_dims):
+            return adamw_update(grads, state.opt, state.params, lr=lr)
+        from repro_torch.distributed.collectives import all_gather
+        n, i = plan.mesh.size("pod"), plan.mesh.index("pod")
+
+        def cut(tree):
+            return tree_unflatten(tree, [
+                x if d is None else x.narrow(d, i * (x.shape[d] // n),
+                                             x.shape[d] // n)
+                for x, d in zip(tree_leaves(tree), pod_dims)])
+
+        new_p, new_opt = adamw_update(cut(grads), state.opt,
+                                      cut(state.params), lr=lr)
+        with use_mesh(plan.mesh, plan.rules):
+            whole = [x if d is None else torch.cat(
+                list(all_gather(x, ("pod",))), dim=d)
+                for x, d in zip(tree_leaves(new_p), pod_dims)]
+        return tree_unflatten(new_p, whole), new_opt
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         loss, parts, grads = grads_of(state.params, batch)
         with use_mesh(plan.mesh, plan.rules):
             grads, gnorm = clip_by_global_norm(grads, 1.0, sharded)
-        new_p, new_opt = adamw_update(grads, state.opt, state.params, lr=lr)
+        new_p, new_opt = update(grads, state)
         metrics = {"loss": loss, "grad_norm": gnorm, **parts}
         return TrainState(new_p, new_opt, state.step + 1), metrics
 
@@ -532,3 +591,51 @@ def build_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16, **kw):
     if run.kind == "prefill":
         return build_prefill_step(run, plan, dtype, **kw)
     return build_serve_step(run, plan, dtype, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the dry run's trace (the port's counterpart of the JAX ``lower_step``)
+# ---------------------------------------------------------------------------
+def rank_inputs(run: RunConfig, plan: Plan, dtype=torch.bfloat16, **kw):
+    """``(step, inputs, model)``: ``build_step``'s step and this rank's
+    share of its inputs by argument name, in the step's argument order,
+    as ``meta`` stand-ins (each global stand-in cut by its spec:
+    ``shard_tensor`` on the plan's mesh and the rank's coordinates)."""
+    step, args, specs, model = build_step(run, plan, dtype, **kw)
+    mine = {name: tree_map(lambda t, s: shard_tensor(t, s, plan.mesh),
+                           args[name], specs[name]) for name in args}
+    return step, mine, model
+
+
+def dry_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16, **kw):
+    """Trace the step of ``run`` under ``plan`` once for the rank of
+    ``plan.mesh`` (a dry mesh, ``launch.mesh.make_dry_mesh``, or the
+    local 1 x 1 mesh), on fake "cpu" tensors of that rank's inputs
+    (``rank_inputs``), under ``FakeTensorMode`` with a ``ShapeEnv``,
+    ``kernels.dry_mode`` (each kernel of the card's path stands in by
+    its output shapes, operations and bytes) and ``cost_analysis.
+    record_step`` (FLOPs, bytes, the storages' peak, the mesh's
+    collectives).  Returns the ``cost_analysis.StepRecord``; nothing is
+    allocated, built or sent.  ``kw`` goes to ``build_step``.
+
+    A data-dependent size counts at its upper bound (the fits-proof may
+    only err high): the boolean-mask writes of ``core.cache.
+    _scatter_tokens`` (``pages[phys[keep], off[keep]]``, on every prefill
+    and decode write) keep every token of the mask's input, and the MoE's
+    count of live tokens read on the host (``utils.fake.count_true`` in
+    ``TransformerModel._live_tokens``, ``moe.apply_moe`` and
+    ``ep.apply_moe_ep``) is every token.  ``models.attention.
+    chunk_cross_mode`` (a host read) is on the chunk steps only, which no
+    dry step runs."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+    from repro_torch import kernels
+    from repro_torch.launch.cost_analysis import record_step
+    step, mine, _ = rank_inputs(run, plan, dtype, **kw)
+    fake = FakeTensorMode(shape_env=ShapeEnv())
+    tally = kernels.KernelTally()
+    with fake, kernels.dry_mode(tally):
+        args = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                              device="cpu"),
+                        list(mine.values()))
+        return record_step(step, args, plan.mesh, tally)

@@ -150,10 +150,16 @@ class EncDecModel:
         return (layers.unembed(params["embed"], x, cfg),
                 torch.zeros((), dtype=torch.float32, device=x.device))
 
-    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref"
+    def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref",
+                attn_ctx: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
         """batch: {"inputs", "targets", "frames", "mask"?} → (ce, {"ce",
-        "aux"})."""
+        "aux"}).  A train plan's ``attn_ctx`` (the step across ranks) is
+        refused: the encoder-decoder is not distributed."""
+        if attn_ctx:
+            raise UnsupportedFeature(
+                "the distributed train step takes models of 'A' and 'W' "
+                "layers; family 'encdec'", family="encdec")
         logits, aux = self.forward(params, batch["inputs"],
                                    {"frames": batch["frames"]}, impl)
         ce = layers.xent(logits, batch["targets"], batch.get("mask"))

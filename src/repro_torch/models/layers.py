@@ -11,6 +11,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.spec import ParamSpec
+from repro_torch.utils.fake import on_card
 
 
 # ---------------------------------------------------------------------------
@@ -122,8 +123,9 @@ def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     partial product stays in f32 until the sum: bf16 inputs on the card
     take cuBLAS's f32 accumulator as it is (``mm``'s ``out_dtype``), so
     the only rounding to bf16 is the one a single device makes (not
-    under autograd, which ``mm`` with ``out_dtype`` does not take)."""
-    if x.dtype == torch.bfloat16 and x.is_cuda and not (
+    under autograd, which ``mm`` with ``out_dtype`` does not take; the
+    dry run's fake tensors trace the card's branch)."""
+    if x.dtype == torch.bfloat16 and on_card(x) and not (
             torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         part = torch.mm(x.reshape(-1, x.shape[-1]), w,
                         out_dtype=torch.float32).reshape(

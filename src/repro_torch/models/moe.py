@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.spec import ParamSpec
+from repro_torch.utils.fake import count_true
 
 
 def moe_spec(cfg: ModelConfig) -> Dict:
@@ -184,7 +185,7 @@ def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     n = xf.shape[0]
     if live is not None:
         live = live.reshape(n)
-        n = int(live.sum()) if n_live is None else n_live
+        n = count_true(live) if n_live is None else n_live
     out, _, _ = _moe(p, xf, cfg, live, n)
     return out.to(x.dtype).reshape(shape)
 

@@ -74,6 +74,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import layers, moe, rglru, ssm
 from repro_torch.models import spec as pspec
 from repro_torch.models.spec import ParamSpec
+from repro_torch.utils.fake import count_true
 
 ATTN_CODES = "AW"
 REC_CODES = "RMS"
@@ -316,7 +317,7 @@ class TransformerModel:
         if not self.cfg.is_moe:
             return None, None
         live = torch.arange(width, device=lens.device)[None] < lens[:, None]
-        return live, int(live.sum()) if n_live is None else n_live
+        return live, count_true(live) if n_live is None else n_live
 
     def project_extra(self, params: Dict, extra: Optional[Dict]
                       ) -> Optional[torch.Tensor]:

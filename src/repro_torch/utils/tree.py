@@ -1,6 +1,5 @@
 """Small tree utilities over the port's parameter and train-state trees
-(the part of ``repro.utils.tree`` that training needs, without JAX's
-pytrees).
+(``repro.utils.tree`` without JAX's pytrees).
 
 A tree is a dict (flattened in sorted key order, as JAX flattens dicts),
 a list or tuple (in order), a NamedTuple (in field order) or a leaf (a
@@ -11,6 +10,7 @@ checkpoint names them ("params/layers/0/attn/wq", "opt/count").
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Iterator, List, Tuple
 
 import numpy as np
@@ -77,3 +77,32 @@ def tree_unflatten(tree, leaves):
     order."""
     it = iter(leaves)
     return tree_map(lambda _: next(it), tree)
+
+
+def _shaped(tree) -> Iterator[Any]:
+    """Every leaf with a ``shape``, a ``ParamSpec`` (a NamedTuple with
+    one) taken whole."""
+    if hasattr(tree, "shape"):
+        yield tree
+        return
+    for _, child in _children(tree):
+        yield from _shaped(child)
+
+
+def count_params(tree) -> int:
+    """Total number of scalar parameters in a tree of tensors (real,
+    ``meta`` or fake) or ``ParamSpec`` leaves."""
+    return int(sum(math.prod(leaf.shape) for leaf in _shaped(tree)))
+
+
+def param_bytes(tree) -> int:
+    """Total bytes of the leaves of a tree that have a shape and a dtype
+    (tensors on any device; a ``ParamSpec`` has no dtype)."""
+    return int(sum(math.prod(leaf.shape) * leaf.dtype.itemsize
+                   for leaf in _shaped(tree) if hasattr(leaf, "dtype")))
+
+
+def tree_map_with_path_names(fn: Callable, tree):
+    """``tree_map`` where ``fn`` receives ("a/b/c", leaf)."""
+    names = iter([name for name, _ in tree_paths(tree)])
+    return tree_map(lambda leaf: fn(next(names), leaf), tree)

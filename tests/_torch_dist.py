@@ -485,3 +485,132 @@ def launch_cases(mesh, inputs):
     for name, c in inputs["prefill"].items():
         out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dry run (tests/test_torch_dryrun.py)
+# ---------------------------------------------------------------------------
+def real_inputs(run, mine, seed):
+    """Real CPU tensors of the shapes of a rank's meta inputs
+    (``launch.steps.rank_inputs``): small positive floats, token ids,
+    every prompt at its full length (so that a boolean-mask write keeps
+    what the dry run's upper bound keeps), each row's pages in order and
+    decode positions at the last slot of the sequence."""
+    import torch
+    from repro_torch.utils.tree import tree_map
+    gen = torch.Generator().manual_seed(seed)
+    V = run.model.vocab_size
+
+    def fill(t):
+        if t.dtype.is_floating_point:
+            return (torch.randn(t.shape, generator=gen) * 0.02).abs().to(
+                t.dtype)
+        return torch.zeros(t.shape, dtype=t.dtype)
+
+    out = []
+    for name, tree in mine.items():
+        tree = tree_map(fill, tree)
+        if name == "batch":
+            tree = {k: torch.randint(0, V, v.shape, generator=gen,
+                                     dtype=torch.int32)
+                    for k, v in tree.items()}
+        elif name == "tokens":
+            tree = torch.randint(0, V, tree.shape, generator=gen,
+                                 dtype=torch.int32)
+        elif name == "lens":
+            tree = torch.full(tree.shape, run.seq_len, dtype=torch.int32)
+        elif name == "state" and run.kind != "train":
+            b, _, pps = tree["tables"].shape
+            tree["tables"] = torch.arange(b * pps, dtype=torch.int32
+                                          ).reshape(b, 1, pps)
+            if run.kind == "decode":
+                tree["pos"].fill_(run.seq_len - 1)
+        out.append(tree)
+    return out
+
+
+def _record(rec):
+    from repro_torch.launch.cost_analysis import memory_stats
+    return {"flops": rec.flops, "bytes": rec.bytes,
+            "memory": memory_stats(rec),
+            "calls": dict(rec.stats["calls"]) if rec.stats else {},
+            "coll_bytes": dict(rec.stats["bytes"]) if rec.stats else {},
+            "kernels": dict(rec.kernels.launches)}
+
+
+def dryrun_cases(mesh, inputs):
+    """Each case of ``inputs["cases"]`` (name: (mesh shape, kind, scheme))
+    on its mesh of this 4-rank world ((1, 1): the rank alone; (1, 2),
+    (2, 1) and (2, 2): ``_launch_meshes``): the real step on real CPU
+    tensors under ``record_step`` and the dry trace of the same rank
+    (``dry_step`` on ``make_dry_mesh`` of the same shape and rank), both
+    under ``impl="ref"``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.cost_analysis import record_step
+    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
+    from repro_torch.launch.steps import dry_step, plan_for, rank_inputs
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 1)] = make_local_mesh()
+    out = {}
+    for name, (shape, kind, scheme) in inputs["cases"].items():
+        m = meshes[shape]
+        cfg = get_config("llama2-7b").smoke()
+        run = RunConfig(model=cfg, seq_len=inputs["S"],
+                        global_batch=inputs["B"], kind=kind)
+        kw = {} if kind == "train" else {"impl": "ref"}
+        plan = plan_for(run, m, attn_impl="ref", scheme=scheme)
+        step, mine, _ = rank_inputs(run, plan, torch.float32, **kw)
+        real = record_step(step, real_inputs(run, mine, seed=mesh.rank),
+                           m)
+        dry_plan = plan_for(run, make_dry_mesh(shape, m.axis_names, m.rank),
+                            attn_impl="ref", scheme=scheme)
+        dry = dry_step(run, dry_plan, torch.float32, **kw)
+        out[name] = {"real": _record(real), "dry": _record(dry),
+                     "scheme": plan.scheme}
+    return out
+
+
+def zero_pod_case(mesh, inputs):
+    """On a (2, 1, 1) ("pod", "data", "model") mesh over the 2 ranks: the
+    smoke llama2-7b trained ``inputs["steps"]`` steps by the ZeRO-1 plan
+    and by the plain plan from the same weights and batches; the ZeRO-1
+    params, the plain ones and the moments' shapes."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_train_step, plan_for, shard_batch
+    from repro_torch.models.convert import params_from_numpy
+    from repro_torch.training import TrainState
+    from repro_torch.utils.tree import tree_leaves, tree_paths
+    pod = make_mesh((2, 1, 1), ("pod", "data", "model"))
+    cfg = get_config("llama2-7b").smoke()
+    batches = [{k: torch.from_numpy(v) for k, v in b.items()}
+               for b in inputs["batches"]]
+    B, S = batches[0]["inputs"].shape
+    run = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="train")
+    out = {}
+    for name, zp in (("zero_pod", True), ("plain", False)):
+        plan = plan_for(run, pod, attn_impl="ref", zero_pod=zp)
+        step = build_train_step(run, plan, torch.float32)[0]
+        st = TrainState.create(params_from_numpy(inputs["params"], "cpu"))
+        if zp:  # the rank's slices of the moments
+            from repro_torch.launch.steps import train_state_shardings
+            from repro_torch.models.api import build_model
+            from repro_torch.distributed.sharding import shard_tensor
+            from repro_torch.utils.tree import tree_map
+            specs = train_state_shardings(build_model(cfg), plan)
+            cut = tree_map(lambda t, s: shard_tensor(t, s, pod),
+                           st.opt.mu, specs.opt.mu)
+            st = TrainState(st.params, st.opt._replace(
+                mu=cut, nu=tree_map(torch.zeros_like, cut)), st.step)
+        for b in batches:
+            st, _ = step(st, shard_batch(b, plan))
+        out[name] = {p: _np(x) for p, x in tree_paths(st.params)}
+        out[f"{name}/mu"] = {p: tuple(x.shape)
+                             for p, x in tree_paths(st.opt.mu)}
+        out[f"{name}/gathers"] = pod.stats["calls"]["all_gather"]
+        assert len(tree_leaves(st.opt.nu)) == len(tree_leaves(st.opt.mu))
+    return out
