@@ -268,7 +268,11 @@ Phases, each of which fails the script (exit code 1) when it fails:
    bf16 and at 4 layers in f32; the f32 1 x 8192 case once more, for 4
    steps, with the second rank's stripe dropped from every merge (a
    planted fault the check must see: the run fails unless its logits
-   leave ``MODEL_TOL``); granite-moe at full
+   leave ``MODEL_TOL``); llama3-405b at 2 layers in bf16 under kvp (real
+   GQA, 128 q heads over 8 kv heads: each rank holds 64 heads of
+   ``wq``/``wo``, the ``"q_heads"`` cut, gathers all 128 for K1 over its
+   stripe and keeps its 64 after K2; the run fails unless both ranks hold
+   H/2); granite-moe at full
    depth in f32 with ``moe_ep`` (16 experts a rank, dropless); logits
    within ``MODEL_TOL`` (f32) or ``BF16_MODEL_TOL`` of their scale
    (bf16), greedy agreement and the first diverging step reported.  Also
@@ -290,7 +294,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
    the (1, 2) plan (every row, 16 heads a rank), K4 on each rank, then
    ``shard_decode_state`` and 4 decode steps (K1, K2) teacher-forced by
    one device's greedy tokens: logits within ``BF16_MODEL_TOL`` of their
-   scale (bf16) or ``MODEL_TOL`` (f32).  Train: llama2-7b at full width,
+   scale (bf16) or ``MODEL_TOL`` (f32); granite-8b (FSDP: its weights'
+   ``embed`` dims over "data") at 8 layers in bf16 under (2, 1), each
+   layer's weights gathered before use.  Train: llama2-7b at full width,
    4 layers, f32, B 4 x S 512 (PR 24's shape): the local plan must take
    2 microbatches (f32 logits of 262 MB over the 256 MB budget), and 2
    microbatched steps land within ``LAUNCH_STEP_TOL`` of 2 plain ones;
@@ -298,8 +304,11 @@ Phases, each of which fails the script (exit code 1) when it fails:
    (1, 2) (tensor parallel: heads, ``d_ff`` and the vocab cut) the
    rank's gradients within ``LAUNCH_GRAD_TOL`` · (1 + |g|) of one
    device's, its params after 2 steps within ``LAUNCH_STEP_TOL``, the
-   losses within ``LAUNCH_LOSS_TOL``; step ms by events, peak memory per
-   rank.  Then ``launch.serve`` at full width (llama2-7b, f32, 8
+   losses and grad norms within ``LAUNCH_LOSS_TOL``; step ms by events,
+   peak memory per rank.  granite-8b under FSDP on (2, 1), 4 layers f32,
+   one step, held alike: each rank's state about half the whole, the
+   all-gathers and reduce-scatters counted.  Then ``launch.serve`` at
+   full width (llama2-7b, f32, 8
    requests at the CLI's defaults), paged (K4, K1, K2 must launch) and
    ``--no-paged`` (K4; K1 must not launch): every request its
    ``--max-new`` tokens, the CLI's report logged.  ``--launch-only`` runs
@@ -316,7 +325,8 @@ Phases, each of which fails the script (exit code 1) when it fails:
    measured step ms (no bound).  One device: llama2-7b at 4 layers in f32
    (B 4 x S 512, 2 microbatches), then at full depth in bf16 the prefill
    of the 8 launch prompts (K4) and one decode step (K1 + K2).  Two
-   ranks, in the launch cases' train steps: the (2, 1) and (1, 2) ranks.
+   ranks, in the launch cases' train steps: the (2, 1) and (1, 2) ranks
+   and granite-8b's FSDP (2, 1) rank.
    ``--dry-only`` runs the build and this phase alone (the rank cases in
    2 rank processes of their own).
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
@@ -6466,6 +6476,8 @@ DIST_KVP_LENS = [1, 64, 65, 129, 300, 511, 700, 1024]
 DIST_EP_LENS = [16, 32, 45, 64, 77, 96, 110, 128]
 DIST_EP_STEPS = 8
 DIST_RING_S = 8192
+# the kvp case at real GQA: llama3-405b cut to 2 layers, 8 decode steps
+DIST_GQA_LAYERS, DIST_GQA_STEPS = 2, 8
 DIST_RING_WINDOWS = (0, 4096)
 # the kernels the ranks' main paths launch, by launch-count key
 DIST_KEYS = ("paged_decode", "combine/decode", "combine/dist",
@@ -6491,6 +6503,10 @@ def dist_cases():
          [DIST_KVP_LONG], DIST_STEPS),
         ("kvp f32 batch 8", "llama2-7b", "float32", 4, "kvp",
          DIST_KVP_LENS, DIST_STEPS),
+        # kvp at real GQA (128 q heads over 8 kv heads): the q heads cut
+        # over the ranks ("q_heads"), all of them gathered for K1
+        ("kvp bf16 llama3-405b", "llama3-405b", "bfloat16", DIST_GQA_LAYERS,
+         "kvp", DIST_KVP_LENS, DIST_GQA_STEPS),
     ]
 
 
@@ -6787,7 +6803,11 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
             res = logits_gap(logits, ref["logits"], ref["tokens"], dt)
-            res.update(scheme=plan.scheme, step_ms=statistics.median(times),
+            attn = params["layers"][0]["attn"]
+            res.update(scheme=plan.scheme, attn=sorted(set(plan.layout.attn)),
+                       heads=[model.cfg.n_heads, int(attn["wq"].shape[1]),
+                              int(attn["wo"].shape[0])],
+                       step_ms=statistics.median(times),
                        device_ms=dev, seconds=time.perf_counter() - t0,
                        init_s=t_init, **secs,
                        launches={k: counts.get(k, 0) for k in DIST_KEYS},
@@ -6826,6 +6846,8 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             from repro_torch.launch.mesh import make_mesh
             out["dry"] = [dry_rank_train(torch, make_mesh(shape))
                           for shape in LAUNCH_MESHES]
+            out["dry"].append(dry_rank_train(
+                torch, make_mesh((2, 1)), launch_train_run("granite-8b")))
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -6882,8 +6904,15 @@ LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
 
 
 def launch_prefill_cases():
-    """(name, dtype, n_layers or None) of llama2-7b's prefill cases."""
-    return [("bf16", "bfloat16", None), ("f32", "float32", 4)]
+    """(name, config, dtype, n_layers or None, meshes) of the prefill
+    cases: llama2-7b on both launch meshes, and granite-8b under FSDP
+    (its ``embed: ("data",)`` override) on (2, 1), at 8 of its 36 layers
+    (gloo gathers each layer's weights between the processes: ≈ 0.5 s a
+    layer and step here)."""
+    return [("bf16", "llama2-7b", "bfloat16", None, LAUNCH_MESHES),
+            ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES),
+            ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 8,
+             ((2, 1),))]
 
 
 def launch_references(torch, work):
@@ -6891,9 +6920,9 @@ def launch_references(torch, work):
     ``LAUNCH_DECODE_STEPS`` greedy decode steps, per prefill case, saved
     under ``work`` for the ranks."""
     refs = {}
-    for i, (name, dt, nl) in enumerate(launch_prefill_cases()):
+    for i, (name, cfg_name, dt, nl, _) in enumerate(launch_prefill_cases()):
         t0 = time.perf_counter()
-        model = dist_model(torch, "llama2-7b", dt, nl)
+        model = dist_model(torch, cfg_name, dt, nl)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         params = model.init_params(gen, getattr(torch, dt), "cuda")
@@ -6918,10 +6947,13 @@ def launch_train_batches(torch, cfg):
     return [to_device(next(data), "cuda") for _ in range(LAUNCH_TRAIN_STEPS)]
 
 
-def launch_train_run():
+def launch_train_run(name="llama2-7b"):
+    """The launch phase's train run: ``name`` at 4 layers, B
+    ``LAUNCH_TRAIN_B`` x S ``LAUNCH_TRAIN_S`` (llama2-7b; granite-8b, the
+    FSDP case, carries the ``embed: ("data",)`` override)."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    cfg = get_config("llama2-7b").replace(n_layers=4)
+    cfg = get_config(name).replace(n_layers=4)
     return RunConfig(model=cfg, seq_len=LAUNCH_TRAIN_S,
                      global_batch=LAUNCH_TRAIN_B, kind="train")
 
@@ -7003,12 +7035,12 @@ def launch_train_local(torch):
     return out
 
 
-def launch_rank_prefill(torch, mesh, work, i, name, dt, nl):
-    """On this rank: llama2-7b's prefill case ``name`` under the prefill
-    plan of ``mesh`` (the rank's rows, with its heads, into pools of its
-    decode layout), ``shard_decode_state``, then the decode steps
-    teacher-forced by one device's greedy tokens; logits against one
-    device's rows."""
+def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
+    """On this rank: the prefill case ``name`` (config ``cfg_name``) under
+    the prefill plan of ``mesh`` (the rank's rows, with its heads and its
+    FSDP pieces, into pools of its decode layout), ``shard_decode_state``,
+    then the decode steps teacher-forced by one device's greedy tokens;
+    logits against one device's rows."""
     from repro_torch import kernels
     from repro_torch.configs.base import RunConfig
     from repro_torch.distributed.collectives import shard_decode_state
@@ -7017,7 +7049,7 @@ def launch_rank_prefill(torch, mesh, work, i, name, dt, nl):
                                           plan_for, shard_batch)
     t_case = time.perf_counter()
     dtype = getattr(torch, dt)
-    model = dist_model(torch, "llama2-7b", dt, nl)
+    model = dist_model(torch, cfg_name, dt, nl)
     cfg = model.cfg
     ref = torch.load(work / f"launch_{name}.pt")
     tokens, lens = dist_tokens(torch, cfg, DIST_TP_LENS, SEED + 60 + i)
@@ -7063,6 +7095,8 @@ def launch_rank_prefill(torch, mesh, work, i, name, dt, nl):
     res = logits_gap(torch.stack(outs), ref["logits"][:, rows],
                      ref["tokens"][:, rows], dt)
     res.update(rows=[r0, r0 + b], attn=sorted(set(pplan.layout.attn)),
+               fsdp=list(pplan.layout.fsdp),
+               weight_gb=weight_bytes(params) / 1e9,
                scheme=dplan.scheme, pool_heads=int(state["k_pages"].shape[3]),
                prefill_ms=t0.elapsed_time(t1), k4_prefill=k4,
                launches={k: counts.get(k, 0) for k in LAUNCH_KEYS},
@@ -7072,25 +7106,27 @@ def launch_rank_prefill(torch, mesh, work, i, name, dt, nl):
     return res
 
 
-def launch_rank_train(torch, mesh):
-    """On this rank: llama2-7b (4 layers, f32) trained under the train
-    plan of ``mesh``: one device's gradients of the first batch and its
-    params after ``LAUNCH_TRAIN_STEPS`` plain steps (computed here from the
-    same weights, the rank's cut kept on the host), then the rank's
-    gradients (``train_grads``) and steps, against them."""
+def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
+    """On this rank: ``run`` (``launch_train_run()``, llama2-7b at 4 layers,
+    by default; f32) trained under the train plan of ``mesh``: one
+    device's gradients of the first batch and its params after
+    ``n_steps`` plain steps (computed here from the same weights, the
+    rank's cut kept on the host), then the rank's gradients
+    (``train_grads``) and steps, against them; the bytes of the rank's
+    state beside the whole state's, and the collectives of its steps."""
     from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
     from repro_torch.launch.steps import (build_train_step, plan_for,
                                           shard_batch, train_grads)
     from repro_torch.training import TrainState
     from repro_torch.utils.tree import tree_leaves
     t_case = time.perf_counter()
-    run = launch_train_run()
+    run = run or launch_train_run()
     plan = plan_for(run, mesh)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
                                            mesh.rank))
     one = plan_for(run, make_local_mesh(), microbatches=1)
     step, _, _, model = build_train_step(run, plan, torch.float32)
-    batches = launch_train_batches(torch, run.model)
+    batches = launch_train_batches(torch, run.model)[:n_steps]
 
     def weights(p):
         gen = torch.Generator(device="cuda")
@@ -7103,6 +7139,7 @@ def launch_rank_train(torch, mesh):
     del g
     one_step = build_train_step(run, one, torch.float32)[0]
     st = TrainState.create(full)
+    whole_gb = storage_bytes(torch, st) / 1e9
     ref_loss, ref_gnorm = [], []
     for b in batches:
         st, m = one_step(st, b)
@@ -7119,6 +7156,8 @@ def launch_rank_train(torch, mesh):
     grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
     del g, ref_grads
     st = TrainState.create(params)
+    state_gb = storage_bytes(torch, st) / 1e9
+    stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
     times, losses, gnorms = [], [], []
     for b in mine:
         t0 = torch.cuda.Event(enable_timing=True)
@@ -7131,19 +7170,27 @@ def launch_rank_train(torch, mesh):
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    coll = {k: {op: n - stats0[k].get(op, 0)
+                for op, n in mesh.stats[k].items()
+                if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
     param_err = leaves_gap(tree_leaves(st.params), ref_params,
                            rel=False)
     del ref_params
     torch.cuda.empty_cache()
-    dry = dry_compare(torch, f"train llama2-7b 4 layers f32 {mesh.shape} "
+    dry = dry_compare(torch, f"train {run.model.name} 4 layers f32 "
+                      f"{mesh.shape}{' fsdp' if plan.layout.fsdp else ''} "
                       f"rank {mesh.rank}", run, plan, dry_plan,
                       torch.float32, step, [st, mine[0]], mesh)
     res = dict(grad_err=grad_err, param_err=param_err, losses=losses,
                ref_losses=ref_loss, gnorms=gnorms, ref_gnorms=ref_gnorm,
                loss_err=max(abs(a - b) / abs(b)
                             for a, b in zip(losses, ref_loss)),
+               gnorm_err=max(abs(a - b) / abs(b)
+                             for a, b in zip(gnorms, ref_gnorm)),
                microbatches=plan.microbatches,
                attn=sorted(set(plan.layout.attn)), vocab=plan.layout.vocab,
+               fsdp=list(plan.layout.fsdp), state_gb=state_gb,
+               whole_state_gb=whole_gb, collectives=coll,
                step_ms=times, peak_gb=peak_gb, dry=dry,
                seconds=time.perf_counter() - t_case)
     del st, params
@@ -7159,11 +7206,16 @@ def launch_rank(torch, work):
     meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
     out = {"prefill": {}, "train": {}}
     for shape, mesh in meshes.items():
-        for i, (name, dt, nl) in enumerate(launch_prefill_cases()):
-            out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
-                torch, mesh, work, i, name, dt, nl)
+        for i, (name, cfg_name, dt, nl, on) in enumerate(
+                launch_prefill_cases()):
+            if shape in on:
+                out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
+                    torch, mesh, work, i, name, cfg_name, dt, nl)
     for shape, mesh in meshes.items():
         out["train"][str(shape)] = launch_rank_train(torch, mesh)
+    # FSDP: granite-8b's weights over the 2 data ranks, one step
+    out["train"]["(2, 1) fsdp granite-8b"] = launch_rank_train(
+        torch, meshes[(2, 1)], launch_train_run("granite-8b"), n_steps=1)
     out["host_copies"] = {str(s): dict(m.host_copies)
                           for s, m in meshes.items()}
     return out
@@ -7227,8 +7279,9 @@ def launch_check(ranks):
         r = res["rank"]
         for name, c in res["launch"]["prefill"].items():
             log(f"launch rank {r} prefill {name} (rows {c['rows']}, attn "
-                f"{c['attn']}, pools of {c['pool_heads']} kv heads, decode "
-                f"{c['scheme']}): logits vs one device max|err| "
+                f"{c['attn']}, FSDP over {c['fsdp']}, weights "
+                f"{c['weight_gb']:.2f} GB, pools of {c['pool_heads']} kv "
+                f"heads, decode {c['scheme']}): logits vs one device max|err| "
                 f"{c['max_err']:.3e} (bound {c['bound']:.3e}, scale "
                 f"{c['scale']:.3f}), agreement {c['argmax_agreement']:.3f};"
                 f" prefill {c['prefill_ms']:.1f} ms (events); K4 in the "
@@ -7242,24 +7295,41 @@ def launch_check(ranks):
                     for k in ("paged_decode", "combine/decode")):
                 fail(f"launch prefill {name} rank {r}: K4, K1 or K2 not "
                      f"launched ({c['k4_prefill']}, {c['launches']})")
+            if ("fsdp" in name) != (c["fsdp"] == ["data"]):
+                fail(f"launch prefill {name} rank {r}: FSDP over "
+                     f"{c['fsdp']}")
             for k in LAUNCH_KEYS:
                 launches[k] += c["launches"][k]
         for name, c in res["launch"]["train"].items():
             log(f"launch rank {r} train {name} (attn {c['attn']}, vocab cut "
-                f"{c['vocab']}, {c['microbatches']} microbatch(es)): grads "
+                f"{c['vocab']}, FSDP over {c['fsdp']}, {c['microbatches']} "
+                f"microbatch(es)): grads "
                 f"vs one device {c['grad_err']:.3e} (tol "
                 f"{LAUNCH_GRAD_TOL:g}, relative to 1 + |g|), params after "
-                f"{LAUNCH_TRAIN_STEPS} steps {c['param_err']:.3e} (tol "
+                f"{len(c['losses'])} step(s) {c['param_err']:.3e} (tol "
                 f"{LAUNCH_STEP_TOL:g}), losses {c['losses']} vs "
                 f"{c['ref_losses']} (rel {c['loss_err']:.2e}), grad norms "
-                f"{c['gnorms']} vs {c['ref_gnorms']}; step ms (events) "
+                f"{c['gnorms']} vs {c['ref_gnorms']} (rel "
+                f"{c['gnorm_err']:.2e}); state {c['state_gb']:.3f} GB of the "
+                f"whole {c['whole_state_gb']:.3f} GB; the steps' collectives "
+                f"{c['collectives']}; step ms (events) "
                 f"{[round(t, 2) for t in c['step_ms']]}, peak "
                 f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s")
             if not (c["grad_err"] <= LAUNCH_GRAD_TOL
                     and c["param_err"] <= LAUNCH_STEP_TOL
-                    and c["loss_err"] <= LAUNCH_LOSS_TOL):
+                    and c["loss_err"] <= LAUNCH_LOSS_TOL
+                    and c["gnorm_err"] <= LAUNCH_LOSS_TOL):
                 fail(f"launch train {name} rank {r}: grads {c['grad_err']}, "
-                     f"params {c['param_err']}, losses {c['loss_err']}")
+                     f"params {c['param_err']}, losses {c['loss_err']}, "
+                     f"grad norms {c['gnorm_err']}")
+            if "fsdp" in name and not (
+                    c["fsdp"] == ["data"]
+                    and c["collectives"]["calls"].get("all_gather", 0) > 0
+                    and c["collectives"]["calls"].get("reduce_scatter", 0) > 0
+                    and 0.45 <= c["state_gb"] / c["whole_state_gb"] <= 0.55):
+                fail(f"launch train {name} rank {r}: FSDP over {c['fsdp']} "
+                     f"holds {c['state_gb']} of {c['whole_state_gb']} GB with "
+                     f"collectives {c['collectives']['calls']}")
         log(f"launch rank {r}: gloo host copies "
             f"{res['launch']['host_copies']}")
     return launches
@@ -7407,14 +7477,15 @@ def dry_local_cases(torch):
     return out
 
 
-def dry_rank_train(torch, mesh):
-    """On this rank: the dry run of the launch phase's train case under
-    the train plan of ``mesh`` (a dry mesh of its shape, seen from this
-    rank) against one step of the rank on the card."""
+def dry_rank_train(torch, mesh, run=None):
+    """On this rank: the dry run of the launch phase's train case ``run``
+    (``launch_train_run()`` by default) under the train plan of ``mesh``
+    (a dry mesh of its shape, seen from this rank) against one step of
+    the rank on the card."""
     from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.launch.steps import build_train_step, plan_for, shard_batch
     from repro_torch.training import TrainState
-    run = launch_train_run()
+    run = run or launch_train_run()
     plan = plan_for(run, mesh)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
                                            mesh.rank))
@@ -7424,7 +7495,8 @@ def dry_rank_train(torch, mesh):
     st = TrainState.create(model.init_params(gen, torch.float32, "cuda",
                                              plan=plan))
     batch = shard_batch(launch_train_batches(torch, run.model)[0], plan)
-    res = dry_compare(torch, f"train llama2-7b 4 layers f32 {mesh.shape} "
+    res = dry_compare(torch, f"train {run.model.name} 4 layers f32 "
+                      f"{mesh.shape}{' fsdp' if plan.layout.fsdp else ''} "
                       f"rank {mesh.rank}", run, plan, dry_plan,
                       torch.float32, step, [st, batch], mesh)
     del st, batch
@@ -7554,7 +7626,9 @@ def _dist_check(torch, chk, ranks):
         log(f"dist rank {res['rank']}: gloo host copies {res['host_copies']}"
             f" (ops gloo refused on CUDA tensors: {res['host_ops']})")
         for name, c in res["cases"].items():
-            log(f"dist rank {res['rank']} {name} ({c['scheme']}): logits vs "
+            log(f"dist rank {res['rank']} {name} ({c['scheme']}, attention "
+                f"{c['attn']}, heads of {c['heads'][0]} held in wq / wo "
+                f"{c['heads'][1]} / {c['heads'][2]}): logits vs "
                 f"one device max|err| {c['max_err']:.3e} (bound "
                 f"{c['bound']:.3e}, scale {c['scale']:.3f}), greedy "
                 f"agreement {c['argmax_agreement']:.3f}, divergence step "
@@ -7567,6 +7641,14 @@ def _dist_check(torch, chk, ranks):
             if not c["finite"] or c["max_err"] > c["bound"]:
                 fail(f"dist {name} rank {res['rank']}: logits max|err| "
                      f"{c['max_err']} beyond {c['bound']}")
+            # kvp cuts the q heads over the ranks (GSPMD's heads rule)
+            H = c["heads"][0]
+            if c["scheme"] == "kvp" and (
+                    c["attn"] != ["q_heads"]
+                    or c["heads"][1:] != [H // DIST_RANKS] * 2):
+                fail(f"dist {name} rank {res['rank']}: kvp holds "
+                     f"{c['heads'][1:]} of {H} heads under {c['attn']}, "
+                     f"not {H // DIST_RANKS} under 'q_heads'")
             # K1, then K2: after K1 in the decode op, or across the ranks
             must = ["paged_decode", "combine/dist" if c["scheme"] == "kvp"
                     else "combine/decode"]

@@ -29,12 +29,18 @@ Outside a mesh every function is the plain local call.
 Collectives on a ``gloo`` group over CUDA tensors: gloo runs some
 collectives on CUDA tensors and refuses others, and its point-to-point
 ops read the tensor's raw pointer as host memory.  The first collective
-probes ``all_reduce``, ``all_gather`` and ``all_to_all`` on CUDA tensors
-(``probe``); an op gloo refuses or gets wrong, and every point-to-point
-op, is copied through host memory explicitly, in the gloo branch only,
-and counted in the mesh's ``host_copies`` (the compute never leaves the
-card).  NCCL groups take CUDA tensors as they are.  The mesh's ``stats``
-count each op's calls, bytes and host seconds.
+probes ``all_reduce``, ``all_gather``, ``all_to_all`` and
+``reduce_scatter`` on CUDA tensors (``probe``); an op gloo refuses or
+gets wrong, and every point-to-point op, is copied through host memory
+explicitly, in the gloo branch only, and counted in the mesh's
+``host_copies`` (the compute never leaves the card).  NCCL groups take
+CUDA tensors as they are.  The mesh's ``stats`` count each op's calls,
+bytes and host seconds.
+
+Under autograd: Megatron's f and g, the vocab gather, and
+``gather_dim``, the gather of a piece along a dim (FSDP's weights over
+"data", the q heads of a ``"q_heads"`` layer over "model"), whose
+backward is the reduce-scatter of the gradient.
 
 On a dry mesh (``launch.mesh.make_dry_mesh``) the group is a
 ``sharding.DryGroup``: each helper allocates what the real call
@@ -72,10 +78,10 @@ def _is_gloo(group) -> bool:
 
 
 def probe(group, device: torch.device) -> set:
-    """The ops of ``all_reduce``, ``all_gather`` and ``all_to_all`` that
-    raise or give a wrong result on small CUDA tensors of ``group``.
-    Collective: every member calls it at the same point (the first
-    collective any of them makes)."""
+    """The ops of ``all_reduce``, ``all_gather``, ``all_to_all`` and
+    ``reduce_scatter`` that raise or give a wrong result on small CUDA
+    tensors of ``group``.  Collective: every member calls it at the same
+    point (the first collective any of them makes)."""
     import torch.distributed as dist
     n, r = dist.get_world_size(group), dist.get_rank(group)
     x = torch.full((n, 4), float(r + 1), device=device)
@@ -93,6 +99,8 @@ def probe(group, device: torch.device) -> set:
         "all_to_all": (lambda: _a2a(x, group),
                        torch.arange(1, n + 1, dtype=torch.float32)
                        [:, None].expand(n, 4)),
+        "reduce_scatter": (lambda: _rs(x, group),
+                           torch.full((1, 4), n * (n + 1) / 2)),
     }
     refused = set()
     for op, (fn, want) in checks.items():
@@ -129,15 +137,22 @@ def _count(op: str, t: torch.Tensor, t0: float) -> None:
     stats["seconds"][op] += time.perf_counter() - t0
 
 
-def _dry(op: str, x: torch.Tensor, group: DryGroup) -> torch.Tensor:
+def _dry(op: str, x: torch.Tensor, group: DryGroup,
+         dim: Optional[int] = None) -> torch.Tensor:
     """The result of ``op`` on ``x`` over a dry ``group``, unsent: new
     tensors as the real call allocates them (``all_reduce``: a clone;
-    ``all_gather``: n tensors like ``x``, stacked; ``all_to_all`` and
-    ``send_recv``: one like ``x``), recorded in the mesh's ``stats``."""
+    ``all_gather``: n tensors like ``x``, stacked, or with ``dim`` joined
+    along it; ``reduce_scatter``: the rank's 1/n of dim 0; ``all_to_all``
+    and ``send_recv``: one like ``x``), recorded in the mesh's
+    ``stats``."""
     if op == "all_reduce":
         out = x.clone()
     elif op == "all_gather":
-        out = torch.stack([torch.empty_like(x) for _ in range(group.size)])
+        parts = [torch.empty_like(x) for _ in range(group.size)]
+        out = torch.stack(parts) if dim is None else torch.cat(parts, dim)
+        del parts
+    elif op == "reduce_scatter":
+        out = x.new_empty((x.shape[0] // group.size, *x.shape[1:]))
     else:
         out = torch.empty_like(x)
     stats = current_mesh().stats
@@ -148,17 +163,50 @@ def _dry(op: str, x: torch.Tensor, group: DryGroup) -> torch.Tensor:
     return out
 
 
+def _call(fn, outs, ins) -> None:
+    """``fn(outs, ins)``, a gloo or NCCL call that writes ``outs`` (read
+    as well: an all-reduce's) from ``ins``.  On host tensors it runs on
+    private copies, outside the dispatch modes, and ``outs`` take the
+    result: gloo's worker thread drops its references to a finished
+    call's tensors only after the caller has resumed, and allocates
+    scratch inside some calls, so the storages a step holds (the dry
+    run's count, ``launch.cost_analysis``) would otherwise follow the
+    thread's timing.  On CUDA tensors the call runs as it is."""
+    if outs[0].is_cuda:
+        fn(outs, ins)
+        return
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        own = [t.clone() for t in outs]
+        fn(own, [t.clone() for t in ins])
+        for t, c in zip(outs, own):
+            t.copy_(c)
+
+
 def _gather_list(x, group):
     import torch.distributed as dist
     out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(out, x.contiguous(), group=group)
+    _call(lambda o, i: dist.all_gather(o, i[0], group=group), out,
+          [x.contiguous()])
     return out
 
 
 def _a2a(x, group):
     import torch.distributed as dist
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x.contiguous(), group=group)
+    _call(lambda o, i: dist.all_to_all_single(o[0], i[0], group=group),
+          [out], [x.contiguous()])
+    return out
+
+
+def _rs(x, group):
+    """``reduce_scatter_tensor`` of ``x`` (n blocks along dim 0): the sum
+    of every rank's block at this rank's index."""
+    import torch.distributed as dist
+    n = dist.get_world_size(group)
+    out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
+    _call(lambda o, i: dist.reduce_scatter_tensor(o[0], i[0], group=group),
+          [out], [x.contiguous()])
     return out
 
 
@@ -180,7 +228,8 @@ def all_reduce(x: torch.Tensor, axes: Sequence[str], op: str = "sum"
         y = y.to(x.device)
     else:
         y = x.clone()
-        dist.all_reduce(y, op=red, group=group)
+        _call(lambda o, _: dist.all_reduce(o[0], op=red, group=group), [y],
+              [])
     _count("all_reduce", x, t0)
     return y
 
@@ -200,6 +249,52 @@ def all_gather(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         out = torch.stack(_gather_list(x, group))
     _count("all_gather", x, t0)
     return out
+
+
+def all_gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int
+                   ) -> torch.Tensor:
+    """Every rank's ``x`` over the mesh ``axes`` joined along ``dim``, in
+    the ranks' row-major order over those axes (the whole of a tensor
+    cut along ``dim``)."""
+    group = _group(axes)
+    if group is None:
+        return x
+    if isinstance(group, DryGroup):
+        return _dry("all_gather", x, group, dim)
+    t0 = time.perf_counter()
+    if _host("all_gather", x, group):
+        # the pieces back on x's device before they are joined, as the
+        # direct call holds them (the dry run's count of the card's peak)
+        out = torch.cat([p.to(x.device) for p in _gather_list(
+            x.cpu(), group)], dim)
+    else:
+        out = torch.cat(_gather_list(x, group), dim)
+    _count("all_gather", x, t0)
+    return out
+
+
+def reduce_scatter(x: torch.Tensor, axes: Sequence[str], dim: int = 0
+                   ) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the mesh ``axes``, of which this
+    rank keeps its piece along ``dim`` (the n equal blocks of ``dim`` in
+    the ranks' row-major order over the axes): the inverse of
+    ``all_gather_dim``'s layout, in one collective (through host memory
+    where gloo refuses it on CUDA tensors)."""
+    group = _group(axes)
+    if group is None:
+        return x
+    src = x.movedim(dim, 0).contiguous()
+    if isinstance(group, DryGroup):
+        out = _dry("reduce_scatter", src, group)
+    else:
+        t0 = time.perf_counter()
+        if _host("reduce_scatter", x, group):
+            out = _rs(src.cpu(), group).to(x.device)
+        else:
+            out = _rs(src, group)
+        _count("reduce_scatter", src, t0)
+    del src
+    return out.movedim(0, dim).contiguous()
 
 
 def all_to_all(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -253,7 +348,8 @@ def spans(axes: Sequence[str]) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the collectives under autograd (Megatron's f and g, and the vocab gather)
+# the collectives under autograd (Megatron's f and g, the vocab gather and
+# the gather of a piece along a dim)
 # ---------------------------------------------------------------------------
 # A Function whose backward makes a collective keeps the mesh its forward
 # ran under: the autograd engine runs a CUDA backward on a thread of its
@@ -291,6 +387,39 @@ class _GatherLast(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g.narrow(-1, ctx.lo, ctx.w).contiguous(), None, None
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, summed, mesh):
+        ctx.axes, ctx.dim, ctx.summed, ctx.mesh = axes, dim, summed, mesh
+        ctx.lo, ctx.w = mesh.flat_index(axes) * x.shape[dim], x.shape[dim]
+        return all_gather_dim(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        if not ctx.summed:
+            return (g.narrow(ctx.dim, ctx.lo, ctx.w).contiguous(), None,
+                    None, None, None)
+        with use_mesh(ctx.mesh):
+            return (reduce_scatter(g, ctx.axes, ctx.dim), None, None, None,
+                    None)
+
+
+def gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int,
+               summed: bool = True) -> torch.Tensor:
+    """The whole of ``x``, this rank's piece along ``dim`` of a tensor cut
+    over the mesh ``axes`` (``all_gather_dim``).  Under autograd the
+    gradient of the whole comes back as this rank's piece: with
+    ``summed``, of its sum over the axes (``reduce_scatter``: the ranks
+    along them computed on different rows, FSDP's weight gather, or only
+    on their own piece, the q heads of a ``"q_heads"`` decode), else the
+    rank's own slice (every rank computed the same whole)."""
+    if _group(axes) is None:
+        return x
+    axes = tuple(a for a in current_mesh().axis_names if a in tuple(axes))
+    return _GatherDim.apply(x, axes, dim, summed, current_mesh())
 
 
 def reduce_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

@@ -160,11 +160,12 @@ def axis_index(name: str) -> int:
 
 @dataclass(frozen=True)
 class TPLayout:
-    """Which weights a rank holds only a piece of over the mesh's "model"
-    axis (Megatron style), decided once per plan (``launch.steps.
-    plan_for``).  ``TransformerModel.shard_params`` cuts by it and the
-    model's layers reduce or gather exactly where it says; nothing infers
-    a cut from a weight's shape.  The default is one rank: nothing cut.
+    """Which weights a rank holds only a piece of, decided once per plan
+    (``launch.steps.plan_for``): over the mesh's "model" axis (Megatron
+    style) and over the FSDP axes.  ``TransformerModel.shard_params``
+    cuts by it and the model's layers gather, reduce or attend exactly
+    where it says; nothing infers a cut from a weight's shape.  The
+    default is one rank: nothing cut.
 
       * ``vocab``: ``embed["tok"]`` rows and ``embed["head"]`` columns —
         a masked lookup summed over "model", the logits gathered;
@@ -173,27 +174,66 @@ class TPLayout:
       * ``experts``: the MoE experts (expert parallelism, ``ep``);
       * ``attn``, per layer: ``"heads"`` (tp: ``wq``/``wk``/``wv``/``wo``
         and the pools by kv heads), ``"groups"`` (dp: ``wq``/``wo`` by
-        G/m heads of every kv group) or ``"whole"``; ``wo``'s partial
-        sums are reduced unless whole;
+        G/m heads of every kv group), ``"q_heads"`` (GSPMD's ``heads``
+        rule: ``wq``/``wo`` by H/m contiguous heads, ``wk``/``wv`` whole)
+        or ``"whole"``; ``wo``'s partial sums are reduced unless whole;
       * ``kv_heads``: the kv heads of a rank's decode pools (0: every
-        head of the model)."""
+        head of the model);
+      * ``fsdp``: the mesh axes of the logical ``embed`` axis under the
+        plan's rules (FSDP, ``("data",)`` for the configs that override
+        it; () for none): every weight's ``embed`` dim is cut over them
+        where they divide it (``logical_spec``'s law), and gathered
+        (``models.layers.gather_fsdp``) just before it is used."""
 
     vocab: bool = False
     mlp: bool = False
     experts: bool = False
     attn: Tuple[str, ...] = ()
     kv_heads: int = 0
+    fsdp: Tuple[str, ...] = ()
+
+    def cut(self, layer: int) -> str:
+        """Layer ``layer``'s entry of ``attn`` ("whole" with none)."""
+        return self.attn[layer] if self.attn else "whole"
 
     def row_parallel(self, layer: int) -> bool:
         """Whether layer ``layer``'s ``wo`` holds only this rank's heads."""
-        return bool(self.attn) and self.attn[layer] != "whole"
+        return self.cut(layer) != "whole"
 
     def rules(self) -> AxisRules:
         """The rule table that cuts the non-attention weights as this
         layout says (every other logical axis whole)."""
         on = {True: ("model",), False: None}
         return AxisRules({"vocab": on[self.vocab], "mlp": on[self.mlp],
-                          "experts": on[self.experts]})
+                          "experts": on[self.experts],
+                          "embed": self.fsdp or None})
+
+    def attn_rules(self, layer: int) -> AxisRules:
+        """The rule table of layer ``layer``'s attention weights: the
+        q heads over "model" unless whole, the kv heads too under
+        ``"heads"`` (under ``"groups"`` the head dim is cut, strided:
+        the spec says which dim, not which heads), ``embed`` over the
+        FSDP axes."""
+        cut = self.cut(layer)
+        return self.rules().extend(
+            heads=("model",) if cut != "whole" else None,
+            kv_heads=("model",) if cut == "heads" else None)
+
+
+def fsdp_dims(spec_tree, layout: TPLayout, mesh):
+    """Per ``ParamSpec`` leaf of ``spec_tree`` (a tree of dicts and
+    lists): the dim ``layout.fsdp`` cuts on ``mesh`` (``logical_spec`` of
+    its global shape), or None."""
+    from repro_torch.models.spec import ParamSpec
+    if isinstance(spec_tree, ParamSpec):
+        if not layout.fsdp:
+            return None
+        spec = logical_spec(spec_tree.axes, AxisRules(
+            {"embed": layout.fsdp}), mesh, spec_tree.shape)
+        return next((d for d, e in enumerate(spec) if e is not None), None)
+    if isinstance(spec_tree, dict):
+        return {k: fsdp_dims(v, layout, mesh) for k, v in spec_tree.items()}
+    return [fsdp_dims(v, layout, mesh) for v in spec_tree]
 
 
 def logical_spec(

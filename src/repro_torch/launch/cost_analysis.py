@@ -50,7 +50,8 @@ from repro_torch.utils.tree import tree_leaves
 
 # the port's collective ops by the JAX module's kinds
 KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-         "all_to_all": "all-to-all", "send_recv": "collective-permute"}
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+         "send_recv": "collective-permute"}
 _ALLOCS = {"empty", "empty_like", "empty_strided", "new_empty",
            "new_empty_strided"}
 _DEVICE = torch.ops.prim.device.default  # a metadata query, no data
@@ -198,10 +199,10 @@ def collective_bytes(stats: Dict[str, Any]) -> Dict[str, float]:
 
       all-gather:         (g−1)/g of the output (g inputs)
       all-reduce:         2 · (g−1)/g of the input
+      reduce-scatter:     in − out, (g−1)/g of the input
       all-to-all:         (g−1)/g of the input
       collective-permute: the input (one hop)
 
-    (reduce-scatter: no port collective makes one; kept at 0).
     ``within_node``: groups whose ranks share one node of ``NODE_GPUS``;
     ``beyond_node``: the rest."""
     out = dict.fromkeys(("all-gather", "all-reduce", "reduce-scatter",
@@ -215,7 +216,7 @@ def collective_bytes(stats: Dict[str, Any]) -> Dict[str, float]:
             sent = nbytes * g * (g - 1) / g
         elif kind == "all-reduce":
             sent = 2 * nbytes * (g - 1) / g
-        elif kind == "all-to-all":
+        elif kind in ("all-to-all", "reduce-scatter"):
             sent = nbytes * (g - 1) / g
         else:
             sent = float(nbytes)

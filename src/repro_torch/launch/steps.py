@@ -19,12 +19,14 @@ does, line for line:
 It also fixes the plan's ``layout`` (``distributed.sharding.TPLayout``):
 which weights each rank holds a piece of, which the model cuts and reads.
 The train plan's is the tensor-parallel cut (heads over "model" when it
-divides the kv heads, else q-head groups; ``d_ff`` and the vocab where
-the rules put them on "model").  The prefill plan's is the one the decode
-plan of the same config on the same mesh has, so that the state a rank
-prefills is the state ``shard_decode_state`` takes: the JAX prefill plan
-shards the pools' head_dim over "model" instead (a reshard at the phase
-boundary that the port does not make).
+divides the kv heads, else q-head groups when it divides the group, else
+GSPMD's contiguous q heads; ``d_ff`` and the vocab where the rules put
+them on "model"), and every plan's ``embed`` dims over the FSDP axes of
+its rules (the configs' ``embed: ("data",)`` override).  The prefill
+plan's is the one the decode plan of the same config on the same mesh
+has, so that the state a rank prefills is the state ``shard_decode_state``
+takes: the JAX prefill plan shards the pools' head_dim over "model"
+instead (a reshard at the phase boundary that the port does not make).
 
 Every builder returns JAX's 4-tuple ``(step, args, specs, model)``:
 ``args`` are stand-ins of the global inputs on the ``meta`` device and
@@ -34,9 +36,11 @@ plan=)`` or ``shard_params``), its rows of the batch (``shard_batch``)
 and its state.
 
   * ``build_train_step`` — loss, gradients, global-norm clipping and
-    AdamW, plain or over ``plan.microbatches`` with f32 accumulation;
-    data-parallel over the batch axes (the loss is each rank's part of
-    the global mean, the gradients summed), tensor-parallel over "model"
+    AdamW in place (the state is donated, as the JAX step's is), plain or
+    over ``plan.microbatches`` with f32 accumulation of each rank's
+    pieces; data-parallel over the batch axes (the loss is each rank's
+    part of the global mean, the gradients summed: an FSDP piece's by the
+    reduce-scatter of its gather), tensor-parallel over "model"
     (Megatron's f and g through ``distributed.collectives``), the
     activations whole between blocks;
   * ``build_prefill_step`` — each rank prefills its rows with its heads
@@ -44,11 +48,12 @@ and its state.
   * ``build_serve_step`` — one decode token per sequence.
 
 The spec trees depart from the JAX ones where the port holds something
-else than GSPMD would: ``embed`` is never cut over "data" (the FSDP
-override of the big configs is a GSPMD layout; ``shard_params`` keeps it
-whole), the kv projections are cut with the q heads under the ``"heads"``
-cut, the experts stay whole (expert parallelism is a decode layout), and
-the prefill pools follow the decode layout (above).
+else than GSPMD would: the kv projections are cut with the q heads under
+the ``"heads"`` cut, the ``"groups"`` cut takes G/m heads of every group
+(strided) where GSPMD takes H/m contiguous ones, the experts stay whole
+(expert parallelism is a decode layout), and the prefill pools follow
+the decode layout (above).  ``embed`` over the FSDP axes and ``wq``/``wo``
+by contiguous heads (``"q_heads"``) are GSPMD's.
 """
 
 from __future__ import annotations
@@ -186,15 +191,21 @@ def _decode_scheme(cfg: ModelConfig, model_size: int,
 
 def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
             m: int) -> TPLayout:
-    """Which weights a rank of the "model" axis holds a piece of: the
-    vocab, ``d_ff`` and the experts (under ``moe_ep``) where the rules put
-    them on "model" alone and it divides them; per layer, the heads under
-    tp, and under dp (a windowed layer of a kvp plan too) the q heads of
-    every group when ``m`` divides the group."""
+    """Which weights a rank holds a piece of: over "model", the vocab,
+    ``d_ff`` and the experts (under ``moe_ep``) where the rules put them
+    on "model" alone and it divides them; per ``A``/``W`` layer, the heads
+    under tp, under dp (a windowed layer of a kvp plan too) the q heads
+    of every group when ``m`` divides the group, else (kvp, and dp where
+    ``m`` divides no group) ``m``'s contiguous share of the q heads when
+    it divides them; over the FSDP axes (the mesh axes of ``embed`` under
+    the rules, when they hold more than one rank) every ``embed`` dim."""
     from repro_torch.distributed.collectives import layer_scheme
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+    fsdp = tuple(a for a in rules.physical("embed") or () if a in sizes)
+    fsdp = fsdp if math.prod(sizes[a] for a in fsdp) > 1 else ()
     if m == 1:
         return TPLayout(attn=("whole",) * cfg.n_layers,
-                        kv_heads=cfg.n_kv_heads)
+                        kv_heads=cfg.n_kv_heads, fsdp=fsdp)
 
     def on_model(axis: str, dim: int) -> bool:
         return logical_spec((axis,), rules, mesh, (dim,)) == P("model")
@@ -203,16 +214,18 @@ def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
     attn = []
     for code in cfg.pattern():
         s = layer_scheme(scheme, cfg.window if code == "W" else 0)
-        attn.append("heads" if s == "tp" and code in "AW"
-                    else "groups" if s == "dp" and code in "AW"
-                    and G % m == 0 else "whole")
+        attn.append("whole" if code not in "AW"
+                    else "heads" if s == "tp"
+                    else "groups" if s == "dp" and G % m == 0
+                    else "q_heads" if cfg.n_heads % m == 0 else "whole")
     return TPLayout(
         vocab=on_model("vocab", cfg.vocab_size),
         mlp=bool(cfg.d_ff) and on_model("mlp", cfg.d_ff),
         experts=cfg.moe_ep and cfg.is_moe and on_model(
             "experts", cfg.n_experts),
         attn=tuple(attn),
-        kv_heads=cfg.n_kv_heads // m if scheme == "tp" else cfg.n_kv_heads)
+        kv_heads=cfg.n_kv_heads // m if scheme == "tp" else cfg.n_kv_heads,
+        fsdp=fsdp)
 
 
 # ---------------------------------------------------------------------------
@@ -248,30 +261,30 @@ def spec_leaves(tree) -> list:
     return [x for t in tree for x in spec_leaves(t)]
 
 
-def param_specs(model, plan: Plan):
+def param_specs(model, plan: Plan, fsdp: Optional[Tuple[str, ...]] = None):
     """The spec tree of the pieces ``model.shard_params(params, plan)``
-    keeps (Megatron style, by ``plan.layout``): the vocab, ``d_ff`` and
-    (under ``moe_ep``) the experts over "model" as the layout says;
-    attention by layer — ``"heads"``: ``wq``/``wk``/``wv`` by heads and
-    ``wo`` by its head rows, ``"groups"``: ``wq``/``wo`` by G/m heads of
-    every kv group (the spec says that the head dim is cut, not which
-    heads), ``"whole"``; every other weight whole."""
+    keeps, by ``plan.layout``: the vocab, ``d_ff`` and (under ``moe_ep``)
+    the experts over "model" as the layout says; attention by layer
+    (``TPLayout.attn_rules``) — ``"heads"``: ``wq``/``wk``/``wv`` by heads
+    and ``wo`` by its head rows, ``"groups"`` and ``"q_heads"``:
+    ``wq``/``wo`` by heads (under ``"groups"`` G/m of every kv group: the
+    spec says that the head dim is cut, not which heads), ``"whole"``;
+    every ``embed`` dim over the layout's FSDP axes, or over ``fsdp``
+    when given (the moments of ``train_state_shardings``)."""
+    lay = plan.layout if fsdp is None else dataclasses.replace(
+        plan.layout, fsdp=fsdp)
     spec = model.param_spec()
-    rules = plan.layout.rules()
-    out = {k: resolve_specs(v, rules, plan.mesh)
+    out = {k: resolve_specs(v, lay.rules(), plan.mesh)
            for k, v in spec.items() if k != "layers"}
     if "layers" not in spec:
         return out
     out["layers"] = []
     for li, ls in enumerate(spec["layers"]):
-        d = {k: resolve_specs(v, rules, plan.mesh)
+        d = {k: resolve_specs(v, lay.rules(), plan.mesh)
              for k, v in ls.items() if k != "attn"}
         if "attn" in ls:
-            cut = plan.layout.attn[li] if plan.layout.attn else "whole"
-            heads = P(None, "model") if cut != "whole" else P()
-            kv = heads if cut == "heads" else P()
-            d["attn"] = {"wq": heads, "wk": kv, "wv": kv,
-                         "wo": P("model") if cut != "whole" else P()}
+            d["attn"] = resolve_specs(ls["attn"], lay.attn_rules(li),
+                                      plan.mesh)
         out["layers"].append(d)
     return out
 
@@ -280,37 +293,27 @@ def train_state_shardings(model, plan: Plan) -> TrainState:
     """Specs of the train state each rank holds: its params' pieces
     (``param_specs``), the AdamW moments alike, the counters whole.
     Under ``plan.zero_pod`` on a mesh with "pod" (ZeRO-1 over pods, the
-    JAX rule) each moment's ``embed`` dim is cut over "pod" as well,
-    where "pod" divides it and cuts no other dim of the leaf; the params
-    stay whole over "pod"."""
+    JAX rule) each moment's ``embed`` dim is cut over ("pod", *the FSDP
+    axes*) in that order, where they divide it together (else it stays
+    the params' cut); the params stay whole over "pod"."""
     p = param_specs(model, plan)
     mom = p
-    if plan.zero_pod and "pod" in plan.mesh.axis_names:
-        mom = _pod_cut(model.param_spec(), p, plan.mesh)
+    fsdp = plan.layout.fsdp
+    if plan.zero_pod and "pod" in plan.mesh.axis_names and "pod" not in fsdp:
+        mom = param_specs(model, plan, ("pod",) + fsdp)
     return TrainState(params=p, opt=AdamWState(mu=mom, nu=mom, count=P()),
                       step=P())
 
 
-def _pod_cut(spec_tree, specs, mesh):
-    """``specs`` with "pod" added after the axes of each leaf's first
-    ``embed`` dim: the rank's piece of its params' piece along that dim,
-    where "pod" divides it."""
-    from repro_torch.models.spec import ParamSpec
-    if isinstance(spec_tree, ParamSpec):
-        if "embed" not in spec_tree.axes or _cuts(specs, "pod"):
-            return specs
-        d = spec_tree.axes.index("embed")
-        entries = list(specs) + [None] * (len(spec_tree.shape) - len(specs))
-        have = (entries[d] if isinstance(entries[d], tuple)
-                else (entries[d],) if entries[d] else ())
-        piece = spec_tree.shape[d] // math.prod(mesh.size(a) for a in have)
-        if piece % mesh.size("pod"):
-            return specs
-        entries[d] = _entry(have + ("pod",))
-        return _spec(*entries)
-    if isinstance(spec_tree, dict):
-        return {k: _pod_cut(spec_tree[k], specs[k], mesh) for k in specs}
-    return [_pod_cut(a, b, mesh) for a, b in zip(spec_tree, specs)]
+def _axes_at(spec: P, dim: int) -> Tuple[str, ...]:
+    """The mesh axes of entry ``dim`` of ``spec`` (() past its end)."""
+    e = spec[dim] if dim < len(spec) else None
+    return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+
+
+def _cut_axes(spec: P, mesh) -> Tuple[str, ...]:
+    """The mesh axes that cut some dim of ``spec``, in the mesh's order."""
+    return tuple(a for a in mesh.axis_names if _cuts(spec, a))
 
 
 def batch_shardings(run: RunConfig, plan: Plan) -> Dict[str, P]:
@@ -420,14 +423,21 @@ def train_grads(model, plan: Plan) -> Callable:
     parts whose gradients are accumulated in f32 and divided by mb (the
     JAX body).  Over the batch axes each rank's loss is its part of the
     global mean (``layers.xent``; the MoE aux loss is the whole batch's)
-    and the gradients are summed over them; over "model" each rank
-    computes its heads, ``d_ff`` columns and vocab slice.  ``loss`` and
-    ``parts`` (``ce``, ``aux``) are the global batch's."""
+    and the gradients are summed over them — an FSDP piece's over the
+    batch axes off the FSDP axes only, the reduce-scatter of its gather
+    having summed it over those; over "model" each rank computes its
+    heads, ``d_ff`` columns and vocab slice.  The accumulator and the
+    gradients are the rank's pieces.  ``loss`` and ``parts`` (``ce``,
+    ``aux``) are the global batch's."""
     from repro_torch.distributed.collectives import all_reduce, spans
     from repro_torch.training.loop import loss_and_grads
     ctx = plan.attn_ctx if _n_ranks(plan.mesh) > 1 else None
     mb, ba = plan.microbatches, tuple(plan.batch_axes)
     coef = plan.run.model.router_aux_coef
+    fsdp = set(plan.layout.fsdp)
+    # per leaf, the batch axes its gradient is still to be summed over
+    sums = [tuple(a for a in ba if not (a in fsdp and _cuts(s, a)))
+            for s in spec_leaves(param_specs(model, plan))]
 
     def grads_of(params, batch):
         with use_mesh(plan.mesh, plan.rules):
@@ -451,7 +461,9 @@ def train_grads(model, plan: Plan) -> Callable:
                 loss = loss / mb
                 parts = {k: v / mb for k, v in parts.items()}
             if spans(ba):
-                grads = tree_map(lambda g: all_reduce(g, ba), grads)
+                grads = tree_unflatten(grads, [
+                    all_reduce(g, axes) for g, axes in zip(
+                        tree_leaves(grads), sums)])
                 parts["ce"] = all_reduce(parts["ce"], ba)
                 loss = parts["ce"] + coef * parts["aux"]
         return loss, parts, grads
@@ -464,51 +476,70 @@ def build_train_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
     """``step(state, batch) -> (state', metrics)`` on this rank's train
     state and rows (``shard_batch``), at learning rate ``lr`` (the rate
     the JAX builder fixes, by default): ``train_grads``, then global-norm
-    clipping at 1.0 (each sharded leaf's pieces summed over "model") and
-    AdamW.  Under ``plan.zero_pod`` (ZeRO-1 over pods) each pod rank
-    updates the ``embed`` slice of every leaf whose moments it holds cut
-    (``train_state_shardings``) and an ``all_gather`` over "pod" rebuilds
-    the params: the numbers of the plain step.  ``metrics``: ``loss``,
-    ``grad_norm``, ``ce`` and ``aux``, the global batch's."""
-    from repro_torch.training.optimizer import (adamw_update,
+    clipping at 1.0 (each leaf's squares summed over every mesh axis
+    that cuts it) and AdamW in place (``adamw_update_``): ``state`` is
+    donated, as the JAX step donates its state — ``state'`` holds the
+    same storages, updated, and the caller's ``state`` is no longer the
+    one before the step.  Under ``plan.zero_pod`` (ZeRO-1 over pods) each
+    rank updates the slice of every leaf whose moments it holds cut
+    (``train_state_shardings``: over ("pod", *the FSDP axes*), of which
+    its params hold the slice over the FSDP axes) and an ``all_gather``
+    over the moments' axes rebuilds its params' piece: the numbers of
+    the plain step.  ``metrics``: ``loss``, ``grad_norm``, ``ce`` and
+    ``aux``, the global batch's."""
+    from repro_torch.training.optimizer import (adamw_update_,
                                                 clip_by_global_norm)
     model = build_model(run.model)
     check_impl(plan.attn_impl, TRAIN_IMPLS, "build_train_step")
     specs = {"state": train_state_shardings(model, plan),
              "batch": batch_shardings(run, plan)}
-    sharded = [_cuts(s, "model") for s in spec_leaves(specs["state"].params)]
-    # per leaf, the dim its moments are cut along over "pod" (None: whole)
-    pod_dims = [next((d for d, e in enumerate(m) if _cuts(P(e), "pod")),
-                     None) for m in spec_leaves(specs["state"].opt.mu)]
+    mesh = plan.mesh
+    pspecs = spec_leaves(specs["state"].params)
+    cut_axes = [_cut_axes(s, mesh) for s in pspecs]
+    # per leaf whose moments are cut further than its params: the dim and
+    # the params' and the moments' axes along it
+    zero = [next(((d, _axes_at(ps, d), _axes_at(ms, d))
+                  for d in range(max(len(ps), len(ms)))
+                  if _axes_at(ps, d) != _axes_at(ms, d)), None)
+            for ps, ms in zip(pspecs, spec_leaves(specs["state"].opt.mu))]
     grads_of = train_grads(model, plan)
 
-    def update(grads, state: TrainState):
-        if not any(d is not None for d in pod_dims):
-            return adamw_update(grads, state.opt, state.params, lr=lr)
-        from repro_torch.distributed.collectives import all_gather
-        n, i = plan.mesh.size("pod"), plan.mesh.index("pod")
-
-        def cut(tree):
-            return tree_unflatten(tree, [
-                x if d is None else x.narrow(d, i * (x.shape[d] // n),
-                                             x.shape[d] // n)
-                for x, d in zip(tree_leaves(tree), pod_dims)])
-
-        new_p, new_opt = adamw_update(cut(grads), state.opt,
-                                      cut(state.params), lr=lr)
-        with use_mesh(plan.mesh, plan.rules):
-            whole = [x if d is None else torch.cat(
-                list(all_gather(x, ("pod",))), dim=d)
-                for x, d in zip(tree_leaves(new_p), pod_dims)]
-        return tree_unflatten(new_p, whole), new_opt
+    def update(grads, state: TrainState) -> AdamWState:
+        if not any(zero):
+            return adamw_update_(grads, state.opt, state.params, lr=lr)
+        from repro_torch.distributed.collectives import all_gather_dim
+        opt = state.opt
+        with use_mesh(mesh, plan.rules):
+            # leaf by leaf, so that one leaf's gathered copies are alive
+            # at a time
+            for g, p, m, v, z in zip(
+                    tree_leaves(grads), tree_leaves(state.params),
+                    tree_leaves(opt.mu), tree_leaves(opt.nu), zero):
+                one = AdamWState(mu=[m], nu=[v], count=opt.count)
+                if z is None:
+                    adamw_update_([g], one, [p], lr=lr)
+                    continue
+                d, pa, ma = z
+                # the param and gradient along d as whole as the moments'
+                # cut needs, then the moments' slice of them
+                g_w, p_w = all_gather_dim(g, pa, d), all_gather_dim(p, pa, d)
+                w = p_w.shape[d] // mesh.prod(ma)
+                lo = mesh.flat_index(ma) * w
+                x = p_w.narrow(d, lo, w)
+                adamw_update_([g_w.narrow(d, lo, w)], one, [x], lr=lr)
+                del g_w
+                n = p.shape[d]
+                p.copy_(all_gather_dim(x, ma, d).narrow(
+                    d, mesh.flat_index(pa) * n, n))
+        return AdamWState(mu=opt.mu, nu=opt.nu, count=opt.count + 1)
 
     def step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         loss, parts, grads = grads_of(state.params, batch)
-        with use_mesh(plan.mesh, plan.rules):
-            grads, gnorm = clip_by_global_norm(grads, 1.0, sharded)
-        new_p, new_opt = update(grads, state)
+        with use_mesh(mesh, plan.rules):
+            grads, gnorm = clip_by_global_norm(grads, 1.0, cut_axes)
+        opt = update(grads, state)
         metrics = {"loss": loss, "grad_norm": gnorm, **parts}
-        return TrainState(new_p, new_opt, state.step + 1), metrics
+        return TrainState(state.params, opt, state.step + 1), metrics
 
     args = {"state": abstract_train_state(model, dtype, moment_dtype),
             "batch": abstract_batch(run, dtype)}

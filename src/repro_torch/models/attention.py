@@ -76,6 +76,24 @@ def _out(p: Dict, o: torch.Tensor, row_parallel: bool = False
     return layers.row_parallel_matmul(o, wo) if row_parallel else o @ wo
 
 
+def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Under the ``"q_heads"`` cut: the kv heads (dim -2 of k/v, every kv
+    head of the model) that this rank's H/m contiguous q heads over
+    "model" read, grouped for them — the rank's whole groups when its
+    heads hold some, the one group its heads lie in when they nest in
+    one, else each q head's own kv head (G 1)."""
+    from repro_torch.distributed.sharding import axis_index, axis_size
+    m, r = axis_size("model"), axis_index("model")
+    G, h = n_heads // k.shape[-2], n_heads // m
+    lo = r * h
+    if h % G == 0 or G % h == 0:
+        n = max(h // G, 1)
+        return k.narrow(-2, lo // G, n), v.narrow(-2, lo // G, n)
+    idx = torch.arange(lo, lo + h, device=k.device) // G
+    return k.index_select(-2, idx), v.index_select(-2, idx)
+
+
 def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                window: int = 0, lens: Optional[torch.Tensor] = None,
                causal: bool = True, impl: str = "kernel",
@@ -86,20 +104,23 @@ def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     the full mask (the encoder); K4 under ``impl="kernel"``, the chunked
     online softmax under ``impl="chunked"``.
 
-    ``cut``: the layer's entry of ``TPLayout.attn``.  Under ``"heads"``
-    and ``"groups"`` the weights hold this rank's heads, ``wo``'s partial
-    sums are reduced over "model", and under autograd the gradient of
-    ``x`` is summed over "model" (Megatron's f); under ``"groups"`` so is
-    the gradient of the replicated ``wk``/``wv``, which feed only this
-    rank's heads."""
+    ``cut``: the layer's entry of ``TPLayout.attn``.  Under ``"heads"``,
+    ``"groups"`` and ``"q_heads"`` the weights hold this rank's heads,
+    ``wo``'s partial sums are reduced over "model", and under autograd
+    the gradient of ``x`` is summed over "model" (Megatron's f); under
+    ``"groups"`` and ``"q_heads"`` so is the gradient of the replicated
+    ``wk``/``wv``, which feed only this rank's heads (under
+    ``"q_heads"`` through the kv heads they read, ``_rank_kv``)."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if cut != "whole":
         x = layers.copy_model(x)
-    if cut == "groups":
+    if cut in ("groups", "q_heads"):
         p = dict(p, wk=layers.copy_model(p["wk"]),
                  wv=layers.copy_model(p["wv"]))
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
+    if cut == "q_heads":
+        k, v = _rank_kv(k, v, cfg.n_heads)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     causal=causal, impl=impl)
     return _out(p, o, row_parallel=cut != "whole")
@@ -109,19 +130,24 @@ def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                  tables: torch.Tensor, lens: torch.Tensor, *,
                  window: int = 0, impl: str = "kernel",
-                 row_parallel: bool = False) -> torch.Tensor:
+                 cut: str = "whole") -> torch.Tensor:
     """Prefill: attend over the prompt AND write K/V into the paged pools
-    (in place).  ``tables``: (B, n_kv_shards, pages_per_shard).
-    ``row_parallel``: the weights hold this rank's heads (``_out``)."""
+    (in place).  ``tables``: (B, n_kv_shards, pages_per_shard).  ``cut``:
+    the layer's entry of ``TPLayout.attn`` (``attn_train``); under
+    ``"q_heads"`` every kv head of the rows goes into the pools (the
+    decode layout) and the rank's heads attend over the ones they
+    read."""
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
     kvcache.write_layer_prefill(k_pages, v_pages, tables.reshape(B, -1),
                                 kv_quant(cfg, k), kv_quant(cfg, v), lens,
                                 window=window)
+    if cut == "q_heads":
+        k, v = _rank_kv(k, v, cfg.n_heads)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     impl=impl)
-    return _out(p, o, row_parallel)
+    return _out(p, o, cut != "whole")
 
 
 def attn_prefill_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -191,7 +217,7 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 pages_per_block: Optional[int] = None,
                 num_splits: Optional[int] = None,
                 attn_ctx: Optional[Dict] = None,
-                row_parallel: bool = False) -> torch.Tensor:
+                cut: str = "whole") -> torch.Tensor:
     """Decode one token.  x: (B, d); positions: (B,) 0-based position of
     the incoming token; tables: (B, n_kv_shards, pages_per_shard).
     Appends K/V to the pools (in place), then attends over
@@ -201,10 +227,17 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     selects the distribution scheme under the active mesh
     (``distributed.collectives``); windowed layers decode kvp as dp (ring
     pools are never striped).  The rank's q heads (its slice of ``wq``)
-    are grouped over the kv heads its pools hold.  ``row_parallel``: the
-    weights hold this rank's heads (``_out``)."""
+    are grouped over the kv heads its pools hold.  ``cut``: the layer's
+    entry of ``TPLayout.attn``; under ``"q_heads"`` (kvp, or dp where the
+    model axis divides no group) the rank's heads are gathered over
+    "model", every head attends over the rank's pools (its page stripe
+    under kvp, merged across the stripes), and the rank keeps its heads'
+    output for ``wo`` (GSPMD around JAX's kvp ``shard_map``, whose q
+    enters whole)."""
     from repro_torch.distributed.collectives import (
-        decode_attention_sharded, layer_scheme, write_decode_sharded)
+        decode_attention_sharded, gather_dim, layer_scheme,
+        write_decode_sharded)
+    from repro_torch.distributed.sharding import axis_index
     ctx = attn_ctx or {}
     scheme = layer_scheme(ctx.get("scheme", "local"), window)
     batch_axes = tuple(ctx.get("batch_axes", ()))
@@ -213,6 +246,9 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     write_decode_sharded(k_pages, v_pages, tables, positions,
                          kv_quant(cfg, k), kv_quant(cfg, v), window=window,
                          scheme=scheme, batch_axes=batch_axes)
+    h = q.shape[1]
+    if cut == "q_heads":
+        q = gather_dim(q, ("model",), 1)
     n_kv = k_pages.shape[2]
     o = decode_attention_sharded(
         q.reshape(B, n_kv, q.shape[1] // n_kv, q.shape[2]), k_pages,
@@ -220,7 +256,10 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         scheme=scheme, batch_axes=batch_axes, impl=impl,
         kv_scale=cfg.kv_scale if cfg.kv_dtype == "int8" else 0.0,
         pages_per_block=pages_per_block, num_splits=num_splits)
-    return _out(p, o.reshape(q.shape), row_parallel)
+    o = o.reshape(q.shape)
+    if cut == "q_heads":
+        o = o.narrow(1, axis_index("model") * h, h)
+    return _out(p, o, cut != "whole")
 
 
 def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -241,7 +280,7 @@ def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                       state: Dict, i: int, lens: torch.Tensor, *,
                       window: int = 0, impl: str = "kernel",
-                      row_parallel: bool = False) -> torch.Tensor:
+                      cut: str = "whole") -> torch.Tensor:
     """Prefill attention of attention layer ``i`` of ``state``: into the
     contiguous baseline's buffers (``state["k_buf"]``, rows
     ``state["slots"]``) when the state holds them, else into the paged
@@ -252,7 +291,7 @@ def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
             lens, window=window, impl=impl)
     return attn_prefill(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
                         state["tables"], lens, window=window, impl=impl,
-                        row_parallel=row_parallel)
+                        cut=cut)
 
 
 def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -261,7 +300,7 @@ def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                      pages_per_block: Optional[int] = None,
                      num_splits: Optional[int] = None,
                      attn_ctx: Optional[Dict] = None,
-                     row_parallel: bool = False) -> torch.Tensor:
+                     cut: str = "whole") -> torch.Tensor:
     """One decode step of attention layer ``i`` of ``state`` at
     ``state["pos"]``: over the contiguous baseline's buffers when the
     state holds them, else over the paged pools."""
@@ -272,8 +311,7 @@ def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return attn_decode(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
                        state["tables"], pos, window=window, impl=impl,
                        pages_per_block=pages_per_block,
-                       num_splits=num_splits, attn_ctx=attn_ctx,
-                       row_parallel=row_parallel)
+                       num_splits=num_splits, attn_ctx=attn_ctx, cut=cut)
 
 
 def cross_kv(p: Dict, ctx: torch.Tensor

@@ -117,6 +117,31 @@ def copy_model(x: torch.Tensor) -> torch.Tensor:
     return copy_in(x, ("model",))
 
 
+def gather_fsdp(p, spec_tree, layout, batch_axes: Tuple[str, ...] = ()):
+    """The whole weights of ``p``, a tree of this rank's pieces cut over
+    ``layout.fsdp`` (``TPLayout``; ``spec_tree`` its ``ParamSpec`` tree),
+    gathered leaf by leaf along each one's cut dim
+    (``collectives.gather_dim``) just before they are used; every other
+    cut (over "model") stays.  Under autograd each gradient comes back as
+    the rank's piece, summed over the FSDP axes where they carry
+    different rows (``batch_axes``; FSDP's reduce-scatter).  ``p`` as it
+    is without FSDP."""
+    if not layout.fsdp:
+        return p
+    from repro_torch.distributed.collectives import gather_dim
+    from repro_torch.distributed.sharding import current_mesh, fsdp_dims
+    summed = set(layout.fsdp) <= set(batch_axes)
+
+    def walk(x, d):
+        if isinstance(x, dict):
+            return {k: walk(v, d[k]) for k, v in x.items()}
+        if isinstance(x, list):
+            return [walk(v, e) for v, e in zip(x, d)]
+        return x if d is None else gather_dim(x, layout.fsdp, d, summed)
+
+    return walk(p, fsdp_dims(spec_tree, layout, current_mesh()))
+
+
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` for a ``w`` that holds this rank's rows of the contraction
     (row-parallel), summed over "model", in ``x``'s dtype.  The rank's

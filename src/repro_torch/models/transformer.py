@@ -67,7 +67,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (P, TPLayout, current_mesh,
-                                              shard_params, shard_tensor)
+                                              current_rules, shard_params,
+                                              shard_tensor, use_mesh)
 from repro_torch.errors import InvalidRequest, UnsupportedFeature
 from repro_torch.kernels import check_impl
 from repro_torch.models import attention as attn
@@ -208,21 +209,23 @@ class TransformerModel:
 
     # -- tensor parallelism -------------------------------------------------
     def shard_params(self, params: Dict, plan) -> Dict:
-        """This rank's pieces of full ``params`` for serving under ``plan``
-        (Megatron style; the JAX package leaves the layout to GSPMD), cut
+        """This rank's pieces of full ``params`` under ``plan`` (Megatron
+        style and FSDP; the JAX package leaves the layout to GSPMD), cut
         as ``plan.layout`` (``distributed.sharding.TPLayout``) says:
 
           * ``embed``: the vocab over "model" when it divides, else whole;
           * attention, per layer: ``"heads"`` — ``wq``/``wk``/``wv`` by
             heads (q and kv), ``wo`` by the same heads; ``"groups"`` — the
             kv projections whole, ``wq``/``wo`` by G/m heads of every
-            group; ``"whole"``;
+            group; ``"q_heads"`` — ``wq``/``wo`` by H/m contiguous heads,
+            the kv projections whole; ``"whole"``;
           * MLP: ``wg``/``wu`` by columns of ``d_ff``, ``wd`` by rows;
           * MoE: the experts over "model" (expert parallelism), the
             router whole;
-          * norms whole.  "embed" (FSDP over "data") is not sharded: the
-            JAX configs' override is a GSPMD layout the port does not
-            run."""
+          * every weight's ``embed`` dim over ``layout.fsdp`` (FSDP, the
+            configs' ``embed: ("data",)`` override) where it divides it,
+            norms included; the model gathers each such piece just before
+            it uses it (``layers.gather_fsdp``)."""
         self._check_distributable()
         spec = self.param_spec()
         return {k: [self._shard_layer(li, p, plan)
@@ -239,30 +242,46 @@ class TransformerModel:
 
     def _shard_layer(self, li: int, p: Dict, plan) -> Dict:
         mesh, lay = plan.mesh, plan.layout
+        spec = layer_spec(self.codes[li], self.cfg)
         rest = {k: v for k, v in p.items() if k != "attn"}
-        out = shard_params(rest, {k: v for k, v in layer_spec(
-            self.codes[li], self.cfg).items() if k != "attn"}, mesh,
-            lay.rules())
-        a = p["attn"]
-        if lay.attn[li] == "heads":
-            heads = P(None, "model")
-            out["attn"] = {"wq": shard_tensor(a["wq"], heads, mesh),
-                           "wk": shard_tensor(a["wk"], heads, mesh),
-                           "wv": shard_tensor(a["wv"], heads, mesh),
-                           "wo": shard_tensor(a["wo"], P("model"), mesh)}
-        elif lay.attn[li] == "groups":
-            d, H, hd = a["wq"].shape
-            Hkv = self.cfg.n_kv_heads
-            G, m = H // Hkv, mesh.size("model")
-            wq = shard_tensor(a["wq"].reshape(d, Hkv, G, hd),
-                              P(None, None, "model"), mesh)
-            wo = shard_tensor(a["wo"].reshape(Hkv, G, hd, d),
-                              P(None, "model"), mesh)
-            out["attn"] = {"wq": wq.reshape(d, H // m, hd), "wk": a["wk"],
-                           "wv": a["wv"], "wo": wo.reshape(H // m, hd, d)}
-        else:
-            out["attn"] = dict(a)
+        out = shard_params(rest, {k: v for k, v in spec.items()
+                                  if k != "attn"}, mesh, lay.rules())
+        if lay.attn[li] != "groups":
+            out["attn"] = shard_params(p["attn"], spec["attn"], mesh,
+                                       lay.attn_rules(li))
+            return out
+        # the strided cut: G/m heads of every kv group (the FSDP cut of
+        # the embed dims first, which the head cut does not touch)
+        a = shard_params(p["attn"], spec["attn"], mesh, lay.rules())
+        d, H, hd = a["wq"].shape
+        Hkv = self.cfg.n_kv_heads
+        G, m = H // Hkv, mesh.size("model")
+        wq = shard_tensor(a["wq"].reshape(d, Hkv, G, hd),
+                          P(None, None, "model"), mesh)
+        e = a["wo"].shape[-1]
+        wo = shard_tensor(a["wo"].reshape(Hkv, G, hd, e), P(None, "model"),
+                          mesh)
+        out["attn"] = {"wq": wq.reshape(d, H // m, hd), "wk": a["wk"],
+                       "wv": a["wv"], "wo": wo.reshape(H // m, hd, e)}
         return out
+
+    def _gather_layer(self, li: int, p: Dict, lay: TPLayout,
+                      batch_axes: Tuple[str, ...] = ()) -> Dict:
+        """Layer ``li``'s weights whole where ``lay.fsdp`` cuts them,
+        gathered just before use (``layers.gather_fsdp``)."""
+        if not lay.fsdp:
+            return p
+        return layers.gather_fsdp(p, layer_spec(self.codes[li], self.cfg),
+                                  lay, batch_axes)
+
+    def _gather_top(self, params: Dict, key: str, lay: TPLayout,
+                    batch_axes: Tuple[str, ...] = ()) -> Dict:
+        """``params[key]`` (``"embed"``, ``"ln_f"``), gathered alike."""
+        if not lay.fsdp:
+            return params[key]
+        spec = {"embed": layers.embed_spec, "ln_f": layers.norm_spec}[key]
+        return layers.gather_fsdp(params[key], spec(self.cfg), lay,
+                                  batch_axes)
 
     def init_decode_state(self, run, dtype=torch.float32, device="cuda",
                           plan=None) -> Dict:
@@ -350,11 +369,12 @@ class TransformerModel:
         batch's)."""
         cfg = self.cfg
         code = self.codes[li]
+        p = self._gather_layer(li, p, lay, batch_axes)
         h = layers.apply_norm(p["ln1"], x)
         if code in ATTN_CODES:
             x = x + attn.attn_train(p["attn"], h, cfg,
                                     window=self.windows[li], impl=impl,
-                                    cut=lay.attn[li] if lay.attn else "whole")
+                                    cut=lay.cut(li))
         elif code == "C":
             x = x + self._cross(p, h, *attn.cross_kv(p["attn"], img))
         else:
@@ -402,21 +422,29 @@ class TransformerModel:
         ``attn_ctx``: a train plan's (``launch.steps.Plan.attn_ctx``) under
         its mesh: ``params`` are this rank's pieces (``layout``: heads,
         ``d_ff`` columns and the vocab over "model", Megatron style, the
-        activations whole between blocks) and ``tokens`` its rows of a
+        activations whole between blocks; ``embed`` dims over the FSDP
+        axes, each layer's gathered just before it runs and, under
+        ``remat``, again in the backward) and ``tokens`` its rows of a
         batch over ``batch_axes``.  Models of ``A`` and ``W`` layers."""
         check_impl(impl, TRAIN_IMPLS, "forward")
         cfg = self.cfg
         lay, batch_axes = self._train_ctx(attn_ctx)
         img = self.project_extra(params, extra)
-        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
+        x = layers.embed_tokens(
+            self._gather_top(params, "embed", lay, batch_axes), tokens,
+            lay.vocab)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        # a recomputed unit runs on the backward's thread: it re-enters
+        # the mesh its forward ran under
+        mesh, rules = current_mesh(), current_rules()
 
         def run(lo, hi, x, aux):
-            for li in range(lo, hi):
-                x, a = self._train_layer(li, params["layers"][li], x, img,
-                                         impl, lay, batch_axes)
-                if a is not None:
-                    aux = aux + a
+            with use_mesh(mesh, rules):
+                for li in range(lo, hi):
+                    x, a = self._train_layer(li, params["layers"][li], x,
+                                             img, impl, lay, batch_axes)
+                    if a is not None:
+                        aux = aux + a
             return x, aux
 
         unit = len(cfg.layer_pattern)
@@ -428,8 +456,11 @@ class TransformerModel:
             else:
                 x, aux = run(lo, lo + unit, x, aux)
         x, aux = run(n_grouped, len(self.codes), x, aux)
-        x = layers.apply_norm(params["ln_f"], x)
-        return layers.unembed(params["embed"], x, cfg, lay.vocab), aux
+        x = layers.apply_norm(
+            self._gather_top(params, "ln_f", lay, batch_axes), x)
+        return layers.unembed(
+            self._gather_top(params, "embed", lay, batch_axes), x, cfg,
+            lay.vocab), aux
 
     def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref",
                 attn_ctx: Optional[Dict] = None
@@ -479,9 +510,11 @@ class TransformerModel:
         live, n_live = self._live_tokens(lens, S, n_live)
         img = self.project_extra(params, extra)
         lay = (attn_ctx or {}).get("layout", TPLayout())
-        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
+        x = layers.embed_tokens(self._gather_top(params, "embed", lay),
+                                tokens, lay.vocab)
         rec, cross = {}, []
         for li, p in enumerate(params["layers"]):
+            p = self._gather_layer(li, p, lay)
             h = layers.apply_norm(p["ln1"], x)
             code = self.codes[li]
             if code in REC_CODES:
@@ -494,13 +527,13 @@ class TransformerModel:
             else:
                 o = attn.self_attn_prefill(
                     p["attn"], h, cfg, state, self.slot[li], lens,
-                    window=self.windows[li], impl=impl,
-                    row_parallel=lay.row_parallel(li))
+                    window=self.windows[li], impl=impl, cut=lay.cut(li))
             x = self._apply_ffn(p, x + o, live, n_live, lay)
-        x = layers.apply_norm(params["ln_f"], x)
+        x = layers.apply_norm(self._gather_top(params, "ln_f", lay), x)
         last_idx = torch.clamp(lens.long() - 1, min=0)
         last = x[torch.arange(B, device=x.device), last_idx]
-        logits = layers.unembed(params["embed"], last, cfg, lay.vocab)
+        logits = layers.unembed(self._gather_top(params, "embed", lay),
+                                last, cfg, lay.vocab)
         out = dict(state, pos=lens)
         if rec:
             out["rec"] = {code: {k: torch.stack([r[k] for r in finals])
@@ -614,8 +647,10 @@ class TransformerModel:
         cfg = self.cfg
         pos = state["pos"]
         lay = (attn_ctx or {}).get("layout", TPLayout())
-        x = layers.embed_tokens(params["embed"], tokens, lay.vocab)
+        x = layers.embed_tokens(self._gather_top(params, "embed", lay),
+                                tokens, lay.vocab)
         for li, p in enumerate(params["layers"]):
+            p = self._gather_layer(li, p, lay)
             h = layers.apply_norm(p["ln1"], x)
             code = self.codes[li]
             if code in REC_CODES:
@@ -634,8 +669,9 @@ class TransformerModel:
                     p["attn"], h, cfg, state, self.slot[li],
                     window=self.windows[li], impl=impl,
                     pages_per_block=pages_per_block, num_splits=num_splits,
-                    attn_ctx=attn_ctx, row_parallel=lay.row_parallel(li))
+                    attn_ctx=attn_ctx, cut=lay.cut(li))
             x = self._apply_ffn(p, x + o, live, n_live, lay)
-        x = layers.apply_norm(params["ln_f"], x)
-        logits = layers.unembed(params["embed"], x, cfg, lay.vocab)
+        x = layers.apply_norm(self._gather_top(params, "ln_f", lay), x)
+        logits = layers.unembed(self._gather_top(params, "embed", lay), x,
+                                cfg, lay.vocab)
         return logits, dict(state, pos=pos + 1)

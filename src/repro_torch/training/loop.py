@@ -59,7 +59,9 @@ def loss_and_grads(model, params, batch: Dict, impl: str,
                    attn_ctx: Optional[Dict] = None):
     """(loss, its parts, the gradients of ``params``) of ``model.loss_fn``
     on ``batch``, detached; ``attn_ctx``: a train plan's, for a model
-    whose params are a rank's pieces (``launch.steps``)."""
+    whose params are a rank's pieces (``launch.steps``): over "model",
+    and FSDP's over "data", whose gradients come back as the rank's
+    pieces (the reduce-scatter of the gather, ``layers.gather_fsdp``)."""
     params = tree_map(lambda p: p.detach().requires_grad_(), params)
     kw = {"attn_ctx": attn_ctx} if attn_ctx else {}
     loss, parts = model.loss_fn(params, batch, impl=impl, **kw)
@@ -77,8 +79,9 @@ def loss_and_grads(model, params, batch: Dict, impl: str,
 def state_shardings(model, mesh, rules: AxisRules) -> TrainState:
     """The specs of a train state cut by ``rules`` on ``mesh`` (the JAX
     ``state_shardings``; ``distributed.sharding.shard_params`` cuts the
-    params to them): each parameter by its logical axes, the moments
-    alike, the counters whole."""
+    params to them): each parameter by its logical axes (FSDP's
+    ``embed`` over "data" where the rules put it), the moments alike, the
+    counters whole."""
     p = resolve_specs(model.param_spec(), rules, mesh)
     return TrainState(params=p, opt=AdamWState(mu=p, nu=p, count=P()),
                       step=P())

@@ -357,6 +357,8 @@ def _train_case(mesh, c):
     (``train_grads``) against the JAX gradients of the whole batch cut to
     the rank, then ``c["steps"]`` steps of ``build_train_step`` against
     one device's plain step on the whole batch, cut to the rank."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
@@ -365,13 +367,18 @@ def _train_case(mesh, c):
                                           shard_batch, train_grads)
     from repro_torch.models.convert import params_from_numpy
     from repro_torch.training import TrainState
+    from repro_torch.utils.tree import tree_map
     cfg = get_config(c["config"]).smoke().replace(**c["replace"])
     batch = {k: torch.from_numpy(v) for k, v in c["batch"].items()}
     B, S = batch["inputs"].shape
     run = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="train")
     plan = plan_for(run, mesh, attn_impl="ref",
-                    microbatches=c["microbatches"])
-    step, _, _, model = build_train_step(run, plan, torch.float32)
+                    microbatches=c["microbatches"],
+                    zero_pod=c.get("zero_pod", False))
+    if c.get("attn"):  # a cut the plan would not pick on this mesh
+        plan = dataclasses.replace(plan, layout=dataclasses.replace(
+            plan.layout, attn=(c["attn"],) * cfg.n_layers))
+    step, _, specs, model = build_train_step(run, plan, torch.float32)
     full = params_from_numpy(c["params"], "cpu")
     params = model.shard_params(full, plan)
     mine = shard_batch(batch, plan)
@@ -380,11 +387,25 @@ def _train_case(mesh, c):
     out = {"loss": float(loss), "ce": float(parts["ce"]),
            "aux": float(parts["aux"]), "grad_err": _max_rel(grads, want),
            "microbatches": plan.microbatches, "attn": plan.layout.attn,
-           "vocab": plan.layout.vocab}
+           "vocab": plan.layout.vocab, "fsdp": plan.layout.fsdp,
+           "param_frac": sum(x.numel() for x in _leaves(params))
+           / sum(x.numel() for x in _leaves(full))}
     one_plan = plan_for(run, make_local_mesh(), attn_impl="ref",
                         microbatches=1)
     one_step = build_train_step(run, one_plan, torch.float32)[0]
-    st, one = TrainState.create(params), TrainState.create(full)
+    # each step donates its state (AdamW in place): copies of their own
+    st, one = (TrainState.create(tree_map(torch.clone, p))
+               for p in (params, full))
+    if plan.zero_pod:  # the rank's pieces of the moments
+        from repro_torch.distributed.sharding import shard_tensor
+        mu = tree_map(lambda t, sp: shard_tensor(torch.zeros_like(t), sp,
+                                                 mesh), full,
+                      specs["state"].opt.mu)
+        st = TrainState(st.params, st.opt._replace(
+            mu=mu, nu=tree_map(torch.zeros_like, mu)), st.step)
+        out["mu_frac"] = sum(x.numel() for x in _leaves(mu)) / sum(
+            x.numel() for x in _leaves(full))
+    stats0 = dict(mesh.stats["calls"])
     out["param_err"], out["gnorm"], out["one_gnorm"] = [], [], []
     for _ in range(c["steps"]):
         st, m = step(st, mine)
@@ -393,6 +414,8 @@ def _train_case(mesh, c):
             st.params, model.shard_params(one.params, plan)))
         out["gnorm"].append(float(m["grad_norm"]))
         out["one_gnorm"].append(float(m1["grad_norm"]))
+    out["calls"] = {k: n - stats0.get(k, 0)
+                    for k, n in mesh.stats["calls"].items()}
     return out
 
 
@@ -430,6 +453,8 @@ def _prefill_case(mesh, c):
         b, 1, pps)
     logits, state = pstep(params, mine["tokens"], mine["lens"], state)
     out = {"prefill": _np(logits), "scheme": dplan.scheme,
+           "attn": pplan.layout.attn, "fsdp": pplan.layout.fsdp,
+           "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
            "pool_heads": state["k_pages"].shape[3], "rows": b,
            "row0": pplan.mesh.flat_index(pplan.batch_axes)
            if pplan.batch_axes else 0}
@@ -480,6 +505,23 @@ def launch_cases(mesh, inputs):
     each)."""
     meshes = _launch_meshes(mesh)
     out = {"coll": _autograd_collectives(meshes[(1, 2)])}
+    for name, c in inputs["train"].items():
+        out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
+    for name, c in inputs["prefill"].items():
+        out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
+    return out
+
+
+def gspmd_cases(mesh, inputs):
+    """Every case of tests/test_torch_gspmd_layouts.py on a 4-rank world:
+    the train and prefill cases on their meshes — (2, 2), (1, 2) and
+    (2, 1) (``_launch_meshes``), (1, 4) and the (2, 2, 1) ("pod", "data",
+    "model") mesh over the four ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 4)] = make_mesh((1, 4))
+    meshes[(2, 2, 1)] = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    out = {}
     for name, c in inputs["train"].items():
         out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
     for name, c in inputs["prefill"].items():
@@ -539,12 +581,13 @@ def _record(rec):
 
 
 def dryrun_cases(mesh, inputs):
-    """Each case of ``inputs["cases"]`` (name: (mesh shape, kind, scheme))
-    on its mesh of this 4-rank world ((1, 1): the rank alone; (1, 2),
-    (2, 1) and (2, 2): ``_launch_meshes``): the real step on real CPU
-    tensors under ``record_step`` and the dry trace of the same rank
-    (``dry_step`` on ``make_dry_mesh`` of the same shape and rank), both
-    under ``impl="ref"``."""
+    """Each case of ``inputs["cases"]`` (name: (mesh shape, kind, scheme,
+    config), the smoke config of that name) on its mesh of this 4-rank
+    world ((1, 1): the rank alone; (1, 2), (2, 1) and (2, 2):
+    ``_launch_meshes``): the real step on real CPU tensors under
+    ``record_step`` and the dry trace of the same rank (``dry_step`` on
+    ``make_dry_mesh`` of the same shape and rank), both under
+    ``impl="ref"``."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
@@ -554,9 +597,9 @@ def dryrun_cases(mesh, inputs):
     meshes = _launch_meshes(mesh)
     meshes[(1, 1)] = make_local_mesh()
     out = {}
-    for name, (shape, kind, scheme) in inputs["cases"].items():
+    for name, (shape, kind, scheme, config) in inputs["cases"].items():
         m = meshes[shape]
-        cfg = get_config("llama2-7b").smoke()
+        cfg = get_config(config).smoke()
         run = RunConfig(model=cfg, seq_len=inputs["S"],
                         global_batch=inputs["B"], kind=kind)
         kw = {} if kind == "train" else {"impl": "ref"}

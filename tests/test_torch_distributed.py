@@ -158,10 +158,10 @@ def test_plan_for_matches_jax(name, mshape, scheme):
 LAYOUT_CASES = [
     # (config, mesh, scheme, vocab, mlp, experts, per-layer attn, kv heads)
     ("llama2-7b", (1, 2), None, True, True, False, "heads", 16),
-    ("llama2-7b", (1, 2), "kvp", True, True, False, "whole", 32),
+    ("llama2-7b", (1, 2), "kvp", True, True, False, "q_heads", 32),
     ("llama2-7b", (1, 1), None, False, False, False, "whole", 32),
     ("nemotron-4-15b", (1, 2), "dp", True, True, False, "groups", 8),
-    ("nemotron-4-15b", (1, 4), "dp", True, True, False, "whole", 8),
+    ("nemotron-4-15b", (1, 4), "dp", True, True, False, "q_heads", 8),
     # vocab 49155 stays whole on 2 ranks; the experts go over "model"
     ("granite-moe-1b-a400m", (1, 2), None, False, True, True, "heads", 4),
 ]

@@ -5,12 +5,18 @@ the CPU at smoke size.
 - Dry against real: one ``gloo`` group of 4 CPU processes
   (``_torch_dist.dryrun_cases``) runs train and decode under
   ``impl="ref"`` on meshes (1, 1), (2, 1), (1, 2) and (2, 2), prefill on
-  (1, 1) and (2, 2), kvp decode on (2, 2), each rank
-  once for real on CPU tensors (``cost_analysis.record_step``) and once
-  dry (``dry_step`` on a dry mesh of the same shape and rank): FLOPs
-  equal exactly, the collectives' calls and bytes per op equal the real
-  mesh's ``stats`` exactly, and the dry peak is within ``PEAK_TOL`` of
-  the real one and never below it.
+  (1, 1) and (2, 2), kvp decode on (2, 2), and the smoke granite-8b
+  under FSDP (its ``embed: ("data",)`` override: the weights' gathers,
+  the gradients' reduce-scatters, the in-place AdamW) in train on (2, 1)
+  and (2, 2), prefill on (2, 2) and kvp decode (``"q_heads"``) on (2, 2),
+  each rank once for real on CPU tensors (``cost_analysis.record_step``)
+  and once dry (``dry_step`` on a dry mesh of the same shape and rank):
+  FLOPs equal exactly, the collectives' calls and bytes per op equal
+  the real mesh's ``stats`` exactly, and the dry peak is within
+  ``PEAK_TOL`` of the real one and never below it.
+- At the production size: llama3-405b's decode_32k on (16, 16) fits
+  (``"q_heads"`` and FSDP), and the reduce-scatter bytes of an FSDP
+  train step are counted.
 - Against JAX: ``count_params``/``param_bytes`` on every config's
   parameters, ``model_flops`` for every config and kind, ``collective_
   bytes`` per kind on HLO lines of the same shapes and groups,
@@ -70,11 +76,18 @@ B, S = 4, 64
 ARCHS = ASSIGNED + ["llama2-7b"]
 # name: (mesh shape, kind, decode scheme asked for); train and decode on
 # every mesh, prefill alone and on (2, 2) (its data and model cuts at once)
-CASES = {f"{kind} {shape}": (shape, kind, None)
+CASES = {f"{kind} {shape}": (shape, kind, None, "llama2-7b")
          for shape in ((1, 1), (2, 1), (1, 2), (2, 2))
          for kind in ("train", "prefill", "decode")
          if kind != "prefill" or shape in ((1, 1), (2, 2))}
-CASES["decode (2, 2) kvp"] = ((2, 2), "decode", "kvp")
+CASES["decode (2, 2) kvp"] = ((2, 2), "decode", "kvp", "llama2-7b")
+# FSDP: granite-8b carries the embed: ("data",) override
+CASES.update({"fsdp train (2, 1)": ((2, 1), "train", None, "granite-8b"),
+              "fsdp train (2, 2)": ((2, 2), "train", None, "granite-8b"),
+              "fsdp prefill (2, 2)": ((2, 2), "prefill", None,
+                                      "granite-8b"),
+              "fsdp decode (2, 2) kvp": ((2, 2), "decode", "kvp",
+                                         "granite-8b")})
 
 
 def _jax_dryrun():
@@ -113,9 +126,14 @@ def test_dry_collectives_equal_the_real_mesh_stats(ranks, name):
         got = r[name]
         assert got["dry"]["calls"] == got["real"]["calls"]
         assert got["dry"]["coll_bytes"] == got["real"]["coll_bytes"]
-        kind = CASES[name][1]
+        kind, config = CASES[name][1], CASES[name][3]
         assert bool(got["real"]["calls"]) == (
-            shape[1] > 1 or (kind == "train" and shape[0] > 1))
+            shape[1] > 1 or (kind == "train" and shape[0] > 1)
+            or (config == "granite-8b" and shape[0] > 1))
+        if config == "granite-8b":  # FSDP: the gathers, the grads' scatter
+            assert got["real"]["calls"]["all_gather"] > 0
+            assert bool(got["real"]["calls"].get("reduce_scatter")) == (
+                kind == "train")
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -174,20 +192,63 @@ def _hlo(kind, dtype, out_shape, group):
 
 @pytest.mark.parametrize("kind,op", [("all-gather", "all_gather"),
                                      ("all-reduce", "all_reduce"),
+                                     ("reduce-scatter", "reduce_scatter"),
                                      ("all-to-all", "all_to_all"),
                                      ("collective-permute", "send_recv")])
 @pytest.mark.parametrize("group", [(0, 1), (0, 1, 2, 3), tuple(range(16))])
 def test_collective_bytes_match_jax(kind, op, group):
+    """Each kind against the JAX count of an HLO line of the same output
+    and group.  A reduce-scatter sends ``in − out`` (JAX's stated ring
+    factor): its input is g outputs, where JAX's sum takes (g−1)/g of the
+    output's bytes alone, g times less."""
     g = len(group)
     out_shape, dtype, item = (8 * g, 128), "bf16", 2
     out_bytes = 8 * g * 128 * item
-    sent = out_bytes // g if op == "all_gather" else out_bytes
+    sent = (out_bytes // g if op == "all_gather"
+            else out_bytes * g if op == "reduce_scatter" else out_bytes)
     got = ca.collective_bytes({"ops": [(op, sent, g, group)]})
     want = jha.collective_bytes(_hlo(kind, dtype, out_shape, group))
+    scale = g if op == "reduce_scatter" else 1
     for k in want:
-        assert got[k] == pytest.approx(want[k]), k
-    assert got["within_node"] == (want["total"] if g <= 8 else 0.0)
-    assert got["beyond_node"] == (want["total"] if g > 8 else 0.0)
+        assert got[k] == pytest.approx(want[k] * scale), k
+    if op == "reduce_scatter":
+        assert got[kind] == sent - out_bytes
+    assert got["within_node"] == (got["total"] if g <= 8 else 0.0)
+    assert got["beyond_node"] == (got["total"] if g > 8 else 0.0)
+
+
+def test_405b_decode_fits_under_q_heads_and_fsdp():
+    """llama3-405b's decode_32k at its real size on rank 0 of (16, 16):
+    the q heads cut over "model" (kvp) and the weights over "data" bring
+    the rank under 80 GB (PR 27, everything but the vocab, ``d_ff`` and
+    the pools whole on every rank: 194.0 GB)."""
+    res = dryrun.run_pair("llama3-405b", "decode_32k", False)
+    assert res["status"] == "ok" and res["plan"]["attn"] == ["q_heads"]
+    assert res["plan"]["rules"]["embed"] == ("data",)
+    assert res["fits"] and res["memory"]["peak_bytes"] < 20e9
+    assert res["collective_calls"]["all_gather"] > 0
+
+
+def test_fsdp_train_counts_reduce_scatter_bytes():
+    """An FSDP train step traced dry (granite-8b at 1 layer, production
+    widths, B 16 x S 256 on a (2, 2) dry mesh): one reduce-scatter per
+    cut leaf per microbatch, and their bytes in ``collective_bytes``,
+    (g − 1)/g of what each sends."""
+    from repro_torch.launch.mesh import make_dry_mesh
+    cfg = get_config("granite-8b").replace(n_layers=1)
+    run = RunConfig(model=cfg, seq_len=256, global_batch=16, kind="train")
+    plan = steps.plan_for(run, make_dry_mesh((2, 2)), attn_impl="ref",
+                          microbatches=2)
+    rec = steps.dry_step(run, plan, torch.bfloat16)
+    n_cut = sum(steps._cuts(s, "data")
+                for s in steps.spec_leaves(steps.param_specs(
+                    build_model(cfg), plan)))
+    # the tied table is gathered twice a microbatch (lookup and head)
+    assert rec.stats["calls"]["reduce_scatter"] == 2 * (n_cut + 1)
+    sent = sum(n / 2 for op, n, g, _ in rec.stats["ops"]
+               if op == "reduce_scatter")
+    got = ca.collective_bytes(rec.stats)
+    assert got["reduce-scatter"] == sent > 0
 
 
 @pytest.mark.parametrize("shape", list(INPUT_SHAPES))

@@ -7,11 +7,12 @@
   and shape, so a ``SimpleNamespace`` stands in for its mesh.
 - The spec trees: ``train_state_shardings`` against the JAX specs
   (``repro.launch.steps.train_state_shardings`` with ``NamedSharding``
-  replaced by its spec), where the port departs from GSPMD by design —
-  no FSDP ``embed`` over "data", kv projections cut with the q heads
-  under the ``"heads"`` cut, experts whole, attention whole where the
-  model axis divides neither the kv heads nor the group — the expected
-  spec is the JAX one under the rule that departure changes;
+  replaced by its spec), FSDP's ``embed`` over "data" and ``wq``/``wo``
+  by heads included; where the port departs from GSPMD by design — kv
+  projections cut with the q heads under the ``"heads"`` cut, experts
+  whole — the expected spec is the JAX one under the rule that
+  departure changes (the strided ``"groups"`` cut has the JAX spec:
+  the spec says which dim is cut, not which heads);
   ``batch_shardings``, ``decode_state_shardings`` (equal), and the
   prefill pools (the port: the decode layout; JAX: head_dim over
   "model"); ``training.loop.state_shardings`` equals the JAX one.
@@ -26,6 +27,7 @@
   group of another size.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -53,7 +55,7 @@ from repro_torch.models import params_from_numpy
 from repro_torch.models.api import build_model, input_specs
 from repro_torch.training import TrainState
 from repro_torch.training.loop import loss_and_grads, state_shardings
-from repro_torch.utils.tree import tree_leaves
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 GRAD_TOL = 1e-4  # |g_port - g_jax| <= GRAD_TOL * (1 + |g_jax|)
 STEP_TOL = 2e-4  # params after a step, microbatched against plain
@@ -155,6 +157,34 @@ def test_train_layout_is_the_tensor_parallel_cut(mshape, attn):
     assert set(steps.plan_for(run, Mesh((1, 16))).layout.attn) == {"groups"}
 
 
+@pytest.mark.parametrize("name,kind,mshape,scheme,variant", [
+    ("llama3-405b", "decode", (16, 16), "kvp", "base"),
+    ("llama3-405b", "prefill", (16, 16), None, "base"),
+    ("nemotron-4-340b", "decode", (16, 16), "kvp", "base"),
+    ("nemotron-4-340b", "decode", (16, 16), None, "swa"),
+    ("nemotron-4-340b", "train", (1, 16), None, "base"),
+    ("nemotron-4-15b", "decode", (16, 16), None, "swa"),
+    ("granite-8b", "decode", (16, 16), None, "base")])
+def test_layout_cuts_the_q_heads_where_gspmd_does(name, kind, mshape,
+                                                  scheme, variant):
+    """Where the model axis divides the q heads but neither the kv heads
+    nor the group — kvp, dp over a group it does not divide (the swa
+    variants' windowed layers), the train plan of 340B's G 12 on 16 —
+    every attention layer takes GSPMD's contiguous q heads; the FSDP
+    override of the big configs puts ``embed`` on "data"."""
+    from repro_torch.configs import make_run
+    run = dataclasses.replace(make_run(get_config(name), {
+        "train": "train_4k", "prefill": "prefill_32k",
+        "decode": "decode_32k" if variant == "base" else "long_500k"}[kind],
+        variant=variant), kind=kind)
+    plan = steps.plan_for(run, Mesh(mshape, _names(mshape)), scheme=scheme)
+    cfg = run.model
+    assert plan.layout.attn == ("q_heads",) * cfg.n_layers
+    assert cfg.n_kv_heads % mshape[-1] and cfg.n_heads % mshape[-1] == 0
+    assert plan.layout.fsdp == (("data",) if mshape[0] > 1 else ())
+    assert all(plan.layout.row_parallel(i) for i in range(cfg.n_layers))
+
+
 @pytest.mark.parametrize("scheme", [None, "kvp", "dp"])
 def test_prefill_layout_is_the_decode_layout(scheme):
     """The prefill plan's layout is the decode plan's of the same config
@@ -194,13 +224,14 @@ def _jax_layer_specs(jtree, model):
 
 
 def _expected_specs(model, plan, jplan_rules, mesh):
-    """The JAX specs under the port's departures: the rules without the
-    FSDP ``embed`` override, the experts over "model" only under expert
-    parallelism, and per attention layer the heads and kv heads as its
-    cut holds them."""
+    """The JAX specs under the port's departures: the experts over
+    "model" only under expert parallelism, and per attention layer the
+    kv heads cut with the q heads under ``"heads"`` (the q heads over
+    "model" unless whole: GSPMD's rule); FSDP's ``embed`` as the JAX
+    rules put it."""
     from repro.models.api import build_model as jb
     rules = jplan_rules.extend(
-        embed=None, experts=("model",) if plan.layout.experts else None)
+        experts=("model",) if plan.layout.experts else None)
     jm = jb(model.cfg)
     jaxes = jm.param_axes()
     jshapes = jm.abstract_params()
@@ -238,7 +269,8 @@ def _leaves_by_path(tree, prefix=""):
 
 @pytest.mark.parametrize("mshape", [(1, 2), (2, 4), (16, 16), (2, 16, 16)])
 @pytest.mark.parametrize("name", ["llama2-7b", "granite-8b", "llama3-405b",
-                                  "olmoe-1b-7b", "granite-moe-1b-a400m"])
+                                  "olmoe-1b-7b", "granite-moe-1b-a400m",
+                                  "nemotron-4-340b", "nemotron-4-15b"])
 def test_train_state_specs_match_jax(name, mshape, jax_specs):
     run, jrun = _runs(name, "train", 256, 4096)
     mesh = Mesh(mshape, _names(mshape))
@@ -253,18 +285,24 @@ def test_train_state_specs_match_jax(name, mshape, jax_specs):
     for k in g:
         assert _norm(g[k], sizes) == _norm(w[k], sizes), k
     assert got.opt.mu is got.params and tuple(got.step) == ()
-    # the departures are real: under JAX's own rules the trees differ
-    # exactly where the config's FSDP override or a cut above applies
+    # the departures left are real and the only ones: under JAX's own
+    # rules the trees differ exactly at the kv projections of "heads"
+    # layers and at the experts (FSDP's embed and the q heads are JAX's)
     jtree = jax_specs.train_state_shardings(jbuild(jrun.model), jplan)
     raw = _leaves_by_path({**{k: v for k, v in jtree.params.items()
                               if k not in ("groups", "rem")},
                            "layers": _jax_layer_specs(jtree.params, model)})
     differ = {k for k in g if _norm(g[k], sizes) != _norm(raw[k], sizes)}
+    heads = {li for li, c in enumerate(plan.layout.attn) if c == "heads"}
+    for k in differ:
+        assert "/moe/w" in k or (k.split("/")[4] in ("wk", "wv") and int(
+            k.split("/")[2]) in heads), k
     fsdp = "embed" in run.model.axis_overrides and sizes["data"] > 1
-    assert bool(differ) == (fsdp or any(
-        "/attn/w" in k or "/moe/w" in k for k in differ))
-    if not fsdp:
-        assert all("/attn/w" in k or "/moe/w" in k for k in differ), differ
+    assert plan.layout.fsdp == (("data",) if fsdp else ())
+    if fsdp:  # the norms too: their one dim is embed
+        norms = [k for k in g if "/ln" in k]
+        assert norms and all(_norm(g[k], sizes) == (("data",),)
+                             for k in norms)
 
 
 @pytest.mark.parametrize("mshape", [(1, 2), (2, 4), (2, 16, 16)])
@@ -454,7 +492,8 @@ def test_microbatched_step_matches_plain_and_jax(mb):
         assert float(((g - w).abs() / (1 + w.abs())).max()) <= GRAD_TOL
     step = steps.build_train_step(run, plan, torch.float32)[0]
     step1 = steps.build_train_step(run, plain, torch.float32)[0]
-    a = b_ = TrainState.create(full)
+    # each step donates its state (AdamW in place): one copy each
+    a, b_ = (TrainState.create(tree_map(torch.clone, full)) for _ in "ab")
     for _ in range(2):
         a, ma = step(a, tb)
         b_, mb_ = step1(b_, tb)
@@ -478,7 +517,7 @@ def test_train_step_takes_the_given_rate():
     for lr in (3e-4, 1e-3, None):
         kw = {} if lr is None else {"lr": lr}
         st, _ = steps.build_train_step(run, plan, torch.float32, **kw)[0](
-            TrainState.create(full), batch)
+            TrainState.create(tree_map(torch.clone, full)), batch)
         moved[lr] = float((st.params["ln_f"]["scale"]
                            - full["ln_f"]["scale"]).abs().max())
     assert moved[None] == moved[3e-4] < moved[1e-3]
