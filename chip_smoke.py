@@ -273,7 +273,10 @@ Phases, each of which fails the script (exit code 1) when it fails:
    ``wq``/``wo``, the ``"q_heads"`` cut, gathers all 128 for K1 over its
    stripe and keeps its 64 after K2; the run fails unless both ranks hold
    H/2); granite-moe at full
-   depth in f32 with ``moe_ep`` (16 experts a rank, dropless); logits
+   depth in f32, dropless, with ``moe_ep`` (16 experts a rank, the tokens
+   exchanged by all-to-all) and under GSPMD's cut (16 experts a rank over
+   every token, the partial sums reduced; no all-to-all; the run fails
+   unless each rank holds E/2 experts under its schedule); logits
    within ``MODEL_TOL`` (f32) or ``BF16_MODEL_TOL`` of their scale
    (bf16), greedy agreement and the first diverging step reported.  Also
    dp attention at nemotron-4-15b's heads (G 6: 3 a rank) against one
@@ -307,7 +310,11 @@ Phases, each of which fails the script (exit code 1) when it fails:
    losses and grad norms within ``LAUNCH_LOSS_TOL``; step ms by events,
    peak memory per rank.  granite-8b under FSDP on (2, 1), 4 layers f32,
    one step, held alike: each rank's state about half the whole, the
-   all-gathers and reduce-scatters counted.  Then ``launch.serve`` at
+   all-gathers and reduce-scatters counted.  granite-moe-1b-a400m at full
+   width, 4 layers, f32, B 4 x S 512, capacity 1.25, on (1, 2) under
+   GSPMD's expert cut and under ``moe_ep`` (the all-to-all under grad):
+   2 steps held alike, each rank holding E/2 experts and their moments,
+   all-to-all calls and bytes logged (EP only).  Then ``launch.serve`` at
    full width (llama2-7b, f32, 8
    requests at the CLI's defaults), paged (K4, K1, K2 must launch) and
    ``--no-paged`` (K4; K1 must not launch): every request its
@@ -325,8 +332,9 @@ Phases, each of which fails the script (exit code 1) when it fails:
    measured step ms (no bound).  One device: llama2-7b at 4 layers in f32
    (B 4 x S 512, 2 microbatches), then at full depth in bf16 the prefill
    of the 8 launch prompts (K4) and one decode step (K1 + K2).  Two
-   ranks, in the launch cases' train steps: the (2, 1) and (1, 2) ranks
-   and granite-8b's FSDP (2, 1) rank.
+   ranks, in the launch cases' train steps: the (2, 1) and (1, 2) ranks,
+   granite-8b's FSDP (2, 1) rank and granite-moe's (1, 2) ranks under
+   both expert schedules (the all-to-alls of the backward counted).
    ``--dry-only`` runs the build and this phase alone (the rank cases in
    2 rank processes of their own).
 7. swa engine (between 5 and 6, on the bf16 weights): llama2-7b's
@@ -3969,7 +3977,13 @@ class RouteTape:
 
     def __init__(self, torch):
         self.torch, self.tape = torch, []
-        self.differ = self.total = 0
+        self.diffs, self.total = [], 0
+
+    @property
+    def differ(self) -> int:
+        """The choices that differed, summed on the host only when read
+        (a replayed step does not wait on the device)."""
+        return sum(int(d) for d in self.diffs)
 
     @contextlib.contextmanager
     def pass_(self, replay):
@@ -3986,8 +4000,8 @@ class RouteTape:
             if want.shape != idx.shape:
                 fail(f"route tape: {tuple(idx.shape)} routed where "
                      f"{tuple(want.shape)} was recorded")
-            self.differ += int((idx[:, :, None] != want[:, None, :])
-                               .all(-1).sum())
+            self.diffs.append((idx[:, :, None] != want[:, None, :])
+                              .all(-1).sum())
             self.total += idx.numel()
             g = probs.gather(1, want)
             return g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9), want
@@ -6507,8 +6521,16 @@ def dist_cases():
         # over the ranks ("q_heads"), all of them gathered for K1
         ("kvp bf16 llama3-405b", "llama3-405b", "bfloat16", DIST_GQA_LAYERS,
          "kvp", DIST_KVP_LENS, DIST_GQA_STEPS),
+        # GSPMD's expert cut: each rank its 16 experts over every token
+        ("experts cut f32", "granite-moe-1b-a400m", "float32", None, None,
+         DIST_EP_LENS, DIST_EP_STEPS),
     ]
 
+
+# config fields of a case beyond ``dist_model``'s (the cut: no moe_ep)
+DIST_CASE_KW = {"experts cut f32": {"moe_ep": False}}
+# the expert schedule of each MoE case
+DIST_MOE = {"ep f32": "ep", "experts cut f32": "cut"}
 
 # the planted fault: the case whose kvp merge loses the second rank's
 # stripe, and the decode steps it runs
@@ -6655,7 +6677,7 @@ def dist_references(torch, work):
     for i, (name, cfg_name, dt, nl, _, lens, steps) in enumerate(
             dist_cases()):
         t0 = time.perf_counter()
-        model = dist_model(torch, cfg_name, dt, nl)
+        model = dist_model(torch, cfg_name, dt, nl, DIST_CASE_KW.get(name))
         gen = torch.Generator(device="cuda")
         gen.manual_seed(SEED)
         params = model.init_params(gen, getattr(torch, dt), "cuda")
@@ -6784,7 +6806,8 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
         for i, (name, cfg_name, dt, nl, scheme, lens, steps) in enumerate(
                 dist_cases() if "dist" in parts else ()):
             t0 = time.perf_counter()
-            model = dist_model(torch, cfg_name, dt, nl)
+            model = dist_model(torch, cfg_name, dt, nl,
+                               DIST_CASE_KW.get(name))
             ref = torch.load(work / f"ref_{i}.pt")
             tokens, lens_t = dist_tokens(torch, model.cfg, lens, SEED + 1 + i)
             run = RunConfig(model=model.cfg, seq_len=max(lens) + steps,
@@ -6807,6 +6830,10 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             res.update(scheme=plan.scheme, attn=sorted(set(plan.layout.attn)),
                        heads=[model.cfg.n_heads, int(attn["wq"].shape[1]),
                               int(attn["wo"].shape[0])],
+                       moe=plan.layout.moe(),
+                       experts=[int(params["layers"][0]["moe"]["wg"].shape[
+                           0]), model.cfg.n_experts] if model.cfg.is_moe
+                       else None,
                        step_ms=statistics.median(times),
                        device_ms=dev, seconds=time.perf_counter() - t0,
                        init_s=t_init, **secs,
@@ -6844,10 +6871,9 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             out["launch"] = launch_rank(torch, work)
         elif "dry" in parts:
             from repro_torch.launch.mesh import make_mesh
-            out["dry"] = [dry_rank_train(torch, make_mesh(shape))
-                          for shape in LAUNCH_MESHES]
-            out["dry"].append(dry_rank_train(
-                torch, make_mesh((2, 1)), launch_train_run("granite-8b")))
+            meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
+            out["dry"] = [dry_rank_train(torch, meshes[shape], run, mb)
+                          for _, shape, run, _, mb in launch_train_cases()]
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -6898,6 +6924,9 @@ LAUNCH_TRAIN_B, LAUNCH_TRAIN_S, LAUNCH_TRAIN_STEPS = 4, 512, 2
 LAUNCH_GRAD_TOL = 1e-4  # |g - g_one| <= tol * (1 + |g_one|), f32
 LAUNCH_STEP_TOL = 2e-4  # params after the steps against one device's
 LAUNCH_LOSS_TOL = 1e-5  # relative
+# an MoE train rank's top-k choices that may differ from one device's
+# (replayed from its tape), as a share of them: rounding's near-ties
+LAUNCH_ROUTE_FLIPS = 1e-4
 LAUNCH_SERVE_REQUESTS = 8
 LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
                "combine/decode")
@@ -6947,15 +6976,44 @@ def launch_train_batches(torch, cfg):
     return [to_device(next(data), "cuda") for _ in range(LAUNCH_TRAIN_STEPS)]
 
 
-def launch_train_run(name="llama2-7b"):
+def launch_train_run(name="llama2-7b", **replace):
     """The launch phase's train run: ``name`` at 4 layers, B
     ``LAUNCH_TRAIN_B`` x S ``LAUNCH_TRAIN_S`` (llama2-7b; granite-8b, the
-    FSDP case, carries the ``embed: ("data",)`` override)."""
+    FSDP case, carries the ``embed: ("data",)`` override), with the
+    config's fields in ``replace``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    cfg = get_config(name).replace(n_layers=4)
+    cfg = get_config(name).replace(n_layers=4, **replace)
     return RunConfig(model=cfg, seq_len=LAUNCH_TRAIN_S,
                      global_batch=LAUNCH_TRAIN_B, kind="train")
+
+
+def launch_train_cases():
+    """(name, mesh shape, run, steps, microbatches or None for the
+    plan's) of the launch phase's train rank cases: llama2-7b on both
+    launch meshes, granite-8b under FSDP on (2, 1) for one step, and
+    granite-moe-1b-a400m on (1, 2) under GSPMD's expert cut and under
+    ``moe_ep`` (the all-to-all under grad), in one microbatch: at its
+    capacity 1.25 the drops are each microbatch's, so the plan's 2 would
+    leave one device's plain step (its f32 logits, vocab 49155 whole on
+    2 ranks, pass the 256 MB budget)."""
+    moe = "granite-moe-1b-a400m"
+    return ([(str(shape), shape, launch_train_run(), LAUNCH_TRAIN_STEPS,
+              None) for shape in LAUNCH_MESHES]
+            + [("(2, 1) fsdp granite-8b", (2, 1),
+                launch_train_run("granite-8b"), 1, None),
+               ("(1, 2) experts cut granite-moe", (1, 2),
+                launch_train_run(moe), LAUNCH_TRAIN_STEPS, 1),
+               ("(1, 2) experts ep granite-moe", (1, 2),
+                launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1)])
+
+
+def rank_case_name(run, plan, mesh):
+    """A train rank case's name in the dry phase's lines."""
+    return (f"train {run.model.name} 4 layers f32 {mesh.shape}"
+            f"{' fsdp' if plan.layout.fsdp else ''}"
+            f"{' experts ' + plan.layout.moe() if run.model.is_moe else ''}"
+            f" rank {mesh.rank}")
 
 
 def leaves_gap(got, want, rel):
@@ -7106,14 +7164,21 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
     return res
 
 
-def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
+def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
+                      microbatches=None):
     """On this rank: ``run`` (``launch_train_run()``, llama2-7b at 4 layers,
-    by default; f32) trained under the train plan of ``mesh``: one
+    by default; f32) trained under the train plan of ``mesh`` (with
+    ``microbatches`` when given): one
     device's gradients of the first batch and its params after
     ``n_steps`` plain steps (computed here from the same weights, the
     rank's cut kept on the host), then the rank's gradients
     (``train_grads``) and steps, against them; the bytes of the rank's
-    state beside the whole state's, and the collectives of its steps."""
+    state beside the whole state's, and the collectives of its steps.
+    An MoE run's rank replays one device's routing (``RouteTape``, call
+    by call: the near-ties that rounding flips would move a token by a
+    whole expert, and AdamW's first steps turn any gradient's sign into
+    ±lr), and the choices its own top-k made otherwise are counted; more
+    than ``LAUNCH_ROUTE_FLIPS`` of them fail the case."""
     from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
     from repro_torch.launch.steps import (build_train_step, plan_for,
                                           shard_batch, train_grads)
@@ -7121,9 +7186,10 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
     from repro_torch.utils.tree import tree_leaves
     t_case = time.perf_counter()
     run = run or launch_train_run()
-    plan = plan_for(run, mesh)
+    plan = plan_for(run, mesh, microbatches=microbatches)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
-                                           mesh.rank))
+                                           mesh.rank),
+                        microbatches=microbatches)
     one = plan_for(run, make_local_mesh(), microbatches=1)
     step, _, _, model = build_train_step(run, plan, torch.float32)
     batches = launch_train_batches(torch, run.model)[:n_steps]
@@ -7133,18 +7199,25 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
         gen.manual_seed(SEED)
         return model.init_params(gen, torch.float32, "cuda", plan=p)
 
+    tape = RouteTape(torch) if run.model.is_moe else None
+
+    def routed(replay):
+        return tape.pass_(replay) if tape else contextlib.nullcontext()
+
     full = weights(None)
-    _, _, g = train_grads(model, one)(full, batches[0])
-    ref_grads = [x.cpu() for x in tree_leaves(model.shard_params(g, plan))]
-    del g
     one_step = build_train_step(run, one, torch.float32)[0]
-    st = TrainState.create(full)
-    whole_gb = storage_bytes(torch, st) / 1e9
-    ref_loss, ref_gnorm = [], []
-    for b in batches:
-        st, m = one_step(st, b)
-        ref_loss.append(float(m["loss"]))
-        ref_gnorm.append(float(m["grad_norm"]))
+    with routed(False):
+        _, _, g = train_grads(model, one)(full, batches[0])
+        ref_grads = [x.cpu() for x in tree_leaves(model.shard_params(
+            g, plan))]
+        del g
+        st = TrainState.create(full)
+        whole_gb = storage_bytes(torch, st) / 1e9
+        ref_loss, ref_gnorm = [], []
+        for b in batches:
+            st, m = one_step(st, b)
+            ref_loss.append(float(m["loss"]))
+            ref_gnorm.append(float(m["grad_norm"]))
     ref_params = [x.cpu() for x in tree_leaves(
         model.shard_params(st.params, plan))]
     del st, full
@@ -7152,23 +7225,24 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
     torch.cuda.reset_peak_memory_stats()
     params = weights(plan)
     mine = [shard_batch(b, plan) for b in batches]
-    _, _, g = train_grads(model, plan)(params, mine[0])
-    grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
-    del g, ref_grads
-    st = TrainState.create(params)
-    state_gb = storage_bytes(torch, st) / 1e9
-    stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
-    times, losses, gnorms = [], [], []
-    for b in mine:
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        st, m = step(st, b)
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
+    with routed(True):
+        _, _, g = train_grads(model, plan)(params, mine[0])
+        grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
+        del g, ref_grads
+        st = TrainState.create(params)
+        state_gb = storage_bytes(torch, st) / 1e9
+        stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
+        times, losses, gnorms = [], [], []
+        for b in mine:
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            st, m = step(st, b)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     coll = {k: {op: n - stats0[k].get(op, 0)
                 for op, n in mesh.stats[k].items()
@@ -7176,11 +7250,13 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
     param_err = leaves_gap(tree_leaves(st.params), ref_params,
                            rel=False)
     del ref_params
+    experts = None
+    if run.model.is_moe:  # the rank's experts, and its moments', of E
+        experts = [int(t["layers"][0]["moe"]["wg"].shape[0]) for t in (
+            st.params, st.opt.mu, st.opt.nu)] + [run.model.n_experts]
     torch.cuda.empty_cache()
-    dry = dry_compare(torch, f"train {run.model.name} 4 layers f32 "
-                      f"{mesh.shape}{' fsdp' if plan.layout.fsdp else ''} "
-                      f"rank {mesh.rank}", run, plan, dry_plan,
-                      torch.float32, step, [st, mine[0]], mesh)
+    dry = dry_compare(torch, rank_case_name(run, plan, mesh), run, plan,
+                      dry_plan, torch.float32, step, [st, mine[0]], mesh)
     res = dict(grad_err=grad_err, param_err=param_err, losses=losses,
                ref_losses=ref_loss, gnorms=gnorms, ref_gnorms=ref_gnorm,
                loss_err=max(abs(a - b) / abs(b)
@@ -7189,7 +7265,10 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS):
                              for a, b in zip(gnorms, ref_gnorm)),
                microbatches=plan.microbatches,
                attn=sorted(set(plan.layout.attn)), vocab=plan.layout.vocab,
-               fsdp=list(plan.layout.fsdp), state_gb=state_gb,
+               fsdp=list(plan.layout.fsdp), moe=plan.layout.moe(),
+               experts=experts,
+               route_flips=[tape.differ, tape.total] if tape else None,
+               state_gb=state_gb,
                whole_state_gb=whole_gb, collectives=coll,
                step_ms=times, peak_gb=peak_gb, dry=dry,
                seconds=time.perf_counter() - t_case)
@@ -7211,11 +7290,9 @@ def launch_rank(torch, work):
             if shape in on:
                 out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
                     torch, mesh, work, i, name, cfg_name, dt, nl)
-    for shape, mesh in meshes.items():
-        out["train"][str(shape)] = launch_rank_train(torch, mesh)
-    # FSDP: granite-8b's weights over the 2 data ranks, one step
-    out["train"]["(2, 1) fsdp granite-8b"] = launch_rank_train(
-        torch, meshes[(2, 1)], launch_train_run("granite-8b"), n_steps=1)
+    for name, shape, run, n_steps, mb in launch_train_cases():
+        out["train"][name] = launch_rank_train(torch, meshes[shape], run,
+                                               n_steps, mb)
     out["host_copies"] = {str(s): dict(m.host_copies)
                           for s, m in meshes.items()}
     return out
@@ -7330,6 +7407,24 @@ def launch_check(ranks):
                 fail(f"launch train {name} rank {r}: FSDP over {c['fsdp']} "
                      f"holds {c['state_gb']} of {c['whole_state_gb']} GB with "
                      f"collectives {c['collectives']['calls']}")
+            if "experts" in name:
+                sched = name.split("experts ")[1].split()[0]
+                a2a = (c["collectives"]["calls"].get("all_to_all", 0),
+                       c["collectives"]["bytes"].get("all_to_all", 0))
+                flips, choices = c["route_flips"]
+                log(f"launch rank {r} train {name}: schedule {c['moe']}, "
+                    f"experts held (params, mu, nu) of E "
+                    f"{c['experts']}; all-to-all calls {a2a[0]}, "
+                    f"{a2a[1] / 1e9:.4f} GB in {len(c['step_ms'])} steps; "
+                    f"one device's routing replayed: {flips} of {choices} "
+                    f"expert choices of the rank's own top-k differed")
+                held, E = c["experts"][:3], c["experts"][3]
+                if (c["moe"] != sched or held != [E // 2] * 3
+                        or (a2a[0] > 0) != (sched == "ep")
+                        or flips > LAUNCH_ROUTE_FLIPS * choices):
+                    fail(f"launch train {name} rank {r}: schedule "
+                         f"{c['moe']}, experts {c['experts']}, all-to-all "
+                         f"{a2a}, route flips {flips} of {choices}")
         log(f"launch rank {r}: gloo host copies "
             f"{res['launch']['host_copies']}")
     return launches
@@ -7477,28 +7572,27 @@ def dry_local_cases(torch):
     return out
 
 
-def dry_rank_train(torch, mesh, run=None):
+def dry_rank_train(torch, mesh, run=None, microbatches=None):
     """On this rank: the dry run of the launch phase's train case ``run``
     (``launch_train_run()`` by default) under the train plan of ``mesh``
-    (a dry mesh of its shape, seen from this rank) against one step of
-    the rank on the card."""
+    (with ``microbatches`` when given; a dry mesh of its shape, seen from
+    this rank) against one step of the rank on the card."""
     from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.launch.steps import build_train_step, plan_for, shard_batch
     from repro_torch.training import TrainState
     run = run or launch_train_run()
-    plan = plan_for(run, mesh)
+    plan = plan_for(run, mesh, microbatches=microbatches)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
-                                           mesh.rank))
+                                           mesh.rank),
+                        microbatches=microbatches)
     step, _, _, model = build_train_step(run, plan, torch.float32)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     st = TrainState.create(model.init_params(gen, torch.float32, "cuda",
                                              plan=plan))
     batch = shard_batch(launch_train_batches(torch, run.model)[0], plan)
-    res = dry_compare(torch, f"train {run.model.name} 4 layers f32 "
-                      f"{mesh.shape}{' fsdp' if plan.layout.fsdp else ''} "
-                      f"rank {mesh.rank}", run, plan, dry_plan,
-                      torch.float32, step, [st, batch], mesh)
+    res = dry_compare(torch, rank_case_name(run, plan, mesh), run, plan,
+                      dry_plan, torch.float32, step, [st, batch], mesh)
     del st, batch
     torch.cuda.empty_cache()
     return res
@@ -7649,6 +7743,19 @@ def _dist_check(torch, chk, ranks):
                 fail(f"dist {name} rank {res['rank']}: kvp holds "
                      f"{c['heads'][1:]} of {H} heads under {c['attn']}, "
                      f"not {H // DIST_RANKS} under 'q_heads'")
+            # MoE: E/2 experts a rank under the case's schedule, the
+            # tokens exchanged by all-to-all only under EP
+            if name in DIST_MOE:
+                a2a = c["collectives"].get("all_to_all", {}).get("calls", 0)
+                log(f"dist rank {res['rank']} {name}: schedule {c['moe']}, "
+                    f"experts {c['experts'][0]} of {c['experts'][1]}, "
+                    f"all-to-all calls {a2a}")
+                if (c["moe"] != DIST_MOE[name]
+                        or c["experts"][0] * DIST_RANKS != c["experts"][1]
+                        or (a2a > 0) != (c["moe"] == "ep")):
+                    fail(f"dist {name} rank {res['rank']}: schedule "
+                         f"{c['moe']}, experts {c['experts']}, all-to-all "
+                         f"calls {a2a}")
             # K1, then K2: after K1 in the decode op, or across the ranks
             must = ["paged_decode", "combine/dist" if c["scheme"] == "kvp"
                     else "combine/decode"]

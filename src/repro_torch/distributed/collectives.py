@@ -37,10 +37,12 @@ explicitly, in the gloo branch only, and counted in the mesh's
 CUDA tensors as they are.  The mesh's ``stats`` count each op's calls,
 bytes and host seconds.
 
-Under autograd: Megatron's f and g, the vocab gather, and
+Under autograd: Megatron's f and g, the vocab gather,
 ``gather_dim``, the gather of a piece along a dim (FSDP's weights over
 "data", the q heads of a ``"q_heads"`` layer over "model"), whose
-backward is the reduce-scatter of the gradient.
+backward is the reduce-scatter of the gradient, and ``exchange``, the
+all-to-all of expert parallelism, whose backward is the all-to-all of
+the gradient.
 
 On a dry mesh (``launch.mesh.make_dry_mesh``) the group is a
 ``sharding.DryGroup``: each helper allocates what the real call
@@ -348,8 +350,8 @@ def spans(axes: Sequence[str]) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the collectives under autograd (Megatron's f and g, the vocab gather and
-# the gather of a piece along a dim)
+# the collectives under autograd (Megatron's f and g, the vocab gather, the
+# gather of a piece along a dim and the all-to-all)
 # ---------------------------------------------------------------------------
 # A Function whose backward makes a collective keeps the mesh its forward
 # ran under: the autograd engine runs a CUDA backward on a thread of its
@@ -407,6 +409,19 @@ class _GatherDim(torch.autograd.Function):
                     None)
 
 
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_to_all(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        with use_mesh(ctx.mesh):
+            return all_to_all(g.contiguous(), ctx.axes), None, None
+
+
 def gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int,
                summed: bool = True) -> torch.Tensor:
     """The whole of ``x``, this rank's piece along ``dim`` of a tensor cut
@@ -439,6 +454,16 @@ def copy_in(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     if _group(axes) is None or not torch.is_grad_enabled():
         return x
     return _CopyIn.apply(x, tuple(axes), current_mesh())
+
+
+def exchange(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``all_to_all`` over the mesh ``axes`` (dim 0 of ``x`` in n equal
+    blocks, block j to rank j); under autograd the gradient takes the way
+    back, the same all-to-all of the cotangent (block i to the rank that
+    sent block i), and on a dry mesh both are recorded."""
+    if _group(axes) is None:
+        return x
+    return _Exchange.apply(x, tuple(axes), current_mesh())
 
 
 def gather_last(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

@@ -12,10 +12,29 @@ rows:
 Capacity is per rank (``T_l`` its live tokens), as in the JAX function,
 so with a finite factor the drops may differ from the single-device
 ``apply_moe`` over the whole batch; dropless (capacity 0) both are exact.
+The load-balance loss is the JAX function's too: each data shard's
+local loss, averaged over the batch axes' ranks — not the whole batch's
+loss that ``models.moe.apply_moe_train(batch_axes=)`` computes without
+EP (the two differ when a batch axis holds more than one rank).
 As in ``models.moe``, only ``live`` tokens are routed (the port's rule:
 padding takes no expert slot and counts in no capacity).  The expert
 products are batched matmuls, as the JAX ``einsum``s run outside any
 Pallas kernel.
+
+Under autograd (training under ``moe_ep``) the gradients are
+``jax.grad``'s through the JAX ``shard_map``.  The activations are whole
+over "model", so the m ranks of a data shard route the same tokens and
+each expert's owner receives m copies of every token it serves, one
+from each rank, and sends each copy's output back to it.  Every rank
+computes the whole loss, so each copy's cotangent is the whole
+gradient: the exchanges' backward (``collectives.exchange``: the
+all-to-all of the cotangent) would give each expert m times its
+gradient.  JAX's transpose divides the replicated output's cotangent by
+m and sums the replicated inputs' cotangents (``x``, ``router``) over
+"model"; here each rank's ``x`` and ``router`` already get the whole
+gradient (the copy of the tokens a rank sent comes back only to it), so
+only the expert weights' gradients are divided by m (``_ScaleGrad``):
+the same numbers, with no collective for ``x`` or the router.
 """
 
 from __future__ import annotations
@@ -25,15 +44,30 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import all_reduce, all_to_all
+from repro_torch.distributed.collectives import exchange, reduce_sum
 from repro_torch.distributed.sharding import current_mesh, current_rules
 from repro_torch.models import moe as moe_mod
 from repro_torch.utils.fake import count_true
+
+EXPERT_WEIGHTS = ("wg", "wu", "wd")
 
 
 def _batch_axes(mesh) -> Tuple[str, ...]:
     phys = current_rules().physical("batch") or ()
     return tuple(a for a in phys if a in mesh.axis_names)
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity; its gradient times ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
 
 
 def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -60,17 +94,18 @@ def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     aux = moe_mod.aux_loss(probs, idx, live)
     ba = _batch_axes(mesh)
     if ba:
-        aux = all_reduce(aux, ba) / mesh.prod(ba)
+        aux = reduce_sum(aux, ba) / mesh.prod(ba)
     slot, ok, disp = moe_mod.dispatch(idx, moe_mod.capacity(T_l, cfg), E,
                                       live)
     C = disp.shape[1]
     xe = xf[torch.clamp(disp, max=xf.shape[0] - 1)]  # (E, C, d)
     # experts to their owning rank: (m, E/m, C, d) -> (E/m, m·C, d)
-    xe = all_to_all(xe, ("model",)).reshape(m, E // m, C, d)
+    xe = exchange(xe, ("model",)).reshape(m, E // m, C, d)
     xe = xe.transpose(0, 1).reshape(E // m, m * C, d)
-    ye = moe_mod.expert_ffn(p, xe, cfg)
+    w = {n: _ScaleGrad.apply(p[n], 1.0 / m) for n in EXPERT_WEIGHTS}
+    ye = moe_mod.expert_ffn(w, xe, cfg)
     # back to the tokens' rank: (E/m, m, C, d) -> (m, E/m, C, d) -> (E, C, d)
     ye = ye.reshape(E // m, m, C, d).transpose(0, 1).contiguous()
-    ye = all_to_all(ye, ("model",)).reshape(E, C, d)
+    ye = exchange(ye, ("model",)).reshape(E, C, d)
     out = moe_mod.combine(ye, gates, idx, slot, ok)
     return out.to(x.dtype).reshape(shape), aux

@@ -171,7 +171,14 @@ class TPLayout:
         a masked lookup summed over "model", the logits gathered;
       * ``mlp``: ``wg``/``wu`` columns and ``wd`` rows of ``d_ff`` —
         ``wd``'s partial sums reduced in f32;
-      * ``experts``: the MoE experts (expert parallelism, ``ep``);
+      * ``experts``: the MoE experts, E/m of them a rank (the router
+        whole), and ``ep`` how a rank computes them (``moe()``): without
+        it GSPMD's cut — the rank routes its own tokens, runs its experts
+        over their rows of the ``(E, C)`` dispatch buffer and combines
+        the choices it holds, the partial sums reduced over "model"
+        (``models.moe``); with it (the config's ``moe_ep``) JAX's
+        ``ep.apply_moe_ep`` — the tokens exchanged by all-to-all with the
+        experts' owners (``distributed.ep``);
       * ``attn``, per layer: ``"heads"`` (tp: ``wq``/``wk``/``wv``/``wo``
         and the pools by kv heads), ``"groups"`` (dp: ``wq``/``wo`` by
         G/m heads of every kv group), ``"q_heads"`` (GSPMD's ``heads``
@@ -188,9 +195,17 @@ class TPLayout:
     vocab: bool = False
     mlp: bool = False
     experts: bool = False
+    ep: bool = False
     attn: Tuple[str, ...] = ()
     kv_heads: int = 0
     fsdp: Tuple[str, ...] = ()
+
+    def moe(self) -> str:
+        """What a rank does with the MoE experts: ``"whole"`` (it holds
+        every expert), ``"cut"`` (GSPMD's: E/m experts over its own
+        tokens, partial sums reduced over "model") or ``"ep"`` (E/m
+        experts, the tokens exchanged by all-to-all)."""
+        return "ep" if self.ep else "cut" if self.experts else "whole"
 
     def cut(self, layer: int) -> str:
         """Layer ``layer``'s entry of ``attn`` ("whole" with none)."""

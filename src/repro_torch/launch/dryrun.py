@@ -101,6 +101,7 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
                    "kv_axes": plan.kv_axes, "microbatches": plan.microbatches,
                    "variant": run.variant, "zero_pod": plan.zero_pod,
                    "attn": sorted(set(plan.layout.attn)),
+                   "experts": plan.layout.moe(),
                    "rules": {k: v for k, v in plan.rules.table.items()
                              if v is not None}}
     try:

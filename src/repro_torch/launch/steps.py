@@ -21,10 +21,11 @@ which weights each rank holds a piece of, which the model cuts and reads.
 The train plan's is the tensor-parallel cut (heads over "model" when it
 divides the kv heads, else q-head groups when it divides the group, else
 GSPMD's contiguous q heads; ``d_ff`` and the vocab where the rules put
-them on "model"), and every plan's ``embed`` dims over the FSDP axes of
-its rules (the configs' ``embed: ("data",)`` override).  The prefill
-plan's is the one the decode plan of the same config on the same mesh
-has, so that the state a rank prefills is the state ``shard_decode_state``
+them on "model"), every MoE plan's experts over "model" where it divides
+them, and every plan's ``embed`` dims over the FSDP axes of its rules
+(the configs' ``embed: ("data",)`` override).  The prefill plan's is the
+one the decode plan of the same config on the same mesh has, so that
+the state a rank prefills is the state ``shard_decode_state``
 takes: the JAX prefill plan shards the pools' head_dim over "model"
 instead (a reshard at the phase boundary that the port does not make).
 
@@ -50,10 +51,11 @@ and its state.
 The spec trees depart from the JAX ones where the port holds something
 else than GSPMD would: the kv projections are cut with the q heads under
 the ``"heads"`` cut, the ``"groups"`` cut takes G/m heads of every group
-(strided) where GSPMD takes H/m contiguous ones, the experts stay whole
-(expert parallelism is a decode layout), and the prefill pools follow
-the decode layout (above).  ``embed`` over the FSDP axes and ``wq``/``wo``
-by contiguous heads (``"q_heads"``) are GSPMD's.
+(strided) where GSPMD takes H/m contiguous ones, and the prefill pools
+follow the decode layout (above).  ``embed`` over the FSDP axes,
+``wq``/``wo`` by contiguous heads (``"q_heads"``) and the experts over
+"model" in every MoE plan (GSPMD's cut, or the all-to-all of ``moe_ep``,
+which picks only how a rank computes them) are GSPMD's.
 """
 
 from __future__ import annotations
@@ -192,8 +194,10 @@ def _decode_scheme(cfg: ModelConfig, model_size: int,
 def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
             m: int) -> TPLayout:
     """Which weights a rank holds a piece of: over "model", the vocab,
-    ``d_ff`` and the experts (under ``moe_ep``) where the rules put them
-    on "model" alone and it divides them; per ``A``/``W`` layer, the heads
+    ``d_ff`` and the experts where the rules put them on "model" alone
+    and it divides them (the experts under GSPMD's cut, or exchanged by
+    all-to-all under the config's ``moe_ep``: ``TPLayout.moe``), in
+    train, prefill and decode plans alike; per ``A``/``W`` layer, the heads
     under tp, under dp (a windowed layer of a kvp plan too) the q heads
     of every group when ``m`` divides the group, else (kvp, and dp where
     ``m`` divides no group) ``m``'s contiguous share of the q heads when
@@ -218,11 +222,11 @@ def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
                     else "heads" if s == "tp"
                     else "groups" if s == "dp" and G % m == 0
                     else "q_heads" if cfg.n_heads % m == 0 else "whole")
+    experts = cfg.is_moe and on_model("experts", cfg.n_experts)
     return TPLayout(
         vocab=on_model("vocab", cfg.vocab_size),
         mlp=bool(cfg.d_ff) and on_model("mlp", cfg.d_ff),
-        experts=cfg.moe_ep and cfg.is_moe and on_model(
-            "experts", cfg.n_experts),
+        experts=experts, ep=experts and cfg.moe_ep,
         attn=tuple(attn),
         kv_heads=cfg.n_kv_heads // m if scheme == "tp" else cfg.n_kv_heads,
         fsdp=fsdp)
@@ -263,8 +267,8 @@ def spec_leaves(tree) -> list:
 
 def param_specs(model, plan: Plan, fsdp: Optional[Tuple[str, ...]] = None):
     """The spec tree of the pieces ``model.shard_params(params, plan)``
-    keeps, by ``plan.layout``: the vocab, ``d_ff`` and (under ``moe_ep``)
-    the experts over "model" as the layout says; attention by layer
+    keeps, by ``plan.layout``: the vocab, ``d_ff`` and the experts over
+    "model" as the layout says; attention by layer
     (``TPLayout.attn_rules``) — ``"heads"``: ``wq``/``wk``/``wv`` by heads
     and ``wo`` by its head rows, ``"groups"`` and ``"q_heads"``:
     ``wq``/``wo`` by heads (under ``"groups"`` G/m of every kv group: the
@@ -422,11 +426,13 @@ def train_grads(model, plan: Plan) -> Callable:
     ``plan.microbatches`` = mb > 1 the rows are cut into mb consecutive
     parts whose gradients are accumulated in f32 and divided by mb (the
     JAX body).  Over the batch axes each rank's loss is its part of the
-    global mean (``layers.xent``; the MoE aux loss is the whole batch's)
-    and the gradients are summed over them — an FSDP piece's over the
-    batch axes off the FSDP axes only, the reduce-scatter of its gather
-    having summed it over those; over "model" each rank computes its
-    heads, ``d_ff`` columns and vocab slice.  The accumulator and the
+    global mean (``layers.xent``; the MoE aux loss is the whole batch's,
+    under ``moe_ep`` the mean of each shard's, JAX's EP law) and the
+    gradients are summed over them — an FSDP piece's over the batch axes
+    off the FSDP axes only, the reduce-scatter of its gather having
+    summed it over those, and an expert's over the batch axes only; over
+    "model" each rank computes its heads, ``d_ff`` columns, vocab slice
+    and experts.  The accumulator and the
     gradients are the rank's pieces.  ``loss`` and ``parts`` (``ce``,
     ``aux``) are the global batch's."""
     from repro_torch.distributed.collectives import all_reduce, spans

@@ -17,6 +17,21 @@ the top-1 choices, is ``aux_loss``: ``apply_moe_train`` returns it
 beside the output, from the same router call, for the training loss;
 serving does not use it.
 
+Across ranks (``cut=True``, a plan's ``TPLayout.moe() == "cut"``) the
+rank holds E/m experts of the mesh's "model" axis, GSPMD's cut of the
+JAX rules' ``experts: ("model",)``: it routes its own tokens with the
+whole router (dispatch, capacity and ``live`` as on one device), runs its
+experts over their rows of the ``(E, C)`` dispatch buffer, and combines
+only the choices whose expert it holds, in f32; the partial sums are
+reduced over "model" (``collectives.reduce_sum``, Megatron's g).  Under
+autograd each rank's combine gives only its part of the gradient of the
+gates and of the tokens its experts read, so both are summed over
+"model" in the backward (``collectives.copy_in`` on the probabilities
+the gates come from and on the experts' input rows); the load-balance
+loss, which every rank computes whole from the same probabilities, is
+not (its gradient would count m times).  Serving and training run this
+one function.
+
 ``live`` (a bool per token) is the port's addition: a token that is not
 live (prefill padding, a chunk's dead tail, a dead decode slot) takes no
 rank in any expert, does not count in ``T`` for the capacity, and gets a
@@ -33,6 +48,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import axis_index, axis_size
+from repro_torch.models.layers import copy_model, reduce_model
 from repro_torch.models.spec import ParamSpec
 from repro_torch.utils.fake import count_true
 
@@ -66,13 +83,23 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
                       * cfg.moe_capacity))
 
 
-def router(p: Dict, x: torch.Tensor, k: int
+def router(p: Dict, x: torch.Tensor, k: int, cut: bool = False
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router of ``x`` (T, d): logits in the activation dtype, an f32
-    softmax (T, E), and the top-k gates and experts (T, k)."""
+    softmax (T, E), and the top-k gates and experts (T, k).  With
+    ``cut`` the gates' gradient is summed over "model" (each rank
+    combines only its experts' choices); the probabilities returned, the
+    load-balance loss's, are not."""
     probs = torch.softmax((x @ p["router"]).float(), dim=-1)
-    gates, idx = top_k_route(probs, k)
+    gates, idx = top_k_route(copy_model(probs) if cut else probs, k)
     return probs, gates, idx
+
+
+def _expert_range(E: int) -> Tuple[int, int]:
+    """(the first expert of this rank, its count): E/m of the active
+    mesh's "model" axis (``DistributedSetupError`` without one)."""
+    n = E // axis_size("model")
+    return axis_index("model") * n, n
 
 
 def aux_loss(probs: torch.Tensor, idx: torch.Tensor,
@@ -151,47 +178,60 @@ def expert_ffn(p: Dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
-            slot: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+            slot: torch.Tensor, ok: torch.Tensor, lo: int = 0
+            ) -> torch.Tensor:
     """Each token's k kept choices of ``ye`` (E, C, d), weighted by their
     gates and summed over k in f32: (T, d) f32.  A gather and a sum, not
-    a scatter-add, so a decode step does not depend on atomics."""
+    a scatter-add, so a decode step does not depend on atomics.  ``ye``
+    holds experts ``lo .. lo + E - 1``; the choices of other experts
+    count 0 (a rank's part under the cut)."""
     E, C, d = ye.shape
     T, k = idx.shape
-    src = (torch.clamp(idx, max=E - 1) * C
+    e = idx - lo
+    keep = ok.reshape(T, k) & (e >= 0) & (e < E)
+    src = (torch.clamp(e, 0, E - 1) * C
            + torch.where(ok, slot, 0).reshape(T, k))
     c = ye.reshape(E * C, d)[src].float() * gates[..., None]  # (T, k, d)
-    return torch.where(ok.reshape(T, k, 1), c, 0.0).sum(1)
+    return torch.where(keep[..., None], c, 0.0).sum(1)
 
 
 def _moe(p: Dict, xf: torch.Tensor, cfg: ModelConfig,
-         live: Optional[torch.Tensor], n: int
+         live: Optional[torch.Tensor], n: int, cut: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The FFN over ``xf`` (T, d) at the capacity of ``n`` live tokens:
-    (its f32 output (T, d), the router's probabilities and experts)."""
-    probs, gates, idx = router(p, xf, cfg.top_k)
+    (its f32 output (T, d), the router's probabilities and experts).
+    ``cut``: ``p`` holds this rank's E/m experts over "model" (GSPMD's
+    cut, the module docstring)."""
+    probs, gates, idx = router(p, xf, cfg.top_k, cut)
     slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
-    out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
-    return out, probs, idx
+    if not cut:
+        out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
+        return out, probs, idx
+    lo, n_e = _expert_range(cfg.n_experts)
+    ye = experts(p, copy_model(xf), disp[lo:lo + n_e], cfg)
+    return reduce_model(combine(ye, gates, idx, slot, ok, lo)), probs, idx
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
               live: Optional[torch.Tensor] = None,
-              n_live: Optional[int] = None) -> torch.Tensor:
+              n_live: Optional[int] = None, cut: bool = False
+              ) -> torch.Tensor:
     """x: (B, S, d) or (B, d); ``live`` of x's leading shape (or None:
     every token live), ``n_live`` its count (read from ``live`` on the
-    host when None).  Returns the FFN's output, of x's shape and dtype."""
+    host when None); ``cut``: ``p`` holds this rank's E/m experts over
+    "model".  Returns the FFN's output, of x's shape and dtype."""
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     n = xf.shape[0]
     if live is not None:
         live = live.reshape(n)
         n = count_true(live) if n_live is None else n_live
-    out, _, _ = _moe(p, xf, cfg, live, n)
+    out, _, _ = _moe(p, xf, cfg, live, n, cut)
     return out.to(x.dtype).reshape(shape)
 
 
 def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                    batch_axes: Tuple[str, ...] = ()
+                    batch_axes: Tuple[str, ...] = (), cut: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training FFN, the JAX ``apply_moe``: every token of x (B, S, d)
     routed at the config's capacity.  Returns (the output, of x's shape
@@ -199,8 +239,9 @@ def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     call.  ``batch_axes``: x holds this rank's rows of a batch over those
     mesh axes; the aux loss is the whole batch's, and the capacity is
     this rank's (its tokens' share; dropless, ``moe_capacity=0``, routes
-    exactly as one device does)."""
+    exactly as one device does).  ``cut``: ``p`` holds this rank's E/m
+    experts over "model" (GSPMD's cut)."""
     xf = x.reshape(-1, x.shape[-1])
-    out, probs, idx = _moe(p, xf, cfg, None, xf.shape[0])
+    out, probs, idx = _moe(p, xf, cfg, None, xf.shape[0], cut)
     return (out.to(x.dtype).reshape(x.shape),
             aux_loss(probs, idx, batch_axes=batch_axes))

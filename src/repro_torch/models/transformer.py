@@ -220,8 +220,8 @@ class TransformerModel:
             group; ``"q_heads"`` — ``wq``/``wo`` by H/m contiguous heads,
             the kv projections whole; ``"whole"``;
           * MLP: ``wg``/``wu`` by columns of ``d_ff``, ``wd`` by rows;
-          * MoE: the experts over "model" (expert parallelism), the
-            router whole;
+          * MoE: the experts over "model" (E/m a rank, GSPMD's cut or
+            ``moe_ep``'s all-to-all: ``TPLayout.moe``), the router whole;
           * every weight's ``embed`` dim over ``layout.fsdp`` (FSDP, the
             configs' ``embed: ("data",)`` override) where it divides it,
             norms included; the model gathers each such piece just before
@@ -313,18 +313,19 @@ class TransformerModel:
                    live: Optional[torch.Tensor] = None,
                    n_live: Optional[int] = None,
                    layout: TPLayout = TPLayout()) -> torch.Tensor:
-        """The layer's FFN; ``layout``: the rank's cut of its weights
-        (experts over "model": ``ep.apply_moe_ep``)."""
+        """The layer's FFN; ``layout``: the rank's cut of its weights (the
+        experts over "model": GSPMD's cut in ``moe.apply_moe``, or
+        ``ep.apply_moe_ep`` under ``moe_ep``)."""
         if "ln2" not in p:  # no FFN (d_ff == 0)
             return x
         h = layers.apply_norm(p["ln2"], x)
         if "moe" in p:
-            if layout.experts:
+            if layout.ep:
                 from repro_torch.distributed import ep
                 return x + ep.apply_moe_ep(p["moe"], h, self.cfg, live=live,
                                            n_live=n_live)[0]
             return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
-                                     n_live=n_live)
+                                     n_live=n_live, cut=layout.experts)
         return x + layers.apply_mlp(p["mlp"], h, self.cfg, layout.mlp)
 
     def _live_tokens(self, lens: torch.Tensor, width: int,
@@ -366,7 +367,10 @@ class TransformerModel:
         """One layer over whole sequences: (x', the MoE aux loss or
         None).  ``lay``: the rank's cut of the weights; ``batch_axes``:
         the mesh axes the rows are spread over (the aux loss is the whole
-        batch's)."""
+        batch's, or under ``moe_ep`` JAX's EP law: each shard's own,
+        averaged).  An MoE layer runs as ``lay.moe()`` says: the experts
+        whole or cut (``moe.apply_moe_train``), or exchanged by
+        all-to-all (``ep.apply_moe_ep``)."""
         cfg = self.cfg
         code = self.codes[li]
         p = self._gather_layer(li, p, lay, batch_axes)
@@ -380,8 +384,13 @@ class TransformerModel:
         else:
             x = x + REC_TRAIN[code](p["rec"], h, cfg)
         if "moe" in p:
-            o, aux = moe.apply_moe_train(
-                p["moe"], layers.apply_norm(p["ln2"], x), cfg, batch_axes)
+            h = layers.apply_norm(p["ln2"], x)
+            if lay.ep:
+                from repro_torch.distributed import ep
+                o, aux = ep.apply_moe_ep(p["moe"], h, cfg)
+            else:
+                o, aux = moe.apply_moe_train(p["moe"], h, cfg, batch_axes,
+                                             cut=lay.experts)
             return x + o, aux
         return self._apply_ffn(p, x, layout=lay), None
 
@@ -389,19 +398,14 @@ class TransformerModel:
                    ) -> Tuple[TPLayout, Tuple[str, ...]]:
         """The layout and batch axes of a train plan's ``attn_ctx``
         (``launch.steps.Plan.attn_ctx``); refuses what the port does not
-        train across ranks: layers other than ``A``/``W``, and experts
-        over "model"."""
+        train across ranks: layers other than ``A``/``W``."""
         if not attn_ctx:
             return TPLayout(), ()
         mesh = current_mesh()
         if mesh is not None and math.prod(mesh.shape) > 1:
             self._check_distributable()
-        lay = attn_ctx.get("layout", TPLayout())
-        if lay.experts:
-            raise UnsupportedFeature(
-                "training under expert parallelism is not ported (the "
-                "experts' gradients would cross the all-to-all)")
-        return lay, tuple(attn_ctx.get("batch_axes", ()))
+        return (attn_ctx.get("layout", TPLayout()),
+                tuple(attn_ctx.get("batch_axes", ())))
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 extra: Optional[Dict] = None, impl: str = "ref",
@@ -422,7 +426,8 @@ class TransformerModel:
         ``attn_ctx``: a train plan's (``launch.steps.Plan.attn_ctx``) under
         its mesh: ``params`` are this rank's pieces (``layout``: heads,
         ``d_ff`` columns and the vocab over "model", Megatron style, the
-        activations whole between blocks; ``embed`` dims over the FSDP
+        experts over "model" too, the activations whole between blocks;
+        ``embed`` dims over the FSDP
         axes, each layer's gathered just before it runs and, under
         ``remat``, again in the backward) and ``tokens`` its rows of a
         batch over ``batch_axes``.  Models of ``A`` and ``W`` layers."""
@@ -469,7 +474,8 @@ class TransformerModel:
         ("image_embeds")} → (ce + router_aux_coef · aux, {"ce", "aux"}).
         ``attn_ctx``: a train plan's (``forward``); over its batch axes
         ``ce`` is this rank's part of the global mean (``layers.xent``:
-        the parts add up over the ranks) and ``aux`` the whole batch's."""
+        the parts add up over the ranks) and ``aux`` the whole batch's
+        (under ``moe_ep`` the mean of each shard's, JAX's EP law)."""
         extra = {k: v for k, v in batch.items()
                  if k not in ("inputs", "targets", "mask")}
         logits, aux = self.forward(params, batch["inputs"], extra or None,

@@ -1,5 +1,5 @@
 """Rank processes for the port's distributed tests (tests/test_torch_dist*,
-tests/test_torch_ring_ep.py).
+tests/test_torch_ring_ep.py, tests/test_torch_expert_grad.py, ...).
 
 ``run_ranks`` starts ``world`` processes (``multiprocessing`` "spawn"
 context) that join one ``gloo`` group through a ``FileStore`` in a
@@ -388,8 +388,14 @@ def _train_case(mesh, c):
            "aux": float(parts["aux"]), "grad_err": _max_rel(grads, want),
            "microbatches": plan.microbatches, "attn": plan.layout.attn,
            "vocab": plan.layout.vocab, "fsdp": plan.layout.fsdp,
+           "moe": plan.layout.moe(),
            "param_frac": sum(x.numel() for x in _leaves(params))
            / sum(x.numel() for x in _leaves(full))}
+    moe = [li for li, p in enumerate(full["layers"]) if "moe" in p]
+    if moe:  # the experts a rank holds, of the whole
+        out["experts"] = [[int(params["layers"][li]["moe"][k].shape[0])
+                           for li in moe for k in ("wg", "wu", "wd")],
+                          int(full["layers"][moe[0]]["moe"]["wg"].shape[0])]
     one_plan = plan_for(run, make_local_mesh(), attn_impl="ref",
                         microbatches=1)
     one_step = build_train_step(run, one_plan, torch.float32)[0]
@@ -416,6 +422,11 @@ def _train_case(mesh, c):
         out["one_gnorm"].append(float(m1["grad_norm"]))
     out["calls"] = {k: n - stats0.get(k, 0)
                     for k, n in mesh.stats["calls"].items()}
+    if moe:  # and their moments after the steps
+        out["expert_moments"] = [
+            int(t["layers"][li]["moe"][k].shape[0]) for t in (
+                st.opt.mu, st.opt.nu) for li in moe for k in ("wg", "wu",
+                                                               "wd")]
     return out
 
 
@@ -529,6 +540,97 @@ def gspmd_cases(mesh, inputs):
     return out
 
 
+def _moe_layer_case(mesh, c):
+    """The smoke granite-moe layer (``c["p"]``, whole) on this rank: its
+    batch rows of ``c["x"]`` (over "data") with its E/m experts (over
+    "model"), under ``ep.apply_moe_ep`` (``c["ep"]``) or GSPMD's cut
+    (``moe.apply_moe_train(cut=True)``, the whole batch's aux loss); the
+    loss ``Σ out·w + 0.01·aux`` of its rows, differentiated by autograd,
+    and the router's and experts' gradients summed over "data" as
+    ``train_grads`` sums them."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.collectives import all_reduce
+    from repro_torch.distributed.ep import apply_moe_ep
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    from repro_torch.models.moe import apply_moe_train
+    nd, m = mesh.size("data"), mesh.size("model")
+    d, r = mesh.index("data"), mesh.index("model")
+    cfg = get_config("granite-moe-1b-a400m").smoke().replace(
+        moe_capacity=c["capacity"], moe_ep=c["ep"])
+    E = cfg.n_experts
+    ex = slice(r * E // m, (r + 1) * E // m)
+    p = {k: (torch.from_numpy(v) if k == "router"
+             else torch.from_numpy(v)[ex].clone()).requires_grad_()
+         for k, v in c["p"].items()}
+    x, w = torch.from_numpy(c["x"]), torch.from_numpy(c["w"])
+    rows = slice(d * x.shape[0] // nd, (d + 1) * x.shape[0] // nd)
+    xr = x[rows].clone().requires_grad_()
+    ba = ("data",) if nd > 1 else ()
+    names = ("router", "wg", "wu", "wd")
+    with use_mesh(mesh, DEFAULT_RULES.extend(batch=ba or None)):
+        if c["ep"]:
+            o, aux = apply_moe_ep(p, xr, cfg)
+        else:
+            o, aux = apply_moe_train(p, xr, cfg, ba, cut=True)
+        loss = (o * w[rows]).sum() + 0.01 * aux
+        g = torch.autograd.grad(loss, [xr] + [p[k] for k in names])
+        g = [g[0]] + [all_reduce(t, ba) for t in g[1:]]
+    out = {"out": _np(o), "aux": float(aux), "x": _np(g[0]),
+           "rows": [rows.start, rows.stop], "experts": [ex.start, ex.stop]}
+    out.update({k: _np(t) for k, t in zip(names, g[1:])})
+    return out
+
+
+def _ep_trains(mesh):
+    """The smoke granite-moe under ``moe_ep`` on a (1, 2) mesh, B 2 x S 16,
+    ``attn_impl="ref"`` (the plan the port refused to train before expert
+    parallelism under grad): the layout and the loss's gradients."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.launch.steps import plan_for, train_grads
+    from repro_torch.models.api import build_model
+    cfg = get_config("granite-moe-1b-a400m").smoke().replace(moe_ep=True)
+    run = RunConfig(model=cfg, seq_len=16, global_batch=2, kind="train")
+    plan = plan_for(run, mesh, attn_impl="ref")
+    model = build_model(cfg)
+    params = model.init_params(torch.Generator().manual_seed(0),
+                               plan=plan)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 17), generator=gen)
+    loss, parts, grads = train_grads(model, plan)(
+        params, {"inputs": tok[:, :-1], "targets": tok[:, 1:]})
+    return {"moe": plan.layout.moe(), "loss": float(loss),
+            "aux": float(parts["aux"]),
+            "finite": all(bool(torch.isfinite(g).all())
+                          for g in _leaves(grads)),
+            "nonzero": all(bool(g.abs().sum() > 0) for g in _leaves(
+                [lp["moe"] for lp in grads["layers"]]))}
+
+
+def expert_cases(mesh, inputs):
+    """Every case of tests/test_torch_expert_grad.py on a 4-rank world:
+    the layer cases (``_moe_layer_case``), the train cases
+    (``_train_case``), the prefill cases (``_prefill_case``), the (1, 2)
+    plan that trains under ``moe_ep`` and the dry cases, each on its mesh:
+    (2, 2), (1, 2) and (2, 1) (``_launch_meshes``), (1, 4) and the (2, 1,
+    2) ("pod", "data", "model") mesh over the four ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 4)] = make_mesh((1, 4))
+    meshes[(2, 1, 2)] = make_mesh((2, 1, 2), ("pod", "data", "model"))
+    out = {f"layer/{name}": _moe_layer_case(meshes[c["mesh"]], c)
+           for name, c in inputs["layer"].items()}
+    for name, c in inputs["train"].items():
+        out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
+    for name, c in inputs["prefill"].items():
+        out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
+    out["ep_trains"] = _ep_trains(meshes[(1, 2)])
+    out["dry"] = _dry_cases(meshes, inputs["dry"], mesh.rank)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the dry run (tests/test_torch_dryrun.py)
 # ---------------------------------------------------------------------------
@@ -582,31 +684,39 @@ def _record(rec):
 
 def dryrun_cases(mesh, inputs):
     """Each case of ``inputs["cases"]`` (name: (mesh shape, kind, scheme,
-    config), the smoke config of that name) on its mesh of this 4-rank
+    config[, replace]), the smoke config of that name, with ``replace``'s
+    fields when given) on its mesh of this 4-rank
     world ((1, 1): the rank alone; (1, 2), (2, 1) and (2, 2):
     ``_launch_meshes``): the real step on real CPU tensors under
     ``record_step`` and the dry trace of the same rank (``dry_step`` on
     ``make_dry_mesh`` of the same shape and rank), both under
     ``impl="ref"``."""
+    from repro_torch.launch.mesh import make_local_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 1)] = make_local_mesh()
+    return _dry_cases(meshes, inputs, mesh.rank)
+
+
+def _dry_cases(meshes, inputs, seed):
+    """``dryrun_cases`` on the meshes by shape of ``meshes``; ``seed``
+    draws the real inputs."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
     from repro_torch.launch.cost_analysis import record_step
-    from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
+    from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.launch.steps import dry_step, plan_for, rank_inputs
-    meshes = _launch_meshes(mesh)
-    meshes[(1, 1)] = make_local_mesh()
     out = {}
-    for name, (shape, kind, scheme, config) in inputs["cases"].items():
+    for name, (shape, kind, scheme, config, *repl) in inputs[
+            "cases"].items():
         m = meshes[shape]
-        cfg = get_config(config).smoke()
+        cfg = get_config(config).smoke().replace(**(repl[0] if repl else {}))
         run = RunConfig(model=cfg, seq_len=inputs["S"],
                         global_batch=inputs["B"], kind=kind)
         kw = {} if kind == "train" else {"impl": "ref"}
         plan = plan_for(run, m, attn_impl="ref", scheme=scheme)
         step, mine, _ = rank_inputs(run, plan, torch.float32, **kw)
-        real = record_step(step, real_inputs(run, mine, seed=mesh.rank),
-                           m)
+        real = record_step(step, real_inputs(run, mine, seed=seed), m)
         dry_plan = plan_for(run, make_dry_mesh(shape, m.axis_names, m.rank),
                             attn_impl="ref", scheme=scheme)
         dry = dry_step(run, dry_plan, torch.float32, **kw)

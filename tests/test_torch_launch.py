@@ -8,9 +8,9 @@
 - The spec trees: ``train_state_shardings`` against the JAX specs
   (``repro.launch.steps.train_state_shardings`` with ``NamedSharding``
   replaced by its spec), FSDP's ``embed`` over "data" and ``wq``/``wo``
-  by heads included; where the port departs from GSPMD by design — kv
-  projections cut with the q heads under the ``"heads"`` cut, experts
-  whole — the expected spec is the JAX one under the rule that
+  by heads and the experts over "model" included; where the port departs
+  from GSPMD by design — kv projections cut with the q heads under the
+  ``"heads"`` cut — the expected spec is the JAX one under the rule that
   departure changes (the strided ``"groups"`` cut has the JAX spec:
   the spec says which dim is cut, not which heads);
   ``batch_shardings``, ``decode_state_shardings`` (equal), and the
@@ -224,14 +224,12 @@ def _jax_layer_specs(jtree, model):
 
 
 def _expected_specs(model, plan, jplan_rules, mesh):
-    """The JAX specs under the port's departures: the experts over
-    "model" only under expert parallelism, and per attention layer the
+    """The JAX specs under the port's departure: per attention layer the
     kv heads cut with the q heads under ``"heads"`` (the q heads over
-    "model" unless whole: GSPMD's rule); FSDP's ``embed`` as the JAX
-    rules put it."""
+    "model" unless whole: GSPMD's rule); FSDP's ``embed`` and the experts
+    as the JAX rules put them."""
     from repro.models.api import build_model as jb
-    rules = jplan_rules.extend(
-        experts=("model",) if plan.layout.experts else None)
+    rules = jplan_rules
     jm = jb(model.cfg)
     jaxes = jm.param_axes()
     jshapes = jm.abstract_params()
@@ -285,9 +283,9 @@ def test_train_state_specs_match_jax(name, mshape, jax_specs):
     for k in g:
         assert _norm(g[k], sizes) == _norm(w[k], sizes), k
     assert got.opt.mu is got.params and tuple(got.step) == ()
-    # the departures left are real and the only ones: under JAX's own
-    # rules the trees differ exactly at the kv projections of "heads"
-    # layers and at the experts (FSDP's embed and the q heads are JAX's)
+    # the departure left is real and the only one: under JAX's own rules
+    # the trees differ exactly at the kv projections of "heads" layers
+    # (FSDP's embed, the q heads and the experts are JAX's)
     jtree = jax_specs.train_state_shardings(jbuild(jrun.model), jplan)
     raw = _leaves_by_path({**{k: v for k, v in jtree.params.items()
                               if k not in ("groups", "rem")},
@@ -295,8 +293,8 @@ def test_train_state_specs_match_jax(name, mshape, jax_specs):
     differ = {k for k in g if _norm(g[k], sizes) != _norm(raw[k], sizes)}
     heads = {li for li, c in enumerate(plan.layout.attn) if c == "heads"}
     for k in differ:
-        assert "/moe/w" in k or (k.split("/")[4] in ("wk", "wv") and int(
-            k.split("/")[2]) in heads), k
+        assert k.split("/")[4] in ("wk", "wv") and int(
+            k.split("/")[2]) in heads, k
     fsdp = "embed" in run.model.axis_overrides and sizes["data"] > 1
     assert plan.layout.fsdp == (("data",) if fsdp else ())
     if fsdp:  # the norms too: their one dim is embed
@@ -521,17 +519,6 @@ def test_train_step_takes_the_given_rate():
         moved[lr] = float((st.params["ln_f"]["scale"]
                            - full["ln_f"]["scale"]).abs().max())
     assert moved[None] == moved[3e-4] < moved[1e-3]
-
-
-def test_train_under_expert_parallelism_is_refused():
-    cfg = get_config("granite-moe-1b-a400m").smoke().replace(moe_ep=True)
-    run = RunConfig(model=cfg, seq_len=16, global_batch=2, kind="train")
-    plan = steps.plan_for(run, Mesh((1, 2)), attn_impl="ref")
-    assert plan.layout.experts
-    model = build_model(cfg)
-    with pytest.raises(UnsupportedFeature, match="expert parallelism"):
-        model.forward({}, torch.zeros((2, 16), dtype=torch.long),
-                      attn_ctx=plan.attn_ctx)
 
 
 @pytest.mark.parametrize("name", ["recurrentgemma-9b", "whisper-medium",
