@@ -6872,8 +6872,9 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
         elif "dry" in parts:
             from repro_torch.launch.mesh import make_mesh
             meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
-            out["dry"] = [dry_rank_train(torch, meshes[shape], run, mb)
-                          for _, shape, run, _, mb in launch_train_cases()]
+            out["dry"] = [dry_rank_train(torch, meshes[shape], run, mb, kn)
+                          for _, shape, run, _, mb, kn in
+                          launch_train_cases()]
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -6933,15 +6934,20 @@ LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
 
 
 def launch_prefill_cases():
-    """(name, config, dtype, n_layers or None, meshes) of the prefill
-    cases: llama2-7b on both launch meshes, and granite-8b under FSDP
-    (its ``embed: ("data",)`` override) on (2, 1), at 8 of its 36 layers
+    """(name, config, dtype, n_layers or None, meshes, plan knobs) of the
+    prefill cases: llama2-7b on both launch meshes (on (1, 2) cut along
+    the sequence, the plans' default), granite-8b under FSDP (its
+    ``embed: ("data",)`` override) on (2, 1), at 8 of its 36 layers
     (gloo gathers each layer's weights between the processes: ≈ 0.5 s a
-    layer and step here)."""
-    return [("bf16", "llama2-7b", "bfloat16", None, LAUNCH_MESHES),
-            ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES),
+    layer and step here), and llama2-7b at 4 layers f32 under the ring
+    plan on (1, 2) (ring attention in plain ops, no K4; the attention
+    weights whole, the decode plan's cut again for the decode steps)."""
+    return [("bf16", "llama2-7b", "bfloat16", None, LAUNCH_MESHES, {}),
+            ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES, {}),
             ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 8,
-             ((2, 1),))]
+             ((2, 1),), {}),
+            ("ring f32", "llama2-7b", "float32", 4, ((1, 2),),
+             {"ring": True})]
 
 
 def launch_references(torch, work):
@@ -6949,7 +6955,8 @@ def launch_references(torch, work):
     ``LAUNCH_DECODE_STEPS`` greedy decode steps, per prefill case, saved
     under ``work`` for the ranks."""
     refs = {}
-    for i, (name, cfg_name, dt, nl, _) in enumerate(launch_prefill_cases()):
+    for i, (name, cfg_name, dt, nl, _, _) in enumerate(
+            launch_prefill_cases()):
         t0 = time.perf_counter()
         model = dist_model(torch, cfg_name, dt, nl)
         gen = torch.Generator(device="cuda")
@@ -6990,22 +6997,28 @@ def launch_train_run(name="llama2-7b", **replace):
 
 def launch_train_cases():
     """(name, mesh shape, run, steps, microbatches or None for the
-    plan's) of the launch phase's train rank cases: llama2-7b on both
-    launch meshes, granite-8b under FSDP on (2, 1) for one step, and
+    plan's, plan knobs) of the launch phase's train rank cases: llama2-7b
+    on both launch meshes (on (1, 2) cut along the sequence, the plans'
+    default), granite-8b under FSDP on (2, 1) for one step,
     granite-moe-1b-a400m on (1, 2) under GSPMD's expert cut and under
     ``moe_ep`` (the all-to-all under grad), in one microbatch: at its
     capacity 1.25 the drops are each microbatch's, so the plan's 2 would
     leave one device's plain step (its f32 logits, vocab 49155 whole on
-    2 ranks, pass the 256 MB budget)."""
+    2 ranks, pass the 256 MB budget), and llama2-7b on (1, 2) under the
+    ring plan (ring attention under grad, the heads' q/k/v all-to-all'd
+    to the sequence cut and back)."""
     moe = "granite-moe-1b-a400m"
     return ([(str(shape), shape, launch_train_run(), LAUNCH_TRAIN_STEPS,
-              None) for shape in LAUNCH_MESHES]
+              None, {}) for shape in LAUNCH_MESHES]
             + [("(2, 1) fsdp granite-8b", (2, 1),
-                launch_train_run("granite-8b"), 1, None),
+                launch_train_run("granite-8b"), 1, None, {}),
                ("(1, 2) experts cut granite-moe", (1, 2),
-                launch_train_run(moe), LAUNCH_TRAIN_STEPS, 1),
+                launch_train_run(moe), LAUNCH_TRAIN_STEPS, 1, {}),
                ("(1, 2) experts ep granite-moe", (1, 2),
-                launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1)])
+                launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1,
+                {}),
+               ("(1, 2) ring llama2-7b", (1, 2), launch_train_run(),
+                LAUNCH_TRAIN_STEPS, None, {"ring": True})])
 
 
 def rank_case_name(run, plan, mesh):
@@ -7013,6 +7026,7 @@ def rank_case_name(run, plan, mesh):
     return (f"train {run.model.name} 4 layers f32 {mesh.shape}"
             f"{' fsdp' if plan.layout.fsdp else ''}"
             f"{' experts ' + plan.layout.moe() if run.model.is_moe else ''}"
+            f"{' ring' if plan.layout.ring else ' seq' if plan.layout.seq else ''}"
             f" rank {mesh.rank}")
 
 
@@ -7027,6 +7041,29 @@ def leaves_gap(got, want, rel):
             d = d / (1 + w.float().abs())
         worst = max(worst, float(d.max()))
     return worst
+
+
+def worst_leaf(torch, params, ref_params, grads, ref_grads):
+    """Where a rank's params after its steps lie farthest from one
+    device's (each a list of host tensors but ``params``, a tree on the
+    card): the leaf's path and its largest gap, the index, the first
+    step's gradient there (one device's and the rank's, before the
+    clipping), and how many of the leaf's elements are more than 1e-4
+    off — AdamW's first steps move an element by about the learning
+    rate whatever its gradient's size, so a gradient near 0 whose sign
+    rounding flips moves it by up to twice that."""
+    from repro_torch.utils.tree import tree_paths
+    best = None
+    for (path, p), r, g, gr in zip(tree_paths(params), ref_params, grads,
+                                   ref_grads):
+        d = (p.detach().float().cpu() - r.float()).abs()
+        i = int(d.argmax())
+        if best is None or float(d.view(-1)[i]) > best["gap"]:
+            best = dict(path=path, gap=float(d.view(-1)[i]), index=i,
+                        grad=float(g.reshape(-1)[i]),
+                        ref_grad=float(gr.reshape(-1)[i]),
+                        over_1e4=int((d > 1e-4).sum()), size=d.numel())
+    return best
 
 
 def launch_train_local(torch):
@@ -7093,12 +7130,16 @@ def launch_train_local(torch):
     return out
 
 
-def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
+def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
+                        knobs=None):
     """On this rank: the prefill case ``name`` (config ``cfg_name``) under
-    the prefill plan of ``mesh`` (the rank's rows, with its heads and its
-    FSDP pieces, into pools of its decode layout), ``shard_decode_state``,
-    then the decode steps teacher-forced by one device's greedy tokens;
-    logits against one device's rows."""
+    the prefill plan of ``mesh`` with ``knobs`` (the rank's rows, with its
+    heads and its FSDP pieces, into pools of its decode layout; its slice
+    of the sequence between blocks where "model" holds 2 ranks),
+    ``shard_decode_state``, then the decode steps teacher-forced by one
+    device's greedy tokens (under the ring plan with the decode plan's
+    cut of the weights); logits against one device's rows; the
+    prefill's ms by events, its peak and its collectives."""
     from repro_torch import kernels
     from repro_torch.configs.base import RunConfig
     from repro_torch.distributed.collectives import shard_decode_state
@@ -7115,10 +7156,15 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
     prun = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="prefill")
     drun = RunConfig(model=cfg, seq_len=S + LAUNCH_DECODE_STEPS,
                      global_batch=B, kind="decode")
-    pplan, dplan = plan_for(prun, mesh), plan_for(drun, mesh)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED)
-    params = model.init_params(gen, dtype, "cuda", plan=pplan)
+    pplan = plan_for(prun, mesh, **(knobs or {}))
+    dplan = plan_for(drun, mesh)
+
+    def weights(plan):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        return model.init_params(gen, dtype, "cuda", plan=plan)
+
+    params = weights(pplan)
     pstep = build_prefill_step(prun, pplan, dtype)[0]
     sstep = build_serve_step(drun, dplan, dtype)[0]
     mine = shard_batch({"tokens": tokens, "lens": lens,
@@ -7133,6 +7179,8 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
                                    device="cuda").reshape(b, 1, pps)
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     with torch.no_grad():
@@ -7140,9 +7188,16 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
         logits, state = pstep(params, mine["tokens"], mine["lens"], state)
         t1.record()
         t1.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        coll = {k: {op: n - stats0[k].get(op, 0)
+                    for op, n in mesh.stats[k].items()
+                    if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
         k4 = {k: v for k, v in kernels.launch_counts().items()
               if k.startswith("flex_prefill")}
         state = shard_decode_state(state, dplan)
+        if pplan.layout.attn != dplan.layout.attn:  # the ring's whole
+            del params
+            params = weights(dplan)
         outs = [logits.float().cpu()]
         for s in range(LAUNCH_DECODE_STEPS):
             logits, state = sstep(params, mine["forced"][:, s].int(), state)
@@ -7153,10 +7208,12 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
     res = logits_gap(torch.stack(outs), ref["logits"][:, rows],
                      ref["tokens"][:, rows], dt)
     res.update(rows=[r0, r0 + b], attn=sorted(set(pplan.layout.attn)),
-               fsdp=list(pplan.layout.fsdp),
+               fsdp=list(pplan.layout.fsdp), seq=pplan.layout.seq,
+               ring=pplan.layout.ring,
                weight_gb=weight_bytes(params) / 1e9,
                scheme=dplan.scheme, pool_heads=int(state["k_pages"].shape[3]),
                prefill_ms=t0.elapsed_time(t1), k4_prefill=k4,
+               prefill_peak_gb=peak_gb, prefill_collectives=coll,
                launches={k: counts.get(k, 0) for k in LAUNCH_KEYS},
                seconds=time.perf_counter() - t_case)
     del params, state, logits
@@ -7165,10 +7222,10 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl):
 
 
 def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
-                      microbatches=None):
+                      microbatches=None, knobs=None):
     """On this rank: ``run`` (``launch_train_run()``, llama2-7b at 4 layers,
     by default; f32) trained under the train plan of ``mesh`` (with
-    ``microbatches`` when given): one
+    ``microbatches`` when given, and the plan's ``knobs``): one
     device's gradients of the first batch and its params after
     ``n_steps`` plain steps (computed here from the same weights, the
     rank's cut kept on the host), then the rank's gradients
@@ -7186,10 +7243,11 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     from repro_torch.utils.tree import tree_leaves
     t_case = time.perf_counter()
     run = run or launch_train_run()
-    plan = plan_for(run, mesh, microbatches=microbatches)
+    knobs = knobs or {}
+    plan = plan_for(run, mesh, microbatches=microbatches, **knobs)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
                                            mesh.rank),
-                        microbatches=microbatches)
+                        microbatches=microbatches, **knobs)
     one = plan_for(run, make_local_mesh(), microbatches=1)
     step, _, _, model = build_train_step(run, plan, torch.float32)
     batches = launch_train_batches(torch, run.model)[:n_steps]
@@ -7228,7 +7286,8 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     with routed(True):
         _, _, g = train_grads(model, plan)(params, mine[0])
         grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
-        del g, ref_grads
+        g_host = [x.cpu() for x in tree_leaves(g)]
+        del g
         st = TrainState.create(params)
         state_gb = storage_bytes(torch, st) / 1e9
         stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
@@ -7249,7 +7308,8 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
                 if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
     param_err = leaves_gap(tree_leaves(st.params), ref_params,
                            rel=False)
-    del ref_params
+    worst = worst_leaf(torch, st.params, ref_params, g_host, ref_grads)
+    del ref_params, ref_grads, g_host
     experts = None
     if run.model.is_moe:  # the rank's experts, and its moments', of E
         experts = [int(t["layers"][0]["moe"]["wg"].shape[0]) for t in (
@@ -7266,8 +7326,11 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
                microbatches=plan.microbatches,
                attn=sorted(set(plan.layout.attn)), vocab=plan.layout.vocab,
                fsdp=list(plan.layout.fsdp), moe=plan.layout.moe(),
+               seq=plan.layout.seq, ring=plan.layout.ring,
+               attn_impl=plan.attn_impl,
                experts=experts,
                route_flips=[tape.differ, tape.total] if tape else None,
+               worst=worst,
                state_gb=state_gb,
                whole_state_gb=whole_gb, collectives=coll,
                step_ms=times, peak_gb=peak_gb, dry=dry,
@@ -7285,14 +7348,14 @@ def launch_rank(torch, work):
     meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
     out = {"prefill": {}, "train": {}}
     for shape, mesh in meshes.items():
-        for i, (name, cfg_name, dt, nl, on) in enumerate(
+        for i, (name, cfg_name, dt, nl, on, knobs) in enumerate(
                 launch_prefill_cases()):
             if shape in on:
                 out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
-                    torch, mesh, work, i, name, cfg_name, dt, nl)
-    for name, shape, run, n_steps, mb in launch_train_cases():
+                    torch, mesh, work, i, name, cfg_name, dt, nl, knobs)
+    for name, shape, run, n_steps, mb, knobs in launch_train_cases():
         out["train"][name] = launch_rank_train(torch, meshes[shape], run,
-                                               n_steps, mb)
+                                               n_steps, mb, knobs)
     out["host_copies"] = {str(s): dict(m.host_copies)
                           for s, m in meshes.items()}
     return out
@@ -7356,22 +7419,35 @@ def launch_check(ranks):
         r = res["rank"]
         for name, c in res["launch"]["prefill"].items():
             log(f"launch rank {r} prefill {name} (rows {c['rows']}, attn "
-                f"{c['attn']}, FSDP over {c['fsdp']}, weights "
+                f"{c['attn']}, FSDP over {c['fsdp']}, sequence cut "
+                f"{c['seq']}, ring {c['ring']}, weights "
                 f"{c['weight_gb']:.2f} GB, pools of {c['pool_heads']} kv "
                 f"heads, decode {c['scheme']}): logits vs one device max|err| "
                 f"{c['max_err']:.3e} (bound {c['bound']:.3e}, scale "
                 f"{c['scale']:.3f}), agreement {c['argmax_agreement']:.3f};"
-                f" prefill {c['prefill_ms']:.1f} ms (events); K4 in the "
+                f" prefill {c['prefill_ms']:.1f} ms (events), peak "
+                f"{c['prefill_peak_gb']:.2f} GB, collectives "
+                f"{c['prefill_collectives']}; K4 in the "
                 f"prefill {c['k4_prefill']}; launches {c['launches']}; "
                 f"{c['seconds']:.1f} s")
             if not c["finite"] or c["max_err"] > c["bound"]:
                 fail(f"launch prefill {name} rank {r}: logits max|err| "
                      f"{c['max_err']} beyond {c['bound']}")
-            if sum(c["k4_prefill"].values()) <= 0 or any(
+            # the ring attends in plain ops: K4 runs on every other prefill
+            if (sum(c["k4_prefill"].values()) > 0) == c["ring"] or any(
                     c["launches"][k] <= 0
                     for k in ("paged_decode", "combine/decode")):
-                fail(f"launch prefill {name} rank {r}: K4, K1 or K2 not "
-                     f"launched ({c['k4_prefill']}, {c['launches']})")
+                fail(f"launch prefill {name} rank {r}: K4, K1 or K2 "
+                     f"launched where it should not be or not where it "
+                     f"should ({c['k4_prefill']}, {c['launches']}, ring "
+                     f"{c['ring']})")
+            calls = c["prefill_collectives"]["calls"]
+            if (c["seq"] != name.startswith("(1, 2)")
+                    or c["ring"] != ("ring" in name)
+                    or (calls.get("reduce_scatter", 0) > 0) != c["seq"]
+                    or (calls.get("send_recv", 0) > 0) != c["ring"]):
+                fail(f"launch prefill {name} rank {r}: sequence cut "
+                     f"{c['seq']}, ring {c['ring']}, collectives {calls}")
             if ("fsdp" in name) != (c["fsdp"] == ["data"]):
                 fail(f"launch prefill {name} rank {r}: FSDP over "
                      f"{c['fsdp']}")
@@ -7380,7 +7456,8 @@ def launch_check(ranks):
         for name, c in res["launch"]["train"].items():
             log(f"launch rank {r} train {name} (attn {c['attn']}, vocab cut "
                 f"{c['vocab']}, FSDP over {c['fsdp']}, {c['microbatches']} "
-                f"microbatch(es)): grads "
+                f"microbatch(es), sequence cut {c['seq']}, ring {c['ring']},"
+                f" attention {c['attn_impl']}): grads "
                 f"vs one device {c['grad_err']:.3e} (tol "
                 f"{LAUNCH_GRAD_TOL:g}, relative to 1 + |g|), params after "
                 f"{len(c['losses'])} step(s) {c['param_err']:.3e} (tol "
@@ -7391,7 +7468,8 @@ def launch_check(ranks):
                 f"whole {c['whole_state_gb']:.3f} GB; the steps' collectives "
                 f"{c['collectives']}; step ms (events) "
                 f"{[round(t, 2) for t in c['step_ms']]}, peak "
-                f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s")
+                f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s; the params' "
+                f"largest gap: {c['worst']}")
             if not (c["grad_err"] <= LAUNCH_GRAD_TOL
                     and c["param_err"] <= LAUNCH_STEP_TOL
                     and c["loss_err"] <= LAUNCH_LOSS_TOL
@@ -7399,6 +7477,13 @@ def launch_check(ranks):
                 fail(f"launch train {name} rank {r}: grads {c['grad_err']}, "
                      f"params {c['param_err']}, losses {c['loss_err']}, "
                      f"grad norms {c['gnorm_err']}")
+            calls = c["collectives"]["calls"]
+            if (c["seq"] != name.startswith("(1, 2)")
+                    or c["ring"] != ("ring" in name)
+                    or (c["seq"] and not calls.get("reduce_scatter"))
+                    or bool(calls.get("send_recv")) != c["ring"]):
+                fail(f"launch train {name} rank {r}: sequence cut "
+                     f"{c['seq']}, ring {c['ring']}, collectives {calls}")
             if "fsdp" in name and not (
                     c["fsdp"] == ["data"]
                     and c["collectives"]["calls"].get("all_gather", 0) > 0
@@ -7572,19 +7657,21 @@ def dry_local_cases(torch):
     return out
 
 
-def dry_rank_train(torch, mesh, run=None, microbatches=None):
+def dry_rank_train(torch, mesh, run=None, microbatches=None, knobs=None):
     """On this rank: the dry run of the launch phase's train case ``run``
     (``launch_train_run()`` by default) under the train plan of ``mesh``
-    (with ``microbatches`` when given; a dry mesh of its shape, seen from
-    this rank) against one step of the rank on the card."""
+    (with ``microbatches`` when given and the plan's ``knobs``; a dry
+    mesh of its shape, seen from this rank) against one step of the rank
+    on the card."""
     from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.launch.steps import build_train_step, plan_for, shard_batch
     from repro_torch.training import TrainState
     run = run or launch_train_run()
-    plan = plan_for(run, mesh, microbatches=microbatches)
+    knobs = knobs or {}
+    plan = plan_for(run, mesh, microbatches=microbatches, **knobs)
     dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
                                            mesh.rank),
-                        microbatches=microbatches)
+                        microbatches=microbatches, **knobs)
     step, _, _, model = build_train_step(run, plan, torch.float32)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)

@@ -41,11 +41,12 @@ from repro_torch.kernels.paged_attention.ops import (choose_decode_params,
 from repro_torch.kernels.paged_attention.paged_attention import (
     paged_attention_partials, ring_slot_positions)
 
-# the training entry points (forward, loss_fn, the train step) also take
-# the chunked online-softmax attention in plain ops
-TRAIN_IMPLS = IMPLS + ("chunked",)
-# and ``prefill_attention`` also ring attention over the ranks
-PREFILL_IMPLS = TRAIN_IMPLS + ("ring",)
+# the training entry points (forward, loss_fn, the train step) and
+# ``prefill_attention`` also take the chunked online-softmax attention in
+# plain ops, and ring attention over the ranks (a ring plan's: with no
+# mesh or one rank on "model" it is the chunked path)
+TRAIN_IMPLS = IMPLS + ("chunked", "ring")
+PREFILL_IMPLS = TRAIN_IMPLS
 
 
 def prefill_attention(

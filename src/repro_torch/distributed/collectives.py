@@ -39,10 +39,15 @@ bytes and host seconds.
 
 Under autograd: Megatron's f and g, the vocab gather,
 ``gather_dim``, the gather of a piece along a dim (FSDP's weights over
-"data", the q heads of a ``"q_heads"`` layer over "model"), whose
-backward is the reduce-scatter of the gradient, and ``exchange``, the
-all-to-all of expert parallelism, whose backward is the all-to-all of
-the gradient.
+"data", the q heads of a ``"q_heads"`` layer over "model", the
+sequence before a column-parallel product), whose backward is the
+reduce-scatter of the gradient, its dual ``scatter_dim`` (the
+reduce-scatter after a row-parallel product under sequence
+parallelism, whose backward gathers), ``split_dim`` (a rank's piece of
+what every rank computed whole; its backward gathers too),
+``ring_pass``, the ring's send to the next rank, whose backward sends
+to the previous one, and ``exchange``, the all-to-all of expert
+parallelism, whose backward is the all-to-all of the gradient.
 
 On a dry mesh (``launch.mesh.make_dry_mesh``) the group is a
 ``sharding.DryGroup``: each helper allocates what the real call
@@ -317,10 +322,12 @@ def all_to_all(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     return out
 
 
-def ring_shift(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
-    """Send ``x`` to the next rank over the mesh ``axes`` and return the
-    previous rank's (``batch_isend_irecv``; the JAX ``ppermute`` with
-    ``j → j + 1``)."""
+def ring_shift(x: torch.Tensor, axes: Sequence[str], step: int = 1
+               ) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` ahead over the mesh ``axes`` and
+    return the one from the rank ``step`` behind (``batch_isend_irecv``;
+    the JAX ``ppermute`` with ``j → j + 1`` at ``step`` 1, its transpose
+    at -1)."""
     group = _group(axes)
     if group is None:
         return x
@@ -335,9 +342,9 @@ def ring_shift(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
         send = send.cpu()
     recv = torch.empty_like(send)
     ops = [dist.P2POp(dist.isend, send,
-                      dist.get_global_rank(group, (r + 1) % n), group),
+                      dist.get_global_rank(group, (r + step) % n), group),
            dist.P2POp(dist.irecv, recv,
-                      dist.get_global_rank(group, (r - 1) % n), group)]
+                      dist.get_global_rank(group, (r - step) % n), group)]
     for w in dist.batch_isend_irecv(ops):
         w.wait()
     _count("send_recv", x, t0)
@@ -409,6 +416,48 @@ class _GatherDim(torch.autograd.Function):
                     None)
 
 
+class _ScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        return reduce_scatter(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        with use_mesh(ctx.mesh):
+            return (all_gather_dim(g.contiguous(), ctx.axes, ctx.dim), None,
+                    None, None)
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        w = x.shape[dim] // mesh.prod(axes)
+        return x.narrow(dim, mesh.flat_index(axes) * w, w).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        with use_mesh(ctx.mesh):
+            return (all_gather_dim(g.contiguous(), ctx.axes, ctx.dim), None,
+                    None, None)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return ring_shift(x, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.distributed.sharding import use_mesh
+        with use_mesh(ctx.mesh):
+            return ring_shift(g, ctx.axes, step=-1), None, None
+
+
 class _Exchange(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axes, mesh):
@@ -433,8 +482,46 @@ def gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int,
     rank's own slice (every rank computed the same whole)."""
     if _group(axes) is None:
         return x
-    axes = tuple(a for a in current_mesh().axis_names if a in tuple(axes))
-    return _GatherDim.apply(x, axes, dim, summed, current_mesh())
+    return _GatherDim.apply(x, _mesh_order(axes), dim, summed,
+                            current_mesh())
+
+
+def _mesh_order(axes: Sequence[str]) -> Tuple[str, ...]:
+    return tuple(a for a in current_mesh().axis_names if a in tuple(axes))
+
+
+def scatter_dim(x: torch.Tensor, axes: Sequence[str], dim: int
+                ) -> torch.Tensor:
+    """The sum of every rank's ``x`` over the mesh ``axes``, of which this
+    rank keeps its piece along ``dim`` (``reduce_scatter``): the dual of
+    ``gather_dim``.  Under autograd the gradient of the piece comes back
+    whole (``all_gather_dim``): Megatron-SP's reduce-scatter after a
+    row-parallel product, whose every rank's partial sums feed every
+    rank's piece."""
+    if _group(axes) is None:
+        return x
+    return _ScatterDim.apply(x, _mesh_order(axes), dim, current_mesh())
+
+
+def split_dim(x: torch.Tensor, axes: Sequence[str], dim: int
+              ) -> torch.Tensor:
+    """This rank's piece along ``dim`` of ``x``, a whole tensor that every
+    rank over the mesh ``axes`` computed alike; under autograd the
+    gradient of the whole is every rank's piece's, gathered
+    (``all_gather_dim``), so that each rank again holds the whole
+    cotangent of a computation it ran whole."""
+    if _group(axes) is None:
+        return x
+    return _SplitDim.apply(x, _mesh_order(axes), dim, current_mesh())
+
+
+def ring_pass(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """``ring_shift`` (to the next rank); under autograd the gradient goes
+    back the other way, to the rank it came from (both recorded on a dry
+    mesh)."""
+    if _group(axes) is None:
+        return x
+    return _RingShift.apply(x, tuple(axes), current_mesh())
 
 
 def reduce_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:

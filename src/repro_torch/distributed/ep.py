@@ -35,6 +35,19 @@ m and sums the replicated inputs' cotangents (``x``, ``router``) over
 gradient (the copy of the tokens a rank sent comes back only to it), so
 only the expert weights' gradients are divided by m (``_ScaleGrad``):
 the same numbers, with no collective for ``x`` or the router.
+
+Under sequence parallelism (``TPLayout.seq``) a rank holds only its
+slice of the sequence, and a rank that kept only its slice of the
+output would receive only that slice's cotangent: the m ranks'
+cotangents would add up to the whole once, and the law above would
+give each expert 1/m of its gradient and ``x`` and the router only
+their slice's part.  The model (``TransformerModel._moe_ep``) therefore
+gathers the sequence before this function (JAX's ``in_specs`` take
+``x`` whole over "model") with a backward that keeps the rank's slice
+of the gradient, and keeps its slice of the output with a backward
+that gathers the slices' cotangents (``collectives.split_dim``): every
+rank again holds the whole tokens and the whole cotangent, and the law
+above stands unchanged.
 """
 
 from __future__ import annotations

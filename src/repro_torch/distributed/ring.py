@@ -9,6 +9,17 @@ and the chunk's kv offset), so causal, sliding-window and right-padded
 ``lens`` batches all work; fully masked chunks still run (a static
 schedule, as in the JAX package).  The JAX ring runs no Pallas kernel;
 the chunk partial here is plain torch ops likewise.
+
+Under autograd the ring is differentiable as it stands: the chunk
+partials and the merge are plain ops, and the shift is ``ring_pass``,
+whose backward sends each chunk's cotangent back to the rank it came
+from.  A chunk with no live key for a query (rank 0's queries against
+every later chunk under the causal mask; a slice that ``lens`` pads out
+whole) holds m = -inf: every exponent of such a row goes through a
+``where`` that selects 0 without differentiating the other branch's
+``exp(-inf)``, and the output divides by ``l`` only where it is
+positive (``l`` is 0 or at least 1), so those rows give finite zero
+gradients.
 """
 
 from __future__ import annotations
@@ -18,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.distributed.collectives import ring_shift
+from repro_torch.distributed.collectives import ring_pass
 from repro_torch.distributed.sharding import current_mesh, current_rules
 from repro_torch.errors import EngineConfigError
 
@@ -28,14 +39,16 @@ def _chunk_partial(q, k, v, q_off, k_off, *, scale, causal, window,
     """Online-softmax partials of q (B, Hkv, G, Sq, D) against one K/V
     chunk (B, Hkv, Sk, D) at absolute offsets ``q_off``/``k_off``, in
     tiles of ``kv_chunk`` keys.  Returns (m, l, acc) f32; m is -inf where
-    no key is live."""
+    no key is live.  q is scaled before the product, in its dtype, as
+    ``core.attention``'s chunked path scales it: the same scores, and
+    under autograd the same graph, as one device's tiles."""
     B, Hkv, G, Sq, D = q.shape
     Sk = k.shape[2]
     dev = q.device
     kc = min(kv_chunk, Sk)
     nk = -(-Sk // kc)
     q_idx = (q_off + torch.arange(Sq, device=dev))[None, None, None, :, None]
-    qf = q.float()
+    qf = (q * scale).to(q.dtype).float()
     m = torch.full((B, Hkv, G, Sq), float("-inf"), device=dev)
     l = torch.zeros((B, Hkv, G, Sq), device=dev)
     acc = torch.zeros((B, Hkv, G, Sq, D), device=dev)
@@ -45,7 +58,7 @@ def _chunk_partial(q, k, v, q_off, k_off, *, scale, causal, window,
         w = kb.shape[3]
         k_idx = (k_off + j * kc + torch.arange(w, device=dev))[
             None, None, None, None, :]
-        s = (qf @ kb.transpose(-1, -2)) * scale  # (B, Hkv, G, Sq, w)
+        s = qf @ kb.transpose(-1, -2)  # (B, Hkv, G, Sq, w)
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
         live = torch.ones_like(s, dtype=torch.bool)
@@ -96,9 +109,11 @@ def _ring_local(q, k, v, lens, *, axis, scale, causal, window, softcap):
         acc = acc * a1[..., None] + accc * a2[..., None]
         m = m_new
         if i + 1 < n:  # the JAX scan's last rotation is never read
-            kc = ring_shift(kc, (axis,))
-            vc = ring_shift(vc, (axis,))
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
+            kc = ring_pass(kc, (axis,))
+            vc = ring_pass(vc, (axis,))
+    # l is 0 (no live key: the output 0, as the JAX max(l, 1e-30) gives
+    # it) or at least 1; dividing by 1 there keeps the gradient finite
+    out = acc / torch.where(l > 0, l, 1.0)[..., None]
     # (B, Hkv, G, S_l, D) -> (B, S_l, H, D)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S_l, H, D).to(q.dtype)
 

@@ -190,7 +190,25 @@ class TPLayout:
         plan's rules (FSDP, ``("data",)`` for the configs that override
         it; () for none): every weight's ``embed`` dim is cut over them
         where they divide it (``logical_spec``'s law), and gathered
-        (``models.layers.gather_fsdp``) just before it is used."""
+        (``models.layers.gather_fsdp``) just before it is used;
+      * ``seq``: sequence parallelism (the JAX plans' ``seq`` rule on
+        "model", train and prefill): between blocks a rank holds its
+        slice ``S/m`` of the sequence, slice r of the "model" axis, and
+        the norms run on it; the input of every column-parallel product
+        is gathered over the sequence first, and every row-parallel
+        output's partial sums are reduce-scattered along it
+        (``collectives.gather_dim``/``scatter_dim``); what every rank
+        computes whole (a ``"whole"`` layer, GSPMD's expert cut, the
+        experts' all-to-all) keeps the rank's slice
+        (``collectives.split_dim``);
+      * ``ring``: ring attention on the slices (the JAX ring plan,
+        ``attn_seq`` on "model" too): every head's q/k/v of a rank's
+        slice attend while the K/V slices rotate over "model"
+        (``distributed.ring``) — under a train plan the heads' weights
+        stay cut and a head↔seq all-to-all brings every head of the
+        slice (GSPMD's around JAX's ring); under the ring prefill's
+        layout the weights are whole (every layer ``"whole"``) and q/k/v
+        come from the slice at its absolute positions."""
 
     vocab: bool = False
     mlp: bool = False
@@ -199,6 +217,8 @@ class TPLayout:
     attn: Tuple[str, ...] = ()
     kv_heads: int = 0
     fsdp: Tuple[str, ...] = ()
+    seq: bool = False
+    ring: bool = False
 
     def moe(self) -> str:
         """What a rank does with the MoE experts: ``"whole"`` (it holds

@@ -15,6 +15,14 @@ For one pair this script:
      bytes within a node and beyond it, and the roofline terms
      (``cost_analysis``).
 
+The train and prefill plans cut the activations along the sequence over
+"model" between blocks by default, as JAX's do (``--no-seqpar`` keeps
+them whole); ``--ring`` runs ring attention on the slices (the ring's
+sends to the next rank, and under grad back to the previous one, are
+counted like the gathers and reduce-scatters: within a node or beyond
+it as the "model" group spans).  Each output's ``plan`` records both
+knobs.
+
 Every number is a prediction from the datasheet constants of
 ``launch.mesh``, not a measurement.  No kernel is built.
 
@@ -27,6 +35,8 @@ with the reason; only ``"error"`` makes the exit code nonzero.
 Usage:
   python -m repro_torch.launch.dryrun --arch llama2-7b --shape train_4k
   python -m repro_torch.launch.dryrun --arch all --shape all --mesh pod
+  python -m repro_torch.launch.dryrun --arch llama3-405b \
+      --shape train_4k,prefill_32k --ring --tag ring
 """
 
 from __future__ import annotations
@@ -81,7 +91,9 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
              tag: str = "",
              overrides: Optional[Dict[str, Any]] = None,
              zero_pod: bool = False,
-             rank: int = 0) -> Dict[str, Any]:
+             rank: int = 0,
+             seq_parallel: bool = True,
+             ring: bool = False) -> Dict[str, Any]:
     run = make_run_for(arch, shape)
     if run is not None and overrides:
         run = dataclasses.replace(run, model=run.model.replace(**overrides))
@@ -96,10 +108,13 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
     mesh = make_production_mesh(multi_pod=multi_pod, dry=True, rank=rank)
     n_dev = math.prod(mesh.shape)
     plan = plan_for(run, mesh, microbatches=microbatches, scheme=scheme,
-                    attn_impl=attn_impl, zero_pod=zero_pod)
+                    attn_impl=attn_impl, zero_pod=zero_pod,
+                    seq_parallel=seq_parallel, ring=ring)
     out["plan"] = {"batch_axes": plan.batch_axes, "scheme": plan.scheme,
                    "kv_axes": plan.kv_axes, "microbatches": plan.microbatches,
                    "variant": run.variant, "zero_pod": plan.zero_pod,
+                   "seq_parallel": seq_parallel, "ring": ring,
+                   "seq": plan.layout.seq, "attn_impl": plan.attn_impl,
                    "attn": sorted(set(plan.layout.attn)),
                    "experts": plan.layout.moe(),
                    "rules": {k: v for k, v in plan.rules.table.items()
@@ -159,6 +174,12 @@ def main(argv=None) -> None:
                          "too (multipod only)")
     ap.add_argument("--rank", type=int, default=0,
                     help="the rank whose step is traced")
+    ap.add_argument("--no-seqpar", action="store_true",
+                    help="keep the train and prefill activations whole "
+                         "over 'model' between blocks")
+    ap.add_argument("--ring", action="store_true",
+                    help="ring attention on the sequence slices (train "
+                         "and prefill)")
     ap.add_argument("--outdir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -184,7 +205,9 @@ def main(argv=None) -> None:
                                    scheme=args.scheme,
                                    attn_impl=args.attn_impl, tag=args.tag,
                                    overrides=overrides or None,
-                                   zero_pod=args.zero_pod, rank=args.rank)
+                                   zero_pod=args.zero_pod, rank=args.rank,
+                                   seq_parallel=not args.no_seqpar,
+                                   ring=args.ring)
                 except Exception as e:  # noqa: BLE001 — recorded, not hidden
                     res = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error", "error": repr(e),

@@ -6,9 +6,12 @@ rule table, the decode scheme and the microbatches, as the JAX function
 does, line for line:
 
   * batch axes: as much of ("pod", "data") as the global batch divides;
-  * train: ``seq`` over "model" when it divides the sequence (the JAX
-    plan's sequence-parallel rule, recorded in the table), and the
-    microbatch count that keeps each rank's f32 logits under 256 MB;
+  * ``ring`` (train and prefill, "model" dividing the sequence): ``seq``
+    and ``attn_seq`` over "model", under prefill the heads whole
+    (``heads``/``kv_heads`` None), attention ``"ring"``;
+  * train: under ``seq_parallel`` (the default, as JAX's) ``seq`` over
+    "model" when it divides the sequence, and the microbatch count that
+    keeps each rank's f32 logits under 256 MB;
   * prefill: the same ``seq`` rule, scheme ``"prefill_local"``;
   * decode: ``tp`` when the model axis divides the kv heads, else ``dp``
     for windowed models, else ``kvp`` (a config's ``decode_scheme`` or
@@ -27,7 +30,12 @@ them, and every plan's ``embed`` dims over the FSDP axes of its rules
 one the decode plan of the same config on the same mesh has, so that
 the state a rank prefills is the state ``shard_decode_state``
 takes: the JAX prefill plan shards the pools' head_dim over "model"
-instead (a reshard at the phase boundary that the port does not make).
+instead (a reshard at the phase boundary that the port does not make);
+under the ring prefill its attention weights are whole (JAX's
+``heads: None``), and its pools still the decode layout's.  Where the
+rules put ``seq`` on a "model" axis of more than one rank, the layout's
+``seq`` cuts the activations along the sequence between blocks, and
+the ring plan's ``ring`` runs ring attention on those slices.
 
 Every builder returns JAX's 4-tuple ``(step, args, specs, model)``:
 ``args`` are stand-ins of the global inputs on the ``meta`` device and
@@ -43,7 +51,10 @@ and its state.
     part of the global mean, the gradients summed: an FSDP piece's by the
     reduce-scatter of its gather), tensor-parallel over "model"
     (Megatron's f and g through ``distributed.collectives``), the
-    activations whole between blocks;
+    activations cut along the sequence over "model" between blocks
+    under ``layout.seq`` (Megatron-SP: gathered before each
+    column-parallel product, reduce-scattered after each row-parallel
+    one), whole otherwise;
   * ``build_prefill_step`` — each rank prefills its rows with its heads
     into ``model.init_decode_state(local_run(run, plan), plan=plan)``;
   * ``build_serve_step`` — one decode token per sequence.
@@ -87,6 +98,12 @@ LOGITS_BUDGET = 256e6
 
 @dataclass
 class Plan:
+    """The JAX ``Plan`` of ``run`` on ``mesh`` (``plan_for``) and the
+    port's ``layout``: the rank's cut of the weights, and under a train
+    or prefill plan whose rules put ``seq`` on "model" (JAX's
+    ``seq_parallel``, the default) the activations' cut along the
+    sequence (``layout.seq``), with ring attention on it under the ring
+    plan (``layout.ring``, ``attn_impl="ring"``)."""
     run: RunConfig
     mesh: Any  # launch.mesh.Mesh
     rules: AxisRules
@@ -94,8 +111,8 @@ class Plan:
     scheme: str  # tp | dp | kvp (decode), prefill_local, n/a (train)
     kv_axes: Tuple[str, ...]
     microbatches: int
-    attn_impl: str  # the train step's attention: ref | chunked
-    layout: TPLayout
+    attn_impl: str  # the train step's attention: ref | chunked | ring
+    layout: TPLayout  # the rank's cut of the weights and the activations
     zero_pod: bool = False  # ZeRO-1: AdamW's moments cut over "pod" too
 
     @property
@@ -117,14 +134,18 @@ def _mesh_prod(mesh, axes: Tuple[str, ...]) -> int:
 
 def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
              attn_impl: str = "chunked", scheme: Optional[str] = None,
+             seq_parallel: bool = True, ring: bool = False,
              zero_pod: bool = False) -> Plan:
     """The plan of ``run`` on ``mesh`` (the JAX ``plan_for``, line for
     line, plus the port's ``layout``).  ``attn_impl`` names the port's
     training attention ("ref" is the JAX "jnp"); ``scheme`` asks for a
     decode scheme, and under a prefill plan for the layout of that
-    decode scheme; ``zero_pod`` cuts the train state's AdamW moments over "pod" too
-    (``train_state_shardings``; the plan keeps it under train and decode,
-    not prefill, as the JAX one does)."""
+    decode scheme; ``seq_parallel`` cuts the train and prefill
+    activations along the sequence over "model" between blocks, and
+    ``ring`` runs ring attention on those slices (JAX's knobs and
+    defaults); ``zero_pod`` cuts the train state's AdamW moments over
+    "pod" too (``train_state_shardings``; the plan keeps it under train
+    and decode, not prefill, as the JAX one does)."""
     cfg = run.model
     rules = DEFAULT_RULES.extend(**cfg.axis_overrides)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
@@ -139,10 +160,23 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
             prod *= sizes[a]
     rules = rules.extend(batch=batch_axes or None)
 
-    if run.kind in ("train", "prefill") and run.seq_len % model_size == 0:
-        # sequence parallelism between blocks (the JAX rule; the port's
-        # steps keep the activations whole and read only ``layout``)
+    ringed = (ring and run.kind in ("train", "prefill")
+              and run.seq_len % model_size == 0)
+    if ringed:
+        # ring attention: the activations stay cut along the sequence
+        # through attention; for prefill q/k/v keep every head (the
+        # weights whole), for training the heads stay cut (whole qkv
+        # weights would un-shard their gradients)
+        rules = rules.extend(seq=("model",), attn_seq=("model",))
+        if run.kind == "prefill":
+            rules = rules.extend(heads=None, kv_heads=None)
+        attn_impl = "ring"
+    if (run.kind in ("train", "prefill") and seq_parallel
+            and run.seq_len % model_size == 0):
+        # sequence parallelism: activations cut over "model" between blocks
         rules = rules.extend(seq=("model",))
+    cut = {"seq": rules.physical("seq") == ("model",) and model_size > 1,
+           "ring": ringed and model_size > 1}
     if run.kind == "train":
         if microbatches is None:
             # keep per-device f32 logits under ~256 MB
@@ -155,17 +189,21 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
                     run.global_batch % (microbatches * 2 * prod) == 0:
                 microbatches *= 2
         tp = "tp" if cfg.n_kv_heads % model_size == 0 else "dp"
+        lay = _layout(cfg, mesh, rules, tp, model_size)
         return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
                     scheme="n/a", kv_axes=(), microbatches=microbatches,
                     attn_impl=attn_impl,
-                    layout=_layout(cfg, mesh, rules, tp, model_size),
+                    layout=dataclasses.replace(lay, **cut),
                     zero_pod=zero_pod)
     sch = _decode_scheme(cfg, model_size, scheme)
     lay = _layout(cfg, mesh, rules, sch, model_size)
     if run.kind == "prefill":
+        if cut["ring"]:  # the weights whole, the pools the decode layout's
+            lay = dataclasses.replace(lay, attn=("whole",) * len(lay.attn))
         return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
                     scheme="prefill_local", kv_axes=(), microbatches=1,
-                    attn_impl=attn_impl, layout=lay)
+                    attn_impl=attn_impl,
+                    layout=dataclasses.replace(lay, **cut))
     kv_axes = (tuple(a for a in mesh.axis_names if a not in batch_axes)
                if sch == "kvp" else ())
     return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
@@ -432,7 +470,8 @@ def train_grads(model, plan: Plan) -> Callable:
     off the FSDP axes only, the reduce-scatter of its gather having
     summed it over those, and an expert's over the batch axes only; over
     "model" each rank computes its heads, ``d_ff`` columns, vocab slice
-    and experts.  The accumulator and the
+    and experts, and under ``layout.seq`` its slice of the sequence
+    between blocks.  The accumulator and the
     gradients are the rank's pieces.  ``loss`` and ``parts`` (``ce``,
     ``aux``) are the global batch's."""
     from repro_torch.distributed.collectives import all_reduce, spans
@@ -569,7 +608,10 @@ def build_prefill_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
     plan=plan)`` with its tables mapped: the rank prefills its rows with
     its heads (K4 unless ``impl="ref"``) into pools of the kv heads its
     decode layout holds, which ``shard_decode_state`` then takes as they
-    are.  Models of ``A`` and ``W`` layers (a recurrent or cross-attention
+    are; under ``layout.seq`` with its slice of the sequence between
+    blocks, under ``layout.ring`` through ring attention (plain ops) with
+    the attention weights whole, so that the decode plan's params are
+    another cut of them.  Models of ``A`` and ``W`` layers (a recurrent or cross-attention
     state is not distributed: ``UnsupportedFeature``)."""
     model = _inference_model(run)
     B, S = run.global_batch, run.seq_len

@@ -65,15 +65,71 @@ def kv_pool_dtype(cfg: ModelConfig, dtype):
     return torch.int8 if cfg.kv_dtype == "int8" else dtype
 
 
-def _out(p: Dict, o: torch.Tensor, row_parallel: bool = False
-         ) -> torch.Tensor:
+def _out(p: Dict, o: torch.Tensor, row_parallel: bool = False,
+         seq: bool = False) -> torch.Tensor:
     """The output projection of the heads ``o`` (..., H, hd).
     ``row_parallel``: ``wo`` holds only this rank's heads
     (``TPLayout.row_parallel``), and their partial sums are reduced over
-    "model" in f32 (``layers.row_parallel_matmul``)."""
+    "model" in f32 (``layers.row_parallel_matmul``); ``seq``: the rank
+    keeps its slice of the sequence (``TPLayout.seq``), reduce-scattered
+    from the partial sums, or cut from a whole output
+    (``layers.seq_split``)."""
     H, hd, d = p["wo"].shape
     o, wo = o.reshape(*o.shape[:-2], H * hd), p["wo"].reshape(H * hd, d)
-    return layers.row_parallel_matmul(o, wo) if row_parallel else o @ wo
+    if row_parallel:
+        return layers.row_parallel_matmul(o, wo, seq)
+    return layers.seq_split(o @ wo) if seq else o @ wo
+
+
+def _heads_to_seq(t: torch.Tensor, groups: int = 0) -> torch.Tensor:
+    """(B, S, h, D), this rank's h heads of the whole sequence, to (B,
+    S/m, m·h, D), every head of its slice of the sequence: the head↔seq
+    all-to-all over "model" (``collectives.exchange``, whose backward is
+    the same exchange of the cotangent).  The heads come rank-major;
+    ``groups`` (the ``"groups"`` cut: a rank's heads are G/m of each of
+    the ``groups`` kv groups) puts them back in head order."""
+    from repro_torch.distributed.collectives import exchange
+    from repro_torch.distributed.sharding import axis_size
+    m = axis_size("model")
+    B, S, h, D = t.shape
+    got = exchange(t.reshape(B, m, S // m, h, D).transpose(0, 1)
+                   .contiguous(), ("model",))  # block i: rank i's heads
+    out = got.permute(1, 2, 0, 3, 4)  # (B, S/m, m, h, D)
+    if groups:  # [rank][group][j] -> [group][rank][j]
+        out = out.reshape(B, S // m, m, groups, h // groups, D).transpose(
+            2, 3)
+    return out.reshape(B, S // m, m * h, D)
+
+
+def _seq_to_heads(t: torch.Tensor, groups: int = 0) -> torch.Tensor:
+    """The inverse of ``_heads_to_seq``: (B, S/m, H, D) to (B, S, H/m,
+    D), this rank's heads of the whole sequence."""
+    from repro_torch.distributed.collectives import exchange
+    from repro_torch.distributed.sharding import axis_size
+    m = axis_size("model")
+    B, S_l, H, D = t.shape
+    if groups:  # [group][rank][j] -> [rank][group][j]
+        t = t.reshape(B, S_l, groups, m, H // m // groups, D).transpose(2, 3)
+    blocks = t.reshape(B, S_l, m, H // m, D).permute(2, 0, 1, 3, 4)
+    got = exchange(blocks.contiguous(), ("model",))  # block i: rank i's slice
+    return got.transpose(0, 1).reshape(B, m * S_l, H // m, D)
+
+
+def _seq_slice(t: torch.Tensor) -> torch.Tensor:
+    """This rank's slice of dim 1 of ``t`` (its own part only: under
+    autograd the rest of the gradient is zero)."""
+    from repro_torch.distributed.sharding import axis_index, axis_size
+    w = t.shape[1] // axis_size("model")
+    return t.narrow(1, axis_index("model") * w, w)
+
+
+def _slice_positions(x: torch.Tensor) -> torch.Tensor:
+    """(B, S_l) absolute positions of the rank's slice ``x`` (B, S_l, d),
+    slice r of the "model" axis: ``r·S_l + i``."""
+    from repro_torch.distributed.sharding import axis_index
+    B, S_l = x.shape[:2]
+    lo = axis_index("model") * S_l
+    return (lo + torch.arange(S_l, device=x.device))[None, :].expand(B, S_l)
 
 
 def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int
@@ -97,7 +153,8 @@ def _rank_kv(k: torch.Tensor, v: torch.Tensor, n_heads: int
 def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
                window: int = 0, lens: Optional[torch.Tensor] = None,
                causal: bool = True, impl: str = "kernel",
-               cut: str = "whole") -> torch.Tensor:
+               cut: str = "whole", seq: bool = False,
+               ring: bool = False) -> torch.Tensor:
     """Attention over whole sequences with no cache (the training forward
     and the whisper encoder).  x: (B, S, d) → (B, S, d).  ``window > 0``:
     a ``W`` layer's sliding window; ``causal=False`` with no ``lens`` is
@@ -110,34 +167,88 @@ def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     the gradient of ``x`` is summed over "model" (Megatron's f); under
     ``"groups"`` and ``"q_heads"`` so is the gradient of the replicated
     ``wk``/``wv``, which feed only this rank's heads (under
-    ``"q_heads"`` through the kv heads they read, ``_rank_kv``)."""
+    ``"q_heads"`` through the kv heads they read, ``_rank_kv``).
+
+    ``seq`` (``TPLayout.seq``): ``x`` is the rank's slice (B, S/m, d) of
+    the sequence, gathered whole before the projections (under a head
+    cut the gradient summed back to the slice, in place of Megatron's
+    f), and the output is the rank's slice (``_out``).  ``ring``
+    (``TPLayout.ring``, under ``seq``; the train plan's heads stay cut,
+    as JAX keeps them): the projections run as under ``seq``, then the
+    head↔seq all-to-all (``_heads_to_seq``: GSPMD's around JAX's ring)
+    gives every head of the rank's slice — kv heads a rank holds whole
+    are cut to the slice — ring attention attends there, and the
+    all-to-all back feeds ``wo``.  A ``"whole"`` layer keeps the slice
+    of its whole q/k/v, its weights' gradients summed over "model"."""
+    if seq:
+        x = layers.seq_gather(x, summed=cut != "whole" or ring)
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    if cut != "whole":
+    if cut != "whole" and not seq:
         x = layers.copy_model(x)
-    if cut in ("groups", "q_heads"):
+    if ring and cut == "whole":
+        p = {k: layers.copy_model(w) for k, w in p.items()}
+    elif cut in ("groups", "q_heads"):
         p = dict(p, wk=layers.copy_model(p["wk"]),
                  wv=layers.copy_model(p["wv"]))
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
+    if ring:
+        groups = cfg.n_kv_heads if cut == "groups" else 0
+        q = (_seq_slice(q) if cut == "whole"
+             else _heads_to_seq(q, groups))
+        k, v = ((_heads_to_seq(t) for t in (k, v)) if cut == "heads"
+                else (_seq_slice(t) for t in (k, v)))
+        o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
+                                        causal=causal, impl="ring")
+        if cut == "whole":
+            return _out(p, o)
+        return _out(p, _seq_to_heads(o, groups), row_parallel=True,
+                    seq=True)
     if cut == "q_heads":
         k, v = _rank_kv(k, v, cfg.n_heads)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     causal=causal, impl=impl)
-    return _out(p, o, row_parallel=cut != "whole")
+    return _out(p, o, row_parallel=cut != "whole", seq=seq)
 
 
 def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  k_pages: torch.Tensor, v_pages: torch.Tensor,
                  tables: torch.Tensor, lens: torch.Tensor, *,
                  window: int = 0, impl: str = "kernel",
-                 cut: str = "whole") -> torch.Tensor:
+                 cut: str = "whole", seq: bool = False,
+                 ring: bool = False) -> torch.Tensor:
     """Prefill: attend over the prompt AND write K/V into the paged pools
     (in place).  ``tables``: (B, n_kv_shards, pages_per_shard).  ``cut``:
     the layer's entry of ``TPLayout.attn`` (``attn_train``); under
     ``"q_heads"`` every kv head of the rows goes into the pools (the
     decode layout) and the rank's heads attend over the ones they
-    read."""
-    B, S, _ = x.shape
+    read.  ``seq``: ``x`` is the rank's slice of the sequence, gathered
+    whole first; the output is the rank's slice (``_out``).  ``ring``:
+    the weights are whole (the ring prefill's layout) and q/k/v of the
+    slice, at its absolute positions, go through ring attention; the K/V
+    are gathered over the sequence (``Hkv·D`` a token) and the pools get
+    what the rank's decode layout holds — the pools' kv heads, the
+    rank's share under tp (the prefill writes every page; kvp's stripes
+    are ``shard_decode_state``'s)."""
+    B = x.shape[0]
+    if ring:
+        from repro_torch.distributed.collectives import all_gather_dim
+        from repro_torch.distributed.sharding import axis_index
+        q, k, v = _qkv(p, x, _slice_positions(x), cfg.rope_theta)
+        n = k_pages.shape[2]
+        lo = axis_index("model") * n if n < k.shape[2] else 0
+        kw, vw = (all_gather_dim(t, ("model",), 1).narrow(2, lo, n)
+                  for t in (k, v))
+        kvcache.write_layer_prefill(k_pages, v_pages, tables.reshape(B, -1),
+                                    kv_quant(cfg, kw), kv_quant(cfg, vw),
+                                    lens, window=window)
+        del kw, vw
+        o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
+                                        impl="ring")
+        return _out(p, o)
+    if seq:
+        x = layers.seq_gather(x)
+    S = x.shape[1]
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
     kvcache.write_layer_prefill(k_pages, v_pages, tables.reshape(B, -1),
@@ -147,7 +258,7 @@ def attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
         k, v = _rank_kv(k, v, cfg.n_heads)
     o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                     impl=impl)
-    return _out(p, o, cut != "whole")
+    return _out(p, o, cut != "whole", seq)
 
 
 def attn_prefill_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -280,18 +391,20 @@ def attn_decode_contiguous(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def self_attn_prefill(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                       state: Dict, i: int, lens: torch.Tensor, *,
                       window: int = 0, impl: str = "kernel",
-                      cut: str = "whole") -> torch.Tensor:
+                      cut: str = "whole", seq: bool = False,
+                      ring: bool = False) -> torch.Tensor:
     """Prefill attention of attention layer ``i`` of ``state``: into the
     contiguous baseline's buffers (``state["k_buf"]``, rows
     ``state["slots"]``) when the state holds them, else into the paged
-    pools through ``state["tables"]``."""
+    pools through ``state["tables"]`` (``seq``/``ring``: a plan's cut of
+    the sequence, ``attn_prefill``)."""
     if "k_buf" in state:
         return attn_prefill_contiguous(
             p, x, cfg, state["k_buf"][i], state["v_buf"][i], state["slots"],
             lens, window=window, impl=impl)
     return attn_prefill(p, x, cfg, state["k_pages"][i], state["v_pages"][i],
                         state["tables"], lens, window=window, impl=impl,
-                        cut=cut)
+                        cut=cut, seq=seq, ring=ring)
 
 
 def self_attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,

@@ -101,12 +101,19 @@ def mlp_spec(cfg: ModelConfig) -> Dict:
             "wd": ParamSpec((f, d), ("mlp", "embed"))}
 
 
-def reduce_model(y: torch.Tensor, dtype=None) -> torch.Tensor:
+def reduce_model(y: torch.Tensor, dtype=None, seq: bool = False
+                 ) -> torch.Tensor:
     """Sum partial sums over the mesh's "model" axis in f32 (Megatron's
     all-reduce after ``wo`` and ``wd``, and the vocab-sharded lookup);
     the result in ``dtype`` (default: ``y``'s).  Under autograd the
-    gradient passes through (``collectives.reduce_sum``)."""
-    from repro_torch.distributed.collectives import reduce_sum
+    gradient passes through (``collectives.reduce_sum``).  ``seq``
+    (sequence parallelism, ``TPLayout.seq``): ``y`` is (B, S, ...) and
+    the rank keeps its slice of the sum along S, reduce-scattered
+    (``collectives.scatter_dim``: under autograd the gradient of the
+    slice comes back whole)."""
+    from repro_torch.distributed.collectives import reduce_sum, scatter_dim
+    if seq:
+        return scatter_dim(y.float(), ("model",), 1).to(dtype or y.dtype)
     return reduce_sum(y.float(), ("model",)).to(dtype or y.dtype)
 
 
@@ -115,6 +122,25 @@ def copy_model(x: torch.Tensor) -> torch.Tensor:
     (``collectives.copy_in``): the input of a column-parallel product."""
     from repro_torch.distributed.collectives import copy_in
     return copy_in(x, ("model",))
+
+
+def seq_gather(x: torch.Tensor, summed: bool = True) -> torch.Tensor:
+    """The whole sequence (B, S, ...) of the rank's slice ``x`` (B, S/m,
+    ...) over "model" (sequence parallelism, ``TPLayout.seq``).  Under
+    autograd, ``summed``: the gradient of the whole is summed over the
+    ranks and cut to the slice (Megatron-SP's all-gather before a
+    column-parallel product, whose every rank computes its own part);
+    else the rank's slice of it (every rank computed the same whole)."""
+    from repro_torch.distributed.collectives import gather_dim
+    return gather_dim(x, ("model",), 1, summed)
+
+
+def seq_split(x: torch.Tensor) -> torch.Tensor:
+    """The rank's slice along the sequence (dim 1) of ``x``, which every
+    rank over "model" computed whole; under autograd the gradient comes
+    back whole on every rank (``collectives.split_dim``)."""
+    from repro_torch.distributed.collectives import split_dim
+    return split_dim(x, ("model",), 1)
 
 
 def gather_fsdp(p, spec_tree, layout, batch_axes: Tuple[str, ...] = ()):
@@ -142,9 +168,11 @@ def gather_fsdp(p, spec_tree, layout, batch_axes: Tuple[str, ...] = ()):
     return walk(p, fsdp_dims(spec_tree, layout, current_mesh()))
 
 
-def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
+                        seq: bool = False) -> torch.Tensor:
     """``x @ w`` for a ``w`` that holds this rank's rows of the contraction
-    (row-parallel), summed over "model", in ``x``'s dtype.  The rank's
+    (row-parallel), summed over "model" (under ``seq`` reduce-scattered
+    along the sequence, ``reduce_model``), in ``x``'s dtype.  The rank's
     partial product stays in f32 until the sum: bf16 inputs on the card
     take cuBLAS's f32 accumulator as it is (``mm``'s ``out_dtype``), so
     the only rounding to bf16 is the one a single device makes (not
@@ -157,17 +185,25 @@ def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                             *x.shape[:-1], w.shape[-1])
     else:
         part = (x @ w).float()
-    return reduce_model(part, x.dtype)
+    return reduce_model(part, x.dtype, seq)
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-              row_parallel: bool = False) -> torch.Tensor:
+              row_parallel: bool = False, seq: bool = False
+              ) -> torch.Tensor:
     """The dense MLP.  ``row_parallel``: ``wg``/``wu`` hold this rank's
     column slice of ``d_ff`` and ``wd`` the matching rows (Megatron,
     ``TPLayout.mlp``), and the partial sums are reduced over "model" in
     f32 (``row_parallel_matmul``); under autograd the gradient of ``x``
-    is summed over "model" (``copy_model``)."""
-    if row_parallel:
+    is summed over "model" (``copy_model``).  ``seq``: ``x`` is the
+    rank's slice of the sequence (``TPLayout.seq``), gathered whole
+    first; the output is the rank's slice, reduce-scattered from the
+    partial sums (row-parallel) or cut from the whole (``seq_split``)."""
+    if seq:
+        x = seq_gather(x, summed=row_parallel)
+        if not row_parallel:
+            return seq_split(apply_mlp(p, x, cfg))
+    elif row_parallel:
         x = copy_model(x)
     if cfg.activation == "silu":
         h = F.silu(x @ p["wg"]) * (x @ p["wu"])
@@ -178,7 +214,7 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     else:  # relu2, checked when the model is built
         h = torch.square(F.relu(x @ p["wu"]))
     if row_parallel:
-        return row_parallel_matmul(h, p["wd"])
+        return row_parallel_matmul(h, p["wd"], seq)
     return h @ p["wd"]
 
 
@@ -194,32 +230,41 @@ def embed_spec(cfg: ModelConfig) -> Dict:
 
 
 def embed_tokens(p: Dict, tokens: torch.Tensor,
-                 vocab_sharded: bool = False) -> torch.Tensor:
+                 vocab_sharded: bool = False, seq: bool = False
+                 ) -> torch.Tensor:
     """The tokens' rows of ``p["tok"]``.  ``vocab_sharded``: the table is
     this rank's slice of the vocab over the active mesh's "model" axis
     (``TPLayout.vocab``): rows outside it read zeros, and the sum over the
-    axis gives every token its row."""
+    axis gives every token its row.  ``seq``: the rank keeps its slice of
+    the sequence (``TPLayout.seq``): the sum reduce-scattered along it,
+    or with the vocab whole its slice of the rows (``seq_split``)."""
     tok = p["tok"]
     if not vocab_sharded:
-        return tok[tokens.long()]
+        x = tok[tokens.long()]
+        return seq_split(x) if seq else x
     from repro_torch.distributed.sharding import axis_index
     local = tokens.long() - axis_index("model") * tok.shape[0]
     mine = (local >= 0) & (local < tok.shape[0])
     x = tok[torch.where(mine, local, 0)] * mine[..., None].to(tok.dtype)
-    return reduce_model(x)
+    return reduce_model(x, seq=seq)
 
 
 def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-            vocab_sharded: bool = False) -> torch.Tensor:
+            vocab_sharded: bool = False, seq: bool = False
+            ) -> torch.Tensor:
     """Logits (..., V).  ``vocab_sharded``: the table is this rank's
     vocab slice (``TPLayout.vocab``), and its logits are gathered over
     "model" along the vocab (``collectives.gather_last``: under autograd
     the rank's columns of the gradient come back, and ``x``'s gradient is
-    summed over "model")."""
+    summed over "model").  ``seq``: ``x`` (B, S/m, d) is the rank's slice
+    of the sequence, gathered whole first (every token's logits on every
+    rank)."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    if seq:
+        x = seq_gather(x, summed=vocab_sharded)
     if vocab_sharded:
         from repro_torch.distributed.collectives import gather_last
-        logits = gather_last(copy_model(x) @ w, ("model",))
+        logits = gather_last((x if seq else copy_model(x)) @ w, ("model",))
     else:
         logits = x @ w
     if cfg.logit_softcap > 0:

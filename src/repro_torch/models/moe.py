@@ -32,6 +32,16 @@ loss, which every rank computes whole from the same probabilities, is
 not (its gradient would count m times).  Serving and training run this
 one function.
 
+Under sequence parallelism (``seq``, a plan's ``TPLayout.seq``) ``x``
+is the rank's slice of the sequence: it is gathered whole first (every
+token routed as one device routes it, the capacity the whole rows'),
+the cut's partial sums are reduce-scattered back to the slice
+(``layers.reduce_model(seq=True)``, whose backward gathers the whole
+cotangent) and a whole output is cut to it (``layers.seq_split``,
+likewise).  So every rank again computes on the whole tokens with the
+whole cotangent, and the gradient law above holds as it is; the
+gather's backward takes the rank's slice of the (equal) gradients.
+
 ``live`` (a bool per token) is the port's addition: a token that is not
 live (prefill padding, a chunk's dead tail, a dead decode slot) takes no
 rank in any expert, does not count in ``T`` for the capacity, and gets a
@@ -49,7 +59,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_index, axis_size
-from repro_torch.models.layers import copy_model, reduce_model
+from repro_torch.models.layers import (copy_model, reduce_model, seq_gather,
+                                       seq_split)
 from repro_torch.models.spec import ParamSpec
 from repro_torch.utils.fake import count_true
 
@@ -195,43 +206,54 @@ def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
     return torch.where(keep[..., None], c, 0.0).sum(1)
 
 
-def _moe(p: Dict, xf: torch.Tensor, cfg: ModelConfig,
-         live: Optional[torch.Tensor], n: int, cut: bool = False
+def _moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+         live: Optional[torch.Tensor], n: Optional[int], cut: bool = False,
+         seq: bool = False
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The FFN over ``xf`` (T, d) at the capacity of ``n`` live tokens:
-    (its f32 output (T, d), the router's probabilities and experts).
+    """The FFN over the tokens of ``x`` (B, S, d) or (B, d) at the
+    capacity of ``n`` live tokens (every token when None): (its f32
+    output of x's shape, the router's probabilities and experts).
     ``cut``: ``p`` holds this rank's E/m experts over "model" (GSPMD's
-    cut, the module docstring)."""
+    cut, the module docstring); ``seq``: ``x`` is the rank's slice of
+    the sequence, and so is the output (the module docstring)."""
+    if seq:
+        x = seq_gather(x, summed=False)
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    if n is None:
+        n = xf.shape[0]
     probs, gates, idx = router(p, xf, cfg.top_k, cut)
     slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
     if not cut:
         out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
-        return out, probs, idx
+        out = out.reshape(shape)
+        return (seq_split(out) if seq else out), probs, idx
     lo, n_e = _expert_range(cfg.n_experts)
     ye = experts(p, copy_model(xf), disp[lo:lo + n_e], cfg)
-    return reduce_model(combine(ye, gates, idx, slot, ok, lo)), probs, idx
+    out = combine(ye, gates, idx, slot, ok, lo).reshape(shape)
+    return reduce_model(out, seq=seq), probs, idx
 
 
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
               live: Optional[torch.Tensor] = None,
-              n_live: Optional[int] = None, cut: bool = False
-              ) -> torch.Tensor:
-    """x: (B, S, d) or (B, d); ``live`` of x's leading shape (or None:
-    every token live), ``n_live`` its count (read from ``live`` on the
-    host when None); ``cut``: ``p`` holds this rank's E/m experts over
-    "model".  Returns the FFN's output, of x's shape and dtype."""
-    shape = x.shape
-    xf = x.reshape(-1, shape[-1])
-    n = xf.shape[0]
+              n_live: Optional[int] = None, cut: bool = False,
+              seq: bool = False) -> torch.Tensor:
+    """x: (B, S, d) or (B, d); ``live`` of the whole tokens' leading
+    shape (or None: every token live), ``n_live`` its count (read from
+    ``live`` on the host when None); ``cut``: ``p`` holds this rank's E/m
+    experts over "model"; ``seq``: x is the rank's slice (B, S/m, d) of
+    the sequence.  Returns the FFN's output, of x's shape and dtype."""
+    n = None
     if live is not None:
-        live = live.reshape(n)
+        live = live.reshape(-1)
         n = count_true(live) if n_live is None else n_live
-    out, _, _ = _moe(p, xf, cfg, live, n, cut)
-    return out.to(x.dtype).reshape(shape)
+    out, _, _ = _moe(p, x, cfg, live, n, cut, seq)
+    return out.to(x.dtype)
 
 
 def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                    batch_axes: Tuple[str, ...] = (), cut: bool = False
+                    batch_axes: Tuple[str, ...] = (), cut: bool = False,
+                    seq: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training FFN, the JAX ``apply_moe``: every token of x (B, S, d)
     routed at the config's capacity.  Returns (the output, of x's shape
@@ -240,8 +262,7 @@ def apply_moe_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     mesh axes; the aux loss is the whole batch's, and the capacity is
     this rank's (its tokens' share; dropless, ``moe_capacity=0``, routes
     exactly as one device does).  ``cut``: ``p`` holds this rank's E/m
-    experts over "model" (GSPMD's cut)."""
-    xf = x.reshape(-1, x.shape[-1])
-    out, probs, idx = _moe(p, xf, cfg, None, xf.shape[0], cut)
-    return (out.to(x.dtype).reshape(x.shape),
-            aux_loss(probs, idx, batch_axes=batch_axes))
+    experts over "model" (GSPMD's cut); ``seq``: x is the rank's slice
+    of the sequence (the whole rows routed)."""
+    out, probs, idx = _moe(p, x, cfg, None, None, cut, seq)
+    return out.to(x.dtype), aux_loss(probs, idx, batch_axes=batch_axes)

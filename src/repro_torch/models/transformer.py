@@ -309,24 +309,51 @@ class TransformerModel:
                                       device=device)}
 
     # -- layer application --------------------------------------------------
+    @staticmethod
+    def _norm(p: Dict, x: torch.Tensor, lay: TPLayout) -> torch.Tensor:
+        """``layers.apply_norm``; under ``lay.seq`` it runs on the rank's
+        slice of the sequence, so its weights' gradient is summed over
+        "model" (``layers.copy_model``)."""
+        if lay.seq:
+            p = {k: layers.copy_model(v) for k, v in p.items()}
+        return layers.apply_norm(p, x)
+
+    def _moe_ep(self, p: Dict, h: torch.Tensor, lay: TPLayout,
+                live: Optional[torch.Tensor] = None,
+                n_live: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``ep.apply_moe_ep`` of ``h``; under ``lay.seq`` (``h`` the
+        rank's slice) over the whole sequence, gathered (JAX's
+        ``in_specs`` take ``x`` whole over "model"), the rank keeping its
+        slice of the output (``layers.seq_split``): every rank then holds
+        the whole tokens and, in the backward, the whole cotangent, as
+        the function's gradient law has them."""
+        from repro_torch.distributed import ep
+        if not lay.seq:
+            return ep.apply_moe_ep(p, h, self.cfg, live=live, n_live=n_live)
+        o, aux = ep.apply_moe_ep(p, layers.seq_gather(h, summed=False),
+                                 self.cfg, live=live, n_live=n_live)
+        return layers.seq_split(o), aux
+
     def _apply_ffn(self, p: Dict, x: torch.Tensor,
                    live: Optional[torch.Tensor] = None,
                    n_live: Optional[int] = None,
                    layout: TPLayout = TPLayout()) -> torch.Tensor:
         """The layer's FFN; ``layout``: the rank's cut of its weights (the
         experts over "model": GSPMD's cut in ``moe.apply_moe``, or
-        ``ep.apply_moe_ep`` under ``moe_ep``)."""
+        ``ep.apply_moe_ep`` under ``moe_ep``) and of the sequence
+        (``layout.seq``: ``x`` is the rank's slice)."""
         if "ln2" not in p:  # no FFN (d_ff == 0)
             return x
-        h = layers.apply_norm(p["ln2"], x)
+        h = self._norm(p["ln2"], x, layout)
         if "moe" in p:
             if layout.ep:
-                from repro_torch.distributed import ep
-                return x + ep.apply_moe_ep(p["moe"], h, self.cfg, live=live,
-                                           n_live=n_live)[0]
+                return x + self._moe_ep(p["moe"], h, layout, live, n_live)[0]
             return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
-                                     n_live=n_live, cut=layout.experts)
-        return x + layers.apply_mlp(p["mlp"], h, self.cfg, layout.mlp)
+                                     n_live=n_live, cut=layout.experts,
+                                     seq=layout.seq)
+        return x + layers.apply_mlp(p["mlp"], h, self.cfg, layout.mlp,
+                                    layout.seq)
 
     def _live_tokens(self, lens: torch.Tensor, width: int,
                      n_live: Optional[int]
@@ -374,23 +401,23 @@ class TransformerModel:
         cfg = self.cfg
         code = self.codes[li]
         p = self._gather_layer(li, p, lay, batch_axes)
-        h = layers.apply_norm(p["ln1"], x)
+        h = self._norm(p["ln1"], x, lay)
         if code in ATTN_CODES:
             x = x + attn.attn_train(p["attn"], h, cfg,
                                     window=self.windows[li], impl=impl,
-                                    cut=lay.cut(li))
+                                    cut=lay.cut(li), seq=lay.seq,
+                                    ring=lay.ring)
         elif code == "C":
             x = x + self._cross(p, h, *attn.cross_kv(p["attn"], img))
         else:
             x = x + REC_TRAIN[code](p["rec"], h, cfg)
         if "moe" in p:
-            h = layers.apply_norm(p["ln2"], x)
+            h = self._norm(p["ln2"], x, lay)
             if lay.ep:
-                from repro_torch.distributed import ep
-                o, aux = ep.apply_moe_ep(p["moe"], h, cfg)
+                o, aux = self._moe_ep(p["moe"], h, lay)
             else:
                 o, aux = moe.apply_moe_train(p["moe"], h, cfg, batch_axes,
-                                             cut=lay.experts)
+                                             cut=lay.experts, seq=lay.seq)
             return x + o, aux
         return self._apply_ffn(p, x, layout=lay), None
 
@@ -426,8 +453,11 @@ class TransformerModel:
         ``attn_ctx``: a train plan's (``launch.steps.Plan.attn_ctx``) under
         its mesh: ``params`` are this rank's pieces (``layout``: heads,
         ``d_ff`` columns and the vocab over "model", Megatron style, the
-        experts over "model" too, the activations whole between blocks;
-        ``embed`` dims over the FSDP
+        experts over "model" too, the activations between blocks the
+        rank's slice (B, S/m, d) of the sequence under ``layout.seq`` —
+        a checkpointed unit saves the slice — and whole otherwise, ring
+        attention on the slices under ``layout.ring``; the logits of
+        every token on each rank; ``embed`` dims over the FSDP
         axes, each layer's gathered just before it runs and, under
         ``remat``, again in the backward) and ``tokens`` its rows of a
         batch over ``batch_axes``.  Models of ``A`` and ``W`` layers."""
@@ -437,7 +467,7 @@ class TransformerModel:
         img = self.project_extra(params, extra)
         x = layers.embed_tokens(
             self._gather_top(params, "embed", lay, batch_axes), tokens,
-            lay.vocab)
+            lay.vocab, lay.seq)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         # a recomputed unit runs on the backward's thread: it re-enters
         # the mesh its forward ran under
@@ -461,11 +491,11 @@ class TransformerModel:
             else:
                 x, aux = run(lo, lo + unit, x, aux)
         x, aux = run(n_grouped, len(self.codes), x, aux)
-        x = layers.apply_norm(
-            self._gather_top(params, "ln_f", lay, batch_axes), x)
+        x = self._norm(self._gather_top(params, "ln_f", lay, batch_axes), x,
+                       lay)
         return layers.unembed(
             self._gather_top(params, "embed", lay, batch_axes), x, cfg,
-            lay.vocab), aux
+            lay.vocab, lay.seq), aux
 
     def loss_fn(self, params: Dict, batch: Dict, impl: str = "ref",
                 attn_ctx: Optional[Dict] = None
@@ -506,7 +536,11 @@ class TransformerModel:
         ``layout`` says which weights are this rank's pieces, and each
         rank prefills with the heads it holds into its own pools (every
         kv head under dp and kvp, whose decode layout
-        ``shard_decode_state`` then cuts)."""
+        ``shard_decode_state`` then cuts); under ``layout.seq`` each
+        rank holds its slice of the sequence between blocks (attention
+        over the gathered sequence, K4 unless ``impl="ref"``), under
+        ``layout.ring`` ring attention on the slices (plain ops), and the
+        last token's logits come from the rank that holds it."""
         check_impl(impl, entry="prefill")
         cfg = self.cfg
         B, S = tokens.shape
@@ -517,11 +551,11 @@ class TransformerModel:
         img = self.project_extra(params, extra)
         lay = (attn_ctx or {}).get("layout", TPLayout())
         x = layers.embed_tokens(self._gather_top(params, "embed", lay),
-                                tokens, lay.vocab)
+                                tokens, lay.vocab, lay.seq)
         rec, cross = {}, []
         for li, p in enumerate(params["layers"]):
             p = self._gather_layer(li, p, lay)
-            h = layers.apply_norm(p["ln1"], x)
+            h = self._norm(p["ln1"], x, lay)
             code = self.codes[li]
             if code in REC_CODES:
                 o, final = REC_PREFILL[code](p["rec"], h, lens, cfg)
@@ -533,13 +567,12 @@ class TransformerModel:
             else:
                 o = attn.self_attn_prefill(
                     p["attn"], h, cfg, state, self.slot[li], lens,
-                    window=self.windows[li], impl=impl, cut=lay.cut(li))
+                    window=self.windows[li], impl=impl, cut=lay.cut(li),
+                    seq=lay.seq, ring=lay.ring)
             x = self._apply_ffn(p, x + o, live, n_live, lay)
-        x = layers.apply_norm(self._gather_top(params, "ln_f", lay), x)
-        last_idx = torch.clamp(lens.long() - 1, min=0)
-        last = x[torch.arange(B, device=x.device), last_idx]
+        x = self._norm(self._gather_top(params, "ln_f", lay), x, lay)
         logits = layers.unembed(self._gather_top(params, "embed", lay),
-                                last, cfg, lay.vocab)
+                                self._last(x, lens, lay), cfg, lay.vocab)
         out = dict(state, pos=lens)
         if rec:
             out["rec"] = {code: {k: torch.stack([r[k] for r in finals])
@@ -549,6 +582,24 @@ class TransformerModel:
             out["cross_k"] = torch.stack([k for k, _ in cross])
             out["cross_v"] = torch.stack([v for _, v in cross])
         return logits, out
+
+    @staticmethod
+    def _last(x: torch.Tensor, lens: torch.Tensor, lay: TPLayout
+              ) -> torch.Tensor:
+        """(B, d): each row's token at ``lens - 1`` of ``x`` (B, S, d);
+        under ``lay.seq`` of the rank's slice (B, S/m, d): the rank that
+        holds the token gives it, the others zeros, summed over "model"
+        (exact)."""
+        B, S_l = x.shape[:2]
+        idx = torch.clamp(lens.long() - 1, min=0)
+        rows = torch.arange(B, device=x.device)
+        if not lay.seq:
+            return x[rows, idx]
+        from repro_torch.distributed.sharding import axis_index
+        local = idx - axis_index("model") * S_l
+        mine = (local >= 0) & (local < S_l)
+        last = x[rows, torch.clamp(local, 0, S_l - 1)]
+        return layers.reduce_model(last * mine[:, None].to(x.dtype))
 
     def prefill_chunk(self, params: Dict, tokens: torch.Tensor,
                       state: Dict, q_start: torch.Tensor,

@@ -374,7 +374,7 @@ def _train_case(mesh, c):
     run = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="train")
     plan = plan_for(run, mesh, attn_impl="ref",
                     microbatches=c["microbatches"],
-                    zero_pod=c.get("zero_pod", False))
+                    zero_pod=c.get("zero_pod", False), **c.get("plan", {}))
     if c.get("attn"):  # a cut the plan would not pick on this mesh
         plan = dataclasses.replace(plan, layout=dataclasses.replace(
             plan.layout, attn=(c["attn"],) * cfg.n_layers))
@@ -387,10 +387,19 @@ def _train_case(mesh, c):
     out = {"loss": float(loss), "ce": float(parts["ce"]),
            "aux": float(parts["aux"]), "grad_err": _max_rel(grads, want),
            "microbatches": plan.microbatches, "attn": plan.layout.attn,
+           "seq": plan.layout.seq, "ring": plan.layout.ring,
+           "attn_impl": plan.attn_impl,
            "vocab": plan.layout.vocab, "fsdp": plan.layout.fsdp,
            "moe": plan.layout.moe(),
            "param_frac": sum(x.numel() for x in _leaves(params))
            / sum(x.numel() for x in _leaves(full))}
+    if "against" in c:  # the same step under another plan's knobs
+        alt = plan_for(run, mesh, attn_impl="ref",
+                       microbatches=c["microbatches"], **c["against"])
+        g_alt = train_grads(model, alt)(params, mine)[2]
+        out["against_err"] = _max_rel(g_alt, want)
+        out["against_diff"] = _max_abs(g_alt, grads)
+        out["against_seq"] = alt.layout.seq
     moe = [li for li, p in enumerate(full["layers"]) if "moe" in p]
     if moe:  # the experts a rank holds, of the whole
         out["experts"] = [[int(params["layers"][li]["moe"][k].shape[0])
@@ -449,7 +458,7 @@ def _prefill_case(mesh, c):
     prun = RunConfig(model=cfg, seq_len=S, global_batch=B, kind="prefill")
     drun = RunConfig(model=cfg, seq_len=S + c["steps"], global_batch=B,
                      kind="decode")
-    pplan = plan_for(prun, mesh, scheme=c["scheme"])
+    pplan = plan_for(prun, mesh, scheme=c["scheme"], **c.get("plan", {}))
     dplan = plan_for(drun, mesh, scheme=c["scheme"])
     pstep, _, specs, model = build_prefill_step(prun, pplan)
     sstep = build_serve_step(drun, dplan)[0]
@@ -465,11 +474,15 @@ def _prefill_case(mesh, c):
     logits, state = pstep(params, mine["tokens"], mine["lens"], state)
     out = {"prefill": _np(logits), "scheme": dplan.scheme,
            "attn": pplan.layout.attn, "fsdp": pplan.layout.fsdp,
+           "seq": pplan.layout.seq, "ring": pplan.layout.ring,
            "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
            "pool_heads": state["k_pages"].shape[3], "rows": b,
            "row0": pplan.mesh.flat_index(pplan.batch_axes)
            if pplan.batch_axes else 0}
     state = shard_decode_state(state, dplan)
+    if pplan.layout.attn != dplan.layout.attn:  # the ring prefill's whole
+        params = sharded_params_from_numpy(c["params"], model, dplan,
+                                           device="cpu")
     steps = []
     for i in range(c["steps"]):
         logits, state = sstep(params, mine["forced"][:, i].int(), state)
@@ -707,21 +720,24 @@ def _dry_cases(meshes, inputs, seed):
     from repro_torch.launch.mesh import make_dry_mesh
     from repro_torch.launch.steps import dry_step, plan_for, rank_inputs
     out = {}
-    for name, (shape, kind, scheme, config, *repl) in inputs[
+    for name, (shape, kind, scheme, config, *more) in inputs[
             "cases"].items():
         m = meshes[shape]
-        cfg = get_config(config).smoke().replace(**(repl[0] if repl else {}))
+        # more: the config's replaced fields, then the plan's knobs
+        repl, knobs = (list(more) + [{}, {}])[:2]
+        cfg = get_config(config).smoke().replace(**repl)
         run = RunConfig(model=cfg, seq_len=inputs["S"],
                         global_batch=inputs["B"], kind=kind)
         kw = {} if kind == "train" else {"impl": "ref"}
-        plan = plan_for(run, m, attn_impl="ref", scheme=scheme)
+        plan = plan_for(run, m, attn_impl="ref", scheme=scheme, **knobs)
         step, mine, _ = rank_inputs(run, plan, torch.float32, **kw)
         real = record_step(step, real_inputs(run, mine, seed=seed), m)
         dry_plan = plan_for(run, make_dry_mesh(shape, m.axis_names, m.rank),
-                            attn_impl="ref", scheme=scheme)
+                            attn_impl="ref", scheme=scheme, **knobs)
         dry = dry_step(run, dry_plan, torch.float32, **kw)
         out[name] = {"real": _record(real), "dry": _record(dry),
-                     "scheme": plan.scheme}
+                     "scheme": plan.scheme, "seq": plan.layout.seq,
+                     "ring": plan.layout.ring}
     return out
 
 
@@ -766,4 +782,56 @@ def zero_pod_case(mesh, inputs):
                              for p, x in tree_paths(st.opt.mu)}
         out[f"{name}/gathers"] = pod.stats["calls"]["all_gather"]
         assert len(tree_leaves(st.opt.nu)) == len(tree_leaves(st.opt.mu))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism and ring attention (tests/test_torch_seq_parallel.py)
+# ---------------------------------------------------------------------------
+def _ring_grad_case(mesh, c):
+    """``prefill_attention(impl="ring")`` under autograd on this rank's
+    sequence slice (slice r of "model") of its batch rows (over "data"):
+    the output and the gradients of q, k and v of ``Σ o·w`` summed over
+    every rank (each rank differentiates its own term; the ring's
+    backward brings the other ranks' parts of its k and v)."""
+    import torch
+    from repro_torch.core.attention import prefill_attention
+    from repro_torch.distributed.sharding import DEFAULT_RULES, use_mesh
+    nd, m = mesh.size("data"), mesh.size("model")
+    d, r = mesh.index("data"), mesh.index("model")
+    rules = DEFAULT_RULES.extend(batch=("data",) if nd > 1 else None,
+                                 seq=("model",))
+    q, k, v, w = (torch.from_numpy(c[x]) for x in ("q", "k", "v", "w"))
+    B, S = q.shape[:2]
+    rows = slice(d * B // nd, (d + 1) * B // nd)
+    sl = slice(r * S // m, (r + 1) * S // m)
+    mine = [t[rows, sl].clone().requires_grad_() for t in (q, k, v)]
+    lens = None if c["lens"] is None else torch.from_numpy(c["lens"])[rows]
+    with use_mesh(mesh, rules):
+        o = prefill_attention(*mine, window=c["window"],
+                              softcap=c["softcap"], lens=lens, impl="ring")
+        grads = torch.autograd.grad((o * w[rows, sl]).sum(), mine)
+    out = {"o": _np(o), "where": [rows.start, rows.stop, sl.start,
+                                   sl.stop]}
+    out.update({n: _np(g) for n, g in zip(("dq", "dk", "dv"), grads)})
+    return out
+
+
+def seq_parallel_cases(mesh, inputs):
+    """Every case of tests/test_torch_seq_parallel.py on a 4-rank world,
+    each on its mesh — (2, 2), (1, 2) (``_launch_meshes``) and (1, 4):
+    ring attention under grad, the train cases (``_train_case`` under the
+    sequence-parallel and ring plans), the prefill cases
+    (``_prefill_case``) and the dry cases (``_dry_cases``)."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 4)] = make_mesh((1, 4))
+    out = {}
+    for name, c in inputs["ring"].items():
+        out[f"ring/{name}"] = _ring_grad_case(meshes[c["mesh"]], c)
+    for name, c in inputs["train"].items():
+        out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
+    for name, c in inputs["prefill"].items():
+        out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
+    out["dry"] = _dry_cases(meshes, inputs["dry"], mesh.rank)
     return out

@@ -132,8 +132,13 @@ def test_dry_collectives_equal_the_real_mesh_stats(ranks, name):
             or (config == "granite-8b" and shape[0] > 1))
         if config == "granite-8b":  # FSDP: the gathers, the grads' scatter
             assert got["real"]["calls"]["all_gather"] > 0
-            assert bool(got["real"]["calls"].get("reduce_scatter")) == (
-                kind == "train")
+            # beside the activations' reduce-scatters of a sequence-
+            # parallel plan: the lookup's and each layer's two row-
+            # parallel outputs'
+            rs = got["real"]["calls"].get("reduce_scatter", 0)
+            seq = (2 * get_config(config).smoke().n_layers + 1
+                   if got["seq"] else 0)
+            assert rs > seq if kind == "train" else rs == seq
 
 
 @pytest.mark.parametrize("name", list(CASES))
@@ -243,8 +248,17 @@ def test_fsdp_train_counts_reduce_scatter_bytes():
     n_cut = sum(steps._cuts(s, "data")
                 for s in steps.spec_leaves(steps.param_specs(
                     build_model(cfg), plan)))
-    # the tied table is gathered twice a microbatch (lookup and head)
-    assert rec.stats["calls"]["reduce_scatter"] == 2 * (n_cut + 1)
+    # the tied table is gathered twice a microbatch (lookup and head);
+    # over "model" (ranks 0 and 1 of the dry mesh) the sequence-parallel
+    # plan reduce-scatters, a microbatch, the lookup and the layer's two
+    # row-parallel outputs, and in the backward the gradients of the
+    # sequence gathered before the layer's two column-parallel products
+    # and the head
+    groups = [ranks for op, _, _, ranks in rec.stats["ops"]
+              if op == "reduce_scatter"]
+    assert groups.count((0, 2)) == 2 * (n_cut + 1)
+    assert groups.count((0, 1)) == 2 * (3 + 3) and plan.layout.seq
+    assert rec.stats["calls"]["reduce_scatter"] == len(groups)
     sent = sum(n / 2 for op, n, g, _ in rec.stats["ops"]
                if op == "reduce_scatter")
     got = ca.collective_bytes(rec.stats)

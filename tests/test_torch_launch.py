@@ -3,8 +3,10 @@
 - ``plan_for`` for train, prefill and decode equals the JAX plan (batch
   axes, scheme, kv axes, microbatches, the training attention under the
   port's name, the rule table) on meshes (1, 1), (2, 4), (16, 16) and
-  (2, 16, 16) for five configs; the JAX plans read only a mesh's names
-  and shape, so a ``SimpleNamespace`` stands in for its mesh.
+  (2, 16, 16) for five configs, under every ``seq_parallel`` × ``ring``;
+  the JAX plans read only a mesh's names and shape, so a
+  ``SimpleNamespace`` stands in for its mesh.  The ring prefill's param
+  specs are JAX's (its attention whole over "model").
 - The spec trees: ``train_state_shardings`` against the JAX specs
   (``repro.launch.steps.train_state_shardings`` with ``NamedSharding``
   replaced by its spec), FSDP's ``embed`` over "data" and ``wq``/``wo``
@@ -116,16 +118,28 @@ def jax_specs(monkeypatch):
 @pytest.mark.parametrize("mshape", MESHES)
 @pytest.mark.parametrize("name", CONFIGS)
 def test_plan_for_matches_jax(name, mshape, kind):
+    """Under every ``seq_parallel`` × ``ring``: the plan's fields and
+    rules are JAX's, and the layout cuts the sequence (``seq``) and runs
+    the ring (``ring``) exactly where the rules put ``seq`` on a "model"
+    axis of more than one rank."""
     from repro.launch.steps import plan_for as jplan
-    for B, S in SHAPES[kind]:
+    knobs = [dict(seq_parallel=sp, ring=ring) for sp in (True, False)
+             for ring in (False, True)]
+    m = dict(zip(_names(mshape), mshape))["model"]
+    for (B, S), kw in [(bs, kw) for bs in SHAPES[kind] for kw in knobs]:
         run, jrun = _runs(name, kind, B, S)
-        got = steps.plan_for(run, Mesh(mshape, _names(mshape)))
-        want = jplan(jrun, _jax_mesh(mshape))
+        got = steps.plan_for(run, Mesh(mshape, _names(mshape)), **kw)
+        want = jplan(jrun, _jax_mesh(mshape), **kw)
         assert (got.batch_axes, got.scheme, got.kv_axes, got.microbatches,
                 got.attn_impl, got.n_kv_shards) == (
             want.batch_axes, want.scheme, want.kv_axes, want.microbatches,
-            want.attn_impl, want.n_kv_shards), (B, S)
-        assert dict(got.rules.table) == dict(want.rules.table), (B, S)
+            want.attn_impl, want.n_kv_shards), (B, S, kw)
+        assert dict(got.rules.table) == dict(want.rules.table), (B, S, kw)
+        seq = want.rules.physical("seq") == ("model",) and m > 1
+        assert (got.layout.seq, got.layout.ring) == (
+            seq, seq and want.attn_impl == "ring"), (B, S, kw)
+        if kind == "decode":
+            assert not got.layout.seq
         # the training attention under the port's name ("jnp" is "ref")
         got = steps.plan_for(run, Mesh(mshape, _names(mshape)),
                              attn_impl="ref", microbatches=2)
@@ -189,7 +203,8 @@ def test_layout_cuts_the_q_heads_where_gspmd_does(name, kind, mshape,
 def test_prefill_layout_is_the_decode_layout(scheme):
     """The prefill plan's layout is the decode plan's of the same config
     on the same mesh, so the pools it fills are the ones
-    ``shard_decode_state`` takes."""
+    ``shard_decode_state`` takes; it adds the sequence-parallel cut of
+    the activations where "model" holds more than one rank."""
     for name in ("llama2-7b", "nemotron-4-15b"):
         for mshape in ((1, 2), (2, 2), (2, 4)):
             prun, _ = _runs(name, "prefill", 8, 1024)
@@ -197,7 +212,9 @@ def test_prefill_layout_is_the_decode_layout(scheme):
             pp = steps.plan_for(prun, Mesh(mshape), scheme=scheme)
             dp = steps.plan_for(drun, Mesh(mshape), scheme=scheme)
             assert pp.scheme == "prefill_local"
-            assert pp.layout == dp.layout
+            # the weights' cut; the prefill cuts the sequence too
+            assert dataclasses.replace(pp.layout, seq=False) == dp.layout
+            assert pp.layout.seq == (mshape[1] > 1) and not dp.layout.seq
             assert pp.batch_axes == dp.batch_axes
 
 
@@ -301,6 +318,41 @@ def test_train_state_specs_match_jax(name, mshape, jax_specs):
         norms = [k for k in g if "/ln" in k]
         assert norms and all(_norm(g[k], sizes) == (("data",),)
                              for k in norms)
+
+
+@pytest.mark.parametrize("mshape", [(1, 2), (2, 4), (16, 16), (2, 16, 16)])
+@pytest.mark.parametrize("name", ["llama2-7b", "granite-8b", "llama3-405b",
+                                  "nemotron-4-340b"])
+def test_ring_prefill_param_specs_match_jax(name, mshape, jax_specs):
+    """The ring prefill plan (JAX's ``heads: None, kv_heads: None``): every
+    attention weight whole over "model", the layout's attention
+    ``"whole"`` in every layer, and the param specs JAX's leaf for leaf
+    with no departure (the vocab and ``d_ff`` over "model", FSDP's
+    ``embed``); the pools keep the decode plan's kv heads."""
+    run, jrun = _runs(name, "prefill", 32, 8192)
+    mesh = Mesh(mshape, _names(mshape))
+    plan = steps.plan_for(run, mesh, ring=True)
+    jplan = jax_specs.plan_for(jrun, _jax_mesh(mshape), ring=True)
+    model = build_model(run.model)
+    assert plan.attn_impl == jplan.attn_impl == "ring"
+    assert plan.layout.attn == ("whole",) * run.model.n_layers
+    m = mshape[-1]
+    assert (plan.layout.seq, plan.layout.ring) == (m > 1, m > 1)
+    got = _leaves_by_path(steps.param_specs(model, plan))
+    jtree = jax_specs._param_shardings(jbuild(jrun.model), jplan,
+                                       jnp.bfloat16)
+    want = _leaves_by_path({**{k: v for k, v in jtree.items()
+                               if k not in ("groups", "rem")},
+                            "layers": _jax_layer_specs(jtree, model)})
+    sizes = dict(zip(_names(mshape), mshape))
+    assert sorted(got) == sorted(want)
+    for k in got:
+        assert _norm(got[k], sizes) == _norm(want[k], sizes), k
+        if "/attn/" in k:
+            assert "model" not in [a for e in _norm(got[k], sizes)
+                                   for a in e], k
+    dplan = steps.plan_for(dataclasses.replace(run, kind="decode"), mesh)
+    assert plan.layout.kv_heads == dplan.layout.kv_heads
 
 
 @pytest.mark.parametrize("mshape", [(1, 2), (2, 4), (2, 16, 16)])
