@@ -260,11 +260,12 @@ Phases, each of which fails the script (exit code 1) when it fails:
    in the ignored build dir, the memory freed), then on both ranks under
    ``launch.steps.plan_for`` with the same weights (``init_params(plan=)``,
    seed 0) and the one-device greedy tokens teacher-forced: llama2-7b at
-   full depth in bf16 under tp (8 prompts of 256..1536, K4 over 16 heads
-   a rank, then 32 steps of K1 + K2), and at 4 layers in f32; under kvp
+   8 of its 32 layers in bf16 under tp (8 prompts of 256..1536, K4 over
+   16 heads a rank, then 32 steps of K1 + K2), and at 4 layers in f32;
+   under kvp
    (``shard_decode_state`` stripes the pages: K1 over each rank's stripe
    with ``local_lens``, K2 over both ranks' splits) 1 x 8192 and a batch
-   of 8 with rows that leave the second stripe empty, at full depth in
+   of 8 with rows that leave the second stripe empty, at 8 layers in
    bf16 and at 4 layers in f32; the f32 1 x 8192 case once more, for 4
    steps, with the second rank's stripe dropped from every merge (a
    planted fault the check must see: the run fails unless its logits
@@ -291,29 +292,38 @@ Phases, each of which fails the script (exit code 1) when it fails:
    phase alone.
 19. launch (with 18: the same 2 rank processes, after its cases): the
    plans' step builders (``launch.steps``) against one device's runs of
-   the same weights.  Prefill: llama2-7b at full depth in bf16 and at 4
-   layers in f32, 8 prompts of 256..1536, under the (2, 1) plan (each
-   rank prefills its 4 rows with every head: ``build_prefill_step``) and
-   the (1, 2) plan (every row, 16 heads a rank), K4 on each rank, then
+   the same weights.  Prefill: llama2-7b in bf16 (at full depth under
+   the (2, 1) plan, at 8 layers under (1, 2)) and at 4 layers in f32, 8
+   prompts of 256..1536, under the (2, 1) plan (each rank prefills its 4
+   rows with every head: ``build_prefill_step``) and the (1, 2) plan
+   (every row, 16 heads a rank, the activations cut along the sequence
+   between blocks, the plans' default; at f32 also with
+   ``seq_parallel=False``, the sums all-reduced), K4 on each rank, then
    ``shard_decode_state`` and 4 decode steps (K1, K2) teacher-forced by
    one device's greedy tokens: logits within ``BF16_MODEL_TOL`` of their
    scale (bf16) or ``MODEL_TOL`` (f32); granite-8b (FSDP: its weights'
-   ``embed`` dims over "data") at 8 layers in bf16 under (2, 1), each
-   layer's weights gathered before use.  Train: llama2-7b at full width,
-   4 layers, f32, B 4 x S 512 (PR 24's shape): the local plan must take
-   2 microbatches (f32 logits of 262 MB over the 256 MB budget), and 2
+   ``embed`` dims over "data") at 4 layers in bf16 under (2, 1), each
+   layer's weights gathered before use; llama2-7b at 4 layers in f32
+   under the ring plan on (1, 2) (whole attention weights, ring
+   attention in plain ops, no K4).  Train: llama2-7b at full width, 4
+   layers, f32, B 4 x S 512 (the training phase's): the local plan must take 2
+   microbatches (f32 logits of 262 MB over the 256 MB budget), and 2
    microbatched steps land within ``LAUNCH_STEP_TOL`` of 2 plain ones;
-   under (2, 1) (data parallel: the gradients summed over the ranks) and
-   (1, 2) (tensor parallel: heads, ``d_ff`` and the vocab cut) the
-   rank's gradients within ``LAUNCH_GRAD_TOL`` · (1 + |g|) of one
-   device's, its params after 2 steps within ``LAUNCH_STEP_TOL``, the
-   losses and grad norms within ``LAUNCH_LOSS_TOL``; step ms by events,
-   peak memory per rank.  granite-8b under FSDP on (2, 1), 4 layers f32,
-   one step, held alike: each rank's state about half the whole, the
-   all-gathers and reduce-scatters counted.  granite-moe-1b-a400m at full
-   width, 4 layers, f32, B 4 x S 512, capacity 1.25, on (1, 2) under
-   GSPMD's expert cut and under ``moe_ep`` (the all-to-all under grad):
-   2 steps held alike, each rank holding E/2 experts and their moments,
+   under (2, 1) (data parallel at 1 layer: the gradients summed over
+   the ranks) and (1, 2) (tensor parallel: heads, ``d_ff`` and the vocab
+   cut; the sequence cut, without it, and the ring) the rank's
+   gradients within ``LAUNCH_GRAD_TOL`` · (1 + |g|) of one device's, its
+   params after 2 steps within ``LAUNCH_STEP_TOL`` (``GradTape``: an
+   element whose gradient a step took more than ``LAUNCH_GRAD_SHARE``
+   from one device's is held to AdamW's own bound instead, and at most
+   ``LAUNCH_ROUNDING_SHARE`` of them), the losses and grad norms within
+   ``LAUNCH_LOSS_TOL``; step ms by events, peak memory and collectives
+   per rank.  granite-8b under FSDP on (2, 1), 4 layers f32, one step,
+   held alike: each rank's state about half the whole, the all-gathers
+   and reduce-scatters counted.  granite-moe-1b-a400m at full width, 4
+   layers, f32, B 4 x S 512, capacity 1.25, on (1, 2) under GSPMD's
+   expert cut and under ``moe_ep`` (the all-to-all under grad): 2 steps
+   held alike, each rank holding E/2 experts and their moments,
    all-to-all calls and bytes logged (EP only).  Then ``launch.serve`` at
    full width (llama2-7b, f32, 8
    requests at the CLI's defaults), paged (K4, K1, K2 must launch) and
@@ -6482,6 +6492,9 @@ def count_mma(lib):
 # ---------------------------------------------------------------------------
 DIST_RANKS = 2
 DIST_STEPS = 32
+# the bf16 llama2-7b cases' depth, of 32: gloo all-reduces each layer's
+# sums between the processes over a case's 32 steps
+DIST_BF16_LAYERS = 8
 DIST_TP_LENS = [256, 439, 622, 805, 988, 1171, 1354, 1536]
 DIST_KVP_LONG = 8192
 # batch 8 under kvp: rows of 1 and 64 tokens hold one page, so the second
@@ -6501,14 +6514,14 @@ DIST_KEYS = ("paged_decode", "combine/decode", "combine/dist",
 def dist_cases():
     """(name, config, dtype, n_layers or None, scheme, lens, steps)."""
     return [
-        ("tp bf16", "llama2-7b", "bfloat16", None, None, DIST_TP_LENS,
-         DIST_STEPS),
+        ("tp bf16", "llama2-7b", "bfloat16", DIST_BF16_LAYERS, None,
+         DIST_TP_LENS, DIST_STEPS),
         ("tp f32", "llama2-7b", "float32", 4, None, DIST_TP_LENS,
          DIST_STEPS),
-        ("kvp bf16 8192", "llama2-7b", "bfloat16", None, "kvp",
+        ("kvp bf16 8192", "llama2-7b", "bfloat16", DIST_BF16_LAYERS, "kvp",
          [DIST_KVP_LONG], DIST_STEPS),
-        ("kvp bf16 batch 8", "llama2-7b", "bfloat16", None, "kvp",
-         DIST_KVP_LENS, DIST_STEPS),
+        ("kvp bf16 batch 8", "llama2-7b", "bfloat16", DIST_BF16_LAYERS,
+         "kvp", DIST_KVP_LENS, DIST_STEPS),
         # f32: a bf16 rounding apart flips near-tied top-k choices
         ("ep f32", "granite-moe-1b-a400m", "float32", None, None,
          DIST_EP_LENS, DIST_EP_STEPS),
@@ -6924,6 +6937,21 @@ LAUNCH_DECODE_STEPS = 4
 LAUNCH_TRAIN_B, LAUNCH_TRAIN_S, LAUNCH_TRAIN_STEPS = 4, 512, 2
 LAUNCH_GRAD_TOL = 1e-4  # |g - g_one| <= tol * (1 + |g_one|), f32
 LAUNCH_STEP_TOL = 2e-4  # params after the steps against one device's
+LAUNCH_LR = 3e-4  # the train steps' learning rate (the JAX builder's)
+# AdamW moves an element by lr·m̂/√v̂ whatever its gradients' size, so
+# where a rank's gradient is rounding apart from one device's at the
+# scale of the gradient itself its step is not one device's: an element
+# whose gradient a step took more than this share away from one
+# device's is held to AdamW's bound (``adamw_bound``) instead of
+# ``LAUNCH_STEP_TOL`` (below it two steps part by at most about
+# 2 · lr · share = 1.5e-4) ...
+LAUNCH_GRAD_SHARE = 0.25
+# ... and may be at most this share of the rank's elements: a fault of a
+# cut (a gradient summed twice, or over the wrong ranks) moves most
+# elements of a leaf, and every leaf but the norms' (whose gradients are
+# large enough for the gradient check) holds more than this share; the
+# llama2-7b ranks showed 6e-5 (2, 1) and 2.1e-4 (1, 2)
+LAUNCH_ROUNDING_SHARE = 1e-3
 LAUNCH_LOSS_TOL = 1e-5  # relative
 # an MoE train rank's top-k choices that may differ from one device's
 # (replayed from its tape), as a share of them: rounding's near-ties
@@ -6935,19 +6963,26 @@ LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
 
 def launch_prefill_cases():
     """(name, config, dtype, n_layers or None, meshes, plan knobs) of the
-    prefill cases: llama2-7b on both launch meshes (on (1, 2) cut along
-    the sequence, the plans' default), granite-8b under FSDP (its
-    ``embed: ("data",)`` override) on (2, 1), at 8 of its 36 layers
-    (gloo gathers each layer's weights between the processes: ≈ 0.5 s a
-    layer and step here), and llama2-7b at 4 layers f32 under the ring
-    plan on (1, 2) (ring attention in plain ops, no K4; the attention
-    weights whole, the decode plan's cut again for the decode steps)."""
-    return [("bf16", "llama2-7b", "bfloat16", None, LAUNCH_MESHES, {}),
+    prefill cases: llama2-7b in bf16, at full depth on (2, 1) and at 8
+    layers on (1, 2) (cut along the sequence, the plans' default: gloo
+    reduce-scatters each layer's sums between the processes), llama2-7b
+    at 4 layers f32 on both launch meshes and on (1, 2) without the
+    sequence cut (``seq_parallel=False``: the sums all-reduced, the
+    activations whole), granite-8b under FSDP (its ``embed: ("data",)``
+    override) on (2, 1), at 4 of its 36 layers (gloo gathers each
+    layer's weights between the processes: ≈ 0.5 s a layer and step
+    here), and llama2-7b at 4 layers f32 under the ring plan on (1, 2)
+    (ring attention in plain ops, no K4; the attention weights whole, the
+    decode plan's cut again for the decode steps)."""
+    return [("bf16", "llama2-7b", "bfloat16", None, ((2, 1),), {}),
             ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES, {}),
-            ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 8,
+            ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 4,
              ((2, 1),), {}),
             ("ring f32", "llama2-7b", "float32", 4, ((1, 2),),
-             {"ring": True})]
+             {"ring": True}),
+            ("bf16 8 layers", "llama2-7b", "bfloat16", 8, ((1, 2),), {}),
+            ("no-seq f32", "llama2-7b", "float32", 4, ((1, 2),),
+             {"seq_parallel": False})]
 
 
 def launch_references(torch, work):
@@ -6983,14 +7018,14 @@ def launch_train_batches(torch, cfg):
     return [to_device(next(data), "cuda") for _ in range(LAUNCH_TRAIN_STEPS)]
 
 
-def launch_train_run(name="llama2-7b", **replace):
-    """The launch phase's train run: ``name`` at 4 layers, B
+def launch_train_run(name="llama2-7b", n_layers=4, **replace):
+    """The launch phase's train run: ``name`` at ``n_layers`` layers, B
     ``LAUNCH_TRAIN_B`` x S ``LAUNCH_TRAIN_S`` (llama2-7b; granite-8b, the
     FSDP case, carries the ``embed: ("data",)`` override), with the
     config's fields in ``replace``."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    cfg = get_config(name).replace(n_layers=4, **replace)
+    cfg = get_config(name).replace(n_layers=n_layers, **replace)
     return RunConfig(model=cfg, seq_len=LAUNCH_TRAIN_S,
                      global_batch=LAUNCH_TRAIN_B, kind="train")
 
@@ -6998,32 +7033,41 @@ def launch_train_run(name="llama2-7b", **replace):
 def launch_train_cases():
     """(name, mesh shape, run, steps, microbatches or None for the
     plan's, plan knobs) of the launch phase's train rank cases: llama2-7b
-    on both launch meshes (on (1, 2) cut along the sequence, the plans'
-    default), granite-8b under FSDP on (2, 1) for one step,
-    granite-moe-1b-a400m on (1, 2) under GSPMD's expert cut and under
-    ``moe_ep`` (the all-to-all under grad), in one microbatch: at its
-    capacity 1.25 the drops are each microbatch's, so the plan's 2 would
-    leave one device's plain step (its f32 logits, vocab 49155 whole on
-    2 ranks, pass the 256 MB budget), and llama2-7b on (1, 2) under the
-    ring plan (ring attention under grad, the heads' q/k/v all-to-all'd
-    to the sequence cut and back)."""
+    on both launch meshes (on (2, 1) at 1 layer: gloo sums every
+    gradient between the processes; on (1, 2) cut along the sequence,
+    the plans' default), granite-8b under FSDP on (2, 1) for one step
+    (at 4 layers: gloo's reduce-scatter scratch, 0.805 GB beyond the dry
+    run's peak, stays within ``DRY_PEAK_TOL`` of it), granite-moe-1b-a400m
+    on (1, 2) under GSPMD's expert cut and under ``moe_ep`` (the
+    all-to-all under grad), in one microbatch: at its capacity 1.25 the
+    drops are each microbatch's, so the plan's 2 would leave one
+    device's plain step (its f32 logits, vocab 49155 whole on 2 ranks,
+    pass the 256 MB budget), llama2-7b on (1, 2) under the ring plan
+    (ring attention under grad, the heads' q/k/v all-to-all'd to the
+    sequence cut and back), and llama2-7b on (1, 2) with
+    ``seq_parallel=False`` (the activations whole, the row-parallel sums
+    all-reduced)."""
     moe = "granite-moe-1b-a400m"
-    return ([(str(shape), shape, launch_train_run(), LAUNCH_TRAIN_STEPS,
-              None, {}) for shape in LAUNCH_MESHES]
-            + [("(2, 1) fsdp granite-8b", (2, 1),
-                launch_train_run("granite-8b"), 1, None, {}),
-               ("(1, 2) experts cut granite-moe", (1, 2),
-                launch_train_run(moe), LAUNCH_TRAIN_STEPS, 1, {}),
-               ("(1, 2) experts ep granite-moe", (1, 2),
-                launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1,
-                {}),
-               ("(1, 2) ring llama2-7b", (1, 2), launch_train_run(),
-                LAUNCH_TRAIN_STEPS, None, {"ring": True})])
+    return [("(2, 1)", (2, 1), launch_train_run(n_layers=1),
+             LAUNCH_TRAIN_STEPS, None, {}),
+            ("(1, 2)", (1, 2), launch_train_run(), LAUNCH_TRAIN_STEPS, None,
+             {}),
+            ("(2, 1) fsdp granite-8b", (2, 1), launch_train_run("granite-8b"),
+             1, None, {}),
+            ("(1, 2) experts cut granite-moe", (1, 2), launch_train_run(moe),
+             LAUNCH_TRAIN_STEPS, 1, {}),
+            ("(1, 2) experts ep granite-moe", (1, 2),
+             launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1, {}),
+            ("(1, 2) ring llama2-7b", (1, 2), launch_train_run(),
+             LAUNCH_TRAIN_STEPS, None, {"ring": True}),
+            ("(1, 2) no-seq llama2-7b", (1, 2), launch_train_run(),
+             LAUNCH_TRAIN_STEPS, None, {"seq_parallel": False})]
 
 
 def rank_case_name(run, plan, mesh):
     """A train rank case's name in the dry phase's lines."""
-    return (f"train {run.model.name} 4 layers f32 {mesh.shape}"
+    return (f"train {run.model.name} {run.model.n_layers} layers f32 "
+            f"{mesh.shape}"
             f"{' fsdp' if plan.layout.fsdp else ''}"
             f"{' experts ' + plan.layout.moe() if run.model.is_moe else ''}"
             f"{' ring' if plan.layout.ring else ' seq' if plan.layout.seq else ''}"
@@ -7043,27 +7087,113 @@ def leaves_gap(got, want, rel):
     return worst
 
 
-def worst_leaf(torch, params, ref_params, grads, ref_grads):
-    """Where a rank's params after its steps lie farthest from one
-    device's (each a list of host tensors but ``params``, a tree on the
-    card): the leaf's path and its largest gap, the index, the first
-    step's gradient there (one device's and the rank's, before the
-    clipping), and how many of the leaf's elements are more than 1e-4
-    off — AdamW's first steps move an element by about the learning
-    rate whatever its gradient's size, so a gradient near 0 whose sign
-    rounding flips moves it by up to twice that."""
-    from repro_torch.utils.tree import tree_paths
-    best = None
-    for (path, p), r, g, gr in zip(tree_paths(params), ref_params, grads,
-                                   ref_grads):
-        d = (p.detach().float().cpu() - r.float()).abs()
-        i = int(d.argmax())
-        if best is None or float(d.view(-1)[i]) > best["gap"]:
-            best = dict(path=path, gap=float(d.view(-1)[i]), index=i,
-                        grad=float(g.reshape(-1)[i]),
-                        ref_grad=float(gr.reshape(-1)[i]),
-                        over_1e4=int((d > 1e-4).sum()), size=d.numel())
-    return best
+class GradTape:
+    """The gradients that each step of a train run hands to AdamW (the
+    input of ``clip_by_global_norm``, patched while the steps are built:
+    clipping scales a step's gradients by one positive factor), so that
+    a rank's steps can be held against one device's element by element.
+    In ``mode`` "record" it keeps one device's, ``cut`` to the rank, on
+    the host; in "compare" it marks (``flags``) the rank's elements
+    whose gradient at some step lies more than ``LAUNCH_GRAD_SHARE`` of
+    one device's away from it — rounding as large as the gradient
+    itself, where AdamW's step, which does not depend on the gradient's
+    size, is rounding too —, takes the first step's largest gap
+    relative to 1 + |one device's| (``grad_err``), and times itself by
+    events (``ms``), to be taken from the step's time; otherwise it does
+    nothing."""
+
+    def __init__(self, torch):
+        self.torch, self.mode, self.cut = torch, None, None
+        self.ref, self.flags, self.events = [], None, []
+        self.first_gap = None
+
+    @contextlib.contextmanager
+    def building(self):
+        from repro_torch.training import optimizer
+        orig = optimizer.clip_by_global_norm
+
+        def clip(grads, *args, **kw):
+            if self.mode == "record":
+                self._record(grads)
+            elif self.mode == "compare":
+                self._compare(grads)
+            return orig(grads, *args, **kw)
+
+        optimizer.clip_by_global_norm = clip
+        try:
+            yield
+        finally:
+            optimizer.clip_by_global_norm = orig
+
+    def _record(self, grads):
+        from repro_torch.utils.tree import tree_leaves
+        self.ref.append([x.cpu() for x in tree_leaves(self.cut(grads))])
+
+    def _compare(self, grads):
+        from repro_torch.utils.tree import tree_leaves
+        torch = self.torch
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        flags, gaps = [], []
+        for g, r in zip(tree_leaves(grads), self.ref[len(self.events)]):
+            r = r.to(g.device)
+            d = (g - r).abs()
+            flags.append(d > LAUNCH_GRAD_SHARE * r.abs())
+            if not self.events:
+                gaps.append((d / (1 + r.abs())).max())
+            del r, d
+        if gaps:
+            self.first_gap = torch.stack(gaps).max()
+        self.flags = flags if self.flags is None else [
+            a | b for a, b in zip(self.flags, flags)]
+        e1.record()
+        self.events.append((e0, e1))
+
+    def ms(self, step):
+        """The comparison's ms in step ``step`` (after it has synced)."""
+        e0, e1 = self.events[step]
+        return e0.elapsed_time(e1)
+
+    @property
+    def grad_err(self) -> float:
+        return float(self.first_gap)
+
+
+def adamw_bound(n_steps, lr=LAUNCH_LR, b1=0.9, b2=0.95):
+    """The most by which AdamW's ``n_steps`` first steps can move an
+    element apart in two runs from the same params, whatever their
+    gradients: each step moves it by lr · |m̂/√v̂|, at most lr · √(Σ_i
+    a_i² / b_i) with a_i and b_i the weights of gradient i in m̂ and v̂
+    (Cauchy–Schwarz); weight decay adds lr · 0.1 of the gap itself,
+    left to ``LAUNCH_STEP_TOL``."""
+    total = 0.0
+    for t in range(1, n_steps + 1):
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        total += 2 * lr * math.sqrt(sum(
+            ((1 - b1) * b1 ** (t - i) / c1) ** 2
+            / ((1 - b2) * b2 ** (t - i) / c2) for i in range(1, t + 1)))
+    return total + LAUNCH_STEP_TOL
+
+
+def flagged_gaps(got, want, flags, paths):
+    """max |got - want| over two lists of tensors (``want`` on the host)
+    at the elements ``flags`` leaves out and at those it marks, how many
+    it marks of how many, and the path of the leaf where it marks most
+    with their count and the leaf's size."""
+    free = held = 0.0
+    n = size = 0
+    top = (None, 0, 0)
+    for g, w, f, path in zip(got, want, flags, paths):
+        d = (g.float() - w.to(g.device).float()).abs()
+        free = max(free, float(d.masked_fill(f, 0).max()))
+        k = int(f.sum())
+        if k:
+            held = max(held, float(d[f].max()))
+        if k > top[1]:
+            top = (path, k, f.numel())
+        n, size = n + k, size + f.numel()
+    return free, held, n, size, top
 
 
 def launch_train_local(torch):
@@ -7226,10 +7356,10 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     """On this rank: ``run`` (``launch_train_run()``, llama2-7b at 4 layers,
     by default; f32) trained under the train plan of ``mesh`` (with
     ``microbatches`` when given, and the plan's ``knobs``): one
-    device's gradients of the first batch and its params after
-    ``n_steps`` plain steps (computed here from the same weights, the
-    rank's cut kept on the host), then the rank's gradients
-    (``train_grads``) and steps, against them; the bytes of the rank's
+    device's gradients at each step and its params after ``n_steps``
+    plain steps (computed here from the same weights, the rank's cut
+    kept on the host), then the rank's steps, their gradients
+    (``GradTape``) and params against them; the bytes of the rank's
     state beside the whole state's, and the collectives of its steps.
     An MoE run's rank replays one device's routing (``RouteTape``, call
     by call: the near-ties that rounding flips would move a token by a
@@ -7238,9 +7368,9 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     than ``LAUNCH_ROUTE_FLIPS`` of them fail the case."""
     from repro_torch.launch.mesh import make_dry_mesh, make_local_mesh
     from repro_torch.launch.steps import (build_train_step, plan_for,
-                                          shard_batch, train_grads)
+                                          shard_batch)
     from repro_torch.training import TrainState
-    from repro_torch.utils.tree import tree_leaves
+    from repro_torch.utils.tree import tree_leaves, tree_paths
     t_case = time.perf_counter()
     run = run or launch_train_run()
     knobs = knobs or {}
@@ -7249,7 +7379,13 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
                                            mesh.rank),
                         microbatches=microbatches, **knobs)
     one = plan_for(run, make_local_mesh(), microbatches=1)
-    step, _, _, model = build_train_step(run, plan, torch.float32)
+    grads_tape = GradTape(torch)
+    with grads_tape.building():
+        step, _, _, model = build_train_step(run, plan, torch.float32,
+                                             lr=LAUNCH_LR)
+        one_step = build_train_step(run, one, torch.float32,
+                                    lr=LAUNCH_LR)[0]
+    grads_tape.cut = lambda g: model.shard_params(g, plan)
     batches = launch_train_batches(torch, run.model)[:n_steps]
 
     def weights(p):
@@ -7263,15 +7399,11 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
         return tape.pass_(replay) if tape else contextlib.nullcontext()
 
     full = weights(None)
-    one_step = build_train_step(run, one, torch.float32)[0]
     with routed(False):
-        _, _, g = train_grads(model, one)(full, batches[0])
-        ref_grads = [x.cpu() for x in tree_leaves(model.shard_params(
-            g, plan))]
-        del g
         st = TrainState.create(full)
         whole_gb = storage_bytes(torch, st) / 1e9
         ref_loss, ref_gnorm = [], []
+        grads_tape.mode = "record"
         for b in batches:
             st, m = one_step(st, b)
             ref_loss.append(float(m["loss"]))
@@ -7284,32 +7416,32 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     params = weights(plan)
     mine = [shard_batch(b, plan) for b in batches]
     with routed(True):
-        _, _, g = train_grads(model, plan)(params, mine[0])
-        grad_err = leaves_gap(tree_leaves(g), ref_grads, rel=True)
-        g_host = [x.cpu() for x in tree_leaves(g)]
-        del g
         st = TrainState.create(params)
         state_gb = storage_bytes(torch, st) / 1e9
         stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
         times, losses, gnorms = [], [], []
-        for b in mine:
+        grads_tape.mode = "compare"
+        for i, b in enumerate(mine):
             t0 = torch.cuda.Event(enable_timing=True)
             t1 = torch.cuda.Event(enable_timing=True)
             t0.record()
             st, m = step(st, b)
             t1.record()
             t1.synchronize()
-            times.append(t0.elapsed_time(t1))
+            times.append(t0.elapsed_time(t1) - grads_tape.ms(i))
             losses.append(float(m["loss"]))
             gnorms.append(float(m["grad_norm"]))
+        grads_tape.mode, grads_tape.ref = None, []
+    grad_err = grads_tape.grad_err
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     coll = {k: {op: n - stats0[k].get(op, 0)
                 for op, n in mesh.stats[k].items()
                 if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
-    param_err = leaves_gap(tree_leaves(st.params), ref_params,
-                           rel=False)
-    worst = worst_leaf(torch, st.params, ref_params, g_host, ref_grads)
-    del ref_params, ref_grads, g_host
+    param_err, flagged_err, flagged, n_elems, flagged_top = flagged_gaps(
+        tree_leaves(st.params), ref_params, grads_tape.flags,
+        [path for path, _ in tree_paths(st.params)])
+    del ref_params
+    grads_tape.flags = None  # the step keeps the tape, off
     experts = None
     if run.model.is_moe:  # the rank's experts, and its moments', of E
         experts = [int(t["layers"][0]["moe"]["wg"].shape[0]) for t in (
@@ -7317,7 +7449,10 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     torch.cuda.empty_cache()
     dry = dry_compare(torch, rank_case_name(run, plan, mesh), run, plan,
                       dry_plan, torch.float32, step, [st, mine[0]], mesh)
-    res = dict(grad_err=grad_err, param_err=param_err, losses=losses,
+    res = dict(grad_err=grad_err, param_err=param_err,
+               flagged=[flagged, n_elems], flagged_err=flagged_err,
+               flagged_top=flagged_top,
+               flagged_bound=adamw_bound(len(mine)), losses=losses,
                ref_losses=ref_loss, gnorms=gnorms, ref_gnorms=ref_gnorm,
                loss_err=max(abs(a - b) / abs(b)
                             for a, b in zip(losses, ref_loss)),
@@ -7330,7 +7465,6 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
                attn_impl=plan.attn_impl,
                experts=experts,
                route_flips=[tape.differ, tape.total] if tape else None,
-               worst=worst,
                state_gb=state_gb,
                whole_state_gb=whole_gb, collectives=coll,
                step_ms=times, peak_gb=peak_gb, dry=dry,
@@ -7411,10 +7545,25 @@ def launch_serve(torch):
     return out
 
 
+def cut_as_named(name, c, calls):
+    """Whether a launch case ran the cut its name says: on (1, 2) the
+    sequence cut (reduce-scatters along it) unless the name says
+    "no-seq" (the row-parallel sums all-reduced, no reduce-scatter),
+    never on (2, 1); the ring (send/recv) where the name says so."""
+    no_seq = "no-seq" in name
+    seq = name.startswith("(1, 2)") and not no_seq
+    return (c["seq"] == seq and c["ring"] == ("ring" in name)
+            and (calls.get("send_recv", 0) > 0) == c["ring"]
+            and (not seq or calls.get("reduce_scatter", 0) > 0)
+            and (not no_seq or (calls.get("all_reduce", 0) > 0
+                                and not calls.get("reduce_scatter"))))
+
+
 def launch_check(ranks):
     """The launch cases of the ranks' results: log each and fail on any
     bound; returns the ranks' launches summed per kernel key."""
     launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    misses = []  # every case is logged before the run fails on any
     for res in ranks:
         r = res["rank"]
         for name, c in res["launch"]["prefill"].items():
@@ -7431,26 +7580,29 @@ def launch_check(ranks):
                 f"prefill {c['k4_prefill']}; launches {c['launches']}; "
                 f"{c['seconds']:.1f} s")
             if not c["finite"] or c["max_err"] > c["bound"]:
-                fail(f"launch prefill {name} rank {r}: logits max|err| "
-                     f"{c['max_err']} beyond {c['bound']}")
+                misses.append(
+                    f"launch prefill {name} rank {r}: logits max|err| "
+                    f"{c['max_err']} beyond {c['bound']}")
             # the ring attends in plain ops: K4 runs on every other prefill
             if (sum(c["k4_prefill"].values()) > 0) == c["ring"] or any(
                     c["launches"][k] <= 0
                     for k in ("paged_decode", "combine/decode")):
-                fail(f"launch prefill {name} rank {r}: K4, K1 or K2 "
-                     f"launched where it should not be or not where it "
-                     f"should ({c['k4_prefill']}, {c['launches']}, ring "
-                     f"{c['ring']})")
+                misses.append(
+                    f"launch prefill {name} rank {r}: K4, K1 or K2 "
+                    f"launched where it should not be or not where it "
+                    f"should ({c['k4_prefill']}, {c['launches']}, ring "
+                    f"{c['ring']})")
             calls = c["prefill_collectives"]["calls"]
-            if (c["seq"] != name.startswith("(1, 2)")
-                    or c["ring"] != ("ring" in name)
-                    or (calls.get("reduce_scatter", 0) > 0) != c["seq"]
-                    or (calls.get("send_recv", 0) > 0) != c["ring"]):
-                fail(f"launch prefill {name} rank {r}: sequence cut "
-                     f"{c['seq']}, ring {c['ring']}, collectives {calls}")
+            # the (2, 1) prefills reduce-scatter nothing (FSDP gathers)
+            if not cut_as_named(name, c, calls) or (
+                    not c["seq"] and calls.get("reduce_scatter")):
+                misses.append(
+                    f"launch prefill {name} rank {r}: sequence cut "
+                    f"{c['seq']}, ring {c['ring']}, collectives {calls}")
             if ("fsdp" in name) != (c["fsdp"] == ["data"]):
-                fail(f"launch prefill {name} rank {r}: FSDP over "
-                     f"{c['fsdp']}")
+                misses.append(
+                    f"launch prefill {name} rank {r}: FSDP over "
+                    f"{c['fsdp']}")
             for k in LAUNCH_KEYS:
                 launches[k] += c["launches"][k]
         for name, c in res["launch"]["train"].items():
@@ -7461,37 +7613,46 @@ def launch_check(ranks):
                 f"vs one device {c['grad_err']:.3e} (tol "
                 f"{LAUNCH_GRAD_TOL:g}, relative to 1 + |g|), params after "
                 f"{len(c['losses'])} step(s) {c['param_err']:.3e} (tol "
-                f"{LAUNCH_STEP_TOL:g}), losses {c['losses']} vs "
+                f"{LAUNCH_STEP_TOL:g}) where every step's gradient lay "
+                f"within {LAUNCH_GRAD_SHARE:g} of one device's, "
+                f"{c['flagged_err']:.3e} (AdamW's bound "
+                f"{c['flagged_bound']:.3e}) at the {c['flagged'][0]} of "
+                f"{c['flagged'][1]} elements where one did not (at most "
+                f"{LAUNCH_ROUNDING_SHARE:g} of them; most in "
+                f"{c['flagged_top']}), losses {c['losses']} vs "
                 f"{c['ref_losses']} (rel {c['loss_err']:.2e}), grad norms "
                 f"{c['gnorms']} vs {c['ref_gnorms']} (rel "
                 f"{c['gnorm_err']:.2e}); state {c['state_gb']:.3f} GB of the "
                 f"whole {c['whole_state_gb']:.3f} GB; the steps' collectives "
                 f"{c['collectives']}; step ms (events) "
                 f"{[round(t, 2) for t in c['step_ms']]}, peak "
-                f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s; the params' "
-                f"largest gap: {c['worst']}")
+                f"{c['peak_gb']:.2f} GB; {c['seconds']:.1f} s")
+            flagged, n_elems = c["flagged"]
             if not (c["grad_err"] <= LAUNCH_GRAD_TOL
                     and c["param_err"] <= LAUNCH_STEP_TOL
+                    and c["flagged_err"] <= c["flagged_bound"]
+                    and flagged <= LAUNCH_ROUNDING_SHARE * n_elems
                     and c["loss_err"] <= LAUNCH_LOSS_TOL
                     and c["gnorm_err"] <= LAUNCH_LOSS_TOL):
-                fail(f"launch train {name} rank {r}: grads {c['grad_err']}, "
-                     f"params {c['param_err']}, losses {c['loss_err']}, "
-                     f"grad norms {c['gnorm_err']}")
+                misses.append(
+                    f"launch train {name} rank {r}: grads {c['grad_err']}, "
+                    f"params {c['param_err']} (and {c['flagged_err']} at "
+                    f"{flagged} of {n_elems} elements), losses "
+                    f"{c['loss_err']}, grad norms {c['gnorm_err']}")
             calls = c["collectives"]["calls"]
-            if (c["seq"] != name.startswith("(1, 2)")
-                    or c["ring"] != ("ring" in name)
-                    or (c["seq"] and not calls.get("reduce_scatter"))
-                    or bool(calls.get("send_recv")) != c["ring"]):
-                fail(f"launch train {name} rank {r}: sequence cut "
-                     f"{c['seq']}, ring {c['ring']}, collectives {calls}")
+            if not cut_as_named(name, c, calls):
+                misses.append(
+                    f"launch train {name} rank {r}: sequence cut "
+                    f"{c['seq']}, ring {c['ring']}, collectives {calls}")
             if "fsdp" in name and not (
                     c["fsdp"] == ["data"]
                     and c["collectives"]["calls"].get("all_gather", 0) > 0
                     and c["collectives"]["calls"].get("reduce_scatter", 0) > 0
                     and 0.45 <= c["state_gb"] / c["whole_state_gb"] <= 0.55):
-                fail(f"launch train {name} rank {r}: FSDP over {c['fsdp']} "
-                     f"holds {c['state_gb']} of {c['whole_state_gb']} GB with "
-                     f"collectives {c['collectives']['calls']}")
+                misses.append(
+                    f"launch train {name} rank {r}: FSDP over {c['fsdp']} "
+                    f"holds {c['state_gb']} of {c['whole_state_gb']} GB with "
+                    f"collectives {c['collectives']['calls']}")
             if "experts" in name:
                 sched = name.split("experts ")[1].split()[0]
                 a2a = (c["collectives"]["calls"].get("all_to_all", 0),
@@ -7507,11 +7668,14 @@ def launch_check(ranks):
                 if (c["moe"] != sched or held != [E // 2] * 3
                         or (a2a[0] > 0) != (sched == "ep")
                         or flips > LAUNCH_ROUTE_FLIPS * choices):
-                    fail(f"launch train {name} rank {r}: schedule "
-                         f"{c['moe']}, experts {c['experts']}, all-to-all "
-                         f"{a2a}, route flips {flips} of {choices}")
+                    misses.append(
+                        f"launch train {name} rank {r}: schedule "
+                        f"{c['moe']}, experts {c['experts']}, all-to-all "
+                        f"{a2a}, route flips {flips} of {choices}")
         log(f"launch rank {r}: gloo host copies "
             f"{res['launch']['host_copies']}")
+    if misses:
+        fail("; ".join(misses))
     return launches
 
 

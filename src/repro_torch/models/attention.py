@@ -178,30 +178,31 @@ def attn_train(p: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     head↔seq all-to-all (``_heads_to_seq``: GSPMD's around JAX's ring)
     gives every head of the rank's slice — kv heads a rank holds whole
     are cut to the slice — ring attention attends there, and the
-    all-to-all back feeds ``wo``.  A ``"whole"`` layer keeps the slice
-    of its whole q/k/v, its weights' gradients summed over "model"."""
+    all-to-all back feeds ``wo``.  A ``"whole"`` layer projects the
+    slice alone at its absolute positions, as ``attn_prefill``'s ring
+    does, its weights' gradients summed over "model"."""
+    if ring and cut == "whole":
+        p = {k: layers.copy_model(w) for k, w in p.items()}
+        q, k, v = _qkv(p, x, _slice_positions(x), cfg.rope_theta)
+        return _out(p, core_attn.prefill_attention(
+            q, k, v, window=window, lens=lens, causal=causal, impl="ring"))
     if seq:
-        x = layers.seq_gather(x, summed=cut != "whole" or ring)
+        x = layers.seq_gather(x, summed=cut != "whole")
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device)[None, :].expand(B, S)
     if cut != "whole" and not seq:
         x = layers.copy_model(x)
-    if ring and cut == "whole":
-        p = {k: layers.copy_model(w) for k, w in p.items()}
-    elif cut in ("groups", "q_heads"):
+    if cut in ("groups", "q_heads"):
         p = dict(p, wk=layers.copy_model(p["wk"]),
                  wv=layers.copy_model(p["wv"]))
     q, k, v = _qkv(p, x, pos, cfg.rope_theta)
     if ring:
         groups = cfg.n_kv_heads if cut == "groups" else 0
-        q = (_seq_slice(q) if cut == "whole"
-             else _heads_to_seq(q, groups))
+        q = _heads_to_seq(q, groups)
         k, v = ((_heads_to_seq(t) for t in (k, v)) if cut == "heads"
                 else (_seq_slice(t) for t in (k, v)))
         o = core_attn.prefill_attention(q, k, v, window=window, lens=lens,
                                         causal=causal, impl="ring")
-        if cut == "whole":
-            return _out(p, o)
         return _out(p, _seq_to_heads(o, groups), row_parallel=True,
                     seq=True)
     if cut == "q_heads":

@@ -24,7 +24,9 @@ case of the port (``_torch_dist.seq_parallel_cases``).
   steps against one device's plain step (``STEP_TOL``); the
   ``seq_parallel=False`` plan's gradients within ``GRAD_TOL`` too.
 - (c) Ring ``train_grads``: the same models on (1, 2) and (1, 4) under
-  ``ring=True``, held to the same references.
+  ``ring=True``, held to the same references; smoke llama2-7b on (1, 2)
+  also with every attention layer ``"whole"`` (the slice projected
+  alone at its positions) and ``"q_heads"``.
 - (d) Serving on (1, 2): a sequence-parallel prefill and a ring prefill
   under the tp, kvp and dp layouts, each then 4 decode steps under the
   decode plan of that scheme: logits at ``LOGIT_TOL``, greedy tokens
@@ -105,9 +107,15 @@ def _train_cases():
     for mesh in ((1, 2), (1, 4)):
         for model in MODELS:
             out[f"ring {mesh} {model}"] = (mesh, model, {"ring": True})
+    for cut in RING_CUTS:
+        out[f"ring (1, 2) llama {cut}"] = ((1, 2), "llama", {"ring": True})
     return out
 
 
+# the ring train cases whose attention layers take a cut the plan would
+# not pick for these heads: the whole weights (the slice projected alone)
+# and the q heads over kv heads every rank holds
+RING_CUTS = ("whole", "q_heads")
 TRAIN = _train_cases()
 # name: (decode scheme, plan knobs)
 PREFILL = {f"{kind} {sch}": (sch, knobs)
@@ -255,6 +263,9 @@ def ran(tmp_path_factory):
                            ref=ref)
         if not knobs:
             train[name]["against"] = {"seq_parallel": False}
+        cut = name.rsplit(" ", 1)[-1]
+        if cut in RING_CUTS:
+            train[name]["attn"] = cut
     pcase, pref = _prefill_ref(20)
     prefill = {name: dict(pcase, scheme=sch, plan=knobs)
                for name, (sch, knobs) in PREFILL.items()}
@@ -339,6 +350,9 @@ def test_train_plan_cuts_the_sequence(ran, name):
         assert got["microbatches"] == (MODELS[model][2] or 1)
         assert got["calls"].get("reduce_scatter", 0) > 0
         assert bool(got["calls"].get("send_recv")) == bool(knobs)
+        cut = name.rsplit(" ", 1)[-1]
+        if cut in RING_CUTS:
+            assert set(got["attn"]) == {cut}
         if not knobs:
             assert not got["against_seq"]
             assert got["against_err"] <= GRAD_TOL
