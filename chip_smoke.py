@@ -6887,7 +6887,8 @@ def dist_rank(rank, world, work, src, parts=("dist", "launch")):
             meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
             out["dry"] = [dry_rank_train(torch, meshes[shape], run, mb, kn)
                           for _, shape, run, _, mb, kn in
-                          launch_train_cases()]
+                          launch_train_cases()] + [
+                dry_rank_ws(torch, meshes[(2, 1)], LAUNCH_WS_TAILS[-1][1])]
         out["host_ops"] = sorted(mesh.host_ops or ())
         out["host_copies"] = dict(mesh.host_copies)
         dist.barrier()
@@ -6958,14 +6959,21 @@ LAUNCH_LOSS_TOL = 1e-5  # relative
 LAUNCH_ROUTE_FLIPS = 1e-4
 LAUNCH_SERVE_REQUESTS = 8
 LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
-               "combine/decode")
+               "combine/decode", "combine/dist")
+# weight-stationary decode (``plan_for(ws_decode=True)``) of the FSDP
+# prefill case's state: (name, decode plan knobs); the dry phase holds
+# the last one's step (kvp: K1 on the stripe, the merge's all-gather, K2
+# across the ranks, besides every all-reduce of the tp one)
+LAUNCH_WS_TAILS = (("ws tp", {"ws_decode": True}),
+                   ("ws kvp", {"ws_decode": True, "scheme": "kvp"}))
 
 
 def launch_prefill_cases():
-    """(name, config, dtype, n_layers or None, meshes, plan knobs) of the
-    prefill cases: llama2-7b in bf16, at full depth on (2, 1) and at 8
-    layers on (1, 2) (cut along the sequence, the plans' default: gloo
-    reduce-scatters each layer's sums between the processes), llama2-7b
+    """(name, config, dtype, n_layers or None, meshes, plan knobs, ws
+    tails) of the prefill cases: llama2-7b in bf16, at full depth on
+    (2, 1) and at 8 layers on (1, 2) (cut along the sequence, the
+    plans' default: gloo reduce-scatters each layer's sums between the
+    processes), llama2-7b
     at 4 layers f32 on both launch meshes and on (1, 2) without the
     sequence cut (``seq_parallel=False``: the sums all-reduced, the
     activations whole), granite-8b under FSDP (its ``embed: ("data",)``
@@ -6973,16 +6981,22 @@ def launch_prefill_cases():
     layer's weights between the processes: ≈ 0.5 s a layer and step
     here), and llama2-7b at 4 layers f32 under the ring plan on (1, 2)
     (ring attention in plain ops, no K4; the attention weights whole, the
-    decode plan's cut again for the decode steps)."""
-    return [("bf16", "llama2-7b", "bfloat16", None, ((2, 1),), {}),
-            ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES, {}),
+    decode plan's cut again for the decode steps).  The ws tails: the
+    decode plans' knobs under which the FSDP case decodes its prefilled
+    state again (``launch_ws_tail``): weight-stationary under tp (every
+    rank holds all 8 rows) and under kvp (the pages striped over
+    "data": K1 on each process's stripe, K2 ``combine/dist`` across
+    both)."""
+    return [("bf16", "llama2-7b", "bfloat16", None, ((2, 1),), {}, ()),
+            ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES, {}, ()),
             ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 4,
-             ((2, 1),), {}),
+             ((2, 1),), {}, LAUNCH_WS_TAILS),
             ("ring f32", "llama2-7b", "float32", 4, ((1, 2),),
-             {"ring": True}),
-            ("bf16 8 layers", "llama2-7b", "bfloat16", 8, ((1, 2),), {}),
+             {"ring": True}, ()),
+            ("bf16 8 layers", "llama2-7b", "bfloat16", 8, ((1, 2),), {},
+             ()),
             ("no-seq f32", "llama2-7b", "float32", 4, ((1, 2),),
-             {"seq_parallel": False})]
+             {"seq_parallel": False}, ())]
 
 
 def launch_references(torch, work):
@@ -6990,7 +7004,7 @@ def launch_references(torch, work):
     ``LAUNCH_DECODE_STEPS`` greedy decode steps, per prefill case, saved
     under ``work`` for the ranks."""
     refs = {}
-    for i, (name, cfg_name, dt, nl, _, _) in enumerate(
+    for i, (name, cfg_name, dt, nl, *_) in enumerate(
             launch_prefill_cases()):
         t0 = time.perf_counter()
         model = dist_model(torch, cfg_name, dt, nl)
@@ -7261,7 +7275,7 @@ def launch_train_local(torch):
 
 
 def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
-                        knobs=None):
+                        knobs=None, tails=()):
     """On this rank: the prefill case ``name`` (config ``cfg_name``) under
     the prefill plan of ``mesh`` with ``knobs`` (the rank's rows, with its
     heads and its FSDP pieces, into pools of its decode layout; its slice
@@ -7269,7 +7283,9 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
     ``shard_decode_state``, then the decode steps teacher-forced by one
     device's greedy tokens (under the ring plan with the decode plan's
     cut of the weights); logits against one device's rows; the
-    prefill's ms by events, its peak and its collectives."""
+    prefill's ms by events, its peak and its collectives.  Then the
+    prefilled state decoded again under each of ``tails``' decode plans
+    (``launch_ws_tail``)."""
     from repro_torch import kernels
     from repro_torch.configs.base import RunConfig
     from repro_torch.distributed.collectives import shard_decode_state
@@ -7324,16 +7340,29 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
                     if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
         k4 = {k: v for k, v in kernels.launch_counts().items()
               if k.startswith("flex_prefill")}
+        filled = state  # shard_decode_state copies the pools it keeps
         state = shard_decode_state(state, dplan)
         if pplan.layout.attn != dplan.layout.attn:  # the ring's whole
             del params
             params = weights(dplan)
-        outs = [logits.float().cpu()]
+        outs, decode_ms = [logits.float().cpu()], []
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
         for s in range(LAUNCH_DECODE_STEPS):
+            e0.record()
             logits, state = sstep(params, mine["forced"][:, s].int(), state)
+            e1.record()
+            e1.synchronize()
+            decode_ms.append(e0.elapsed_time(e1))
             outs.append(logits.float().cpu())
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    ws = {tail: launch_ws_tail(torch, mesh, model, params, filled, drun,
+                               ref, dt, kw)
+          for tail, kw in tails}
+    del filled
+    dry = (dry_rank_ws(torch, mesh, tails[-1][1], model, params)
+           if tails else None)
     rows = slice(r0, r0 + b)
     res = logits_gap(torch.stack(outs), ref["logits"][:, rows],
                      ref["tokens"][:, rows], dt)
@@ -7344,9 +7373,117 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
                scheme=dplan.scheme, pool_heads=int(state["k_pages"].shape[3]),
                prefill_ms=t0.elapsed_time(t1), k4_prefill=k4,
                prefill_peak_gb=peak_gb, prefill_collectives=coll,
-               launches={k: counts.get(k, 0) for k in LAUNCH_KEYS},
+               launches={k: counts.get(k, 0) + sum(
+                   t["launches"][k] for t in ws.values())
+                   for k in LAUNCH_KEYS},
+               ws=ws, dry=dry, decode_ms=decode_ms,
                seconds=time.perf_counter() - t_case)
     del params, state, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw):
+    """The weight-stationary tail of a prefill case on this rank: the
+    prefilled ``filled`` (the rank's rows under the prefill plan) taken
+    by ``shard_decode_state`` into the decode plan of ``drun`` with the
+    knobs ``kw`` (``ws_decode``: every row on every rank), then
+    ``LAUNCH_DECODE_STEPS`` steps teacher-forced by one device's tokens
+    with the same FSDP pieces (never gathered): every row's logits
+    against one device's, each step's ms by events, the steps'
+    collectives and launches, and the shard's seconds."""
+    from repro_torch import kernels
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.launch.steps import build_serve_step, plan_for
+    t_tail = time.perf_counter()
+    dtype = getattr(torch, dt)
+    plan = plan_for(drun, mesh, **kw)
+    step = build_serve_step(drun, plan, dtype)[0]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state = shard_decode_state(filled, plan)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        kernels.reset_launch_counts()
+        stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
+        outs, times = [], []
+        for s in range(LAUNCH_DECODE_STEPS):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, state = step(params, ref["tokens"][s].cuda().int(),
+                                 state)
+            e1.record()
+            e1.synchronize()
+            times.append(e0.elapsed_time(e1))
+            outs.append(logits.float().cpu())
+    counts = kernels.launch_counts()
+    coll = {k: {op: n - stats0[k].get(op, 0)
+                for op, n in mesh.stats[k].items()
+                if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
+    got, want = torch.stack(outs), ref["logits"][1:]
+    res = logits_gap(got, want, ref["tokens"][1:], dt)
+    # each greedy token off one device's: (step, row, one device's top-2
+    # margin, the rank's logit gap between the two tokens)
+    top2 = want.topk(2, dim=-1).values
+    mine = got.argmax(-1)
+    res["flips"] = [
+        [s, b, float(top2[s, b, 0] - top2[s, b, 1]),
+         float(got[s, b, mine[s, b]] - got[s, b, ref["tokens"][s + 1, b]])]
+        for s, b in (mine != ref["tokens"][1:]).nonzero().tolist()]
+    res.update(scheme=plan.scheme, batch_axes=list(plan.batch_axes),
+               kv_axes=list(plan.kv_axes),
+               act_embed=list(plan.layout.act_embed),
+               rows=int(state["pos"].shape[0]),
+               pages=int(state["k_pages"].shape[1]), step_ms=times,
+               collectives=coll, shard_s=shard_s,
+               n_layers=model.cfg.n_layers,
+               launches={k: counts.get(k, 0) for k in LAUNCH_KEYS})
+    del state, logits
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t_tail
+    return res
+
+
+def dry_rank_ws(torch, mesh, kw, model=None, params=None):
+    """On this rank: the dry run of the FSDP prefill case's
+    weight-stationary decode step (granite-8b at 4 layers bf16, 8 rows
+    of ``DIST_TP_LENS`` on ``mesh``, the decode plan's knobs ``kw``)
+    against one step of the rank on the card: the state of every row
+    (zeros, its tables in order, ``shard_decode_state``'s stripes), the
+    rank's FSDP pieces (``params`` of ``model`` when given: the prefill
+    case's, whose cut the ws plan keeps)."""
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.launch.mesh import make_dry_mesh
+    from repro_torch.launch.steps import build_serve_step, plan_for
+    model = model or dist_model(torch, "granite-8b", "bfloat16", 4)
+    tokens, lens = dist_tokens(torch, model.cfg, DIST_TP_LENS, SEED + 90)
+    B, S = tokens.shape
+    run = RunConfig(model=model.cfg, seq_len=S + DRY_PREFILL_DECODE_STEPS,
+                    global_batch=B, kind="decode")
+    plan = plan_for(run, mesh, **kw)
+    dry_plan = plan_for(run, make_dry_mesh(mesh.shape, mesh.axis_names,
+                                           mesh.rank), **kw)
+    if params is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED)
+        params = model.init_params(gen, torch.bfloat16, "cuda", plan=plan)
+    state = model.init_decode_state(run, torch.bfloat16, "cuda")
+    pps = state["tables"].shape[2]
+    state["tables"] = torch.arange(B * pps, dtype=torch.int32,
+                                   device="cuda").reshape(B, 1, pps)
+    state["pos"] = lens.clone()
+    with torch.no_grad():
+        state = shard_decode_state(state, plan)
+    step = build_serve_step(run, plan, torch.bfloat16)[0]
+    name = (f"decode granite-8b 4 layers bf16 {mesh.shape} ws "
+            f"{plan.scheme}")
+    with torch.no_grad():
+        res = dry_compare(torch, name, run, plan, dry_plan, torch.bfloat16,
+                          step, [params, tokens[:, 0].int().contiguous(),
+                                 state], mesh)
+    del state
     torch.cuda.empty_cache()
     return res
 
@@ -7482,11 +7619,14 @@ def launch_rank(torch, work):
     meshes = {shape: make_mesh(shape) for shape in LAUNCH_MESHES}
     out = {"prefill": {}, "train": {}}
     for shape, mesh in meshes.items():
-        for i, (name, cfg_name, dt, nl, on, knobs) in enumerate(
+        for i, (name, cfg_name, dt, nl, on, knobs, tails) in enumerate(
                 launch_prefill_cases()):
             if shape in on:
                 out["prefill"][f"{shape} {name}"] = launch_rank_prefill(
-                    torch, mesh, work, i, name, cfg_name, dt, nl, knobs)
+                    torch, mesh, work, i, name, cfg_name, dt, nl, knobs,
+                    tails)
+    # the dry run of a ws decode step (a dry phase rank case)
+    out["dry"] = [c["dry"] for c in out["prefill"].values() if c["dry"]]
     for name, shape, run, n_steps, mb, knobs in launch_train_cases():
         out["train"][name] = launch_rank_train(torch, meshes[shape], run,
                                                n_steps, mb, knobs)
@@ -7559,6 +7699,58 @@ def cut_as_named(name, c, calls):
                                 and not calls.get("reduce_scatter"))))
 
 
+def ws_tail_misses(name, r, t):
+    """Log a weight-stationary tail of rank ``r`` (``launch_ws_tail``)
+    and return its misses: logits beyond the bound, or a greedy token
+    off one device's where one device's own top-2 margin exceeds that
+    bound (a margin inside the tolerance the logits are held to is a tie
+    that bf16 decides either way: such flips are logged); a plan with
+    batch axes, or activations not cut over "data", or fewer than every
+    row; an all-gather other than kvp's
+    merge (one a layer and step: no weight is gathered) or an
+    all-reduce count other than the layers' (per layer and step the two
+    RMSNorms, q/k/v and the MLP's up products, then the final norm and
+    the logits), any other collective; K1, and K2 after it (in the
+    decode op under tp, across the ranks under kvp), not launched."""
+    steps, L = len(t["step_ms"]), t["n_layers"]
+    calls = t["collectives"]["calls"]
+    gathers = steps * L if t["scheme"] == "kvp" else 0
+    reduces = steps * (4 * L + 2)
+    k2 = "combine/dist" if t["scheme"] == "kvp" else "combine/decode"
+    log(f"launch rank {r} decode {name} ({t['scheme']}, batch axes "
+        f"{t['batch_axes']}, kv axes {t['kv_axes']}, activations over "
+        f"{t['act_embed']}, {t['rows']} rows, {t['pages']} pages a "
+        f"layer): logits vs one device max|err| {t['max_err']:.3e} (bound "
+        f"{t['bound']:.3e}, scale {t['scale']:.3f}), agreement "
+        f"{t['argmax_agreement']:.3f}; step ms (events) "
+        f"{[round(x, 2) for x in t['step_ms']]}; collectives "
+        f"{t['collectives']} (all-gathers expected {gathers}, all-reduces "
+        f"{reduces}); "
+        f"launches {t['launches']}; shard_decode_state {t['shard_s']:.2f} s,"
+        f" the tail {t['seconds']:.2f} s; greedy flips (step, row, one "
+        f"device's top-2 margin, the rank's gap) {t['flips']}")
+    misses = []
+    if (not t["finite"] or t["max_err"] > t["bound"]
+            or any(f[2] > t["bound"] for f in t["flips"])):
+        misses.append(f"launch decode {name} rank {r}: logits max|err| "
+                      f"{t['max_err']} (bound {t['bound']}), greedy flips "
+                      f"{t['flips']}")
+    if (t["batch_axes"] or t["act_embed"] != ["data"]
+            or t["rows"] != len(DIST_TP_LENS)):
+        misses.append(f"launch decode {name} rank {r}: batch axes "
+                      f"{t['batch_axes']}, activations over "
+                      f"{t['act_embed']}, {t['rows']} rows")
+    if (calls.get("all_gather", 0) != gathers
+            or calls.get("all_reduce", 0) != reduces
+            or set(calls) - {"all_gather", "all_reduce"}):
+        misses.append(f"launch decode {name} rank {r}: collectives {calls}"
+                      f" (all-gathers {gathers}, all-reduces {reduces})")
+    if t["launches"]["paged_decode"] <= 0 or t["launches"][k2] <= 0:
+        misses.append(f"launch decode {name} rank {r}: K1 or {k2} not "
+                      f"launched ({t['launches']})")
+    return misses
+
+
 def launch_check(ranks):
     """The launch cases of the ranks' results: log each and fail on any
     bound; returns the ranks' launches summed per kernel key."""
@@ -7574,7 +7766,8 @@ def launch_check(ranks):
                 f"heads, decode {c['scheme']}): logits vs one device max|err| "
                 f"{c['max_err']:.3e} (bound {c['bound']:.3e}, scale "
                 f"{c['scale']:.3f}), agreement {c['argmax_agreement']:.3f};"
-                f" prefill {c['prefill_ms']:.1f} ms (events), peak "
+                f" prefill {c['prefill_ms']:.1f} ms (events), decode "
+                f"steps {[round(x, 2) for x in c['decode_ms']]} ms, peak "
                 f"{c['prefill_peak_gb']:.2f} GB, collectives "
                 f"{c['prefill_collectives']}; K4 in the "
                 f"prefill {c['k4_prefill']}; launches {c['launches']}; "
@@ -7603,6 +7796,8 @@ def launch_check(ranks):
                 misses.append(
                     f"launch prefill {name} rank {r}: FSDP over "
                     f"{c['fsdp']}")
+            for tail, t in c["ws"].items():
+                misses += ws_tail_misses(f"{name} {tail}", r, t)
             for k in LAUNCH_KEYS:
                 launches[k] += c["launches"][k]
         for name, c in res["launch"]["train"].items():
@@ -7674,6 +7869,10 @@ def launch_check(ranks):
                         f"{a2a}, route flips {flips} of {choices}")
         log(f"launch rank {r}: gloo host copies "
             f"{res['launch']['host_copies']}")
+        ws_s = sum(t["seconds"] for c in res["launch"]["prefill"].values()
+                   for t in c["ws"].values())
+        log(f"launch rank {r}: the ws decode tails {ws_s:.1f} s, their dry "
+            f"cases {sum(d['seconds'] for d in res['launch']['dry']):.1f} s")
     if misses:
         fail("; ".join(misses))
     return launches
@@ -7942,7 +8141,8 @@ def _dist_phase(torch, chk, work, t_phase, parts):
     out.update(ranks=ranks, ranks_seconds=ranks_s)
     # the dry run's rank cases: in the launch cases' train steps, or alone
     out["dry_ranks"] = [c for res in ranks for c in res.get("dry", [
-        t["dry"] for t in res.get("launch", {}).get("train", {}).values()])]
+        t["dry"] for t in res.get("launch", {}).get("train", {}).values()]
+        + res.get("launch", {}).get("dry", []))]
     if "launch" in parts:
         t0 = time.perf_counter()
         out["launch"]["launches"] = launch_check(ranks)
@@ -8307,7 +8507,9 @@ def main():
     kernels_line.append(dict(
         name="combine/dist", route="cuda", source=src + "combine.cu",
         replaces="src/repro/kernels/paged_attention/paged_attention.py:161",
-        launches=dist["launches"]["combine/dist"],
+        # the dist phase's kvp cases and the launch phase's ws kvp tail
+        launches=(dist["launches"]["combine/dist"]
+                  + dist["launch"]["launches"]["combine/dist"]),
         max_abs_err=chk.max_err["combine/dist"], ms=k2["ms"],
         plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
         bound_by=k2["bound_by"], library_ms=k2["library_ms"]))

@@ -65,7 +65,8 @@ import torch
 
 from repro_torch.core import attention as core_attn
 from repro_torch.core import cache as kvcache
-from repro_torch.distributed.sharding import DryGroup, current_mesh
+from repro_torch.distributed.sharding import (DryGroup, batch_axes_for,
+                                              current_mesh, use_mesh)
 from repro_torch.errors import EngineConfigError, UnsupportedFeature
 
 COMBINE_MODES = ("kernel", "plain")
@@ -773,6 +774,30 @@ def write_decode_sharded(
     kvcache._scatter_tokens(v_pages, phys, off, v_new)
 
 
+def dropped_batch_axes(plan) -> Tuple[str, ...]:
+    """The mesh axes that a prefill of ``plan.run``'s batch on
+    ``plan.mesh`` cuts the rows over and ``plan`` does not
+    (``sharding.batch_axes_for`` less ``plan.batch_axes``): () unless
+    ``plan`` is weight-stationary (its batch axes ())."""
+    return tuple(a for a in batch_axes_for(plan.run.global_batch, plan.mesh)
+                 if a not in plan.batch_axes)
+
+
+def _gather_rows(pos, tables, kp, vp, axes):
+    """Every rank's rows over the mesh ``axes`` (rank-major, the rows'
+    order under ``launch.steps.shard_batch``): ``pos``, the tables with
+    source rank i's page ids offset by i times its pool's pages (-1
+    stays -1), and the pools joined along their pages."""
+    n_pages = kp.shape[1]
+    pos = all_gather_dim(pos, axes, 0)
+    t = all_gather(tables, axes).long()  # (n, B_l, 1, pps)
+    off = torch.arange(t.shape[0], device=t.device).reshape(-1, 1, 1, 1)
+    t = torch.where(t >= 0, t + off * n_pages, t)
+    tables = t.reshape(-1, *t.shape[2:]).to(torch.int32)
+    return (pos, tables, all_gather_dim(kp, axes, 1),
+            all_gather_dim(vp, axes, 1))
+
+
 def shard_decode_state(state: Dict, plan) -> Dict:
     """The phase boundary of the decode schemes (the port's counterpart of
     ``decode_state_shardings`` applied to a filled state): map the state
@@ -788,9 +813,14 @@ def shard_decode_state(state: Dict, plan) -> Dict:
         ceil(pps / n)) of local ids (-1 stays -1);
       * ``tp``/``dp``: the rows' pages as they are.
 
-    A state of another batch than the rank's rows, or pools of another
-    head count, raise ``EngineConfigError``; other state entries
-    (``rec``, ``cross_k``) are not distributed yet and raise
+    A state filled under a prefill plan whose rows are cut over more
+    batch axes than ``plan``'s (a weight-stationary decode plan has
+    none) is first gathered over the axes ``plan`` drops
+    (``dropped_batch_axes``): ``pos``, the tables and the pools, each
+    source rank's page ids offset by the pages of the ranks before it.
+    A state of another batch than that, or pools of another head count,
+    raise ``EngineConfigError``; other state entries (``rec``,
+    ``cross_k``) are not distributed yet and raise
     ``UnsupportedFeature``."""
     mesh = plan.mesh
     extra = set(state) - {"pos", "k_pages", "v_pages", "tables"}
@@ -806,6 +836,11 @@ def shard_decode_state(state: Dict, plan) -> Dict:
             kv_heads=kp.shape[3])
     pos, tables = state["pos"], state["tables"]
     nb = mesh.prod(plan.batch_axes) if plan.batch_axes else 1
+    dropped = dropped_batch_axes(plan)
+    if pos.shape[0] * nb != plan.run.global_batch and dropped and (
+            pos.shape[0] * nb * mesh.prod(dropped) == plan.run.global_batch):
+        with use_mesh(mesh):
+            pos, tables, kp, vp = _gather_rows(pos, tables, kp, vp, dropped)
     if pos.shape[0] * nb != plan.run.global_batch:
         raise EngineConfigError(
             f"shard_decode_state: the state holds {pos.shape[0]} rows, the "

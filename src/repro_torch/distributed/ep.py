@@ -85,14 +85,18 @@ class _ScaleGrad(torch.autograd.Function):
 
 def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                  live: Optional[torch.Tensor] = None,
-                 n_live: Optional[int] = None
+                 n_live: Optional[int] = None, ws: Tuple[str, ...] = ()
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MoE FFN of this rank's tokens ``x`` (B_l, S, d) or (B_l, d)
     with its ``E / m`` experts (``p["wg"]`` etc. (E/m, ...)); ``router``
     whole.  ``live`` of x's leading shape marks the tokens routed (None:
     every token), ``n_live`` counts them (read on the host when None).
     Returns (the output, of x's shape and dtype; the load-balance loss
-    over the live tokens, averaged over the batch axes' ranks)."""
+    over the live tokens, averaged over the batch axes' ranks).  ``ws``:
+    ``x`` holds the rank's columns of ``embed`` (``TPLayout.act_embed``,
+    weight-stationary decode): the router's and the experts' up
+    products sum their partials over those axes, and the exchanges
+    carry the rank's columns."""
     mesh = current_mesh()
     m = mesh.size("model")
     shape = x.shape
@@ -103,7 +107,7 @@ def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     if live is not None:
         live = live.reshape(T_l)
         T_l = count_true(live) if n_live is None else n_live
-    probs, gates, idx = moe_mod.router(p, xf, k)
+    probs, gates, idx = moe_mod.router(p, xf, k, ws=ws)
     aux = moe_mod.aux_loss(probs, idx, live)
     ba = _batch_axes(mesh)
     if ba:
@@ -116,7 +120,7 @@ def apply_moe_ep(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     xe = exchange(xe, ("model",)).reshape(m, E // m, C, d)
     xe = xe.transpose(0, 1).reshape(E // m, m * C, d)
     w = {n: _ScaleGrad.apply(p[n], 1.0 / m) for n in EXPERT_WEIGHTS}
-    ye = moe_mod.expert_ffn(w, xe, cfg)
+    ye = moe_mod.expert_ffn(w, xe, cfg, ws)
     # back to the tokens' rank: (E/m, m, C, d) -> (m, E/m, C, d) -> (E, C, d)
     ye = ye.reshape(E // m, m, C, d).transpose(0, 1).contiguous()
     ye = exchange(ye, ("model",)).reshape(E, C, d)

@@ -158,6 +158,19 @@ def axis_index(name: str) -> int:
     return current_mesh().index(name)
 
 
+def batch_axes_for(global_batch: int, mesh) -> Tuple[str, ...]:
+    """The batch axes of a plan (the JAX ``plan_for``'s law): as much of
+    ("pod", "data") as ``global_batch`` divides, in that order."""
+    sizes = _mesh_axis_sizes(mesh)
+    axes: Tuple[str, ...] = ()
+    prod = 1
+    for a in ("pod", "data"):
+        if a in sizes and global_batch % (prod * sizes[a]) == 0:
+            axes += (a,)
+            prod *= sizes[a]
+    return axes
+
+
 @dataclass(frozen=True)
 class TPLayout:
     """Which weights a rank holds only a piece of, decided once per plan
@@ -208,7 +221,20 @@ class TPLayout:
         stay cut and a head↔seq all-to-all brings every head of the
         slice (GSPMD's around JAX's ring); under the ring prefill's
         layout the weights are whole (every layer ``"whole"``) and q/k/v
-        come from the slice at its absolute positions."""
+        come from the slice at its absolute positions;
+      * ``act_embed``: weight-stationary decode (the JAX decode plan's
+        ``ws_decode``: rules ``batch=None, act_embed=("data",)``): the
+        mesh axes of ``act_embed`` under the plan's rules, when they hold
+        more than one rank and divide ``d_model`` (``logical_spec``'s
+        law); () otherwise, and in every train and prefill plan.  The
+        decode step's activations are then the rank's columns (B,
+        d/n) of the residual stream, slice ``flat_index(act_embed)``;
+        every weight is read as the rank's slice of its ``embed`` dim —
+        FSDP's piece where ``fsdp`` cuts it over the same axes, else a
+        view of the whole weight (``models.layers.ws_pieces``) — and
+        never gathered; a product that contracts ``embed`` sums its f32
+        partials over these axes (``models.layers.ws_contract``), one
+        that produces ``embed`` computes the rank's columns only."""
 
     vocab: bool = False
     mlp: bool = False
@@ -219,6 +245,7 @@ class TPLayout:
     fsdp: Tuple[str, ...] = ()
     seq: bool = False
     ring: bool = False
+    act_embed: Tuple[str, ...] = ()
 
     def moe(self) -> str:
         """What a rank does with the MoE experts: ``"whole"`` (it holds

@@ -35,10 +35,11 @@ a group whose ranks span nodes runs at the slower link for all its bytes
 
 from __future__ import annotations
 
+import math
 import time
 import weakref
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -212,14 +213,7 @@ def collective_bytes(stats: Dict[str, Any]) -> Dict[str, float]:
         if g <= 1:
             continue
         kind = KINDS[op]
-        if kind == "all-gather":
-            sent = nbytes * g * (g - 1) / g
-        elif kind == "all-reduce":
-            sent = 2 * nbytes * (g - 1) / g
-        elif kind in ("all-to-all", "reduce-scatter"):
-            sent = nbytes * (g - 1) / g
-        else:
-            sent = float(nbytes)
+        sent = _sent(kind, nbytes, g)
         out[kind] += sent
         if len({r // NODE_GPUS for r in ranks}) == 1:
             within += sent
@@ -228,6 +222,49 @@ def collective_bytes(stats: Dict[str, Any]) -> Dict[str, float]:
     out["total"] = sum(out.values())
     out["within_node"] = within
     out["beyond_node"] = beyond
+    return out
+
+
+def _sent(kind: str, nbytes: int, g: int) -> float:
+    """The bytes one rank sends for a collective of ``kind`` on an input
+    of ``nbytes`` over ``g`` ranks (``collective_bytes``' factors)."""
+    if kind == "all-gather":
+        return nbytes * g * (g - 1) / g
+    if kind == "all-reduce":
+        return 2 * nbytes * (g - 1) / g
+    if kind in ("all-to-all", "reduce-scatter"):
+        return nbytes * (g - 1) / g
+    return float(nbytes)
+
+
+def group_axes(mesh, ranks) -> Tuple[str, ...]:
+    """The mesh axes a group of global ``ranks`` (row-major over
+    ``mesh.shape``) spans: those along which its members' coordinates
+    differ, in the mesh's order."""
+    coords = [[(r // math.prod(mesh.shape[i + 1:])) % n
+               for i, n in enumerate(mesh.shape)] for r in ranks]
+    return tuple(a for i, a in enumerate(mesh.axis_names)
+                 if len({c[i] for c in coords}) > 1)
+
+
+def collective_bytes_by_axes(stats: Dict[str, Any], mesh
+                             ) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """The record of ``collective_bytes`` by the mesh axes each group
+    spans (``group_axes``, joined by ","): per kind, the ``calls``, the
+    inputs' ``bytes`` and the ``sent`` bytes (``collective_bytes``'
+    factors).  FSDP's weight gathers are the all-gathers over its axes
+    ("data"), the kvp merge's those over the stripe axes."""
+    out: Dict[str, Dict[str, Dict[str, float]]] = {}
+    for op, nbytes, g, ranks in stats.get("ops", ()):
+        if g <= 1:
+            continue
+        kind = KINDS[op]
+        row = out.setdefault(",".join(group_axes(mesh, ranks)), {}
+                             ).setdefault(kind, dict.fromkeys(
+                                 ("calls", "bytes", "sent"), 0.0))
+        row["calls"] += 1
+        row["bytes"] += nbytes
+        row["sent"] += _sent(kind, nbytes, g)
     return out
 
 

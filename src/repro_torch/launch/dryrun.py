@@ -20,8 +20,15 @@ The train and prefill plans cut the activations along the sequence over
 them whole); ``--ring`` runs ring attention on the slices (the ring's
 sends to the next rank, and under grad back to the previous one, are
 counted like the gathers and reduce-scatters: within a node or beyond
-it as the "model" group spans).  Each output's ``plan`` records both
-knobs.
+it as the "model" group spans); ``--ws-decode`` makes the decode plan
+weight-stationary (JAX's ``ws_decode``: no batch axes, kvp over every
+mesh axis, the activations cut along ``embed`` over "data" and the FSDP
+weights never gathered).  Each output's ``plan`` records the knobs, and
+under ``--ws-decode`` the ws plan's batch axes, kv axes, activation cut
+and rules (``plan["ws"]``); ``collectives_by_axes`` splits the
+collectives by the mesh axes each group spans (FSDP's weight gathers
+are the all-gathers over "data", the kvp merge's those over its stripe
+axes).
 
 Every number is a prediction from the datasheet constants of
 ``launch.mesh``, not a measurement.  No kernel is built.
@@ -37,6 +44,8 @@ Usage:
   python -m repro_torch.launch.dryrun --arch all --shape all --mesh pod
   python -m repro_torch.launch.dryrun --arch llama3-405b \
       --shape train_4k,prefill_32k --ring --tag ring
+  python -m repro_torch.launch.dryrun --arch llama3-405b \
+      --shape decode_32k,long_500k --ws-decode --tag ws
 """
 
 from __future__ import annotations
@@ -93,7 +102,8 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
              zero_pod: bool = False,
              rank: int = 0,
              seq_parallel: bool = True,
-             ring: bool = False) -> Dict[str, Any]:
+             ring: bool = False,
+             ws_decode: bool = False) -> Dict[str, Any]:
     run = make_run_for(arch, shape)
     if run is not None and overrides:
         run = dataclasses.replace(run, model=run.model.replace(**overrides))
@@ -109,16 +119,25 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
     n_dev = math.prod(mesh.shape)
     plan = plan_for(run, mesh, microbatches=microbatches, scheme=scheme,
                     attn_impl=attn_impl, zero_pod=zero_pod,
-                    seq_parallel=seq_parallel, ring=ring)
+                    seq_parallel=seq_parallel, ring=ring,
+                    ws_decode=ws_decode)
     out["plan"] = {"batch_axes": plan.batch_axes, "scheme": plan.scheme,
                    "kv_axes": plan.kv_axes, "microbatches": plan.microbatches,
                    "variant": run.variant, "zero_pod": plan.zero_pod,
                    "seq_parallel": seq_parallel, "ring": ring,
+                   "ws_decode": ws_decode,
                    "seq": plan.layout.seq, "attn_impl": plan.attn_impl,
                    "attn": sorted(set(plan.layout.attn)),
                    "experts": plan.layout.moe(),
                    "rules": {k: v for k, v in plan.rules.table.items()
                              if v is not None}}
+    if ws_decode and run.kind == "decode":
+        out["plan"]["ws"] = {
+            "batch_axes": plan.batch_axes, "kv_axes": plan.kv_axes,
+            "n_kv_shards": plan.n_kv_shards,
+            "act_embed": plan.layout.act_embed, "fsdp": plan.layout.fsdp,
+            "rules": {k: plan.rules.table.get(k)
+                      for k in ("batch", "act_embed", "embed")}}
     try:
         rec = dry_step(run, plan, torch.bfloat16)
     except UnsupportedFeature as e:
@@ -130,6 +149,8 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
     out["fits"] = out["memory"]["peak_bytes"] <= HBM_BYTES
     out["cost_full"] = ca.extract_cost(rec)
     out["collectives_full"] = ca.collective_bytes(rec.stats)
+    out["collectives_by_axes"] = ca.collective_bytes_by_axes(rec.stats,
+                                                             mesh)
     out["collective_calls"] = rec.stats["calls"]
     out["kernels"] = dict(sorted(rec.kernels.launches.items()))
     out["status"] = "ok"
@@ -180,6 +201,10 @@ def main(argv=None) -> None:
     ap.add_argument("--ring", action="store_true",
                     help="ring attention on the sequence slices (train "
                          "and prefill)")
+    ap.add_argument("--ws-decode", action="store_true",
+                    help="weight-stationary decode: no batch axes, the "
+                         "activations cut along embed over 'data', the "
+                         "FSDP weights never gathered")
     ap.add_argument("--outdir", default="experiments/dryrun_torch")
     args = ap.parse_args(argv)
 
@@ -207,7 +232,8 @@ def main(argv=None) -> None:
                                    overrides=overrides or None,
                                    zero_pod=args.zero_pod, rank=args.rank,
                                    seq_parallel=not args.no_seqpar,
-                                   ring=args.ring)
+                                   ring=args.ring,
+                                   ws_decode=args.ws_decode)
                 except Exception as e:  # noqa: BLE001 — recorded, not hidden
                     res = {"arch": arch, "shape": shape, "mesh": mesh_name,
                            "status": "error", "error": repr(e),

@@ -17,7 +17,13 @@ does, line for line:
     for windowed models, else ``kvp`` (a config's ``decode_scheme`` or
     ``scheme=`` asks for one); ``tp`` without that divisibility becomes
     ``kvp``, and ``kvp`` on a windowed model ``dp``; ``kvp`` stripes the
-    pages over every axis not used for batch (``kv_axes``).
+    pages over every axis not used for batch (``kv_axes``);
+  * ``ws_decode`` (weight-stationary decode, decode plans only): no batch
+    axes (every rank holds every row, so kvp stripes over every mesh
+    axis) and ``act_embed`` over "data": the activations are cut along
+    ``embed`` instead of the rows, the FSDP weights stay where they are
+    and the products' small f32 partials are all-reduced over "data"
+    (``TPLayout.act_embed``).
 
 It also fixes the plan's ``layout`` (``distributed.sharding.TPLayout``):
 which weights each rank holds a piece of, which the model cuts and reads.
@@ -81,9 +87,9 @@ import torch
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.attention import TRAIN_IMPLS
 from repro_torch.distributed.sharding import (P, AxisRules, DEFAULT_RULES,
-                                              TPLayout, logical_spec,
-                                              resolve_specs, shard_tensor,
-                                              use_mesh)
+                                              TPLayout, batch_axes_for,
+                                              logical_spec, resolve_specs,
+                                              shard_tensor, use_mesh)
 from repro_torch.errors import UnsupportedFeature
 from repro_torch.kernels import check_impl
 from repro_torch.models import spec as pspec
@@ -103,7 +109,9 @@ class Plan:
     or prefill plan whose rules put ``seq`` on "model" (JAX's
     ``seq_parallel``, the default) the activations' cut along the
     sequence (``layout.seq``), with ring attention on it under the ring
-    plan (``layout.ring``, ``attn_impl="ring"``)."""
+    plan (``layout.ring``, ``attn_impl="ring"``); under a
+    weight-stationary decode plan (``ws_decode``) the activations' cut
+    along ``embed`` (``layout.act_embed``)."""
     run: RunConfig
     mesh: Any  # launch.mesh.Mesh
     rules: AxisRules
@@ -134,8 +142,8 @@ def _mesh_prod(mesh, axes: Tuple[str, ...]) -> int:
 
 def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
              attn_impl: str = "chunked", scheme: Optional[str] = None,
-             seq_parallel: bool = True, ring: bool = False,
-             zero_pod: bool = False) -> Plan:
+             seq_parallel: bool = True, ws_decode: bool = False,
+             ring: bool = False, zero_pod: bool = False) -> Plan:
     """The plan of ``run`` on ``mesh`` (the JAX ``plan_for``, line for
     line, plus the port's ``layout``).  ``attn_impl`` names the port's
     training attention ("ref" is the JAX "jnp"); ``scheme`` asks for a
@@ -143,22 +151,27 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
     decode scheme; ``seq_parallel`` cuts the train and prefill
     activations along the sequence over "model" between blocks, and
     ``ring`` runs ring attention on those slices (JAX's knobs and
-    defaults); ``zero_pod`` cuts the train state's AdamW moments over
-    "pod" too (``train_state_shardings``; the plan keeps it under train
-    and decode, not prefill, as the JAX one does)."""
+    defaults); ``ws_decode`` makes a decode plan weight-stationary (no
+    batch axes, ``act_embed`` over "data", ``TPLayout.act_embed``; train
+    and prefill plans ignore it, as JAX's do); ``zero_pod`` cuts the
+    train state's AdamW moments over "pod" too
+    (``train_state_shardings``; the plan keeps it under train and
+    decode, not prefill, as the JAX one does)."""
     cfg = run.model
     rules = DEFAULT_RULES.extend(**cfg.axis_overrides)
     sizes = dict(zip(mesh.axis_names, mesh.shape))
     model_size = sizes.get("model", 1)
 
     # batch axes: use only as much of (pod, data) as the batch divides
-    batch_axes: Tuple[str, ...] = ()
-    prod = 1
-    for a in ("pod", "data"):
-        if a in sizes and run.global_batch % (prod * sizes[a]) == 0:
-            batch_axes += (a,)
-            prod *= sizes[a]
-    rules = rules.extend(batch=batch_axes or None)
+    batch_axes = batch_axes_for(run.global_batch, mesh)
+    prod = _mesh_prod(mesh, batch_axes)
+    if ws_decode and run.kind == "decode":
+        # weight-stationary decode: the FSDP weights stay in place and
+        # the activations' small partials are summed over "data" instead
+        batch_axes = ()
+        rules = rules.extend(batch=None, act_embed=("data",))
+    else:
+        rules = rules.extend(batch=batch_axes or None)
 
     ringed = (ring and run.kind in ("train", "prefill")
               and run.seq_len % model_size == 0)
@@ -206,9 +219,15 @@ def plan_for(run: RunConfig, mesh, *, microbatches: Optional[int] = None,
                     layout=dataclasses.replace(lay, **cut))
     kv_axes = (tuple(a for a in mesh.axis_names if a not in batch_axes)
                if sch == "kvp" else ())
+    act = tuple(a for a in mesh.axis_names
+                if a in (rules.physical("act_embed") or ()))
+    if _mesh_prod(mesh, act) <= 1 or cfg.d_model % _mesh_prod(mesh, act):
+        act = ()  # the activations stay whole
     return Plan(run=run, mesh=mesh, rules=rules, batch_axes=batch_axes,
                 scheme=sch, kv_axes=kv_axes, microbatches=1,
-                attn_impl=attn_impl, layout=lay, zero_pod=zero_pod)
+                attn_impl=attn_impl,
+                layout=dataclasses.replace(lay, act_embed=act),
+                zero_pod=zero_pod)
 
 
 def _decode_scheme(cfg: ModelConfig, model_size: int,

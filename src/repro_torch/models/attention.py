@@ -43,10 +43,21 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _qkv(p: Dict, x: torch.Tensor, positions: Optional[torch.Tensor],
-         theta: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    q = _proj(x, p["wq"])
-    k = _proj(x, p["wk"])
-    v = _proj(x, p["wv"])
+         theta: float, ws: Tuple[str, ...] = ()
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v of ``x``, rotated at ``positions``.  ``ws``
+    (``TPLayout.act_embed``): ``x`` holds the rank's columns of ``embed``
+    and the weights their rows (``layers.ws_pieces``): the three f32
+    partials are summed over those axes in one all-reduce
+    (``layers.ws_contract``) before RoPE."""
+    if ws:
+        flat = [p[k].reshape(p[k].shape[0], -1) for k in ("wq", "wk", "wv")]
+        q, k, v = (t.reshape(*x.shape[:-1], *p[n].shape[1:]) for t, n in zip(
+            layers.ws_contract(x, flat, ws), ("wq", "wk", "wv")))
+    else:
+        q = _proj(x, p["wq"])
+        k = _proj(x, p["wk"])
+        v = _proj(x, p["wv"])
     if positions is not None:
         q = apply_rope(q, positions, theta)
         k = apply_rope(k, positions, theta)
@@ -345,7 +356,10 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     "model", every head attends over the rank's pools (its page stripe
     under kvp, merged across the stripes), and the rank keeps its heads'
     output for ``wo`` (GSPMD around JAX's kvp ``shard_map``, whose q
-    enters whole)."""
+    enters whole).  Under the layout's ``act_embed`` (weight-stationary
+    decode) ``x`` and the output are the rank's columns of ``embed``:
+    q/k/v from partials summed over those axes (``_qkv``), ``wo`` giving
+    the rank's columns."""
     from repro_torch.distributed.collectives import (
         decode_attention_sharded, gather_dim, layer_scheme,
         write_decode_sharded)
@@ -353,8 +367,9 @@ def attn_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     ctx = attn_ctx or {}
     scheme = layer_scheme(ctx.get("scheme", "local"), window)
     batch_axes = tuple(ctx.get("batch_axes", ()))
+    ws = ctx["layout"].act_embed if "layout" in ctx else ()
     B = x.shape[0]
-    q, k, v = _qkv(p, x, positions, cfg.rope_theta)  # (B, H/Hkv, hd)
+    q, k, v = _qkv(p, x, positions, cfg.rope_theta, ws)  # (B, H/Hkv, hd)
     write_decode_sharded(k_pages, v_pages, tables, positions,
                          kv_quant(cfg, k), kv_quant(cfg, v), window=window,
                          scheme=scheme, batch_axes=batch_axes)

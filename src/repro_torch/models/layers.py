@@ -24,15 +24,31 @@ def norm_spec(cfg: ModelConfig) -> Dict:
     return {"scale": ParamSpec((cfg.d_model,), ("embed",), "ones")}
 
 
-def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm (or LayerNorm with a bias), computed in f32."""
+def apply_norm(p: Dict, x: torch.Tensor, eps: float = 1e-6,
+               axes: Tuple[str, ...] = ()) -> torch.Tensor:
+    """RMSNorm (or LayerNorm with a bias), computed in f32.  ``axes``
+    (``TPLayout.act_embed``): ``x`` holds the rank's columns of the
+    features, cut over those mesh axes, and ``p`` the matching slices;
+    the f32 sums (the mean first, then the squares about it, for
+    LayerNorm) are all-reduced over them before the rsqrt."""
     xf = x.float()
+    if axes:
+        from repro_torch.distributed.collectives import all_reduce
+        from repro_torch.distributed.sharding import current_mesh
+        d = x.shape[-1] * current_mesh().prod(axes)
+
+        def mean(t):
+            return all_reduce(t.sum(dim=-1, keepdim=True), axes) / d
+    else:
+        def mean(t):
+            return t.mean(dim=-1, keepdim=True)
     if "bias" in p:
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        mu = mean(xf)
+        var = (mean((xf - mu).square()) if axes
+               else xf.var(dim=-1, keepdim=True, unbiased=False))
         y = (xf - mu) * torch.rsqrt(var + eps)
         return (y * p["scale"] + p["bias"]).to(x.dtype)
-    ms = xf.square().mean(dim=-1, keepdim=True)
+    ms = mean(xf.square())
     return (xf * torch.rsqrt(ms + eps) * p["scale"]).to(x.dtype)
 
 
@@ -168,29 +184,99 @@ def gather_fsdp(p, spec_tree, layout, batch_axes: Tuple[str, ...] = ()):
     return walk(p, fsdp_dims(spec_tree, layout, current_mesh()))
 
 
+def _partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in f32 (``w`` 2-D, or 3-D batched against a 3-D ``x``),
+    a partial sum that is still to be reduced: 2-D bf16 inputs on the
+    card take cuBLAS's f32 accumulator as it is (``mm``'s
+    ``out_dtype``), so the only rounding to bf16 is the one a single
+    device makes after the sum (not under autograd, which ``out_dtype``
+    does not take; the dry run's fake tensors trace the card's branch).
+    A batched product rounds in ``x``'s dtype first:
+    ``FlopCounterMode`` refuses ``bmm``'s ``out_dtype``."""
+    if w.dim() == 2 and x.dtype == torch.bfloat16 and on_card(x) and not (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        return torch.mm(x.reshape(-1, x.shape[-1]), w,
+                        out_dtype=torch.float32).reshape(
+                            *x.shape[:-1], w.shape[-1])
+    return (x @ w).float()
+
+
 def row_parallel_matmul(x: torch.Tensor, w: torch.Tensor,
                         seq: bool = False) -> torch.Tensor:
     """``x @ w`` for a ``w`` that holds this rank's rows of the contraction
     (row-parallel), summed over "model" (under ``seq`` reduce-scattered
-    along the sequence, ``reduce_model``), in ``x``'s dtype.  The rank's
-    partial product stays in f32 until the sum: bf16 inputs on the card
-    take cuBLAS's f32 accumulator as it is (``mm``'s ``out_dtype``), so
-    the only rounding to bf16 is the one a single device makes (not
-    under autograd, which ``mm`` with ``out_dtype`` does not take; the
-    dry run's fake tensors trace the card's branch)."""
-    if x.dtype == torch.bfloat16 and on_card(x) and not (
-            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        part = torch.mm(x.reshape(-1, x.shape[-1]), w,
-                        out_dtype=torch.float32).reshape(
-                            *x.shape[:-1], w.shape[-1])
-    else:
-        part = (x @ w).float()
-    return reduce_model(part, x.dtype, seq)
+    along the sequence, ``reduce_model``), in ``x``'s dtype; the rank's
+    partial product stays in f32 until the sum (``_partial``)."""
+    return reduce_model(_partial(x, w), x.dtype, seq)
+
+
+def ws_contract(x: torch.Tensor, ws, axes: Tuple[str, ...]) -> list:
+    """``[x @ w for w in ws]`` under weight-stationary decode
+    (``TPLayout.act_embed``): ``x`` holds the rank's columns of
+    ``embed`` (cut over the mesh ``axes``) and each ``w`` the matching
+    rows of the contraction (2-D, or 3-D batched against a 3-D ``x``:
+    the experts); the f32 partials (``_partial``) are all-reduced over
+    ``axes`` in one call, packed along the last dim, before anything
+    nonlinear sees them, and each product comes back in ``x``'s dtype
+    with the shape of the whole product."""
+    from repro_torch.distributed.collectives import all_reduce
+    parts = [_partial(x, w) for w in ws]
+    sums = all_reduce(torch.cat(parts, dim=-1), axes)
+    return [t.to(x.dtype) for t in torch.split(
+        sums, [t.shape[-1] for t in parts], dim=-1)]
+
+
+def ws_pieces(p, spec_tree, layout):
+    """The rank's slice of the ``embed`` dim of every weight of ``p``
+    (a tree of this rank's pieces, ``spec_tree`` its ``ParamSpec``
+    tree) under weight-stationary decode (``TPLayout.act_embed``): a
+    piece that FSDP cut over the same axes (``layout.fsdp``) as it is,
+    a whole one as a view of its slice ``flat_index(act_embed)``; no
+    copy and no collective.  FSDP over other axes than the activations'
+    raises ``UnsupportedFeature`` (its pieces are not the rank's
+    columns, and nothing here gathers them)."""
+    from repro_torch.distributed.sharding import current_mesh, fsdp_dims
+    from repro_torch.errors import UnsupportedFeature
+    from repro_torch.models.spec import ParamSpec
+    axes = layout.act_embed
+    if layout.fsdp and tuple(layout.fsdp) != tuple(axes):
+        raise UnsupportedFeature(
+            f"weight-stationary decode with FSDP over {layout.fsdp} and "
+            f"the activations over {axes}", fsdp=layout.fsdp,
+            act_embed=axes)
+    mesh = current_mesh()
+    n, r = mesh.prod(axes), mesh.flat_index(axes)
+
+    def walk(x, spec, cut):
+        if isinstance(spec, dict):
+            return {k: walk(x[k], spec[k], cut[k]) for k in x}
+        if isinstance(spec, list):
+            return [walk(v, s, c) for v, s, c in zip(x, spec, cut)]
+        assert isinstance(spec, ParamSpec)
+        if cut is not None or "embed" not in spec.axes:
+            return x
+        d = spec.axes.index("embed")
+        w = x.shape[d] // n
+        return x.narrow(d, r * w, w)
+
+    return walk(p, spec_tree, fsdp_dims(spec_tree, layout, mesh))
+
+
+def _activate(up, cfg: ModelConfig) -> torch.Tensor:
+    """The MLP's hidden activations from its up products: ``[x @ wg, x @
+    wu]`` when gated, ``[x @ wu]`` otherwise."""
+    if cfg.activation == "silu":
+        return F.silu(up[0]) * up[1]
+    if cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
+        return F.gelu(up[0], approximate="tanh") * up[1]
+    if cfg.activation == "gelu_ungated":  # the tanh form, as above
+        return F.gelu(up[0], approximate="tanh")
+    return torch.square(F.relu(up[0]))  # relu2, checked when built
 
 
 def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-              row_parallel: bool = False, seq: bool = False
-              ) -> torch.Tensor:
+              row_parallel: bool = False, seq: bool = False,
+              ws: Tuple[str, ...] = ()) -> torch.Tensor:
     """The dense MLP.  ``row_parallel``: ``wg``/``wu`` hold this rank's
     column slice of ``d_ff`` and ``wd`` the matching rows (Megatron,
     ``TPLayout.mlp``), and the partial sums are reduced over "model" in
@@ -198,21 +284,23 @@ def apply_mlp(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     is summed over "model" (``copy_model``).  ``seq``: ``x`` is the
     rank's slice of the sequence (``TPLayout.seq``), gathered whole
     first; the output is the rank's slice, reduce-scattered from the
-    partial sums (row-parallel) or cut from the whole (``seq_split``)."""
+    partial sums (row-parallel) or cut from the whole (``seq_split``).
+    ``ws`` (``TPLayout.act_embed``): ``x`` and the output are the rank's
+    columns of ``embed`` and ``p`` its slices (``ws_pieces``): ``wg``/
+    ``wu``'s partials summed over those axes (``ws_contract``), ``wd``
+    giving the rank's columns."""
+    if ws:
+        up = ws_contract(x, [p[k] for k in ("wg", "wu") if k in p], ws)
+        h = _activate(up, cfg)
+        return row_parallel_matmul(h, p["wd"]) if row_parallel else (
+            h @ p["wd"])
     if seq:
         x = seq_gather(x, summed=row_parallel)
         if not row_parallel:
             return seq_split(apply_mlp(p, x, cfg))
     elif row_parallel:
         x = copy_model(x)
-    if cfg.activation == "silu":
-        h = F.silu(x @ p["wg"]) * (x @ p["wu"])
-    elif cfg.activation == "gelu":  # jax.nn.gelu's default: the tanh form
-        h = F.gelu(x @ p["wg"], approximate="tanh") * (x @ p["wu"])
-    elif cfg.activation == "gelu_ungated":  # the tanh form, as above
-        h = F.gelu(x @ p["wu"], approximate="tanh")
-    else:  # relu2, checked when the model is built
-        h = torch.square(F.relu(x @ p["wu"]))
+    h = _activate([x @ p[k] for k in ("wg", "wu") if k in p], cfg)
     if row_parallel:
         return row_parallel_matmul(h, p["wd"], seq)
     return h @ p["wd"]
@@ -237,7 +325,9 @@ def embed_tokens(p: Dict, tokens: torch.Tensor,
     (``TPLayout.vocab``): rows outside it read zeros, and the sum over the
     axis gives every token its row.  ``seq``: the rank keeps its slice of
     the sequence (``TPLayout.seq``): the sum reduce-scattered along it,
-    or with the vocab whole its slice of the rows (``seq_split``)."""
+    or with the vocab whole its slice of the rows (``seq_split``).  A
+    table of the rank's columns of ``embed`` (``ws_pieces``) gives those
+    columns of the rows."""
     tok = p["tok"]
     if not vocab_sharded:
         x = tok[tokens.long()]
@@ -250,23 +340,30 @@ def embed_tokens(p: Dict, tokens: torch.Tensor,
 
 
 def unembed(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-            vocab_sharded: bool = False, seq: bool = False
-            ) -> torch.Tensor:
+            vocab_sharded: bool = False, seq: bool = False,
+            ws: Tuple[str, ...] = ()) -> torch.Tensor:
     """Logits (..., V).  ``vocab_sharded``: the table is this rank's
     vocab slice (``TPLayout.vocab``), and its logits are gathered over
     "model" along the vocab (``collectives.gather_last``: under autograd
     the rank's columns of the gradient come back, and ``x``'s gradient is
     summed over "model").  ``seq``: ``x`` (B, S/m, d) is the rank's slice
     of the sequence, gathered whole first (every token's logits on every
-    rank)."""
+    rank).  ``ws`` (``TPLayout.act_embed``): ``x`` holds the rank's
+    columns of ``embed`` and the table its slice (``ws_pieces``): the
+    partial logits are summed over those axes (``ws_contract``) before
+    the vocab gather and the softcap."""
     w = p["tok"].T if cfg.tie_embeddings else p["head"]
     if seq:
         x = seq_gather(x, summed=vocab_sharded)
-    if vocab_sharded:
-        from repro_torch.distributed.collectives import gather_last
-        logits = gather_last((x if seq else copy_model(x)) @ w, ("model",))
+    if ws:
+        logits = ws_contract(x, [w], ws)[0]
+    elif vocab_sharded:
+        logits = (x if seq else copy_model(x)) @ w
     else:
         logits = x @ w
+    if vocab_sharded:
+        from repro_torch.distributed.collectives import gather_last
+        logits = gather_last(logits, ("model",))
     if cfg.logit_softcap > 0:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     return logits

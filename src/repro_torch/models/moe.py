@@ -60,7 +60,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import axis_index, axis_size
 from repro_torch.models.layers import (copy_model, reduce_model, seq_gather,
-                                       seq_split)
+                                       seq_split, ws_contract)
 from repro_torch.models.spec import ParamSpec
 from repro_torch.utils.fake import count_true
 
@@ -94,14 +94,19 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
                       * cfg.moe_capacity))
 
 
-def router(p: Dict, x: torch.Tensor, k: int, cut: bool = False
+def router(p: Dict, x: torch.Tensor, k: int, cut: bool = False,
+           ws: Tuple[str, ...] = ()
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router of ``x`` (T, d): logits in the activation dtype, an f32
     softmax (T, E), and the top-k gates and experts (T, k).  With
     ``cut`` the gates' gradient is summed over "model" (each rank
     combines only its experts' choices); the probabilities returned, the
-    load-balance loss's, are not."""
-    probs = torch.softmax((x @ p["router"]).float(), dim=-1)
+    load-balance loss's, are not.  ``ws``: ``x`` holds the rank's
+    columns of ``embed`` (``TPLayout.act_embed``), the logits' partials
+    summed over those axes before the softmax (``ws_contract``)."""
+    logits = (ws_contract(x, [p["router"]], ws)[0] if ws
+              else x @ p["router"])
+    probs = torch.softmax(logits.float(), dim=-1)
     gates, idx = top_k_route(copy_model(probs) if cut else probs, k)
     return probs, gates, idx
 
@@ -170,21 +175,28 @@ def dispatch(idx: torch.Tensor, C: int, E: int,
 
 
 def experts(p: Dict, x: torch.Tensor, disp: torch.Tensor,
-            cfg: ModelConfig) -> torch.Tensor:
+            cfg: ModelConfig, ws: Tuple[str, ...] = ()) -> torch.Tensor:
     """The gated expert MLPs over the dispatched rows of ``x`` (T, d):
     (E, C, d).  Empty slots (sentinel T) read an arbitrary row; their
     outputs are never combined."""
-    return expert_ffn(p, x[torch.clamp(disp, max=x.shape[0] - 1)], cfg)
+    return expert_ffn(p, x[torch.clamp(disp, max=x.shape[0] - 1)], cfg, ws)
 
 
-def expert_ffn(p: Dict, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def expert_ffn(p: Dict, xe: torch.Tensor, cfg: ModelConfig,
+               ws: Tuple[str, ...] = ()) -> torch.Tensor:
     """The gated expert MLPs of the dispatched rows ``xe`` (E, C, d), one
-    batched matmul per weight: (E, C, d)."""
-    g = torch.bmm(xe, p["wg"])
+    batched matmul per weight: (E, C, d).  ``ws``: ``xe`` and the output
+    hold the rank's columns of ``embed`` (``TPLayout.act_embed``): the
+    up products' partials summed over those axes (``ws_contract``),
+    ``wd`` giving the rank's columns."""
+    if ws:
+        g, u = ws_contract(xe, [p["wg"], p["wu"]], ws)
+    else:
+        g, u = torch.bmm(xe, p["wg"]), torch.bmm(xe, p["wu"])
     if cfg.activation == "silu":
-        h = F.silu(g) * torch.bmm(xe, p["wu"])
+        h = F.silu(g) * u
     else:  # jax.nn.gelu's default: the tanh form
-        h = F.gelu(g, approximate="tanh") * torch.bmm(xe, p["wu"])
+        h = F.gelu(g, approximate="tanh") * u
     return torch.bmm(h, p["wd"])
 
 
@@ -208,28 +220,31 @@ def combine(ye: torch.Tensor, gates: torch.Tensor, idx: torch.Tensor,
 
 def _moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
          live: Optional[torch.Tensor], n: Optional[int], cut: bool = False,
-         seq: bool = False
+         seq: bool = False, ws: Tuple[str, ...] = ()
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The FFN over the tokens of ``x`` (B, S, d) or (B, d) at the
     capacity of ``n`` live tokens (every token when None): (its f32
     output of x's shape, the router's probabilities and experts).
     ``cut``: ``p`` holds this rank's E/m experts over "model" (GSPMD's
     cut, the module docstring); ``seq``: ``x`` is the rank's slice of
-    the sequence, and so is the output (the module docstring)."""
+    the sequence, and so is the output (the module docstring); ``ws``:
+    ``x`` and the output are the rank's columns of ``embed``
+    (``TPLayout.act_embed``: every rank routes the same tokens from the
+    summed router logits)."""
     if seq:
         x = seq_gather(x, summed=False)
     shape = x.shape
     xf = x.reshape(-1, shape[-1])
     if n is None:
         n = xf.shape[0]
-    probs, gates, idx = router(p, xf, cfg.top_k, cut)
+    probs, gates, idx = router(p, xf, cfg.top_k, cut, ws)
     slot, ok, disp = dispatch(idx, capacity(n, cfg), cfg.n_experts, live)
     if not cut:
-        out = combine(experts(p, xf, disp, cfg), gates, idx, slot, ok)
+        out = combine(experts(p, xf, disp, cfg, ws), gates, idx, slot, ok)
         out = out.reshape(shape)
         return (seq_split(out) if seq else out), probs, idx
     lo, n_e = _expert_range(cfg.n_experts)
-    ye = experts(p, copy_model(xf), disp[lo:lo + n_e], cfg)
+    ye = experts(p, copy_model(xf), disp[lo:lo + n_e], cfg, ws)
     out = combine(ye, gates, idx, slot, ok, lo).reshape(shape)
     return reduce_model(out, seq=seq), probs, idx
 
@@ -237,17 +252,20 @@ def _moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def apply_moe(p: Dict, x: torch.Tensor, cfg: ModelConfig,
               live: Optional[torch.Tensor] = None,
               n_live: Optional[int] = None, cut: bool = False,
-              seq: bool = False) -> torch.Tensor:
+              seq: bool = False, ws: Tuple[str, ...] = ()
+              ) -> torch.Tensor:
     """x: (B, S, d) or (B, d); ``live`` of the whole tokens' leading
     shape (or None: every token live), ``n_live`` its count (read from
     ``live`` on the host when None); ``cut``: ``p`` holds this rank's E/m
     experts over "model"; ``seq``: x is the rank's slice (B, S/m, d) of
-    the sequence.  Returns the FFN's output, of x's shape and dtype."""
+    the sequence; ``ws``: x holds the rank's columns of ``embed``
+    (``TPLayout.act_embed``).  Returns the FFN's output, of x's shape
+    and dtype."""
     n = None
     if live is not None:
         live = live.reshape(-1)
         n = count_true(live) if n_live is None else n_live
-    out, _, _ = _moe(p, x, cfg, live, n, cut, seq)
+    out, _, _ = _moe(p, x, cfg, live, n, cut, seq, ws)
     return out.to(x.dtype)
 
 

@@ -268,18 +268,26 @@ class TransformerModel:
     def _gather_layer(self, li: int, p: Dict, lay: TPLayout,
                       batch_axes: Tuple[str, ...] = ()) -> Dict:
         """Layer ``li``'s weights whole where ``lay.fsdp`` cuts them,
-        gathered just before use (``layers.gather_fsdp``)."""
+        gathered just before use (``layers.gather_fsdp``); under
+        ``lay.act_embed`` (weight-stationary decode) the rank's slices
+        of their ``embed`` dims instead, never gathered
+        (``layers.ws_pieces``)."""
+        spec = layer_spec(self.codes[li], self.cfg)
+        if lay.act_embed:
+            return layers.ws_pieces(p, spec, lay)
         if not lay.fsdp:
             return p
-        return layers.gather_fsdp(p, layer_spec(self.codes[li], self.cfg),
-                                  lay, batch_axes)
+        return layers.gather_fsdp(p, spec, lay, batch_axes)
 
     def _gather_top(self, params: Dict, key: str, lay: TPLayout,
                     batch_axes: Tuple[str, ...] = ()) -> Dict:
-        """``params[key]`` (``"embed"``, ``"ln_f"``), gathered alike."""
+        """``params[key]`` (``"embed"``, ``"ln_f"``), gathered (or under
+        ``lay.act_embed`` sliced) alike."""
+        spec = {"embed": layers.embed_spec, "ln_f": layers.norm_spec}[key]
+        if lay.act_embed:
+            return layers.ws_pieces(params[key], spec(self.cfg), lay)
         if not lay.fsdp:
             return params[key]
-        spec = {"embed": layers.embed_spec, "ln_f": layers.norm_spec}[key]
         return layers.gather_fsdp(params[key], spec(self.cfg), lay,
                                   batch_axes)
 
@@ -313,10 +321,11 @@ class TransformerModel:
     def _norm(p: Dict, x: torch.Tensor, lay: TPLayout) -> torch.Tensor:
         """``layers.apply_norm``; under ``lay.seq`` it runs on the rank's
         slice of the sequence, so its weights' gradient is summed over
-        "model" (``layers.copy_model``)."""
+        "model" (``layers.copy_model``); under ``lay.act_embed`` on the
+        rank's columns, its sums all-reduced over those axes."""
         if lay.seq:
             p = {k: layers.copy_model(v) for k, v in p.items()}
-        return layers.apply_norm(p, x)
+        return layers.apply_norm(p, x, axes=lay.act_embed)
 
     def _moe_ep(self, p: Dict, h: torch.Tensor, lay: TPLayout,
                 live: Optional[torch.Tensor] = None,
@@ -330,7 +339,8 @@ class TransformerModel:
         the function's gradient law has them."""
         from repro_torch.distributed import ep
         if not lay.seq:
-            return ep.apply_moe_ep(p, h, self.cfg, live=live, n_live=n_live)
+            return ep.apply_moe_ep(p, h, self.cfg, live=live, n_live=n_live,
+                                   ws=lay.act_embed)
         o, aux = ep.apply_moe_ep(p, layers.seq_gather(h, summed=False),
                                  self.cfg, live=live, n_live=n_live)
         return layers.seq_split(o), aux
@@ -341,19 +351,21 @@ class TransformerModel:
                    layout: TPLayout = TPLayout()) -> torch.Tensor:
         """The layer's FFN; ``layout``: the rank's cut of its weights (the
         experts over "model": GSPMD's cut in ``moe.apply_moe``, or
-        ``ep.apply_moe_ep`` under ``moe_ep``) and of the sequence
-        (``layout.seq``: ``x`` is the rank's slice)."""
+        ``ep.apply_moe_ep`` under ``moe_ep``), of the sequence
+        (``layout.seq``: ``x`` is the rank's slice) and of ``embed``
+        (``layout.act_embed``: ``x`` is the rank's columns)."""
         if "ln2" not in p:  # no FFN (d_ff == 0)
             return x
         h = self._norm(p["ln2"], x, layout)
+        ws = layout.act_embed
         if "moe" in p:
             if layout.ep:
                 return x + self._moe_ep(p["moe"], h, layout, live, n_live)[0]
             return x + moe.apply_moe(p["moe"], h, self.cfg, live=live,
                                      n_live=n_live, cut=layout.experts,
-                                     seq=layout.seq)
+                                     seq=layout.seq, ws=ws)
         return x + layers.apply_mlp(p["mlp"], h, self.cfg, layout.mlp,
-                                    layout.seq)
+                                    layout.seq, ws)
 
     def _live_tokens(self, lens: torch.Tensor, width: int,
                      n_live: Optional[int]
@@ -700,15 +712,22 @@ class TransformerModel:
         (``attention.attn_decode``) and the ``layout`` of the rank's
         params; the params and state are then this rank's
         (``shard_params``, ``distributed.collectives.
-        shard_decode_state``)."""
+        shard_decode_state``).  Under the layout's ``act_embed``
+        (weight-stationary decode, ``plan_for(ws_decode=True)``) the
+        residual stream is the rank's columns (B, d/n) of every row and
+        the weights are read in place (``_gather_layer``): norms,
+        products and logits sum their partials over those axes
+        (``layers.ws_contract``); models of ``A`` and ``W`` layers."""
         cfg = self.cfg
         pos = state["pos"]
         lay = (attn_ctx or {}).get("layout", TPLayout())
+        if lay.act_embed:
+            self._check_distributable()
         x = layers.embed_tokens(self._gather_top(params, "embed", lay),
                                 tokens, lay.vocab)
         for li, p in enumerate(params["layers"]):
             p = self._gather_layer(li, p, lay)
-            h = layers.apply_norm(p["ln1"], x)
+            h = self._norm(p["ln1"], x, lay)
             code = self.codes[li]
             if code in REC_CODES:
                 ri = self.slot[li]
@@ -728,7 +747,7 @@ class TransformerModel:
                     pages_per_block=pages_per_block, num_splits=num_splits,
                     attn_ctx=attn_ctx, cut=lay.cut(li))
             x = self._apply_ffn(p, x + o, live, n_live, lay)
-        x = layers.apply_norm(self._gather_top(params, "ln_f", lay), x)
+        x = self._norm(self._gather_top(params, "ln_f", lay), x, lay)
         logits = layers.unembed(self._gather_top(params, "embed", lay), x,
-                                cfg, lay.vocab)
+                                cfg, lay.vocab, ws=lay.act_embed)
         return logits, dict(state, pos=pos + 1)

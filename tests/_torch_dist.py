@@ -439,15 +439,15 @@ def _train_case(mesh, c):
     return out
 
 
-def _prefill_case(mesh, c):
-    """One prefill case: the rank's rows prefilled under the prefill
-    plan (``build_prefill_step``) into a state of its rows and kv heads,
-    ``shard_decode_state`` to the decode plan, then ``c["steps"]`` decode
-    steps teacher-forced by the reference's greedy tokens."""
+def _prefilled(mesh, c, forced=True, **decode_knobs):
+    """The rank's rows of case ``c`` prefilled under the prefill plan
+    (``build_prefill_step``) into a state of its rows and kv heads, and
+    the decode plan (with ``decode_knobs``) and step after it: a dict of
+    the plans, the model, the rank's params, its rows (with the forced
+    tokens when ``forced``), the prefill's logits and state."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.configs.base import RunConfig
-    from repro_torch.distributed.collectives import shard_decode_state
     from repro_torch.launch.steps import (build_prefill_step,
                                           build_serve_step, local_run,
                                           plan_for, shard_batch)
@@ -459,33 +459,50 @@ def _prefill_case(mesh, c):
     drun = RunConfig(model=cfg, seq_len=S + c["steps"], global_batch=B,
                      kind="decode")
     pplan = plan_for(prun, mesh, scheme=c["scheme"], **c.get("plan", {}))
-    dplan = plan_for(drun, mesh, scheme=c["scheme"])
-    pstep, _, specs, model = build_prefill_step(prun, pplan)
-    sstep = build_serve_step(drun, dplan)[0]
+    dplan = plan_for(drun, mesh, scheme=c["scheme"], **decode_knobs)
+    pstep, _, _, model = build_prefill_step(prun, pplan)
     params = sharded_params_from_numpy(c["params"], model, pplan,
                                        device="cpu")
-    mine = shard_batch({"tokens": tokens, "lens": lens,
-                        "forced": torch.from_numpy(c["forced"]).T}, pplan)
+    rows = {"tokens": tokens, "lens": lens}
+    if forced:
+        rows["forced"] = torch.from_numpy(c["forced"]).T
+    mine = shard_batch(rows, pplan)
     state = model.init_decode_state(local_run(drun, pplan), device="cpu",
                                     plan=pplan)
     b, pps = state["tables"].shape[0], state["tables"].shape[2]
     state["tables"] = torch.arange(b * pps, dtype=torch.int32).reshape(
         b, 1, pps)
     logits, state = pstep(params, mine["tokens"], mine["lens"], state)
-    out = {"prefill": _np(logits), "scheme": dplan.scheme,
+    return dict(pplan=pplan, dplan=dplan, model=model, params=params,
+                mine=mine, logits=logits, state=state, rows=b,
+                sstep=build_serve_step(drun, dplan)[0])
+
+
+def _prefill_case(mesh, c):
+    """One prefill case: the rank's rows prefilled under the prefill
+    plan (``_prefilled``), ``shard_decode_state`` to the decode plan,
+    then ``c["steps"]`` decode steps teacher-forced by the reference's
+    greedy tokens."""
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.models.convert import sharded_params_from_numpy
+    p = _prefilled(mesh, c)
+    pplan, dplan, params, state = (p["pplan"], p["dplan"], p["params"],
+                                   p["state"])
+    out = {"prefill": _np(p["logits"]), "scheme": dplan.scheme,
            "attn": pplan.layout.attn, "fsdp": pplan.layout.fsdp,
            "seq": pplan.layout.seq, "ring": pplan.layout.ring,
            "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
-           "pool_heads": state["k_pages"].shape[3], "rows": b,
+           "pool_heads": state["k_pages"].shape[3], "rows": p["rows"],
            "row0": pplan.mesh.flat_index(pplan.batch_axes)
            if pplan.batch_axes else 0}
     state = shard_decode_state(state, dplan)
     if pplan.layout.attn != dplan.layout.attn:  # the ring prefill's whole
-        params = sharded_params_from_numpy(c["params"], model, dplan,
+        params = sharded_params_from_numpy(c["params"], p["model"], dplan,
                                            device="cpu")
     steps = []
     for i in range(c["steps"]):
-        logits, state = sstep(params, mine["forced"][:, i].int(), state)
+        logits, state = p["sstep"](params, p["mine"]["forced"][:, i].int(),
+                                   state)
         steps.append(_np(logits))
     out["steps"] = np.stack(steps)
     return out
@@ -835,3 +852,68 @@ def seq_parallel_cases(mesh, inputs):
         out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
     out["dry"] = _dry_cases(meshes, inputs["dry"], mesh.rank)
     return out
+
+
+def _ws_case(mesh, c):
+    """One weight-stationary decode case: the rank's rows prefilled under
+    the prefill plan (``_prefilled``), ``shard_decode_state`` into the
+    ``ws_decode`` plan (every row on every rank), then ``c["steps"]``
+    decode steps teacher-forced by the reference's greedy tokens, with
+    every collective's mesh axes recorded (a spy on ``distributed.
+    collectives``) and ``layers.gather_fsdp`` refused during them."""
+    import torch
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.collectives import shard_decode_state
+    from repro_torch.models import layers
+    p = _prefilled(mesh, c, forced=False, ws_decode=True)
+    dplan, params = p["dplan"], p["params"]
+    state = shard_decode_state(p["state"], dplan)
+    out = {"scheme": dplan.scheme, "batch_axes": dplan.batch_axes,
+           "kv_axes": dplan.kv_axes, "act_embed": dplan.layout.act_embed,
+           "fsdp": dplan.layout.fsdp, "attn": dplan.layout.attn,
+           "vocab": dplan.layout.vocab, "mlp": dplan.layout.mlp,
+           "moe": dplan.layout.moe(), "prefill_rows": p["rows"],
+           "rows": int(state["pos"].shape[0]),
+           "table_shape": tuple(state["tables"].shape)}
+    names = ("all_reduce", "all_gather", "all_gather_dim", "reduce_scatter",
+             "all_to_all")
+    orig = {n: getattr(coll, n) for n in names}
+    calls = []
+
+    def spy(n):
+        def f(x, axes, *a, **k):
+            calls.append((n, tuple(axes)))
+            return orig[n](x, axes, *a, **k)
+        return f
+
+    def refuse(*a, **k):
+        raise AssertionError("gather_fsdp under weight-stationary decode")
+
+    gather = layers.gather_fsdp
+    steps = []
+    try:
+        for n in names:
+            setattr(coll, n, spy(n))
+        layers.gather_fsdp = refuse
+        forced = torch.from_numpy(c["forced"])
+        for i in range(c["steps"]):
+            logits, state = p["sstep"](params, forced[i].int(), state)
+            steps.append(_np(logits))
+    finally:
+        for n in names:
+            setattr(coll, n, orig[n])
+        layers.gather_fsdp = gather
+    out["steps"] = np.stack(steps)
+    out["calls"] = calls
+    return out
+
+
+def ws_cases(mesh, inputs):
+    """Every case of tests/test_torch_ws_decode.py on a 4-rank world,
+    each on its mesh: (2, 2), (2, 1) (``_launch_meshes``) and the
+    (2, 2, 1) ("pod", "data", "model") mesh over the four ranks."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(2, 2, 1)] = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    return {name: _ws_case(meshes[c["mesh"]], c)
+            for name, c in inputs.items()}

@@ -121,10 +121,9 @@ PLAN_CONFIGS = ["llama2-7b", "granite-8b", "nemotron-4-15b", "llama3-405b",
                 "granite-moe-1b-a400m", "recurrentgemma-9b"]
 
 
-@pytest.mark.parametrize("name", PLAN_CONFIGS)
-@pytest.mark.parametrize("mshape", [(1, 2), (2, 2), (1, 16), (16, 16)])
-@pytest.mark.parametrize("scheme", [None, "kvp", "dp"])
-def test_plan_for_matches_jax(name, mshape, scheme):
+def _plans_match_jax(name, mshape, scheme, ws_decode):
+    """``plan_for`` of the decode, prefill and train runs of ``name`` on
+    ``mshape`` against the JAX ``plan_for`` with the same knobs."""
     from repro.configs import get_config as jget
     from repro.configs.base import RunConfig as JRun
     from repro.launch.steps import plan_for as jplan
@@ -132,27 +131,52 @@ def test_plan_for_matches_jax(name, mshape, scheme):
     for B, S in ((8, 4096), (1, 8192)):
         got = plan_for(RunConfigT(model=get_config_t(name), seq_len=S,
                                   global_batch=B, kind="decode"),
-                       Mesh(mshape, names), scheme=scheme)
+                       Mesh(mshape, names), scheme=scheme,
+                       ws_decode=ws_decode)
         want = jplan(JRun(model=jget(name), seq_len=S, global_batch=B,
                           kind="decode"), _jax_mesh(mshape, names),
-                     scheme=scheme)
+                     scheme=scheme, ws_decode=ws_decode)
         assert (got.scheme, got.batch_axes, got.kv_axes) == (
             want.scheme, want.batch_axes, want.kv_axes), (B, S)
         assert dict(got.rules.table) == dict(want.rules.table)
         assert got.n_kv_shards == want.n_kv_shards
-    # the prefill and train plans: JAX's too (the train plan takes no
-    # scheme; tests/test_torch_launch.py covers them on more meshes)
+        # the activations' cut: "data" where it holds ranks and divides
+        # d_model, under the ws plan only
+        act = ("data",) if ws_decode and mshape[0] > 1 else ()
+        assert got.layout.act_embed == act
+    # the prefill and train plans: JAX's too, whatever ``ws_decode`` (the
+    # train plan takes no scheme; tests/test_torch_launch.py covers them
+    # on more meshes)
     for kind in ("prefill", "train"):
         got = plan_for(RunConfigT(model=get_config_t(name), seq_len=2048,
                                   global_batch=4, kind=kind),
-                       Mesh(mshape, names), scheme=scheme)
+                       Mesh(mshape, names), scheme=scheme,
+                       ws_decode=ws_decode)
         want = jplan(JRun(model=jget(name), seq_len=2048, global_batch=4,
                           kind=kind), _jax_mesh(mshape, names),
-                     scheme=scheme)
+                     scheme=scheme, ws_decode=ws_decode)
         assert (got.scheme, got.batch_axes, got.kv_axes,
                 got.microbatches) == (want.scheme, want.batch_axes,
                                       want.kv_axes, want.microbatches)
         assert dict(got.rules.table) == dict(want.rules.table)
+        assert got.layout.act_embed == ()
+
+
+@pytest.mark.parametrize("name", PLAN_CONFIGS)
+@pytest.mark.parametrize("mshape", [(1, 2), (2, 2), (1, 16), (16, 16)])
+@pytest.mark.parametrize("scheme", [None, "kvp", "dp"])
+def test_plan_for_matches_jax(name, mshape, scheme):
+    _plans_match_jax(name, mshape, scheme, False)
+
+
+@pytest.mark.parametrize("name", PLAN_CONFIGS)
+@pytest.mark.parametrize("mshape", [(1, 2), (2, 2), (1, 16), (16, 16)])
+@pytest.mark.parametrize("scheme", [None, "kvp", "dp"])
+def test_plan_for_matches_jax_ws_decode(name, mshape, scheme):
+    """``ws_decode=True``: the weight-stationary decode plan (no batch
+    axes, kvp over every mesh axis, ``act_embed`` over "data") is JAX's;
+    the prefill and train plans ignore the knob, as JAX's do."""
+    _plans_match_jax(name, mshape, scheme, True)
 
 
 LAYOUT_CASES = [

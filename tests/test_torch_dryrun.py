@@ -9,14 +9,19 @@ the CPU at smoke size.
   under FSDP (its ``embed: ("data",)`` override: the weights' gathers,
   the gradients' reduce-scatters, the in-place AdamW) in train on (2, 1)
   and (2, 2), prefill on (2, 2) and kvp decode (``"q_heads"``) on (2, 2),
-  each rank once for real on CPU tensors (``cost_analysis.record_step``)
-  and once dry (``dry_step`` on a dry mesh of the same shape and rank):
+  and its weight-stationary decode (``ws_decode``) on (2, 1) and under
+  kvp on (2, 2), each rank once for real on CPU tensors
+  (``cost_analysis.record_step``) and once dry (``dry_step`` on a dry
+  mesh of the same shape and rank):
   FLOPs equal exactly, the collectives' calls and bytes per op equal
   the real mesh's ``stats`` exactly, and the dry peak is within
   ``PEAK_TOL`` of the real one and never below it.
 - At the production size: llama3-405b's decode_32k on (16, 16) fits
-  (``"q_heads"`` and FSDP), and the reduce-scatter bytes of an FSDP
-  train step are counted.
+  (``"q_heads"`` and FSDP), the reduce-scatter bytes of an FSDP
+  train step are counted, and granite-8b's decode_32k pair with and
+  without ``--ws-decode``: the ws pair gathers no weight over "data",
+  and its all-reduces over "data" are the partials counted from the
+  shapes.
 - Against JAX: ``count_params``/``param_bytes`` on every config's
   parameters, ``model_flops`` for every config and kind, ``collective_
   bytes`` per kind on HLO lines of the same shapes and groups,
@@ -87,7 +92,15 @@ CASES.update({"fsdp train (2, 1)": ((2, 1), "train", None, "granite-8b"),
               "fsdp prefill (2, 2)": ((2, 2), "prefill", None,
                                       "granite-8b"),
               "fsdp decode (2, 2) kvp": ((2, 2), "decode", "kvp",
-                                         "granite-8b")})
+                                         "granite-8b"),
+              # weight-stationary decode: every row on every rank, the
+              # activations cut along embed over "data"
+              "fsdp ws decode (2, 1)": ((2, 1), "decode", None,
+                                        "granite-8b", {},
+                                        {"ws_decode": True}),
+              "fsdp ws decode (2, 2) kvp": ((2, 2), "decode", "kvp",
+                                            "granite-8b", {},
+                                            {"ws_decode": True})})
 
 
 def _jax_dryrun():
@@ -130,7 +143,15 @@ def test_dry_collectives_equal_the_real_mesh_stats(ranks, name):
         assert bool(got["real"]["calls"]) == (
             shape[1] > 1 or (kind == "train" and shape[0] > 1)
             or (config == "granite-8b" and shape[0] > 1))
-        if config == "granite-8b":  # FSDP: the gathers, the grads' scatter
+        if config == "granite-8b" and " ws " in name:
+            # no weight gathered: on (2, 2) each layer's kvp merge (over
+            # "data" and "model" at once) and "q_heads" gather (over
+            # "model"), and the logits' vocab gather
+            assert got["real"]["calls"].get("all_gather", 0) == (
+                2 * get_config(config).smoke().n_layers + 1
+                if shape[1] > 1 else 0)
+            assert got["real"]["calls"]["all_reduce"] > 0
+        elif config == "granite-8b":  # FSDP: the gathers, the grads' scatter
             assert got["real"]["calls"]["all_gather"] > 0
             # beside the activations' reduce-scatters of a sequence-
             # parallel plan: the lookup's and each layer's two row-
@@ -232,6 +253,36 @@ def test_405b_decode_fits_under_q_heads_and_fsdp():
     assert res["plan"]["rules"]["embed"] == ("data",)
     assert res["fits"] and res["memory"]["peak_bytes"] < 20e9
     assert res["collective_calls"]["all_gather"] > 0
+
+
+def test_ws_decode_pair_gathers_no_weight():
+    """granite-8b's decode_32k pair at its real size on rank 0 of (16,
+    16), with and without ``--ws-decode``: the plain pair all-gathers
+    FSDP's weights over "data" every layer, the ws pair none; the ws
+    pair's all-reduces over "data" are exactly the f32 partials of its
+    layers — per layer the two norms' sums (B, 1), q/k/v packed (B, (H/m
+    + 2 Hkv) hd) (kvp's ``"q_heads"``: H/m q heads, every kv head) and
+    the MLP's ``wg``/``wu`` (B, 2 d_ff/m); then the final norm's and the
+    logits' (B, V/m) — in every row (no batch axes)."""
+    cfg = get_config("granite-8b")
+    plain = dryrun.run_pair("granite-8b", "decode_32k", False)
+    ws = dryrun.run_pair("granite-8b", "decode_32k", False, ws_decode=True)
+    assert plain["status"] == ws["status"] == "ok"
+    assert plain["plan"]["scheme"] == ws["plan"]["scheme"] == "kvp"
+    assert plain["plan"]["attn"] == ws["plan"]["attn"] == ["q_heads"]
+    assert ws["plan"]["ws"]["batch_axes"] == ()
+    assert ws["plan"]["ws"]["kv_axes"] == ("data", "model")
+    assert ws["plan"]["ws"]["act_embed"] == ("data",)
+    assert plain["collectives_by_axes"]["data"]["all-gather"]["bytes"] > 0
+    assert "all-gather" not in ws["collectives_by_axes"].get("data", {})
+    B, m = 128, 16
+    hd = cfg.resolved_head_dim
+    per_layer = 1 + (cfg.n_heads // m + 2 * cfg.n_kv_heads) * hd + 1 + (
+        2 * cfg.d_ff // m)
+    n = cfg.n_layers * per_layer + 1 + cfg.vocab_size // m
+    got = ws["collectives_by_axes"]["data"]["all-reduce"]
+    assert got["bytes"] == B * n * 4
+    assert got["calls"] == 4 * cfg.n_layers + 2
 
 
 def test_fsdp_train_counts_reduce_scatter_bytes():
