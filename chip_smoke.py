@@ -6494,7 +6494,7 @@ DIST_RANKS = 2
 DIST_STEPS = 32
 # the bf16 llama2-7b cases' depth, of 32: gloo all-reduces each layer's
 # sums between the processes over a case's 32 steps
-DIST_BF16_LAYERS = 8
+DIST_BF16_LAYERS = 4
 DIST_TP_LENS = [256, 439, 622, 805, 988, 1171, 1354, 1536]
 DIST_KVP_LONG = 8192
 # batch 8 under kvp: rows of 1 and 64 tokens hold one page, so the second
@@ -6936,6 +6936,10 @@ def k2_dist_row(torch, chk):
 LAUNCH_MESHES = ((2, 1), (1, 2))
 LAUNCH_DECODE_STEPS = 4
 LAUNCH_TRAIN_B, LAUNCH_TRAIN_S, LAUNCH_TRAIN_STEPS = 4, 512, 2
+# the depth of the llama2-7b train cases on (1, 2) (sequence cut, ring,
+# uncut): gloo moves every layer's gathers and reduce-scatters between
+# the processes
+LAUNCH_SEQ_LAYERS = 2
 LAUNCH_GRAD_TOL = 1e-4  # |g - g_one| <= tol * (1 + |g_one|), f32
 LAUNCH_STEP_TOL = 2e-4  # params after the steps against one device's
 LAUNCH_LR = 3e-4  # the train steps' learning rate (the JAX builder's)
@@ -6961,11 +6965,22 @@ LAUNCH_SERVE_REQUESTS = 8
 LAUNCH_KEYS = ("flex_prefill/tc", "flex_prefill/tf32x3", "paged_decode",
                "combine/decode", "combine/dist")
 # weight-stationary decode (``plan_for(ws_decode=True)``) of the FSDP
-# prefill case's state: (name, decode plan knobs); the dry phase holds
-# the last one's step (kvp: K1 on the stripe, the merge's all-gather, K2
-# across the ranks, besides every all-reduce of the tp one)
-LAUNCH_WS_TAILS = (("ws tp", {"ws_decode": True}),
-                   ("ws kvp", {"ws_decode": True, "scheme": "kvp"}))
+# prefill case's state: (name, decode plan knobs, steps, whether the dry
+# phase holds its step); the dry phase holds the last one's step (kvp: K1
+# on the stripe, the merge's all-gather, K2 across the ranks, besides
+# every all-reduce of the tp one)
+LAUNCH_WS_TAILS = (("ws tp", {"ws_decode": True}, LAUNCH_DECODE_STEPS,
+                    False),
+                   ("ws kvp", {"ws_decode": True, "scheme": "kvp"},
+                    LAUNCH_DECODE_STEPS, True))
+# recurrentgemma-9b under a mesh: full width (d 4096, lru_width 4096, 16
+# heads over 1 kv head at D 256, d_ff 12288, vocab 256000), one RRW unit,
+# f32 (its one-device AdamW state ≈ 44 GB: two ranks cannot each hold one,
+# so the train cases' reference is computed in turns, ``train_reference``);
+# its prefill state decoded again weight-stationary on (2, 1)
+LAUNCH_RG = "recurrentgemma-9b"
+LAUNCH_RG_LAYERS = 3
+LAUNCH_RG_TAILS = (("ws", {"ws_decode": True}, 2, False),)
 
 
 def launch_prefill_cases():
@@ -6986,7 +7001,14 @@ def launch_prefill_cases():
     state again (``launch_ws_tail``): weight-stationary under tp (every
     rank holds all 8 rows) and under kvp (the pages striped over
     "data": K1 on each process's stripe, K2 ``combine/dist`` across
-    both)."""
+    both).  Last, recurrentgemma-9b at one ``RRW`` unit in f32
+    (``LAUNCH_RG``): on (1, 2) its RG-LRU channels over "model" and the
+    sequence cut (K4 at D 256 for the ``W`` layer, the gates'
+    reduce-scatter in every ``R`` layer), then dp decode (K1 at G 8 a
+    rank); on (2, 1) its rows over "data", then decoded again
+    weight-stationary (every row on each rank, the recurrent state's
+    rows gathered).  The ws tails run on meshes whose "data" axis holds
+    more than one rank."""
     return [("bf16", "llama2-7b", "bfloat16", None, ((2, 1),), {}, ()),
             ("f32", "llama2-7b", "float32", 4, LAUNCH_MESHES, {}, ()),
             ("fsdp granite-8b bf16", "granite-8b", "bfloat16", 4,
@@ -6996,7 +7018,9 @@ def launch_prefill_cases():
             ("bf16 8 layers", "llama2-7b", "bfloat16", 8, ((1, 2),), {},
              ()),
             ("no-seq f32", "llama2-7b", "float32", 4, ((1, 2),),
-             {"seq_parallel": False}, ())]
+             {"seq_parallel": False}, ()),
+            ("rglru f32", LAUNCH_RG, "float32", LAUNCH_RG_LAYERS,
+             ((1, 2), (2, 1)), {}, LAUNCH_RG_TAILS)]
 
 
 def launch_references(torch, work):
@@ -7048,34 +7072,44 @@ def launch_train_cases():
     """(name, mesh shape, run, steps, microbatches or None for the
     plan's, plan knobs) of the launch phase's train rank cases: llama2-7b
     on both launch meshes (on (2, 1) at 1 layer: gloo sums every
-    gradient between the processes; on (1, 2) cut along the sequence,
-    the plans' default), granite-8b under FSDP on (2, 1) for one step
-    (at 4 layers: gloo's reduce-scatter scratch, 0.805 GB beyond the dry
-    run's peak, stays within ``DRY_PEAK_TOL`` of it), granite-moe-1b-a400m
+    gradient between the processes; on (1, 2) at ``LAUNCH_SEQ_LAYERS``,
+    cut along the sequence, the plans' default), granite-8b under FSDP
+    on (2, 1) for one step (at 4 layers: gloo's reduce-scatter scratch,
+    0.805 GB beyond the dry run's peak, stays within ``DRY_PEAK_TOL`` of
+    it), granite-moe-1b-a400m
     on (1, 2) under GSPMD's expert cut and under ``moe_ep`` (the
     all-to-all under grad), in one microbatch: at its capacity 1.25 the
     drops are each microbatch's, so the plan's 2 would leave one
     device's plain step (its f32 logits, vocab 49155 whole on 2 ranks,
     pass the 256 MB budget), llama2-7b on (1, 2) under the ring plan
     (ring attention under grad, the heads' q/k/v all-to-all'd to the
-    sequence cut and back), and llama2-7b on (1, 2) with
+    sequence cut and back) and with
     ``seq_parallel=False`` (the activations whole, the row-parallel sums
-    all-reduced)."""
+    all-reduced), and recurrentgemma-9b at one ``RRW`` unit on (1, 2),
+    one step under the sequence cut and one under the ring plan, in one
+    microbatch (its f32 logits pass the budget: the plan's 4 would only
+    take longer), both from one reference (``train_reference``)."""
     moe = "granite-moe-1b-a400m"
     return [("(2, 1)", (2, 1), launch_train_run(n_layers=1),
              LAUNCH_TRAIN_STEPS, None, {}),
-            ("(1, 2)", (1, 2), launch_train_run(), LAUNCH_TRAIN_STEPS, None,
-             {}),
+            ("(1, 2)", (1, 2), launch_train_run(n_layers=LAUNCH_SEQ_LAYERS),
+             LAUNCH_TRAIN_STEPS, None, {}),
             ("(2, 1) fsdp granite-8b", (2, 1), launch_train_run("granite-8b"),
              1, None, {}),
             ("(1, 2) experts cut granite-moe", (1, 2), launch_train_run(moe),
              LAUNCH_TRAIN_STEPS, 1, {}),
             ("(1, 2) experts ep granite-moe", (1, 2),
              launch_train_run(moe, moe_ep=True), LAUNCH_TRAIN_STEPS, 1, {}),
-            ("(1, 2) ring llama2-7b", (1, 2), launch_train_run(),
+            ("(1, 2) ring llama2-7b", (1, 2),
+             launch_train_run(n_layers=LAUNCH_SEQ_LAYERS),
              LAUNCH_TRAIN_STEPS, None, {"ring": True}),
-            ("(1, 2) no-seq llama2-7b", (1, 2), launch_train_run(),
-             LAUNCH_TRAIN_STEPS, None, {"seq_parallel": False})]
+            ("(1, 2) no-seq llama2-7b", (1, 2),
+             launch_train_run(n_layers=LAUNCH_SEQ_LAYERS),
+             LAUNCH_TRAIN_STEPS, None, {"seq_parallel": False}),
+            ("(1, 2) rglru", (1, 2), launch_train_run(
+                LAUNCH_RG, LAUNCH_RG_LAYERS), 1, 1, {}),
+            ("(1, 2) ring rglru", (1, 2), launch_train_run(
+                LAUNCH_RG, LAUNCH_RG_LAYERS), 1, 1, {"ring": True})]
 
 
 def rank_case_name(run, plan, mesh):
@@ -7283,9 +7317,10 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
     ``shard_decode_state``, then the decode steps teacher-forced by one
     device's greedy tokens (under the ring plan with the decode plan's
     cut of the weights); logits against one device's rows; the
-    prefill's ms by events, its peak and its collectives.  Then the
-    prefilled state decoded again under each of ``tails``' decode plans
-    (``launch_ws_tail``)."""
+    prefill's ms by events, its peak and its collectives, and the decode
+    steps' collectives.  Then, on a mesh whose "data" axis holds more
+    than one rank, the prefilled state decoded again under each of
+    ``tails``' decode plans (``launch_ws_tail``)."""
     from repro_torch import kernels
     from repro_torch.configs.base import RunConfig
     from repro_torch.distributed.collectives import shard_decode_state
@@ -7348,6 +7383,7 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
         outs, decode_ms = [logits.float().cpu()], []
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
+        stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
         for s in range(LAUNCH_DECODE_STEPS):
             e0.record()
             logits, state = sstep(params, mine["forced"][:, s].int(), state)
@@ -7355,14 +7391,20 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
             e1.synchronize()
             decode_ms.append(e0.elapsed_time(e1))
             outs.append(logits.float().cpu())
+        decode_coll = {k: {op: n - stats0[k].get(op, 0)
+                           for op, n in mesh.stats[k].items()
+                           if n - stats0[k].get(op, 0)}
+                       for k in ("calls", "bytes")}
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
+    tails = tails if mesh.size("data") > 1 else ()
     ws = {tail: launch_ws_tail(torch, mesh, model, params, filled, drun,
-                               ref, dt, kw)
-          for tail, kw in tails}
+                               ref, dt, kw, steps)
+          for tail, kw, steps, _ in tails}
     del filled
-    dry = (dry_rank_ws(torch, mesh, tails[-1][1], model, params)
-           if tails else None)
+    dry = next((dry_rank_ws(torch, mesh, kw, model, params)
+                for _, kw, _, held in tails if held), None)
+    rec = [p["rec"] for p in params["layers"] if "rec" in p]
     rows = slice(r0, r0 + b)
     res = logits_gap(torch.stack(outs), ref["logits"][:, rows],
                      ref["tokens"][:, rows], dt)
@@ -7377,18 +7419,23 @@ def launch_rank_prefill(torch, mesh, work, i, name, cfg_name, dt, nl,
                    t["launches"][k] for t in ws.values())
                    for k in LAUNCH_KEYS},
                ws=ws, dry=dry, decode_ms=decode_ms,
+               decode_collectives=decode_coll, head_dim=cfg.resolved_head_dim,
+               n_rec=len(rec), state=dplan.layout.state,
+               rec_channels=int(rec[0]["wa"].shape[0]) if rec else None,
+               lru_width=cfg.lru_width,
                seconds=time.perf_counter() - t_case)
     del params, state, logits
     torch.cuda.empty_cache()
     return res
 
 
-def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw):
+def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw,
+                   steps=LAUNCH_DECODE_STEPS):
     """The weight-stationary tail of a prefill case on this rank: the
     prefilled ``filled`` (the rank's rows under the prefill plan) taken
     by ``shard_decode_state`` into the decode plan of ``drun`` with the
     knobs ``kw`` (``ws_decode``: every row on every rank), then
-    ``LAUNCH_DECODE_STEPS`` steps teacher-forced by one device's tokens
+    ``steps`` steps teacher-forced by one device's tokens
     with the same FSDP pieces (never gathered): every row's logits
     against one device's, each step's ms by events, the steps'
     collectives and launches, and the shard's seconds."""
@@ -7407,7 +7454,7 @@ def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw):
         kernels.reset_launch_counts()
         stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
         outs, times = [], []
-        for s in range(LAUNCH_DECODE_STEPS):
+        for s in range(steps):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -7421,8 +7468,8 @@ def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw):
     coll = {k: {op: n - stats0[k].get(op, 0)
                 for op, n in mesh.stats[k].items()
                 if n - stats0[k].get(op, 0)} for k in ("calls", "bytes")}
-    got, want = torch.stack(outs), ref["logits"][1:]
-    res = logits_gap(got, want, ref["tokens"][1:], dt)
+    got, want = torch.stack(outs), ref["logits"][1:steps + 1]
+    res = logits_gap(got, want, ref["tokens"][1:steps + 1], dt)
     # each greedy token off one device's: (step, row, one device's top-2
     # margin, the rank's logit gap between the two tokens)
     top2 = want.topk(2, dim=-1).values
@@ -7430,7 +7477,7 @@ def launch_ws_tail(torch, mesh, model, params, filled, drun, ref, dt, kw):
     res["flips"] = [
         [s, b, float(top2[s, b, 0] - top2[s, b, 1]),
          float(got[s, b, mine[s, b]] - got[s, b, ref["tokens"][s + 1, b]])]
-        for s, b in (mine != ref["tokens"][1:]).nonzero().tolist()]
+        for s, b in (mine != ref["tokens"][1:steps + 1]).nonzero().tolist()]
     res.update(scheme=plan.scheme, batch_axes=list(plan.batch_axes),
                kv_axes=list(plan.kv_axes),
                act_embed=list(plan.layout.act_embed),
@@ -7488,14 +7535,37 @@ def dry_rank_ws(torch, mesh, kw, model=None, params=None):
     return res
 
 
+def train_reference(torch, run, plan, reference, kept):
+    """``reference()`` (one device's steps of ``run``: its losses, grad
+    norms, and the rank's cut of its gradients and params on the host),
+    computed by one rank at a time — the others wait at a barrier with
+    nothing on the card, since two ranks cannot each hold one device's
+    state — and kept in ``kept`` for the later cases of the same run and
+    cut."""
+    import torch.distributed as dist
+    from repro_torch.launch.steps import param_specs, spec_leaves
+    from repro_torch.models.api import build_model
+    key = (repr(run), tuple(spec_leaves(param_specs(
+        build_model(run.model), plan))))
+    if key not in kept:
+        for turn in range(dist.get_world_size()):
+            if dist.get_rank() == turn:
+                kept[key] = reference()
+            torch.cuda.synchronize()
+            dist.barrier()
+    return kept[key]
+
+
 def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
-                      microbatches=None, knobs=None):
+                      microbatches=None, knobs=None, kept=None):
     """On this rank: ``run`` (``launch_train_run()``, llama2-7b at 4 layers,
     by default; f32) trained under the train plan of ``mesh`` (with
     ``microbatches`` when given, and the plan's ``knobs``): one
     device's gradients at each step and its params after ``n_steps``
     plain steps (computed here from the same weights, the rank's cut
-    kept on the host), then the rank's steps, their gradients
+    kept on the host; for recurrentgemma-9b in turns and shared, through
+    ``kept``, by its cases: ``train_reference``), then the rank's steps,
+    their gradients
     (``GradTape``) and params against them; the bytes of the rank's
     state beside the whole state's, and the collectives of its steps.
     An MoE run's rank replays one device's routing (``RouteTape``, call
@@ -7535,20 +7605,31 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     def routed(replay):
         return tape.pass_(replay) if tape else contextlib.nullcontext()
 
-    full = weights(None)
-    with routed(False):
-        st = TrainState.create(full)
-        whole_gb = storage_bytes(torch, st) / 1e9
-        ref_loss, ref_gnorm = [], []
-        grads_tape.mode = "record"
-        for b in batches:
-            st, m = one_step(st, b)
-            ref_loss.append(float(m["loss"]))
-            ref_gnorm.append(float(m["grad_norm"]))
-    ref_params = [x.cpu() for x in tree_leaves(
-        model.shard_params(st.params, plan))]
-    del st, full
-    torch.cuda.empty_cache()
+    def reference():
+        full = weights(None)
+        with routed(False):
+            st = TrainState.create(full)
+            out = {"whole_gb": storage_bytes(torch, st) / 1e9, "loss": [],
+                   "gnorm": []}
+            grads_tape.mode = "record"
+            for b in batches:
+                st, m = one_step(st, b)
+                out["loss"].append(float(m["loss"]))
+                out["gnorm"].append(float(m["grad_norm"]))
+        out["params"] = [x.cpu() for x in tree_leaves(
+            model.shard_params(st.params, plan))]
+        out["grads"], grads_tape.ref = grads_tape.ref, []
+        del st, full
+        torch.cuda.empty_cache()
+        return out
+
+    if run.model.name == LAUNCH_RG:
+        ref = train_reference(torch, run, plan, reference, kept)
+    else:
+        ref = reference()
+    grads_tape.ref = ref["grads"]
+    ref_loss, ref_gnorm, whole_gb = ref["loss"], ref["gnorm"], ref["whole_gb"]
+    ref_params = ref["params"]
     torch.cuda.reset_peak_memory_stats()
     params = weights(plan)
     mine = [shard_batch(b, plan) for b in batches]
@@ -7577,7 +7658,7 @@ def launch_rank_train(torch, mesh, run=None, n_steps=LAUNCH_TRAIN_STEPS,
     param_err, flagged_err, flagged, n_elems, flagged_top = flagged_gaps(
         tree_leaves(st.params), ref_params, grads_tape.flags,
         [path for path, _ in tree_paths(st.params)])
-    del ref_params
+    del ref_params, ref
     grads_tape.flags = None  # the step keeps the tape, off
     experts = None
     if run.model.is_moe:  # the rank's experts, and its moments', of E
@@ -7627,9 +7708,10 @@ def launch_rank(torch, work):
                     tails)
     # the dry run of a ws decode step (a dry phase rank case)
     out["dry"] = [c["dry"] for c in out["prefill"].values() if c["dry"]]
+    kept = {}  # the references computed in turns (``train_reference``)
     for name, shape, run, n_steps, mb, knobs in launch_train_cases():
         out["train"][name] = launch_rank_train(torch, meshes[shape], run,
-                                               n_steps, mb, knobs)
+                                               n_steps, mb, knobs, kept)
     out["host_copies"] = {str(s): dict(m.host_copies)
                           for s, m in meshes.items()}
     return out
@@ -7751,10 +7833,47 @@ def ws_tail_misses(name, r, t):
     return misses
 
 
+def rglru_misses(name, r, c):
+    """Log the ``R`` layers of a recurrentgemma-9b prefill case of rank
+    ``r`` and return its misses: channels other than ``lru_width`` / 2 a
+    rank on (1, 2) (the whole on (2, 1)); decode steps whose
+    reduce-scatters are not exactly one a ``R`` layer and step (the
+    gates' packed ``wa|wi`` partials, none on (2, 1)); a prefill on
+    (1, 2) without them."""
+    steps = len(c["decode_ms"])
+    calls, nbytes = (c["decode_collectives"]["calls"],
+                     c["decode_collectives"]["bytes"])
+    pcalls = c["prefill_collectives"]["calls"]
+    cut = name.startswith("(1, 2)")
+    rs = steps * c["n_rec"] if cut else 0
+    log(f"launch rank {r} prefill {name}: R layers {c['n_rec']}, channels "
+        f"{c['rec_channels']} of {c['lru_width']} a rank (cut "
+        f"{c['state']}); decode collectives a step: reduce-scatters "
+        f"{calls.get('reduce_scatter', 0) / steps:g} "
+        f"({nbytes.get('reduce_scatter', 0) / steps:.4g} B), all-reduces "
+        f"{calls.get('all_reduce', 0) / steps:g} "
+        f"({nbytes.get('all_reduce', 0) / steps:.4g} B), all-gathers "
+        f"{calls.get('all_gather', 0) / steps:g}; the prefill's "
+        f"reduce-scatters {pcalls.get('reduce_scatter', 0)} "
+        f"({c['prefill_collectives']['bytes'].get('reduce_scatter', 0):.4g}"
+        f" B)")
+    want = c["lru_width"] // (DIST_RANKS if cut else 1)
+    if (c["rec_channels"] != want or c["state"] != cut
+            or calls.get("reduce_scatter", 0) != rs
+            or (cut and not pcalls.get("reduce_scatter"))):
+        return [f"launch prefill {name} rank {r}: channels "
+                f"{c['rec_channels']} (want {want}), cut {c['state']}, "
+                f"decode reduce-scatters {calls.get('reduce_scatter', 0)} "
+                f"(want {rs})"]
+    return []
+
+
 def launch_check(ranks):
     """The launch cases of the ranks' results: log each and fail on any
-    bound; returns the ranks' launches summed per kernel key."""
+    bound; returns the ranks' launches summed per kernel key, those at
+    head dim 256 (recurrentgemma-9b's, the D-256 instances) apart."""
     launches = dict.fromkeys(LAUNCH_KEYS, 0)
+    d256 = dict.fromkeys(LAUNCH_KEYS, 0)
     misses = []  # every case is logged before the run fails on any
     for res in ranks:
         r = res["rank"]
@@ -7798,8 +7917,11 @@ def launch_check(ranks):
                     f"{c['fsdp']}")
             for tail, t in c["ws"].items():
                 misses += ws_tail_misses(f"{name} {tail}", r, t)
+            if c["n_rec"]:
+                misses += rglru_misses(name, r, c)
             for k in LAUNCH_KEYS:
-                launches[k] += c["launches"][k]
+                (d256 if c["head_dim"] == 256 else launches)[k] += (
+                    c["launches"][k])
         for name, c in res["launch"]["train"].items():
             log(f"launch rank {r} train {name} (attn {c['attn']}, vocab cut "
                 f"{c['vocab']}, FSDP over {c['fsdp']}, {c['microbatches']} "
@@ -7875,7 +7997,7 @@ def launch_check(ranks):
             f"cases {sum(d['seconds'] for d in res['launch']['dry']):.1f} s")
     if misses:
         fail("; ".join(misses))
-    return launches
+    return launches, d256
 
 
 DRY_PEAK_TOL = 0.10  # the dry run's predicted peak against the card's
@@ -8145,7 +8267,8 @@ def _dist_phase(torch, chk, work, t_phase, parts):
         + res.get("launch", {}).get("dry", []))]
     if "launch" in parts:
         t0 = time.perf_counter()
-        out["launch"]["launches"] = launch_check(ranks)
+        out["launch"]["launches"], out["launch"]["launches_d256"] = (
+            launch_check(ranks))
         out["launch"]["serve"] = launch_serve(torch)
         for report in out["launch"]["serve"].values():
             for k, n in report["launches"].items():
@@ -8491,8 +8614,10 @@ def main():
               # and the launch phase's (its ranks and launch.serve)
               + [collections.Counter(dist["launches"]),
                  collections.Counter(dist["launch"]["launches"])])
+    # and the launch phase's recurrentgemma-9b cases (its ranks)
     rg_phases = [rg["launches"], rg["logits"]["launches"],
-                 rg_f32["launches"]]
+                 rg_f32["launches"],
+                 collections.Counter(dist["launch"]["launches_d256"])]
     kernels_line = []
     for name, (fname, replaces, count, dtype) in {**meta, **d256}.items():
         r = rows[(name, dtype)]

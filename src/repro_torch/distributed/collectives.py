@@ -783,19 +783,53 @@ def dropped_batch_axes(plan) -> Tuple[str, ...]:
                  if a not in plan.batch_axes)
 
 
-def _gather_rows(pos, tables, kp, vp, axes):
+def _gather_rows(pos, tables, kp, vp, rec, axes):
     """Every rank's rows over the mesh ``axes`` (rank-major, the rows'
     order under ``launch.steps.shard_batch``): ``pos``, the tables with
     source rank i's page ids offset by i times its pool's pages (-1
-    stays -1), and the pools joined along their pages."""
+    stays -1), the pools joined along their pages and each leaf of the
+    recurrent state ``rec`` (None without one) along its rows (dim 1)."""
     n_pages = kp.shape[1]
     pos = all_gather_dim(pos, axes, 0)
     t = all_gather(tables, axes).long()  # (n, B_l, 1, pps)
     off = torch.arange(t.shape[0], device=t.device).reshape(-1, 1, 1, 1)
     t = torch.where(t >= 0, t + off * n_pages, t)
     tables = t.reshape(-1, *t.shape[2:]).to(torch.int32)
+    if rec is not None:
+        rec = {code: {k: all_gather_dim(v, axes, 1) for k, v in leaves.items()}
+               for code, leaves in rec.items()}
     return (pos, tables, all_gather_dim(kp, axes, 1),
-            all_gather_dim(vp, axes, 1))
+            all_gather_dim(vp, axes, 1), rec)
+
+
+def _rec_channels(rec: Dict, plan) -> Dict:
+    """The recurrent state ``rec`` (``{"R": {"h": (n_R, B, w), "conv":
+    (n_R, B, cw - 1, w)}}``) with the channels of ``plan``'s layout: the
+    rank's ``w/m`` over "model" under ``TPLayout.state`` (cut here from a
+    state of every channel), else every channel; a copy.  Other blocks'
+    state (``M``, ``S``) raises ``UnsupportedFeature``; channels that are
+    neither the whole nor the plan's share raise ``EngineConfigError``."""
+    from repro_torch.distributed.sharding import shard_tensor
+    if set(rec) - {"R"}:
+        raise UnsupportedFeature(
+            f"shard_decode_state: the recurrent state of "
+            f"{sorted(set(rec) - {'R'})} layers is not distributed")
+    mesh, cfg = plan.mesh, plan.run.model
+    w = cfg.lru_width or cfg.d_model
+    m = mesh.size("model") if plan.layout.state else 1
+    out = {}
+    for k, v in rec["R"].items():
+        if v.shape[-1] == w // m:
+            out[k] = v.clone()
+        elif v.shape[-1] == w:
+            spec = (None,) * (v.dim() - 1) + ("model",)
+            out[k] = shard_tensor(v, spec, mesh) if m > 1 else v.clone()
+        else:
+            raise EngineConfigError(
+                f"shard_decode_state: the recurrent state holds "
+                f"{v.shape[-1]} channels, the plan's ranks {w // m}",
+                channels=v.shape[-1])
+    return {"R": out}
 
 
 def shard_decode_state(state: Dict, plan) -> Dict:
@@ -806,27 +840,38 @@ def shard_decode_state(state: Dict, plan) -> Dict:
     no batch axes): ``pos`` (B_l,), pools (L, N, P, Hkv, D) and tables
     (B_l, 1, pps), the pools of the rank's kv heads
     (``plan.layout.kv_heads``: its share under ``tp``, whose prefill wrote
-    only those) — to its decode layout:
+    only those), and with ``R`` layers the recurrent state ``rec``
+    (``{"R": {"h": (n_R, B_l, w'), "conv": (n_R, B_l, cw - 1, w')}}``) —
+    to its decode layout:
 
       * ``kvp``: the pages of the rank's stripe, logical page ``j·n + s``
         at local slot j, gathered into a new pool with tables (B_l, 1,
         ceil(pps / n)) of local ids (-1 stays -1);
-      * ``tp``/``dp``: the rows' pages as they are.
+      * ``tp``/``dp``: the rows' pages as they are;
+      * ``rec``: each row's state, as ``pos`` keeps its row, and the
+        channels of the plan's layout (``TPLayout.state``: the rank's
+        ``w/m`` over "model", cut here from a state of every channel;
+        else every channel).
 
     A state filled under a prefill plan whose rows are cut over more
     batch axes than ``plan``'s (a weight-stationary decode plan has
     none) is first gathered over the axes ``plan`` drops
-    (``dropped_batch_axes``): ``pos``, the tables and the pools, each
-    source rank's page ids offset by the pages of the ranks before it.
-    A state of another batch than that, or pools of another head count,
-    raise ``EngineConfigError``; other state entries (``rec``,
-    ``cross_k``) are not distributed yet and raise
+    (``dropped_batch_axes``): ``pos``, the tables, the pools, each
+    source rank's page ids offset by the pages of the ranks before it,
+    and the recurrent state's rows, in the same order.  A state of
+    another batch than that, pools of another head count or a recurrent
+    state of other channels raise ``EngineConfigError``; the
+    cross-attention K/V (``cross_k``/``cross_v``) and the state of ``M``
+    and ``S`` layers are not distributed yet and raise
     ``UnsupportedFeature``."""
     mesh = plan.mesh
-    extra = set(state) - {"pos", "k_pages", "v_pages", "tables"}
+    extra = set(state) - {"pos", "k_pages", "v_pages", "tables", "rec"}
     if extra:
         raise UnsupportedFeature(f"shard_decode_state: state entries "
                                  f"{sorted(extra)} are not distributed")
+    rec = state.get("rec")
+    if rec is not None:
+        rec = _rec_channels(rec, plan)
     kp, vp = state["k_pages"], state["v_pages"]
     if kp.shape[3] != plan.layout.kv_heads:
         raise EngineConfigError(
@@ -840,7 +885,8 @@ def shard_decode_state(state: Dict, plan) -> Dict:
     if pos.shape[0] * nb != plan.run.global_batch and dropped and (
             pos.shape[0] * nb * mesh.prod(dropped) == plan.run.global_batch):
         with use_mesh(mesh):
-            pos, tables, kp, vp = _gather_rows(pos, tables, kp, vp, dropped)
+            pos, tables, kp, vp, rec = _gather_rows(pos, tables, kp, vp, rec,
+                                                    dropped)
     if pos.shape[0] * nb != plan.run.global_batch:
         raise EngineConfigError(
             f"shard_decode_state: the state holds {pos.shape[0]} rows, the "
@@ -860,7 +906,10 @@ def shard_decode_state(state: Dict, plan) -> Dict:
     phys = keep[live]  # the pages this rank keeps, row-major
     new = torch.full_like(keep, -1)
     new[live] = torch.arange(len(phys), device=t.device)
-    return {"pos": pos.clone(),
-            "k_pages": kp[:, phys].contiguous(),
-            "v_pages": vp[:, phys].contiguous(),
-            "tables": new.to(torch.int32)[:, None, :].contiguous()}
+    out = {"pos": pos.clone(),
+           "k_pages": kp[:, phys].contiguous(),
+           "v_pages": vp[:, phys].contiguous(),
+           "tables": new.to(torch.int32)[:, None, :].contiguous()}
+    if rec is not None:
+        out["rec"] = rec
+    return out

@@ -234,7 +234,19 @@ class TPLayout:
         view of the whole weight (``models.layers.ws_pieces``) — and
         never gathered; a product that contracts ``embed`` sums its f32
         partials over these axes (``models.layers.ws_contract``), one
-        that produces ``embed`` computes the rank's columns only."""
+        that produces ``embed`` computes the rank's columns only;
+      * ``state``: the RG-LRU blocks' ``w = lru_width`` channels over
+        "model" (the JAX ``state`` rule, where "model" divides ``w``:
+        ``logical_spec``'s law), in every train, prefill and decode plan:
+        ``wx``/``wy`` by columns, ``conv``/``conv_b``/``a_log`` by
+        channel, ``wa``/``wi`` and ``wout`` by rows, the recurrent state
+        ``h`` and the conv window by channel.  The conv, the gates'
+        elementwise part and the scan run on the rank's channels alone;
+        ``wa``/``wi``'s f32 partials over the whole ``w`` are
+        reduce-scattered so that each rank keeps its own columns of the
+        gates, and ``wout``'s partial sums are reduced like ``wd``'s
+        (``models.rglru``).  Otherwise every rank holds the block
+        whole."""
 
     vocab: bool = False
     mlp: bool = False
@@ -246,6 +258,7 @@ class TPLayout:
     seq: bool = False
     ring: bool = False
     act_embed: Tuple[str, ...] = ()
+    state: bool = False
 
     def moe(self) -> str:
         """What a rank does with the MoE experts: ``"whole"`` (it holds
@@ -268,6 +281,7 @@ class TPLayout:
         on = {True: ("model",), False: None}
         return AxisRules({"vocab": on[self.vocab], "mlp": on[self.mlp],
                           "experts": on[self.experts],
+                          "state": on[self.state],
                           "embed": self.fsdp or None})
 
     def attn_rules(self, layer: int) -> AxisRules:

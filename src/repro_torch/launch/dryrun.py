@@ -36,7 +36,8 @@ Every number is a prediction from the datasheet constants of
 Results land in experiments/dryrun_torch/<arch>__<shape>__<mesh>[__tag]
 .json.  A pair the JAX package skips is ``"skipped"``; one the port
 refuses (``UnsupportedFeature``: a layer pattern the distributed steps do
-not take, a family without a paged decode state) is ``"unsupported"``
+not take — ``C``, ``M``, ``S`` — or a family without a paged decode
+state, the encoder–decoder) is ``"unsupported"``
 with the reason; only ``"error"`` makes the exit code nonzero.
 
 Usage:
@@ -129,6 +130,7 @@ def run_pair(arch: str, shape: str, multi_pod: bool,
                    "seq": plan.layout.seq, "attn_impl": plan.attn_impl,
                    "attn": sorted(set(plan.layout.attn)),
                    "experts": plan.layout.moe(),
+                   "state": plan.layout.state,
                    "rules": {k: v for k, v in plan.rules.table.items()
                              if v is not None}}
     if ws_decode and run.kind == "decode":

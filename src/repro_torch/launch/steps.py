@@ -31,8 +31,11 @@ The train plan's is the tensor-parallel cut (heads over "model" when it
 divides the kv heads, else q-head groups when it divides the group, else
 GSPMD's contiguous q heads; ``d_ff`` and the vocab where the rules put
 them on "model"), every MoE plan's experts over "model" where it divides
-them, and every plan's ``embed`` dims over the FSDP axes of its rules
-(the configs' ``embed: ("data",)`` override).  The prefill plan's is the
+them, every plan's RG-LRU channels over "model" where it divides
+``lru_width`` (the JAX ``state`` rule, ``TPLayout.state``: the blocks'
+weights and their recurrent state), and every plan's ``embed`` dims over
+the FSDP axes of its rules (the configs' ``embed: ("data",)``
+override).  The prefill plan's is the
 one the decode plan of the same config on the same mesh has, so that
 the state a rank prefills is the state ``shard_decode_state``
 takes: the JAX prefill plan shards the pools' head_dim over "model"
@@ -69,7 +72,11 @@ The spec trees depart from the JAX ones where the port holds something
 else than GSPMD would: the kv projections are cut with the q heads under
 the ``"heads"`` cut, the ``"groups"`` cut takes G/m heads of every group
 (strided) where GSPMD takes H/m contiguous ones, and the prefill pools
-follow the decode layout (above).  ``embed`` over the FSDP axes,
+follow the decode layout (above), and the recurrent state ``rec`` is
+cut by channel over "model" too where JAX's ``decode_state_shardings``
+keeps it whole over "model" (its rows over the batch axes alike), so
+that a decode step steps each rank's channels with no gather.
+``embed`` over the FSDP axes,
 ``wq``/``wo`` by contiguous heads (``"q_heads"``) and the experts over
 "model" in every MoE plan (GSPMD's cut, or the all-to-all of ``moe_ep``,
 which picks only how a rank computes them) are GSPMD's.
@@ -251,8 +258,9 @@ def _decode_scheme(cfg: ModelConfig, model_size: int,
 def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
             m: int) -> TPLayout:
     """Which weights a rank holds a piece of: over "model", the vocab,
-    ``d_ff`` and the experts where the rules put them on "model" alone
-    and it divides them (the experts under GSPMD's cut, or exchanged by
+    ``d_ff``, the experts and the RG-LRU channels (``state``: the blocks'
+    ``lru_width``) where the rules put them on "model" alone and it
+    divides them (the experts under GSPMD's cut, or exchanged by
     all-to-all under the config's ``moe_ep``: ``TPLayout.moe``), in
     train, prefill and decode plans alike; per ``A``/``W`` layer, the heads
     under tp, under dp (a windowed layer of a kvp plan too) the q heads
@@ -286,7 +294,9 @@ def _layout(cfg: ModelConfig, mesh, rules: AxisRules, scheme: str,
         experts=experts, ep=experts and cfg.moe_ep,
         attn=tuple(attn),
         kv_heads=cfg.n_kv_heads // m if scheme == "tp" else cfg.n_kv_heads,
-        fsdp=fsdp)
+        fsdp=fsdp,
+        state="R" in cfg.pattern() and on_model(
+            "state", cfg.lru_width or cfg.d_model))
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +403,8 @@ def decode_state_shardings(model, plan: Plan, state: Dict) -> Dict:
     state: rows over the batch axes; the pools' pages over the batch axes
     (and under kvp the kv axes too), their kv heads over "model" where
     the layout cuts them (tp, and a prefill under a tp layout); kvp's
-    tables by stripe."""
+    tables by stripe; the ``R`` layers' recurrent state by channel over
+    "model" under ``layout.state`` (JAX keeps it whole over "model")."""
     ba = _entry(plan.batch_axes)
     pages = tuple(plan.batch_axes) + (
         tuple(plan.kv_axes) if plan.scheme == "kvp" else ())
@@ -411,7 +422,11 @@ def decode_state_shardings(model, plan: Plan, state: Dict) -> Dict:
         elif key in ("cross_k", "cross_v", "k_buf", "v_buf"):
             out[key] = _spec(None, ba)
         elif key == "rec":
-            out[key] = tree_map(lambda a: _spec(None, ba), val)
+            ch = "model" if plan.layout.state else None
+            out[key] = {code: {k: _spec(None, ba, *(None,) * (a.dim() - 3),
+                                        ch if code == "R" else None)
+                               for k, a in leaves.items()}
+                        for code, leaves in val.items()}
         else:
             out[key] = P()
     return out
@@ -611,10 +626,13 @@ def build_train_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
 
 
 def _inference_model(run: RunConfig):
+    """The model of ``run``'s prefill or serve step: a family with a paged
+    decode state (every family but the encoder–decoder); its layer codes
+    are checked where the state is built (``init_decode_state``)."""
     model = build_model(run.model)
     if not hasattr(model, "init_decode_state"):
         raise UnsupportedFeature(
-            f"the prefill and serve steps take models of 'A' and 'W' "
+            f"the prefill and serve steps take models of 'A', 'W' and 'R' "
             f"layers; family {run.model.family!r}", family=run.model.family)
     return model
 
@@ -630,8 +648,10 @@ def build_prefill_step(run: RunConfig, plan: Plan, dtype=torch.bfloat16,
     are; under ``layout.seq`` with its slice of the sequence between
     blocks, under ``layout.ring`` through ring attention (plain ops) with
     the attention weights whole, so that the decode plan's params are
-    another cut of them.  Models of ``A`` and ``W`` layers (a recurrent or cross-attention
-    state is not distributed: ``UnsupportedFeature``)."""
+    another cut of them; the ``R`` layers' state of the rank's rows and
+    channels (``layout.state``) comes back in ``rec``.  Models of ``A``,
+    ``W`` and ``R`` layers (a cross-attention or ``M``/``S`` state is not
+    distributed: ``UnsupportedFeature``)."""
     model = _inference_model(run)
     B, S = run.global_batch, run.seq_len
     state = _abstract_state(model, run, plan, dtype)

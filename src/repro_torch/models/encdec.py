@@ -158,7 +158,7 @@ class EncDecModel:
         refused: the encoder-decoder is not distributed."""
         if attn_ctx:
             raise UnsupportedFeature(
-                "the distributed train step takes models of 'A' and 'W' "
+                "the distributed train step takes models of 'A', 'W' and 'R' "
                 "layers; family 'encdec'", family="encdec")
         logits, aux = self.forward(params, batch["inputs"],
                                    {"frames": batch["frames"]}, impl)

@@ -18,6 +18,19 @@ Pallas kernel for it (it uses ``jax.lax.associative_scan``), and a Python
 loop over thousands of positions per layer would launch thousands of
 small operations.  Decode carries ``(h, conv window)``: O(1) state per
 sequence.
+
+Under a mesh the block takes the switches of ``layers.apply_mlp``
+(``distributed.sharding.TPLayout``): ``cut`` (``TPLayout.state``) — the
+rank holds ``w/m`` of the channels: ``wx``/``wy`` by columns (the MLP's
+``wg``/``wu``), ``wout`` by rows (its ``wd``), the conv, ``conv_b``,
+``a_log`` and the state by channel, and ``wa``/``wi`` by rows, so that
+the rank's gate products are partial sums over the whole ``w``, summed
+in f32 and reduce-scattered in one call (``_gate_sums``) before the
+sigmoid; ``seq`` (``TPLayout.seq``) — the rank holds its slice of the
+sequence between blocks, gathered whole at entry (the conv and the scan
+need every earlier position) and reduce-scattered from ``wout``'s
+partial sums at exit; ``ws`` (``TPLayout.act_embed``, decode) — ``x``
+and the output are the rank's columns of ``embed``.
 """
 
 from __future__ import annotations
@@ -49,11 +62,39 @@ def rglru_spec(cfg: ModelConfig) -> Dict:
     }
 
 
-def _gates(p: Dict, xb: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _gate_sums(p: Dict, xc: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(xc @ wa, xc @ wi)`` over the whole ``w`` for a rank that holds
+    ``w/m`` channels of ``xc`` and the matching rows of ``wa``/``wi``
+    (``TPLayout.state``): each rank's f32 partials of both products,
+    packed rank-major by the columns they feed (rank j's block holds
+    its ``r`` columns, then its ``i`` columns), are reduce-scattered
+    over "model" in one call, so that the rank keeps the sums of its own
+    ``w/m`` columns of each gate; in ``xc``'s dtype.  Under autograd the
+    gradient of those columns comes back as the whole partials' (the
+    reduce-scatter's backward is the all-gather)."""
+    from repro_torch.distributed.collectives import scatter_dim
+    from repro_torch.models.layers import _partial
+    wl, w = p["wa"].shape
+    m = w // wl
+    packed = torch.stack([p["wa"].reshape(wl, m, wl),
+                          p["wi"].reshape(wl, m, wl)], dim=2).reshape(wl,
+                                                                      2 * w)
+    # (2w, T): dim 0 in m blocks, one a rank, so the scatter needs no copy
+    part = _partial(packed.T, xc.reshape(-1, wl).T)
+    mine = scatter_dim(part, ("model",), 0).T  # (T, 2 w/m)
+    ra, ia = mine.reshape(*xc.shape[:-1], 2, wl).unbind(-2)
+    return ra.to(xc.dtype), ia.to(xc.dtype)
+
+
+def _gates(p: Dict, xb: torch.Tensor, cut: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """xb: (..., w) conv-mixed branch → (log a_t in f32, gated input in
-    xb's dtype), with the JAX package's casts."""
-    r = torch.sigmoid(xb @ p["wa"]).float()
-    i = torch.sigmoid(xb @ p["wi"])
+    xb's dtype), with the JAX package's casts.  ``cut``: ``xb`` holds the
+    rank's channels, and so do the results (``_gate_sums``)."""
+    ra, ia = _gate_sums(p, xb) if cut else (xb @ p["wa"], xb @ p["wi"])
+    r = torch.sigmoid(ra).float()
+    i = torch.sigmoid(ia)
     a_log = p["a_log"]
     softplus = torch.logaddexp(a_log, torch.zeros_like(a_log))
     log_a = -_C * r * softplus  # log a_t (a_t in (0, 1))
@@ -91,24 +132,56 @@ def linear_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h
 
 
-def _block(p: Dict, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]:
-    """The block over whole sequences: (output, h at every position, the
-    padded xb the conv window is cut from)."""
+def _block(p: Dict, x: torch.Tensor, cut: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The block over whole sequences up to ``wout``: (``h · y``, h at
+    every position, the padded xb the conv window is cut from), on the
+    rank's channels under ``cut``."""
     pad, xc = _conv_branch(p, x)
-    log_a, gated = _gates(p, xc)
+    log_a, gated = _gates(p, xc, cut)
     h = linear_scan(log_a, gated)
     y = F.gelu(x @ p["wy"], approximate="tanh")  # jax.nn.gelu's default
-    return (h * y) @ p["wout"], h, pad
+    return h * y, h, pad
 
 
-def rglru_train(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x: (B, S, d) → (B, S, d) over whole sequences."""
-    return _block(p, x)[0]
+def _out(p: Dict, hy: torch.Tensor, cut: bool, seq: bool = False
+         ) -> torch.Tensor:
+    """``hy @ wout``; under ``cut`` the rank's rows' partial sums reduced
+    over "model" in f32 (under ``seq`` reduce-scattered along the
+    sequence: ``layers.row_parallel_matmul``)."""
+    if cut:
+        from repro_torch.models.layers import row_parallel_matmul
+        return row_parallel_matmul(hy, p["wout"], seq)
+    return hy @ p["wout"]
+
+
+def _enter(x: torch.Tensor, cut: bool, seq: bool) -> torch.Tensor:
+    """The block's input over whole sequences: under ``seq`` the rank's
+    slice gathered (its gradient summed over "model" and cut back to the
+    slice under ``cut``, where every rank computes its own channels; the
+    rank's slice otherwise), under ``cut`` alone with its gradient summed
+    over "model"."""
+    from repro_torch.models import layers
+    if seq:
+        return layers.seq_gather(x, summed=cut)
+    return layers.copy_model(x) if cut else x
+
+
+def rglru_train(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                cut: bool = False, seq: bool = False) -> torch.Tensor:
+    """x: (B, S, d) → (B, S, d) over whole sequences; ``cut``/``seq``
+    (module docstring): the rank's channels, the rank's slice of the
+    sequence in and out."""
+    x = _enter(x, cut, seq)
+    if seq and not cut:  # every rank runs the block whole
+        from repro_torch.models.layers import seq_split
+        return seq_split(rglru_train(p, x, cfg))
+    return _out(p, _block(p, x, cut)[0], cut, seq)
 
 
 def rglru_prefill(p: Dict, x: torch.Tensor, lens: torch.Tensor,
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
+                  cfg: ModelConfig, cut: bool = False, seq: bool = False
+                  ) -> Tuple[torch.Tensor, Dict]:
     """x: (B, S, d) right-padded prompts of ``lens`` tokens → (the block's
     output (B, S, d), the decode state after each row's last token).
 
@@ -117,8 +190,15 @@ def rglru_prefill(p: Dict, x: torch.Tensor, lens: torch.Tensor,
     position 0), so a row's state does not depend on the padding of the
     rows beside it.  (The JAX package's prefill takes every row's state at
     the padded end, ``hs[:, -1]``; the two agree on rows of the full
-    length.)"""
-    out, h, pad = _block(p, x)
+    length.)  ``cut``/``seq`` as ``rglru_train``: the state holds the
+    rank's channels, taken from the whole sequence."""
+    x = _enter(x, cut, seq)
+    hy, h, pad = _block(p, x, cut)
+    if seq and not cut:
+        from repro_torch.models.layers import seq_split
+        out = seq_split(_out(p, hy, False))
+    else:
+        out = _out(p, hy, cut, seq)
     B = x.shape[0]
     cw = p["conv"].shape[0]
     last = torch.clamp(lens.long() - 1, min=0)
@@ -130,21 +210,32 @@ def rglru_prefill(p: Dict, x: torch.Tensor, lens: torch.Tensor,
 
 
 def rglru_init_state(B: int, cfg: ModelConfig, dtype=torch.float32,
-                     device=None) -> Dict:
-    w = cfg.lru_width or cfg.d_model
+                     device=None, parts: int = 1) -> Dict:
+    """The zero state of ``B`` sequences; ``parts``: the channels are cut
+    into that many parts (``TPLayout.state``), and this is one of them."""
+    w = (cfg.lru_width or cfg.d_model) // parts
     return {"h": torch.zeros((B, w), dtype=dtype, device=device),
             "conv": torch.zeros((B, cfg.conv1d_width - 1, w), dtype=dtype,
                                 device=device)}
 
 
-def rglru_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig
+def rglru_decode(p: Dict, x: torch.Tensor, state: Dict, cfg: ModelConfig,
+                 cut: bool = False, ws: Tuple[str, ...] = ()
                  ) -> Tuple[torch.Tensor, Dict]:
-    """One step.  x: (B, d) → (output (B, d), the next state)."""
-    xb = x @ p["wx"]  # (B, w)
+    """One step.  x: (B, d) → (output (B, d), the next state).  ``cut``:
+    the rank's channels of the weights and the state (module docstring);
+    ``ws`` (``TPLayout.act_embed``): ``x`` and the output are the rank's
+    columns of ``embed``, and ``wx``/``wy``/``wout`` its slices of it
+    (``layers.ws_pieces``): the two input products' f32 partials are
+    summed over those axes in one call (``layers.ws_contract``)."""
+    if ws:
+        from repro_torch.models.layers import ws_contract
+        xb, yb = ws_contract(x, [p["wx"], p["wy"]], ws)  # (B, w)
+    else:
+        xb, yb = x @ p["wx"], x @ p["wy"]
     hist = torch.cat([state["conv"], xb[:, None]], dim=1)  # (B, cw, w)
     xc = torch.einsum("bcw,cw->bw", hist, p["conv"]) + p["conv_b"]
-    log_a, gated = _gates(p, xc)
+    log_a, gated = _gates(p, xc, cut)
     h = state["h"] * torch.exp(log_a).to(x.dtype) + gated
-    y = F.gelu(x @ p["wy"], approximate="tanh")
-    out = (h * y) @ p["wout"]
-    return out, {"h": h, "conv": hist[:, 1:]}
+    y = F.gelu(yb, approximate="tanh")
+    return _out(p, h * y, cut), {"h": h, "conv": hist[:, 1:]}

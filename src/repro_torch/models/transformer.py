@@ -87,15 +87,18 @@ CODES = "AWRCMS"  # the layer codes the port runs
 REC_SPEC = {"R": rglru.rglru_spec, "M": ssm.mlstm_spec, "S": ssm.slstm_spec}
 REC_INIT = {"R": rglru.rglru_init_state, "M": ssm.mlstm_init_state,
             "S": ssm.slstm_init_state}
-REC_PREFILL = {"R": lambda *a: rglru.rglru_prefill(*a),
+# (the R block also takes a layout's switches as keywords, ``_rec_kw``)
+REC_PREFILL = {"R": lambda *a, **k: rglru.rglru_prefill(*a, **k),
                "M": lambda *a: ssm.mlstm_prefill(*a),
                "S": lambda *a: ssm.slstm_prefill(*a)}
-REC_DECODE = {"R": lambda *a: rglru.rglru_decode(*a),
+REC_DECODE = {"R": lambda *a, **k: rglru.rglru_decode(*a, **k),
               "M": lambda *a: ssm.mlstm_decode(*a),
               "S": lambda *a: ssm.slstm_decode(*a)}
-REC_TRAIN = {"R": lambda *a: rglru.rglru_train(*a),
+REC_TRAIN = {"R": lambda *a, **k: rglru.rglru_train(*a, **k),
              "M": lambda *a: ssm.mlstm_train(*a),
              "S": lambda *a: ssm.slstm_train(*a)}
+# the layer codes the distributed steps take
+DIST_CODES = "AWR"
 
 
 def _ffn_spec(cfg: ModelConfig) -> Dict:
@@ -168,17 +171,22 @@ class TransformerModel:
                                            (None, "embed"))
         return out
 
-    def init_rec_state(self, B: int, dtype=torch.float32, device=None
-                       ) -> Optional[Dict]:
+    def init_rec_state(self, B: int, dtype=torch.float32, device=None,
+                       plan=None) -> Optional[Dict]:
         """The recurrent state of ``B`` sequences, the blocks' zero states
         stacked per code: ``{"R": {"h": (n_R, B, w), "conv": (n_R, B, cw
         - 1, w)}, "M": {...}, "S": {...}}`` for the codes the pattern
-        has, or None without recurrent layers."""
+        has, or None without recurrent layers.  With a ``plan`` the
+        rank's share of the ``R`` channels, ``w/m`` under
+        ``plan.layout.state`` (the rows are the caller's ``B``)."""
         out = {}
         for code in REC_CODES:
             n = self.codes.count(code)
             if n:
-                one = REC_INIT[code](B, self.cfg, dtype, device)
+                kw = {}
+                if code == "R" and plan is not None and plan.layout.state:
+                    kw["parts"] = plan.mesh.size("model")
+                one = REC_INIT[code](B, self.cfg, dtype, device, **kw)
                 out[code] = {k: v.unsqueeze(0).repeat((n,) + (1,) * v.dim())
                              for k, v in one.items()}
         return out or None
@@ -220,6 +228,10 @@ class TransformerModel:
             group; ``"q_heads"`` — ``wq``/``wo`` by H/m contiguous heads,
             the kv projections whole; ``"whole"``;
           * MLP: ``wg``/``wu`` by columns of ``d_ff``, ``wd`` by rows;
+          * RG-LRU (``R``): the ``w`` channels over "model" where it
+            divides them (``TPLayout.state``): ``wx``/``wy``/``conv``/
+            ``conv_b``/``a_log`` by columns, ``wa``/``wi``/``wout`` by
+            rows;
           * MoE: the experts over "model" (E/m a rank, GSPMD's cut or
             ``moe_ep``'s all-to-all: ``TPLayout.moe``), the router whole;
           * every weight's ``embed`` dim over ``layout.fsdp`` (FSDP, the
@@ -234,11 +246,22 @@ class TransformerModel:
                 for k, v in params.items()}
 
     def _check_distributable(self):
-        if set(self.codes) - set(ATTN_CODES):
+        if set(self.codes) - set(DIST_CODES):
             raise UnsupportedFeature(
-                "the distributed steps take models of 'A' and 'W' "
+                "the distributed steps take models of 'A', 'W' and 'R' "
                 f"layers; pattern {self.cfg.layer_pattern!r}",
                 pattern=self.cfg.layer_pattern)
+
+    @staticmethod
+    def _rec_kw(code: str, lay: TPLayout, decode: bool = False) -> Dict:
+        """The layout's switches of an ``R`` block (its channels over
+        "model", and the sequence cut or, in decode, the columns of
+        ``embed``); none for the other recurrent blocks."""
+        if code != "R":
+            return {}
+        if decode:
+            return {"cut": lay.state, "ws": lay.act_embed}
+        return {"cut": lay.state, "seq": lay.seq}
 
     def _shard_layer(self, li: int, p: Dict, plan) -> Dict:
         mesh, lay = plan.mesh, plan.layout
@@ -246,6 +269,8 @@ class TransformerModel:
         rest = {k: v for k, v in p.items() if k != "attn"}
         out = shard_params(rest, {k: v for k, v in spec.items()
                                   if k != "attn"}, mesh, lay.rules())
+        if "attn" not in p:  # a recurrent layer: cut by lay.rules()
+            return out
         if lay.attn[li] != "groups":
             out["attn"] = shard_params(p["attn"], spec["attn"], mesh,
                                        lay.attn_rules(li))
@@ -296,11 +321,14 @@ class TransformerModel:
         """The serving state of ``run`` (the JAX ``init_decode_state`` on
         one stripe), zeros: ``pos`` (B,), pools (n_attn_layers,
         B·pages_per_seq, P, Hkv, D) and ``tables`` (B, 1, pages_per_seq),
-        ``pages_per_seq`` the ring under ``W`` layers.  With a ``plan``
-        the pools hold the rank's kv heads (``plan.layout.kv_heads``), as
-        its prefill under the plan writes them; kvp's striped tables come
-        from ``distributed.collectives.shard_decode_state`` after the
-        prefill.  Models of ``A`` and ``W`` layers only."""
+        ``pages_per_seq`` the ring under ``W`` layers, and with ``R``
+        layers their zero state ``rec`` (``init_rec_state``: the JAX
+        function's ``rec``).  With a ``plan`` the pools hold the rank's
+        kv heads (``plan.layout.kv_heads``), as its prefill under the
+        plan writes them, and ``rec`` the rank's channels; kvp's striped
+        tables come from ``distributed.collectives.shard_decode_state``
+        after the prefill.  Models of ``A``, ``W`` and ``R`` layers
+        only."""
         cfg = self.cfg
         self._check_distributable()
         device = resolve_device(device)
@@ -310,11 +338,14 @@ class TransformerModel:
         Hkv = plan.layout.kv_heads if plan is not None else cfg.n_kv_heads
         pool = (self.n_attn_layers, B * pps, ps, Hkv, cfg.resolved_head_dim)
         pool_dt = attn.kv_pool_dtype(cfg, dtype)
-        return {"pos": torch.zeros((B,), dtype=torch.int32, device=device),
-                "k_pages": torch.zeros(pool, dtype=pool_dt, device=device),
-                "v_pages": torch.zeros(pool, dtype=pool_dt, device=device),
-                "tables": torch.zeros((B, 1, pps), dtype=torch.int32,
-                                      device=device)}
+        out = {"pos": torch.zeros((B,), dtype=torch.int32, device=device),
+               "k_pages": torch.zeros(pool, dtype=pool_dt, device=device),
+               "v_pages": torch.zeros(pool, dtype=pool_dt, device=device),
+               "tables": torch.zeros((B, 1, pps), dtype=torch.int32,
+                                     device=device)}
+        if self.n_rec_layers:
+            out["rec"] = self.init_rec_state(B, dtype, device, plan)
+        return out
 
     # -- layer application --------------------------------------------------
     @staticmethod
@@ -422,7 +453,8 @@ class TransformerModel:
         elif code == "C":
             x = x + self._cross(p, h, *attn.cross_kv(p["attn"], img))
         else:
-            x = x + REC_TRAIN[code](p["rec"], h, cfg)
+            x = x + REC_TRAIN[code](p["rec"], h, cfg,
+                                    **self._rec_kw(code, lay))
         if "moe" in p:
             h = self._norm(p["ln2"], x, lay)
             if lay.ep:
@@ -437,14 +469,10 @@ class TransformerModel:
                    ) -> Tuple[TPLayout, Tuple[str, ...]]:
         """The layout and batch axes of a train plan's ``attn_ctx``
         (``launch.steps.Plan.attn_ctx``); refuses what the port does not
-        train across ranks: layers other than ``A``/``W``."""
-        if not attn_ctx:
-            return TPLayout(), ()
-        mesh = current_mesh()
-        if mesh is not None and math.prod(mesh.shape) > 1:
-            self._check_distributable()
-        return (attn_ctx.get("layout", TPLayout()),
-                tuple(attn_ctx.get("batch_axes", ())))
+        train across ranks: layers other than ``A``/``W``/``R``
+        (``_layout_of``)."""
+        return (self._layout_of(attn_ctx),
+                tuple((attn_ctx or {}).get("batch_axes", ())))
 
     def forward(self, params: Dict, tokens: torch.Tensor,
                 extra: Optional[Dict] = None, impl: str = "ref",
@@ -471,8 +499,10 @@ class TransformerModel:
         attention on the slices under ``layout.ring``; the logits of
         every token on each rank; ``embed`` dims over the FSDP
         axes, each layer's gathered just before it runs and, under
-        ``remat``, again in the backward) and ``tokens`` its rows of a
-        batch over ``batch_axes``.  Models of ``A`` and ``W`` layers."""
+        ``remat``, again in the backward; an ``R`` block's channels over
+        "model" under ``layout.state``) and ``tokens`` its rows of a
+        batch over ``batch_axes``.  Models of ``A``, ``W`` and ``R``
+        layers."""
         check_impl(impl, TRAIN_IMPLS, "forward")
         cfg = self.cfg
         lay, batch_axes = self._train_ctx(attn_ctx)
@@ -551,8 +581,10 @@ class TransformerModel:
         ``shard_decode_state`` then cuts); under ``layout.seq`` each
         rank holds its slice of the sequence between blocks (attention
         over the gathered sequence, K4 unless ``impl="ref"``), under
-        ``layout.ring`` ring attention on the slices (plain ops), and the
-        last token's logits come from the rank that holds it."""
+        ``layout.ring`` ring attention on the slices (plain ops), an
+        ``R`` block on the rank's channels under ``layout.state`` (its
+        state too), and the last token's logits come from the rank that
+        holds it.  Models of ``A``, ``W`` and ``R`` layers under a mesh."""
         check_impl(impl, entry="prefill")
         cfg = self.cfg
         B, S = tokens.shape
@@ -561,7 +593,7 @@ class TransformerModel:
                               device=tokens.device)
         live, n_live = self._live_tokens(lens, S, n_live)
         img = self.project_extra(params, extra)
-        lay = (attn_ctx or {}).get("layout", TPLayout())
+        lay = self._layout_of(attn_ctx)
         x = layers.embed_tokens(self._gather_top(params, "embed", lay),
                                 tokens, lay.vocab, lay.seq)
         rec, cross = {}, []
@@ -570,7 +602,8 @@ class TransformerModel:
             h = self._norm(p["ln1"], x, lay)
             code = self.codes[li]
             if code in REC_CODES:
-                o, final = REC_PREFILL[code](p["rec"], h, lens, cfg)
+                o, final = REC_PREFILL[code](p["rec"], h, lens, cfg,
+                                             **self._rec_kw(code, lay))
                 rec.setdefault(code, []).append(final)
             elif code == "C":
                 k, v = attn.cross_kv(p["attn"], img)
@@ -594,6 +627,15 @@ class TransformerModel:
             out["cross_k"] = torch.stack([k for k, _ in cross])
             out["cross_v"] = torch.stack([v for _, v in cross])
         return logits, out
+
+    def _layout_of(self, attn_ctx: Optional[Dict]) -> TPLayout:
+        """The layout of a plan's ``attn_ctx`` (one rank's: nothing cut,
+        without one); under a mesh of more than one rank it refuses what
+        the distributed steps do not take (``_check_distributable``)."""
+        mesh = current_mesh()
+        if attn_ctx and mesh is not None and math.prod(mesh.shape) > 1:
+            self._check_distributable()
+        return (attn_ctx or {}).get("layout", TPLayout())
 
     @staticmethod
     def _last(x: torch.Tensor, lens: torch.Tensor, lay: TPLayout
@@ -717,12 +759,12 @@ class TransformerModel:
         residual stream is the rank's columns (B, d/n) of every row and
         the weights are read in place (``_gather_layer``): norms,
         products and logits sum their partials over those axes
-        (``layers.ws_contract``); models of ``A`` and ``W`` layers."""
+        (``layers.ws_contract``).  An ``R`` block steps the rank's
+        channels of its state under ``layout.state``.  Models of ``A``,
+        ``W`` and ``R`` layers under a mesh."""
         cfg = self.cfg
         pos = state["pos"]
-        lay = (attn_ctx or {}).get("layout", TPLayout())
-        if lay.act_embed:
-            self._check_distributable()
+        lay = self._layout_of(attn_ctx)
         x = layers.embed_tokens(self._gather_top(params, "embed", lay),
                                 tokens, lay.vocab)
         for li, p in enumerate(params["layers"]):
@@ -733,7 +775,8 @@ class TransformerModel:
                 ri = self.slot[li]
                 rec = state["rec"][code]
                 o, new = REC_DECODE[code](
-                    p["rec"], h, {k: v[ri] for k, v in rec.items()}, cfg)
+                    p["rec"], h, {k: v[ri] for k, v in rec.items()}, cfg,
+                    **self._rec_kw(code, lay, decode=True))
                 for k, v in new.items():
                     rec[k][ri] = v
             elif code == "C":

@@ -400,6 +400,8 @@ def _train_case(mesh, c):
         out["against_err"] = _max_rel(g_alt, want)
         out["against_diff"] = _max_abs(g_alt, grads)
         out["against_seq"] = alt.layout.seq
+    out["rec_rows"] = [int(p["rec"]["wa"].shape[0])
+                       for p in params["layers"] if "rec" in p]
     moe = [li for li, p in enumerate(full["layers"]) if "moe" in p]
     if moe:  # the experts a rank holds, of the whole
         out["experts"] = [[int(params["layers"][li]["moe"][k].shape[0])
@@ -482,7 +484,9 @@ def _prefill_case(mesh, c):
     """One prefill case: the rank's rows prefilled under the prefill
     plan (``_prefilled``), ``shard_decode_state`` to the decode plan,
     then ``c["steps"]`` decode steps teacher-forced by the reference's
-    greedy tokens."""
+    greedy tokens; the decode steps' collectives (calls and bytes by op)
+    and the shapes of the recurrent state, if any, after the prefill and
+    after ``shard_decode_state``."""
     from repro_torch.distributed.collectives import shard_decode_state
     from repro_torch.models.convert import sharded_params_from_numpy
     p = _prefilled(mesh, c)
@@ -491,20 +495,32 @@ def _prefill_case(mesh, c):
     out = {"prefill": _np(p["logits"]), "scheme": dplan.scheme,
            "attn": pplan.layout.attn, "fsdp": pplan.layout.fsdp,
            "seq": pplan.layout.seq, "ring": pplan.layout.ring,
-           "wq": tuple(params["layers"][0]["attn"]["wq"].shape),
+           "wq": next(tuple(q["attn"]["wq"].shape)
+                      for q in params["layers"] if "attn" in q),
            "pool_heads": state["k_pages"].shape[3], "rows": p["rows"],
            "row0": pplan.mesh.flat_index(pplan.batch_axes)
            if pplan.batch_axes else 0}
+    if "rec" in state:
+        out["rec_prefill"] = {k: tuple(v.shape)
+                              for k, v in state["rec"]["R"].items()}
     state = shard_decode_state(state, dplan)
+    if "rec" in state:
+        out["rec_decode"] = {k: tuple(v.shape)
+                             for k, v in state["rec"]["R"].items()}
     if pplan.layout.attn != dplan.layout.attn:  # the ring prefill's whole
         params = sharded_params_from_numpy(c["params"], p["model"], dplan,
                                            device="cpu")
+    stats0 = {k: dict(mesh.stats[k]) for k in ("calls", "bytes")}
     steps = []
     for i in range(c["steps"]):
         logits, state = p["sstep"](params, p["mine"]["forced"][:, i].int(),
                                    state)
         steps.append(_np(logits))
     out["steps"] = np.stack(steps)
+    for k in ("calls", "bytes"):
+        out[f"decode_{k}"] = {op: n - stats0[k].get(op, 0)
+                              for op, n in mesh.stats[k].items()
+                              if n - stats0[k].get(op, 0)}
     return out
 
 
@@ -917,3 +933,55 @@ def ws_cases(mesh, inputs):
     meshes[(2, 2, 1)] = make_mesh((2, 2, 1), ("pod", "data", "model"))
     return {name: _ws_case(meshes[c["mesh"]], c)
             for name, c in inputs.items()}
+
+
+# ---------------------------------------------------------------------------
+# R layers under a mesh (tests/test_torch_rglru_dist.py)
+# ---------------------------------------------------------------------------
+def _train_cli_case(mesh, c):
+    """``launch.train.train`` of the smoke config ``c["config"]`` on
+    ``mesh`` and on the rank alone (the local mesh): the losses of each
+    step and the rank's params after them, against the local run's cut
+    to the rank."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.steps import plan_for
+    from repro_torch.configs.base import RunConfig
+    cfg = get_config(c["config"]).smoke()
+    kw = dict(steps=c["steps"], batch=c["batch"], seq=c["seq"], lr=1e-3,
+              impl="ref", device="cpu", log_every=1, log_fn=lambda s: None)
+    st, hist = launch_train.train(cfg, mesh=mesh, **kw)
+    one, one_hist = launch_train.train(cfg, **kw)
+    run = RunConfig(model=cfg, seq_len=c["seq"], global_batch=c["batch"],
+                    kind="train")
+    plan = plan_for(run, mesh, attn_impl="ref")
+    from repro_torch.models.api import build_model
+    want = build_model(cfg).shard_params(one.params, plan)
+    return {"losses": [h["loss"] for h in hist],
+            "one_losses": [h["loss"] for h in one_hist],
+            "param_err": _max_abs(st.params, want), "state": plan.layout.state,
+            "rec_wa": tuple(st.params["layers"][0]["rec"]["wa"].shape)}
+
+
+def rglru_dist_cases(mesh, inputs):
+    """Every case of tests/test_torch_rglru_dist.py on a 4-rank world,
+    each on its mesh — (2, 2), (1, 2) and (2, 1) (``_launch_meshes``)
+    and (1, 4): the train cases (``_train_case`` under the
+    sequence-cut, uncut and ring plans), the prefill cases (``_prefill_
+    case``: prefill, ``shard_decode_state``, dp decode), the
+    weight-stationary ones (``_ws_case``), the dry cases (``_dry_cases``)
+    and the train CLI on (1, 2)."""
+    from repro_torch.launch.mesh import make_mesh
+    meshes = _launch_meshes(mesh)
+    meshes[(1, 4)] = make_mesh((1, 4))
+    out = {}
+    for name, c in inputs["train"].items():
+        out[f"train/{name}"] = _train_case(meshes[c["mesh"]], c)
+    for name, c in inputs["prefill"].items():
+        out[f"prefill/{name}"] = _prefill_case(meshes[c["mesh"]], c)
+    for name, c in inputs["ws"].items():
+        out[f"ws/{name}"] = _ws_case(meshes[c["mesh"]], c)
+    out["dry"] = _dry_cases(meshes, inputs["dry"], mesh.rank)
+    c = inputs["cli"]
+    out["cli"] = _train_cli_case(meshes[c["mesh"]], c)
+    return out

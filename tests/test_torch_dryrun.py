@@ -21,7 +21,8 @@ the CPU at smoke size.
   train step are counted, and granite-8b's decode_32k pair with and
   without ``--ws-decode``: the ws pair gathers no weight over "data",
   and its all-reduces over "data" are the partials counted from the
-  shapes.
+  shapes; recurrentgemma-9b's ``decode_32k`` (one ``RRW`` unit) and
+  ``train_4k`` (one layer) trace with the RG-LRU gates' reduce-scatter.
 - Against JAX: ``count_params``/``param_bytes`` on every config's
   parameters, ``model_flops`` for every config and kind, ``collective_
   bytes`` per kind on HLO lines of the same shapes and groups,
@@ -37,7 +38,8 @@ the CPU at smoke size.
   ``launch_counts()`` keys; in dry mode each wrapper still refuses what
   the card refuses; outside dry mode ``use_kernel`` still refuses a meta
   tensor, and real CPU tensors never stand in.
-- The CLI writes its JSON, records a refused pair as "unsupported", and
+- The CLI writes its JSON, records a refused pair as "unsupported" (the
+  VLM's ``C`` layers, xLSTM, the encoder–decoder), and
   the production meshes and H100 constants.
 """
 
@@ -741,11 +743,36 @@ def test_run_pair_takes_the_rank():
 
 @pytest.mark.parametrize("name,shape", [("whisper-medium", "train_4k"),
                                         ("xlstm-350m", "train_4k"),
-                                        ("recurrentgemma-9b", "decode_32k"),
+                                        ("llama-3.2-vision-11b",
+                                         "decode_32k"),
                                         ("whisper-medium", "prefill_32k")])
 def test_refused_pairs_are_unsupported(name, shape):
     """A family or pattern the distributed steps do not take is refused
     with ``UnsupportedFeature`` (recorded), never another error."""
     res = dryrun.run_pair(name, shape, False, overrides={"n_layers": 1})
     assert res["status"] == "unsupported", res
-    assert "'A' and 'W'" in res["reason"]
+    assert "'A', 'W' and 'R'" in res["reason"]
+
+
+@pytest.mark.parametrize("shape,n_layers", [("decode_32k", 3),
+                                            ("train_4k", 1)])
+def test_r_layer_pairs_trace(shape, n_layers):
+    """recurrentgemma-9b traces on the pod mesh with its ``R`` blocks'
+    channels over "model" (the plan's ``state`` cut): the gates' f32
+    partials are reduce-scattered in every step, counted in
+    ``collective_calls`` and the bytes sent, and the rank fits.
+    ``decode_32k`` at one ``RRW`` unit (dp: one reduce-scatter per ``R``
+    layer; K1 + K2 for the ``W`` layer), ``train_4k`` at one layer (its
+    16 microbatches)."""
+    res = dryrun.run_pair("recurrentgemma-9b", shape, False,
+                          overrides={"n_layers": n_layers})
+    assert res["status"] == "ok" and res["fits"], res
+    assert res["plan"]["state"]
+    calls = res["collective_calls"]
+    assert calls.get("reduce_scatter", 0) > 0, calls
+    sent = res["collectives_by_axes"]["model"]["reduce-scatter"]["sent"]
+    assert 0 < sent <= res["collectives_full"]["total"]
+    if shape == "decode_32k":
+        assert res["plan"]["scheme"] == "dp"
+        assert calls["reduce_scatter"] == 2
+        assert res["kernels"]["paged_decode"] == 1

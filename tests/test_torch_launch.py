@@ -573,7 +573,7 @@ def test_train_step_takes_the_given_rate():
     assert moved[None] == moved[3e-4] < moved[1e-3]
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-9b", "whisper-medium",
+@pytest.mark.parametrize("name", ["xlstm-350m", "whisper-medium",
                                   "llama-3.2-vision-11b"])
 def test_prefill_and_serve_steps_refuse_undistributed_state(name):
     cfg = get_config(name).smoke()
